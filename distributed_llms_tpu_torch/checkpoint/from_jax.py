@@ -1,0 +1,113 @@
+"""Carry the JAX package's parameters across to the port.
+
+``params_from_numpy(tree, cfg, device, dtype)`` takes the reference's
+parameter pytree after ``jax.tree.map(np.asarray, params)`` — the nested
+dict of numpy arrays that ``distributed_llms_tpu.models.model.init_params``
+and the shard store produce — and returns the port's parameters.  Both
+stacks keep the same tree and the same layouts, so every leaf maps
+one-to-one, unchanged in shape and element order:
+
+=================================  ==================  ====================
+leaf                               shape               notes
+=================================  ==================  ====================
+embed.wte                          [V, D]              row gather
+final_norm.scale                   [D]
+lm_head.w (untied only)            [D, V]              tied: embed.wte.T
+blocks.ln1.scale, blocks.ln2.scale [L, D]              stacked over layers
+blocks.attn.wq                     [L, D, H, hd]       head axis explicit
+blocks.attn.wk, blocks.attn.wv     [L, D, KVH, hd]
+blocks.attn.wo                     [L, H, hd, D]
+blocks.attn.bq/bk/bv (qkv_bias)    [L, H|KVH, hd]
+blocks.mlp.w_gate, blocks.mlp.w_up [L, D, F]
+blocks.mlp.w_down                  [L, F, D]
+=================================  ==================  ====================
+
+Values convert through float32 to ``dtype`` (default ``cfg.dtype``), so a
+bfloat16 tree (numpy carries it as ``ml_dtypes.bfloat16``) round-trips
+exactly.  The llama family only, like the rest of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.config import ModelConfig
+from ..core.device import resolve_device
+from ..models import model as model_lib
+
+# The leaves the port's llama forward reads, with their expected shapes.
+def _expected(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    H, KVH, HD, V = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                     cfg.vocab_size)
+    out = {
+        "embed.wte": (V, D),
+        "final_norm.scale": (D,),
+        "blocks.ln1.scale": (L, D),
+        "blocks.ln2.scale": (L, D),
+        "blocks.attn.wq": (L, D, H, HD),
+        "blocks.attn.wk": (L, D, KVH, HD),
+        "blocks.attn.wv": (L, D, KVH, HD),
+        "blocks.attn.wo": (L, H, HD, D),
+        "blocks.mlp.w_gate": (L, D, F),
+        "blocks.mlp.w_up": (L, D, F),
+        "blocks.mlp.w_down": (L, F, D),
+    }
+    if cfg.qkv_bias:
+        out.update({"blocks.attn.bq": (L, H, HD), "blocks.attn.bk": (L, KVH, HD),
+                    "blocks.attn.bv": (L, KVH, HD)})
+    if not cfg.tie_embeddings:
+        out["lm_head.w"] = (D, V)
+    return out
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+    if isinstance(tree, dict):
+        out: dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _unflatten(flat: dict[str, Any]) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig,
+                      device: "str | torch.device | None" = None,
+                      dtype: Any = None) -> dict:
+    """The JAX package's numpy parameter tree -> the port's tensors on
+    ``device`` (default CUDA; raises without a GPU unless ``device='cpu'``).
+    Raises ValueError on a missing, extra or misshapen leaf."""
+    model_lib.check_supported(cfg)
+    dev = resolve_device(device)
+    dt = model_lib.torch_dtype(dtype or cfg.dtype)
+    flat = _flatten(tree)
+    want = _expected(cfg)
+    if set(flat) != set(want):
+        raise ValueError(
+            f"parameter tree does not match {cfg.family} config: missing "
+            f"{sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}"
+        )
+    out = {}
+    for path, arr in flat.items():
+        arr = np.asarray(arr)
+        if arr.shape != want[path]:
+            raise ValueError(
+                f"{path}: shape {arr.shape}, expected {want[path]}"
+            )
+        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+        out[path] = t.to(device=dev, dtype=dt)
+    return _unflatten(out)

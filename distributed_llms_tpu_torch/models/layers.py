@@ -1,0 +1,164 @@
+"""Core transformer layer primitives (PyTorch port of
+``distributed_llms_tpu/models/layers.py``).
+
+Plain functions over tensors and the SAME parameter layouts as the JAX
+package — stacked-layer dictionaries, ``wq [D, H, hd]`` / ``wo [H, hd, D]``
+— so one numpy tree feeds both stacks (``checkpoint/from_jax.py``).
+Numerics follow the reference: norms, RoPE and softmax compute in float32;
+attention scores accumulate in float32 and the probabilities are cast to
+V's dtype before the value product.  The large products are
+``torch.matmul``: the JAX package leaves them to XLA, outside any Pallas
+kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+Params = dict[str, Any]
+
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (Llama family)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(
+    head_dim: int, theta: float,
+    scaling: tuple[float, float, float, int] | None = None,
+    device: "torch.device | None" = None,
+) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2], float32.  ``scaling`` =
+    (factor, low_freq_factor, high_freq_factor, original_max_len) applies
+    Llama-3.1's piecewise rescale (see the JAX counterpart)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    if scaling is not None:
+        factor, low, high, old_len = scaling
+        wavelen = 2.0 * math.pi / inv_freq
+        smooth = ((old_len / wavelen - low) / (high - low)).clamp(0.0, 1.0)
+        inv_freq = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    return inv_freq
+
+
+def apply_rope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float,
+    scaling: tuple[float, float, float, int] | None = None,
+) -> torch.Tensor:
+    """Rotate half-pairs (HF/Llama convention).  x: [B, T, H, D];
+    positions: [B, T] int."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, scaling, device=x.device)
+    angles = positions[..., None].float() * freqs  # [B, T, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1f = x[..., :half].float()
+    x2f = x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def repeat_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """[B, S, KVH, D] -> [B, S, KVH*q_per_kv, D] for grouped-query
+    attention (head h reads kv head h // q_per_kv)."""
+    if q_per_kv == 1:
+        return x
+    b, s, kvh, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, kvh, q_per_kv, d).reshape(
+        b, s, kvh * q_per_kv, d
+    )
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k: torch.Tensor,  # [B, Tk, H, D]
+    v: torch.Tensor,  # [B, Tk, H, D]
+    mask: torch.Tensor | None,  # broadcastable to [B, H, Tq, Tk]; True = attend
+) -> torch.Tensor:
+    """Softmax(QK^T)V: float32 scores and softmax, probabilities cast to
+    ``v.dtype`` before the value product (the JAX reference's numerics)."""
+    scale = q.shape[-1] ** -0.5
+    # bf16 x bf16 products are exact in float32, so upcasting the operands
+    # reproduces XLA's preferred_element_type=f32 contraction.
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, _F32_MIN)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def causal_mask(
+    q_positions: torch.Tensor,
+    k_positions: torch.Tensor,
+    k_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Boolean mask [B, 1, Tq, Tk]: query at position p attends keys at
+    positions <= p; ``k_valid`` ([B, Tk] bool) masks unwritten slots."""
+    mask = k_positions[:, None, None, :] <= q_positions[:, None, :, None]
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, None, :]
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Projections (einsum conventions shared with the JAX package)
+# ---------------------------------------------------------------------------
+
+def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] -> q [B, T, H, hd], k/v [B, T, KVH, hd].  Weight
+    layout: wq [D, H, hd], wk/wv [D, KVH, hd]."""
+    b, t, d = x.shape
+
+    def proj(w):
+        return (x.reshape(b * t, d) @ w.reshape(d, -1)).reshape(
+            b, t, w.shape[1], w.shape[2]
+        )
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def out_project(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """x: [B, T, H, hd] -> [B, T, D].  wo: [H, hd, D]."""
+    b, t, h, hd = x.shape
+    wo = p["wo"]
+    out = (x.reshape(b * t, h * hd) @ wo.reshape(h * hd, -1)).reshape(b, t, -1)
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tensor:
+    """Gated MLP: (act(x W_gate) * (x W_up)) W_down, no biases.
+    ``gate_act``: "silu" (Llama/Qwen2) or "gelu_tanh" (Gemma's GeGLU)."""
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    if gate_act == "silu":
+        act = torch.nn.functional.silu(gate)
+    else:
+        act = torch.nn.functional.gelu(gate, approximate="tanh")
+    return (act * up) @ p["w_down"]

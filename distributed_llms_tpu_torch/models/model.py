@@ -1,0 +1,337 @@
+"""Decoder-only transformer forward pass, llama family (PyTorch port of
+``distributed_llms_tpu/models/model.py``).
+
+Parameters are the JAX package's pytree as plain dictionaries of tensors,
+stacked over the layer axis (``params["blocks"][...]`` leaves lead with
+L); :func:`run_blocks` walks the layers in a Python loop where the JAX
+package runs ``lax.scan``.  Two cache layouts, as in the reference:
+
+- a contiguous row cache ``[L, B, S, KVH, HD]`` (admission prefill: a
+  scalar ``cache_index``, causal or caller-supplied mask);
+- a paged pool ``[L, NB, BLK, KVH, HD]`` addressed through ``kv_tables``
+  (paged decode: per-row ``cache_index``, one token per row), read by the
+  paged decode-attention kernel (``ops/decode_attn.py``).
+
+Both caches are UPDATED IN PLACE: the JAX code writes into donated
+buffers (``dynamic_update_slice`` / ``.at[].set``), the port writes the
+same slots with ``index_put_`` / slice assignment instead of copying.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from ..core.config import ModelConfig
+from . import layers
+from .layers import Params
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves the llama family (GQA + RoPE, SwiGLU, RMSNorm) with
+    global attention; the other families, MoE and sliding windows are
+    later slices and are refused loudly."""
+    if cfg.family != "llama":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (llama only)"
+        )
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE blocks are not ported yet")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (the paged decode "
+            "kernel attends each row's full prefix)"
+        )
+    if cfg.attn_impl != "dot":
+        raise NotImplementedError(
+            f"attn_impl {cfg.attn_impl!r} is not ported yet (dot only)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """Per-layer KV cache: a contiguous ``[L, B, S, KVH, HD]`` pair, or a
+    page pool ``[L, NB, BLK, KVH, HD]`` pair in paged mode."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: Any = None,
+               device: "torch.device | str | None" = None) -> KVCache:
+    dtype = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _attention(
+    x: torch.Tensor,
+    p: Params,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    layer_cache: tuple[torch.Tensor, torch.Tensor] | None,
+    cache_index: torch.Tensor | int | None,
+    attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
+    kv_tables: torch.Tensor | None = None,  # [B, P] int32 page table: the
+    #   layer cache is a PAGE POOL [NB, BLK, KVH, HD] and row b's slot s
+    #   lives at (tables[b, s // BLK], s % BLK).  Decode only (T == 1,
+    #   per-row cache_index); the mask is implicitly the prefix
+    #   [0, cache_index[b]].
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    q, k, v = layers.qkv_project(x, p, cfg)
+    rope_scale = (
+        (cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
+         cfg.rope_high_freq_factor, cfg.rope_original_max_len)
+        if cfg.rope_scaling_factor != 1.0 else None  # Llama-3.1 rescale
+    )
+    q = layers.apply_rope(q, positions, cfg.rope_theta, rope_scale)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, rope_scale)
+
+    if kv_tables is not None:
+        if (layer_cache is None or not torch.is_tensor(cache_index)
+                or cache_index.dim() != 1):
+            raise ValueError(
+                "paged attention is per-row decode (a per-row cache_index "
+                "over a page-pool cache)"
+            )
+        if x.shape[1] > 1:
+            raise NotImplementedError(
+                "multi-token paged windows (speculative verify) are not "
+                "ported yet"
+            )
+        from ..ops import decode_attn
+
+        ck, cv = layer_cache  # [NB, BLK, KVH, HD] views into the pool
+        blk = ck.shape[1]
+        rows = torch.arange(x.shape[0], device=x.device)
+        page = kv_tables[rows, (cache_index // blk).long()].long()
+        off = (cache_index % blk).long()
+        # Per-row single-slot write, in place.  Live rows own distinct
+        # pages; freed rows' tables point at the shared scratch page 0, so
+        # two inactive rows CAN write the same (page, off) — any winner is
+        # fine, no live row ever reads the scratch page.
+        ck[page, off] = k[:, 0].to(ck.dtype)
+        cv[page, off] = v[:, 0].to(cv.dtype)
+        out = decode_attn.paged_decode_attention(
+            q, ck, cv, (cache_index + 1).to(torch.int32), kv_tables
+        )
+        return layers.out_project(out, p), (ck, cv)
+
+    if layer_cache is not None:
+        ck, cv = layer_cache  # [B, S, KVH, HD] views into the row cache
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            raise NotImplementedError(
+                "per-row writes into a contiguous cache (contiguous "
+                "batching) are not ported yet"
+            )
+        ci = int(cache_index)
+        t = x.shape[1]
+        if ci < 0 or ci + t > ck.shape[1]:
+            # The JAX package's dynamic_update_slice would CLAMP the start
+            # and silently misalign the chunk; refuse instead.
+            raise ValueError(
+                f"cache write [{ci}, {ci + t}) outside a {ck.shape[1]}-slot "
+                "cache"
+            )
+        ck[:, ci:ci + t] = k.to(ck.dtype)
+        cv[:, ci:ci + t] = v.to(cv.dtype)
+        if attn_mask is None:
+            s = ck.shape[1]
+            k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
+            attn_mask = layers.causal_mask(
+                positions, k_positions, k_positions < ci + t
+            )
+        k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
+        v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
+        out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
+        return layers.out_project(out, p), (ck, cv)
+
+    mask = (layers.causal_mask(positions, positions) if attn_mask is None
+            else attn_mask)
+    out = layers.dot_product_attention(
+        q, layers.repeat_kv(k, cfg.q_per_kv),
+        layers.repeat_kv(v, cfg.q_per_kv), mask,
+    )
+    return layers.out_project(out, p), None
+
+
+def llama_block(x, p, cfg, positions, layer_cache, cache_index,
+                attn_mask=None, kv_tables=None):
+    """-> (x, new_cache)."""
+    h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    attn_out, new_cache = _attention(
+        h, p["attn"], cfg, positions, layer_cache, cache_index,
+        attn_mask=attn_mask, kv_tables=kv_tables,
+    )
+    x = x + attn_out
+    h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    return x + layers.mlp_swiglu(h, p["mlp"], cfg.gate_act), new_cache
+
+
+def layer_params(blocks: Params, i: int) -> Params:
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in blocks.items()}
+
+
+def run_blocks(
+    x: torch.Tensor,
+    blocks: Params,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache_k: torch.Tensor | None,  # [L, ...] cache or pool for these blocks
+    cache_v: torch.Tensor | None,
+    cache_index,
+    attn_mask: torch.Tensor | None = None,
+    kv_tables: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Run the stacked blocks over x, layer by layer (the JAX package's
+    ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``."""
+    n_layers = blocks["ln1"]["scale"].shape[0]
+    for i in range(n_layers):
+        layer_cache = None if cache_k is None else (cache_k[i], cache_v[i])
+        x, _ = llama_block(x, layer_params(blocks, i), cfg, positions,
+                           layer_cache, cache_index, attn_mask, kv_tables)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Full model forward
+# ---------------------------------------------------------------------------
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"]["wte"][tokens.long()].to(torch_dtype(cfg.dtype))
+    if cfg.embed_scale != 1.0:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    return x
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[N, D] @ [D, V] with a float32 result computed from ``x.dtype``
+    operands (XLA's preferred_element_type=f32)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        # Half-width operands, float32 accumulation AND output: a float32
+        # copy of the (vocab-sized) weight per step would cost more than
+        # the product itself.
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    w = params["embed"]["wte"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    b, t, d = x.shape
+    return _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int
+    positions: torch.Tensor | None = None,  # [B, T] int
+    cache: KVCache | None = None,
+    cache_index=None,  # int/scalar write offset, or [B] per-row offsets
+    #   (paged decode; kv_tables required)
+    attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
+    kv_tables: torch.Tensor | None = None,  # [B, P] page table: the cache
+    #   holds page POOLS [L, NB, BLK, KVH, HD] (paged decode)
+) -> tuple[torch.Tensor, KVCache | None]:
+    """Full forward.  Returns (logits [B, T, V] float32, the cache — the
+    same object, updated in place)."""
+    check_supported(cfg)
+    b, t = tokens.shape
+    if positions is None:
+        base = 0 if cache_index is None else int(cache_index)
+        positions = (torch.arange(t, device=tokens.device) + base).expand(b, t)
+    x = embed(params, cfg, tokens)
+    if cache is None:
+        x = run_blocks(x, params["blocks"], cfg, positions, None, None, None,
+                       attn_mask)
+    else:
+        x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
+                       cache_index, attn_mask, kv_tables)
+    return unembed(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Random init (tests, smoke serving; real weights come from checkpoint/)
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                dtype: Any = None,
+                device: "torch.device | str | None" = None) -> Params:
+    """Random llama parameters in the JAX package's stacked layout, drawn
+    from ``generator`` (a ``torch.Generator`` on ``device``): normal
+    weights scaled by fan_in^-0.5, unit norm scales.  The values differ
+    from ``jax.random``'s; tests share weights through
+    ``checkpoint.from_jax`` instead."""
+    check_supported(cfg)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    H, KVH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * fan_in ** -0.5).to(dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    attn = {
+        "wq": dense((L, D, H, HD), D),
+        "wk": dense((L, D, KVH, HD), D),
+        "wv": dense((L, D, KVH, HD), D),
+        "wo": dense((L, H, HD, D), H * HD),
+    }
+    if cfg.qkv_bias:  # Qwen2-style llama blocks
+        attn["bq"] = torch.zeros((L, H, HD), dtype=dtype, device=device)
+        attn["bk"] = torch.zeros((L, KVH, HD), dtype=dtype, device=device)
+        attn["bv"] = torch.zeros((L, KVH, HD), dtype=dtype, device=device)
+    params: Params = {
+        "embed": {"wte": dense((cfg.vocab_size, D), D)},
+        "final_norm": {"scale": ones((D,))},
+        "blocks": {
+            "ln1": {"scale": ones((L, D))},
+            "ln2": {"scale": ones((L, D))},
+            "attn": attn,
+            "mlp": {
+                "w_gate": dense((L, D, F), D),
+                "w_up": dense((L, D, F), D),
+                "w_down": dense((L, F, D), F),
+            },
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense((D, cfg.vocab_size), D)}
+    return params

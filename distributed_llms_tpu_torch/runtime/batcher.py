@@ -1,0 +1,1234 @@
+"""Continuous batching over a paged, prefix-cached KV pool (PyTorch port
+of the paged subset of ``distributed_llms_tpu/runtime/batcher.py``).
+
+A fixed set of batch SLOTS decodes at all times; a queued request is
+prefilled into a free slot between decode chunks while the other rows keep
+generating.  The KV cache is a shared page pool ``[L, NB, BLK, KVH, HD]``:
+rows admit with pages for the prompt plus one decode page and grow on
+demand at chunk boundaries; a dry pool evicts LRU-cold cached pages, then
+preempts the lowest-priority / most-recently-admitted row for exact
+recompute, then back-pressures admission.  Automatic prefix caching
+content-hashes every full prompt page (the reference's blake2b chain,
+byte-identical digests) and later admissions reuse the longest cached run
+copy-free through their page tables, prefilling only the suffix.
+
+Device programs (the JAX package's jitted functions, same names):
+``admit_row_paged`` / ``admit_row_auto_paged`` (prefill into a transient
+contiguous row, then splice its pages into the pool) and ``decode_chunk``
+(K decode steps for every slot; each step's attention is the paged decode
+kernel, ``ops/decode_attn.py``).  The pool is updated IN PLACE where the
+JAX programs donate it.  Host scheduling state lives in numpy mirrors
+synced once per chunk.
+
+Invariant (tests/test_torch_serving.py): at temperature 0 the token
+streams equal the JAX batcher's on the same weights and prompts.
+
+Not ported yet: contiguous (non-paged) mode, chunked prefill and token
+budgets, the dispatch-ahead overlap loop, int8 KV pages and the host-RAM
+tier (the constructor refuses each with ``NotImplementedError``), and
+speculative decoding, constrained output, presence/frequency penalties,
+named prefixes, tenants, meshes and fault injection (absent from the API).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+import threading
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..core.config import ModelConfig
+from ..core.observability import METRICS, get_logger
+from ..models import model as model_lib
+from ..models.model import KVCache
+from . import sampling
+from .scheduler import make_scheduler
+from .session import continuation_mask
+from .shapes import bucket_length as _bucket
+
+log = get_logger("batcher")
+
+
+def _sample_first(logits, last_idx, generator, temperature, top_k, top_p,
+                  temp_req=None, topp_req=None, topk_req=None):
+    """Sample the admitted row's first token from the last real position's
+    logits — the one sampling tail shared by every admission path.
+    ``temp_req``/``topp_req``/``topk_req`` override the batcher-wide knobs
+    for a per-request sampled row.  Returns (token, its raw logprob)."""
+    next_logits = logits[:, max(last_idx - 1, 0)]  # [1, V]
+    if temp_req is None:
+        tok = sampling.sample(generator, next_logits, temperature, top_k,
+                              top_p)[0]
+    else:
+        dev = next_logits.device
+        tok = sampling.sample_rows(
+            generator, next_logits, torch.tensor([temp_req], device=dev),
+            top_k, torch.tensor([topp_req], device=dev),
+            top_k_rows=(None if topk_req is None
+                        else torch.tensor([topk_req], device=dev)),
+        )[0]
+    # Chosen-token logprob under the RAW model distribution (the OpenAI
+    # logprobs contract).
+    lp = torch.log_softmax(next_logits[0].float(), dim=-1)[tok.long()]
+    return tok, lp
+
+
+def _prefill_row(params, cfg, cache_dtype, s, prompt):
+    """Dense causal prefill of one request into a transient single-row
+    cache of width ``s``."""
+    (tp,) = prompt.shape
+    row_cache = model_lib.init_cache(cfg, 1, s, dtype=cache_dtype,
+                                     device=prompt.device)
+    positions = torch.arange(tp, device=prompt.device)[None, :]
+    return model_lib.forward(params, cfg, prompt[None, :], positions=positions,
+                             cache=row_cache, cache_index=0)
+
+
+def _prefill_row_with_prefix(params, cfg, prefix_k, prefix_v, prefix_len,
+                             chunk):
+    """Prefix-seeded prefill: only the request's suffix runs through the
+    model, attending the prefix slots plus its own causal chunk."""
+    (tc,) = chunk.shape
+    s = prefix_k.shape[-3]
+    slots = torch.arange(s, device=chunk.device)
+    row_cache = KVCache(k=prefix_k, v=prefix_v)
+    positions = (prefix_len + torch.arange(tc, device=chunk.device))[None, :]
+    prefix_valid = (slots < prefix_len)[None, :]  # [1, S]
+    mask = continuation_mask(prefix_valid, prefix_len, tc, slots)
+    return model_lib.forward(params, cfg, chunk[None, :], positions=positions,
+                             cache=row_cache, cache_index=prefix_len,
+                             attn_mask=mask)
+
+
+def _gather_row_pages(cache: KVCache, read_list: torch.Tensor):
+    """Gather a row's pages out of the pool into a transient contiguous row
+    cache ([L, 1, P*BLK, KVH, HD] k/v pair) — fresh tensors the suffix
+    prefill then writes into."""
+    l, _, blk, kvh, hd = cache.k.shape
+    p = read_list.shape[0]
+    idx = read_list.long()
+    return (cache.k[:, idx].reshape(l, 1, p * blk, kvh, hd),
+            cache.v[:, idx].reshape(l, 1, p * blk, kvh, hd))
+
+
+def _paged_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype=None,
+                device=None) -> KVCache:
+    """KV page pools [L, NB, BLK, KVH, HD] (distinct k/v buffers)."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.head_dim_)
+    dt = model_lib.torch_dtype(dtype or cfg.dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device))
+
+
+def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
+                  temperature, top_k, top_p, temp_req=None, topp_req=None,
+                  topk_req=None):
+    """Admission tail for the paged pool: sample the first token, then
+    write the contiguous transient row's pages into the pool through
+    ``page_list`` [P].  Past the allocation the list is padded with the
+    scratch page 0, and a prefix-cache hit routes its CACHED positions
+    there too (shared pages are never rewritten); those duplicate targets
+    leave the scratch page with some winner, which no live row reads."""
+    tok, lp = _sample_first(logits, last_idx, generator, temperature, top_k,
+                            top_p, temp_req, topp_req, topk_req)
+    p = page_list.shape[0]
+    blk = cache.k.shape[2]
+    idx = page_list.long()
+
+    def splice(pool, row):  # row: [L, 1, P*BLK, KVH, HD]
+        l, _, _, kvh, hd = row.shape
+        # In place: the JAX program scatters into the donated pool.
+        pool[:, idx] = row[:, 0].reshape(l, p, blk, kvh, hd).to(pool.dtype)
+
+    splice(cache.k, row_cache.k)
+    splice(cache.v, row_cache.v)
+    return cache, tok, lp
+
+
+def admit_row_paged(params, cfg, cache, page_list, prompt, plen, generator,
+                    temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
+                    topp_req=None, topk_req=None):
+    """Paged admission: dense causal prefill on a transient contiguous row
+    cache, then splice its pages into the pool.  ``page_list`` [P] int32
+    (scratch-padded), ``prompt`` [Tp] right-padded, ``plen`` its true
+    length.  Returns (cache, tok, logprob)."""
+    logits, row_cache = _prefill_row(
+        params, cfg, cache.k.dtype, page_list.shape[0] * cache.k.shape[2],
+        prompt,
+    )
+    return _paged_splice(cache, page_list, row_cache, logits, plen, generator,
+                         temperature, top_k, top_p, temp_req, topp_req,
+                         topk_req)
+
+
+def admit_row_auto_paged(params, cfg, cache, read_list, write_list,
+                         prefix_len, chunk, clen, generator, temperature=0.0,
+                         top_k=0, top_p=1.0, temp_req=None, topp_req=None,
+                         topk_req=None):
+    """AUTOMATIC prefix-cache admission: the row's cached prefix KV is
+    gathered out of its shared pool pages (``read_list``: the full page
+    table) into the transient row, only the un-cached suffix ``chunk``
+    runs through the model, and the result splices back through
+    ``write_list`` (cached positions routed to the scratch page).  The
+    gather reads the pool before the splice writes it.  Returns (cache,
+    tok, logprob)."""
+    row_k, row_v = _gather_row_pages(cache, read_list)
+    logits, row_cache = _prefill_row_with_prefix(
+        params, cfg, row_k, row_v, prefix_len, chunk
+    )
+    return _paged_splice(cache, write_list, row_cache, logits, clen,
+                         generator, temperature, top_k, top_p, temp_req,
+                         topp_req, topk_req)
+
+
+def _decode_steps(params, cfg, cache, last_tok, real_lens, active, budget,
+                  generator, chunk_steps, temperature, top_k, top_p, eos_id,
+                  pad_id, tables, temp_row=None, topp_row=None,
+                  topk_row=None):
+    """K paged decode steps for every slot, on device with no host sync.
+    Each step is ONE batched forward with per-row positions and write
+    slots; the page table routes each row's read and write, and validity
+    is implicit in ``real_lens`` (the kernel's prefix contract)."""
+    toks, lps = [], []
+    for _ in range(chunk_steps):
+        was_active = active
+        logits, cache = model_lib.forward(
+            params, cfg, last_tok[:, None], positions=real_lens[:, None],
+            cache=cache, cache_index=real_lens, kv_tables=tables,
+        )
+        logits = logits[:, 0]
+        real_lens = real_lens + active.to(torch.int32)
+        if temp_row is None:
+            tok = sampling.sample(generator, logits, temperature, top_k, top_p)
+        else:
+            tok = sampling.sample_rows(
+                generator, logits, temp_row, top_k,
+                1.0 if topp_row is None else topp_row, top_k_rows=topk_row,
+            )
+        budget = budget - active.to(torch.int32)
+        if eos_id >= 0:
+            active = active & (tok != eos_id)
+        active = active & (budget > 0)
+        # Mask with the PRE-step activity: a row that just finished still
+        # emits this step's token.
+        toks.append(torch.where(was_active, tok, pad_id))
+        lp = torch.log_softmax(logits.float(), dim=-1).gather(
+            -1, tok[:, None].long()
+        )[:, 0]
+        lps.append(torch.where(was_active, lp, 0.0))
+        last_tok = torch.where(was_active, tok, last_tok)
+    return (torch.stack(toks, dim=1), cache, last_tok, real_lens, active,
+            budget, torch.stack(lps, dim=1))
+
+
+def decode_chunk(params, cfg, cache, last_tok, real_lens, active, budget,
+                 generator, chunk_steps, temperature=0.0, top_k=0, top_p=1.0,
+                 eos_id=-1, pad_id=0, tables=None, temp_row=None,
+                 topp_row=None, topk_row=None):
+    """K decode steps with per-row positions over the page pool.  Returns
+    (toks [B, K], cache, last_tok', real_lens', active', budget',
+    logprobs [B, K]).  ``temp_row``/``topp_row``/``topk_row`` switch to
+    per-row sampling (sampling.sample_rows)."""
+    if tables is None:
+        raise NotImplementedError(
+            "contiguous (non-paged) decode is not ported yet"
+        )
+    return _decode_steps(params, cfg, cache, last_tok, real_lens, active,
+                         budget, generator, chunk_steps, temperature, top_k,
+                         top_p, eos_id, pad_id, tables, temp_row, topp_row,
+                         topk_row)
+
+
+@dataclass(eq=False)  # identity equality: deque.remove compares pointers
+class _Request:
+    rid: int
+    ids: list[int]  # the full prompt (+ emitted prefix when resuming)
+    max_new_tokens: int
+    temperature: float | None = None  # None -> the batcher's config
+    top_p: float | None = None
+    top_k: int | None = None
+    prefix_cache: bool = True  # per-request opt-out of AUTOMATIC caching
+    digests: list | None = None  # memoized page digests (a back-pressured
+    #   request retries admission every round; its prompt hash never changes)
+    # Admission order is (priority desc, rid asc); higher priority is
+    # preempted last.
+    priority: int = 0
+    # Absolute time.perf_counter() deadline: a request still QUEUED past it
+    # is shed (results empty, shed[rid] set) instead of admitted doomed.
+    deadline: float | None = None
+    # Preemption-with-recompute state: tokens already emitted (and
+    # streamed) in a previous residency; ``ids`` then holds prompt +
+    # resume_emitted and the admission token continues the sequence.
+    resume_emitted: list[int] | None = None
+    resume_lps: list[float] | None = None
+
+
+class PrefixCache:
+    """Content-addressed index of pool pages for AUTOMATIC prefix caching:
+    every FULL page of an admitted prompt is keyed by a chained content
+    digest (a page's digest commits to every token before it), and later
+    admissions reuse the longest cached page-run copy-free.  Refcounts live
+    with the :class:`PagePool`; this class maps digests <-> pages and keeps
+    the LRU of unreferenced pages whose content is still resident."""
+
+    def __init__(self) -> None:
+        self.by_hash: dict[bytes, int] = {}
+        self.page_hash: dict[int, bytes] = {}
+        self.lru: OrderedDict[int, None] = OrderedDict()  # oldest first
+        self.hit_tokens = 0
+        self.miss_tokens = 0
+        self.lookups = 0
+        self.hits = 0
+        self.evictions = 0
+
+    @staticmethod
+    def page_digests(ids: list[int], page_size: int, n_pages: int,
+                     kv_bits: int = 16) -> list[bytes]:
+        """Chained blake2b digests of the first ``n_pages`` full pages:
+        digest_i = H(digest_{i-1} || int64 tokens of page i), seeded
+        ``dlt-prefix-cache-v1`` (salted by the KV width off 16 bits) —
+        byte-identical to the JAX package's, so digests compare across
+        the two stacks."""
+        digests: list[bytes] = []
+        prev = (b"dlt-prefix-cache-v1" if kv_bits == 16
+                else b"dlt-prefix-cache-v1:kv%d" % kv_bits)
+        flat = np.asarray(ids[: n_pages * page_size], np.int64)
+        for i in range(n_pages):
+            h = hashlib.blake2b(prev, digest_size=16)
+            h.update(flat[i * page_size: (i + 1) * page_size].tobytes())
+            prev = h.digest()
+            digests.append(prev)
+        return digests
+
+    def match(self, digests: list[bytes]) -> list[int]:
+        """Pages of the longest cached run from the start (maybe empty)."""
+        pages: list[int] = []
+        for d in digests:
+            p = self.by_hash.get(d)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def register(self, page: int, digest: bytes) -> None:
+        """Publish ``page`` as the holder of ``digest``; first writer wins."""
+        if digest not in self.by_hash:
+            self.by_hash[digest] = page
+            self.page_hash[page] = digest
+
+    def forget(self, page: int) -> None:
+        """Drop a page's cache entry (eviction)."""
+        d = self.page_hash.pop(page, None)
+        if d is not None:
+            self.by_hash.pop(d, None)
+        self.lru.pop(page, None)
+
+    def record_lookup(self, hit_tokens: int, miss_tokens: int) -> None:
+        self.lookups += 1
+        self.hits += hit_tokens > 0
+        self.hit_tokens += hit_tokens
+        self.miss_tokens += miss_tokens
+        METRICS.inc("batcher.prefix_cache.lookups")
+        if hit_tokens > 0:
+            METRICS.inc("batcher.prefix_cache.hits")
+        METRICS.inc("batcher.prefix_cache.hit_tokens", hit_tokens)
+        METRICS.inc("batcher.prefix_cache.miss_tokens", miss_tokens)
+        total = self.hit_tokens + self.miss_tokens
+        if total:
+            METRICS.set_gauge(
+                "batcher.prefix_cache.hit_rate", self.hit_tokens / total
+            )
+
+
+class PagePool:
+    """Refcounted KV page allocator.  Owns the free list and per-page
+    refcounts and cooperates with an optional :class:`PrefixCache` whose
+    LRU parks unreferenced-but-cached pages (still serving hits,
+    reclaimable under pressure).  Page 0 is the permanent scratch page:
+    never allocated, never freed, never read by a live row."""
+
+    def __init__(self, num_pages: int,
+                 prefix_cache: "PrefixCache | None" = None) -> None:
+        self.num_pages = num_pages
+        # Mutation happens on the engine thread; the occupancy view
+        # (stats/publish_gauges behind /metrics, the supervisor's audit)
+        # reads from the serving loop thread.  The PrefixCache LRU is
+        # covered by this lock too.
+        self._lock = threading.Lock()
+        self.free_pages: list[int] = list(range(1, num_pages))  # guarded-by: self._lock
+        self.page_refs: dict[int, int] = {}  # guarded-by: self._lock
+        self.prefix_cache = prefix_cache
+        # Watermarks: the least headroom an admission has seen and the most
+        # pages rows have held at once.
+        self.min_available = num_pages - 1  # guarded-by: self._lock
+        self.peak_held = 0  # guarded-by: self._lock
+
+    # graftlint: holds(self._lock)
+    def _note_watermarks(self) -> None:
+        avail = self._available_locked()
+        if avail < self.min_available:
+            self.min_available = avail
+        held = len(self.page_refs)
+        if held > self.peak_held:
+            self.peak_held = held
+
+    def stats(self) -> dict[str, int]:
+        """Occupancy snapshot (free / LRU-cached / row-held partition).
+        Safe from any thread."""
+        pc = self.prefix_cache
+        with self._lock:
+            return {
+                "total_pages": self.num_pages - 1,  # page 0 is scratch
+                "free_pages": len(self.free_pages),
+                "cached_pages": len(pc.lru) if pc is not None else 0,
+                "held_pages": len(self.page_refs),
+                "min_available": self.min_available,
+                "peak_held": self.peak_held,
+            }
+
+    def publish_gauges(self) -> None:
+        """Mirror the occupancy view into METRICS (batcher_pool_*)."""
+        METRICS.set_gauges({
+            f"batcher.pool.{k}": float(v) for k, v in self.stats().items()
+        })
+
+    # graftlint: holds(self._lock)
+    def _available_locked(self) -> int:
+        pc = self.prefix_cache
+        return len(self.free_pages) + (len(pc.lru) if pc else 0)
+
+    def available(self) -> int:
+        """Pages an admission could obtain: the free list plus every
+        LRU-parked cached page (reclaimable under pressure)."""
+        with self._lock:
+            return self._available_locked()
+
+    def alloc(self, n: int) -> list[int]:
+        """Allocate ``n`` pages at refcount 1, evicting LRU-cold cached
+        pages when the free list runs dry (callers check available())."""
+        pc = self.prefix_cache
+        out: list[int] = []
+        with self._lock:
+            for _ in range(n):
+                if self.free_pages:
+                    p = self.free_pages.pop()
+                else:
+                    p, _ = pc.lru.popitem(last=False)  # the coldest entry
+                    pc.forget(p)
+                    pc.evictions += 1
+                    METRICS.inc("batcher.prefix_cache.evicted_pages")
+                self.page_refs[p] = 1
+                out.append(p)
+            self._note_watermarks()
+        return out
+
+    def retain(self, p: int) -> None:
+        """Take a reference on a cached page (a prefix-cache hit)."""
+        with self._lock:
+            if p in self.page_refs:
+                self.page_refs[p] += 1
+            else:
+                del self.prefix_cache.lru[p]
+                self.page_refs[p] = 1
+            self._note_watermarks()
+
+    def release(self, pages: list[int]) -> None:
+        """Drop one reference per page.  At refcount 0 a cached page parks
+        at the LRU's most-recently-used end; an uncached page frees."""
+        pc = self.prefix_cache
+        with self._lock:
+            for p in pages:
+                left = self.page_refs[p] - 1
+                if left:
+                    self.page_refs[p] = left
+                    continue
+                del self.page_refs[p]
+                if pc is not None and p in pc.page_hash:
+                    pc.lru[p] = None
+                else:
+                    self.free_pages.append(p)
+
+    def publish_prefix(self, page: int, digest: bytes) -> None:
+        """Publish a page's cached content under the allocator lock."""
+        with self._lock:
+            self.prefix_cache.register(page, digest)
+
+    def assert_consistent(self, live_rows=()) -> None:
+        """Audit the allocator's partition invariants; AssertionError on the
+        first violation.  ``live_rows`` is the page lists of resident rows:
+        per-page refcounts must EQUAL the row-hold counts."""
+        pc = self.prefix_cache
+        with self._lock:
+            lru = set(pc.lru) if pc is not None else set()
+            hashed = set(pc.page_hash) if pc is not None else set()
+            free_list = list(self.free_pages)
+            refs = dict(self.page_refs)
+        free = set(free_list)
+        refed = set(refs)
+        assert len(free) == len(free_list), (
+            f"free list holds duplicates: {sorted(free_list)}"
+        )
+        assert 0 not in (free | refed | lru), "scratch page 0 escaped the pool"
+        for a, b, what in ((free, refed, "free and refcounted"),
+                           (free, lru, "free and LRU-parked"),
+                           (refed, lru, "refcounted and LRU-parked")):
+            assert not (a & b), f"pages both {what}: {sorted(a & b)}"
+        accounted = free | refed | lru
+        expect = set(range(1, self.num_pages))
+        assert accounted == expect, (
+            f"pages leaked (neither free, refcounted, nor LRU-parked): "
+            f"{sorted(expect - accounted)}; "
+            f"foreign pages: {sorted(accounted - expect)}"
+        )
+        assert all(v >= 1 for v in refs.values()), (
+            f"non-positive refcounts: {refs}"
+        )
+        holds: dict[int, int] = {}
+        for pages in live_rows:
+            for p in pages:
+                holds[p] = holds.get(p, 0) + 1
+        assert holds == refs, (
+            f"refcounts diverge from live-row holds: refs={refs} "
+            f"holds={holds}"
+        )
+        for p in lru:
+            assert p in hashed, f"LRU-parked page {p} has no cached content"
+
+
+@dataclass
+class _RowState:
+    rid: int | None = None
+    req: "_Request | None" = None  # as admitted — preemption rebuilds from it
+    priority: int = 0   # mirror of req.priority (victim selection)
+    admit_seq: int = 0  # among equal priorities the MOST recently admitted
+    #                     row is preempted first (its lost work is smallest)
+    emitted: list[int] = field(default_factory=list)
+    lps: list[float] = field(default_factory=list)  # per-token logprobs
+    remaining: int = 0  # decode tokens this row may still emit
+    pages: list[int] = field(default_factory=list)  # pool pages held
+    streamed: int = 0  # tokens already delivered to run()'s on_tokens
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet")
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a paged, prefix-cached pool.
+
+    Usage::
+
+        batcher = ContinuousBatcher(cfg, params, tokenizer, batch_slots=8,
+                                    max_len=512, paged_pages=64,
+                                    page_size=16, prefix_cache=True)
+        rids = [batcher.submit(p, max_new_tokens=64) for p in prompts]
+        results = batcher.run()   # {rid: token list}
+
+    Runs on the device ``params`` live on.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Any,
+        tokenizer: Any = None,
+        batch_slots: int = 8,
+        max_len: int = 512,
+        chunk_steps: int = 8,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        eos_id: int = -1,
+        pad_id: int = 0,
+        kv_dtype: Any = None,
+        seed: int = 0,
+        paged_pages: int | None = None,  # KV page-pool size (pages);
+        #   required — contiguous per-slot KV is a later slice
+        page_size: int = 64,
+        prefix_cache: bool = False,  # automatic prefix caching
+        overlap: bool = False,  # dispatch-ahead loop: later slice
+        schedule: str = "mixed",
+        prefill_chunk: int | None = None,  # chunked prefill: later slice
+        token_budget: int | None = None,   # mixed bites: later slice
+        kv_bits: int = 16,                 # int8 KV pages: later slice
+        host_pages: int = 0,               # host-RAM tier: later slice
+        # The lockstep clock: the one time source scheduling DECISIONS may
+        # consult (queue-deadline shedding).  Defaults to perf_counter.
+        clock: "Callable[[], float] | None" = None,
+    ) -> None:
+        # Snapshot the constructor arguments FIRST so respawn() can rebuild
+        # an identical fresh batcher after an engine crash.
+        self._ctor_args = {
+            k: v for k, v in locals().items() if k not in ("self", "__class__")
+        }
+        self._clock = clock if clock is not None else time.perf_counter
+        model_lib.check_supported(cfg)
+        if paged_pages is None:
+            _refuse("contiguous (non-paged) KV; pass paged_pages")
+        if overlap:
+            _refuse("the dispatch-ahead overlap loop (overlap=True)")
+        if prefill_chunk is not None:
+            _refuse("chunked prefill (prefill_chunk)")
+        if token_budget is not None:
+            _refuse("the mixed schedule's token budget (token_budget)")
+        if kv_bits != 16:
+            _refuse(f"kv_bits={kv_bits} (int8 KV pages)")
+        if host_pages:
+            _refuse("the host-RAM KV tier (host_pages)")
+        if max_len > cfg.max_seq_len:
+            raise ValueError(
+                f"max_len {max_len} exceeds model max_seq_len {cfg.max_seq_len}"
+            )
+        if max_len % page_size:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of page_size "
+                f"{page_size}"
+            )
+        if paged_pages < max_len // page_size + 1:
+            raise ValueError(
+                f"paged_pages {paged_pages} cannot hold even one "
+                f"full-depth row (+1 scratch page)"
+            )
+        self.sched = make_scheduler(schedule, chunk_steps=chunk_steps)
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"]["wte"].device
+        self.tokenizer = tokenizer
+        self.b = batch_slots
+        self.s = max_len
+        self.chunk_steps = chunk_steps
+        self.sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.cache = _paged_pool(cfg, paged_pages, page_size, dtype=kv_dtype,
+                                 device=self.device)
+        self.page_size = page_size
+        self.pages_per_row = max_len // page_size
+        self.prefix_cache: PrefixCache | None = (
+            PrefixCache() if prefix_cache else None
+        )
+        # Page 0 is the permanent scratch page: fixed-shape admissions pad
+        # their page lists with it, and no live row ever reads it.
+        self.pool = PagePool(paged_pages, prefix_cache=self.prefix_cache)
+        self.tables = np.zeros((batch_slots, self.pages_per_row), np.int32)
+        # Scheduling state lives as HOST numpy mirrors, synced from the
+        # device once per decode chunk.
+        self.last_tok = np.zeros((batch_slots,), np.int32)
+        self.real_lens = np.zeros((batch_slots,), np.int32)
+        self.active = np.zeros((batch_slots,), bool)
+        self.budget = np.zeros((batch_slots,), np.int32)
+        # Per-row sampling mirrors: a row admitted with its own knobs
+        # switches decode to the per-row sampling path while it is live.
+        self.temp_row = np.full((batch_slots,), temperature, np.float32)
+        self.topp_row = np.full((batch_slots,), top_p, np.float32)
+        self.topk_row = np.full((batch_slots,), top_k, np.int32)
+        self.rows = [_RowState() for _ in range(batch_slots)]
+        # Decode forward steps dispatched (chunks x chunk_steps): every
+        # step runs each layer's paged decode attention once.
+        self.decode_steps = 0
+        # Submission lock: the ONE cross-thread boundary of this class
+        # (serving front-ends submit() from their own thread while the
+        # engine thread admits).  Never held across a device call.
+        self._lock = threading.Lock()
+        self.queue: deque[_Request] = deque()  # guarded-by: self._lock
+        self.shed: dict[int, str] = {}  # rid -> reason, queued past deadline
+        self.preemptions = 0
+        self._admit_seq = 0
+        self.results: dict[int, list[int]] = {}
+        self.result_logprobs: dict[int, list[float]] = {}
+        # Prompt tokens served from the prefix cache, per rid (usage
+        # reporting: prompt_tokens_details.cached_tokens).
+        self.prefix_cached_tokens: dict[int, int] = {}
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._next_rid = 0  # guarded-by: self._lock
+        self._on_tokens = None  # set per run() call (streaming callback)
+
+    # -- paged pool (PagePool: refcounted, prefix-cache LRU) ---------------
+
+    def capacity_tokens(self) -> int:
+        """KV capacity in tokens (usable pool pages; page 0 is scratch) —
+        the denominator of the serving gateway's cost gate."""
+        return (self.pool.num_pages - 1) * self.page_size
+
+    def assert_pool_consistent(self) -> None:
+        """Audit the page pool against the resident rows."""
+        self.pool.assert_consistent([r.pages for r in self.rows if r.pages])
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- crash recovery ----------------------------------------------------
+
+    def respawn(self) -> "ContinuousBatcher":
+        """A fresh batcher from this one's construction arguments: new pool
+        and prefix cache, empty queue and rows.  Weights and tokenizer carry
+        over by reference."""
+        return ContinuousBatcher(**self._ctor_args)
+
+    # -- submission --------------------------------------------------------
+
+    @property
+    def next_rid(self) -> int:
+        """The rid the next ``submit`` call will return (serving front-ends
+        register delivery state under it BEFORE submitting)."""
+        with self._lock:
+            return self._next_rid
+
+    def has_queued(self) -> bool:
+        with self._lock:
+            return bool(self.queue)
+
+    def queue_snapshot(self) -> "list[_Request]":
+        with self._lock:
+            return list(self.queue)
+
+    def submit(
+        self, prompt: str | list[int], max_new_tokens: int = 32,
+        temperature: float | None = None, top_p: float | None = None,
+        top_k: int | None = None, prefix_cache: bool = True,
+        priority: int = 0, deadline: float | None = None,
+    ) -> int:
+        """Queue a request; the same validation as the JAX batcher.
+        ``temperature``/``top_p``/``top_k`` override the batcher's sampling
+        config for this request; ``prefix_cache=False`` opts it out of
+        automatic prefix caching; ``priority`` orders admission and shields
+        from preemption; ``deadline`` (absolute perf_counter) sheds it if
+        still queued past it.  (Named prefixes, penalties, constrained
+        output and tenants are later slices.)"""
+        ids = (
+            self.tokenizer.encode(prompt)
+            if isinstance(prompt, str)
+            else list(prompt)
+        )
+        if not ids:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if temperature is not None and not (
+            math.isfinite(temperature) and temperature >= 0.0
+        ):
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if top_k is not None:
+            if isinstance(top_k, bool) or not isinstance(top_k, int) \
+                    or not 0 <= top_k <= 2**31 - 1:
+                raise ValueError(
+                    f"top_k must be an int in [0, 2**31), got {top_k!r}"
+                )
+            eff_t = (self.sampling["temperature"] if temperature is None
+                     else temperature)
+            if eff_t == 0.0:
+                # A greedy row takes the argmax regardless of top_k.
+                top_k = None
+        if not isinstance(prefix_cache, bool):
+            raise ValueError(
+                f"prefix_cache must be a bool, got {prefix_cache!r}"
+            )
+        if isinstance(priority, bool) or not isinstance(priority, int) \
+                or not -(2**31) <= priority < 2**31:
+            raise ValueError(
+                f"priority must be an int in [-2**31, 2**31), got {priority!r}"
+            )
+        if deadline is not None:
+            if isinstance(deadline, bool) \
+                    or not isinstance(deadline, (int, float)) \
+                    or not math.isfinite(float(deadline)):
+                raise ValueError(
+                    f"deadline must be a finite perf_counter timestamp, "
+                    f"got {deadline!r}"
+                )
+            deadline = float(deadline)
+        if len(ids) + max_new_tokens > self.s:
+            raise ValueError(
+                f"prompt ({len(ids)} tokens) + {max_new_tokens} new "
+                f"exceeds slot capacity {self.s}"
+            )
+        with self._lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self.queue.append(_Request(
+                rid, ids, max_new_tokens, temperature=temperature,
+                top_p=top_p, top_k=top_k, prefix_cache=prefix_cache,
+                priority=priority, deadline=deadline,
+            ))
+        return rid
+
+    def cancel_row(self, rid: int) -> bool:
+        """Cancel a submitted request: a queued one is dropped, an admitted
+        row is deactivated and its pages released.  ``results[rid]``
+        records the committed tokens and NO done callback fires.  Call from
+        ``run()``'s ``on_tokens`` callback or while ``run()`` is idle.
+        Returns True if the rid was found queued or resident."""
+        dropped: _Request | None = None
+        with self._lock:
+            for req in self.queue:
+                if req.rid == rid:
+                    dropped = req
+                    break
+            if dropped is not None:
+                self.queue.remove(dropped)
+        if dropped is not None:
+            self.results[rid] = list(dropped.resume_emitted or [])
+            self.result_logprobs[rid] = list(dropped.resume_lps or [])
+            METRICS.inc("batcher.cancelled")
+            return True
+        for i in range(self.b):
+            row = self.rows[i]
+            if row.rid == rid:
+                if self.eos_id >= 0 and self.eos_id in row.emitted:
+                    cut = row.emitted.index(self.eos_id) + 1
+                    row.emitted = row.emitted[:cut]
+                    row.lps = row.lps[:cut]
+                self.results[rid] = row.emitted
+                self.result_logprobs[rid] = row.lps
+                if row.pages:
+                    self.pool.release(row.pages)
+                    self.tables[i] = 0
+                if row.req is not None:
+                    self.sched.note_freed(row.req, len(row.emitted))
+                self.rows[i] = _RowState()
+                self.active[i] = False
+                self.budget[i] = 0
+                METRICS.inc("batcher.cancelled")
+                return True
+        return False
+
+    # -- scheduling loop ---------------------------------------------------
+
+    def _free_slot(self) -> int | None:
+        for i in range(self.b):
+            if not self.active[i] and self.rows[i].rid is None:
+                return i
+        return None
+
+    def _next_request(self) -> "_Request | None":
+        with self._lock:
+            return self.sched.admission_order(self.queue)
+
+    def _unqueue(self, req: "_Request") -> None:
+        """The ONE admission-commit point."""
+        with self._lock:
+            self.queue.remove(req)
+        self.sched.note_admitted(req, len(req.ids) + req.max_new_tokens)
+
+    def _shed_expired_queued(self) -> None:
+        """Drop queued requests whose deadline already passed (a preempted
+        one finishes with the tokens it already streamed).  Reads the
+        injected lockstep clock, never the wall clock directly."""
+        now = self._clock()
+        expired: list[_Request] = []
+        with self._lock:
+            for req in list(self.queue):
+                if req.deadline is None or req.deadline > now:
+                    continue
+                self.queue.remove(req)
+                expired.append(req)
+        for req in expired:
+            self.results[req.rid] = list(req.resume_emitted or [])
+            self.result_logprobs[req.rid] = list(req.resume_lps or [])
+            if req.resume_emitted:
+                METRICS.inc("batcher.cancelled")
+                log.info(
+                    "finished preempted request %d at deadline with %d "
+                    "token(s)", req.rid, len(req.resume_emitted),
+                )
+            else:
+                self.shed[req.rid] = "queue deadline expired before admission"
+                METRICS.inc("batcher.shed_total")
+                log.info("shed queued request %d (deadline expired)", req.rid)
+            if self._on_tokens is not None:
+                self._on_tokens(req.rid, [], True, None)
+
+    # -- overload plane: preemption + on-demand growth ---------------------
+
+    def _pick_victim(self, below_priority: int | None = None) -> int | None:
+        """The scheduler's ``select_victim`` over active page-holding rows."""
+        cands = [
+            (i, r.priority, r.admit_seq) for i, r in enumerate(self.rows)
+            if r.rid is not None and r.pages and self.active[i]
+        ]
+        return self.sched.select_victim(cands, below_priority=below_priority)
+
+    def _preempt_row(self, i: int, reason: str) -> None:
+        """Preempt resident row ``i``: free its pages now, keep the tokens it
+        emitted, and requeue it for RECOMPUTE — the resume request prefills
+        prompt + emitted prefix (cheap while the prefix cache still holds
+        the prompt pages) and its admission token continues the sequence,
+        so temperature-0 streams stay exact."""
+        row = self.rows[i]
+        req = row.req
+        prior = list(req.resume_emitted or [])
+        base_ids = req.ids[: len(req.ids) - len(prior)] if prior else req.ids
+        resume = _Request(
+            req.rid, list(base_ids) + list(row.emitted),
+            max(1, row.remaining), temperature=req.temperature,
+            top_p=req.top_p, top_k=req.top_k, prefix_cache=req.prefix_cache,
+            priority=req.priority, deadline=req.deadline,
+            resume_emitted=list(row.emitted), resume_lps=list(row.lps),
+        )
+        freed = len(row.pages)
+        if row.pages:
+            self.pool.release(row.pages)
+            self.tables[i] = 0
+        self.sched.note_freed(req, len(row.emitted))
+        self.rows[i] = _RowState()
+        self.active[i] = False
+        self.budget[i] = 0
+        with self._lock:
+            self.queue.append(resume)
+        self.preemptions += 1
+        METRICS.inc("batcher.preemptions_total")
+        log.info(
+            "preempted rid %d from slot %d (%s): freed %d page(s), %d "
+            "token(s) kept for recompute", resume.rid, i, reason, freed,
+            len(resume.resume_emitted or []),
+        )
+
+    def _ensure_pages(self, need: int, below_priority: int | None = None,
+                      self_slot: int | None = None) -> bool:
+        """THE pressure loop (admission and growth): preempt victims until
+        available() covers ``need``.  ``below_priority`` restricts victims
+        to STRICTLY lower priority (admission); ``self_slot`` lets the
+        grower itself yield when no other victim exists.  Returns True when
+        ``need`` pages are obtainable (the caller allocs)."""
+        avail = self.pool.available()
+        while avail < need:
+            v = self._pick_victim(below_priority=below_priority)
+            if v is None:
+                if self_slot is None:
+                    return False
+                v = self_slot  # no other victim: the grower itself yields
+            self._preempt_row(
+                v, "admission" if below_priority is not None else "growth"
+            )
+            if v == self_slot:
+                return False
+            avail = self.pool.available()
+        return True
+
+    def _reserve_row_pages(self, i, req, total_len):
+        """Paged admission reservation, ON-DEMAND: pages for the prompt plus
+        one decode page (growth allocates the rest at chunk boundaries).
+        With the prefix cache, the longest cached run of the prompt's full
+        pages is retained (capped one page short of the prompt, so at least
+        one real token prefills).  Returns (page_list, pages, cached_pages,
+        cached_len, digests), or None on back-pressure."""
+        blk = self.page_size
+        n_full = -(-(total_len + req.max_new_tokens) // blk)
+        n_init = min(n_full, -(-total_len // blk) + 1)
+        pc = self.prefix_cache
+        auto = pc is not None and req.prefix_cache
+        cached_pages: list[int] = []
+        cached_len = 0
+        digests: list[bytes] = []
+        if auto:
+            if req.digests is None:
+                req.digests = PrefixCache.page_digests(req.ids, blk,
+                                                      len(req.ids) // blk)
+            digests = req.digests
+            cap = (len(req.ids) - 1) // blk
+            cached_pages = pc.match(digests[:cap])
+            for p in cached_pages:
+                self.pool.retain(p)
+            cached_len = len(cached_pages) * blk
+        need = n_init - len(cached_pages)
+        if not self._ensure_pages(need, below_priority=req.priority):
+            self.pool.release(cached_pages)
+            return None
+        if auto:
+            pc.record_lookup(cached_len, total_len - cached_len)
+        # Table first, allocation last: nothing between the pool handing
+        # out pages and the row table owning them may raise.
+        page_list = np.zeros((self.pages_per_row,), np.int32)
+        page_list[: len(cached_pages)] = cached_pages
+        pages = self.pool.alloc(need)
+        page_list[len(cached_pages): n_init] = pages  # + scratch pad
+        self.tables[i] = page_list
+        return page_list, pages, cached_pages, cached_len, digests
+
+    def _grow_rows(self) -> None:
+        """Chunk-boundary page growth: every active row that will write past
+        its pages this chunk gets them now — evicting LRU-cold cached pages
+        first, then preempting a victim (possibly the grower itself)."""
+        blk = self.page_size
+        for i in range(self.b):
+            row = self.rows[i]
+            if row.rid is None or not self.active[i]:
+                continue
+            horizon = int(self.real_lens[i]) + min(
+                self.chunk_steps, int(self.budget[i])
+            )
+            need_pages = -(-horizon // blk)
+            have = len(row.pages)
+            if need_pages <= have:
+                continue
+            n = need_pages - have
+            if not self._ensure_pages(n, self_slot=i):
+                continue  # the grower itself was preempted
+            fresh = self.pool.alloc(n)
+            row.pages.extend(fresh)
+            self.tables[i][have:need_pages] = fresh
+            METRICS.inc("batcher.pages_grown", n)
+
+    def _request_sampling(self, req: "_Request"):
+        """(req_t, req_p, req_k, extra): the request's effective knobs and
+        the per-request overrides to pass when they diverge from the
+        batcher-wide config."""
+        req_t = (self.sampling["temperature"] if req.temperature is None
+                 else float(req.temperature))
+        req_p = (self.sampling["top_p"] if req.top_p is None
+                 else float(req.top_p))
+        req_k = (self.sampling["top_k"] if req.top_k is None
+                 else int(req.top_k))
+        custom = (req_t != self.sampling["temperature"]
+                  or req_p != self.sampling["top_p"]
+                  or req_k != self.sampling["top_k"])
+        extra = dict(temp_req=req_t, topp_req=req_p) if custom else {}
+        if custom and req_k != self.sampling["top_k"]:
+            extra["topk_req"] = req_k
+        return req_t, req_p, req_k, extra
+
+    def _admit_pending(self) -> None:
+        self._shed_expired_queued()
+        while True:
+            i = self._free_slot()
+            if i is None:
+                return
+            req = self._next_request()
+            if req is None:
+                return
+            total_len = len(req.ids)
+            got = self._reserve_row_pages(i, req, total_len)
+            if got is None:
+                # Dry pool with no preemptable victim: back-pressure.  The
+                # request stays queued; admission stops for this round.
+                return
+            page_list, pages, cached_pages, cached_len, digests = got
+            self._unqueue(req)
+            req_t, req_p, req_k, extra = self._request_sampling(req)
+            if cached_len:
+                # Prefix-cache HIT: the cached run seeds the row through a
+                # pool gather; only the suffix prefills.  Writes for the
+                # cached positions go to the scratch page.
+                write_list = page_list.copy()
+                write_list[: len(cached_pages)] = 0
+                suffix = req.ids[cached_len:]
+                tc = min(_bucket(len(suffix)), self.s - cached_len)
+                chunk = np.full((tc,), self.pad_id, np.int32)
+                chunk[: len(suffix)] = suffix
+                self.cache, tok, lp = admit_row_auto_paged(
+                    self.params, self.cfg, self.cache, self._dev(page_list),
+                    self._dev(write_list), cached_len, self._dev(chunk),
+                    len(suffix), self._gen, **self.sampling, **extra,
+                )
+            else:
+                # Bucket for shape reuse, never past the row's width.
+                tp = min(_bucket(len(req.ids)), self.s)
+                prompt = np.full((tp,), self.pad_id, np.int32)
+                prompt[: len(req.ids)] = req.ids
+                self.cache, tok, lp = admit_row_paged(
+                    self.params, self.cfg, self.cache, self._dev(page_list),
+                    self._dev(prompt), len(req.ids), self._gen,
+                    **self.sampling, **extra,
+                )
+            # Publish the row's fresh full prompt pages (first writer
+            # wins); the cached run is already published.
+            for j in range(len(cached_pages), len(digests)):
+                self.pool.publish_prefix(int(page_list[j]), digests[j])
+            self._activate_row(i, req, tok, lp, total_len, req_t, req_p,
+                               cached_pages + pages, req_k=req_k,
+                               cached_len=cached_len)
+
+    def _activate_row(self, i, req, tok, lp, total_len, req_t, req_p, pages,
+                      req_k=None, cached_len=0):
+        """Host bookkeeping tail of every admission: record the sampled
+        first token, arm the row's scheduling state, stream the token."""
+        tok = int(tok)
+        lp = float(lp)
+        self.last_tok[i] = tok
+        self.temp_row[i] = req_t
+        self.topp_row[i] = req_p
+        self.topk_row[i] = (self.sampling["top_k"] if req_k is None
+                            else req_k)
+        if self.prefix_cache is not None:
+            self.prefix_cached_tokens[req.rid] = cached_len
+        prior = list(req.resume_emitted or [])
+        prior_lps = list(req.resume_lps or [])
+        self.real_lens[i] = total_len
+        self.active[i] = True
+        # The first token came out of admission; decode may emit
+        # budget - 1 more.
+        self.budget[i] = req.max_new_tokens - 1
+        self._admit_seq += 1
+        self.rows[i] = _RowState(
+            rid=req.rid, emitted=prior + [tok], lps=prior_lps + [lp],
+            remaining=req.max_new_tokens - 1, pages=pages,
+            req=req, priority=req.priority, admit_seq=self._admit_seq,
+        )
+        log.debug("admitted request %d into slot %d", req.rid, i)
+        if req.max_new_tokens == 1 or tok == self.eos_id:
+            self.active[i] = False
+        if self._on_tokens is not None:
+            # Stream the admission token (state advances BEFORE the
+            # callback, so a raising callback never re-delivers).  A
+            # resumed row's prior tokens were streamed already.
+            self.rows[i].streamed = len(prior) + 1
+            self._on_tokens(req.rid, [tok], False, [lp])
+        METRICS.inc("batcher.admitted")
+
+    def _collect(self, toks: np.ndarray, was_active: np.ndarray,
+                 lps: np.ndarray | None = None) -> None:
+        for i in range(self.b):
+            row = self.rows[i]
+            if row.rid is None or not was_active[i]:
+                continue
+            for j, t in enumerate(toks[i]):
+                if row.remaining <= 0:
+                    break
+                t = int(t)
+                row.emitted.append(t)
+                if lps is not None:
+                    row.lps.append(float(lps[i][j]))
+                row.remaining -= 1
+                if t == self.eos_id:
+                    break
+        # Rows that finished this chunk publish their result and free up.
+        for i in range(self.b):
+            row = self.rows[i]
+            if row.rid is not None and not self.active[i]:
+                if self.eos_id >= 0 and self.eos_id in row.emitted:
+                    cut = row.emitted.index(self.eos_id) + 1
+                    row.emitted = row.emitted[:cut]
+                    row.lps = row.lps[:cut]
+                self.results[row.rid] = row.emitted
+                self.result_logprobs[row.rid] = row.lps
+                rid, final = row.rid, row.emitted[row.streamed:]
+                if row.pages:
+                    self.pool.release(row.pages)
+                    self.tables[i] = 0
+                final_lps = row.lps[row.streamed:]
+                if row.req is not None:
+                    self.sched.note_freed(row.req, len(row.emitted))
+                self.rows[i] = _RowState()
+                METRICS.inc("batcher.completed")
+                if self._on_tokens is not None:
+                    # Final delivery with done=True exactly once.
+                    self._on_tokens(rid, final, True, final_lps)
+        if self._on_tokens is not None:
+            for i in range(self.b):
+                row = self.rows[i]
+                if row.rid is not None and len(row.emitted) > row.streamed:
+                    new = row.emitted[row.streamed:]
+                    new_lps = row.lps[row.streamed:]
+                    row.streamed = len(row.emitted)
+                    self._on_tokens(row.rid, new, False, new_lps)
+
+    def run(self, on_tokens=None) -> dict[int, list[int]]:
+        """Drive until every submitted request has a result.
+
+        ``on_tokens(rid, new_tokens, done, logprobs)`` streams
+        incrementally: the admission token first, then each chunk's new
+        tokens, and exactly once ``done=True`` with any final tokens.
+        Exceptions from the callback propagate (and abort the run); recover
+        through :meth:`respawn`."""
+        self._on_tokens = on_tokens
+        try:
+            return self._run_loop()
+        finally:
+            self._on_tokens = None
+
+    def _run_loop(self) -> dict[int, list[int]]:
+        while self.has_queued() or bool(self.active.any()) or any(
+            r.rid is not None for r in self.rows
+        ):
+            self._admit_pending()
+            # Rows about to write past their pages get them NOW (or
+            # preempt / yield): a decode chunk must never scatter a live
+            # row's KV into the scratch page.
+            self._grow_rows()
+            was_active = self.active.copy()
+            if not was_active.any():
+                # Publish 1-token requests finished by admission alone.
+                self._collect(np.zeros((self.b, 0), np.int32), was_active)
+                if not self.has_queued() and all(
+                    r.rid is None for r in self.rows
+                ):
+                    break
+                continue
+            self._decode_span(was_active)
+        return dict(self.results)
+
+    def _span_plan(self) -> dict:
+        """The per-chunk program choice, from the host mirrors: the per-row
+        sampling path only while a custom-sampled row is live (the
+        all-default batch keeps the plain sampler; greedy is a bare
+        argmax)."""
+        plan: dict = {"tables": self._dev(self.tables)}
+        rows_live = self.active & (
+            (self.temp_row != self.sampling["temperature"])
+            | (self.topp_row != self.sampling["top_p"])
+            | (self.topk_row != self.sampling["top_k"])
+        )
+        per_row = {}
+        if bool(rows_live.any()):
+            per_row["temp_row"] = self._dev(self.temp_row)
+            if not bool((self.topp_row[self.active] == 1.0).all()):
+                per_row["topp_row"] = self._dev(self.topp_row)
+            if not bool((
+                self.topk_row[self.active] == self.sampling["top_k"]
+            ).all()):
+                per_row["topk_row"] = self._dev(self.topk_row)
+        plan["per_row"] = per_row
+        plan["n_active"] = int(self.active.sum())
+        return plan
+
+    def _dispatch_chunk(self, plan: dict) -> tuple:
+        """Dispatch one decode chunk from the host mirrors (returns device
+        tensors; nothing synchronises here)."""
+        METRICS.inc("batcher.sched.decode_tokens",
+                    plan["n_active"] * self.chunk_steps)
+        (toks, self.cache, last_tok, real_lens, active, budget,
+         lps) = decode_chunk(
+            self.params, self.cfg, self.cache, self._dev(self.last_tok),
+            self._dev(self.real_lens), self._dev(self.active),
+            self._dev(self.budget), self._gen, self.chunk_steps,
+            eos_id=self.eos_id, pad_id=self.pad_id, tables=plan["tables"],
+            **self.sampling, **plan["per_row"],
+        )
+        self.decode_steps += self.chunk_steps
+        return toks, lps, (last_tok, real_lens, active, budget)
+
+    def _sync_carry(self, out: tuple) -> tuple:
+        """Chunk boundary: the tokens, logprobs and scheduling carry return
+        to the host mirrors in one pass.  Slots whose host bookkeeping
+        dropped the row are forced inactive."""
+        toks, lps, carry = out
+        toks_h = toks.cpu().numpy()
+        lps_h = lps.cpu().numpy()
+        lt, rl, ac, bu = (t.cpu().numpy() for t in carry)
+        self.last_tok = lt.astype(np.int32)
+        self.real_lens = rl.astype(np.int32)
+        self.active = ac.astype(bool)
+        self.budget = bu.astype(np.int32)
+        for i in range(self.b):
+            if self.rows[i].rid is None and self.active[i]:
+                self.active[i] = False
+                self.budget[i] = 0
+        return toks_h, lps_h
+
+    def _decode_span(self, was_active: np.ndarray) -> None:
+        """One decode chunk: dispatch from the fresh host mirrors, sync the
+        carry back, deliver.  (The JAX package dispatches further chunks
+        ahead from the device carry here; the port's loop is synchronous.)"""
+        plan = self._span_plan()
+        toks, lps = self._sync_carry(self._dispatch_chunk(plan))
+        self._collect(toks, was_active, lps=lps)

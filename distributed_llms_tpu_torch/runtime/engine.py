@@ -1,0 +1,135 @@
+"""Inference engine: config + parameters + device -> a continuous batcher
+(PyTorch port of the serving part of
+``distributed_llms_tpu/runtime/engine.py``).
+
+The engine owns the weights on one device and hands out
+:class:`~.batcher.ContinuousBatcher` instances over them.  Entry points
+run on CUDA unless the caller asks for the CPU by name (``device="cpu"``);
+without a GPU and without that request they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..core.config import ModelConfig, RuntimeConfig
+from ..core.device import resolve_device
+from ..models import model as model_lib
+from ..models.presets import get_preset
+from .tokenizer import get_tokenizer
+
+
+class InferenceEngine:
+    """Single-device inference engine.  ``params`` is the JAX package's
+    parameter tree as tensors (``models.model.init_params`` or
+    ``checkpoint.from_jax.params_from_numpy``), moved to ``device``."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        rt: RuntimeConfig,
+        params: Any,
+        tokenizer=None,
+        device: "str | torch.device | None" = None,
+    ) -> None:
+        model_lib.check_supported(cfg)
+        self.cfg = cfg
+        self.rt = rt
+        self.device = resolve_device(device)
+        for name, knob in (("serve_quantized", rt.serve_quantized),
+                           ("spec_decode", rt.spec_decode),
+                           ("kv_host_spill", rt.kv_host_spill)):
+            if knob:
+                raise NotImplementedError(
+                    f"runtime.{name} is not ported yet"
+                )
+        self.tokenizer = tokenizer or get_tokenizer(None)
+        # Out-of-vocab ids would index past the embedding table; reject the
+        # mismatch loudly.
+        tok_vocab = getattr(self.tokenizer, "vocab_size", None)
+        if tok_vocab is not None and tok_vocab > cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({tok_vocab}, incl. specials) exceeds model "
+                f"vocab ({cfg.vocab_size}); token ids would be out of range"
+            )
+        self.params = _to_device(params, self.device)
+
+    @classmethod
+    def from_preset(
+        cls, name: str, rt: RuntimeConfig | None = None, rng_seed: int = 0,
+        device: "str | torch.device | None" = None, **overrides,
+    ) -> "InferenceEngine":
+        """Random-weight engine for a named preset, drawn on the device
+        from a ``torch.Generator`` seeded with ``rng_seed``."""
+        dev = resolve_device(device)
+        cfg = get_preset(name, **overrides)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(rng_seed)
+        params = model_lib.init_params(cfg, generator=gen, device=dev)
+        return cls(cfg, rt or RuntimeConfig(), params, device=dev)
+
+    def continuous_batcher(
+        self, batch_slots: int = 8, max_len: int | None = None,
+        chunk_steps: int = 8, paged_pages: int | None = None,
+        page_size: int | None = None,
+        prefix_cache: bool | None = None,  # None -> rt.prefix_cache
+        speculative: bool | None = None,
+        prefill_chunk: int | None = None,
+        kv_bits: int | None = None,
+        host_pages: int | None = None,
+        overlap: bool | None = None,  # None -> rt.overlap
+        schedule: str | None = None,  # None -> rt.schedule
+        token_budget: int | None = None,
+        tenant_weights: "str | dict | None" = None,
+        tenant_max_rows: int | None = None,
+        faults: Any = None,
+    ):
+        """A ContinuousBatcher over this engine's model (paged KV pool,
+        optional automatic prefix cache).  Knobs of later port slices raise
+        ``NotImplementedError``, whether passed here or inherited from the
+        config."""
+        from .batcher import ContinuousBatcher
+
+        for what, requested in (
+            ("speculative decoding", speculative),
+            ("multi-tenant scheduling (tenant_weights/tenant_max_rows)",
+             tenant_weights or self.rt.tenant_weights or tenant_max_rows
+             or self.rt.tenant_max_rows),
+            ("fault injection (faults)", faults or self.rt.faults),
+        ):
+            if requested:
+                raise NotImplementedError(f"{what} is not ported yet")
+        # RuntimeConfig knobs are the defaults; explicit arguments win.  The
+        # batcher refuses the values of later slices it shares with the
+        # reference (contiguous mode, chunked prefill, token budgets, int8
+        # KV, the host tier, overlap).
+        return ContinuousBatcher(
+            self.cfg, self.params, tokenizer=self.tokenizer,
+            batch_slots=batch_slots,
+            max_len=min(max_len or self.rt.max_seq_len, self.cfg.max_seq_len),
+            chunk_steps=chunk_steps,
+            temperature=self.rt.temperature, top_k=self.rt.top_k,
+            top_p=self.rt.top_p, eos_id=self.tokenizer.eos_id,
+            pad_id=self.tokenizer.pad_id,
+            kv_dtype=self.rt.kv_cache_dtype,
+            paged_pages=(self.rt.paged_pages if paged_pages is None
+                         else paged_pages) or None,
+            page_size=page_size or self.rt.page_size,
+            prefix_cache=bool(self.rt.prefix_cache if prefix_cache is None
+                              else prefix_cache),
+            prefill_chunk=prefill_chunk,
+            token_budget=(self.rt.token_budget if token_budget is None
+                          else token_budget) or None,
+            kv_bits=self.rt.kv_bits if kv_bits is None else kv_bits,
+            host_pages=self.rt.host_pages if host_pages is None else host_pages,
+            overlap=self.rt.overlap if overlap is None else overlap,
+            schedule=schedule or self.rt.schedule,
+        )
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

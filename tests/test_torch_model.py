@@ -1,0 +1,179 @@
+"""The port's llama forward against the JAX package's, on the same weights.
+
+Weights come from ``distributed_llms_tpu.models.model.init_params`` and
+cross through ``checkpoint.from_jax.params_from_numpy``; tokens, pools and
+page tables are numpy-seeded.  float32 on the CPU at llama-tiny width
+(4 layers, d_model 64, 4 query heads over 2 KV heads) with vocab 512.
+Tolerance on logits and on the updated KV: atol = rtol = 1e-4 (four
+layers of float32 matmuls summed in another order).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from distributed_llms_tpu.models import model as jm
+from distributed_llms_tpu.models.presets import get_preset as jax_preset
+from distributed_llms_tpu_torch.checkpoint.from_jax import params_from_numpy
+from distributed_llms_tpu_torch.models import model as tm
+from distributed_llms_tpu_torch.models.presets import get_preset
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(seed=0, **overrides):
+    cfg_j = jax_preset("llama-tiny", vocab_size=512, **overrides)
+    cfg_t = get_preset("llama-tiny", vocab_size=512, **overrides)
+    pj = jm.init_params(jax.random.key(seed), cfg_j)
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
+    return cfg_j, cfg_t, pj, pt
+
+
+@pytest.mark.parametrize("overrides", [
+    {},
+    # Llama-3.1 rope rescale, a 3-slot context so positions cross it.
+    {"rope_scaling_factor": 8.0, "rope_original_max_len": 16,
+     "rope_theta": 500000.0},
+])
+def test_forward_logits_without_cache(overrides):
+    cfg_j, cfg_t, pj, pt = _pair(**overrides)
+    toks = np.random.default_rng(0).integers(0, 512, (2, 19)).astype(np.int32)
+    lj, _ = jm.forward(pj, cfg_j, jnp.asarray(toks))
+    lt, _ = tm.forward(pt, cfg_t, torch.from_numpy(toks))
+    assert lt.dtype == torch.float32 and tuple(lt.shape) == (2, 19, 512)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+
+
+def test_prefill_into_row_cache_and_continuation():
+    """Admission's two prefill legs: causal prefill into a padded row
+    cache, then a suffix under an explicit continuation mask."""
+    from distributed_llms_tpu.runtime.session import continuation_mask as jcm
+    from distributed_llms_tpu_torch.runtime.session import continuation_mask as tcm
+
+    cfg_j, cfg_t, pj, pt = _pair(1)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, 512, (1, 12)).astype(np.int32)
+    s = 32
+    cj = jm.init_cache(cfg_j, 1, s)
+    ct = tm.init_cache(cfg_t, 1, s)
+    pos = np.arange(12, dtype=np.int32)[None]
+    lj, cj = jm.forward(pj, cfg_j, jnp.asarray(prompt), positions=jnp.asarray(pos),
+                        cache=cj, cache_index=jnp.int32(0))
+    lt, ct = tm.forward(pt, cfg_t, torch.from_numpy(prompt),
+                        positions=torch.from_numpy(pos), cache=ct, cache_index=0)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(ct.k.numpy(), np.asarray(cj.k), **TOL)
+    # Suffix of 5 real + 3 pad tokens at slot 12.
+    chunk = rng.integers(0, 512, (1, 8)).astype(np.int32)
+    slots = np.arange(s, dtype=np.int32)
+    valid = (slots < 12)[None]
+    mj = jcm(jnp.asarray(valid), jnp.int32(12), 8, jnp.asarray(slots))
+    mt = tcm(torch.from_numpy(valid), 12, 8, torch.from_numpy(slots))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    pos2 = (12 + np.arange(8, dtype=np.int32))[None]
+    lj, cj = jm.forward(pj, cfg_j, jnp.asarray(chunk), positions=jnp.asarray(pos2),
+                        cache=cj, cache_index=jnp.int32(12), attn_mask=mj)
+    lt, ct = tm.forward(pt, cfg_t, torch.from_numpy(chunk),
+                        positions=torch.from_numpy(pos2), cache=ct,
+                        cache_index=12, attn_mask=mt)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(ct.v.numpy(), np.asarray(cj.v), **TOL)
+
+
+def test_paged_decode_step():
+    """One paged decode step: per-row positions and write slots, the KV
+    written through the page table, attention over each row's prefix
+    (the port's plain paged attention vs the JAX paged leg)."""
+    cfg_j, cfg_t, pj, pt = _pair(2)
+    rng = np.random.default_rng(2)
+    L, KVH, HD = cfg_t.num_layers, cfg_t.num_kv_heads, cfg_t.head_dim_
+    nb, blk, p, b = 13, 8, 4, 3
+    k_pool = rng.standard_normal((L, nb, blk, KVH, HD)).astype(np.float32)
+    v_pool = rng.standard_normal((L, nb, blk, KVH, HD)).astype(np.float32)
+    tables = (rng.permutation(nb - 1)[: b * p] + 1).reshape(b, p).astype(np.int32)
+    tables[2, 2:] = 0  # a shallow row whose later entries are scratch
+    real_lens = np.array([20, 31, 9], np.int32)
+    toks = rng.integers(0, 512, (b, 1)).astype(np.int32)
+    lj, cj = jm.forward(
+        pj, cfg_j, jnp.asarray(toks), positions=jnp.asarray(real_lens[:, None]),
+        cache=jm.KVCache(k=jnp.asarray(k_pool), v=jnp.asarray(v_pool)),
+        cache_index=jnp.asarray(real_lens), kv_tables=jnp.asarray(tables),
+    )
+    ct = tm.KVCache(k=torch.from_numpy(k_pool.copy()),
+                    v=torch.from_numpy(v_pool.copy()))
+    lt, ct = tm.forward(
+        pt, cfg_t, torch.from_numpy(toks),
+        positions=torch.from_numpy(real_lens[:, None]), cache=ct,
+        cache_index=torch.from_numpy(real_lens),
+        kv_tables=torch.from_numpy(tables),
+    )
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(ct.k.numpy(), np.asarray(cj.k), **TOL)
+    np.testing.assert_allclose(ct.v.numpy(), np.asarray(cj.v), **TOL)
+
+
+def test_init_params_keeps_the_stacked_layout():
+    cfg = get_preset("llama-tiny", qkv_bias=True)
+    g = torch.Generator().manual_seed(0)
+    pt = tm.init_params(cfg, generator=g, device="cpu")
+    pj = jm.init_params(jax.random.key(0), jax_preset("llama-tiny",
+                                                      qkv_bias=True))
+    shapes_j = jax.tree.map(lambda a: tuple(a.shape), pj)
+    shapes_t = jax.tree.map(lambda a: tuple(a.shape), pt)
+    assert shapes_t == shapes_j
+    # Reproducible from the generator's seed.
+    again = tm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    assert torch.equal(again["blocks"]["attn"]["wq"], pt["blocks"]["attn"]["wq"])
+
+
+def test_params_from_numpy_maps_every_leaf_and_checks_shapes():
+    cfg_j, cfg_t, pj, pt = _pair(3)
+    flat_j = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, pj))
+    for path, leaf in flat_j:
+        node = pt
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node.numpy(), leaf)
+    tree = jax.tree.map(np.asarray, pj)
+    tree["blocks"]["attn"]["wq"] = tree["blocks"]["attn"]["wq"][:, :, :2]
+    with pytest.raises(ValueError, match="wq"):
+        params_from_numpy(tree, cfg_t, device="cpu")
+    del tree["lm_head"]
+    with pytest.raises(ValueError, match="missing"):
+        params_from_numpy(tree, cfg_t, device="cpu")
+
+
+def test_bf16_tree_round_trips_exactly():
+    cfg_j = jax_preset("llama-tiny", dtype="bfloat16")
+    cfg_t = get_preset("llama-tiny", dtype="bfloat16")
+    pj = jm.init_params(jax.random.key(4), cfg_j)
+    pt = params_from_numpy(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
+    wq = pt["blocks"]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        wq.float().numpy(), np.asarray(pj["blocks"]["attn"]["wq"], np.float32)
+    )
+
+
+@pytest.mark.parametrize("change", [
+    {"family": "gpt2"}, {"num_experts": 4}, {"sliding_window": 8},
+    {"attn_impl": "flash"},
+])
+def test_later_slice_models_are_refused(change):
+    cfg = dataclasses.replace(get_preset("llama-tiny"), **change)
+    with pytest.raises(NotImplementedError):
+        tm.check_supported(cfg)

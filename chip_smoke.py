@@ -4,30 +4,43 @@ on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases, each printing one result line:
+Phases, each printing result lines:
 
 1. ``build``  — compile every kernel source under
    ``distributed_llms_tpu_torch/ops/csrc`` (one nvcc per source, started
    together) and print the build seconds and the register report.
 2. ``kernel`` — hold each kernel against its plain PyTorch version on the
-   card, at the main path's shapes (Llama-3-8B: B=8, H=32, KVH=8, D=128,
-   page size 64, ragged lengths 1..2048, a shuffled page table), plus a
-   table holding garbage past every row's depth.
+   card, at its path's shapes: K1 and K1q at Llama-3-8B's (B=8, H=32,
+   KVH=8, D=128, page size 64, ragged lengths 1..2048, a shuffled page
+   table, plus a table holding garbage past every row's depth; K1q's pools
+   quantized by the port's ``kv_quantize``), K2 at Mistral-7B's (B=8,
+   H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144, window 4096 and
+   none).
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
    time the card could take (the byte and operation bounds).
-4. ``model``  — a small bf16 llama decoding through the kernel on the card
-   against the same weights through the plain version on the CPU.
-5. ``serve``  — the port's main path as a user runs it: ``dlt-serve-torch
-   --preset llama-3-8b --paged-pages 256 --page-size 64 --prefix-cache``
-   (full width, random seeded weights) in-process, answering concurrent
-   HTTP completions and chat completions, greedy and sampled, one
-   streamed over SSE, three sharing a long prompt prefix.  Every kernel's
-   launch count is reset just before and read just after; the run fails
-   unless each kernel of the path launched.
-6. ``profile`` — the same weights serve a batch of 8 requests once more
+4. ``model``  — a small bf16 llama decoding through each kernel on the
+   card against the same weights through the plain versions on the CPU:
+   a paged bf16 pool (K1), an int8 pool (K1q), and a contiguous cache
+   with a 64-slot sliding window, decoded past the window (K2).
+5. ``serve``  — the port's paths as a user runs them, each through
+   ``serve_main.build_server`` at full width with random seeded weights,
+   answering concurrent HTTP requests:
+   a. ``dlt-serve-torch --preset llama-3-8b --paged-pages 256 --page-size
+      64 --prefix-cache`` (K1): completions and chat completions, greedy
+      and sampled, one streamed over SSE, three sharing a long prompt
+      prefix;
+   b. the same with ``--kv-bits 8`` (K1q), the same requests;
+   c. ``dlt-serve-torch --preset mistral-7b --max-len 6144`` (contiguous,
+      sliding window 4096; K2): one request with a 4400-byte prompt, so
+      its decode reads past the window, beside three short ones.
+   Every kernel's launch count is reset just before each path and read
+   just after; the run fails unless the path's kernel launched at least
+   layers x decode steps times.  Each engine is freed before the next
+   boots.
+6. ``profile`` — path a's weights serve a batch of 8 requests once more
    under ``torch.profiler``: host wall time against device kernel time,
-   split into the paged decode kernel, matrix products and the rest
+   split into the decode-attention kernels, matrix products and the rest
    (information, not a gate).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
@@ -54,11 +67,49 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
-SERVE_ARGS = [
-    "--preset", "llama-3-8b", "--paged-pages", "256", "--page-size", "64",
-    "--prefix-cache", "--slots", "8", "--host", "127.0.0.1", "--port", "0",
-    "--seed", "0",
-]
+_COMMON_ARGS = ["--slots", "8", "--host", "127.0.0.1", "--port", "0",
+                "--seed", "0"]
+SERVE_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "256",
+              "--page-size", "64", "--prefix-cache", *_COMMON_ARGS]
+SERVE_INT8_ARGS = [*SERVE_ARGS, "--kv-bits", "8"]
+SERVE_WINDOW_ARGS = ["--preset", "mistral-7b", "--max-len", "6144",
+                     *_COMMON_ARGS]
+
+# The kernels of the port's paths: name -> (wrapper, counter attribute).
+CSRC = "distributed_llms_tpu_torch/ops/csrc/"
+KERNELS = {
+    "paged_decode_attention": {
+        "route": "cuda", "source": CSRC + "paged_decode_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/decode_attn.py:470"},
+    "paged_decode_attention_int8": {
+        "route": "cuda", "source": CSRC + "paged_decode_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/decode_attn.py:470"},
+    "ragged_decode_attention": {
+        "route": "cuda", "source": CSRC + "ragged_decode_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/decode_attn.py:338"},
+}
+
+
+def _counters():
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    return {
+        "paged_decode_attention": (decode_attn.paged_decode_attention,
+                                   "launches"),
+        "paged_decode_attention_int8": (decode_attn.paged_decode_attention,
+                                        "int8_launches"),
+        "ragged_decode_attention": (decode_attn.ragged_decode_attention,
+                                    "launches"),
+    }
+
+
+def reset_launches() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 class SmokeFailure(Exception):
@@ -119,31 +170,91 @@ def paged_case(torch, *, b=8, h=32, kvh=8, d=128, blk=64, max_len=2048,
             lengths.to(torch.int32).to(dev), tables.to(dev))
 
 
-PAGED_TOL = 2e-2  # bf16 probabilities round at different points in the
-#   kernel (per tile, unnormalized) and the plain version (normalized)
+def quantize_pools(torch, k, v):
+    """The int8 leg's pools: the port's kv_quantize of the bf16 pools."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import kv_quantize
+
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    return kq, vq, ks, vs
+
+
+def ragged_case(torch, *, b=8, h=32, kvh=8, d=128, s=6144, seed=0):
+    """Path A's inputs (Mistral-7B at --max-len 6144): bf16 q and a
+    contiguous cache, ragged lengths in [1, S] (both ends included)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    lengths[0], lengths[-1] = 1, s
+    q = torch.randn(b, 1, h, d, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, kvh, d, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, kvh, d, generator=g).to(torch.bfloat16)
+    dev = torch.device("cuda")
+    return q.to(dev), k.to(dev), v.to(dev), lengths.to(torch.int32).to(dev)
+
+
+WINDOW = 4096  # Mistral-7B's sliding window
+
+# Tolerance of every kernel against its plain version, |err| on bf16
+# outputs of magnitude ~1: 2e-2, made of (a) bf16 probabilities rounded at
+# different points — per 64-slot tile and unnormalized in the kernels,
+# normalized in the plain versions (a few bf16 ulps, ~4e-3 each) — and
+# (b) the bf16 output rounding (one ulp, up to ~8e-3 near 2).  K1q adds
+# one bf16 ulp of the output itself, 2^-7 |out|: its plain version rounds
+# the dequantized V to bf16 (bf16(v_i8 * v_scale)) where the kernel, like
+# the TPU kernel, rounds p * v_scale to bf16 and multiplies v_i8 exactly —
+# two roundings of the same product that differ by up to an ulp (a row of
+# length 1 outputs that product itself).
+TOL = 2e-2
+TOL_REL_INT8 = 2.0 ** -7
+
+
+def _held(torch, name, got, want, rel=0.0, **info) -> float:
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
+          f"{tuple(want.shape)}/{want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} output not finite")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    over = (diff - rel * want.float().abs() - TOL).max().item()
+    tol = f"{TOL} + {rel} * |plain|" if rel else TOL
+    emit("kernel", name=name, max_abs_err=err, tol=tol, **info)
+    check(over <= 0, f"{name} |err| exceeds {tol} (max |err| {err})")
+    return err
 
 
 def phase_kernel(torch) -> dict:
     from distributed_llms_tpu_torch.ops import decode_attn
 
-    worst = 0.0
+    worst = {name: 0.0 for name in KERNELS}
     for garbage in (False, True):
-        args = paged_case(torch, garbage=garbage, seed=1 + garbage)
-        got = decode_attn.paged_decode_attention(*args)
-        torch.cuda.synchronize()
-        want = decode_attn.paged_reference(*args)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"kernel output {tuple(got.shape)}/{got.dtype} vs plain "
-              f"{tuple(want.shape)}/{want.dtype}")
-        check(bool(torch.isfinite(got.float()).all()), "kernel output not finite")
-        err = (got.float() - want.float()).abs().max().item()
-        emit("kernel", name="paged_decode_attention",
-             garbage_tables=garbage, max_abs_err=err, tol=PAGED_TOL)
-        check(err <= PAGED_TOL,
-              f"paged_decode_attention max|err| {err} > {PAGED_TOL}")
-        worst = max(worst, err)
-    return {"max_abs_err": worst}
+        q, k, v, lengths, tables = paged_case(torch, garbage=garbage,
+                                              seed=1 + garbage)
+        err = _held(torch, "paged_decode_attention",
+                    decode_attn.paged_decode_attention(q, k, v, lengths, tables),
+                    decode_attn.paged_reference(q, k, v, lengths, tables),
+                    garbage_tables=garbage)
+        worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
+                                              err)
+        kq, vq, ks, vs = quantize_pools(torch, k, v)
+        err = _held(torch, "paged_decode_attention_int8",
+                    decode_attn.paged_decode_attention(
+                        q, kq, vq, lengths, tables, k_scale=ks, v_scale=vs),
+                    decode_attn.paged_reference(q, kq, vq, lengths, tables,
+                                                ks, vs),
+                    rel=TOL_REL_INT8, garbage_tables=garbage)
+        worst["paged_decode_attention_int8"] = max(
+            worst["paged_decode_attention_int8"], err)
+    q, k, v, lengths = ragged_case(torch, seed=4)
+    for window in (WINDOW, None):
+        err = _held(torch, "ragged_decode_attention",
+                    decode_attn.ragged_decode_attention(q, k, v, lengths,
+                                                        window=window),
+                    decode_attn.dense_reference(q, k, v, lengths, window),
+                    window=window)
+        worst["ragged_decode_attention"] = max(
+            worst["ragged_decode_attention"], err)
+    return {name: {"max_abs_err": e} for name, e in worst.items()}
 
 
 def cuda_ms(torch, fn, iters=50, warmup=5) -> float:
@@ -160,120 +271,236 @@ def cuda_ms(torch, fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(kv_bytes: int, io_bytes: int, flops: int) -> tuple[float, str]:
+    """The least time for the work: the larger of its bytes over the
+    memory rate and its operations over the bf16 peak."""
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _turns(torch, kernel, plain, library, plain_iters=20) -> dict:
+    """Turns (plain, kernel, kernel, plain) in one call: compare within
+    it.  The library yardstick last."""
+    plain_a = cuda_ms(torch, plain, iters=plain_iters)
+    kern_a = cuda_ms(torch, kernel)
+    kern_b = cuda_ms(torch, kernel)
+    plain_b = cuda_ms(torch, plain, iters=plain_iters)
+    return {"ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+            "library_ms": cuda_ms(torch, library),
+            "kernel_ms_turns": [kern_a, kern_b],
+            "plain_ms_turns": [plain_a, plain_b]}
+
+
+def _timed(name, shapes, t, bound_ms, bound_by, kv_bytes) -> dict:
+    emit("timing", name=name, shapes=shapes, kernel_ms=t["kernel_ms_turns"],
+         plain_ms=t["plain_ms_turns"], library_ms=t["library_ms"],
+         bound_ms=bound_ms, bound_by=bound_by, kv_bytes=kv_bytes,
+         achieved_tb_s=kv_bytes / (t["ms"] * 1e-3) / 1e12)
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"]}
+
+
 def phase_timing(torch) -> dict:
     import torch.nn.functional as F
 
+    from distributed_llms_tpu_torch.checkpoint.quantize import kv_dequantize
     from distributed_llms_tpu_torch.ops import decode_attn
 
+    out = {}
     q, k, v, lengths, tables = paged_case(torch, seed=3)
     b, _, h, d = q.shape
     _, blk, kvh, _ = k.shape
     lens = lengths.long().cpu()
     depth = (lens + blk - 1) // blk
+    p = tables.shape[1]
+    shapes = {"B": b, "H": h, "KVH": kvh, "D": d, "BLK": blk,
+              "sum_lengths": int(lens.sum())}
     # Least work the function needs on these inputs: each live slot's K
-    # and V once, q and out once, the lengths and the table entries in
-    # reach; 2 operations per multiply-add for QK and for PV.
-    kv_bytes = int(lens.sum()) * kvh * d * 2 * 2
+    # and V once (and, int8, its two scales), q and out once, the lengths
+    # and the table entries in reach; 2 operations per multiply-add for QK
+    # and for PV.
     io_bytes = 2 * q.numel() * 2 + b * 4 + int(depth.sum()) * 4
     flops = 4 * int(lens.sum()) * h * d
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-
-    # Library yardstick: SDPA over each row's pages gathered and padded.
-    p = tables.shape[1]
+    qt = q.transpose(1, 2).contiguous()  # [B, H, 1, D]
     safe = torch.where(
         torch.arange(p, device=q.device)[None, :] < depth.to(q.device)[:, None],
         tables.long(), 0,
     )
-    kr = k[safe].reshape(b, p * blk, kvh, d).transpose(1, 2).contiguous()
-    vr = v[safe].reshape(b, p * blk, kvh, d).transpose(1, 2).contiguous()
     mask = (torch.arange(p * blk, device=q.device)[None, :]
             < lengths.long()[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2).contiguous()  # [B, H, 1, D]
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=mask,
-                                              enable_gqa=True)
+    def rows(pool):  # each row's pages gathered and padded, [B, KVH, S, D]
+        return pool[safe].reshape(b, p * blk, kvh, d).transpose(1, 2).contiguous()
 
-    lib_out = library().transpose(1, 2)
+    def sdpa(kr, vr, m):
+        return lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=m, enable_gqa=True)
+
+    # K1.  Library yardstick: SDPA over each row's gathered padded pages.
+    library = sdpa(rows(k), rows(v), mask)
     ref = decode_attn.paged_reference(q, k, v, lengths, tables)
-    lib_err = (lib_out.float() - ref.float()).abs().max().item()
-    check(lib_err <= PAGED_TOL, f"library yardstick disagrees ({lib_err})")
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"K1 library yardstick disagrees ({lib_err})")
+    kv_bytes = int(lens.sum()) * kvh * d * 2 * 2
+    t = _turns(torch,
+               lambda: decode_attn.paged_decode_attention(q, k, v, lengths,
+                                                          tables),
+               lambda: decode_attn.paged_reference(q, k, v, lengths, tables),
+               library)
+    out["paged_decode_attention"] = _timed(
+        "paged_decode_attention", shapes, t,
+        *_bound(kv_bytes, io_bytes, flops), kv_bytes)
 
-    # Turns (plain, kernel, kernel, plain) in one call: compare within it.
-    plain_a = cuda_ms(torch, lambda: decode_attn.paged_reference(
-        q, k, v, lengths, tables), iters=20)
-    kern_a = cuda_ms(torch, lambda: decode_attn.paged_decode_attention(
-        q, k, v, lengths, tables))
-    kern_b = cuda_ms(torch, lambda: decode_attn.paged_decode_attention(
-        q, k, v, lengths, tables))
-    plain_b = cuda_ms(torch, lambda: decode_attn.paged_reference(
-        q, k, v, lengths, tables), iters=20)
-    library_ms = cuda_ms(torch, library)
-    out = {
-        "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
-    emit("timing", name="paged_decode_attention", shapes={
-        "B": b, "H": h, "KVH": kvh, "D": d, "BLK": blk,
-        "sum_lengths": int(lens.sum()),
-    }, kernel_ms=[kern_a, kern_b], plain_ms=[plain_a, plain_b],
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-        kv_bytes=kv_bytes, achieved_tb_s=kv_bytes / (out["ms"] * 1e-3) / 1e12)
+    # K1q.  Library yardstick: SDPA over the gathered, dequantized rows.
+    kq, vq, ks, vs = quantize_pools(torch, k, v)
+    kd = kv_dequantize(kq, ks, torch.bfloat16)
+    vd = kv_dequantize(vq, vs, torch.bfloat16)
+    library = sdpa(rows(kd), rows(vd), mask)
+    ref = decode_attn.paged_reference(q, kq, vq, lengths, tables, ks, vs)
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"K1q library yardstick disagrees ({lib_err})")
+    kv_bytes = int(lens.sum()) * kvh * (d + 4) * 2
+    t = _turns(torch,
+               lambda: decode_attn.paged_decode_attention(
+                   q, kq, vq, lengths, tables, k_scale=ks, v_scale=vs),
+               lambda: decode_attn.paged_reference(q, kq, vq, lengths, tables,
+                                                   ks, vs),
+               library)
+    out["paged_decode_attention_int8"] = _timed(
+        "paged_decode_attention_int8", shapes, t,
+        *_bound(kv_bytes, io_bytes, flops), kv_bytes)
+
+    # K2, window 4096 (path A's) and none.  Library yardstick: SDPA with
+    # the band mask over the contiguous cache.
+    q, k, v, lengths = ragged_case(torch, seed=5)
+    b, s = k.shape[:2]
+    lens = lengths.long()
+    kr = k.transpose(1, 2).contiguous()
+    vr = v.transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    slots = torch.arange(s, device=q.device)[None, :]
+    for window in (WINDOW, None):
+        band = lens if window is None else lens.clamp(max=window)
+        m = slots < lens[:, None]
+        if window is not None:
+            m = m & (slots >= lens[:, None] - window)
+        library = sdpa(kr, vr, m[:, None, None, :])
+        ref = decode_attn.dense_reference(q, k, v, lengths, window)
+        lib_err = (library().transpose(1, 2).float()
+                   - ref.float()).abs().max().item()
+        check(lib_err <= TOL, f"K2 library yardstick disagrees ({lib_err})")
+        kv_bytes = int(band.sum()) * kvh * d * 2 * 2
+        t = _turns(torch,
+                   lambda: decode_attn.ragged_decode_attention(
+                       q, k, v, lengths, window=window),
+                   lambda: decode_attn.dense_reference(q, k, v, lengths,
+                                                       window),
+                   library, plain_iters=5)
+        timed = _timed(
+            "ragged_decode_attention",
+            {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": window,
+             "sum_band": int(band.sum())},
+            t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4,
+                       4 * int(band.sum()) * h * d), kv_bytes)
+        if window == WINDOW:
+            out["ragged_decode_attention"] = timed
     return out
 
 
-# -- phase 4: a small model through the kernel vs the plain version --------
+# -- phase 4: a small model through each kernel vs the plain version -------
 
-def phase_model(torch) -> None:
-    """Same bf16 weights and tokens: paged decode on the card (kernel)
-    against the CPU (plain version); logits must agree to bf16 noise."""
+def _small_cfg(**overrides):
     from distributed_llms_tpu_torch.core.config import ModelConfig
+
+    return ModelConfig(family="llama", vocab_size=512, hidden_size=512,
+                       intermediate_size=1024, num_layers=2, num_heads=8,
+                       num_kv_heads=2, head_dim=128, max_seq_len=256,
+                       tie_embeddings=False, dtype="bfloat16", **overrides)
+
+
+def _decode_logits(torch, cfg, params_cpu, dev, mode, lens, toks, steps):
+    """Admit each row's prompt through the batcher's own admission program
+    (prefill + splice into the pool or the row), then decode ``steps``
+    teacher-forced tokens; returns the logits of every step on the CPU."""
     from distributed_llms_tpu_torch.models import model as model_lib
     from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
 
-    cfg = ModelConfig(family="llama", vocab_size=512, hidden_size=512,
-                      intermediate_size=1024, num_layers=2, num_heads=8,
-                      num_kv_heads=2, head_dim=128, max_seq_len=256,
-                      tie_embeddings=False, dtype="bfloat16")
-    g = torch.Generator(device="cpu").manual_seed(7)
-    params_cpu = model_lib.init_params(cfg, generator=g, device="cpu")
-    logits = {}
-    for dev in ("cpu", "cuda"):
-        params = _tree_to(params_cpu, torch.device(dev))
-        pool = batcher_lib._paged_pool(cfg, 9, 16, device=dev)
-        b = 2
-        tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32,
-                              device=dev)
-        gen = torch.Generator(device="cpu").manual_seed(11)
-        lens = torch.tensor([37, 50], dtype=torch.int32)
-        toks = torch.randint(0, 512, (b, 60), generator=gen)
-        # Prefill each row's prompt, splice it into the pool, then decode.
+    params = _tree_to(params_cpu, torch.device(dev))
+    b = len(lens)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tables = None
+    if mode == "contiguous":
+        cache = model_lib.init_cache(cfg, b, 256, device=dev)
         for r in range(b):
-            n = int(lens[r])
-            _, row = batcher_lib._prefill_row(
-                params, cfg, pool.k.dtype, 64, toks[r, :n].to(dev))
-            l, _, _, kvh, hd = row.k.shape
-            pool.k[:, tables[r].long()] = row.k[:, 0].reshape(l, 4, 16, kvh, hd)
-            pool.v[:, tables[r].long()] = row.v[:, 0].reshape(l, 4, 16, kvh, hd)
-        last = toks[torch.arange(b), lens.long()].to(dev)
-        out, _ = model_lib.forward(
-            params, cfg, last[:, None], positions=lens.to(dev)[:, None],
-            cache=pool, cache_index=lens.to(dev), kv_tables=tables,
-        )
-        logits[dev] = out.float().cpu()
-    check(bool(torch.isfinite(logits["cuda"]).all()), "model logits not finite")
-    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-    scale = logits["cpu"].abs().max().item()
-    agree = (logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)).float().mean().item()
-    emit("model", max_abs_logit_err=err, logit_scale=scale, argmax_agree=agree)
-    # Tolerance: 5% of the logit scale — bf16 activations round differently
-    # through cuBLAS and the CPU's matmuls, on top of the kernel's own
-    # bf16-probability rounding.
-    check(err <= 0.05 * max(scale, 1.0), f"model logits disagree ({err})")
+            batcher_lib.admit_row(params, cfg, cache, r,
+                                  toks[r, :lens[r]].to(dev), lens[r], gen)
+    else:
+        cache = batcher_lib._paged_pool(cfg, 1 + 4 * b, 64, device=dev,
+                                        kv_bits=8 if mode == "int8" else 16)
+        tables = torch.arange(1, 1 + 4 * b, dtype=torch.int32,
+                              device=dev).reshape(b, 4)
+        for r in range(b):
+            batcher_lib.admit_row_paged(params, cfg, cache, tables[r],
+                                        toks[r, :lens[r]].to(dev), lens[r],
+                                        gen)
+    out = []
+    pos = torch.tensor(lens, dtype=torch.int32)
+    for j in range(steps):
+        last = toks[torch.arange(b), pos.long()].to(dev)
+        logits, cache = model_lib.forward(
+            params, cfg, last[:, None], positions=pos.to(dev)[:, None],
+            cache=cache, cache_index=pos.to(dev), kv_tables=tables)
+        out.append(logits.float().cpu())
+        pos = pos + 1
+    return torch.cat(out, dim=1)
+
+
+def phase_model(torch) -> None:
+    """Same bf16 weights and tokens on the card (kernels) and on the CPU
+    (plain versions): paged bf16 (K1), int8 pages (K1q), and a contiguous
+    cache with a 64-slot sliding window decoded past it (K2).  Logits must
+    agree to bf16 noise, and each kernel must have run for every layer of
+    every step."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    legs = [
+        ("paged_decode_attention", "paged", {}),
+        ("paged_decode_attention_int8", "int8", {}),
+        ("ragged_decode_attention", "contiguous", {"sliding_window": 64}),
+    ]
+    steps = 3
+    for name, mode, overrides in legs:
+        cfg = _small_cfg(**overrides)
+        params_cpu = model_lib.init_params(
+            cfg, generator=torch.Generator(device="cpu").manual_seed(7),
+            device="cpu")
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        lens = [97, 150] if overrides else [37, 50]
+        toks = torch.randint(0, 512, (2, 200), generator=gen)
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            reset_launches()
+            logits[dev] = _decode_logits(torch, cfg, params_cpu, dev, mode,
+                                         lens, toks, steps)
+        launched = read_launches()[name]
+        check(bool(torch.isfinite(logits["cuda"]).all()),
+              f"model logits not finite ({name})")
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        scale = logits["cpu"].abs().max().item()
+        agree = (logits["cuda"].argmax(-1)
+                 == logits["cpu"].argmax(-1)).float().mean().item()
+        emit("model", kernel=name, cache=mode, window=cfg.sliding_window,
+             lengths=lens, decode_steps=steps, launches=launched,
+             max_abs_logit_err=err, logit_scale=scale, argmax_agree=agree)
+        check(launched == cfg.num_layers * steps,
+              f"{name} launched {launched} times for {steps} steps x "
+              f"{cfg.num_layers} layers")
+        # Tolerance: 5% of the logit scale — bf16 activations round
+        # differently through cuBLAS and the CPU's matmuls, on top of the
+        # kernels' own bf16-probability rounding.
+        check(err <= 0.05 * max(scale, 1.0),
+              f"model logits disagree ({name}: {err})")
 
 
 def _tree_to(tree, device):
@@ -387,47 +614,152 @@ async def _serve_requests(port: int) -> dict:
                 for o in outs if "usage" in o[1]]}
 
 
-def phase_serve(torch) -> dict:
+async def _serve_window_requests(port: int) -> dict:
+    """Path c's burst: one request whose 4400-byte prompt (4401 tokens
+    with BOS) puts every decode step past Mistral-7B's 4096-slot window,
+    beside three short concurrent requests, greedy and sampled."""
+    long_prompt = ("Freight log, dock 7, one line per pallet: " + "".join(
+        f"pallet {i:04d} checked in at bay {i % 13:02d}; " for i in range(200)
+    ))[:4400]
+    check(len(long_prompt) == 4400, "long prompt under 4400 bytes")
+    reqs = [
+        {"prompt": long_prompt, "max_tokens": 48, "temperature": 0.0,
+         "logprobs": True},
+        {"prompt": "Short check one: name a colour.", "max_tokens": 32,
+         "temperature": 0.0},
+        {"prompt": "Short check two: count to five.", "max_tokens": 32,
+         "temperature": 0.8, "top_p": 0.9},
+        {"prompt": "Short check three.", "max_tokens": 24, "top_k": 40,
+         "temperature": 1.0},
+    ]
+
+    async def one(body):
+        t0 = time.perf_counter()
+        status, resp = await _http(port, "/v1/completions", body)
+        return status, resp, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[one(body) for body in reqs])
+    wall = time.perf_counter() - t0
+    n_tokens = 0
+    for body, (status, resp, _) in zip(reqs, outs):
+        check(status == 200, f"window request answered {status}: {resp}")
+        got = resp["usage"]["completion_tokens"]
+        reason = resp["choices"][0]["finish_reason"]
+        check(got == body["max_tokens"] or reason == "stop",
+              f"window request produced {got}/{body['max_tokens']} tokens")
+        n_tokens += got
+    long_usage = outs[0][1]["usage"]
+    check(long_usage["prompt_tokens"] > WINDOW,
+          "the long request does not decode past the window")
+    lp = outs[0][1]["choices"][0]["logprobs"]["token_logprobs"]
+    check(all(math.isfinite(x) and x <= 0 for x in lp),
+          "non-finite or positive logprob")
+    return {"requests": len(reqs), "completion_tokens": n_tokens,
+            "wall_s": wall, "tokens_per_s": n_tokens / wall,
+            "request_wall_s": [o[2] for o in outs],
+            "long_prompt_tokens": long_usage["prompt_tokens"],
+            "long_completion_tokens": long_usage["completion_tokens"]}
+
+
+def _free(torch) -> None:
+    """Return the device memory of a dropped engine before the next boots."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_path(torch, label, argv, kernel, requests, check_cfg) -> tuple:
+    """Boot ``dlt-serve-torch argv`` in-process through the user's entry
+    point, answer ``requests(port)`` over HTTP, and hold the path to its
+    kernel: every count 0 just before, read just after, the path's kernel
+    at least layers x decode steps.  Returns (launches, server)."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
-    from distributed_llms_tpu_torch.ops import decode_attn
 
-    args = serve_main.parser().parse_args(SERVE_ARGS)
+    args = serve_main.parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = serve_main.build_server(args)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     cfg = server.batcher.cfg
-    check(cfg.hidden_size == 4096 and cfg.num_layers == 32
-          and cfg.vocab_size == 128256, "not the full-width llama-3-8b")
+    check_cfg(cfg)
 
     async def run():
         await server.start()
         try:
-            return await _serve_requests(server.bound_port)
+            return await requests(server.bound_port)
         finally:
             await server.stop()
 
-    # Every kernel count to 0 just before the main path, read just after.
-    decode_attn.paged_decode_attention.launches = 0
+    reset_launches()
     result = asyncio.run(run())
-    launches = {"paged_decode_attention":
-                decode_attn.paged_decode_attention.launches}
+    launches = read_launches()
     b = server.batcher
     steps = b.decode_steps
-    hits = b.prefix_cache.hits
     b.assert_pool_consistent()
+    extra = {}
+    if b.prefix_cache is not None:
+        extra = {"prefix_cache_hits": b.prefix_cache.hits,
+                 "prefix_hit_tokens": b.prefix_cache.hit_tokens}
     ttft = METRICS.snapshot()["histograms"].get("server.ttft_seconds", {})
-    emit("serve", boot_s=boot_s, decode_steps=steps, launches=launches,
-         prefix_cache_hits=hits, prefix_hit_tokens=b.prefix_cache.hit_tokens,
-         ttft_s={k: ttft.get(k) for k in ("p50", "max", "count")},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **result)
-    check(steps > 0, "no decode step ran")
-    check(launches["paged_decode_attention"] >= cfg.num_layers * steps,
-          f"paged kernel launched {launches['paged_decode_attention']} times "
-          f"for {steps} decode steps x {cfg.num_layers} layers")
-    check(hits > 0, "no prefix-cache hit")
-    return launches, b
+    emit("serve", path=label, argv=argv, boot_s=boot_s, decode_steps=steps,
+         launches=launches, kv_bits=b.kv_bits, paged=b.paged,
+         sliding_window=cfg.sliding_window, max_len=b.s,
+         ttft_s_cumulative={k: ttft.get(k) for k in ("p50", "max", "count")},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **extra, **result)
+    check(steps > 0, f"{label}: no decode step ran")
+    check(launches[kernel] >= cfg.num_layers * steps,
+          f"{label}: {kernel} launched {launches[kernel]} times for {steps} "
+          f"decode steps x {cfg.num_layers} layers")
+    return launches, server
+
+
+def _llama_3_8b(cfg) -> None:
+    check(cfg.hidden_size == 4096 and cfg.num_layers == 32
+          and cfg.vocab_size == 128256, "not the full-width llama-3-8b")
+
+
+def _mistral_7b(cfg) -> None:
+    check(cfg.hidden_size == 4096 and cfg.num_layers == 32
+          and cfg.num_kv_heads == 8 and cfg.vocab_size == 32000
+          and cfg.sliding_window == WINDOW, "not the full-width mistral-7b")
+
+
+def phase_serve(torch, profile: bool) -> dict:
+    """The three paths, one engine at a time.  Returns each kernel's
+    launches on its own path."""
+    launches, server = serve_path(torch, "paged", SERVE_ARGS,
+                                  "paged_decode_attention", _serve_requests,
+                                  _llama_3_8b)
+    check(server.batcher.prefix_cache.hits > 0, "paged: no prefix-cache hit")
+    out = {"paged_decode_attention": launches["paged_decode_attention"]}
+    if profile:
+        phase_profile(torch, server.batcher)
+    del server
+    _free(torch)
+
+    launches, server = serve_path(torch, "paged_int8", SERVE_INT8_ARGS,
+                                  "paged_decode_attention_int8",
+                                  _serve_requests, _llama_3_8b)
+    check(server.batcher.kv_bits == 8, "paged_int8: the pool is not int8")
+    check(server.batcher.prefix_cache.hits > 0,
+          "paged_int8: no prefix-cache hit")
+    out["paged_decode_attention_int8"] = launches["paged_decode_attention_int8"]
+    del server
+    _free(torch)
+
+    launches, server = serve_path(torch, "windowed", SERVE_WINDOW_ARGS,
+                                  "ragged_decode_attention",
+                                  _serve_window_requests, _mistral_7b)
+    check(not server.batcher.paged, "windowed: not contiguous mode")
+    out["ragged_decode_attention"] = launches["ragged_decode_attention"]
+    del server
+    _free(torch)
+    return out
 
 
 # -- phase 6: where a full-width batch's time goes ---------------------------
@@ -435,8 +767,8 @@ def phase_serve(torch) -> dict:
 def phase_profile(torch, batcher) -> None:
     """A fresh batcher over the served weights runs 8 requests (300-token
     prompts, 64 new tokens) once to warm up and once under the profiler:
-    host wall time against device kernel time, split into the paged
-    decode kernel, the matrix products and everything else.  Information
+    host wall time against device kernel time, split into the decode-
+    attention kernels, the matrix products and everything else.  Information
     for PERF.md, not a gate."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -454,14 +786,14 @@ def phase_profile(torch, batcher) -> None:
     wall, steps = run()  # warm-up, and the unprofiled wall time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prof_wall, _ = run()
-    split = {"paged_decode_kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"decode_attention_kernel": 0.0, "matmul": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.device_time_total
         name = e.name
-        if "paged_decode_kernel" in name:
-            split["paged_decode_kernel"] += us
+        if "paged_decode_kernel" in name or "ragged_decode_kernel" in name:
+            split["decode_attention_kernel"] += us
         elif any(k in name for k in ("gemm", "nvjet", "cutlass", "splitK",
                                      "sm90_xmma")):
             split["matmul"] += us
@@ -499,26 +831,24 @@ def main() -> int:
               "is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    kernel = {"name": "paged_decode_attention", "route": "cuda",
-              "source": "distributed_llms_tpu_torch/ops/csrc/paged_decode_attn.cu",
-              "replaces": "distributed_llms_tpu/ops/decode_attn.py:470",
-              "launches": None, "max_abs_err": None, "ms": None,
-              "plain_ms": None, "bound_ms": None, "bound_by": None,
-              "library_ms": None}
+    kernels = {name: {"name": name, **info, "launches": None,
+                      "max_abs_err": None, "ms": None, "plain_ms": None,
+                      "bound_ms": None, "bound_by": None, "library_ms": None}
+               for name, info in KERNELS.items()}
     try:
         if "build" in phases:
             phase_build()
         if "kernel" in phases:
-            kernel.update(phase_kernel(torch))
+            for name, got in phase_kernel(torch).items():
+                kernels[name].update(got)
         if "timing" in phases:
-            kernel.update(phase_timing(torch))
+            for name, got in phase_timing(torch).items():
+                kernels[name].update(got)
         if "model" in phases:
             phase_model(torch)
         if "serve" in phases:
-            launches, batcher = phase_serve(torch)
-            kernel["launches"] = launches["paged_decode_attention"]
-            if "profile" in phases:
-                phase_profile(torch, batcher)
+            for name, n in phase_serve(torch, "profile" in phases).items():
+                kernels[name]["launches"] = n
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -527,7 +857,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=30,
     ).stdout.strip()
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     if set(phases) != set(PHASES):
         print("partial run: no result line", file=sys.stderr)
         return 3

@@ -2,9 +2,13 @@
 
 ``dlt-serve-torch --preset llama-3-8b --paged-pages 256 --prefix-cache``
 boots an InferenceEngine with random seeded weights on the GPU, wraps a
-paged, prefix-cached continuous batcher in the OpenAI-style HTTP gateway
-(runtime/server.py), and serves until SIGTERM/SIGINT.  ``--device cpu``
-runs on the CPU; without a GPU and without it, the boot raises.
+paged, prefix-cached continuous batcher (``--kv-bits 8``: int8 pages) in
+the OpenAI-style HTTP gateway (runtime/server.py), and serves until
+SIGTERM/SIGINT.  Without ``--paged-pages`` (or with ``--paged-pages 0``)
+the batcher serves contiguous mode, the one mode for sliding-window
+models: ``dlt-serve-torch --preset mistral-7b --max-len 6144``.
+``--device cpu`` runs on the CPU; without a GPU and without it, the boot
+raises.
 
 The flags mirror ``dlt-serve``'s.  Those of later port slices are
 accepted by the parser and refused with ``NotImplementedError`` when set,
@@ -28,7 +32,6 @@ log = get_logger("serve_main")
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
     "store": "shard-store loading (--store)",
-    "kv_bits": "int8 KV pages (--kv-bits 8)",
     "host_pages": "the host-RAM KV tier (--host-pages)",
     "token_budget": "the mixed schedule's token budget (--token-budget)",
     "prefill_chunk": "chunked prefill (--prefill-chunk)",
@@ -41,7 +44,7 @@ _LATER_SLICE_FLAGS: dict[str, str] = {
     "disaggregate": "disaggregated prefill/decode (--disaggregate)",
     "fault": "fault injection (--fault)",
 }
-_LATER_SLICE_DEFAULTS = {"kv_bits": 16, "host_pages": 0, "token_budget": 0,
+_LATER_SLICE_DEFAULTS = {"host_pages": 0, "token_budget": 0,
                          "replicas": 1, "disaggregate": False, "fault": []}
 
 
@@ -55,10 +58,6 @@ def _refuse_later_slices(args) -> None:
     if args.overlap == "on":
         raise NotImplementedError(
             "the dispatch-ahead overlap loop (--overlap on) is not ported yet"
-        )
-    if args.paged_pages == 0:
-        raise NotImplementedError(
-            "contiguous (non-paged) KV (--paged-pages 0) is not ported yet"
         )
 
 
@@ -99,6 +98,7 @@ def _server_factory(args, engine, default_name, rt):
             paged_pages=args.paged_pages,
             page_size=args.page_size,
             prefix_cache=args.prefix_cache,
+            kv_bits=args.kv_bits,
             overlap=args.overlap == "on",
             schedule=args.schedule,
         )
@@ -179,7 +179,8 @@ def parser() -> argparse.ArgumentParser:
                     help="decode steps per scheduling chunk")
     ap.add_argument("--paged-pages", type=int, default=None,
                     help="paged KV: size of the shared page pool (pages) "
-                         "(default: runtime.paged_pages; required)")
+                         "(default: runtime.paged_pages; 0 or unset serves "
+                         "contiguous KV)")
     ap.add_argument("--page-size", type=int, default=None,
                     help="paged KV: tokens per page (default: "
                          "runtime.page_size)")
@@ -187,6 +188,11 @@ def parser() -> argparse.ArgumentParser:
                     default=None,
                     help="automatic prefix caching over the paged pool "
                          "(default: runtime.prefix_cache)")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[16, 8],
+                    help="8 stores paged KV pages as int8 with one float32 "
+                         "absmax scale per head vector (about half the "
+                         "bytes; not bit-exact).  Needs --paged-pages.  "
+                         "Default: runtime.kv_bits (16)")
     ap.add_argument("--schedule", choices=["mixed", "alternate"],
                     default=None,
                     help="scheduling policy (default: runtime.schedule)")
@@ -212,8 +218,6 @@ def parser() -> argparse.ArgumentParser:
                          "for this many seconds")
     # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--store", default=None, help="not ported yet")
-    ap.add_argument("--kv-bits", type=int, default=None, choices=[16, 8],
-                    help="not ported yet (16 only)")
     ap.add_argument("--host-pages", type=int, default=None,
                     help="not ported yet")
     ap.add_argument("--token-budget", type=int, default=None,

@@ -111,13 +111,33 @@ def causal_mask(
     q_positions: torch.Tensor,
     k_positions: torch.Tensor,
     k_valid: torch.Tensor | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Boolean mask [B, 1, Tq, Tk]: query at position p attends keys at
-    positions <= p; ``k_valid`` ([B, Tk] bool) masks unwritten slots."""
+    positions <= p; ``k_valid`` ([B, Tk] bool) masks unwritten slots;
+    ``window`` (sliding-window attention) further restricts keys to
+    positions in (p - window, p]."""
     mask = k_positions[:, None, None, :] <= q_positions[:, None, :, None]
     if k_valid is not None:
         mask = mask & k_valid[:, None, None, :]
+    if window is not None:
+        mask = and_window(mask, q_positions, k_positions, window)
     return mask
+
+
+def and_window(
+    mask: torch.Tensor,
+    q_positions: torch.Tensor,
+    k_positions: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+    """AND the sliding-window lower bound (keys in (p - window, p]) into an
+    existing attention mask — the one definition of the window, shared by
+    :func:`causal_mask` and the caller-supplied-mask paths of
+    ``models.model._attention``."""
+    return mask & (
+        k_positions[:, None, None, :] > q_positions[:, None, :, None] - window
+    )
 
 
 # ---------------------------------------------------------------------------

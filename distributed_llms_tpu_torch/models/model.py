@@ -4,13 +4,18 @@
 Parameters are the JAX package's pytree as plain dictionaries of tensors,
 stacked over the layer axis (``params["blocks"][...]`` leaves lead with
 L); :func:`run_blocks` walks the layers in a Python loop where the JAX
-package runs ``lax.scan``.  Two cache layouts, as in the reference:
+package runs ``lax.scan``.  Three cache layouts, as in the reference:
 
-- a contiguous row cache ``[L, B, S, KVH, HD]`` (admission prefill: a
-  scalar ``cache_index``, causal or caller-supplied mask);
+- a contiguous row cache ``[L, B, S, KVH, HD]``: a scalar ``cache_index``
+  (admission prefill, causal or caller-supplied mask), or per-row
+  ``cache_index`` (contiguous decode, one token per row, read by the
+  ragged decode-attention kernel with the model's sliding window);
 - a paged pool ``[L, NB, BLK, KVH, HD]`` addressed through ``kv_tables``
   (paged decode: per-row ``cache_index``, one token per row), read by the
-  paged decode-attention kernel (``ops/decode_attn.py``).
+  paged decode-attention kernel (``ops/decode_attn.py``);
+- the same pool in int8 with float32 absmax scales
+  (:class:`QuantKVCache`), quantized at the write and read by the
+  kernel's int8 leg.
 
 Both caches are UPDATED IN PLACE: the JAX code writes into donated
 buffers (``dynamic_update_slice`` / ``.at[].set``), the port writes the
@@ -42,20 +47,15 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the llama family (GQA + RoPE, SwiGLU, RMSNorm) with
-    global attention; the other families, MoE and sliding windows are
-    later slices and are refused loudly."""
+    """The port serves the llama family (GQA + RoPE, SwiGLU, RMSNorm),
+    with global or sliding-window attention; the other families and MoE
+    are later slices and are refused loudly."""
     if cfg.family != "llama":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (llama only)"
         )
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE blocks are not ported yet")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (the paged decode "
-            "kernel attends each row's full prefix)"
-        )
     if cfg.attn_impl != "dot":
         raise NotImplementedError(
             f"attn_impl {cfg.attn_impl!r} is not ported yet (dot only)"
@@ -79,6 +79,25 @@ class KVCache:
         return self.k.shape[2]
 
 
+@dataclass
+class QuantKVCache:
+    """Int8 KV page pool (``--kv-bits 8``): ``k``/``v`` hold the pool pages
+    at int8 ``[L, NB, BLK, KVH, HD]`` and ``k_scale``/``v_scale`` one
+    float32 absmax scale per head-dim vector ``[L, NB, BLK, KVH]``
+    (``checkpoint.quantize.kv_quantize``'s layout).  Pages are quantized
+    ONCE at the write (admission splice, decode-step write) and read by the
+    decode kernel's int8 leg, which folds the scales into the contraction.
+    ``row_dtype`` names the full-width dtype transient row caches and
+    prefix gathers restore to.  Decode-only through :func:`forward`
+    (``kv_tables`` required)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    row_dtype: str = "bfloat16"
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: Any = None,
                device: "torch.device | str | None" = None) -> KVCache:
     dtype = torch_dtype(dtype or cfg.dtype)
@@ -96,7 +115,8 @@ def _attention(
     p: Params,
     cfg: ModelConfig,
     positions: torch.Tensor,
-    layer_cache: tuple[torch.Tensor, torch.Tensor] | None,
+    layer_cache: tuple[torch.Tensor, ...] | None,  # (k, v) views of the
+    #   layer's cache, or (k, v, k_scale, v_scale) of an int8 pool
     cache_index: torch.Tensor | int | None,
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] int32 page table: the
@@ -104,7 +124,7 @@ def _attention(
     #   lives at (tables[b, s // BLK], s % BLK).  Decode only (T == 1,
     #   per-row cache_index); the mask is implicitly the prefix
     #   [0, cache_index[b]].
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...] | None]:
     q, k, v = layers.qkv_project(x, p, cfg)
     rope_scale = (
         (cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
@@ -113,13 +133,19 @@ def _attention(
     )
     q = layers.apply_rope(q, positions, cfg.rope_theta, rope_scale)
     k = layers.apply_rope(k, positions, cfg.rope_theta, rope_scale)
+    window = cfg.sliding_window
+    per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
 
     if kv_tables is not None:
-        if (layer_cache is None or not torch.is_tensor(cache_index)
-                or cache_index.dim() != 1):
+        if layer_cache is None or not per_row:
             raise ValueError(
                 "paged attention is per-row decode (a per-row cache_index "
                 "over a page-pool cache)"
+            )
+        if window is not None:
+            raise ValueError(
+                "paged decode attends each row's full cache prefix; it "
+                "cannot honor sliding_window"
             )
         if x.shape[1] > 1:
             raise NotImplementedError(
@@ -128,53 +154,92 @@ def _attention(
             )
         from ..ops import decode_attn
 
-        ck, cv = layer_cache  # [NB, BLK, KVH, HD] views into the pool
+        ck, cv = layer_cache[:2]  # [NB, BLK, KVH, HD] views into the pool
         blk = ck.shape[1]
         rows = torch.arange(x.shape[0], device=x.device)
         page = kv_tables[rows, (cache_index // blk).long()].long()
         off = (cache_index % blk).long()
+        lengths = (cache_index + 1).to(torch.int32)
         # Per-row single-slot write, in place.  Live rows own distinct
         # pages; freed rows' tables point at the shared scratch page 0, so
         # two inactive rows CAN write the same (page, off) — any winner is
         # fine, no live row ever reads the scratch page.
+        if len(layer_cache) == 4:
+            # Int8 pool: quantize this step's K/V vector per (row, head),
+            # write data and scale in place, and hand the kernel the
+            # scales — it folds them into the contraction.
+            from ..checkpoint.quantize import kv_quantize
+
+            sk, sv = layer_cache[2:]
+            ck[page, off], sk[page, off] = kv_quantize(k[:, 0])
+            cv[page, off], sv[page, off] = kv_quantize(v[:, 0])
+            out = decode_attn.paged_decode_attention(
+                q, ck, cv, lengths, kv_tables, k_scale=sk, v_scale=sv
+            )
+            return layers.out_project(out, p), layer_cache
         ck[page, off] = k[:, 0].to(ck.dtype)
         cv[page, off] = v[:, 0].to(cv.dtype)
-        out = decode_attn.paged_decode_attention(
-            q, ck, cv, (cache_index + 1).to(torch.int32), kv_tables
-        )
+        out = decode_attn.paged_decode_attention(q, ck, cv, lengths, kv_tables)
         return layers.out_project(out, p), (ck, cv)
 
     if layer_cache is not None:
         ck, cv = layer_cache  # [B, S, KVH, HD] views into the row cache
-        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
-            raise NotImplementedError(
-                "per-row writes into a contiguous cache (contiguous "
-                "batching) are not ported yet"
+        s = ck.shape[1]
+        if per_row:
+            # Contiguous batching: rows admitted at different times sit at
+            # different depths.  Each row writes its one slot in place —
+            # clamped to the last slot, as the JAX package's
+            # dynamic_update_slice clamps a start past S - 1 (the batcher
+            # never passes S: a finished row idles at S - 1 at most) — and
+            # attends its prefix [0, cache_index + 1), or the window band
+            # of it, through the ragged kernel.
+            if x.shape[1] > 1:
+                raise NotImplementedError(
+                    "multi-token per-row windows (speculative verify) are "
+                    "not ported yet"
+                )
+            from ..ops import decode_attn
+
+            rows = torch.arange(x.shape[0], device=x.device)
+            slot = cache_index.long().clamp(0, s - 1)
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            out = decode_attn.ragged_decode_attention(
+                q, ck, cv, (cache_index + 1).to(torch.int32), window=window
             )
+            return layers.out_project(out, p), (ck, cv)
         ci = int(cache_index)
         t = x.shape[1]
-        if ci < 0 or ci + t > ck.shape[1]:
+        if ci < 0 or ci + t > s:
             # The JAX package's dynamic_update_slice would CLAMP the start
             # and silently misalign the chunk; refuse instead.
             raise ValueError(
-                f"cache write [{ci}, {ci + t}) outside a {ck.shape[1]}-slot "
-                "cache"
+                f"cache write [{ci}, {ci + t}) outside a {s}-slot cache"
             )
         ck[:, ci:ci + t] = k.to(ck.dtype)
         cv[:, ci:ci + t] = v.to(cv.dtype)
+        # Causality and validity compare slots, the window positions; the
+        # caller-supplied masks (prefix continuation) carry the first two,
+        # and every path ANDs in the window.  Slot == position here.
+        k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
         if attn_mask is None:
-            s = ck.shape[1]
-            k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
             attn_mask = layers.causal_mask(
-                positions, k_positions, k_positions < ci + t
+                positions, k_positions, k_positions < ci + t, window=window
             )
+        elif window is not None:
+            attn_mask = layers.and_window(attn_mask, positions, k_positions,
+                                          window)
         k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
         v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
         out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
         return layers.out_project(out, p), (ck, cv)
 
-    mask = (layers.causal_mask(positions, positions) if attn_mask is None
-            else attn_mask)
+    if attn_mask is None:
+        mask = layers.causal_mask(positions, positions, window=window)
+    elif window is not None:
+        mask = layers.and_window(attn_mask, positions, positions, window)
+    else:
+        mask = attn_mask
     out = layers.dot_product_attention(
         q, layers.repeat_kv(k, cfg.q_per_kv),
         layers.repeat_kv(v, cfg.q_per_kv), mask,
@@ -211,12 +276,20 @@ def run_blocks(
     cache_index,
     attn_mask: torch.Tensor | None = None,
     kv_tables: torch.Tensor | None = None,
+    cache_sk: torch.Tensor | None = None,  # [L, NB, BLK, KVH] scales of an
+    cache_sv: torch.Tensor | None = None,  #   int8 pool
 ) -> torch.Tensor:
     """Run the stacked blocks over x, layer by layer (the JAX package's
-    ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``."""
+    ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``
+    (and the scales of an int8 pool)."""
     n_layers = blocks["ln1"]["scale"].shape[0]
     for i in range(n_layers):
-        layer_cache = None if cache_k is None else (cache_k[i], cache_v[i])
+        if cache_k is None:
+            layer_cache = None
+        elif cache_sk is None:
+            layer_cache = (cache_k[i], cache_v[i])
+        else:
+            layer_cache = (cache_k[i], cache_v[i], cache_sk[i], cache_sv[i])
         x, _ = llama_block(x, layer_params(blocks, i), cfg, positions,
                            layer_cache, cache_index, attn_mask, kv_tables)
     return x
@@ -259,15 +332,16 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, T] int
     positions: torch.Tensor | None = None,  # [B, T] int
-    cache: KVCache | None = None,
+    cache: "KVCache | QuantKVCache | None" = None,
     cache_index=None,  # int/scalar write offset, or [B] per-row offsets
-    #   (paged decode; kv_tables required)
+    #   (contiguous or paged decode, one token per row)
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] page table: the cache
     #   holds page POOLS [L, NB, BLK, KVH, HD] (paged decode)
-) -> tuple[torch.Tensor, KVCache | None]:
+) -> tuple[torch.Tensor, "KVCache | QuantKVCache | None"]:
     """Full forward.  Returns (logits [B, T, V] float32, the cache — the
-    same object, updated in place)."""
+    same object, updated in place).  A :class:`QuantKVCache` serves paged
+    decode only (``kv_tables`` required)."""
     check_supported(cfg)
     b, t = tokens.shape
     if positions is None:
@@ -277,6 +351,17 @@ def forward(
     if cache is None:
         x = run_blocks(x, params["blocks"], cfg, positions, None, None, None,
                        attn_mask)
+    elif isinstance(cache, QuantKVCache):
+        # Int8 page pool: the quantized write and the scale-fused read both
+        # live on the kv_tables path.
+        if kv_tables is None:
+            raise ValueError(
+                "QuantKVCache serves paged decode only (pass kv_tables); "
+                "prefill runs against full-width transient rows"
+            )
+        x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
+                       cache_index, attn_mask, kv_tables,
+                       cache_sk=cache.k_scale, cache_sv=cache.v_scale)
     else:
         x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
                        cache_index, attn_mask, kv_tables)

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries land in ``build/torch_kernels/`` at the
-repository root under a name keyed by the source's content and the flags,
-so an edited kernel never loads a stale binary.  Nothing builds at import:
+repository root under a name keyed by the flags and the content of the
+source and of every header under ``csrc/``, so an edited kernel or shared
+header never loads a stale binary.  Nothing builds at import:
 a kernel wrapper calls :func:`load` on its first CUDA launch, and
 ``chip_smoke.py`` calls :func:`build` up front to time the builds (one
 ``nvcc`` per source, all started together).
@@ -48,13 +49,15 @@ def nvcc() -> str:
     )
 
 
-def library_path(source: str) -> Path:
-    """Where ``source``'s library lives: content-and-flags keyed."""
-    src = CSRC / source
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{key}.so"
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where ``source``'s library lives: keyed by the flags, the source's
+    content and the content of every header under ``csrc`` (a header the
+    kernels share may change while the source does not)."""
+    src = csrc / source
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: list[str]) -> dict[str, dict]:

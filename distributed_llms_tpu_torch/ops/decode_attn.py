@@ -1,19 +1,34 @@
-"""Paged decode attention: one query token per row over a shared KV page
-pool (PyTorch/CUDA port of ``distributed_llms_tpu/ops/decode_attn.py``
-``paged_decode_attention``).
+"""Decode attention: one query token per row over a KV cache that reads only
+each row's real depth (PyTorch/CUDA port of
+``distributed_llms_tpu/ops/decode_attn.py``).
 
-Contract (the JAX package's): row ``b`` attends pool slots
-``[0, lengths[b])`` through its page table — slot ``s`` lives at
-``(tables[b, s // BLK], s % BLK)``.  Table entries past the row's depth
-are arbitrary and never read.  Returns ``[B, 1, H, D]`` in q's dtype.
+Two cache layouts, as in the JAX package:
 
-The device decides the implementation:
+- :func:`paged_decode_attention` — a shared page pool: row ``b`` attends
+  pool slots ``[0, lengths[b])`` through its page table, slot ``s`` living
+  at ``(tables[b, s // BLK], s % BLK)``.  Table entries past the row's
+  depth are arbitrary and never read.  The pool is bf16, or int8 with one
+  float32 absmax scale per (slot, head) (``k_scale``/``v_scale``, the
+  ``checkpoint.quantize.kv_quantize`` layout).
+- :func:`ragged_decode_attention` — a contiguous per-row cache
+  ``[B, S, KVH, D]``: row ``b`` attends slots ``[0, lengths[b])``, or only
+  ``[lengths[b] - window, lengths[b])`` with a sliding window (exact
+  because the contiguous layout keeps slot == position).
 
-- CUDA tensors launch the hand-written Hopper kernel
-  (``csrc/paged_decode_attn.cu``), or raise — there is no fallback;
-- CPU tensors take the plain version (:func:`paged_reference`): gather the
-  row's pages, then masked ``dot_product_attention`` — the JAX package's
-  own fallback math (``_paged_impl``'s gather + ``_dense_reference``).
+Both return ``[B, 1, H, D]`` in q's dtype.  The device decides the
+implementation:
+
+- CUDA tensors launch the hand-written Hopper kernels
+  (``csrc/paged_decode_attn.cu``: K1 and its int8 leg K1q;
+  ``csrc/ragged_decode_attn.cu``: K2), or raise — there is no fallback;
+- CPU tensors take the plain versions: masked ``dot_product_attention``
+  over the row (:func:`dense_reference`, the JAX package's
+  ``_dense_reference``), after a gather of the row's pages — dequantized to
+  q's dtype in the int8 leg — for the pool (:func:`paged_reference`).
+
+Each kernel counts its launches: ``paged_decode_attention.launches`` (K1),
+``paged_decode_attention.int8_launches`` (K1q) and
+``ragged_decode_attention.launches`` (K2).
 """
 
 from __future__ import annotations
@@ -22,30 +37,47 @@ import ctypes
 
 import torch
 
+from ..checkpoint.quantize import kv_dequantize
 from ..models import layers
 
-KERNEL_SOURCE = "paged_decode_attn.cu"
-MAX_GROUP = 16  # query heads per KV head the kernel takes
+PAGED_SOURCE = "paged_decode_attn.cu"
+RAGGED_SOURCE = "ragged_decode_attn.cu"
+MAX_GROUP = 16  # query heads per KV head the kernels take
 MAX_HEAD_DIM = 256
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "dlt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "dlt_paged_decode_attention_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "dlt_ragged_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+}
 
-def dense_reference(q, k, v, lengths):
+
+def dense_reference(q, k, v, lengths, window=None):
     """Masked prefix attention over contiguous rows: row b attends slots
-    [0, lengths[b]).  q [B, 1, H, D]; k/v [B, S, KVH, D]."""
+    [0, lengths[b]), narrowed to [lengths[b] - window, lengths[b]) by a
+    window.  q [B, 1, H, D]; k/v [B, S, KVH, D].  The plain version of
+    :func:`ragged_decode_attention`."""
     h = q.shape[2]
     s = k.shape[1]
     g = h // k.shape[2]
     kf = layers.repeat_kv(k.to(q.dtype), g)
     vf = layers.repeat_kv(v.to(q.dtype), g)
-    slots = torch.arange(s, device=q.device)
-    mask = slots[None, :] < lengths.to(q.device).long()[:, None]  # [B, S]
+    slots = torch.arange(s, device=q.device)[None, :]
+    lengths = lengths.to(q.device).long()[:, None]
+    mask = slots < lengths  # [B, S]
+    if window is not None:
+        mask = mask & (slots >= lengths - window)
     return layers.dot_product_attention(q, kf, vf, mask[:, None, None, :])
 
 
-def paged_reference(q, k_pages, v_pages, lengths, tables):
-    """The plain version: gather each row's pages into a contiguous row,
-    then :func:`dense_reference`.  Entries past a row's depth are replaced
-    by page 0 before the gather, so they are never dereferenced."""
+def paged_reference(q, k_pages, v_pages, lengths, tables, k_scale=None,
+                    v_scale=None):
+    """The plain version of :func:`paged_decode_attention`: gather each
+    row's pages into a contiguous row (int8 pools dequantized to q's dtype
+    at ``kv_dequantize`` numerics), then :func:`dense_reference`.  Entries
+    past a row's depth are replaced by page 0 before the gather, so they
+    are never dereferenced."""
     b, _, _, d = q.shape
     _, blk, kvh, _ = k_pages.shape
     p = tables.shape[1]
@@ -55,28 +87,78 @@ def paged_reference(q, k_pages, v_pages, lengths, tables):
     safe = torch.where(needed, tables.long(), 0)
     k_rows = k_pages[safe].reshape(b, p * blk, kvh, d)
     v_rows = v_pages[safe].reshape(b, p * blk, kvh, d)
+    if k_scale is not None:
+        k_rows = kv_dequantize(k_rows, k_scale[safe].reshape(b, p * blk, kvh),
+                               q.dtype)
+        v_rows = kv_dequantize(v_rows, v_scale[safe].reshape(b, p * blk, kvh),
+                               q.dtype)
     return dense_reference(q, k_rows, v_rows, lengths)
 
 
-def _check(q, k_pages, v_pages, lengths, tables) -> None:
+def _check_heads(q, k, what: str) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    h, d = q.shape[2], q.shape[3]
+    if k.dim() != 4:
+        raise ValueError(f"{what} must be 4-d, got {tuple(k.shape)}")
+    kvh = k.shape[2]
+    if k.shape[3] != d or h % kvh:
+        raise ValueError(
+            f"head shapes disagree: q heads {h} x dim {d}, {what} kv heads "
+            f"{kvh} x dim {k.shape[3]}"
+        )
+
+
+def _check_quant(k, k_scale, v_scale) -> bool:
+    """The int8 leg's argument contract (the JAX package's): both scales or
+    neither, and int8 data when scales are given.  Returns whether the
+    call is quantized."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is not None and k.dtype != torch.int8:
+        raise ValueError(f"KV scales given but pages are {k.dtype}, not int8")
+    if k_scale is not None and not (
+            k_scale.shape == v_scale.shape == k.shape[:3]):
+        raise ValueError(
+            f"scales must be {tuple(k.shape[:3])}, got "
+            f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)}"
+        )
+    return k_scale is not None
+
+
+def _route(name: str, tensors) -> str:
+    """"cpu" when every tensor lies on the CPU, "cuda" when all lie on one
+    CUDA device; raises otherwise."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return "cpu"
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"{name} needs every tensor on one CUDA device (or all on the "
+            f"CPU), got {[str(t.device) for t in tensors]}"
+        )
+    return "cuda"
+
+
+def _check_launchable(name, q, kv, index_tensors) -> None:
+    """What every CUDA launch needs: bf16 queries, int32 indices,
+    contiguous tensors, and head shapes the kernels take."""
     b, _, h, d = q.shape
-    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError(
-            f"k/v pages must be matching [NB, BLK, KVH, D], got "
-            f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}"
+    kvh = kv[0].shape[2]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, got {q.dtype}")
+    if any(t.dtype != torch.int32 for t in index_tensors):
+        raise TypeError(
+            f"{name}: lengths/tables must be int32, got "
+            f"{[t.dtype for t in index_tensors]}"
         )
-    kvh = k_pages.shape[2]
-    if k_pages.shape[3] != d or h % kvh:
+    if not all(t.is_contiguous() for t in (q, *kv, *index_tensors)):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if d % 8 or d > MAX_HEAD_DIM or h // kvh > MAX_GROUP or b > 65535:
         raise ValueError(
-            f"head shapes disagree: q heads {h} x dim {d}, pool kv heads "
-            f"{kvh} x dim {k_pages.shape[3]}"
-        )
-    if lengths.shape != (b,) or tables.dim() != 2 or tables.shape[0] != b:
-        raise ValueError(
-            f"lengths must be [B] and tables [B, P] for B={b}, got "
-            f"{tuple(lengths.shape)} / {tuple(tables.shape)}"
+            f"{name}: the CUDA kernel takes head_dim a multiple of 8 up to "
+            f"{MAX_HEAD_DIM}, at most {MAX_GROUP} query heads per KV head "
+            f"and batch <= 65535; got D={d}, H/KVH={h // kvh}, B={b}"
         )
 
 
@@ -86,68 +168,123 @@ def paged_decode_attention(
     v_pages: torch.Tensor,  # [NB, BLK, KVH, D]
     lengths: torch.Tensor,  # [B] int32 — row b attends its first lengths[b] slots
     tables: torch.Tensor,   # [B, P] int32 page ids
+    k_scale: torch.Tensor | None = None,  # [NB, BLK, KVH] float32 — int8
+    #   leg: pages are int8 and the kernel folds the scales into the
+    #   contraction, so the pool is read at 1 byte per element
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """See the module docstring.  ``paged_decode_attention.launches`` counts
-    the CUDA kernel launches made through this wrapper."""
-    _check(q, k_pages, v_pages, lengths, tables)
-    tensors = (q, k_pages, v_pages, lengths, tables)
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return paged_reference(q, k_pages, v_pages, lengths, tables)
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
+    """See the module docstring."""
+    _check_heads(q, k_pages, "pool")
+    if v_pages.shape != k_pages.shape:
         raise ValueError(
-            f"paged_decode_attention needs every tensor on one CUDA device "
-            f"(or all on the CPU), got {[str(t.device) for t in tensors]}"
+            f"k/v pages must match, got {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}"
         )
-    b, _, h, d = q.shape
+    b = q.shape[0]
+    if lengths.shape != (b,) or tables.dim() != 2 or tables.shape[0] != b:
+        raise ValueError(
+            f"lengths must be [B] and tables [B, P] for B={b}, got "
+            f"{tuple(lengths.shape)} / {tuple(tables.shape)}"
+        )
+    quant = _check_quant(k_pages, k_scale, v_scale)
+    scales = (k_scale, v_scale) if quant else ()
+    tensors = (q, k_pages, v_pages, lengths, tables, *scales)
+    if _route("paged_decode_attention", tensors) == "cpu":
+        return paged_reference(q, k_pages, v_pages, lengths, tables, *scales)
+    _check_launchable("paged_decode_attention", q, (k_pages, v_pages, *scales),
+                      (lengths, tables))
+    want = torch.int8 if quant else torch.bfloat16
+    if not (k_pages.dtype == v_pages.dtype == want) or any(
+            s.dtype != torch.float32 for s in scales):
+        raise TypeError(
+            f"the CUDA kernel takes {want} pools"
+            + (" with float32 scales" if quant else "")
+            + f", got {k_pages.dtype} / {v_pages.dtype}"
+            + "".join(f" / {s.dtype}" for s in scales)
+        )
+    h, d = q.shape[2], q.shape[3]
     nb, blk, kvh, _ = k_pages.shape
-    p = tables.shape[1]
-    if not (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16):
-        raise TypeError(
-            f"the CUDA kernel takes bfloat16 q and pools, got {q.dtype} / "
-            f"{k_pages.dtype} / {v_pages.dtype}"
-        )
-    if lengths.dtype != torch.int32 or tables.dtype != torch.int32:
-        raise TypeError(
-            f"lengths and tables must be int32, got {lengths.dtype} / "
-            f"{tables.dtype}"
-        )
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged_decode_attention needs contiguous tensors")
-    if d % 8 or d > MAX_HEAD_DIM or h // kvh > MAX_GROUP or b > 65535:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim a multiple of 8 up to "
-            f"{MAX_HEAD_DIM}, at most {MAX_GROUP} query heads per KV head "
-            f"and batch <= 65535; got D={d}, H/KVH={h // kvh}, B={b}"
-        )
     out = torch.empty_like(q)
-    lib = _kernel_library()
-    err = lib.dlt_paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-        b, h, kvh, d, nb, blk, p, float(d) ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    shape = (b, h, kvh, d, nb, blk, tables.shape[1], float(d) ** -0.5, stream)
+    if quant:
+        err = _kernel(PAGED_SOURCE, "dlt_paged_decode_attention_int8")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+            tables.data_ptr(), out.data_ptr(), *shape)
+    else:
+        err = _kernel(PAGED_SOURCE, "dlt_paged_decode_attention")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), *shape)
     if err != 0:
         raise RuntimeError(
             f"paged decode attention kernel launch failed (cudaError {err})"
         )
-    paged_decode_attention.launches += 1
+    if quant:
+        paged_decode_attention.int8_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0
 
 
-def _kernel_library() -> ctypes.CDLL:
+def ragged_decode_attention(
+    q: torch.Tensor,        # [B, 1, H, D]
+    k: torch.Tensor,        # [B, S, KVH, D] — the full cache width
+    v: torch.Tensor,        # [B, S, KVH, D]
+    lengths: torch.Tensor,  # [B] int32 — row b attends slots [0, lengths[b])
+    window: int | None = None,  # sliding window: only
+    #   [lengths[b] - window, lengths[b]) — the kernel reads just that band
+) -> torch.Tensor:
+    """See the module docstring."""
+    _check_heads(q, k, "cache")
+    b = q.shape[0]
+    if v.shape != k.shape or k.shape[0] != b:
+        raise ValueError(
+            f"k/v must be matching [B={b}, S, KVH, D], got "
+            f"{tuple(k.shape)} / {tuple(v.shape)}"
+        )
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be an int >= 1 or None, got {window!r}")
+    if _route("ragged_decode_attention", (q, k, v, lengths)) == "cpu":
+        return dense_reference(q, k, v, lengths, window)
+    _check_launchable("ragged_decode_attention", q, (k, v), (lengths,))
+    if not (k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(
+            f"the CUDA kernel takes a bfloat16 cache, got {k.dtype} / {v.dtype}"
+        )
+    _, s, kvh, d = k.shape
+    out = torch.empty_like(q)
+    err = _kernel(RAGGED_SOURCE, "dlt_ragged_decode_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, q.shape[2], kvh, d, s,
+        min(window or 0, 2**31 - 1), float(d) ** -0.5,  # 0: no window
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"ragged decode attention kernel launch failed (cudaError {err})"
+        )
+    ragged_decode_attention.launches += 1
+    return out
+
+
+ragged_decode_attention.launches = 0
+
+
+def _kernel(source: str, name: str):
+    """The C entry point ``name`` of ``source``'s library, built at first
+    use, with its argument types declared."""
     from . import build
 
-    lib = build.load(KERNEL_SOURCE)
-    fn = lib.dlt_paged_decode_attention
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn

@@ -1,33 +1,43 @@
-"""Continuous batching over a paged, prefix-cached KV pool (PyTorch port
-of the paged subset of ``distributed_llms_tpu/runtime/batcher.py``).
+"""Continuous batching over a contiguous or paged, prefix-cached KV cache
+(PyTorch port of the single-device subset of
+``distributed_llms_tpu/runtime/batcher.py``).
 
 A fixed set of batch SLOTS decodes at all times; a queued request is
 prefilled into a free slot between decode chunks while the other rows keep
-generating.  The KV cache is a shared page pool ``[L, NB, BLK, KVH, HD]``:
-rows admit with pages for the prompt plus one decode page and grow on
-demand at chunk boundaries; a dry pool evicts LRU-cold cached pages, then
-preempts the lowest-priority / most-recently-admitted row for exact
-recompute, then back-pressures admission.  Automatic prefix caching
-content-hashes every full prompt page (the reference's blake2b chain,
-byte-identical digests) and later admissions reuse the longest cached run
-copy-free through their page tables, prefilling only the suffix.
+generating.  Two cache modes, as in the reference:
+
+- contiguous (``paged_pages=None``, the default): each slot owns a
+  ``max_len``-slot row of the cache ``[L, B, S, KVH, HD]``; decode reads
+  each row's prefix — or its sliding-window band — through the ragged
+  decode kernel.  The one mode that serves sliding-window models.
+- paged: a shared page pool ``[L, NB, BLK, KVH, HD]``, bf16 or int8 with
+  absmax scales (``kv_bits=8``).  Rows admit with pages for the prompt
+  plus one decode page and grow on demand at chunk boundaries; a dry pool
+  evicts LRU-cold cached pages, then preempts the lowest-priority /
+  most-recently-admitted row for exact recompute, then back-pressures
+  admission.  Automatic prefix caching content-hashes every full prompt
+  page (the reference's blake2b chain, salted by the KV width,
+  byte-identical digests) and later admissions reuse the longest cached
+  run copy-free through their page tables, prefilling only the suffix.
 
 Device programs (the JAX package's jitted functions, same names):
-``admit_row_paged`` / ``admit_row_auto_paged`` (prefill into a transient
-contiguous row, then splice its pages into the pool) and ``decode_chunk``
-(K decode steps for every slot; each step's attention is the paged decode
-kernel, ``ops/decode_attn.py``).  The pool is updated IN PLACE where the
-JAX programs donate it.  Host scheduling state lives in numpy mirrors
-synced once per chunk.
+``admit_row`` (prefill into a transient row, spliced into the slot's
+row), ``admit_row_paged`` / ``admit_row_auto_paged`` (the same, spliced
+into pool pages — quantized once there in an int8 pool) and
+``decode_chunk`` (K decode steps for every slot; each step's attention is
+a decode kernel of ``ops/decode_attn.py``).  Caches are updated IN PLACE
+where the JAX programs donate them.  Host scheduling state lives in numpy
+mirrors synced once per chunk.
 
-Invariant (tests/test_torch_serving.py): at temperature 0 the token
-streams equal the JAX batcher's on the same weights and prompts.
+Invariant (tests/test_torch_batcher_modes.py, tests/test_torch_serving.py):
+at temperature 0 the token streams equal the JAX batcher's on the same
+weights and prompts.
 
-Not ported yet: contiguous (non-paged) mode, chunked prefill and token
-budgets, the dispatch-ahead overlap loop, int8 KV pages and the host-RAM
-tier (the constructor refuses each with ``NotImplementedError``), and
-speculative decoding, constrained output, presence/frequency penalties,
-named prefixes, tenants, meshes and fault injection (absent from the API).
+Not ported yet: chunked prefill and token budgets, the dispatch-ahead
+overlap loop and the host-RAM tier (the constructor refuses each with
+``NotImplementedError``), and speculative decoding, constrained output,
+presence/frequency penalties, named prefixes, tenants, meshes and fault
+injection (absent from the API).
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ import torch
 from ..core.config import ModelConfig
 from ..core.observability import METRICS, get_logger
 from ..models import model as model_lib
-from ..models.model import KVCache
+from ..checkpoint.quantize import kv_dequantize, kv_quantize
+from ..models.model import KVCache, QuantKVCache
 from . import sampling
 from .scheduler import make_scheduler
 from .session import continuation_mask
@@ -106,25 +117,94 @@ def _prefill_row_with_prefix(params, cfg, prefix_k, prefix_v, prefix_len,
                              attn_mask=mask)
 
 
-def _gather_row_pages(cache: KVCache, read_list: torch.Tensor):
+def _finish_admission(cache, slot, row_cache, logits, last_idx, generator,
+                      temperature, top_k, top_p, total_len, temp_req=None,
+                      topp_req=None, topk_req=None):
+    """Contiguous admission tail: sample the first token from the last
+    real position's logits, copy the prefilled row into the shared cache's
+    row ``slot`` (in place: the JAX program splices into the donated
+    cache), report the row's valid slots (a prefix)."""
+    tok, lp = _sample_first(logits, last_idx, generator, temperature, top_k,
+                            top_p, temp_req, topp_req, topk_req)
+    cache.k[:, slot] = row_cache.k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = row_cache.v[:, 0].to(cache.v.dtype)
+    row_valid = np.arange(cache.k.shape[2]) < total_len
+    return cache, tok, row_valid, lp
+
+
+def admit_row(params, cfg, cache, slot, prompt, plen, generator,
+              temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
+              topp_req=None, topk_req=None):
+    """Prefill one request into batch row ``slot`` of a contiguous cache.
+    ``prompt`` [Tp] right-padded, ``plen`` its true length.  Returns
+    (cache, first_token, row_valid [S] bool, first_token_logprob)."""
+    logits, row_cache = _prefill_row(params, cfg, cache.k.dtype,
+                                     cache.k.shape[2], prompt)
+    return _finish_admission(cache, slot, row_cache, logits, plen, generator,
+                             temperature, top_k, top_p, plen, temp_req,
+                             topp_req, topk_req)
+
+
+def _gather_row_pages(cache, read_list: torch.Tensor):
     """Gather a row's pages out of the pool into a transient contiguous row
     cache ([L, 1, P*BLK, KVH, HD] k/v pair) — fresh tensors the suffix
-    prefill then writes into."""
+    prefill then writes into.  An int8 pool dequantizes the gathered pages
+    to its full-width ``row_dtype``: transient rows always run full width;
+    only pool storage is quantized."""
     l, _, blk, kvh, hd = cache.k.shape
     p = read_list.shape[0]
     idx = read_list.long()
+    if isinstance(cache, QuantKVCache):
+        dt = model_lib.torch_dtype(cache.row_dtype)
+
+        def gather_q(pool, scale):
+            full = kv_dequantize(pool[:, idx], scale[:, idx], dt)
+            return full.reshape(l, 1, p * blk, kvh, hd)
+
+        return (gather_q(cache.k, cache.k_scale),
+                gather_q(cache.v, cache.v_scale))
     return (cache.k[:, idx].reshape(l, 1, p * blk, kvh, hd),
             cache.v[:, idx].reshape(l, 1, p * blk, kvh, hd))
 
 
 def _paged_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype=None,
-                device=None) -> KVCache:
-    """KV page pools [L, NB, BLK, KVH, HD] (distinct k/v buffers)."""
+                device=None, kv_bits: int = 16):
+    """KV page pools [L, NB, BLK, KVH, HD] (distinct k/v buffers).
+    ``kv_bits=8`` builds an int8 :class:`QuantKVCache` pool (data int8 +
+    one float32 absmax scale per head-dim vector) at about half the bytes
+    per token; the full-width dtype survives as ``row_dtype``."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim_)
     dt = model_lib.torch_dtype(dtype or cfg.dtype)
+    if kv_bits == 8:
+        sshape = shape[:-1]
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.ones(sshape, dtype=torch.float32, device=device),
+            row_dtype=str(dt).removeprefix("torch."),
+        )
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device))
+
+
+def _row_dtype_of(cache) -> torch.dtype:
+    """Dtype transient single-row caches (and pool gathers) use: the
+    cache's own dtype, or the declared full-width dtype of an int8 pool."""
+    if isinstance(cache, QuantKVCache):
+        return model_lib.torch_dtype(cache.row_dtype)
+    return cache.k.dtype
+
+
+def pool_page_bytes(cfg: ModelConfig, page_size: int, kv_bits: int = 16,
+                    dtype=None) -> int:
+    """Bytes one pool page costs (k + v, plus the int8 pool's scales)."""
+    elems = cfg.num_layers * page_size * cfg.num_kv_heads * cfg.head_dim_
+    if kv_bits == 8:
+        return 2 * (elems + cfg.num_layers * page_size * cfg.num_kv_heads * 4)
+    dt = model_lib.torch_dtype(dtype or cfg.dtype)
+    return 2 * elems * dt.itemsize
 
 
 def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
@@ -142,13 +222,22 @@ def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
     blk = cache.k.shape[2]
     idx = page_list.long()
 
-    def splice(pool, row):  # row: [L, 1, P*BLK, KVH, HD]
+    def pages_of(row):  # row: [L, 1, P*BLK, KVH, HD]
         l, _, _, kvh, hd = row.shape
-        # In place: the JAX program scatters into the donated pool.
-        pool[:, idx] = row[:, 0].reshape(l, p, blk, kvh, hd).to(pool.dtype)
+        return row[:, 0].reshape(l, p, blk, kvh, hd)
 
-    splice(cache.k, row_cache.k)
-    splice(cache.v, row_cache.v)
+    # In place: the JAX program scatters into the donated pool.
+    if isinstance(cache, QuantKVCache):
+        # Quantize ONCE at the write: each head-dim vector gets int8 data
+        # + one float32 absmax scale; the pool never holds the full-width
+        # row.
+        cache.k[:, idx], cache.k_scale[:, idx] = kv_quantize(
+            pages_of(row_cache.k))
+        cache.v[:, idx], cache.v_scale[:, idx] = kv_quantize(
+            pages_of(row_cache.v))
+    else:
+        cache.k[:, idx] = pages_of(row_cache.k).to(cache.k.dtype)
+        cache.v[:, idx] = pages_of(row_cache.v).to(cache.v.dtype)
     return cache, tok, lp
 
 
@@ -160,8 +249,8 @@ def admit_row_paged(params, cfg, cache, page_list, prompt, plen, generator,
     (scratch-padded), ``prompt`` [Tp] right-padded, ``plen`` its true
     length.  Returns (cache, tok, logprob)."""
     logits, row_cache = _prefill_row(
-        params, cfg, cache.k.dtype, page_list.shape[0] * cache.k.shape[2],
-        prompt,
+        params, cfg, _row_dtype_of(cache),
+        page_list.shape[0] * cache.k.shape[2], prompt,
     )
     return _paged_splice(cache, page_list, row_cache, logits, plen, generator,
                          temperature, top_k, top_p, temp_req, topp_req,
@@ -192,10 +281,12 @@ def _decode_steps(params, cfg, cache, last_tok, real_lens, active, budget,
                   generator, chunk_steps, temperature, top_k, top_p, eos_id,
                   pad_id, tables, temp_row=None, topp_row=None,
                   topk_row=None):
-    """K paged decode steps for every slot, on device with no host sync.
-    Each step is ONE batched forward with per-row positions and write
-    slots; the page table routes each row's read and write, and validity
-    is implicit in ``real_lens`` (the kernel's prefix contract)."""
+    """K decode steps for every slot, on device with no host sync.  Each
+    step is ONE batched forward with per-row positions and write slots.
+    Validity is implicit in ``real_lens`` (the decode kernels' prefix
+    contract): paged mode reads and writes through the page table;
+    contiguous mode writes slot ``real_lens[b]`` of row b and attends its
+    prefix (or window band) through the ragged kernel."""
     toks, lps = [], []
     for _ in range(chunk_steps):
         was_active = active
@@ -232,14 +323,11 @@ def decode_chunk(params, cfg, cache, last_tok, real_lens, active, budget,
                  generator, chunk_steps, temperature=0.0, top_k=0, top_p=1.0,
                  eos_id=-1, pad_id=0, tables=None, temp_row=None,
                  topp_row=None, topk_row=None):
-    """K decode steps with per-row positions over the page pool.  Returns
+    """K decode steps with per-row positions over the page pool
+    (``tables``) or the contiguous cache (``tables=None``).  Returns
     (toks [B, K], cache, last_tok', real_lens', active', budget',
     logprobs [B, K]).  ``temp_row``/``topp_row``/``topk_row`` switch to
     per-row sampling (sampling.sample_rows)."""
-    if tables is None:
-        raise NotImplementedError(
-            "contiguous (non-paged) decode is not ported yet"
-        )
     return _decode_steps(params, cfg, cache, last_tok, real_lens, active,
                          budget, generator, chunk_steps, temperature, top_k,
                          top_p, eos_id, pad_id, tables, temp_row, topp_row,
@@ -521,7 +609,8 @@ def _refuse(what: str) -> None:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous batching over a paged, prefix-cached pool.
+    """Slot-based continuous batching over a contiguous cache or a paged,
+    prefix-cached pool.
 
     Usage::
 
@@ -549,15 +638,15 @@ class ContinuousBatcher:
         pad_id: int = 0,
         kv_dtype: Any = None,
         seed: int = 0,
-        paged_pages: int | None = None,  # KV page-pool size (pages);
-        #   required — contiguous per-slot KV is a later slice
+        paged_pages: int | None = None,  # KV page-pool size (pages); None
+        #   = contiguous mode (each slot owns a max_len-slot cache row)
         page_size: int = 64,
-        prefix_cache: bool = False,  # automatic prefix caching
+        prefix_cache: bool = False,  # automatic prefix caching (paged)
         overlap: bool = False,  # dispatch-ahead loop: later slice
         schedule: str = "mixed",
         prefill_chunk: int | None = None,  # chunked prefill: later slice
         token_budget: int | None = None,   # mixed bites: later slice
-        kv_bits: int = 16,                 # int8 KV pages: later slice
+        kv_bits: int = 16,                 # 8 = int8 pool pages (paged)
         host_pages: int = 0,               # host-RAM tier: later slice
         # The lockstep clock: the one time source scheduling DECISIONS may
         # consult (queue-deadline shedding).  Defaults to perf_counter.
@@ -570,31 +659,48 @@ class ContinuousBatcher:
         }
         self._clock = clock if clock is not None else time.perf_counter
         model_lib.check_supported(cfg)
-        if paged_pages is None:
-            _refuse("contiguous (non-paged) KV; pass paged_pages")
         if overlap:
             _refuse("the dispatch-ahead overlap loop (overlap=True)")
         if prefill_chunk is not None:
             _refuse("chunked prefill (prefill_chunk)")
         if token_budget is not None:
             _refuse("the mixed schedule's token budget (token_budget)")
-        if kv_bits != 16:
-            _refuse(f"kv_bits={kv_bits} (int8 KV pages)")
         if host_pages:
             _refuse("the host-RAM KV tier (host_pages)")
+        # The reference's checks, with its messages.
         if max_len > cfg.max_seq_len:
             raise ValueError(
                 f"max_len {max_len} exceeds model max_seq_len {cfg.max_seq_len}"
             )
-        if max_len % page_size:
+        if kv_bits not in (16, 8):
+            raise ValueError(f"kv_bits must be 16 or 8, got {kv_bits}")
+        if kv_bits == 8 and paged_pages is None:
             raise ValueError(
-                f"max_len {max_len} must be a multiple of page_size "
-                f"{page_size}"
+                "int8 KV pages live in the paged pool; pass paged_pages "
+                "(contiguous caches stay full-width)"
             )
-        if paged_pages < max_len // page_size + 1:
+        if paged_pages is not None:
+            if cfg.sliding_window is not None:
+                raise ValueError(
+                    "paged KV cannot serve sliding-window models (the paged "
+                    "decode kernel attends the full cache prefix); use "
+                    "contiguous mode, which serves windowed models through "
+                    "the ragged kernel's window band"
+                )
+            if max_len % page_size:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of page_size "
+                    f"{page_size}"
+                )
+            if paged_pages < max_len // page_size + 1:
+                raise ValueError(
+                    f"paged_pages {paged_pages} cannot hold even one "
+                    f"full-depth row (+1 scratch page)"
+                )
+        if prefix_cache and paged_pages is None:
             raise ValueError(
-                f"paged_pages {paged_pages} cannot hold even one "
-                f"full-depth row (+1 scratch page)"
+                "automatic prefix caching runs over the paged KV pool; "
+                "pass paged_pages"
             )
         self.sched = make_scheduler(schedule, chunk_steps=chunk_steps)
         self.cfg = cfg
@@ -607,21 +713,38 @@ class ContinuousBatcher:
         self.sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p)
         self.eos_id = eos_id
         self.pad_id = pad_id
-        self.cache = _paged_pool(cfg, paged_pages, page_size, dtype=kv_dtype,
-                                 device=self.device)
+        self.paged = paged_pages is not None
+        self.kv_bits = kv_bits
         self.page_size = page_size
-        self.pages_per_row = max_len // page_size
-        self.prefix_cache: PrefixCache | None = (
-            PrefixCache() if prefix_cache else None
-        )
-        # Page 0 is the permanent scratch page: fixed-shape admissions pad
-        # their page lists with it, and no live row ever reads it.
-        self.pool = PagePool(paged_pages, prefix_cache=self.prefix_cache)
-        self.tables = np.zeros((batch_slots, self.pages_per_row), np.int32)
+        self.prefix_cache: PrefixCache | None = None
+        self.pool: PagePool | None = None
+        self.tables: np.ndarray | None = None
+        if self.paged:
+            self.cache = _paged_pool(cfg, paged_pages, page_size,
+                                     dtype=kv_dtype, device=self.device,
+                                     kv_bits=kv_bits)
+            self.pages_per_row = max_len // page_size
+            if prefix_cache:
+                self.prefix_cache = PrefixCache()
+            # Page 0 is the permanent scratch page: fixed-shape admissions
+            # pad their page lists with it, and no live row ever reads it.
+            self.pool = PagePool(paged_pages, prefix_cache=self.prefix_cache)
+            self.tables = np.zeros((batch_slots, self.pages_per_row),
+                                   np.int32)
+        else:
+            self.cache = model_lib.init_cache(cfg, batch_slots, max_len,
+                                              dtype=kv_dtype,
+                                              device=self.device)
         # Scheduling state lives as HOST numpy mirrors, synced from the
         # device once per decode chunk.
         self.last_tok = np.zeros((batch_slots,), np.int32)
         self.real_lens = np.zeros((batch_slots,), np.int32)
+        # Contiguous mode: the slots each row has written.  It is always a
+        # prefix [0, real_lens) of a resident row — the contract the
+        # ragged kernel reads by (lengths = real_lens + 1 after the step's
+        # write); _sync_carry checks it.
+        self.valid = np.zeros((batch_slots, 0 if self.paged else max_len),
+                              bool)
         self.active = np.zeros((batch_slots,), bool)
         self.budget = np.zeros((batch_slots,), np.int32)
         # Per-row sampling mirrors: a row admitted with its own knobs
@@ -654,13 +777,26 @@ class ContinuousBatcher:
     # -- paged pool (PagePool: refcounted, prefix-cache LRU) ---------------
 
     def capacity_tokens(self) -> int:
-        """KV capacity in tokens (usable pool pages; page 0 is scratch) —
-        the denominator of the serving gateway's cost gate."""
-        return (self.pool.num_pages - 1) * self.page_size
+        """KV capacity in tokens — the denominator of the serving gateway's
+        cost gate.  Paged mode counts usable pool pages (page 0 is
+        scratch); contiguous mode counts slot-owned width."""
+        if self.paged:
+            return (self.pool.num_pages - 1) * self.page_size
+        return self.b * self.s
 
     def assert_pool_consistent(self) -> None:
-        """Audit the page pool against the resident rows."""
-        self.pool.assert_consistent([r.pages for r in self.rows if r.pages])
+        """Audit the page pool against the resident rows (no-op in
+        contiguous mode)."""
+        if self.pool is not None:
+            self.pool.assert_consistent(
+                [r.pages for r in self.rows if r.pages])
+
+    def _page_digests(self, ids: list[int], n_pages: int) -> list[bytes]:
+        """This pool's content digests: chained over token ids AND the KV
+        width (kv_bits salts the chain), so an int8 page can never alias
+        a bf16 page."""
+        return PrefixCache.page_digests(ids, self.page_size, n_pages,
+                                        kv_bits=self.kv_bits)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -932,8 +1068,7 @@ class ContinuousBatcher:
         digests: list[bytes] = []
         if auto:
             if req.digests is None:
-                req.digests = PrefixCache.page_digests(req.ids, blk,
-                                                      len(req.ids) // blk)
+                req.digests = self._page_digests(req.ids, len(req.ids) // blk)
             digests = req.digests
             cap = (len(req.ids) - 1) // blk
             cached_pages = pc.match(digests[:cap])
@@ -958,7 +1093,10 @@ class ContinuousBatcher:
     def _grow_rows(self) -> None:
         """Chunk-boundary page growth: every active row that will write past
         its pages this chunk gets them now — evicting LRU-cold cached pages
-        first, then preempting a victim (possibly the grower itself)."""
+        first, then preempting a victim (possibly the grower itself).
+        Contiguous rows own their whole width already."""
+        if not self.paged:
+            return
         blk = self.page_size
         for i in range(self.b):
             row = self.rows[i]
@@ -1007,6 +1145,21 @@ class ContinuousBatcher:
             if req is None:
                 return
             total_len = len(req.ids)
+            if not self.paged:
+                self._unqueue(req)
+                req_t, req_p, req_k, extra = self._request_sampling(req)
+                # Bucket for shape reuse, never past the row's width.
+                tp = min(_bucket(total_len), self.s)
+                prompt = np.full((tp,), self.pad_id, np.int32)
+                prompt[:total_len] = req.ids
+                self.cache, tok, row_valid, lp = admit_row(
+                    self.params, self.cfg, self.cache, i, self._dev(prompt),
+                    total_len, self._gen, **self.sampling, **extra,
+                )
+                self.valid[i] = row_valid
+                self._activate_row(i, req, tok, lp, total_len, req_t, req_p,
+                                   [], req_k=req_k)
+                continue
             got = self._reserve_row_pages(i, req, total_len)
             if got is None:
                 # Dry pool with no preemptable victim: back-pressure.  The
@@ -1172,7 +1325,9 @@ class ContinuousBatcher:
         sampling path only while a custom-sampled row is live (the
         all-default batch keeps the plain sampler; greedy is a bare
         argmax)."""
-        plan: dict = {"tables": self._dev(self.tables)}
+        plan: dict = {
+            "tables": self._dev(self.tables) if self.paged else None
+        }
         rows_live = self.active & (
             (self.temp_row != self.sampling["temperature"])
             | (self.topp_row != self.sampling["top_p"])
@@ -1215,6 +1370,7 @@ class ContinuousBatcher:
         toks_h = toks.cpu().numpy()
         lps_h = lps.cpu().numpy()
         lt, rl, ac, bu = (t.cpu().numpy() for t in carry)
+        before = self.real_lens
         self.last_tok = lt.astype(np.int32)
         self.real_lens = rl.astype(np.int32)
         self.active = ac.astype(bool)
@@ -1223,7 +1379,24 @@ class ContinuousBatcher:
             if self.rows[i].rid is None and self.active[i]:
                 self.active[i] = False
                 self.budget[i] = 0
+        if not self.paged:
+            self._note_written(before)
         return toks_h, lps_h
+
+    def _note_written(self, before: np.ndarray) -> None:
+        """Contiguous mode: mark the slots this chunk's decode steps wrote
+        (an active row writes slot real_lens, then advances it: slots
+        [before, real_lens)), and check the contract the ragged kernel
+        reads by — a resident row's valid slots are exactly the prefix
+        [0, real_lens)."""
+        slots = np.arange(self.s)[None, :]
+        prefix = slots < self.real_lens[:, None]
+        self.valid |= prefix & (slots >= before[:, None])
+        resident = np.array([r.rid is not None for r in self.rows])
+        assert (self.valid[resident] == prefix[resident]).all(), (
+            "a resident row's valid slots are not the prefix "
+            "[0, real_lens) the ragged decode kernel reads"
+        )
 
     def _decode_span(self, was_active: np.ndarray) -> None:
         """One decode chunk: dispatch from the fresh host mirrors, sync the

@@ -16,9 +16,12 @@ import torch
 
 from ..core.config import ModelConfig, RuntimeConfig
 from ..core.device import resolve_device
+from ..core.observability import get_logger
 from ..models import model as model_lib
 from ..models.presets import get_preset
 from .tokenizer import get_tokenizer
+
+log = get_logger("engine")
 
 
 class InferenceEngine:
@@ -86,10 +89,14 @@ class InferenceEngine:
         tenant_max_rows: int | None = None,
         faults: Any = None,
     ):
-        """A ContinuousBatcher over this engine's model (paged KV pool,
-        optional automatic prefix cache).  Knobs of later port slices raise
-        ``NotImplementedError``, whether passed here or inherited from the
-        config."""
+        """A ContinuousBatcher over this engine's model: contiguous KV
+        (``paged_pages`` None or 0, from the argument or the config), or a
+        paged pool with the optional automatic prefix cache and int8 pages
+        (``kv_bits=8``).  The paged-only knobs follow the reference's
+        policy: an explicit request on a contiguous engine raises
+        ``ValueError``, a config-inherited one is dropped with a warning.
+        Knobs of later port slices raise ``NotImplementedError``, whether
+        passed here or inherited from the config."""
         from .batcher import ContinuousBatcher
 
         for what, requested in (
@@ -101,10 +108,27 @@ class InferenceEngine:
         ):
             if requested:
                 raise NotImplementedError(f"{what} is not ported yet")
-        # RuntimeConfig knobs are the defaults; explicit arguments win.  The
-        # batcher refuses the values of later slices it shares with the
-        # reference (contiguous mode, chunked prefill, token budgets, int8
-        # KV, the host tier, overlap).
+        # RuntimeConfig knobs are the defaults; explicit arguments win
+        # (paged_pages=0 explicitly requests contiguous).  The batcher
+        # refuses the values of later slices it shares with the reference
+        # (chunked prefill, token budgets, the host tier, overlap).
+        paged = (self.rt.paged_pages if paged_pages is None
+                 else paged_pages) or None
+        if paged is None:
+            for what, explicit, inherited in (
+                    ("automatic prefix caching", prefix_cache,
+                     self.rt.prefix_cache),
+                    ("int8 KV pages", None if kv_bits is None
+                     else kv_bits == 8, self.rt.kv_bits == 8)):
+                if explicit:
+                    raise ValueError(
+                        f"{what} needs the paged KV pool; pass paged_pages "
+                        f"(or set runtime.paged_pages)"
+                    )
+                if explicit is None and inherited:
+                    log.warning("%s from the config ignored: this engine "
+                                "serves contiguous KV", what)
+            prefix_cache, kv_bits = False, 16
         return ContinuousBatcher(
             self.cfg, self.params, tokenizer=self.tokenizer,
             batch_slots=batch_slots,
@@ -114,8 +138,7 @@ class InferenceEngine:
             top_p=self.rt.top_p, eos_id=self.tokenizer.eos_id,
             pad_id=self.tokenizer.pad_id,
             kv_dtype=self.rt.kv_cache_dtype,
-            paged_pages=(self.rt.paged_pages if paged_pages is None
-                         else paged_pages) or None,
+            paged_pages=paged,
             page_size=page_size or self.rt.page_size,
             prefix_cache=bool(self.rt.prefix_cache if prefix_cache is None
                               else prefix_cache),

@@ -535,7 +535,8 @@ class InferenceServer:
                 "server.engine_last_chunk_age_s",
                 time.monotonic() - self._last_progress,
             )
-            self.batcher.pool.publish_gauges()
+            if self.batcher.pool is not None:  # contiguous mode has none
+                self.batcher.pool.publish_gauges()
             await self._respond(
                 writer, 200, "text/plain; version=0.0.4; charset=utf-8",
                 METRICS.prometheus_text().encode(),

@@ -125,6 +125,107 @@ def test_paged_decode_step():
     np.testing.assert_allclose(ct.v.numpy(), np.asarray(cj.v), **TOL)
 
 
+@pytest.mark.parametrize("window", [None, 6])
+def test_contiguous_decode_step(window):
+    """One contiguous decode step (the batcher's default mode): per-row
+    positions and write slots into a [L, B, S, KVH, HD] cache, attention
+    over each row's prefix — or its window band — through the port's
+    ragged route vs the JAX masked dense path.  Row 2 sits at the last
+    slot, row 3 one past it (a finished row's idle write, which the JAX
+    package's dynamic_update_slice clamps to slot S - 1)."""
+    cfg_j, cfg_t, pj, pt = _pair(5, sliding_window=window)
+    rng = np.random.default_rng(5)
+    L, KVH, HD = cfg_t.num_layers, cfg_t.num_kv_heads, cfg_t.head_dim_
+    b, s = 4, 24
+    k = rng.standard_normal((L, b, s, KVH, HD)).astype(np.float32)
+    v = rng.standard_normal((L, b, s, KVH, HD)).astype(np.float32)
+    real_lens = np.array([5, 17, s - 1, s], np.int32)
+    toks = rng.integers(0, 512, (b, 1)).astype(np.int32)
+    slots = np.arange(s)
+    mask = (slots[None, :] <= real_lens[:, None])[:, None, None, :]
+    lj, cj = jm.forward(
+        pj, cfg_j, jnp.asarray(toks), positions=jnp.asarray(real_lens[:, None]),
+        cache=jm.KVCache(k=jnp.asarray(k), v=jnp.asarray(v)),
+        cache_index=jnp.asarray(real_lens), attn_mask=jnp.asarray(mask),
+    )
+    ct = tm.KVCache(k=torch.from_numpy(k.copy()), v=torch.from_numpy(v.copy()))
+    lt, ct = tm.forward(
+        pt, cfg_t, torch.from_numpy(toks),
+        positions=torch.from_numpy(real_lens[:, None]), cache=ct,
+        cache_index=torch.from_numpy(real_lens),
+    )
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(ct.k.numpy(), np.asarray(cj.k), **TOL)
+    np.testing.assert_allclose(ct.v.numpy(), np.asarray(cj.v), **TOL)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_windowed_prefill(cached):
+    """Sliding window 5 over a 19-token prompt: the no-cache causal path
+    and the cached admission prefill (padded row cache) both AND in the
+    window."""
+    cfg_j, cfg_t, pj, pt = _pair(6, sliding_window=5)
+    toks = np.random.default_rng(6).integers(0, 512, (1, 19)).astype(np.int32)
+    if not cached:
+        lj, _ = jm.forward(pj, cfg_j, jnp.asarray(toks))
+        lt, _ = tm.forward(pt, cfg_t, torch.from_numpy(toks))
+    else:
+        pos = np.arange(19, dtype=np.int32)[None]
+        lj, _ = jm.forward(pj, cfg_j, jnp.asarray(toks),
+                           positions=jnp.asarray(pos),
+                           cache=jm.init_cache(cfg_j, 1, 32),
+                           cache_index=jnp.int32(0))
+        lt, _ = tm.forward(pt, cfg_t, torch.from_numpy(toks),
+                           positions=torch.from_numpy(pos),
+                           cache=tm.init_cache(cfg_t, 1, 32), cache_index=0)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    full, _ = tm.forward(pt, get_preset("llama-tiny", vocab_size=512),
+                         torch.from_numpy(toks))
+    assert not torch.allclose(full[:, -1], lt[:, -1])  # the window bit
+
+
+def test_int8_paged_decode_step():
+    """One decode step over an int8 pool: this step's K/V quantized per
+    (row, head) and written with its scale, attention through the int8
+    leg (the port's dequantize-then-dense plain version vs the JAX
+    package's on the CPU)."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import kv_quantize
+
+    cfg_j, cfg_t, pj, pt = _pair(7)
+    rng = np.random.default_rng(7)
+    L, KVH, HD = cfg_t.num_layers, cfg_t.num_kv_heads, cfg_t.head_dim_
+    nb, blk, p, b = 13, 8, 4, 3
+    pools = [kv_quantize(torch.from_numpy(rng.standard_normal(
+        (L, nb, blk, KVH, HD)).astype(np.float32))) for _ in range(2)]
+    (kq, ks), (vq, vs) = [(d.numpy(), sc.numpy()) for d, sc in pools]
+    tables = (rng.permutation(nb - 1)[: b * p] + 1).reshape(b, p).astype(np.int32)
+    real_lens = np.array([20, 31, 9], np.int32)
+    toks = rng.integers(0, 512, (b, 1)).astype(np.int32)
+    lj, cj = jm.forward(
+        pj, cfg_j, jnp.asarray(toks), positions=jnp.asarray(real_lens[:, None]),
+        cache=jm.QuantKVCache(k=jnp.asarray(kq), v=jnp.asarray(vq),
+                              k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                              row_dtype="float32"),
+        cache_index=jnp.asarray(real_lens), kv_tables=jnp.asarray(tables),
+    )
+    ct = tm.QuantKVCache(*(torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)),
+                         row_dtype="float32")
+    lt, ct = tm.forward(
+        pt, cfg_t, torch.from_numpy(toks),
+        positions=torch.from_numpy(real_lens[:, None]), cache=ct,
+        cache_index=torch.from_numpy(real_lens),
+        kv_tables=torch.from_numpy(tables),
+    )
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    # The written codes agree within one step (float32 K/V of the two
+    # stacks differ in the last digits; see test_torch_batcher_modes.py).
+    assert np.abs(ct.k.numpy().astype(int) - np.asarray(cj.k)).max() <= 1
+    np.testing.assert_allclose(ct.v_scale.numpy(), np.asarray(cj.v_scale),
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match="paged decode only"):
+        tm.forward(pt, cfg_t, torch.from_numpy(toks), cache=ct, cache_index=0)
+
+
 def test_init_params_keeps_the_stacked_layout():
     cfg = get_preset("llama-tiny", qkv_bias=True)
     g = torch.Generator().manual_seed(0)
@@ -170,10 +271,15 @@ def test_bf16_tree_round_trips_exactly():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "gpt2"}, {"num_experts": 4}, {"sliding_window": 8},
+    {"family": "gpt2"}, {"num_experts": 4}, {"family": "neox"},
     {"attn_impl": "flash"},
 ])
 def test_later_slice_models_are_refused(change):
     cfg = dataclasses.replace(get_preset("llama-tiny"), **change)
     with pytest.raises(NotImplementedError):
         tm.check_supported(cfg)
+
+
+def test_sliding_window_models_are_served():
+    tm.check_supported(get_preset("mistral-7b"))
+    tm.check_supported(get_preset("llama-tiny", sliding_window=8))

@@ -12,6 +12,9 @@
 - Entry points without an explicit device raise when CUDA is missing;
   flags of later slices raise ``NotImplementedError``.
 
+Contiguous mode and int8 pages are held against the JAX package in
+tests/test_torch_batcher_modes.py.
+
 float32 on the CPU, llama-tiny width (4 layers, d_model 64, GQA 4/2) with
 vocab 512 so the byte tokenizer's ids fit.
 """
@@ -288,11 +291,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--kv-bits", "8"], ["--host-pages", "64"], ["--token-budget", "64"],
-    ["--prefill-chunk", "32"], ["--overlap", "on"], ["--spec-decode"],
-    ["--tenant-weights", "a:1"], ["--replicas", "2"], ["--disaggregate"],
-    ["--paged-pages", "0"], ["--store", "x"], ["--fault", "batcher.decode:raise@1"],
-    ["--constrained"],
+    ["--tenant-quota-tps", "5"], ["--host-pages", "64"],
+    ["--token-budget", "64"], ["--prefill-chunk", "32"], ["--overlap", "on"],
+    ["--spec-decode"], ["--tenant-weights", "a:1"], ["--replicas", "2"],
+    ["--disaggregate"], ["--tenant-max-rows", "2"], ["--store", "x"],
+    ["--fault", "batcher.decode:raise@1"], ["--constrained"],
 ])
 def test_later_slice_flags_raise(flags):
     from distributed_llms_tpu_torch.cli import serve_main
@@ -308,7 +311,6 @@ def test_later_slice_batcher_options_raise(weights):
     cfg_j, cfg_t, pj, pt = weights
     base = dict(batch_slots=2, max_len=64, paged_pages=12, page_size=16)
     for extra in ({"overlap": True}, {"prefill_chunk": 16},
-                  {"token_budget": 32}, {"kv_bits": 8}, {"host_pages": 8},
-                  {"paged_pages": None}):
+                  {"token_budget": 32}, {"host_pages": 8}):
         with pytest.raises(NotImplementedError):
             tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), **{**base, **extra})

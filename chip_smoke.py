@@ -15,14 +15,17 @@ Phases, each printing result lines:
    table, plus a table holding garbage past every row's depth; K1q's pools
    quantized by the port's ``kv_quantize``), K2 at Mistral-7B's (B=8,
    H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144, window 4096 and
-   none).
+   none), K5 (int8 and int4 weights, bf16 x) at Llama-3-8B's projections:
+   M=8 (decode) for wq, wk/wv, gate/up, down and wo through ``k_lead=2``,
+   and M=512 (prefill) for gate/up.
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
    time the card could take (the byte and operation bounds).
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
-   a paged bf16 pool (K1), an int8 pool (K1q), and a contiguous cache
-   with a 64-slot sliding window, decoded past the window (K2).
+   a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
+   64-slot sliding window, decoded past the window (K2), and int8 and int4
+   quantized blocks over a paged bf16 pool (K5 and K1).
 5. ``serve``  — the port's paths as a user runs them, each through
    ``serve_main.build_server`` at full width with random seeded weights,
    answering concurrent HTTP requests:
@@ -33,15 +36,27 @@ Phases, each printing result lines:
    b. the same with ``--kv-bits 8`` (K1q), the same requests;
    c. ``dlt-serve-torch --preset mistral-7b --max-len 6144`` (contiguous,
       sliding window 4096; K2): one request with a 4400-byte prompt, so
-      its decode reads past the window, beside three short ones.
+      its decode reads past the window, beside three short ones;
+   d. ``dlt-serve-torch --store D8 --override runtime.serve_quantized=true
+      --paged-pages 256 --page-size 64 --prefix-cache`` (K5 int8 and K1),
+      path a's requests, where D8 is a Llama-3-8B store (random weights,
+      seed 0) written by the port's ``save_shards`` with
+      ``quantization="int8"``, 2 raw shards, into a temporary directory
+      removed when the path ends;
+   e. the same over an int4 store D4 (K5 int4 and K1).
    Every kernel's launch count is reset just before each path and read
-   just after; the run fails unless the path's kernel launched at least
-   layers x decode steps times.  Each engine is freed before the next
-   boots.
-6. ``profile`` — path a's weights serve a batch of 8 requests once more
-   under ``torch.profiler``: host wall time against device kernel time,
-   split into the decode-attention kernels, matrix products and the rest
-   (information, not a gate).
+   just after; the run fails unless the path's kernels launched at least
+   layers x decode steps times (7 x that for K5, one per projection).
+   Each engine is freed before the next boots.  The device memory an
+   engine holds once booted (its weights and KV pool, measured with
+   ``torch.cuda.memory_allocated``) must be below path a's on paths d and
+   e by at least 90% of what their quantized block weights save over
+   bf16 (computed from the served leaves), and path d must peak below
+   path a.
+6. ``profile`` — path a's weights, and then path d's, serve a batch of 8
+   requests once more under ``torch.profiler``: host wall time against
+   device kernel time, split into K5, the decode-attention kernels, other
+   matrix products and the rest (information, not a gate).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and last ``{"ok": true, "device": {...}}``.  Any
@@ -55,8 +70,10 @@ import argparse
 import asyncio
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -74,6 +91,9 @@ SERVE_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "256",
 SERVE_INT8_ARGS = [*SERVE_ARGS, "--kv-bits", "8"]
 SERVE_WINDOW_ARGS = ["--preset", "mistral-7b", "--max-len", "6144",
                      *_COMMON_ARGS]
+# Paths d and e: SERVE_ARGS over a quantized store in place of the preset.
+SERVE_STORE_ARGS = ["--override", "runtime.serve_quantized=true",
+                    *SERVE_ARGS[2:]]
 
 # The kernels of the port's paths: name -> (wrapper, counter attribute).
 CSRC = "distributed_llms_tpu_torch/ops/csrc/"
@@ -87,13 +107,21 @@ KERNELS = {
     "ragged_decode_attention": {
         "route": "cuda", "source": CSRC + "ragged_decode_attn.cu",
         "replaces": "distributed_llms_tpu/ops/decode_attn.py:338"},
+    "quant_matmul": {
+        "route": "cuda", "source": CSRC + "quant_matmul.cu",
+        "replaces": "distributed_llms_tpu/ops/quant_matmul.py:139"},
+    "quant_matmul_int4": {
+        "route": "cuda", "source": CSRC + "quant_matmul.cu",
+        "replaces": "distributed_llms_tpu/ops/quant_matmul.py:139"},
 }
 
 
 def _counters():
-    from distributed_llms_tpu_torch.ops import decode_attn
+    from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
 
     return {
+        "quant_matmul": (quant_matmul.quant_matmul, "launches"),
+        "quant_matmul_int4": (quant_matmul.quant_matmul, "int4_launches"),
         "paged_decode_attention": (decode_attn.paged_decode_attention,
                                    "launches"),
         "paged_decode_attention_int8": (decode_attn.paged_decode_attention,
@@ -206,6 +234,26 @@ WINDOW = 4096  # Mistral-7B's sliding window
 # length 1 outputs that product itself).
 TOL = 2e-2
 TOL_REL_INT8 = 2.0 ** -7
+# K5 against its plain version: both round the dequantized weight to bf16
+# the same way (float32(q) * scale, round to nearest) and accumulate in
+# float32, so they differ by the summation order (WMMA tiles of 16 against
+# cuBLAS's float32 product, ~1e-6 relative) and then by at most one bf16
+# ulp of the output, 2^-7 |out|; outputs here are of scale ~1-5.
+TOL_REL_QMM = 2.0 ** -7
+
+# K5 at Llama-3-8B's projections, in the weights' own layouts: (label, M,
+# weight shape, k_lead, int4 pack axis).  M=8 is a decode step of 8 rows,
+# M=512 an admission prefill.
+QMM_SHAPES = [
+    ("wq", 8, (4096, 32, 128), 1, -3),
+    ("wk_wv", 8, (4096, 8, 128), 1, -3),
+    ("gate_up", 8, (4096, 14336), 1, -2),
+    ("down", 8, (14336, 4096), 1, -2),
+    ("wo", 8, (32, 128, 4096), 2, -2),
+    ("gate_up_prefill", 512, (4096, 14336), 1, -2),
+]
+QMM_REPORTED = "gate_up"  # the shape of K5's entries in the JSON line
+QMM_NAMES = {8: "quant_matmul", 4: "quant_matmul_int4"}
 
 
 def _held(torch, name, got, want, rel=0.0, **info) -> float:
@@ -223,8 +271,33 @@ def _held(torch, name, got, want, rel=0.0, **info) -> float:
     return err
 
 
+def qmm_case(torch, m, wshape, k_lead, pack_axis, bits, seed):
+    """bf16 activations [M, K-axes] and a weight drawn like ``init_params``'
+    (normal / sqrt(fan_in)), rounded to bf16 and quantized by the port's
+    ``quantize``, as ``save_shards`` quantizes a bf16 model."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import quantize
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = math.prod(wshape[:k_lead])
+    w = torch.randn(wshape, generator=g, device="cuda") * k ** -0.5
+    qt = quantize(w.to(torch.bfloat16), bits=bits, pack_axis=pack_axis)
+    x = torch.randn((m, *wshape[:k_lead]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    return x, qt
+
+
+def qmm_plain(torch, x, qt, k_lead):
+    """K5's plain version on the flat operands, shaped like the output."""
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    q2, s2 = quant_matmul.flatten_qt(qt, k_lead)
+    out = quant_matmul.quant_matmul_plain(x.reshape(x.shape[0], -1), q2, s2,
+                                          qt.bits)
+    return out.reshape(x.shape[0], *qt.data.shape[k_lead:])
+
+
 def phase_kernel(torch) -> dict:
-    from distributed_llms_tpu_torch.ops import decode_attn
+    from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
 
     worst = {name: 0.0 for name in KERNELS}
     for garbage in (False, True):
@@ -254,6 +327,14 @@ def phase_kernel(torch) -> dict:
                     window=window)
         worst["ragged_decode_attention"] = max(
             worst["ragged_decode_attention"], err)
+    for bits, name in QMM_NAMES.items():
+        for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
+            x, qt = qmm_case(torch, m, wshape, k_lead, pack, bits, seed=20 + i)
+            err = _held(torch, name,
+                        quant_matmul.quant_contract(x, qt, k_lead),
+                        qmm_plain(torch, x, qt, k_lead), rel=TOL_REL_QMM,
+                        shape=label, M=m, weight=list(wshape), k_lead=k_lead)
+            worst[name] = max(worst[name], err)
     return {name: {"max_abs_err": e} for name, e in worst.items()}
 
 
@@ -292,11 +373,13 @@ def _turns(torch, kernel, plain, library, plain_iters=20) -> dict:
             "plain_ms_turns": [plain_a, plain_b]}
 
 
-def _timed(name, shapes, t, bound_ms, bound_by, kv_bytes) -> dict:
+def _timed(name, shapes, t, bound_ms, bound_by, data_bytes, **info) -> dict:
+    """Emit one timing line; ``data_bytes`` is the bulk the kernel streams
+    (K/V slots, or weight codes and scales)."""
     emit("timing", name=name, shapes=shapes, kernel_ms=t["kernel_ms_turns"],
          plain_ms=t["plain_ms_turns"], library_ms=t["library_ms"],
-         bound_ms=bound_ms, bound_by=bound_by, kv_bytes=kv_bytes,
-         achieved_tb_s=kv_bytes / (t["ms"] * 1e-3) / 1e12)
+         bound_ms=bound_ms, bound_by=bound_by, data_bytes=data_bytes,
+         achieved_tb_s=data_bytes / (t["ms"] * 1e-3) / 1e12, **info)
     return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": t["library_ms"]}
 
@@ -405,6 +488,74 @@ def phase_timing(torch) -> dict:
                        4 * int(band.sum()) * h * d), kv_bytes)
         if window == WINDOW:
             out["ragged_decode_attention"] = timed
+    out.update(qmm_timing(torch))
+    return out
+
+
+# A decode step reads each layer's weights once, cold; a weight that fits
+# in the 50 MB L2 cache would time warm if launched on itself.  The K5
+# timings rotate over copies of their operands that hold at least this
+# many bytes in all.
+L2_ROTATION_BYTES = 150e6
+
+
+def _rotate(fns):
+    """One callable that runs ``fns`` in turn."""
+    state = {"i": 0}
+
+    def run():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+
+    return run
+
+
+def qmm_timing(torch) -> dict:
+    """K5 at each Llama-3-8B projection shape, int8 and int4, against its
+    plain version and cuBLAS over the pre-dequantized bf16 weight."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import (
+        QuantizedTensor, dequantize)
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    out = {}
+    for bits, name in QMM_NAMES.items():
+        for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
+            x, qt = qmm_case(torch, m, wshape, k_lead, pack, bits, seed=40 + i)
+            q2, s2 = quant_matmul.flatten_qt(qt, k_lead)
+            k, n = s2.shape[0], q2.shape[1]
+            w_bytes = q2.numel() + s2.numel() * 4
+            copies = max(1, math.ceil(L2_ROTATION_BYTES / w_bytes))
+            qts = [qt] + [QuantizedTensor(qt.data.clone(), qt.scale.clone(),
+                                          qt.bits, qt.orig_shape,
+                                          qt.pack_axis)
+                          for _ in range(copies - 1)]
+            x2 = x.reshape(m, k)
+            w16 = [dequantize(q, torch.bfloat16).reshape(k, n) for q in
+                   qts[:math.ceil(L2_ROTATION_BYTES / (2 * k * n))]]
+            plain = qmm_plain(torch, x, qt, k_lead).reshape(m, n).float()
+            lib_err = ((torch.matmul(x2, w16[0]).float() - plain).abs()
+                       - TOL_REL_QMM * plain.abs()).max().item()
+            check(lib_err <= TOL, f"K5 library yardstick disagrees ({label})")
+            t = _turns(
+                torch,
+                _rotate([lambda q=q: quant_matmul.quant_contract(x, q, k_lead)
+                         for q in qts]),
+                _rotate([lambda q=q: qmm_plain(torch, x, q, k_lead)
+                         for q in qts]),
+                _rotate([lambda w=w: torch.matmul(x2, w) for w in w16]))
+            io_bytes = 2 * m * k + 2 * m * n
+            timed = _timed(
+                name, {"shape": label, "M": m, "K": k, "N": n,
+                       "weight": list(wshape), "k_lead": k_lead,
+                       "bits": bits, "operand_copies": copies},
+                t, *_bound(w_bytes, io_bytes, 2 * m * k * n), w_bytes,
+                library="torch.matmul over the pre-dequantized bf16 weight "
+                        "(cuBLAS; reads 2 bytes per weight, twice int8's "
+                        "codes and four times int4's)")
+            if label == QMM_REPORTED:
+                out[name] = timed
+            del qts, w16
     return out
 
 
@@ -458,23 +609,31 @@ def _decode_logits(torch, cfg, params_cpu, dev, mode, lens, toks, steps):
 
 def phase_model(torch) -> None:
     """Same bf16 weights and tokens on the card (kernels) and on the CPU
-    (plain versions): paged bf16 (K1), int8 pages (K1q), and a contiguous
-    cache with a 64-slot sliding window decoded past it (K2).  Logits must
-    agree to bf16 noise, and each kernel must have run for every layer of
-    every step."""
+    (plain versions): paged bf16 (K1), int8 pages (K1q), a contiguous
+    cache with a 64-slot sliding window decoded past it (K2), and int8 and
+    int4 quantized blocks over a paged bf16 pool (K5 for every projection
+    of every admission and decode step, K1).  Logits must agree to bf16
+    noise, and each kernel must have run for every layer of every step."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import quantize_tree
     from distributed_llms_tpu_torch.models import model as model_lib
 
-    legs = [
-        ("paged_decode_attention", "paged", {}),
-        ("paged_decode_attention_int8", "int8", {}),
-        ("ragged_decode_attention", "contiguous", {"sliding_window": 64}),
+    legs = [  # (decode kernel, cache, config overrides, weight bits)
+        ("paged_decode_attention", "paged", {}, None),
+        ("paged_decode_attention_int8", "int8", {}, None),
+        ("ragged_decode_attention", "contiguous", {"sliding_window": 64},
+         None),
+        ("paged_decode_attention", "paged", {}, 8),
+        ("paged_decode_attention", "paged", {}, 4),
     ]
     steps = 3
-    for name, mode, overrides in legs:
+    for name, mode, overrides, bits in legs:
         cfg = _small_cfg(**overrides)
         params_cpu = model_lib.init_params(
             cfg, generator=torch.Generator(device="cpu").manual_seed(7),
             device="cpu")
+        if bits:  # quantized blocks, as serve_quantized loads a store
+            params_cpu["blocks"] = quantize_tree(params_cpu["blocks"],
+                                                 bits=bits)
         gen = torch.Generator(device="cpu").manual_seed(11)
         lens = [97, 150] if overrides else [37, 50]
         toks = torch.randint(0, 512, (2, 200), generator=gen)
@@ -483,7 +642,7 @@ def phase_model(torch) -> None:
             reset_launches()
             logits[dev] = _decode_logits(torch, cfg, params_cpu, dev, mode,
                                          lens, toks, steps)
-        launched = read_launches()[name]
+        launched = read_launches()
         check(bool(torch.isfinite(logits["cuda"]).all()),
               f"model logits not finite ({name})")
         err = (logits["cuda"] - logits["cpu"]).abs().max().item()
@@ -491,11 +650,19 @@ def phase_model(torch) -> None:
         agree = (logits["cuda"].argmax(-1)
                  == logits["cpu"].argmax(-1)).float().mean().item()
         emit("model", kernel=name, cache=mode, window=cfg.sliding_window,
-             lengths=lens, decode_steps=steps, launches=launched,
+             weight_bits=bits, lengths=lens, decode_steps=steps,
+             launches={k: v for k, v in launched.items() if v},
              max_abs_logit_err=err, logit_scale=scale, argmax_agree=agree)
-        check(launched == cfg.num_layers * steps,
-              f"{name} launched {launched} times for {steps} steps x "
+        check(launched[name] == cfg.num_layers * steps,
+              f"{name} launched {launched[name]} times for {steps} steps x "
               f"{cfg.num_layers} layers")
+        if bits:
+            # 7 projections per layer per forward: each row's admission
+            # prefill and each decode step.
+            want = 7 * cfg.num_layers * (steps + len(lens))
+            qname = QMM_NAMES[bits]
+            check(launched[qname] == want,
+                  f"{qname} launched {launched[qname]} times, not {want}")
         # Tolerance: 5% of the logit scale — bf16 activations round
         # differently through cuBLAS and the CPU's matmuls, on top of the
         # kernels' own bf16-probability rounding.
@@ -670,20 +837,26 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_path(torch, label, argv, kernel, requests, check_cfg) -> tuple:
+def serve_path(torch, label, argv, kernels, requests, check_cfg,
+               **info) -> tuple:
     """Boot ``dlt-serve-torch argv`` in-process through the user's entry
     point, answer ``requests(port)`` over HTTP, and hold the path to its
-    kernel: every count 0 just before, read just after, the path's kernel
-    at least layers x decode steps.  Returns (launches, server)."""
+    kernels: every count 0 just before, read just after, each of the
+    path's ``kernels`` ({name: launches per layer per decode step}) at
+    least that many times layers x decode steps.  Returns (launches,
+    server, {"resident_gb": device memory the booted engine holds,
+    "peak_mem_gb": peak over boot and serving})."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
 
     args = serve_main.parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     server = serve_main.build_server(args)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    mem = {"resident_gb": (torch.cuda.memory_allocated() - before) / 1e9}
     cfg = server.batcher.cfg
     check_cfg(cfg)
 
@@ -705,17 +878,20 @@ def serve_path(torch, label, argv, kernel, requests, check_cfg) -> tuple:
         extra = {"prefix_cache_hits": b.prefix_cache.hits,
                  "prefix_hit_tokens": b.prefix_cache.hit_tokens}
     ttft = METRICS.snapshot()["histograms"].get("server.ttft_seconds", {})
+    mem["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit("serve", path=label, argv=argv, boot_s=boot_s, decode_steps=steps,
          launches=launches, kv_bits=b.kv_bits, paged=b.paged,
          sliding_window=cfg.sliding_window, max_len=b.s,
+         num_layers=cfg.num_layers,
          ttft_s_cumulative={k: ttft.get(k) for k in ("p50", "max", "count")},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         **extra, **result)
+         **mem, **info, **extra, **result)
     check(steps > 0, f"{label}: no decode step ran")
-    check(launches[kernel] >= cfg.num_layers * steps,
-          f"{label}: {kernel} launched {launches[kernel]} times for {steps} "
-          f"decode steps x {cfg.num_layers} layers")
-    return launches, server
+    for kernel, per_step in kernels.items():
+        want = per_step * cfg.num_layers * steps
+        check(launches[kernel] >= want,
+              f"{label}: {kernel} launched {launches[kernel]} times, under "
+              f"{per_step} x {steps} decode steps x {cfg.num_layers} layers")
+    return launches, server, mem
 
 
 def _llama_3_8b(cfg) -> None:
@@ -729,22 +905,85 @@ def _mistral_7b(cfg) -> None:
           and cfg.sliding_window == WINDOW, "not the full-width mistral-7b")
 
 
+def write_store(torch, quantization: str, out_dir: str) -> dict:
+    """A Llama-3-8B store (random weights drawn on the card from seed 0)
+    written by the port's ``save_shards``: 2 raw shards, quantized leaf by
+    leaf on the card.  Returns what it cost."""
+    from distributed_llms_tpu_torch.checkpoint.store import save_shards
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset("llama-3-8b")
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    t0 = time.perf_counter()
+    save_shards(params, out_dir, num_shards=2, model_config=cfg,
+                quantization=quantization, storage="raw")
+    write_s = time.perf_counter() - t0
+    del params
+    _free(torch)
+    disk = sum(p.stat().st_size for p in Path(out_dir).iterdir())
+    return {"store": quantization, "store_bytes": disk,
+            "store_write_s": write_s}
+
+
+def serve_store(torch, label, quantization, bits, **info) -> tuple:
+    """Path d or e: write the store into a temporary directory, serve it
+    quantized, remove it.  Returns (launches, server, memory as
+    :func:`serve_path`, with "saved_gb": the bytes its quantized block
+    weights save over bf16)."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+
+    tmp = tempfile.mkdtemp(prefix=f"dlt_store_{quantization}_")
+    try:
+        info.update(write_store(torch, quantization, tmp))
+        launches, server, mem = serve_path(
+            torch, label, ["--store", tmp, *SERVE_STORE_ARGS],
+            {QMM_NAMES[bits]: 7, "paged_decode_attention": 1},
+            _serve_requests, _llama_3_8b, **info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(server.batcher.prefix_cache.hits > 0, f"{label}: no prefix-cache hit")
+    saved = 0
+    for group in server.batcher.params["blocks"].values():
+        for name, leaf in group.items():
+            check(isinstance(leaf, QuantizedTensor) or name == "scale",
+                  f"{label}: block weight {name} is not quantized")
+            if isinstance(leaf, QuantizedTensor):
+                saved += (2 * math.prod(leaf.unpacked_shape)
+                          - leaf.data.nbytes - leaf.scale.nbytes)
+    mem["saved_gb"] = saved / 1e9
+    emit("serve_memory", path=label, **mem)
+    return launches, server, mem
+
+
+def _check_resident(label, mem, mem_a) -> None:
+    """A quantized path holds less device memory than path a, by most of
+    what its block weights save (the rest of both engines is alike)."""
+    gained = mem_a["resident_gb"] - mem["resident_gb"]
+    check(gained >= 0.9 * mem["saved_gb"],
+          f"{label} holds {mem['resident_gb']:.3f} GB once booted, only "
+          f"{gained:.3f} GB below the bf16 path's {mem_a['resident_gb']:.3f}"
+          f" GB; its quantized blocks should save {mem['saved_gb']:.3f} GB")
+
+
 def phase_serve(torch, profile: bool) -> dict:
-    """The three paths, one engine at a time.  Returns each kernel's
+    """The five paths, one engine at a time.  Returns each kernel's
     launches on its own path."""
-    launches, server = serve_path(torch, "paged", SERVE_ARGS,
-                                  "paged_decode_attention", _serve_requests,
-                                  _llama_3_8b)
+    launches, server, mem_a = serve_path(
+        torch, "paged", SERVE_ARGS, {"paged_decode_attention": 1},
+        _serve_requests, _llama_3_8b)
     check(server.batcher.prefix_cache.hits > 0, "paged: no prefix-cache hit")
     out = {"paged_decode_attention": launches["paged_decode_attention"]}
     if profile:
-        phase_profile(torch, server.batcher)
+        phase_profile(torch, "paged", server.batcher)
     del server
     _free(torch)
 
-    launches, server = serve_path(torch, "paged_int8", SERVE_INT8_ARGS,
-                                  "paged_decode_attention_int8",
-                                  _serve_requests, _llama_3_8b)
+    launches, server, _ = serve_path(
+        torch, "paged_int8", SERVE_INT8_ARGS,
+        {"paged_decode_attention_int8": 1}, _serve_requests, _llama_3_8b)
     check(server.batcher.kv_bits == 8, "paged_int8: the pool is not int8")
     check(server.batcher.prefix_cache.hits > 0,
           "paged_int8: no prefix-cache hit")
@@ -752,11 +991,30 @@ def phase_serve(torch, profile: bool) -> dict:
     del server
     _free(torch)
 
-    launches, server = serve_path(torch, "windowed", SERVE_WINDOW_ARGS,
-                                  "ragged_decode_attention",
-                                  _serve_window_requests, _mistral_7b)
+    launches, server, _ = serve_path(
+        torch, "windowed", SERVE_WINDOW_ARGS, {"ragged_decode_attention": 1},
+        _serve_window_requests, _mistral_7b)
     check(not server.batcher.paged, "windowed: not contiguous mode")
     out["ragged_decode_attention"] = launches["ragged_decode_attention"]
+    del server
+    _free(torch)
+
+    launches, server, mem = serve_store(
+        torch, "store_int8", "int8", 8, path_a_mem_gb=mem_a)
+    _check_resident("store_int8", mem, mem_a)
+    check(mem["peak_mem_gb"] < mem_a["peak_mem_gb"],
+          f"store_int8 peaked at {mem['peak_mem_gb']:.2f} GB, not below the "
+          f"bf16 path's {mem_a['peak_mem_gb']:.2f} GB")
+    out["quant_matmul"] = launches["quant_matmul"]
+    if profile:
+        phase_profile(torch, "store_int8", server.batcher)
+    del server
+    _free(torch)
+
+    launches, server, mem = serve_store(
+        torch, "store_int4", "int4", 4, path_a_mem_gb=mem_a)
+    _check_resident("store_int4", mem, mem_a)
+    out["quant_matmul_int4"] = launches["quant_matmul_int4"]
     del server
     _free(torch)
     return out
@@ -764,12 +1022,12 @@ def phase_serve(torch, profile: bool) -> dict:
 
 # -- phase 6: where a full-width batch's time goes ---------------------------
 
-def phase_profile(torch, batcher) -> None:
+def phase_profile(torch, label, batcher) -> None:
     """A fresh batcher over the served weights runs 8 requests (300-token
     prompts, 64 new tokens) once to warm up and once under the profiler:
-    host wall time against device kernel time, split into the decode-
-    attention kernels, the matrix products and everything else.  Information
-    for PERF.md, not a gate."""
+    host wall time against device kernel time, split into K5, the decode-
+    attention kernels, the other matrix products and everything else.
+    Information for PERF.md, not a gate."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -786,13 +1044,16 @@ def phase_profile(torch, batcher) -> None:
     wall, steps = run()  # warm-up, and the unprofiled wall time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prof_wall, _ = run()
-    split = {"decode_attention_kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"quant_matmul_kernel": 0.0, "decode_attention_kernel": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.device_time_total
         name = e.name
-        if "paged_decode_kernel" in name or "ragged_decode_kernel" in name:
+        if "quant_matmul" in name:
+            split["quant_matmul_kernel"] += us
+        elif "paged_decode_kernel" in name or "ragged_decode_kernel" in name:
             split["decode_attention_kernel"] += us
         elif any(k in name for k in ("gemm", "nvjet", "cutlass", "splitK",
                                      "sm90_xmma")):
@@ -800,8 +1061,8 @@ def phase_profile(torch, batcher) -> None:
         else:
             split["other"] += us
     busy_ms = sum(split.values()) / 1e3
-    emit("profile", requests=batcher.b, prompt_tokens=300, new_tokens=64,
-         decode_steps=steps, wall_ms=wall * 1e3,
+    emit("profile", path=label, requests=batcher.b, prompt_tokens=300,
+         new_tokens=64, decode_steps=steps, wall_ms=wall * 1e3,
          wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
          profiled_wall_ms=prof_wall * 1e3,
          device_kernel_ms={k: v / 1e3 for k, v in split.items()},

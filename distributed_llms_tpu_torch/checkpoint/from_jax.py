@@ -24,7 +24,11 @@ blocks.mlp.w_down                  [L, F, D]
 
 Values convert through float32 to ``dtype`` (default ``cfg.dtype``), so a
 bfloat16 tree (numpy carries it as ``ml_dtypes.bfloat16``) round-trips
-exactly.  The llama family only, like the rest of the port.
+exactly.  A weight-only quantized leaf (the JAX package's
+``QuantizedTensor``, its codes and scales numpy arrays) crosses as the
+port's ``checkpoint.quantize.QuantizedTensor`` with its int8 codes and
+float32 scales unchanged; it is recognised by its fields, not imported.
+The llama family only, like the rest of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from ..core.config import ModelConfig
 from ..core.device import resolve_device
 from ..models import model as model_lib
+from .quantize import QuantizedTensor
 
 # The leaves the port's llama forward reads, with their expected shapes.
 def _expected(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -62,6 +67,12 @@ def _expected(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if not cfg.tie_embeddings:
         out["lm_head.w"] = (D, V)
     return out
+
+
+def _is_quantized(leaf: Any) -> bool:
+    # "bits" first: an ndarray has a .data buffer too.
+    return all(hasattr(leaf, f) for f in ("bits", "pack_axis", "orig_shape",
+                                          "scale", "data"))
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -103,11 +114,20 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
         )
     out = {}
     for path, arr in flat.items():
-        arr = np.asarray(arr)
-        if arr.shape != want[path]:
-            raise ValueError(
-                f"{path}: shape {arr.shape}, expected {want[path]}"
-            )
-        t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-        out[path] = t.to(device=dev, dtype=dt)
+        if _is_quantized(arr):
+            qt = QuantizedTensor(
+                data=torch.from_numpy(np.array(arr.data, np.int8)),
+                scale=torch.from_numpy(np.array(arr.scale, np.float32)),
+                bits=int(arr.bits), orig_shape=tuple(arr.orig_shape),
+                pack_axis=int(arr.pack_axis))
+            shape, value = qt.unpacked_shape, qt.to(dev)
+        else:
+            arr = np.asarray(arr)
+            shape = arr.shape
+            value = torch.from_numpy(
+                np.ascontiguousarray(arr.astype(np.float32))
+            ).to(device=dev, dtype=dt)
+        if shape != want[path]:
+            raise ValueError(f"{path}: shape {shape}, expected {want[path]}")
+        out[path] = value
     return _unflatten(out)

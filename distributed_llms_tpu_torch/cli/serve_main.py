@@ -7,8 +7,12 @@ the OpenAI-style HTTP gateway (runtime/server.py), and serves until
 SIGTERM/SIGINT.  Without ``--paged-pages`` (or with ``--paged-pages 0``)
 the batcher serves contiguous mode, the one mode for sliding-window
 models: ``dlt-serve-torch --preset mistral-7b --max-len 6144``.
-``--device cpu`` runs on the CPU; without a GPU and without it, the boot
-raises.
+``dlt-serve-torch --store DIR`` serves a shard store instead (model
+config and tokenizer from its manifest); with ``--override
+runtime.serve_quantized=true`` an int8/int4 store keeps its decoder-block
+weights quantized on the device and every projection runs the
+dequant-matmul kernel.  ``--device cpu`` runs on the CPU; without a GPU
+and without it, the boot raises.
 
 The flags mirror ``dlt-serve``'s.  Those of later port slices are
 accepted by the parser and refused with ``NotImplementedError`` when set,
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 
 from ..core.config import load_config
@@ -31,7 +36,6 @@ log = get_logger("serve_main")
 # dlt-serve flags of later port slices: argparse dest -> the feature.  Any
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
-    "store": "shard-store loading (--store)",
     "host_pages": "the host-RAM KV tier (--host-pages)",
     "token_budget": "the mixed schedule's token budget (--token-budget)",
     "prefill_chunk": "chunked prefill (--prefill-chunk)",
@@ -67,8 +71,14 @@ def _build_engine(args):
     _refuse_later_slices(args)
     cfg = load_config(args.config, args.override)
     rt = cfg.runtime
+    if args.store:
+        mesh_cfg = cfg.mesh if cfg.mesh.num_devices > 1 else None
+        engine = InferenceEngine.from_store(args.store, rt=rt,
+                                            mesh_cfg=mesh_cfg,
+                                            device=args.device)
+        return engine, os.path.basename(os.path.normpath(args.store)), rt
     if not args.preset:
-        raise SystemExit("--preset is required (shard stores are not ported yet)")
+        raise SystemExit("one of --store or --preset is required")
     # Random-weight serving with the byte tokenizer: tiny presets (vocab
     # 256) cannot hold its specials (259 ids) — widen to 512.
     from ..models.presets import get_preset
@@ -157,6 +167,9 @@ async def _serve(args) -> None:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--store", default=None,
+                    help="shard store directory (checkpoint.store); wins "
+                         "over --preset")
     ap.add_argument("--preset", default=None,
                     help="serve a random-weight preset (e.g. llama-3-8b)")
     ap.add_argument("--device", default=None,
@@ -170,7 +183,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--model-name", default=None,
-                    help="name reported by /v1/models (default: the preset)")
+                    help="name reported by /v1/models (default: the "
+                         "store's directory name, or the preset)")
     ap.add_argument("--slots", type=int, default=8,
                     help="continuous-batching row slots")
     ap.add_argument("--max-len", type=int, default=None,
@@ -217,7 +231,6 @@ def parser() -> argparse.ArgumentParser:
                          "in-flight work exists but no chunk was delivered "
                          "for this many seconds")
     # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
-    ap.add_argument("--store", default=None, help="not ported yet")
     ap.add_argument("--host-pages", type=int, default=None,
                     help="not ported yet")
     ap.add_argument("--token-budget", type=int, default=None,

@@ -225,9 +225,10 @@ class RuntimeConfig:
     remat: bool = False  # jax.checkpoint on decoder blocks
     seed: int = 0
     profile_dir: str | None = None  # capture jax.profiler traces of generate
-    # Persistent XLA compilation cache: a serving process restarted on the
-    # same model skips the first-compile wait (~20-40 s on TPU for a 7B
-    # decode graph).  Enabled once per process, before the first jit.
+    # Persistent compilation cache of the JAX package: a serving process
+    # restarted on the same model skips its first-compile wait.  Parsed so
+    # one config file drives either stack; the port runs eagerly and
+    # compiles no graph.
     compilation_cache_dir: str | None = None
     # Paged KV cache for continuous batching (runtime/batcher.py): rows
     # allocate pages from a shared pool instead of owning max_seq_len slots;

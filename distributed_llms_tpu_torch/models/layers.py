@@ -6,9 +6,10 @@ package — stacked-layer dictionaries, ``wq [D, H, hd]`` / ``wo [H, hd, D]``
 — so one numpy tree feeds both stacks (``checkpoint/from_jax.py``).
 Numerics follow the reference: norms, RoPE and softmax compute in float32;
 attention scores accumulate in float32 and the probabilities are cast to
-V's dtype before the value product.  The large products are
-``torch.matmul``: the JAX package leaves them to XLA, outside any Pallas
-kernel.
+V's dtype before the value product.  Every projection goes through
+:func:`_contract`: ``torch.matmul`` for a plain weight (the JAX package
+leaves those products to XLA, outside any Pallas kernel), the
+dequant-matmul kernel for a quantized one.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import math
 from typing import Any
 
 import torch
+
+from ..checkpoint.quantize import QuantizedTensor
+from ..ops.quant_matmul import quant_contract
 
 Params = dict[str, Any]
 
@@ -144,17 +148,33 @@ def and_window(
 # Projections (einsum conventions shared with the JAX package)
 # ---------------------------------------------------------------------------
 
+# How many leading axes of each projection weight contract against x: 2 for
+# wo [H, hd, D], 1 for the others.  The store loader reads it too, to refuse
+# an int4 weight packed along another axis.
+K_LEAD = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
+          "w_down": 1}
+
+
+def _contract(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
+    """Contract x's trailing ``K_LEAD[name]`` axes against the weight's
+    leading ones, keeping its other axes: a matrix product for a tensor,
+    the dequant-matmul (``ops/quant_matmul.py``, K5 on CUDA) for a
+    ``QuantizedTensor`` under weight-only quantized serving."""
+    w, k_lead = p[name], K_LEAD[name]
+    if isinstance(w, QuantizedTensor):
+        return quant_contract(x, w, k_lead)
+    lead = x.shape[: x.dim() - k_lead]
+    k = math.prod(x.shape[x.dim() - k_lead:])
+    return (x.reshape(-1, k) @ w.reshape(k, -1)).reshape(
+        *lead, *w.shape[k_lead:])
+
+
 def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> q [B, T, H, hd], k/v [B, T, KVH, hd].  Weight
     layout: wq [D, H, hd], wk/wv [D, KVH, hd]."""
-    b, t, d = x.shape
-
-    def proj(w):
-        return (x.reshape(b * t, d) @ w.reshape(d, -1)).reshape(
-            b, t, w.shape[1], w.shape[2]
-        )
-
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q = _contract(x, p, "wq")
+    k = _contract(x, p, "wk")
+    v = _contract(x, p, "wv")
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -164,9 +184,7 @@ def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Te
 
 def out_project(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x: [B, T, H, hd] -> [B, T, D].  wo: [H, hd, D]."""
-    b, t, h, hd = x.shape
-    wo = p["wo"]
-    out = (x.reshape(b * t, h * hd) @ wo.reshape(h * hd, -1)).reshape(b, t, -1)
+    out = _contract(x, p, "wo")
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -175,10 +193,10 @@ def out_project(x: torch.Tensor, p: Params) -> torch.Tensor:
 def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tensor:
     """Gated MLP: (act(x W_gate) * (x W_up)) W_down, no biases.
     ``gate_act``: "silu" (Llama/Qwen2) or "gelu_tanh" (Gemma's GeGLU)."""
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
+    gate = _contract(x, p, "w_gate")
+    up = _contract(x, p, "w_up")
     if gate_act == "silu":
         act = torch.nn.functional.silu(gate)
     else:
         act = torch.nn.functional.gelu(gate, approximate="tanh")
-    return (act * up) @ p["w_down"]
+    return _contract(act * up, p, "w_down")

@@ -261,7 +261,8 @@ def llama_block(x, p, cfg, positions, layer_cache, cache_index,
 
 
 def layer_params(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves."""
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` leaves
+    (a ``QuantizedTensor`` leaf slices its codes and scales alike)."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in blocks.items()}
 
@@ -281,7 +282,10 @@ def run_blocks(
 ) -> torch.Tensor:
     """Run the stacked blocks over x, layer by layer (the JAX package's
     ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``
-    (and the scales of an int8 pool)."""
+    (and the scales of an int8 pool).  Under weight-only quantized serving
+    the blocks' matmul weights are ``QuantizedTensor`` leaves: they stay
+    int8/int4 in device memory and reach the dequant-matmul kernel through
+    ``layers._contract``."""
     n_layers = blocks["ln1"]["scale"].shape[0]
     for i in range(n_layers):
         if cache_k is None:

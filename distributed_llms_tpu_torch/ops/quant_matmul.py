@@ -1,0 +1,164 @@
+"""Weight-only quantized matrix products (PyTorch/CUDA port of
+``distributed_llms_tpu/ops/quant_matmul.py``).
+
+:func:`quant_contract` computes ``x @ dequant(W)`` for a blockwise-quantized
+weight (``checkpoint.quantize.QuantizedTensor``, int8 or row-packed int4):
+the leading ``k_lead`` axes of the weight contract against x's trailing
+axes, flattened to ``[K, N]`` exactly as the JAX package's ``flatten_qt``
+does.  :func:`quant_matmul` is the 2-D product on those flat operands.
+The device decides the implementation:
+
+- CUDA tensors launch the hand-written Hopper kernel K5
+  (``csrc/quant_matmul.cu``), or raise — there is no fallback;
+- CPU tensors take the plain version, :func:`quant_matmul_plain`: the
+  weight dequantized to x's dtype (``float32(q) * scale``, cast), then a
+  product accumulated in float32.
+
+An int4 weight must pack its pairs along its last contracted axis (the
+layout ``checkpoint.quantize.quantize_tree`` writes); any other packing
+raises ``NotImplementedError``.  The kernel counts its launches per width:
+``quant_matmul.launches`` (int8) and ``quant_matmul.int4_launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..checkpoint.quantize import QuantizedTensor, unpack_int4
+
+SOURCE = "quant_matmul.cu"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
+
+
+def flatten_qt(qt: QuantizedTensor, k_lead: int):
+    """(q2 [K or K/2, N] int8, s2 [K, N / block] float32) of a weight whose
+    first ``k_lead`` axes contract.  Scale blocks run along the last axis
+    only, so flattening the trailing axes keeps them contiguous; int4 data
+    rows are packed pairs, scale rows stay per unpacked row."""
+    kq = math.prod(qt.data.shape[:k_lead])
+    ks = math.prod(qt.scale.shape[:k_lead])
+    return qt.data.reshape(kq, -1), qt.scale.reshape(ks, -1)
+
+
+def dequant_flat(q2: torch.Tensor, s2: torch.Tensor, bits: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The flat weight ``[K, N]`` in ``dtype``: ``float32(q) * s`` per (row,
+    block of N), cast — ``checkpoint.quantize.dequantize``'s numerics."""
+    q = unpack_int4(q2, -2) if bits == 4 else q2
+    k, n = q.shape
+    nb = s2.shape[1]
+    w = q.float().reshape(k, nb, n // nb) * s2[:, :, None]
+    return w.reshape(k, n).to(dtype)
+
+
+def quant_matmul_plain(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
+                       bits: int) -> torch.Tensor:
+    """The plain version of K5: dequantize, then ``x2 @ w`` with products
+    and sums in float32, cast to x's dtype."""
+    w = dequant_flat(q2, s2, bits, x2.dtype)
+    return (x2.float() @ w.float()).to(x2.dtype)
+
+
+def _check_operands(x2, q2, s2, bits) -> None:
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if x2.dim() != 2 or q2.dim() != 2 or s2.dim() != 2:
+        raise ValueError(
+            f"x, q and s must be 2-d, got {tuple(x2.shape)} / "
+            f"{tuple(q2.shape)} / {tuple(s2.shape)}")
+    if q2.dtype != torch.int8 or s2.dtype != torch.float32:
+        raise TypeError(
+            f"codes must be int8 and scales float32, got {q2.dtype} / "
+            f"{s2.dtype}")
+    m, k = x2.shape
+    kq, n = q2.shape
+    if kq * (2 if bits == 4 else 1) != k or s2.shape[0] != k:
+        raise ValueError(
+            f"K disagrees: x {tuple(x2.shape)}, int{bits} codes "
+            f"{tuple(q2.shape)}, scales {tuple(s2.shape)}")
+    if s2.shape[1] < 1 or n % s2.shape[1]:
+        raise ValueError(
+            f"{s2.shape[1]} scale blocks do not divide N = {n}")
+
+
+def quant_matmul(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
+                 bits: int) -> torch.Tensor:
+    """``x2 [M, K] @ dequant(q2, s2) -> [M, N]`` in x's dtype (K5)."""
+    _check_operands(x2, q2, s2, bits)
+    devices = {t.device for t in (x2, q2, s2)}
+    if {d.type for d in devices} == {"cpu"}:
+        return quant_matmul_plain(x2, q2, s2, bits)
+    if len(devices) != 1 or x2.device.type != "cuda":
+        raise ValueError(
+            "quant_matmul needs every tensor on one CUDA device (or all on "
+            f"the CPU), got {[str(d) for d in devices]}")
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"the CUDA kernel takes bfloat16 or float32 x, got {x2.dtype}")
+    m, k = x2.shape
+    n = q2.shape[1]
+    if max(m, k, n) >= 2**31:  # the kernel's sizes are 32-bit ints
+        raise ValueError(f"shape [{m}, {k}] x [{k}, {n}] exceeds the kernel")
+    x2, q2, s2 = (t.contiguous() for t in (x2, q2, s2))
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    err = _kernel()(
+        x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
+        m, k, n, s2.shape[1], bits, int(x2.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x2.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"quant matmul kernel launch failed (cudaError {err})")
+    if bits == 4:
+        quant_matmul.int4_launches += 1
+    else:
+        quant_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0
+quant_matmul.int4_launches = 0
+
+
+def check_pack_axis(qt: QuantizedTensor, k_lead: int, stacked: int = 0) -> None:
+    """Raise ``NotImplementedError`` unless an int4 weight's pairs run
+    along its last contracted axis (``stacked`` leading layer axes not
+    counted) — the only packing whose flat rows are pairs of K rows.
+    Stores written before ``pack_axis`` was recorded packed along the last
+    axis, and are refused here."""
+    want = k_lead - 1 - (qt.data.dim() - stacked)
+    if qt.bits == 4 and qt.pack_axis != want:
+        raise NotImplementedError(
+            f"int4 weight of shape {tuple(qt.unpacked_shape)} packed along "
+            f"axis {qt.pack_axis}; the dequant-matmul takes pairs along its "
+            f"last contracted axis ({want}) — re-save the store")
+
+
+def quant_contract(x: torch.Tensor, qt: QuantizedTensor,
+                   k_lead: int) -> torch.Tensor:
+    """``x[..., K-axes] @ dequant(W)[K-axes, N-axes]``: the trailing
+    ``k_lead`` axes of ``x`` contract against the weight's leading ones
+    (1 for wq/wk/wv/w_gate/w_up/w_down, 2 for wo ``[H, hd, D]``); the
+    weight's remaining axes are restored on the output."""
+    check_pack_axis(qt, k_lead)
+    q2, s2 = flatten_qt(qt, k_lead)
+    lead = x.shape[: x.dim() - k_lead]
+    k = math.prod(x.shape[x.dim() - k_lead:])
+    y2 = quant_matmul(x.reshape(-1, k), q2, s2, qt.bits)
+    return y2.reshape(*lead, *qt.data.shape[k_lead:])
+
+
+def _kernel():
+    """K5's C entry point, built at first use, argument types declared."""
+    from . import build
+
+    fn = build.load(SOURCE).dlt_quant_matmul
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn

@@ -3,13 +3,17 @@
 ``distributed_llms_tpu/runtime/engine.py``).
 
 The engine owns the weights on one device and hands out
-:class:`~.batcher.ContinuousBatcher` instances over them.  Entry points
-run on CUDA unless the caller asks for the CPU by name (``device="cpu"``);
+:class:`~.batcher.ContinuousBatcher` instances over them: random seeded
+weights of a preset (:meth:`InferenceEngine.from_preset`) or a shard store
+(:meth:`InferenceEngine.from_store`), whose decoder-block weights can stay
+int8/int4 on the device (``runtime.serve_quantized``).  Entry points run
+on CUDA unless the caller asks for the CPU by name (``device="cpu"``);
 without a GPU and without that request they raise.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import torch
@@ -41,8 +45,7 @@ class InferenceEngine:
         self.cfg = cfg
         self.rt = rt
         self.device = resolve_device(device)
-        for name, knob in (("serve_quantized", rt.serve_quantized),
-                           ("spec_decode", rt.spec_decode),
+        for name, knob in (("spec_decode", rt.spec_decode),
                            ("kv_host_spill", rt.kv_host_spill)):
             if knob:
                 raise NotImplementedError(
@@ -72,6 +75,72 @@ class InferenceEngine:
         gen.manual_seed(rng_seed)
         params = model_lib.init_params(cfg, generator=gen, device=dev)
         return cls(cfg, rt or RuntimeConfig(), params, device=dev)
+
+    @classmethod
+    def from_store(
+        cls,
+        store_dir: str,
+        rt: RuntimeConfig | None = None,
+        mesh_cfg: Any = None,  # core.config.MeshConfig
+        tokenizer=None,
+        device: "str | torch.device | None" = None,
+    ) -> "InferenceEngine":
+        """An engine over a shard store (``checkpoint.store``, written by
+        either stack): the model config comes from its manifest, the
+        tokenizer from its ``tokenizer`` dir (the byte tokenizer, with a
+        warning, when it has none).  With ``rt.serve_quantized`` the
+        decoder-block weights stay int8/int4 on the device and every
+        projection runs the dequant-matmul kernel; the embedding and the
+        unembedding are dequantized to ``cfg.dtype`` (a gather cannot read
+        quantized rows).  Otherwise every leaf is dequantized at load."""
+        from ..checkpoint import quantize as quant_lib
+        from ..checkpoint import store as store_lib
+        from ..models.layers import K_LEAD
+        from ..models.model import torch_dtype
+        from ..ops.quant_matmul import check_pack_axis
+        from .tokenizer import ByteTokenizer
+
+        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            raise NotImplementedError(
+                "serving a store on a multi-device mesh is not ported yet")
+        rt = rt or RuntimeConfig()
+        dev = resolve_device(device)
+        manifest = store_lib.load_manifest(store_dir)
+        if manifest.get("model_config") is None:
+            raise ValueError(f"store {store_dir} has no embedded model_config")
+        cfg = ModelConfig(**manifest["model_config"])
+        model_lib.check_supported(cfg)
+        if tokenizer is None:
+            tok_rel = manifest.get("tokenizer")
+            if tok_rel:
+                tokenizer = get_tokenizer(os.path.join(store_dir, tok_rel))
+            if (tokenizer is None or isinstance(tokenizer, ByteTokenizer)) \
+                    and cfg.vocab_size > ByteTokenizer.vocab_size:
+                log.warning(
+                    "store %s has no usable tokenizer (manifest tokenizer=%r) "
+                    "but the model vocab is %d; falling back to byte-level "
+                    "ids — decoded text will be wrong for a real checkpoint. "
+                    "Re-save the store with tokenizer_src=<checkpoint dir>.",
+                    store_dir, tok_rel, cfg.vocab_size,
+                )
+        dtype = torch_dtype(cfg.dtype)
+        if rt.serve_quantized:
+            if not manifest.get("quantization"):
+                raise ValueError(
+                    f"serve_quantized=True but store {store_dir} is not "
+                    "quantized; save it with quantization='int8'|'int4'"
+                )
+            params = store_lib.load_shards(store_dir, device=dev)
+            for group in params["blocks"].values():
+                for name, leaf in group.items():
+                    if isinstance(leaf, quant_lib.QuantizedTensor):
+                        check_pack_axis(leaf, K_LEAD[name], stacked=1)
+            params = {k: (v if k == "blocks"
+                          else quant_lib.dequantize_tree(v, dtype))
+                      for k, v in params.items()}
+        else:
+            params = store_lib.reconstruct(store_dir, dtype=dtype, device=dev)
+        return cls(cfg, rt, params, tokenizer=tokenizer, device=dev)
 
     def continuous_batcher(
         self, batch_slots: int = 8, max_len: int | None = None,
@@ -153,6 +222,7 @@ class InferenceEngine:
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
+    """Move a parameter tree (tensors and ``QuantizedTensor`` leaves)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)

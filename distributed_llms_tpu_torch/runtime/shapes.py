@@ -3,7 +3,8 @@
 Every jit entry point whose input widths follow request sizes must pad to a
 shape from a SMALL, CLOSED ladder — otherwise each new prompt length traces
 and compiles a fresh program ("recompile every new seq length", the classic
-TPU-serving perf bug: a 20-40 s XLA wait in the middle of serving traffic).
+compiled-serving perf bug: a long compile in the middle of serving
+traffic).
 
 This module is the single definition of that ladder, shared by:
 

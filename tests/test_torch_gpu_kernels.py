@@ -19,14 +19,24 @@ its plain version rounds the dequantized V to bf16 where the kernel (like
 the TPU kernel) rounds p * v_scale to bf16 and multiplies the int8 value
 exactly (chip_smoke.py prints the errors measured at the main path's
 shapes).
+
+The weight-only dequant-matmul (K5, int8 and row-packed int4 codes with
+float32 scales per (K row, block of N)) over M = 1 / 8 / 17 / 300, K and N
+off the kernel's 64-wide tiles, scale blocks 32 / 64 / 128 (and 8, which
+is narrower than one 16-byte load), the wo layout through ``k_lead=2``,
+bf16 and float32 activations.  Tolerance: bf16 outputs within 2^-7 |out|
++ 1e-2 (one output ulp plus summation order: both sides round the weight
+to bf16 and accumulate in float32), float32 within 1e-4 |out| + 1e-4.
+Wrong dtypes and a legacy int4 pack axis raise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from distributed_llms_tpu_torch.checkpoint.quantize import kv_quantize
-from distributed_llms_tpu_torch.ops import decode_attn
+from distributed_llms_tpu_torch.checkpoint.quantize import (kv_quantize,
+                                                            quantize)
+from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
 
 GPU_TOL = 2e-2
 
@@ -171,3 +181,85 @@ def test_cuda_new_kernels_raise_on_wrong_dtypes(cuda):
     with pytest.raises(TypeError):  # float32 q
         decode_attn.paged_decode_attention(q, kq, kq, ln, tables, k_scale=ks,
                                            v_scale=ks)
+
+
+QMM_GPU_CASES = [
+    # m, k, n, block, bits
+    (8, 4096, 1024, 128, 8),    # decode wk/wv
+    (8, 4096, 1024, 128, 4),
+    (1, 320, 200, 40, 8),       # K, N off the 64-wide tiles, N % 16 != 0
+    (17, 192, 96, 32, 4),
+    (300, 512, 384, 64, 8),     # prefill-shaped, several tiles each way
+    (300, 512, 384, 64, 4),
+    (8, 96, 72, 8, 4),          # block narrower than a 16-byte load
+    (33, 130, 130, 130, 8),     # K, N not multiples of 16
+]
+
+
+def _qmm_case(cuda, m, k, n, block, bits, seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    qt = quantize(w, bits=bits, block=block, pack_axis=-2)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    return x.to(dtype).to(cuda), qt.to(cuda)
+
+
+def _held(got, want, rel, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    over = diff - rel * want.float().abs() - tol
+    assert over.max().item() <= 0, diff.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,block,bits", QMM_GPU_CASES)
+def test_cuda_quant_matmul_matches_plain(cuda, m, k, n, block, bits):
+    x, qt = _qmm_case(cuda, m, k, n, block, bits, seed=10)
+    attr = "int4_launches" if bits == 4 else "launches"
+    before = getattr(quant_matmul.quant_matmul, attr)
+    got = quant_matmul.quant_contract(x, qt, 1)
+    assert getattr(quant_matmul.quant_matmul, attr) == before + 1
+    want = quant_matmul.quant_matmul_plain(x, qt.data, qt.scale, bits)
+    _held(got, want, 2.0 ** -7, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quant_matmul_float32_activations(cuda, bits):
+    x, qt = _qmm_case(cuda, 5, 256, 192, 64, bits, seed=11,
+                      dtype=torch.float32)
+    got = quant_matmul.quant_contract(x, qt, 1)
+    want = quant_matmul.quant_matmul_plain(x, qt.data, qt.scale, bits)
+    _held(got, want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quant_matmul_wo_layout(cuda, bits):
+    """wo [H, hd, D] contracts two axes (k_lead=2); int4 packs along hd."""
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.standard_normal((4, 128, 256)).astype(np.float32))
+    qt = quantize(w, bits=bits, pack_axis=-2).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 4, 128)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+    got = quant_matmul.quant_contract(x, qt, 2)
+    assert got.shape == (3, 5, 256)
+    q2, s2 = quant_matmul.flatten_qt(qt, 2)
+    want = quant_matmul.quant_matmul_plain(x.reshape(15, 512), q2, s2, bits)
+    _held(got.reshape(15, 256), want, 2.0 ** -7, 1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_matmul_raises_on_wrong_inputs(cuda):
+    x, qt = _qmm_case(cuda, 4, 256, 128, 128, 8, seed=13)
+    with pytest.raises(TypeError):  # float16 activations
+        quant_matmul.quant_contract(x.half(), qt, 1)
+    with pytest.raises(TypeError):  # float64 scales
+        quant_matmul.quant_matmul(x, qt.data, qt.scale.double(), 8)
+    with pytest.raises(ValueError):  # mixed devices
+        quant_matmul.quant_matmul(x, qt.data.cpu(), qt.scale, 8)
+    w = torch.randn(256, 128, device=cuda)
+    legacy = quantize(w, bits=4, pack_axis=-1)  # pairs along N, not K
+    with pytest.raises(NotImplementedError):
+        quant_matmul.quant_contract(x, legacy, 1)

@@ -294,7 +294,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ["--tenant-quota-tps", "5"], ["--host-pages", "64"],
     ["--token-budget", "64"], ["--prefill-chunk", "32"], ["--overlap", "on"],
     ["--spec-decode"], ["--tenant-weights", "a:1"], ["--replicas", "2"],
-    ["--disaggregate"], ["--tenant-max-rows", "2"], ["--store", "x"],
+    ["--disaggregate"], ["--tenant-max-rows", "2"],
+    ["--override", "runtime.kv_host_spill=true"],
     ["--fault", "batcher.decode:raise@1"], ["--constrained"],
 ])
 def test_later_slice_flags_raise(flags):

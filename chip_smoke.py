@@ -13,19 +13,29 @@ Phases, each printing result lines:
    card, at its path's shapes: K1 and K1q at Llama-3-8B's (B=8, H=32,
    KVH=8, D=128, page size 64, ragged lengths 1..2048, a shuffled page
    table, plus a table holding garbage past every row's depth; K1q's pools
-   quantized by the port's ``kv_quantize``), K2 at Mistral-7B's (B=8,
-   H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144, window 4096 and
-   none), K5 (int8 and int4 weights, bf16 x) at Llama-3-8B's projections:
-   M=8 (decode) for wq, wk/wv, gate/up, down and wo through ``k_lead=2``,
-   and M=512 (prefill) for gate/up.
+   quantized by the port's ``kv_quantize``), K2 and its int8 leg K2q at
+   Mistral-7B's (B=8, H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144,
+   window 4096 and none), K5 (int8 and int4 weights, bf16 x) at
+   Llama-3-8B's projections: M=8 (decode) for wq, wk/wv, gate/up, down and
+   wo through ``k_lead=2``, and M=512 (prefill) for gate/up; the flash
+   kernels K3 at path g's shapes (B=1, T=4096, H=32, KVH=8, D=128, causal;
+   and window 4096 at T=8192) and K4 at path f's admission (8192 queries
+   over a 32768-slot row with the first 8192 slots written, window 4096;
+   the same without causality or window; 1000 queries at positions
+   5000..5999), each output row within 1% of the plain row's L2 norm;
+   and K3's backward (gradients through the kernel's autograd function,
+   the bf16 dense recompute) within 1% of the float32 gradient.
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
    time the card could take (the byte and operation bounds).
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
    a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
-   64-slot sliding window, decoded past the window (K2), and int8 and int4
-   quantized blocks over a paged bf16 pool (K5 and K1).
+   64-slot sliding window, decoded past the window (K2), int8 and int4
+   quantized blocks over a paged bf16 pool (K5 and K1), and with
+   ``attn_impl="flash"`` contiguous admissions prefilled through K4
+   (plain, and windowed past the window) and one training step's loss and
+   gradients (K3 forward, dense-recompute backward).
 5. ``serve``  — the port's paths as a user runs them, each through
    ``serve_main.build_server`` at full width with random seeded weights,
    answering concurrent HTTP requests:
@@ -43,7 +53,16 @@ Phases, each printing result lines:
       seed 0) written by the port's ``save_shards`` with
       ``quantization="int8"``, 2 raw shards, into a temporary directory
       removed when the path ends;
-   e. the same over an int4 store D4 (K5 int4 and K1).
+   e. the same over an int4 store D4 (K5 int4 and K1);
+   f. ``dlt-serve-torch --store DF --max-len 32768`` (contiguous, 8 slots,
+      Mistral-7B's full context; K4 prefills every admission, K2 decodes),
+      where DF is a Mistral-7B store (random weights, seed 0, ``attn_impl
+      ="flash"`` in its model config) written with
+      ``quantization="int8"`` and dequantized to bf16 at load: one
+      streamed request with an 8000-byte prompt (an 8192-token
+      admission, past the 4096 window) beside three short ones; then,
+      outside HTTP, a prompt of that length admitted alone, its time to
+      first token read engine-side from submit to the admission token.
    Every kernel's launch count is reset just before each path and read
    just after; the run fails unless the path's kernels launched at least
    layers x decode steps times (7 x that for K5, one per projection).
@@ -52,11 +71,19 @@ Phases, each printing result lines:
    ``torch.cuda.memory_allocated``) must be below path a's on paths d and
    e by at least 90% of what their quantized block weights save over
    bf16 (computed from the served leaves), and path d must peak below
-   path a.
-6. ``profile`` — path a's weights, and then path d's, serve a batch of 8
+   path a.  Path f must launch K4 at least 32 times per admission.
+6. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
+   (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
+   ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
+   3 steps on one fixed batch [2, 4097], then one with ``remat=True``.
+   The loss must be finite and fall over the 3 steps, and K3 must launch
+   8 times per step (16 under remat).
+7. ``profile`` — path a's weights, and then path d's, serve a batch of 8
    requests once more under ``torch.profiler``: host wall time against
    device kernel time, split into K5, the decode-attention kernels, other
-   matrix products and the rest (information, not a gate).
+   matrix products and the rest; path f's weights admit one 8000-byte
+   prompt, and path g takes one step, under the profiler too, split the
+   same way with the flash kernels apart (information, not a gate).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and last ``{"ok": true, "device": {...}}``.  Any
@@ -94,6 +121,10 @@ SERVE_WINDOW_ARGS = ["--preset", "mistral-7b", "--max-len", "6144",
 # Paths d and e: SERVE_ARGS over a quantized store in place of the preset.
 SERVE_STORE_ARGS = ["--override", "runtime.serve_quantized=true",
                     *SERVE_ARGS[2:]]
+# Path f: a flash-config Mistral-7B store at its published context.
+FLASH_MAX_LEN = 32768
+FLASH_PROMPT_BYTES = 8000  # + BOS: an 8192-token admission bucket
+SERVE_FLASH_ARGS = ["--max-len", str(FLASH_MAX_LEN), *_COMMON_ARGS]
 
 # The kernels of the port's paths: name -> (wrapper, counter attribute).
 CSRC = "distributed_llms_tpu_torch/ops/csrc/"
@@ -107,6 +138,15 @@ KERNELS = {
     "ragged_decode_attention": {
         "route": "cuda", "source": CSRC + "ragged_decode_attn.cu",
         "replaces": "distributed_llms_tpu/ops/decode_attn.py:338"},
+    "ragged_decode_attention_int8": {
+        "route": "cuda", "source": CSRC + "ragged_decode_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/decode_attn.py:338"},
+    "flash_attention_static": {
+        "route": "cuda", "source": CSRC + "flash_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/flash.py:291"},
+    "flash_attention_dynamic": {
+        "route": "cuda", "source": CSRC + "flash_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/flash.py:335"},
     "quant_matmul": {
         "route": "cuda", "source": CSRC + "quant_matmul.cu",
         "replaces": "distributed_llms_tpu/ops/quant_matmul.py:139"},
@@ -117,7 +157,7 @@ KERNELS = {
 
 
 def _counters():
-    from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
+    from distributed_llms_tpu_torch.ops import decode_attn, flash, quant_matmul
 
     return {
         "quant_matmul": (quant_matmul.quant_matmul, "launches"),
@@ -128,6 +168,11 @@ def _counters():
                                         "int8_launches"),
         "ragged_decode_attention": (decode_attn.ragged_decode_attention,
                                     "launches"),
+        "ragged_decode_attention_int8": (decode_attn.ragged_decode_attention,
+                                         "int8_launches"),
+        "flash_attention_static": (flash.flash_attention, "static_launches"),
+        "flash_attention_dynamic": (flash.flash_attention,
+                                    "dynamic_launches"),
     }
 
 
@@ -222,6 +267,51 @@ def ragged_case(torch, *, b=8, h=32, kvh=8, d=128, s=6144, seed=0):
 
 WINDOW = 4096  # Mistral-7B's sliding window
 
+# The flash kernels' main-path shapes: path g's training sequence (K3) and
+# path f's admission (K4): a prompt bucket of 8192 tokens prefilled into a
+# 32768-slot row, of which the first 8192 are written.
+TRAIN_T = 4096
+ADMIT_T = 8192
+
+
+def flash_case(torch, *, b=1, tq, s=None, h=32, kvh=8, d=128, seed=0):
+    """bf16 q [B, Tq, H, D] and k/v [B, S, KVH, D] on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = s or tq
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    return draw(b, tq, h, d), draw(b, s, kvh, d), draw(b, s, kvh, d)
+
+
+def admission_args(torch, tq, s, first=0, window=WINDOW, causal=True):
+    """K4's arguments as the cached prefill passes them: queries at
+    positions first..first+tq-1 over slots 0..s-1, the first first+tq of
+    them written."""
+    qpos = (torch.arange(tq, device="cuda") + first)[None]
+    kpos = torch.arange(s, device="cuda")[None]
+    return {"q_positions": qpos, "k_positions": kpos,
+            "k_valid": kpos < first + tq, "causal": causal, "window": window}
+
+
+def live_pairs(torch, tq, s, kw=None) -> int:
+    """(query row, key slot) pairs a flash call attends: K3's causal
+    triangle in closed form, K4's counted from its vectors in row chunks."""
+    if kw is None:
+        return tq * (tq + 1) // 2
+    total = 0
+    kp = kw["k_positions"][0]
+    for r0 in range(0, tq, 1024):
+        qp = kw["q_positions"][0, r0:r0 + 1024, None]
+        m = kw["k_valid"][0][None, :].expand(qp.shape[0], s)
+        if kw["causal"]:
+            m = m & (kp[None, :] <= qp)
+        if kw["window"] is not None:
+            m = m & (kp[None, :] > qp - kw["window"])
+        total += int(m.sum())
+    return total
+
 # Tolerance of every kernel against its plain version, |err| on bf16
 # outputs of magnitude ~1: 2e-2, made of (a) bf16 probabilities rounded at
 # different points — per 64-slot tile and unnormalized in the kernels,
@@ -240,6 +330,18 @@ TOL_REL_INT8 = 2.0 ** -7
 # cuBLAS's float32 product, ~1e-6 relative) and then by at most one bf16
 # ulp of the output, 2^-7 |out|; outputs here are of scale ~1-5.
 TOL_REL_QMM = 2.0 ** -7
+# The flash kernels against flash_reference, per output row (one query,
+# one head): L2 error <= FLASH_ROW_REL x the row's L2 norm.  A row that
+# averages n live keys is ~sqrt(e / n) in size (0.02 at path f's 4096-key
+# window), so an absolute limit would pass a wrong key set at these
+# lengths.  On the H100 the sound kernels read 0.0044-0.0046 at every
+# shape below; kernels with a planted fault (a key off by one at the
+# diagonal or the window edge, a skipped edge tile, a zeroed output) read
+# 0.26-1.9.
+FLASH_ROW_REL = 1e-2
+# K3's bf16 backward against the float32 gradient, relative L2 error of
+# each of dq, dk, dv: 0.0023-0.0029 measured on the H100.
+GRAD_REL = 1e-2
 
 # K5 at Llama-3-8B's projections, in the weights' own layouts: (label, M,
 # weight shape, k_lead, int4 pack axis).  M=8 is a decode step of 8 rows,
@@ -327,6 +429,17 @@ def phase_kernel(torch) -> dict:
                     window=window)
         worst["ragged_decode_attention"] = max(
             worst["ragged_decode_attention"], err)
+        kq, vq, ks, vs = quantize_pools(torch, k, v)
+        err = _held(torch, "ragged_decode_attention_int8",
+                    decode_attn.ragged_decode_attention(
+                        q, kq, vq, lengths, window=window, k_scale=ks,
+                        v_scale=vs),
+                    decode_attn.ragged_reference(q, kq, vq, lengths, window,
+                                                 ks, vs),
+                    rel=TOL_REL_INT8, window=window)
+        worst["ragged_decode_attention_int8"] = max(
+            worst["ragged_decode_attention_int8"], err)
+    worst.update(flash_kernel_checks(torch))
     for bits, name in QMM_NAMES.items():
         for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
             x, qt = qmm_case(torch, m, wshape, k_lead, pack, bits, seed=20 + i)
@@ -336,6 +449,89 @@ def phase_kernel(torch) -> dict:
                         shape=label, M=m, weight=list(wshape), k_lead=k_lead)
             worst[name] = max(worst[name], err)
     return {name: {"max_abs_err": e} for name, e in worst.items()}
+
+
+def row_rel_err(torch, got, want) -> float:
+    """The largest error of an attention output row (one query, one head:
+    its D values) relative to that row of the plain version, in the L2
+    norm.  A zero row of the plain version (a query with no live key)
+    must be zero: its ratio is 0 if so, else infinite."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    ratio = torch.where(ref > 0, diff / ref.clamp_min(1e-30),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
+def _flash_held(torch, name, got, want, **info) -> float:
+    """A flash kernel's output against ``flash_reference``, row by row
+    (FLASH_ROW_REL); returns the largest |err| for the JSON line."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
+          f"{tuple(want.shape)}/{want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(torch, got, want)
+    emit("kernel", name=name, max_abs_err=err, max_row_rel_err=rel,
+         tol=f"row L2 error <= {FLASH_ROW_REL} x row L2 norm",
+         plain_mean_abs=want.float().abs().mean().item(), **info)
+    check(rel <= FLASH_ROW_REL,
+          f"{name} row error {rel} exceeds {FLASH_ROW_REL} of the row")
+    return err
+
+
+def flash_kernel_checks(torch) -> dict:
+    """K3 at path g's shapes (and windowed at twice the length), K4 at
+    path f's admission (and without causality or window, and a ragged
+    query count at an offset), each against ``flash_reference``; K3's
+    backward (bf16) against the float32 gradient of ``dense_reference``."""
+    from distributed_llms_tpu_torch.ops import flash
+
+    worst = {"flash_attention_static": 0.0, "flash_attention_dynamic": 0.0}
+    for t, window in ((TRAIN_T, None), (2 * TRAIN_T, WINDOW)):
+        q, k, v = flash_case(torch, tq=t, seed=30 + t)
+        err = _flash_held(torch, "flash_attention_static",
+                          flash.flash_attention(q, k, v, window=window),
+                          flash.flash_reference(q, k, v, window=window),
+                          T=t, window=window)
+        worst["flash_attention_static"] = max(
+            worst["flash_attention_static"], err)
+    s = FLASH_MAX_LEN
+    for tq, first, causal, window in ((ADMIT_T, 0, True, WINDOW),
+                                      (ADMIT_T, 0, False, None),
+                                      (1000, 5000, True, WINDOW)):
+        q, k, v = flash_case(torch, tq=tq, s=s, seed=40 + tq)
+        kw = admission_args(torch, tq, s, first, window, causal)
+        err = _flash_held(torch, "flash_attention_dynamic",
+                          flash.flash_attention(q, k, v, **kw),
+                          flash.flash_reference(q, k, v, **kw),
+                          Tq=tq, S=s, first_position=first, causal=causal,
+                          window=window)
+        worst["flash_attention_dynamic"] = max(
+            worst["flash_attention_dynamic"], err)
+        del q, k, v
+    # K3's backward is the dense recompute in bf16; held against the exact
+    # (float32) gradient of the same attention, it shows that the recompute
+    # differentiates the attention the forward computed.
+    q, k, v = flash_case(torch, tq=TRAIN_T, seed=50)
+    cot = flash_case(torch, tq=TRAIN_T, seed=51)[0]
+    grads = []
+    for f, dtype in ((flash.flash_attention, torch.bfloat16),
+                     (flash.dense_reference, torch.float32)):
+        args = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        (f(*args).float() * cot.float()).sum().backward()
+        grads.append([a.grad.float() for a in args])
+        del args
+    for name, got, want in zip("qkv", *grads):
+        rel = ((got - want).norm() / want.norm()).item()
+        emit("kernel", name="flash_attention_static_backward", grad_of=name,
+             T=TRAIN_T, rel_err=rel, tol=GRAD_REL)
+        check(rel <= GRAD_REL,
+              f"K3 backward: d{name} off the float32 gradient by {rel}")
+    del grads
+    _free(torch)
+    return worst
 
 
 def cuda_ms(torch, fn, iters=50, warmup=5) -> float:
@@ -360,15 +556,17 @@ def _bound(kv_bytes: int, io_bytes: int, flops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _turns(torch, kernel, plain, library, plain_iters=20) -> dict:
+def _turns(torch, kernel, plain, library, plain_iters=20, iters=50,
+           plain_warmup=5) -> dict:
     """Turns (plain, kernel, kernel, plain) in one call: compare within
     it.  The library yardstick last."""
-    plain_a = cuda_ms(torch, plain, iters=plain_iters)
-    kern_a = cuda_ms(torch, kernel)
-    kern_b = cuda_ms(torch, kernel)
-    plain_b = cuda_ms(torch, plain, iters=plain_iters)
+    plain_a = cuda_ms(torch, plain, iters=plain_iters, warmup=plain_warmup)
+    kern_a = cuda_ms(torch, kernel, iters=iters)
+    kern_b = cuda_ms(torch, kernel, iters=iters)
+    plain_b = cuda_ms(torch, plain, iters=plain_iters, warmup=plain_warmup)
     return {"ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-            "library_ms": cuda_ms(torch, library),
+            "library_ms": (cuda_ms(torch, library, iters=iters)
+                           if library else None),
             "kernel_ms_turns": [kern_a, kern_b],
             "plain_ms_turns": [plain_a, plain_b]}
 
@@ -488,7 +686,123 @@ def phase_timing(torch) -> dict:
                        4 * int(band.sum()) * h * d), kv_bytes)
         if window == WINDOW:
             out["ragged_decode_attention"] = timed
+
+    # K2q at path c's shapes, window 4096.  Library yardstick: SDPA with
+    # the band mask over the dequantized cache.
+    kq, vq, ks, vs = quantize_pools(torch, k, v)
+    kd = kv_dequantize(kq, ks, torch.bfloat16).transpose(1, 2).contiguous()
+    vd = kv_dequantize(vq, vs, torch.bfloat16).transpose(1, 2).contiguous()
+    band = lens.clamp(max=WINDOW)
+    m = (slots < lens[:, None]) & (slots >= lens[:, None] - WINDOW)
+    library = sdpa(kd, vd, m[:, None, None, :])
+    ref = decode_attn.ragged_reference(q, kq, vq, lengths, WINDOW, ks, vs)
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"K2q library yardstick disagrees ({lib_err})")
+    kv_bytes = int(band.sum()) * kvh * (d + 4) * 2
+    t = _turns(torch,
+               lambda: decode_attn.ragged_decode_attention(
+                   q, kq, vq, lengths, window=WINDOW, k_scale=ks, v_scale=vs),
+               lambda: decode_attn.ragged_reference(q, kq, vq, lengths,
+                                                    WINDOW, ks, vs),
+               library, plain_iters=5)
+    out["ragged_decode_attention_int8"] = _timed(
+        "ragged_decode_attention_int8",
+        {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": WINDOW,
+         "sum_band": int(band.sum())},
+        t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4,
+                   4 * int(band.sum()) * h * d), kv_bytes)
+    del kd, vd
+    out.update(flash_timing(torch))
     out.update(qmm_timing(torch))
+    return out
+
+
+def flash_timing(torch) -> dict:
+    """K3 at path g's shapes and K4 at path f's admission against the plain
+    version and SDPA.  Bound: 4 operations (QK and PV, a multiply-add
+    each) per live (row, key) pair, head dim and head at the bf16 peak,
+    against q, k, v and out read or written once (and K4's vectors)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from distributed_llms_tpu_torch.ops import flash
+
+    out = {}
+    # K3: causal self-attention over the training sequence.  Library:
+    # SDPA's causal kernel with grouped-query attention.
+    q, k, v = flash_case(torch, tq=TRAIN_T, seed=60)
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    ref = flash.flash_reference(q, k, v)
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"K3 library yardstick disagrees ({lib_err})")
+    pairs = live_pairs(torch, t, t)
+    io = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    tm = _turns(torch, lambda: flash.flash_attention(q, k, v),
+                lambda: flash.flash_reference(q, k, v), library,
+                plain_iters=3, iters=20, plain_warmup=1)
+    out["flash_attention_static"] = _timed(
+        "flash_attention_static",
+        {"B": b, "T": t, "H": h, "KVH": kvh, "D": d, "causal": True,
+         "live_pairs_per_head": pairs},
+        tm, *_bound(0, io, 4 * pairs * d * h * b), io,
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12)
+    del q, k, v, qt, kt, vt, ref
+
+    # K4: path f's admission.  Library: SDPA with the boolean mask of the
+    # same live pairs, K/V heads expanded (SDPA's masked kernels take no
+    # grouped heads); the expansion and the mask are built outside the
+    # timed call.
+    s = FLASH_MAX_LEN
+    q, k, v = flash_case(torch, tq=ADMIT_T, s=s, seed=61)
+    kw = admission_args(torch, ADMIT_T, s)
+    g = h // kvh
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    kp = kw["k_positions"][0]
+    qp = kw["q_positions"][0]
+    mask = ((kp[None, :] <= qp[:, None]) & kw["k_valid"][0][None, :]
+            & (kp[None, :] > qp[:, None] - WINDOW))[None, None]
+
+    def library():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    ref = flash.flash_reference(q, k, v, **kw)
+    try:
+        lib_out = library()
+    except RuntimeError as e:  # no masked kernel takes these shapes
+        emit("timing", name="flash_attention_dynamic", library_error=str(e))
+        library = lib_out = None
+    if lib_out is not None:
+        lib_err = (lib_out.transpose(1, 2).float() - ref.float()).abs().max().item()
+        check(lib_err <= TOL, f"K4 library yardstick disagrees ({lib_err})")
+    del ref, lib_out
+    pairs = live_pairs(torch, ADMIT_T, s, kw)
+    io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (ADMIT_T + 2 * s)
+    tm = _turns(torch, lambda: flash.flash_attention(q, k, v, **kw),
+                lambda: flash.flash_reference(q, k, v, **kw), library,
+                plain_iters=1, iters=10, plain_warmup=1)
+    out["flash_attention_dynamic"] = _timed(
+        "flash_attention_dynamic",
+        {"B": b, "Tq": ADMIT_T, "S": s, "H": h, "KVH": kvh, "D": d,
+         "window": WINDOW, "written": ADMIT_T, "live_pairs_per_head": pairs},
+        tm, *_bound(0, io, 4 * pairs * d * h * b), io,
+        library="F.scaled_dot_product_attention(attn_mask=bool) under "
+                "EFFICIENT_ATTENTION/CUDNN_ATTENTION, K/V heads expanded",
+        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12)
+    del q, k, v, qt, kt, vt, mask
+    _free(torch)
     return out
 
 
@@ -624,6 +938,11 @@ def phase_model(torch) -> None:
          None),
         ("paged_decode_attention", "paged", {}, 8),
         ("paged_decode_attention", "paged", {}, 4),
+        # attn_impl="flash": each admission prefills through K4.
+        ("ragged_decode_attention", "contiguous", {"attn_impl": "flash"},
+         None),
+        ("ragged_decode_attention", "contiguous",
+         {"attn_impl": "flash", "sliding_window": 64}, None),
     ]
     steps = 3
     for name, mode, overrides, bits in legs:
@@ -649,13 +968,19 @@ def phase_model(torch) -> None:
         scale = logits["cpu"].abs().max().item()
         agree = (logits["cuda"].argmax(-1)
                  == logits["cpu"].argmax(-1)).float().mean().item()
-        emit("model", kernel=name, cache=mode, window=cfg.sliding_window,
+        emit("model", kernel=name, cache=mode, attn_impl=cfg.attn_impl,
+             window=cfg.sliding_window,
              weight_bits=bits, lengths=lens, decode_steps=steps,
              launches={k: v for k, v in launched.items() if v},
              max_abs_logit_err=err, logit_scale=scale, argmax_agree=agree)
         check(launched[name] == cfg.num_layers * steps,
               f"{name} launched {launched[name]} times for {steps} steps x "
               f"{cfg.num_layers} layers")
+        if cfg.attn_impl == "flash":  # one K4 launch per layer per admission
+            want = cfg.num_layers * len(lens)
+            check(launched["flash_attention_dynamic"] == want,
+                  f"K4 launched {launched['flash_attention_dynamic']} times, "
+                  f"not {want}")
         if bits:
             # 7 projections per layer per forward: each row's admission
             # prefill and each decode step.
@@ -668,6 +993,63 @@ def phase_model(torch) -> None:
         # kernels' own bf16-probability rounding.
         check(err <= 0.05 * max(scale, 1.0),
               f"model logits disagree ({name}: {err})")
+    model_train_step(torch)
+
+
+# A training step on the card (K3) against the CPU (plain versions), the
+# small bf16 llama: relative loss error and the worst leaf's relative L2
+# gradient error.  On the H100 the sound kernel reads at most 1.2e-4 and
+# 0.013; K3 with a planted fault (a key off by one at the diagonal or the
+# window edge, a skipped edge tile, a zeroed output) 1.8e-3..1.9e-2 and
+# 0.18..10.5.  Attention moves the loss of a random-init model little, so
+# the gradients are the sharper test.
+TRAIN_LOSS_REL = 5e-4
+TRAIN_GRAD_REL = 5e-2
+
+
+def model_train_step(torch) -> None:
+    """One training step's loss and gradients on the small bf16 llama with
+    attn_impl="flash", without and with a sliding window shorter than the
+    batch: on the card (K3 forward, dense-recompute backward) against the
+    CPU (plain versions), same weights and batch."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.runtime import train
+
+    toks = torch.randint(0, 512, (2, 200),
+                         generator=torch.Generator().manual_seed(12))
+    for window in (None, 64):
+        cfg = _small_cfg(attn_impl="flash", sliding_window=window)
+        params_cpu = model_lib.init_params(
+            cfg, generator=torch.Generator(device="cpu").manual_seed(8),
+            device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = _tree_to(params_cpu, torch.device(dev))
+            leaves = train._leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            reset_launches()
+            loss = train.lm_loss(params, cfg, toks.to(dev))
+            grads = torch.autograd.grad(loss, leaves)
+            out[dev] = (loss.item(), [g.float().cpu() for g in grads],
+                        read_launches()["flash_attention_static"])
+        (loss_c, grads_c, _), (loss_g, grads_g, launched) = (out["cpu"],
+                                                            out["cuda"])
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        rel = max((gg - gc).norm().item() / max(gc.norm().item(), 1e-30)
+                  for gg, gc in zip(grads_g, grads_c))
+        emit("model", kernel="flash_attention_static", training_step=True,
+             window=window, loss_cuda=loss_g, loss_cpu=loss_c,
+             loss_rel_err=loss_rel, worst_grad_rel_err=rel,
+             tol={"loss_rel": TRAIN_LOSS_REL, "grad_rel": TRAIN_GRAD_REL},
+             launches={"flash_attention_static": launched})
+        check(math.isfinite(loss_g), "training loss not finite")
+        check(launched == cfg.num_layers, f"K3 launched {launched} times, "
+              f"not {cfg.num_layers} (one per layer)")
+        check(loss_rel <= TRAIN_LOSS_REL,
+              f"training loss disagrees ({loss_g} vs {loss_c})")
+        check(rel <= TRAIN_GRAD_REL,
+              f"gradients disagree (worst relative error {rel})")
 
 
 def _tree_to(tree, device):
@@ -829,6 +1211,50 @@ async def _serve_window_requests(port: int) -> dict:
             "long_completion_tokens": long_usage["completion_tokens"]}
 
 
+async def _serve_flash_requests(port: int) -> dict:
+    """Path f's burst: one greedy request whose 8000-byte prompt (8001
+    tokens with BOS, an 8192-token admission past the 4096 window) beside
+    three short concurrent requests."""
+    long_prompt = ("Warehouse ledger, aisle by aisle: " + "".join(
+        f"crate {i:05d} holds {i % 97:02d} units of part {i % 211:03d}; "
+        for i in range(400)))[:FLASH_PROMPT_BYTES]
+    check(len(long_prompt) == FLASH_PROMPT_BYTES,
+          f"long prompt under {FLASH_PROMPT_BYTES} bytes")
+    short = [
+        {"prompt": "Short check one: name a colour.", "max_tokens": 32,
+         "temperature": 0.0},
+        {"prompt": "Short check two: count to five.", "max_tokens": 32,
+         "temperature": 0.8, "top_p": 0.9},
+        {"prompt": "Short check three.", "max_tokens": 24, "top_k": 40,
+         "temperature": 1.0},
+    ]
+    t0 = time.perf_counter()
+    (status, long_resp), *outs = await asyncio.gather(*[
+        _http(port, "/v1/completions", body) for body in
+        [{"prompt": long_prompt, "max_tokens": 32, "temperature": 0.0,
+          "logprobs": True}, *short]])
+    wall = time.perf_counter() - t0
+    check(status == 200, f"long request answered {status}: {long_resp}")
+    n_tokens = long_resp["usage"]["completion_tokens"]
+    check(n_tokens == 32, f"long request produced {n_tokens}/32 tokens")
+    check(long_resp["usage"]["prompt_tokens"] > WINDOW,
+          "the long request does not prefill past the window")
+    lps = long_resp["choices"][0]["logprobs"]["token_logprobs"]
+    check(all(math.isfinite(x) and x <= 0 for x in lps),
+          "non-finite or positive logprob")
+    for body, (status, resp) in zip(short, outs):
+        check(status == 200, f"short request answered {status}: {resp}")
+        n = resp["usage"]["completion_tokens"]
+        check(n == body["max_tokens"]
+              or resp["choices"][0]["finish_reason"] == "stop",
+              f"short request produced {n}/{body['max_tokens']} tokens")
+        n_tokens += n
+    return {"requests": 1 + len(short), "admissions": 1 + len(short),
+            "completion_tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "long_prompt_tokens": long_resp["usage"]["prompt_tokens"]}
+
+
 def _free(torch) -> None:
     """Return the device memory of a dropped engine before the next boots."""
     import gc
@@ -905,15 +1331,50 @@ def _mistral_7b(cfg) -> None:
           and cfg.sliding_window == WINDOW, "not the full-width mistral-7b")
 
 
-def write_store(torch, quantization: str, out_dir: str) -> dict:
-    """A Llama-3-8B store (random weights drawn on the card from seed 0)
-    written by the port's ``save_shards``: 2 raw shards, quantized leaf by
-    leaf on the card.  Returns what it cost."""
+def _mistral_7b_flash(cfg) -> None:
+    _mistral_7b(cfg)
+    check(cfg.attn_impl == "flash", "the store's model is not flash")
+
+
+def serve_flash(torch, profile: bool) -> int:
+    """Path f: write the flash-config Mistral-7B store into a temporary
+    directory, serve it at 32768 slots, remove it.  Returns K4's launches
+    on the path."""
+    tmp = tempfile.mkdtemp(prefix="dlt_store_flash_")
+    try:
+        info = write_store(torch, "int8", tmp, "mistral-7b",
+                           attn_impl="flash")
+        launches, server, _ = serve_path(
+            torch, "flash_prefill", ["--store", tmp, *SERVE_FLASH_ARGS],
+            {"ragged_decode_attention": 1}, _serve_flash_requests,
+            _mistral_7b_flash, **info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = server.batcher
+    check(not b.paged and b.s == FLASH_MAX_LEN,
+          f"flash_prefill: not contiguous at {FLASH_MAX_LEN} slots")
+    admissions = 4  # every admission is multi-token (a bucket of >= 16)
+    want = b.cfg.num_layers * admissions
+    check(launches["flash_attention_dynamic"] >= want,
+          f"flash_prefill: K4 launched {launches['flash_attention_dynamic']}"
+          f" times, under {want} (32 layers x {admissions} admissions)")
+    flash_admission(torch, b, profile)
+    del server, b
+    _free(torch)
+    return launches["flash_attention_dynamic"]
+
+
+def write_store(torch, quantization: str, out_dir: str,
+                preset: str = "llama-3-8b", **overrides) -> dict:
+    """A store of ``preset`` (random weights drawn on the card from seed
+    0; ``overrides`` land in its model config) written by the port's
+    ``save_shards``: 2 raw shards, quantized leaf by leaf on the card.
+    Returns what it cost."""
     from distributed_llms_tpu_torch.checkpoint.store import save_shards
     from distributed_llms_tpu_torch.models import model as model_lib
     from distributed_llms_tpu_torch.models.presets import get_preset
 
-    cfg = get_preset("llama-3-8b")
+    cfg = get_preset(preset, **overrides)
     params = model_lib.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0),
         device="cuda")
@@ -924,8 +1385,8 @@ def write_store(torch, quantization: str, out_dir: str) -> dict:
     del params
     _free(torch)
     disk = sum(p.stat().st_size for p in Path(out_dir).iterdir())
-    return {"store": quantization, "store_bytes": disk,
-            "store_write_s": write_s}
+    return {"store": quantization, "store_preset": preset,
+            "store_bytes": disk, "store_write_s": write_s}
 
 
 def serve_store(torch, label, quantization, bits, **info) -> tuple:
@@ -1017,10 +1478,91 @@ def phase_serve(torch, profile: bool) -> dict:
     out["quant_matmul_int4"] = launches["quant_matmul_int4"]
     del server
     _free(torch)
+
+    out["flash_attention_dynamic"] = serve_flash(torch, profile)
     return out
 
 
-# -- phase 6: where a full-width batch's time goes ---------------------------
+# -- phase 6: path g, the training step ---------------------------------------
+
+TRAIN_LAYERS = 8  # Llama-3-8B's width; AdamW state for 32 layers won't fit
+
+
+def phase_train(torch, profile: bool) -> int:
+    """Path g: three AdamW steps of ``runtime.train.Trainer`` on one fixed
+    batch through K3, then one with ``remat=True``.  Returns K3's launches
+    over the three steps."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import train
+
+    cfg = get_preset("llama-3-8b", attn_impl="flash", num_layers=TRAIN_LAYERS)
+    check(cfg.hidden_size == 4096 and cfg.num_heads == 32
+          and cfg.num_kv_heads == 8 and cfg.intermediate_size == 14336
+          and cfg.vocab_size == 128256, "not Llama-3-8B's width")
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    n_params = sum(p.numel() for p in train._leaves(params))
+    batch = torch.randint(0, cfg.vocab_size, (2, TRAIN_T + 1), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    state = trainer.init(params)
+    step = trainer.make_step()
+    losses, times = [], []
+    reset_launches()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch, None)
+        losses.append(float(loss))  # synchronises
+        times.append(time.perf_counter() - t0)
+    launched = read_launches()["flash_attention_static"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = batch.shape[0] * TRAIN_T
+    # One step more with every block rematerialised in the backward.
+    remat_step = train.Trainer(cfg, trainer.optimizer, remat=True).make_step()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, loss = remat_step(params, state, batch, None)
+    remat_loss = float(loss)
+    remat_s = time.perf_counter() - t0
+    remat_launched = read_launches()["flash_attention_static"]
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    emit("train", config="llama-3-8b", num_layers=cfg.num_layers,
+         params=n_params, batch=list(batch.shape), attn_impl=cfg.attn_impl,
+         losses=losses, step_s=times, tokens_per_s=[tokens / t for t in times],
+         peak_mem_gb=peak, launches={"flash_attention_static": launched},
+         remat_loss=remat_loss, remat_step_s=remat_s,
+         remat_peak_mem_gb=remat_peak,
+         remat_launches={"flash_attention_static": remat_launched})
+    check(all(math.isfinite(x) for x in losses + [remat_loss]),
+          f"training loss not finite: {losses + [remat_loss]}")
+    check(losses[0] > losses[1] > losses[2],
+          f"training loss does not fall: {losses}")
+    check(launched == 3 * cfg.num_layers,
+          f"K3 launched {launched} times in 3 steps, not {3 * cfg.num_layers}")
+    check(remat_launched == 2 * cfg.num_layers,
+          f"K3 launched {remat_launched} times in a remat step, not "
+          f"{2 * cfg.num_layers} (forward + recompute)")
+    if profile:
+        split, wall = _profiled(
+            torch, lambda: step(params, state, batch, None))
+        busy = sum(split.values())
+        emit("profile", path="train", step_wall_ms=wall,
+             device_kernel_ms=split,
+             flash_share_of_device=split["flash_kernel"] / busy if busy else
+             "not measured",
+             device_busy_share=busy / wall if busy else "not measured")
+    del params, state, batch
+    _free(torch)
+    return launched
+
+
+# -- phase 7: where a full-width batch's time goes ---------------------------
 
 def phase_profile(torch, label, batcher) -> None:
     """A fresh batcher over the served weights runs 8 requests (300-token
@@ -1044,14 +1586,28 @@ def phase_profile(torch, label, batcher) -> None:
     wall, steps = run()  # warm-up, and the unprofiled wall time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prof_wall, _ = run()
-    split = {"quant_matmul_kernel": 0.0, "decode_attention_kernel": 0.0,
-             "matmul": 0.0, "other": 0.0}
+    split = _kernel_split(torch, prof)
+    busy_ms = sum(split.values())
+    emit("profile", path=label, requests=batcher.b, prompt_tokens=300,
+         new_tokens=64, decode_steps=steps, wall_ms=wall * 1e3,
+         wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
+         profiled_wall_ms=prof_wall * 1e3, device_kernel_ms=split,
+         device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else
+         "not measured")
+
+
+def _kernel_split(torch, prof) -> dict:
+    """Device kernel milliseconds of a profile, by kernel class."""
+    split = {"flash_kernel": 0.0, "quant_matmul_kernel": 0.0,
+             "decode_attention_kernel": 0.0, "matmul": 0.0, "other": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.device_time_total
         name = e.name
-        if "quant_matmul" in name:
+        if "flash_kernel" in name:
+            split["flash_kernel"] += us
+        elif "quant_matmul" in name:
             split["quant_matmul_kernel"] += us
         elif "paged_decode_kernel" in name or "ragged_decode_kernel" in name:
             split["decode_attention_kernel"] += us
@@ -1060,19 +1616,60 @@ def phase_profile(torch, label, batcher) -> None:
             split["matmul"] += us
         else:
             split["other"] += us
-    busy_ms = sum(split.values()) / 1e3
-    emit("profile", path=label, requests=batcher.b, prompt_tokens=300,
-         new_tokens=64, decode_steps=steps, wall_ms=wall * 1e3,
-         wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
-         profiled_wall_ms=prof_wall * 1e3,
-         device_kernel_ms={k: v / 1e3 for k, v in split.items()},
-         device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else
-         "not measured")
+    return {k: v / 1e3 for k, v in split.items()}
+
+
+def _profiled(torch, fn) -> tuple[dict, float]:
+    """Run ``fn`` once under the profiler: (device ms by kernel class,
+    wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _kernel_split(torch, prof), wall * 1e3
+
+
+def flash_admission(torch, batcher, profile: bool) -> None:
+    """Path f's served batcher once more, outside HTTP (a second
+    32768-slot cache would not fit beside it): one FLASH_PROMPT_BYTES-token
+    prompt admitted alone and decoded 16 tokens.  The admission token's
+    time from submit is the admission's time to first token (random
+    weights mostly emit bytes that decode to no text, so an SSE client
+    sees no early event to time).  Then, with ``profile``, the same under
+    the profiler: K4's share of the admission.  Information, not a gate."""
+    g = torch.Generator().manual_seed(6)
+
+    def run():
+        prompt = torch.randint(0, 256, (FLASH_PROMPT_BYTES,),
+                               generator=g).tolist()
+        first = []
+        t0 = time.perf_counter()
+        batcher.submit(prompt, max_new_tokens=16)
+        batcher.run(on_tokens=lambda *a: first or first.append(
+            time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return first[0], time.perf_counter() - t0
+
+    ttft, total = run()
+    emit("serve_ttft", path="flash_prefill", prompt_tokens=FLASH_PROMPT_BYTES,
+         new_tokens=16, ttft_s=ttft, request_s=total)
+    if profile:
+        split, wall = _profiled(torch, run)
+        busy = sum(split.values())
+        emit("profile", path="flash_prefill", requests=1,
+             prompt_tokens=FLASH_PROMPT_BYTES, new_tokens=16,
+             profiled_wall_ms=wall, device_kernel_ms=split,
+             flash_share_of_device=split["flash_kernel"] / busy if busy else
+             "not measured",
+             device_busy_share=busy / wall if busy else "not measured")
 
 
 # -- main -------------------------------------------------------------------
 
-PHASES = ("build", "kernel", "timing", "model", "serve", "profile")
+PHASES = ("build", "kernel", "timing", "model", "serve", "train", "profile")
 
 
 def main() -> int:
@@ -1110,6 +1707,9 @@ def main() -> int:
         if "serve" in phases:
             for name, n in phase_serve(torch, "profile" in phases).items():
                 kernels[name]["launches"] = n
+        if "train" in phases:
+            kernels["flash_attention_static"]["launches"] = phase_train(
+                torch, "profile" in phases)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,5 +10,7 @@ Ported so far: continuous batching of the llama family (paged with the
 automatic prefix cache, int8 KV pages, or contiguous with sliding
 windows) behind the OpenAI-style HTTP server (``dlt-serve-torch``), over
 random preset weights or a shard store, with weight-only int8/int4
-quantized serving of a quantized store.
+quantized serving of a quantized store; flash attention
+(``attn_impl="flash"``: blockwise prefill at a model's full context) and
+the training step (``runtime/train.py``).
 """

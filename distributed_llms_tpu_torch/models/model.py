@@ -17,6 +17,13 @@ package runs ``lax.scan``.  Three cache layouts, as in the reference:
   (:class:`QuantKVCache`), quantized at the write and read by the
   kernel's int8 leg.
 
+With ``attn_impl="flash"`` two more attention paths take the flash kernels
+(``ops/flash.py``), under the reference's exact conditions: the no-cache
+forward (training; the static-causal kernel K3 when :func:`forward` made
+the positions itself) and the multi-token cached prefill without a
+caller mask (the dynamic kernel K4 over the whole row cache, masking the
+unwritten tail).  Everything else stays on the dense path.
+
 Both caches are UPDATED IN PLACE: the JAX code writes into donated
 buffers (``dynamic_update_slice`` / ``.at[].set``), the port writes the
 same slots with ``index_put_`` / slice assignment instead of copying.
@@ -28,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.config import ModelConfig
 from . import layers
@@ -48,17 +56,20 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the llama family (GQA + RoPE, SwiGLU, RMSNorm),
-    with global or sliding-window attention; the other families and MoE
-    are later slices and are refused loudly."""
+    with global or sliding-window attention, dense (``attn_impl="dot"``)
+    or through the flash kernels (``"flash"``); the other families, MoE
+    and the sequence-parallel attentions (``"ring"``, ``"ulysses"``) are
+    later slices and are refused loudly."""
     if cfg.family != "llama":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (llama only)"
         )
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE blocks are not ported yet")
-    if cfg.attn_impl != "dot":
+    if cfg.attn_impl not in ("dot", "flash"):
         raise NotImplementedError(
-            f"attn_impl {cfg.attn_impl!r} is not ported yet (dot only)"
+            f"attn_impl {cfg.attn_impl!r} is not ported yet (dot and flash "
+            "only)"
         )
 
 
@@ -124,6 +135,9 @@ def _attention(
     #   lives at (tables[b, s // BLK], s % BLK).  Decode only (T == 1,
     #   per-row cache_index); the mask is implicitly the prefix
     #   [0, cache_index[b]].
+    std_layout: bool = False,  # positions are the standard arange (forward
+    #   made them itself): the no-cache flash path takes the static-causal
+    #   kernel
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...] | None]:
     q, k, v = layers.qkv_project(x, p, cfg)
     rope_scale = (
@@ -222,6 +236,20 @@ def _attention(
         # caller-supplied masks (prefix continuation) carry the first two,
         # and every path ANDs in the window.  Slot == position here.
         k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
+        if cfg.attn_impl == "flash" and attn_mask is None and t > 1:
+            # Prefill into the (longer, padded) row cache: the flash kernel
+            # masks the unwritten tail instead of computing a dense
+            # [T, S] score matrix; its one k_positions vector drives
+            # causality and the window, exact because slot == position
+            # here.  Single-token prefill stays dense, as in the reference.
+            from ..ops import flash
+
+            out = flash.flash_attention(
+                q, ck.to(q.dtype), cv.to(q.dtype), q_positions=positions,
+                k_positions=k_positions, k_valid=k_positions < ci + t,
+                causal=True, window=window,
+            )
+            return layers.out_project(out, p), (ck, cv)
         if attn_mask is None:
             attn_mask = layers.causal_mask(
                 positions, k_positions, k_positions < ci + t, window=window
@@ -233,6 +261,20 @@ def _attention(
         v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
         out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
         return layers.out_project(out, p), (ck, cv)
+
+    if cfg.attn_impl == "flash" and attn_mask is None:
+        # Self-attention over the input block (training, no-cache eval):
+        # the static-causal kernel when the positions are the standard
+        # arange, else the dynamic one at these positions; a sliding window
+        # rides the kernels' window band.
+        from ..ops import flash
+
+        out = flash.flash_attention(
+            q, k, v, q_positions=None if std_layout else positions,
+            k_positions=None if std_layout else positions, causal=True,
+            window=window,
+        )
+        return layers.out_project(out, p), None
 
     if attn_mask is None:
         mask = layers.causal_mask(positions, positions, window=window)
@@ -248,12 +290,12 @@ def _attention(
 
 
 def llama_block(x, p, cfg, positions, layer_cache, cache_index,
-                attn_mask=None, kv_tables=None):
+                attn_mask=None, kv_tables=None, std_layout=False):
     """-> (x, new_cache)."""
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     attn_out, new_cache = _attention(
         h, p["attn"], cfg, positions, layer_cache, cache_index,
-        attn_mask=attn_mask, kv_tables=kv_tables,
+        attn_mask=attn_mask, kv_tables=kv_tables, std_layout=std_layout,
     )
     x = x + attn_out
     h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
@@ -279,13 +321,18 @@ def run_blocks(
     kv_tables: torch.Tensor | None = None,
     cache_sk: torch.Tensor | None = None,  # [L, NB, BLK, KVH] scales of an
     cache_sv: torch.Tensor | None = None,  #   int8 pool
+    remat: bool = False,  # recompute each block in the backward pass
+    std_layout: bool = False,  # see _attention
 ) -> torch.Tensor:
     """Run the stacked blocks over x, layer by layer (the JAX package's
     ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``
     (and the scales of an int8 pool).  Under weight-only quantized serving
     the blocks' matmul weights are ``QuantizedTensor`` leaves: they stay
     int8/int4 in device memory and reach the dequant-matmul kernel through
-    ``layers._contract``."""
+    ``layers._contract``.  ``remat`` checkpoints each block
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    scan body): its activations are recomputed in the backward pass
+    instead of kept."""
     n_layers = blocks["ln1"]["scale"].shape[0]
     for i in range(n_layers):
         if cache_k is None:
@@ -294,8 +341,13 @@ def run_blocks(
             layer_cache = (cache_k[i], cache_v[i])
         else:
             layer_cache = (cache_k[i], cache_v[i], cache_sk[i], cache_sv[i])
-        x, _ = llama_block(x, layer_params(blocks, i), cfg, positions,
-                           layer_cache, cache_index, attn_mask, kv_tables)
+        args = (x, layer_params(blocks, i), cfg, positions, layer_cache,
+                cache_index, attn_mask, kv_tables, std_layout)
+        if remat:
+            x, _ = torch.utils.checkpoint.checkpoint(
+                llama_block, *args, use_reentrant=False)
+        else:
+            x, _ = llama_block(*args)
     return x
 
 
@@ -316,10 +368,14 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad
+                                              or w.requires_grad)
+    if x.is_cuda and not needs_grad:
         # Half-width operands, float32 accumulation AND output: a float32
         # copy of the (vocab-sized) weight per step would cost more than
-        # the product itself.
+        # the product itself.  (``out_dtype`` has no derivative, so a
+        # training step takes the float32 product below: the same values,
+        # bf16 products being exact in float32.)
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 
@@ -342,19 +398,23 @@ def forward(
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] page table: the cache
     #   holds page POOLS [L, NB, BLK, KVH, HD] (paged decode)
+    remat: bool = False,  # recompute each block in the backward pass
 ) -> tuple[torch.Tensor, "KVCache | QuantKVCache | None"]:
     """Full forward.  Returns (logits [B, T, V] float32, the cache — the
     same object, updated in place).  A :class:`QuantKVCache` serves paged
     decode only (``kv_tables`` required)."""
     check_supported(cfg)
     b, t = tokens.shape
+    # Standard layout: forward made the positions itself with no cache
+    # offset, so query rows align with key slots (the flash static path).
+    std_layout = positions is None and (cache_index is None or cache is None)
     if positions is None:
         base = 0 if cache_index is None else int(cache_index)
         positions = (torch.arange(t, device=tokens.device) + base).expand(b, t)
     x = embed(params, cfg, tokens)
     if cache is None:
         x = run_blocks(x, params["blocks"], cfg, positions, None, None, None,
-                       attn_mask)
+                       attn_mask, remat=remat, std_layout=std_layout)
     elif isinstance(cache, QuantKVCache):
         # Int8 page pool: the quantized write and the scale-fused read both
         # live on the kv_tables path.
@@ -365,10 +425,12 @@ def forward(
             )
         x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
                        cache_index, attn_mask, kv_tables,
-                       cache_sk=cache.k_scale, cache_sv=cache.v_scale)
+                       cache_sk=cache.k_scale, cache_sv=cache.v_scale,
+                       remat=remat, std_layout=std_layout)
     else:
         x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
-                       cache_index, attn_mask, kv_tables)
+                       cache_index, attn_mask, kv_tables, remat=remat,
+                       std_layout=std_layout)
     return unembed(params, cfg, x), cache
 
 

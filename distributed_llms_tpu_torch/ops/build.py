@@ -6,7 +6,7 @@ build takes seconds.  Libraries land in ``build/torch_kernels/`` at the
 repository root under a name keyed by the flags and the content of the
 source and of every header under ``csrc/``, so an edited kernel or shared
 header never loads a stale binary.  Nothing builds at import:
-a kernel wrapper calls :func:`load` on its first CUDA launch, and
+a kernel wrapper calls :func:`entry` on its first CUDA launch, and
 ``chip_smoke.py`` calls :func:`build` up front to time the builds (one
 ``nvcc`` per source, all started together).
 """
@@ -116,3 +116,14 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[source] = lib
         return lib
+
+
+def entry(source: str, name: str, argtypes: list):
+    """The C entry point ``name`` of ``source``'s library, built at first
+    use, with its argument types declared.  Every entry point returns the
+    ``cudaError_t`` of its launch as an int."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -13,22 +13,27 @@ Two cache layouts, as in the JAX package:
 - :func:`ragged_decode_attention` — a contiguous per-row cache
   ``[B, S, KVH, D]``: row ``b`` attends slots ``[0, lengths[b])``, or only
   ``[lengths[b] - window, lengths[b])`` with a sliding window (exact
-  because the contiguous layout keeps slot == position).
+  because the contiguous layout keeps slot == position).  The cache is
+  bf16, or int8 with ``[B, S, KVH]`` float32 scales — a leg no serving
+  path reaches, as in the reference, where int8 KV is paged-only.
 
 Both return ``[B, 1, H, D]`` in q's dtype.  The device decides the
 implementation:
 
 - CUDA tensors launch the hand-written Hopper kernels
   (``csrc/paged_decode_attn.cu``: K1 and its int8 leg K1q;
-  ``csrc/ragged_decode_attn.cu``: K2), or raise — there is no fallback;
+  ``csrc/ragged_decode_attn.cu``: K2 and its int8 leg K2q), or raise —
+  there is no fallback;
 - CPU tensors take the plain versions: masked ``dot_product_attention``
   over the row (:func:`dense_reference`, the JAX package's
-  ``_dense_reference``), after a gather of the row's pages — dequantized to
-  q's dtype in the int8 leg — for the pool (:func:`paged_reference`).
+  ``_dense_reference``), after ``kv_dequantize`` to q's dtype in the int8
+  legs, and after a gather of the row's pages for the pool
+  (:func:`paged_reference`).
 
 Each kernel counts its launches: ``paged_decode_attention.launches`` (K1),
-``paged_decode_attention.int8_launches`` (K1q) and
-``ragged_decode_attention.launches`` (K2).
+``paged_decode_attention.int8_launches`` (K1q),
+``ragged_decode_attention.launches`` (K2) and
+``ragged_decode_attention.int8_launches`` (K2q).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from ..checkpoint.quantize import kv_dequantize
 from ..models import layers
+from . import build
 
 PAGED_SOURCE = "paged_decode_attn.cu"
 RAGGED_SOURCE = "ragged_decode_attn.cu"
@@ -50,6 +56,7 @@ _ARGTYPES = {
     "dlt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
     "dlt_paged_decode_attention_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
     "dlt_ragged_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "dlt_ragged_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -69,6 +76,17 @@ def dense_reference(q, k, v, lengths, window=None):
     if window is not None:
         mask = mask & (slots >= lengths - window)
     return layers.dot_product_attention(q, kf, vf, mask[:, None, None, :])
+
+
+def ragged_reference(q, k, v, lengths, window=None, k_scale=None,
+                     v_scale=None):
+    """The plain version of :func:`ragged_decode_attention`: an int8 cache
+    dequantized to q's dtype at ``kv_dequantize`` numerics, then
+    :func:`dense_reference`."""
+    if k_scale is not None:
+        k = kv_dequantize(k, k_scale, q.dtype)
+        v = kv_dequantize(v, v_scale, q.dtype)
+    return dense_reference(q, k, v, lengths, window)
 
 
 def paged_reference(q, k_pages, v_pages, lengths, tables, k_scale=None,
@@ -208,12 +226,14 @@ def paged_decode_attention(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     shape = (b, h, kvh, d, nb, blk, tables.shape[1], float(d) ** -0.5, stream)
     if quant:
-        err = _kernel(PAGED_SOURCE, "dlt_paged_decode_attention_int8")(
+        err = build.entry(PAGED_SOURCE, "dlt_paged_decode_attention_int8",
+                          _ARGTYPES["dlt_paged_decode_attention_int8"])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
             tables.data_ptr(), out.data_ptr(), *shape)
     else:
-        err = _kernel(PAGED_SOURCE, "dlt_paged_decode_attention")(
+        err = build.entry(PAGED_SOURCE, "dlt_paged_decode_attention",
+                          _ARGTYPES["dlt_paged_decode_attention"])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), *shape)
     if err != 0:
@@ -238,6 +258,10 @@ def ragged_decode_attention(
     lengths: torch.Tensor,  # [B] int32 — row b attends slots [0, lengths[b])
     window: int | None = None,  # sliding window: only
     #   [lengths[b] - window, lengths[b]) — the kernel reads just that band
+    k_scale: torch.Tensor | None = None,  # [B, S, KVH] float32 — int8 leg
+    #   (K2q): k/v are int8 and the kernel folds the scales into the
+    #   contraction, so the cache is read at 1 byte per element
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """See the module docstring."""
     _check_heads(q, k, "cache")
@@ -252,39 +276,45 @@ def ragged_decode_attention(
     if window is not None and (isinstance(window, bool)
                                or not isinstance(window, int) or window < 1):
         raise ValueError(f"window must be an int >= 1 or None, got {window!r}")
-    if _route("ragged_decode_attention", (q, k, v, lengths)) == "cpu":
-        return dense_reference(q, k, v, lengths, window)
-    _check_launchable("ragged_decode_attention", q, (k, v), (lengths,))
-    if not (k.dtype == v.dtype == torch.bfloat16):
+    quant = _check_quant(k, k_scale, v_scale)
+    scales = (k_scale, v_scale) if quant else ()
+    if _route("ragged_decode_attention", (q, k, v, lengths, *scales)) == "cpu":
+        return ragged_reference(q, k, v, lengths, window, *scales)
+    _check_launchable("ragged_decode_attention", q, (k, v, *scales), (lengths,))
+    want = torch.int8 if quant else torch.bfloat16
+    if not (k.dtype == v.dtype == want) or any(
+            sc.dtype != torch.float32 for sc in scales):
         raise TypeError(
-            f"the CUDA kernel takes a bfloat16 cache, got {k.dtype} / {v.dtype}"
+            f"the CUDA kernel takes a {want} cache"
+            + (" with float32 scales" if quant else "")
+            + f", got {k.dtype} / {v.dtype}"
+            + "".join(f" / {sc.dtype}" for sc in scales)
         )
     _, s, kvh, d = k.shape
     out = torch.empty_like(q)
-    err = _kernel(RAGGED_SOURCE, "dlt_ragged_decode_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, q.shape[2], kvh, d, s,
-        min(window or 0, 2**31 - 1), float(d) ** -0.5,  # 0: no window
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    shape = (b, q.shape[2], kvh, d, s,
+             min(window or 0, 2**31 - 1), float(d) ** -0.5,  # 0: no window
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_attention_int8",
+                          _ARGTYPES["dlt_ragged_decode_attention_int8"])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *shape)
+    else:
+        err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_attention",
+                          _ARGTYPES["dlt_ragged_decode_attention"])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), *shape)
     if err != 0:
         raise RuntimeError(
             f"ragged decode attention kernel launch failed (cudaError {err})"
         )
-    ragged_decode_attention.launches += 1
+    if quant:
+        ragged_decode_attention.int8_launches += 1
+    else:
+        ragged_decode_attention.launches += 1
     return out
 
 
 ragged_decode_attention.launches = 0
-
-
-def _kernel(source: str, name: str):
-    """The C entry point ``name`` of ``source``'s library, built at first
-    use, with its argument types declared."""
-    from . import build
-
-    fn = getattr(build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+ragged_decode_attention.int8_launches = 0

@@ -28,6 +28,7 @@ import math
 import torch
 
 from ..checkpoint.quantize import QuantizedTensor, unpack_int4
+from . import build
 
 SOURCE = "quant_matmul.cu"
 
@@ -106,7 +107,7 @@ def quant_matmul(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
         raise ValueError(f"shape [{m}, {k}] x [{k}, {n}] exceeds the kernel")
     x2, q2, s2 = (t.contiguous() for t in (x2, q2, s2))
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    err = _kernel()(
+    err = build.entry(SOURCE, "dlt_quant_matmul", _ARGTYPES)(
         x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
         m, k, n, s2.shape[1], bits, int(x2.dtype == torch.bfloat16),
         torch.cuda.current_stream(x2.device).cuda_stream,
@@ -151,14 +152,3 @@ def quant_contract(x: torch.Tensor, qt: QuantizedTensor,
     k = math.prod(x.shape[x.dim() - k_lead:])
     y2 = quant_matmul(x.reshape(-1, k), q2, s2, qt.bits)
     return y2.reshape(*lead, *qt.data.shape[k_lead:])
-
-
-def _kernel():
-    """K5's C entry point, built at first use, argument types declared."""
-    from . import build
-
-    fn = build.load(SOURCE).dlt_quant_matmul
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn

@@ -7,10 +7,10 @@ reference, on the same numpy inputs, float32:
 - paged bf16 leg (K1) and contiguous ragged leg with a sliding window
   (K2): atol = rtol = 1e-5 — the kernel's online softmax and the dense
   softmax differ only in summation order;
-- paged int8 leg (K1q): atol = rtol = 1e-5 as well — the kernel folds the
-  absmax scales into the score and the probabilities, the plain version
-  dequantizes first (float32(data) * scale); in float32 both differ only
-  by rounding order.
+- paged int8 leg (K1q) and contiguous int8 leg (K2q): atol = rtol = 1e-5
+  as well — the kernel folds the absmax scales into the score and the
+  probabilities, the plain version dequantizes first (float32(data) *
+  scale); in float32 both differ only by rounding order.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_gpu_kernels.py and chip_smoke.py.
@@ -272,3 +272,51 @@ def test_ragged_cpu_call_counts_no_launch_and_checks_arguments():
         decode_attn.ragged_decode_attention(q, k[:1], v[:1], ln)
     with pytest.raises(ValueError):
         decode_attn.ragged_decode_attention(q[:, :, :3], k, v, ln)
+
+
+# -- the contiguous int8 leg (K2q) -------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 3, 17])
+@pytest.mark.parametrize("b,h,kvh,d,s,lengths", RAGGED_CASES)
+def test_ragged_int8_plain_matches_jax_interpret_kernel(b, h, kvh, d, s,
+                                                        lengths, window):
+    q, k, v, ln = _ragged_inputs(14, b, h, kvh, d, s, lengths)
+    kq, vq, ks, vs = _quantized(k, v)
+    want = jax_decode_attn._ragged_impl(
+        *map(jnp.asarray, (q, kq, vq, ln, ks, vs)), window=window,
+        mode="interpret")
+    got = decode_attn.ragged_decode_attention(
+        *map(torch.from_numpy, (q, kq, vq, ln)), window=window,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_ragged_int8_plain_is_dequantize_then_dense():
+    q, k, v, ln = _ragged_inputs(15, *RAGGED_CASES[0])
+    kq, vq, ks, vs = _quantized(k, v)
+    kr, vr = (jq.kv_dequantize(jnp.asarray(a), jnp.asarray(sc), jnp.float32)
+              for a, sc in ((kq, ks), (vq, vs)))
+    want = jax_decode_attn._dense_reference(jnp.asarray(q), kr, vr,
+                                            jnp.asarray(ln), window=5)
+    got = decode_attn.ragged_reference(
+        *map(torch.from_numpy, (q, kq, vq, ln)), 5, torch.from_numpy(ks),
+        torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_ragged_int8_cpu_call_counts_no_launch_and_checks_arguments():
+    q, k, v, ln = _ragged_inputs(16, 2, 4, 2, 128, 64, [10, 40])
+    kq, vq, ks, vs = map(torch.from_numpy, _quantized(k, v))
+    q, k, v, ln = map(torch.from_numpy, (q, k, v, ln))
+    fn = decode_attn.ragged_decode_attention
+    before = (fn.launches, fn.int8_launches)
+    fn(q, kq, vq, ln, window=8, k_scale=ks, v_scale=vs)
+    assert (fn.launches, fn.int8_launches) == before
+    with pytest.raises(ValueError, match="both"):
+        fn(q, kq, vq, ln, k_scale=ks)
+    with pytest.raises(ValueError, match="not int8"):
+        fn(q, k, v, ln, k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="scales must be"):
+        fn(q, kq, vq, ln, k_scale=ks[:, :4], v_scale=vs)

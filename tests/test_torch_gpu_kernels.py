@@ -28,6 +28,25 @@ bf16 and float32 activations.  Tolerance: bf16 outputs within 2^-7 |out|
 + 1e-2 (one output ulp plus summation order: both sides round the weight
 to bf16 and accumulate in float32), float32 within 1e-4 |out| + 1e-4.
 Wrong dtypes and a legacy int4 pack axis raise.
+
+The int8 leg of the contiguous decode kernel (K2q: int8 cache with
+[B, S, KVH] float32 scales from ``kv_quantize``) over K2's shapes, with
+K1q's tolerance (2e-2 plus one bf16 output ulp, 2^-7 |out|).
+
+Flash attention: the static-causal kernel (K3) over lengths 1 to 1000
+that are not multiples of the 64-row tiles, groups 1 / 4 / 16, head dims
+64 / 128 / 256 and windows none / 1 / 17 / 100; the dynamic kernel (K4)
+over a padded cache prefill (``k_valid`` past the written slots, window
+in position space), ``causal=False``, shuffled positions, ragged query
+counts and a query row with no live key (zeros).  Tolerance per output
+row (one query, one head) against ``flash_reference``: L2 error <= 1e-2 x
+the row's L2 norm, scaled to the row because a row over n keys is only
+~sqrt(e / n) in size.  Probabilities are rounded to bf16 per 64-slot
+tile under the running max in the kernels, under the row's final max in
+the plain version, then the bf16 output rounding.  Gradients through the
+kernel's autograd function equal autograd through ``dense_reference``
+(the backward IS that recompute).  float32 inputs and an unsupported head
+dim raise; each call counts one launch of its kernel.
 """
 
 import numpy as np
@@ -36,9 +55,10 @@ import torch
 
 from distributed_llms_tpu_torch.checkpoint.quantize import (kv_quantize,
                                                             quantize)
-from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
+from distributed_llms_tpu_torch.ops import decode_attn, flash, quant_matmul
 
 GPU_TOL = 2e-2
+GPU_FLASH_ROW_REL = 1e-2  # as chip_smoke.py's FLASH_ROW_REL
 
 
 def _paged_inputs(seed, b, h, kvh, d, blk, p, lengths):
@@ -263,3 +283,195 @@ def test_cuda_quant_matmul_raises_on_wrong_inputs(cuda):
     legacy = quantize(w, bits=4, pack_axis=-1)  # pairs along N, not K
     with pytest.raises(NotImplementedError):
         quant_matmul.quant_contract(x, legacy, 1)
+
+
+# -- K2q: the contiguous decode kernel's int8 leg -----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kvh,d,s,lengths,window", RAGGED_GPU_CASES)
+def test_cuda_ragged_int8_kernel_matches_plain(cuda, b, h, kvh, d, s,
+                                               lengths, window):
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16).to(cuda)
+               for shape in ((b, 1, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    fn = decode_attn.ragged_decode_attention
+    before = (fn.launches, fn.int8_launches)
+    got = fn(q, kq, vq, ln, window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.int8_launches) == (before[0], before[1] + 1)
+    want = decode_attn.ragged_reference(q, kq, vq, ln, window, ks, vs)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    over = diff - 2.0 ** -7 * want.float().abs() - GPU_TOL
+    assert over.max().item() <= 0, diff.max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_ragged_int8_raises_on_wrong_dtypes(cuda):
+    q = torch.zeros(2, 1, 4, 128, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(2, 64, 2, 128, dtype=torch.int8, device=cuda)
+    sc = torch.ones(2, 64, 2, device=cuda)
+    ln = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # float64 scales
+        decode_attn.ragged_decode_attention(q, k, k, ln, k_scale=sc.double(),
+                                            v_scale=sc.double())
+    with pytest.raises(TypeError):  # float32 q
+        decode_attn.ragged_decode_attention(q.float(), k, k, ln, k_scale=sc,
+                                            v_scale=sc)
+
+
+# -- K3 / K4: flash attention ---------------------------------------------------
+
+def _flash_inputs(cuda, seed, b, tq, h, kvh, d, s=None):
+    rng = np.random.default_rng(seed)
+    s = s or tq
+    return tuple(
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        .to(torch.bfloat16).to(cuda)
+        for shape in ((b, tq, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+
+
+def _flash_held(got, want):
+    """Row by row (one query, one head): L2 error <= GPU_FLASH_ROW_REL x
+    the plain row's L2 norm; a zero plain row (no live key) must be
+    zero."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    assert bool((diff[ref == 0] == 0).all())
+    rel = (diff[ref > 0] / ref[ref > 0]).max().item()
+    assert rel <= GPU_FLASH_ROW_REL, rel
+
+
+FLASH_STATIC_CASES = [
+    # b, t, h, kvh, d, window
+    (1, 1, 2, 1, 64, None),
+    (2, 200, 8, 2, 128, None),     # group 4, T off the 64-row tiles
+    (1, 333, 4, 4, 64, 17),        # group 1
+    (3, 65, 8, 8, 128, 1),         # window 1: the diagonal only
+    (1, 1000, 32, 2, 256, 100),    # group 16, D 256
+    (1, 1024, 32, 8, 128, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,kvh,d,window", FLASH_STATIC_CASES)
+def test_cuda_flash_static_matches_plain(cuda, b, t, h, kvh, d, window):
+    q, k, v = _flash_inputs(cuda, 11, b, t, h, kvh, d)
+    fn = flash.flash_attention
+    before = (fn.static_launches, fn.dynamic_launches)
+    got = fn(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert (fn.static_launches, fn.dynamic_launches) == (before[0] + 1,
+                                                         before[1])
+    _flash_held(got, flash.flash_reference(q, k, v, window=window))
+
+
+def _dynamic_case(cuda, name, b, tq, s):
+    rng = np.random.default_rng(12)
+    offset = torch.tensor([[0], [s - tq]][:b], device=cuda)
+    qpos = torch.arange(tq, device=cuda)[None] + offset
+    kpos = torch.arange(s, device=cuda).expand(b, s)
+    if name == "padded_prefill":
+        return dict(q_positions=qpos, k_positions=kpos,
+                    k_valid=kpos < offset + tq)
+    if name == "padded_prefill_window":
+        return dict(q_positions=qpos, k_positions=kpos,
+                    k_valid=kpos < offset + tq, window=37)
+    if name == "not_causal":
+        return dict(k_valid=kpos < offset + tq, causal=False)
+    if name == "shuffled":
+        perm = torch.from_numpy(np.stack([rng.permutation(s)
+                                          for _ in range(b)])).to(cuda)
+        return dict(q_positions=perm[:, :tq], k_positions=perm, window=200)
+    if name == "row_without_keys":
+        valid = kpos >= 5
+        return dict(q_positions=qpos, k_positions=kpos, k_valid=valid)
+    raise KeyError(name)
+
+
+FLASH_DYNAMIC_CASES = [
+    # case, b, tq, s, h, kvh, d
+    ("padded_prefill", 2, 200, 1024, 32, 8, 128),
+    ("padded_prefill_window", 2, 100, 700, 8, 2, 64),
+    ("not_causal", 2, 77, 300, 8, 8, 128),
+    ("shuffled", 2, 130, 500, 16, 1, 128),
+    ("row_without_keys", 1, 64, 128, 4, 2, 256),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,b,tq,s,h,kvh,d", FLASH_DYNAMIC_CASES)
+def test_cuda_flash_dynamic_matches_plain(cuda, case, b, tq, s, h, kvh, d):
+    q, k, v = _flash_inputs(cuda, 13, b, tq, h, kvh, d, s)
+    kw = _dynamic_case(cuda, case, b, tq, s)
+    fn = flash.flash_attention
+    before = (fn.static_launches, fn.dynamic_launches)
+    got = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fn.static_launches, fn.dynamic_launches) == (before[0],
+                                                         before[1] + 1)
+    _flash_held(got, flash.flash_reference(q, k, v, **kw))
+    if case == "row_without_keys":  # positions 0..4 see only slots < 5
+        assert float(got[0, :5].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_flash_gradients_are_the_dense_recompute(cuda):
+    q, k, v = _flash_inputs(cuda, 14, 1, 300, 8, 2, 128)
+    cot = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    grads = []
+    for f in (flash.flash_attention, flash.dense_reference):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        (f(*args, window=50).float() * cot.float()).sum().backward()
+        grads.append([a.grad for a in args])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_raises_on_what_it_does_not_build(cuda):
+    q, k, v = _flash_inputs(cuda, 15, 1, 64, 4, 2, 128)
+    with pytest.raises(TypeError):  # float32
+        flash.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):  # float16
+        flash.flash_attention(q.half(), k.half(), v.half())
+    q96, k96, v96 = _flash_inputs(cuda, 15, 1, 64, 4, 2, 96)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(q96, k96, v96)
+
+
+@pytest.mark.gpu
+def test_cuda_training_step_runs_through_k3(cuda):
+    """A bf16 flash model's loss differentiates on the card: K3 in the
+    forward, the dense recompute and a float32 unembedding product in the
+    backward (the bf16 -> float32 ``out_dtype`` product has no
+    derivative)."""
+    from distributed_llms_tpu_torch.core.config import ModelConfig
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.runtime import train
+
+    cfg = ModelConfig(family="llama", vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_layers=2, num_heads=4,
+                      num_kv_heads=2, head_dim=64, max_seq_len=256,
+                      tie_embeddings=False, dtype="bfloat16",
+                      attn_impl="flash")
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+        device=cuda)
+    tokens = torch.randint(0, 512, (2, 130), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    step, state = trainer.make_step(), trainer.init(params)
+    before = flash.flash_attention.static_launches
+    losses = []
+    for _ in range(3):
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+    assert flash.flash_attention.static_launches == before + 3 * cfg.num_layers
+    assert all(np.isfinite(losses)) and losses[2] < losses[0]

@@ -272,7 +272,7 @@ def test_bf16_tree_round_trips_exactly():
 
 @pytest.mark.parametrize("change", [
     {"family": "gpt2"}, {"num_experts": 4}, {"family": "neox"},
-    {"attn_impl": "flash"},
+    {"attn_impl": "ring"},
 ])
 def test_later_slice_models_are_refused(change):
     cfg = dataclasses.replace(get_preset("llama-tiny"), **change)

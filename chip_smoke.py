@@ -8,14 +8,19 @@ Phases, each printing result lines:
 
 1. ``build``  — compile every kernel source under
    ``distributed_llms_tpu_torch/ops/csrc`` (one nvcc per source, started
-   together) and print the build seconds and the register report.
+   together) and print the build seconds and the register report; for the
+   split-K decode kernels (K2, K2q) also each function's registers, spills
+   and static shared memory from ``-Xptxas -v`` and, at Mistral-7B's heads,
+   the threads, dynamic shared memory and resident blocks per SM.
 2. ``kernel`` — hold each kernel against its plain PyTorch version on the
    card, at its path's shapes: K1 and K1q at Llama-3-8B's (B=8, H=32,
    KVH=8, D=128, page size 64, ragged lengths 1..2048, a shuffled page
    table, plus a table holding garbage past every row's depth; K1q's pools
    quantized by the port's ``kv_quantize``), K2 and its int8 leg K2q at
    Mistral-7B's (B=8, H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144,
-   window 4096 and none), K5 (int8 and int4 weights, bf16 x) at
+   window 4096 and none; and one row of 32768 slots at batch 1, window
+   4096 and none), each decode output row within 1% of the plain row's L2
+   norm (1% + 2^-7 for the int8 legs), K5 (int8 and int4 weights, bf16 x) at
    Llama-3-8B's projections: M=8 (decode) for wq, wk/wv, gate/up, down and
    wo through ``k_lead=2``, and M=512 (prefill) for gate/up; the flash
    kernels K3 at path g's shapes (B=1, T=4096, H=32, KVH=8, D=128, causal;
@@ -27,7 +32,11 @@ Phases, each printing result lines:
    the bf16 dense recompute) within 1% of the float32 gradient.
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
-   time the card could take (the byte and operation bounds).
+   time the card could take (the byte and operation bounds).  K2 and K2q
+   also at batch 1 over one 32768-slot row (window 4096), each K2/K2q line
+   with its split plan, rotated over copies of the cache so that no launch
+   finds its band in the 50 MB L2 cache; then, for information, K2 and K2q
+   at a sweep of split lengths.
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
    a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
@@ -214,6 +223,39 @@ def phase_build() -> None:
         emit("build", source=src, seconds=round(info["seconds"], 3),
              ptxas=regs)
     emit("build", ok=True, sources=len(sources), wall_s=round(wall, 3))
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    emit("build", source=decode_attn.RAGGED_SOURCE,
+         functions=ptxas_functions(built[decode_attn.RAGGED_SOURCE]["log"]),
+         **{("K2q" if quant else "K2") + "_at_D128_G4":
+            decode_attn.ragged_kernel_resources(128, 4, quant)
+            for quant in (False, True)})
+
+
+def ptxas_functions(log: str) -> list:
+    """Each kernel function's registers, spill stores / loads (bytes) and
+    static shared memory from an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    funcs, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            if not funcs or funcs[-1]["function"] != m.group(1):
+                cur = {"function": m.group(1)}
+                funcs.append(cur)
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return funcs
 
 
 # -- phase 2/3: kernel checks and timing -----------------------------------
@@ -253,8 +295,9 @@ def quantize_pools(torch, k, v):
 
 
 def ragged_case(torch, *, b=8, h=32, kvh=8, d=128, s=6144, seed=0):
-    """Path A's inputs (Mistral-7B at --max-len 6144): bf16 q and a
-    contiguous cache, ragged lengths in [1, S] (both ends included)."""
+    """Path c's inputs (Mistral-7B at --max-len 6144): bf16 q and a
+    contiguous cache, ragged lengths in [1, S] (both ends included; at
+    B=1 the one row is S long)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     lengths = torch.randint(1, s + 1, (b,), generator=g)
     lengths[0], lengths[-1] = 1, s
@@ -312,18 +355,28 @@ def live_pairs(torch, tq, s, kw=None) -> int:
         total += int(m.sum())
     return total
 
-# Tolerance of every kernel against its plain version, |err| on bf16
-# outputs of magnitude ~1: 2e-2, made of (a) bf16 probabilities rounded at
-# different points — per 64-slot tile and unnormalized in the kernels,
-# normalized in the plain versions (a few bf16 ulps, ~4e-3 each) — and
-# (b) the bf16 output rounding (one ulp, up to ~8e-3 near 2).  K1q adds
-# one bf16 ulp of the output itself, 2^-7 |out|: its plain version rounds
-# the dequantized V to bf16 (bf16(v_i8 * v_scale)) where the kernel, like
-# the TPU kernel, rounds p * v_scale to bf16 and multiplies v_i8 exactly —
-# two roundings of the same product that differ by up to an ulp (a row of
-# length 1 outputs that product itself).
+# Absolute tolerance of a library yardstick against the plain version, and
+# of K5 (plus TOL_REL_QMM below), on bf16 outputs of magnitude ~1.
 TOL = 2e-2
-TOL_REL_INT8 = 2.0 ** -7
+# The decode kernels (K1, K1q, K2, K2q) against their plain versions, per
+# output row (one query, one head): L2 error <= DECODE_ROW_REL x the plain
+# row's L2 norm.  A row over n slots is ~sqrt(e / n) in size (0.026 over
+# K2's 4096-slot band), so the absolute 2e-2 used before would pass a wrong
+# band edge, a dropped split or a wrong merge.  Sound kernels differ from
+# the plain versions by where bf16 rounds the probabilities (per 8-slot
+# update and unnormalized in the split kernels, per 64-slot tile in K1,
+# normalized in the plain versions) and by the bf16 output rounding.  The
+# int8 legs add one bf16 ulp (2^-7) of each term: the plain version rounds
+# the dequantized V (bf16(v_i8 * v_scale)) where the kernels, like the TPU
+# kernel, round p * v_scale to bf16 and multiply v_i8 exactly.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md): sound rows at most
+# 0.0043 (K1, K2) and 0.0062 (K1q, K2q), so the limits keep 2.3x and 2.9x;
+# each fault planted in K2/K2q by decode_mutations.py (a band or length
+# edge off by one, a dropped split, a merge without its exp(m_s - M)
+# rescale, K2q's sum taken after v_scale) reads 0.17-56 at some shape
+# below, the weakest 0.028 (the band edge at batch 1).
+DECODE_ROW_REL = 1e-2
+DECODE_ROW_REL_INT8 = 1e-2 + 2.0 ** -7
 # K5 against its plain version: both round the dequantized weight to bf16
 # the same way (float32(q) * scale, round to nearest) and accumulate in
 # float32, so they differ by the summation order (WMMA tiles of 16 against
@@ -359,6 +412,8 @@ QMM_NAMES = {8: "quant_matmul", 4: "quant_matmul_int4"}
 
 
 def _held(torch, name, got, want, rel=0.0, **info) -> float:
+    """K5's output against its plain version: |err| <= TOL + rel x
+    |plain| elementwise; returns the largest |err|."""
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
@@ -398,47 +453,81 @@ def qmm_plain(torch, x, qt, k_lead):
     return out.reshape(x.shape[0], *qt.data.shape[k_lead:])
 
 
-def phase_kernel(torch) -> dict:
-    from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
+def paged_kernel_checks(torch) -> dict:
+    """K1 and K1q at path a's shapes, with and without garbage table
+    entries past each row's depth; returns the largest |err| of each."""
+    from distributed_llms_tpu_torch.ops import decode_attn
 
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {"paged_decode_attention": 0.0, "paged_decode_attention_int8": 0.0}
     for garbage in (False, True):
         q, k, v, lengths, tables = paged_case(torch, garbage=garbage,
                                               seed=1 + garbage)
-        err = _held(torch, "paged_decode_attention",
-                    decode_attn.paged_decode_attention(q, k, v, lengths, tables),
-                    decode_attn.paged_reference(q, k, v, lengths, tables),
-                    garbage_tables=garbage)
+        err = _row_held(torch, "paged_decode_attention",
+                        decode_attn.paged_decode_attention(q, k, v, lengths,
+                                                           tables),
+                        decode_attn.paged_reference(q, k, v, lengths, tables),
+                        DECODE_ROW_REL, garbage_tables=garbage)
         worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
                                               err)
         kq, vq, ks, vs = quantize_pools(torch, k, v)
-        err = _held(torch, "paged_decode_attention_int8",
-                    decode_attn.paged_decode_attention(
-                        q, kq, vq, lengths, tables, k_scale=ks, v_scale=vs),
-                    decode_attn.paged_reference(q, kq, vq, lengths, tables,
-                                                ks, vs),
-                    rel=TOL_REL_INT8, garbage_tables=garbage)
+        err = _row_held(torch, "paged_decode_attention_int8",
+                        decode_attn.paged_decode_attention(
+                            q, kq, vq, lengths, tables, k_scale=ks,
+                            v_scale=vs),
+                        decode_attn.paged_reference(q, kq, vq, lengths,
+                                                    tables, ks, vs),
+                        DECODE_ROW_REL_INT8, garbage_tables=garbage)
         worst["paged_decode_attention_int8"] = max(
             worst["paged_decode_attention_int8"], err)
-    q, k, v, lengths = ragged_case(torch, seed=4)
-    for window in (WINDOW, None):
-        err = _held(torch, "ragged_decode_attention",
-                    decode_attn.ragged_decode_attention(q, k, v, lengths,
-                                                        window=window),
-                    decode_attn.dense_reference(q, k, v, lengths, window),
-                    window=window)
-        worst["ragged_decode_attention"] = max(
-            worst["ragged_decode_attention"], err)
+    return worst
+
+
+def ragged_kernel_checks(torch) -> dict:
+    """K2 and K2q at path c's shapes and at batch 1 over one row at
+    Mistral-7B's full context, window 4096 and none; returns the largest
+    |err| of each."""
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    worst = {"ragged_decode_attention": 0.0,
+             "ragged_decode_attention_int8": 0.0}
+    for case in (dict(seed=4), dict(b=1, s=FLASH_MAX_LEN, seed=7)):
+        q, k, v, lengths = ragged_case(torch, **case)
         kq, vq, ks, vs = quantize_pools(torch, k, v)
-        err = _held(torch, "ragged_decode_attention_int8",
-                    decode_attn.ragged_decode_attention(
-                        q, kq, vq, lengths, window=window, k_scale=ks,
-                        v_scale=vs),
-                    decode_attn.ragged_reference(q, kq, vq, lengths, window,
-                                                 ks, vs),
-                    rel=TOL_REL_INT8, window=window)
-        worst["ragged_decode_attention_int8"] = max(
-            worst["ragged_decode_attention_int8"], err)
+        shape = {"B": q.shape[0], "S": k.shape[1]}
+        for window in (WINDOW, None):
+            plan = decode_attn.ragged_split_plan(
+                q.shape[0], k.shape[2], k.shape[1], window,
+                decode_attn._sm_count(q.device))
+            err = _row_held(torch, "ragged_decode_attention",
+                            decode_attn.ragged_decode_attention(
+                                q, k, v, lengths, window=window),
+                            decode_attn.dense_reference(q, k, v, lengths,
+                                                        window),
+                            DECODE_ROW_REL, window=window, split_plan=plan,
+                            **shape)
+            worst["ragged_decode_attention"] = max(
+                worst["ragged_decode_attention"], err)
+            err = _row_held(torch, "ragged_decode_attention_int8",
+                            decode_attn.ragged_decode_attention(
+                                q, kq, vq, lengths, window=window,
+                                k_scale=ks, v_scale=vs),
+                            decode_attn.ragged_reference(
+                                q, kq, vq, lengths, window, ks, vs),
+                            DECODE_ROW_REL_INT8, window=window,
+                            split_plan=plan, **shape)
+            worst["ragged_decode_attention_int8"] = max(
+                worst["ragged_decode_attention_int8"], err)
+        del q, k, v, kq, vq, ks, vs
+    _free(torch)
+    return worst
+
+
+def phase_kernel(torch) -> dict:
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    worst = {name: 0.0 for name in KERNELS}
+    worst.update(paged_kernel_checks(torch))
+    worst.update(ragged_kernel_checks(torch))
     worst.update(flash_kernel_checks(torch))
     for bits, name in QMM_NAMES.items():
         for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
@@ -463,9 +552,10 @@ def row_rel_err(torch, got, want) -> float:
     return ratio.max().item()
 
 
-def _flash_held(torch, name, got, want, **info) -> float:
-    """A flash kernel's output against ``flash_reference``, row by row
-    (FLASH_ROW_REL); returns the largest |err| for the JSON line."""
+def _row_held(torch, name, got, want, limit, **info) -> float:
+    """An attention kernel's output against its plain version, row by row:
+    L2 error <= ``limit`` x the plain row's L2 norm; returns the largest
+    |err| for the JSON line."""
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
@@ -474,10 +564,9 @@ def _flash_held(torch, name, got, want, **info) -> float:
     err = (got.float() - want.float()).abs().max().item()
     rel = row_rel_err(torch, got, want)
     emit("kernel", name=name, max_abs_err=err, max_row_rel_err=rel,
-         tol=f"row L2 error <= {FLASH_ROW_REL} x row L2 norm",
+         tol=f"row L2 error <= {limit} x row L2 norm",
          plain_mean_abs=want.float().abs().mean().item(), **info)
-    check(rel <= FLASH_ROW_REL,
-          f"{name} row error {rel} exceeds {FLASH_ROW_REL} of the row")
+    check(rel <= limit, f"{name} row error {rel} exceeds {limit} of the row")
     return err
 
 
@@ -491,10 +580,10 @@ def flash_kernel_checks(torch) -> dict:
     worst = {"flash_attention_static": 0.0, "flash_attention_dynamic": 0.0}
     for t, window in ((TRAIN_T, None), (2 * TRAIN_T, WINDOW)):
         q, k, v = flash_case(torch, tq=t, seed=30 + t)
-        err = _flash_held(torch, "flash_attention_static",
-                          flash.flash_attention(q, k, v, window=window),
-                          flash.flash_reference(q, k, v, window=window),
-                          T=t, window=window)
+        err = _row_held(torch, "flash_attention_static",
+                        flash.flash_attention(q, k, v, window=window),
+                        flash.flash_reference(q, k, v, window=window),
+                        FLASH_ROW_REL, T=t, window=window)
         worst["flash_attention_static"] = max(
             worst["flash_attention_static"], err)
     s = FLASH_MAX_LEN
@@ -503,11 +592,11 @@ def flash_kernel_checks(torch) -> dict:
                                       (1000, 5000, True, WINDOW)):
         q, k, v = flash_case(torch, tq=tq, s=s, seed=40 + tq)
         kw = admission_args(torch, tq, s, first, window, causal)
-        err = _flash_held(torch, "flash_attention_dynamic",
-                          flash.flash_attention(q, k, v, **kw),
-                          flash.flash_reference(q, k, v, **kw),
-                          Tq=tq, S=s, first_position=first, causal=causal,
-                          window=window)
+        err = _row_held(torch, "flash_attention_dynamic",
+                        flash.flash_attention(q, k, v, **kw),
+                        flash.flash_reference(q, k, v, **kw),
+                        FLASH_ROW_REL, Tq=tq, S=s, first_position=first,
+                        causal=causal, window=window)
         worst["flash_attention_dynamic"] = max(
             worst["flash_attention_dynamic"], err)
         del q, k, v
@@ -652,68 +741,185 @@ def phase_timing(torch) -> dict:
         "paged_decode_attention_int8", shapes, t,
         *_bound(kv_bytes, io_bytes, flops), kv_bytes)
 
-    # K2, window 4096 (path A's) and none.  Library yardstick: SDPA with
-    # the band mask over the contiguous cache.
-    q, k, v, lengths = ragged_case(torch, seed=5)
-    b, s = k.shape[:2]
-    lens = lengths.long()
-    kr = k.transpose(1, 2).contiguous()
-    vr = v.transpose(1, 2).contiguous()
-    qt = q.transpose(1, 2).contiguous()
-    slots = torch.arange(s, device=q.device)[None, :]
-    for window in (WINDOW, None):
-        band = lens if window is None else lens.clamp(max=window)
-        m = slots < lens[:, None]
-        if window is not None:
-            m = m & (slots >= lens[:, None] - window)
-        library = sdpa(kr, vr, m[:, None, None, :])
-        ref = decode_attn.dense_reference(q, k, v, lengths, window)
-        lib_err = (library().transpose(1, 2).float()
-                   - ref.float()).abs().max().item()
-        check(lib_err <= TOL, f"K2 library yardstick disagrees ({lib_err})")
-        kv_bytes = int(band.sum()) * kvh * d * 2 * 2
-        t = _turns(torch,
-                   lambda: decode_attn.ragged_decode_attention(
-                       q, k, v, lengths, window=window),
-                   lambda: decode_attn.dense_reference(q, k, v, lengths,
-                                                       window),
-                   library, plain_iters=5)
-        timed = _timed(
-            "ragged_decode_attention",
-            {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": window,
-             "sum_band": int(band.sum())},
-            t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4,
-                       4 * int(band.sum()) * h * d), kv_bytes)
-        if window == WINDOW:
-            out["ragged_decode_attention"] = timed
-
-    # K2q at path c's shapes, window 4096.  Library yardstick: SDPA with
-    # the band mask over the dequantized cache.
-    kq, vq, ks, vs = quantize_pools(torch, k, v)
-    kd = kv_dequantize(kq, ks, torch.bfloat16).transpose(1, 2).contiguous()
-    vd = kv_dequantize(vq, vs, torch.bfloat16).transpose(1, 2).contiguous()
-    band = lens.clamp(max=WINDOW)
-    m = (slots < lens[:, None]) & (slots >= lens[:, None] - WINDOW)
-    library = sdpa(kd, vd, m[:, None, None, :])
-    ref = decode_attn.ragged_reference(q, kq, vq, lengths, WINDOW, ks, vs)
-    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
-    check(lib_err <= TOL, f"K2q library yardstick disagrees ({lib_err})")
-    kv_bytes = int(band.sum()) * kvh * (d + 4) * 2
-    t = _turns(torch,
-               lambda: decode_attn.ragged_decode_attention(
-                   q, kq, vq, lengths, window=WINDOW, k_scale=ks, v_scale=vs),
-               lambda: decode_attn.ragged_reference(q, kq, vq, lengths,
-                                                    WINDOW, ks, vs),
-               library, plain_iters=5)
-    out["ragged_decode_attention_int8"] = _timed(
-        "ragged_decode_attention_int8",
-        {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": WINDOW,
-         "sum_band": int(band.sum())},
-        t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4,
-                   4 * int(band.sum()) * h * d), kv_bytes)
-    del kd, vd
+    out.update(ragged_timing(torch))
     out.update(flash_timing(torch))
     out.update(qmm_timing(torch))
+    return out
+
+
+def _ragged_bytes(k, lengths, window, quant) -> tuple[int, int]:
+    """(band slots summed over the rows, bytes of K/V the function must
+    read): each row's band is [length - window, length) cut to the
+    cache; a slot and head is D x 2 bytes of bf16 K and V, or D int8 bytes
+    and a float32 scale of each for K2q."""
+    s, kvh, d = k.shape[1], k.shape[2], k.shape[3]
+    lens = lengths.long()
+    end = lens.clamp(min=0, max=s)
+    lo = 0 if window is None else (lens - window).clamp(min=0)
+    band = int((end - lo).clamp(min=0).sum())
+    return band, band * kvh * ((d + 4) * 2 if quant else d * 2 * 2)
+
+
+def _ragged_copies(torch, k, v, scales, kv_bytes):
+    """The cache and its copies: enough that a rotation over them reads at
+    least L2_ROTATION_BYTES of band, so no launch finds its band in the
+    L2 cache, as a decode step finds each layer's cache cold."""
+    n = max(1, math.ceil(L2_ROTATION_BYTES / kv_bytes))
+    return [(k, v, *scales)] + [tuple(t.clone() for t in (k, v, *scales))
+                                for _ in range(n - 1)]
+
+
+def _ragged_timed(torch, name, q, k, v, lengths, window, scales=()) -> dict:
+    """K2 (or K2q, with ``scales``) on these inputs against its plain
+    version and SDPA with the band mask (over the dequantized cache for
+    K2q), the kernel and SDPA rotated over copies of the cache."""
+    import torch.nn.functional as F
+
+    from distributed_llms_tpu_torch.checkpoint.quantize import kv_dequantize
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    b, _, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    lens = lengths.long()
+    band, kv_bytes = _ragged_bytes(k, lengths, window, bool(scales))
+    copies = _ragged_copies(torch, k, v, scales, kv_bytes)
+    slots = torch.arange(s, device=q.device)[None, :]
+    m = slots < lens[:, None]
+    if window is not None:
+        m = m & (slots >= lens[:, None] - window)
+    m = m[:, None, None, :]
+    qt = q.transpose(1, 2).contiguous()
+
+    def dense(kc, vc, *sc):  # [B, KVH, S, D] bf16 for SDPA
+        if sc:
+            kc = kv_dequantize(kc, sc[0], torch.bfloat16)
+            vc = kv_dequantize(vc, sc[1], torch.bfloat16)
+        return (kc.transpose(1, 2).contiguous(),
+                vc.transpose(1, 2).contiguous())
+
+    lib_kv = [dense(*c) for c in copies]
+
+    def kern(c):
+        kc, vc, *sc = c
+        return lambda: decode_attn.ragged_decode_attention(
+            q, kc, vc, lengths, window=window,
+            **({"k_scale": sc[0], "v_scale": sc[1]} if sc else {}))
+
+    def lib(kr, vr):
+        return lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=m, enable_gqa=True)
+
+    ref = decode_attn.ragged_reference(q, k, v, lengths, window, *scales)
+    lib_err = (lib(*lib_kv[0])().transpose(1, 2).float()
+               - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"{name} library yardstick disagrees ({lib_err})")
+    del ref
+    t = _turns(torch, _rotate([kern(c) for c in copies]),
+               lambda: decode_attn.ragged_reference(q, k, v, lengths, window,
+                                                    *scales),
+               _rotate([lib(*kv) for kv in lib_kv]), plain_iters=5)
+    split_len, n_splits = decode_attn.ragged_split_plan(
+        b, kvh, s, window, decode_attn._sm_count(q.device))
+    device_ms = _device_ms(torch, _rotate([kern(c) for c in copies]))
+    timed = _timed(
+        name, {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": window,
+               "sum_band": band},
+        t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4, 4 * band * h * d),
+        kv_bytes,
+        split_len=split_len, n_splits=n_splits, cache_copies=len(copies),
+        device_ms_per_call=device_ms,
+        library="F.scaled_dot_product_attention(attn_mask=band, "
+                "enable_gqa=True)" + (" over the dequantized cache"
+                                      if scales else ""))
+    del copies, lib_kv
+    return timed
+
+
+def _device_ms(torch, fn, calls=20) -> dict:
+    """Device milliseconds per call of ``fn``, by kernel (the profiler's
+    CUDA events), beside the CUDA-event time of the calls, which also
+    counts the gaps between kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = ("merge" if "split_decode_merge" in e.name else
+                    "split" if "decode_kernel" in e.name else e.name[:40])
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / calls
+    return out
+
+
+SPLIT_SWEEP = (64, 128, 256, 512, 1024, 4096)
+
+
+def ragged_split_sweep(torch, name, q, k, v, lengths, window,
+                       scales=()) -> None:
+    """K2 (K2q) at each split length of SPLIT_SWEEP on these inputs, the
+    cache rotated as in the timing lines: CUDA-event ms per call and the
+    device ms of its two kernels — what the planner's choice costs against
+    the others.  Information, not a gate."""
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    s, kvh = k.shape[1], k.shape[2]
+    span = s if window is None else min(s, window)
+    copies = _ragged_copies(torch, k, v, scales,
+                            _ragged_bytes(k, lengths, window, bool(scales))[1])
+    kw = [{"k_scale": c[2], "v_scale": c[3]} if scales else {} for c in copies]
+    planner = decode_attn.ragged_split_plan
+    times, device = {}, {}
+    try:
+        for split_len in SPLIT_SWEEP:
+            if split_len > span and split_len != SPLIT_SWEEP[0]:
+                continue
+            n_splits = math.ceil(span / split_len)
+            decode_attn.ragged_split_plan = (
+                lambda *a, _p=(split_len, n_splits): _p)
+            run = _rotate([
+                lambda c=c, x=x: decode_attn.ragged_decode_attention(
+                    q, c[0], c[1], lengths, window=window, **x)
+                for c, x in zip(copies, kw)])
+            times[split_len] = cuda_ms(torch, run)
+            device[split_len] = sum(_device_ms(torch, run).values())
+    finally:
+        decode_attn.ragged_split_plan = planner
+    emit("split_sweep", name=name, B=q.shape[0], S=s, window=window,
+         planned=planner(q.shape[0], kvh, s, window,
+                         decode_attn._sm_count(q.device)),
+         kernel_ms_by_split_len=times, device_ms_by_split_len=device,
+         cache_copies=len(copies))
+
+
+def ragged_timing(torch) -> dict:
+    """K2 at path c's shapes (window 4096 and none) and at batch 1 over one
+    row of Mistral-7B's full context (window 4096); K2q at both with the
+    window; then the split-length sweep."""
+    out = {}
+    for case in (dict(seed=5), dict(b=1, s=FLASH_MAX_LEN, seed=8)):
+        q, k, v, lengths = ragged_case(torch, **case)
+        batch1 = q.shape[0] == 1
+        for window in ((WINDOW,) if batch1 else (WINDOW, None)):
+            timed = _ragged_timed(torch, "ragged_decode_attention", q, k, v,
+                                  lengths, window)
+            if window == WINDOW and not batch1:
+                out["ragged_decode_attention"] = timed
+        kq, vq, ks, vs = quantize_pools(torch, k, v)
+        timed = _ragged_timed(torch, "ragged_decode_attention_int8", q, kq,
+                              vq, lengths, WINDOW, (ks, vs))
+        if not batch1:
+            out["ragged_decode_attention_int8"] = timed
+        ragged_split_sweep(torch, "ragged_decode_attention", q, k, v,
+                           lengths, WINDOW)
+        ragged_split_sweep(torch, "ragged_decode_attention_int8", q, kq, vq,
+                           lengths, WINDOW, (ks, vs))
+        del q, k, v, kq, vq, ks, vs
+        _free(torch)
     return out
 
 
@@ -1556,6 +1762,9 @@ def phase_train(torch, profile: bool) -> int:
              device_kernel_ms=split,
              flash_share_of_device=split["flash_kernel"] / busy if busy else
              "not measured",
+             decode_attention_share_of_device=(
+                 split["decode_attention_kernel"] / busy if busy else
+                 "not measured"),
              device_busy_share=busy / wall if busy else "not measured")
     del params, state, batch
     _free(torch)
@@ -1609,7 +1818,9 @@ def _kernel_split(torch, prof) -> dict:
             split["flash_kernel"] += us
         elif "quant_matmul" in name:
             split["quant_matmul_kernel"] += us
-        elif "paged_decode_kernel" in name or "ragged_decode_kernel" in name:
+        elif any(k in name for k in ("paged_decode_kernel",
+                                     "ragged_decode_kernel",
+                                     "split_decode_merge")):
             split["decode_attention_kernel"] += us
         elif any(k in name for k in ("gemm", "nvjet", "cutlass", "splitK",
                                      "sm90_xmma")):
@@ -1664,6 +1875,9 @@ def flash_admission(torch, batcher, profile: bool) -> None:
              profiled_wall_ms=wall, device_kernel_ms=split,
              flash_share_of_device=split["flash_kernel"] / busy if busy else
              "not measured",
+             decode_attention_share_of_device=(
+                 split["decode_attention_kernel"] / busy if busy else
+                 "not measured"),
              device_busy_share=busy / wall if busy else "not measured")
 
 

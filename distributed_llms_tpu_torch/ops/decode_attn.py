@@ -30,15 +30,24 @@ implementation:
   legs, and after a gather of the row's pages for the pool
   (:func:`paged_reference`).
 
+K2 and K2q split each row's band across blocks (split-K, as in
+flash-decoding) and merge the blocks' partial softmax states in a second
+kernel; :func:`ragged_split_plan` picks the split length from shapes alone
+(and the card's SM count), never from ``lengths``, so a decode step does
+not wait on the device to plan.
+
 Each kernel counts its launches: ``paged_decode_attention.launches`` (K1),
 ``paged_decode_attention.int8_launches`` (K1q),
 ``ragged_decode_attention.launches`` (K2) and
-``ragged_decode_attention.int8_launches`` (K2q).
+``ragged_decode_attention.int8_launches`` (K2q).  A K2/K2q call counts one
+launch, whether or not its merge kernel runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -55,9 +64,61 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dlt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
     "dlt_paged_decode_attention_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "dlt_ragged_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "dlt_ragged_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "dlt_ragged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "dlt_ragged_decode_attention_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "dlt_ragged_decode_resources": [_I] * 3 + [_P],
 }
+
+# The split-K plan of K2/K2q (csrc/split_decode.cuh): a split is a multiple
+# of SPLIT_UNIT slots, and the plan aims at BLOCKS_PER_SM blocks per SM over
+# the whole grid — a few waves, so blocks that find their split short or
+# past a row's band give their SM to the next one.
+SPLIT_UNIT = 64
+BLOCKS_PER_SM = 8
+
+
+def ragged_split_plan(b: int, kvh: int, s: int, window: int | None,
+                      sm_count: int) -> tuple[int, int]:
+    """``(split_len, n_splits)`` for a [B, S, KVH, D] cache: the longest
+    band a row can have (``min(S, window)``) cut into ``n_splits`` runs of
+    ``split_len`` slots, a multiple of SPLIT_UNIT, so that the
+    ``n_splits * KVH * B`` blocks come near ``BLOCKS_PER_SM * sm_count``.
+    Shapes only: the row lengths are on the device."""
+    span = s if window is None else min(s, window)
+    units = -(-span // SPLIT_UNIT)
+    want = -(-(BLOCKS_PER_SM * sm_count) // (b * kvh))
+    split_len = -(-units // max(1, min(units, want))) * SPLIT_UNIT
+    return split_len, -(-span // split_len)
+
+
+def ragged_split_bounds(length: int, s: int, window: int | None,
+                        split_len: int, split: int) -> tuple[int, int]:
+    """Slots ``[start, end)`` that split ``split`` attends for a row of
+    ``length`` (the kernel's arithmetic: the band [length - window,
+    length) cut to the cache's S slots); ``start == end`` when the split
+    lies past the band."""
+    raw = max(0, length)
+    end = min(raw, s)
+    lo = 0 if window is None else min(end, max(0, raw - window))
+    start = lo + split * split_len
+    return (start, min(end, start + split_len)) if start < end else (end, end)
+
+
+def ragged_split_scratch(b: int, kvh: int, g: int, d: int,
+                         n_splits: int) -> dict:
+    """Shapes of the float32 partials a split launch needs: the
+    unnormalized accumulators and the running max / sum of every (row,
+    KV head, split, query head of the group); none with one split, whose
+    blocks write the output directly."""
+    if n_splits == 1:
+        return {}
+    return {"acc": (b, kvh, n_splits, g, d), "m": (b, kvh, n_splits, g),
+            "l": (b, kvh, n_splits, g)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dense_reference(q, k, v, lengths, window=None):
@@ -290,21 +351,38 @@ def ragged_decode_attention(
             + f", got {k.dtype} / {v.dtype}"
             + "".join(f" / {sc.dtype}" for sc in scales)
         )
-    _, s, kvh, d = k.shape
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            "ragged_decode_attention: the CUDA kernel reads q, k and v with "
+            "16-byte loads; pass 16-byte aligned tensors"
+        )
+    h, d = q.shape[2], q.shape[3]
+    _, s, kvh, _ = k.shape
+    split_len, n_splits = ragged_split_plan(b, kvh, s, window,
+                                            _sm_count(q.device))
     out = torch.empty_like(q)
-    shape = (b, q.shape[2], kvh, d, s,
-             min(window or 0, 2**31 - 1), float(d) ** -0.5,  # 0: no window
+    parts = [0, 0, 0]  # acc, m, l: null with one split
+    shapes = ragged_split_scratch(b, kvh, h // kvh, d, n_splits)
+    if shapes:
+        sizes = [math.prod(shapes[name]) for name in ("acc", "m", "l")]
+        scratch = torch.empty(sum(sizes), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        parts = [base, base + 4 * sizes[0], base + 4 * (sizes[0] + sizes[1])]
+    shape = (b, h, kvh, d, s, min(window or 0, 2**31 - 1),  # 0: no window
+             split_len, n_splits, float(d) ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
         err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_attention_int8",
                           _ARGTYPES["dlt_ragged_decode_attention_int8"])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *shape)
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), *parts,
+            *shape)
     else:
         err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_attention",
                           _ARGTYPES["dlt_ragged_decode_attention"])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), *shape)
+            out.data_ptr(), *parts, *shape)
     if err != 0:
         raise RuntimeError(
             f"ragged decode attention kernel launch failed (cudaError {err})"
@@ -314,6 +392,22 @@ def ragged_decode_attention(
     else:
         ragged_decode_attention.launches += 1
     return out
+
+
+def ragged_kernel_resources(d: int, g: int, quant: bool) -> dict:
+    """What the K2 (``quant=False``) or K2q split kernel takes on the
+    current card at head dim ``d`` and group ``g``: threads and tile slots
+    per block, dynamic shared memory, resident blocks per SM, registers and
+    local (spill) bytes per thread, and the merge kernel's registers."""
+    info = (ctypes.c_int * 7)()
+    err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_resources",
+                      _ARGTYPES["dlt_ragged_decode_resources"])(
+        d, g, int(quant), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"ragged decode resources query failed ({err})")
+    keys = ("threads", "tile_slots", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes", "merge_registers")
+    return dict(zip(keys, info))
 
 
 ragged_decode_attention.launches = 0

@@ -9,14 +9,19 @@ Phases, each printing result lines:
 1. ``build``  — compile every kernel source under
    ``distributed_llms_tpu_torch/ops/csrc`` (one nvcc per source, started
    together) and print the build seconds and the register report; for the
-   split-K decode kernels (K2, K2q) also each function's registers, spills
-   and static shared memory from ``-Xptxas -v`` and, at Mistral-7B's heads,
-   the threads, dynamic shared memory and resident blocks per SM.
+   split-K decode kernels (K1, K1q, K2, K2q) also each function's
+   registers, spills and static shared memory from ``-Xptxas -v`` and, at
+   the served heads (D 128, group 4), the threads, dynamic shared memory,
+   local (spill) bytes and resident blocks per SM.
 2. ``kernel`` — hold each kernel against its plain PyTorch version on the
-   card, at its path's shapes: K1 and K1q at Llama-3-8B's (B=8, H=32,
-   KVH=8, D=128, page size 64, ragged lengths 1..2048, a shuffled page
-   table, plus a table holding garbage past every row's depth; K1q's pools
-   quantized by the port's ``kv_quantize``), K2 and its int8 leg K2q at
+   card, at its path's shapes: K1 and K1q at Llama-3-8B's heads (H=32,
+   KVH=8, D=128; K1q's pools quantized by the port's ``kv_quantize``):
+   B=8, page size 64, ragged lengths 1..2048, a shuffled page table, with
+   and without garbage past every row's depth; one 8192-slot row at batch
+   1 (the model's published context); 16-slot pages over 2048 slots
+   (tiles straddling pages); and rows at every edge of the split plan
+   (lengths 0, 1, 63-65, each split edge +- 1, 2048, 2049), rows of
+   length 0 exactly zero; K2 and its int8 leg K2q at
    Mistral-7B's (B=8, H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144,
    window 4096 and none; and one row of 32768 slots at batch 1, window
    4096 and none), each decode output row within 1% of the plain row's L2
@@ -32,11 +37,15 @@ Phases, each printing result lines:
    the bf16 dense recompute) within 1% of the float32 gradient.
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
-   time the card could take (the byte and operation bounds).  K2 and K2q
-   also at batch 1 over one 32768-slot row (window 4096), each K2/K2q line
-   with its split plan, rotated over copies of the cache so that no launch
-   finds its band in the 50 MB L2 cache; then, for information, K2 and K2q
-   at a sweep of split lengths.
+   time the card could take (the byte and operation bounds).  The decode
+   kernels' lines carry their split plan and profiler device time (split
+   and merge kernels), the kernel and its SDPA rotated over copies of the
+   cache or page pool so that no launch finds its rows in the 50 MB L2
+   cache: K1 and K1q at the kernel phase's first shape and at path a's
+   own (B=8, 16 pages, lengths 300..364; SDPA over rows gathered before
+   the timer), K2 and K2q also at batch 1 over one 32768-slot row (window
+   4096); then, for information, K1, K2 and K2q at sweeps of split
+   lengths.
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
    a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
@@ -89,7 +98,8 @@ Phases, each printing result lines:
    8 times per step (16 under remat).
 7. ``profile`` — path a's weights, and then path d's, serve a batch of 8
    requests once more under ``torch.profiler``: host wall time against
-   device kernel time, split into K5, the decode-attention kernels, other
+   device kernel time, split into K5, the decode-attention kernels (with
+   the launches of each device function counted there, by name), other
    matrix products and the rest; path f's weights admit one 8000-byte
    prompt, and path g takes one step, under the profiler too, split the
    same way with the flash kernels apart (information, not a gate).
@@ -225,11 +235,15 @@ def phase_build() -> None:
     emit("build", ok=True, sources=len(sources), wall_s=round(wall, 3))
     from distributed_llms_tpu_torch.ops import decode_attn
 
-    emit("build", source=decode_attn.RAGGED_SOURCE,
-         functions=ptxas_functions(built[decode_attn.RAGGED_SOURCE]["log"]),
-         **{("K2q" if quant else "K2") + "_at_D128_G4":
-            decode_attn.ragged_kernel_resources(128, 4, quant)
-            for quant in (False, True)})
+    for source, kernel, resources in (
+            (decode_attn.PAGED_SOURCE, "K1",
+             decode_attn.paged_kernel_resources),
+            (decode_attn.RAGGED_SOURCE, "K2",
+             decode_attn.ragged_kernel_resources)):
+        got = {kernel + ("q" if quant else "") + "_at_D128_G4":
+               resources(128, 4, quant) for quant in (False, True)}
+        emit("build", source=source,
+             functions=ptxas_functions(built[source]["log"]), **got)
 
 
 def ptxas_functions(log: str) -> list:
@@ -261,18 +275,25 @@ def ptxas_functions(log: str) -> list:
 # -- phase 2/3: kernel checks and timing -----------------------------------
 
 def paged_case(torch, *, b=8, h=32, kvh=8, d=128, blk=64, max_len=2048,
-               seed=0, garbage=False):
+               seed=0, garbage=False, lengths=None):
     """Main-path inputs: bf16 q and pools, ragged lengths in [1, max_len]
-    (both ends included), each row's pages a shuffled run of the pool."""
+    (both ends included; at B=1 the one row is max_len long) unless
+    ``lengths`` gives them (B = their count), each row's pages a shuffled
+    run of the pool; ``garbage`` puts ids outside the pool in every table
+    entry past a row's depth."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     p = max_len // blk
+    if lengths is None:
+        lengths = torch.randint(1, max_len + 1, (b,), generator=g)
+        lengths[0], lengths[-1] = 1, max_len
+    else:
+        lengths = torch.tensor(lengths)
+        b = len(lengths)
     nb = b * p + 1  # + scratch page 0
-    lengths = torch.randint(1, max_len + 1, (b,), generator=g)
-    lengths[0], lengths[-1] = 1, max_len
     perm = torch.randperm(nb - 1, generator=g) + 1
     tables = perm[: b * p].reshape(b, p).to(torch.int32)
     if garbage:
-        depth = (lengths + blk - 1) // blk
+        depth = (lengths.clamp(0, max_len) + blk - 1) // blk
         junk = torch.randint(-(2 ** 30), 2 ** 30, (b, p), generator=g,
                              dtype=torch.int32)
         past = torch.arange(p)[None, :] >= depth[:, None]
@@ -453,20 +474,61 @@ def qmm_plain(torch, x, qt, k_lead):
     return out.reshape(x.shape[0], *qt.data.shape[k_lead:])
 
 
+def paged_edge_lengths(torch, b0=8, p=32, blk=64) -> list:
+    """Row lengths at every edge of K1's plan for a [B, p] table of
+    ``blk``-slot pages: 0, 1, blk - 1, blk, blk + 1, each split edge +- 1,
+    P x blk and P x blk + 1.  B is the count of these lengths (the plan
+    follows B, so the edges are searched at the B they produce)."""
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    sm = decode_attn._sm_count(torch.device("cuda"))
+    reach, n = p * blk, b0
+    for _ in range(8):  # B -> plan -> edges -> B, to a fixed point
+        split_len, n_splits = decode_attn.paged_split_plan(n, 8, p, blk, sm)
+        lengths = {0, 1, blk - 1, blk, blk + 1, reach, reach + 1}
+        for i in range(1, n_splits):
+            lengths |= {i * split_len - 1, i * split_len + 1}
+        if len(lengths) == n:
+            break
+        n = len(lengths)
+    return sorted(lengths)
+
+
+# K1/K1q kernel-check shapes: (label, paged_case arguments).  Path a's
+# timing shape with and without garbage past each row's depth (2-page
+# splits), one row at Llama-3-8B's published 8192-token context at batch 1
+# (128 one-page splits), 16-slot pages over 2048 slots (8-page splits,
+# tiles straddling pages), and every edge of the plan at the timing shape.
+PAGED_CHECKS = [
+    ("timing", dict(seed=1)),
+    ("timing_garbage", dict(seed=2, garbage=True)),
+    ("batch1_8192", dict(b=1, max_len=8192, seed=12, garbage=True)),
+    ("page16", dict(blk=16, seed=13, garbage=True)),
+    ("edges", dict(seed=14, garbage=True)),
+]
+
+
 def paged_kernel_checks(torch) -> dict:
-    """K1 and K1q at path a's shapes, with and without garbage table
-    entries past each row's depth; returns the largest |err| of each."""
+    """K1 and K1q at PAGED_CHECKS' shapes; rows of length 0 must be exact
+    zeros.  Returns the largest |err| of each."""
     from distributed_llms_tpu_torch.ops import decode_attn
 
     worst = {"paged_decode_attention": 0.0, "paged_decode_attention_int8": 0.0}
-    for garbage in (False, True):
-        q, k, v, lengths, tables = paged_case(torch, garbage=garbage,
-                                              seed=1 + garbage)
+    for label, case in PAGED_CHECKS:
+        if label == "edges":
+            case = dict(case, lengths=paged_edge_lengths(torch))
+        q, k, v, lengths, tables = paged_case(torch, **case)
+        b, blk, p = q.shape[0], k.shape[1], tables.shape[1]
+        info = {"shape": label, "B": b, "BLK": blk, "P": p,
+                "split_plan": decode_attn.paged_split_plan(
+                    b, k.shape[2], p, blk, decode_attn._sm_count(q.device)),
+                "garbage_tables": bool(case.get("garbage"))}
+        dead = lengths <= 0
         err = _row_held(torch, "paged_decode_attention",
                         decode_attn.paged_decode_attention(q, k, v, lengths,
                                                            tables),
                         decode_attn.paged_reference(q, k, v, lengths, tables),
-                        DECODE_ROW_REL, garbage_tables=garbage)
+                        DECODE_ROW_REL, dead=dead, **info)
         worst["paged_decode_attention"] = max(worst["paged_decode_attention"],
                                               err)
         kq, vq, ks, vs = quantize_pools(torch, k, v)
@@ -476,9 +538,11 @@ def paged_kernel_checks(torch) -> dict:
                             v_scale=vs),
                         decode_attn.paged_reference(q, kq, vq, lengths,
                                                     tables, ks, vs),
-                        DECODE_ROW_REL_INT8, garbage_tables=garbage)
+                        DECODE_ROW_REL_INT8, dead=dead, **info)
         worst["paged_decode_attention_int8"] = max(
             worst["paged_decode_attention_int8"], err)
+        del q, k, v, kq, vq, ks, vs
+    _free(torch)
     return worst
 
 
@@ -552,15 +616,23 @@ def row_rel_err(torch, got, want) -> float:
     return ratio.max().item()
 
 
-def _row_held(torch, name, got, want, limit, **info) -> float:
+def _row_held(torch, name, got, want, limit, dead=None, **info) -> float:
     """An attention kernel's output against its plain version, row by row:
     L2 error <= ``limit`` x the plain row's L2 norm; returns the largest
-    |err| for the JSON line."""
+    |err| for the JSON line.  ``dead`` ([B] bool): rows with no live slot,
+    which must be exact zeros (the plain version averages every slot
+    there, so they are held apart)."""
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
           f"{tuple(want.shape)}/{want.dtype}")
     check(bool(torch.isfinite(got.float()).all()), f"{name} output not finite")
+    if dead is not None and bool(dead.any()):
+        dead_max = got[dead].float().abs().max().item()
+        info["dead_rows"], info["dead_rows_max_abs"] = int(dead.sum()), dead_max
+        check(dead_max == 0.0, f"{name} row with no live slot is not zero "
+              f"({dead_max})")
+        got, want = got[~dead], want[~dead]
     err = (got.float() - want.float()).abs().max().item()
     rel = row_rel_err(torch, got, want)
     emit("kernel", name=name, max_abs_err=err, max_row_rel_err=rel,
@@ -672,78 +744,160 @@ def _timed(name, shapes, t, bound_ms, bound_by, data_bytes, **info) -> dict:
 
 
 def phase_timing(torch) -> dict:
+    out = {}
+    out.update(paged_timing(torch))
+    out.update(ragged_timing(torch))
+    out.update(flash_timing(torch))
+    out.update(qmm_timing(torch))
+    return out
+
+
+def _paged_timed(torch, name, q, k, v, lengths, tables, scales=(),
+                 **info) -> dict:
+    """K1 (or K1q, with ``scales``) on these inputs against its plain
+    version and SDPA over each row's pages gathered and padded (over the
+    dequantized rows for K1q), the kernel and SDPA rotated over copies of
+    the pool holding >= L2_ROTATION_BYTES of live K/V.  SDPA's rows are
+    gathered before the timer starts: it is spared the gather."""
     import torch.nn.functional as F
 
     from distributed_llms_tpu_torch.checkpoint.quantize import kv_dequantize
     from distributed_llms_tpu_torch.ops import decode_attn
 
-    out = {}
-    q, k, v, lengths, tables = paged_case(torch, seed=3)
     b, _, h, d = q.shape
     _, blk, kvh, _ = k.shape
-    lens = lengths.long().cpu()
-    depth = (lens + blk - 1) // blk
     p = tables.shape[1]
-    shapes = {"B": b, "H": h, "KVH": kvh, "D": d, "BLK": blk,
-              "sum_lengths": int(lens.sum())}
+    lens = lengths.long().clamp(0, p * blk)
+    live = int(lens.sum())
+    depth = (lens + blk - 1) // blk
     # Least work the function needs on these inputs: each live slot's K
     # and V once (and, int8, its two scales), q and out once, the lengths
     # and the table entries in reach; 2 operations per multiply-add for QK
     # and for PV.
+    kv_bytes = live * kvh * ((d + 4) * 2 if scales else d * 2 * 2)
     io_bytes = 2 * q.numel() * 2 + b * 4 + int(depth.sum()) * 4
-    flops = 4 * int(lens.sum()) * h * d
+    copies = _kv_copies(torch, k, v, scales, kv_bytes)
     qt = q.transpose(1, 2).contiguous()  # [B, H, 1, D]
-    safe = torch.where(
-        torch.arange(p, device=q.device)[None, :] < depth.to(q.device)[:, None],
-        tables.long(), 0,
-    )
+    safe = torch.where(torch.arange(p, device=q.device)[None, :]
+                       < depth[:, None], tables.long(), 0)
     mask = (torch.arange(p * blk, device=q.device)[None, :]
-            < lengths.long()[:, None])[:, None, None, :]
+            < lens[:, None])[:, None, None, :]
 
-    def rows(pool):  # each row's pages gathered and padded, [B, KVH, S, D]
-        return pool[safe].reshape(b, p * blk, kvh, d).transpose(1, 2).contiguous()
+    def rows(kc, vc, *sc):  # each row's pages gathered, [B, KVH, S, D] bf16
+        if sc:
+            kc = kv_dequantize(kc, sc[0], torch.bfloat16)
+            vc = kv_dequantize(vc, sc[1], torch.bfloat16)
+        return tuple(pool[safe].reshape(b, p * blk, kvh, d).transpose(1, 2)
+                     .contiguous() for pool in (kc, vc))
 
-    def sdpa(kr, vr, m):
+    def kern(c):
+        kc, vc, *sc = c
+        return lambda: decode_attn.paged_decode_attention(
+            q, kc, vc, lengths, tables,
+            **({"k_scale": sc[0], "v_scale": sc[1]} if sc else {}))
+
+    def lib(kr, vr):
         return lambda: F.scaled_dot_product_attention(
-            qt, kr, vr, attn_mask=m, enable_gqa=True)
+            qt, kr, vr, attn_mask=mask, enable_gqa=True)
 
-    # K1.  Library yardstick: SDPA over each row's gathered padded pages.
-    library = sdpa(rows(k), rows(v), mask)
-    ref = decode_attn.paged_reference(q, k, v, lengths, tables)
-    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
-    check(lib_err <= TOL, f"K1 library yardstick disagrees ({lib_err})")
-    kv_bytes = int(lens.sum()) * kvh * d * 2 * 2
-    t = _turns(torch,
-               lambda: decode_attn.paged_decode_attention(q, k, v, lengths,
-                                                          tables),
-               lambda: decode_attn.paged_reference(q, k, v, lengths, tables),
-               library)
-    out["paged_decode_attention"] = _timed(
-        "paged_decode_attention", shapes, t,
-        *_bound(kv_bytes, io_bytes, flops), kv_bytes)
+    lib_kv = [rows(*c) for c in copies]
+    ref = decode_attn.paged_reference(q, k, v, lengths, tables, *scales)
+    lib_err = (lib(*lib_kv[0])().transpose(1, 2).float()
+               - ref.float()).abs().max().item()
+    check(lib_err <= TOL, f"{name} library yardstick disagrees ({lib_err})")
+    del ref
+    t = _turns(torch, _rotate([kern(c) for c in copies]),
+               lambda: decode_attn.paged_reference(q, k, v, lengths, tables,
+                                                   *scales),
+               _rotate([lib(*kv) for kv in lib_kv]), plain_iters=5)
+    split_len, n_splits = decode_attn.paged_split_plan(
+        b, kvh, p, blk, decode_attn._sm_count(q.device))
+    timed = _timed(
+        name, {"B": b, "H": h, "KVH": kvh, "D": d, "BLK": blk, "P": p,
+               "sum_lengths": live, "min_length": int(lens.min()),
+               "max_length": int(lens.max())},
+        t, *_bound(kv_bytes, io_bytes, 4 * live * h * d), kv_bytes,
+        split_len=split_len, n_splits=n_splits, pool_copies=len(copies),
+        device_ms_per_call=_device_ms(torch, _rotate([kern(c)
+                                                      for c in copies])),
+        host_enqueue_ms_per_call=_enqueue_ms(
+            torch, _rotate([kern(c) for c in copies])),
+        library="F.scaled_dot_product_attention(attn_mask=lengths, "
+                "enable_gqa=True) over each row's pages gathered and "
+                "padded before the timer (spared the gather)"
+                + (", dequantized" if scales else ""), **info)
+    del copies, lib_kv
+    return timed
 
-    # K1q.  Library yardstick: SDPA over the gathered, dequantized rows.
-    kq, vq, ks, vs = quantize_pools(torch, k, v)
-    kd = kv_dequantize(kq, ks, torch.bfloat16)
-    vd = kv_dequantize(vq, vs, torch.bfloat16)
-    library = sdpa(rows(kd), rows(vd), mask)
-    ref = decode_attn.paged_reference(q, kq, vq, lengths, tables, ks, vs)
-    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max().item()
-    check(lib_err <= TOL, f"K1q library yardstick disagrees ({lib_err})")
-    kv_bytes = int(lens.sum()) * kvh * (d + 4) * 2
-    t = _turns(torch,
-               lambda: decode_attn.paged_decode_attention(
-                   q, kq, vq, lengths, tables, k_scale=ks, v_scale=vs),
-               lambda: decode_attn.paged_reference(q, kq, vq, lengths, tables,
-                                                   ks, vs),
-               library)
-    out["paged_decode_attention_int8"] = _timed(
-        "paged_decode_attention_int8", shapes, t,
-        *_bound(kv_bytes, io_bytes, flops), kv_bytes)
 
-    out.update(ragged_timing(torch))
-    out.update(flash_timing(torch))
-    out.update(qmm_timing(torch))
+PAGED_SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)  # pages a split
+
+
+def paged_split_sweep(torch, q, k, v, lengths, tables) -> None:
+    """K1 at each split of PAGED_SPLIT_SWEEP pages on these inputs, the
+    pool rotated as in the timing lines: CUDA-event ms per call and the
+    device ms of its two kernels — what the planner's choice costs against
+    the others.  Information, not a gate."""
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    b, blk, kvh = q.shape[0], k.shape[1], k.shape[2]
+    p = tables.shape[1]
+    live = int(lengths.long().clamp(0, p * blk).sum())
+    copies = _kv_copies(torch, k, v, (), live * kvh * k.shape[3] * 4)
+    planner = decode_attn.paged_split_plan
+    times, device = {}, {}
+    try:
+        for pages in PAGED_SPLIT_SWEEP:
+            if pages > p:
+                continue
+            decode_attn.paged_split_plan = (
+                lambda *a, _p=(pages * blk, -(-p // pages)): _p)
+            run = _rotate([
+                lambda c=c: decode_attn.paged_decode_attention(
+                    q, c[0], c[1], lengths, tables) for c in copies])
+            times[pages * blk] = cuda_ms(torch, run)
+            device[pages * blk] = sum(_device_ms(torch, run).values())
+    finally:
+        decode_attn.paged_split_plan = planner
+    emit("split_sweep", name="paged_decode_attention", B=b, BLK=blk, P=p,
+         planned=planner(b, kvh, p, blk, decode_attn._sm_count(q.device)),
+         kernel_ms_by_split_len=times, device_ms_by_split_len=device,
+         pool_copies=len(copies))
+
+
+# Path a's decode rows: 300-token prompts (the profile phase's) and up to
+# 64 new tokens, in a table of max_len 1024 / 64 = 16 pages.
+PATH_A_LENGTHS = (300, 364)
+
+
+def paged_timing(torch) -> dict:
+    """K1 and K1q at the smoke's timing shape (B=8, 2048-slot tables,
+    lengths 1..2048) and at path a's own (B=8, 16 pages, lengths
+    300..364), rotated over pool copies; the split-length sweep of K1 at
+    both and at batch 1 over one 8192-slot row."""
+    out = {}
+    gen = torch.Generator().manual_seed(9)
+    path_a = torch.randint(PATH_A_LENGTHS[0], PATH_A_LENGTHS[1] + 1, (8,),
+                           generator=gen).tolist()
+    for label, case in (("timing", dict(seed=3)),
+                        ("path_a", dict(max_len=1024, lengths=path_a,
+                                        seed=10))):
+        q, k, v, lengths, tables = paged_case(torch, **case)
+        timed = _paged_timed(torch, "paged_decode_attention", q, k, v,
+                             lengths, tables, shape=label)
+        kq, vq, ks, vs = quantize_pools(torch, k, v)
+        timed_q = _paged_timed(torch, "paged_decode_attention_int8", q, kq,
+                               vq, lengths, tables, (ks, vs), shape=label)
+        if label == "timing":
+            out["paged_decode_attention"] = timed
+            out["paged_decode_attention_int8"] = timed_q
+        paged_split_sweep(torch, q, k, v, lengths, tables)
+        del q, k, v, kq, vq, ks, vs
+        _free(torch)
+    q, k, v, lengths, tables = paged_case(torch, b=1, max_len=8192, seed=11)
+    paged_split_sweep(torch, q, k, v, lengths, tables)
+    del q, k, v
+    _free(torch)
     return out
 
 
@@ -760,10 +914,11 @@ def _ragged_bytes(k, lengths, window, quant) -> tuple[int, int]:
     return band, band * kvh * ((d + 4) * 2 if quant else d * 2 * 2)
 
 
-def _ragged_copies(torch, k, v, scales, kv_bytes):
-    """The cache and its copies: enough that a rotation over them reads at
-    least L2_ROTATION_BYTES of band, so no launch finds its band in the
-    L2 cache, as a decode step finds each layer's cache cold."""
+def _kv_copies(torch, k, v, scales, kv_bytes):
+    """The cache (or page pool) and its copies: enough that a rotation over
+    them reads at least L2_ROTATION_BYTES of live K/V (``kv_bytes`` a
+    call), so no launch finds its rows in the L2 cache, as a decode step
+    finds each layer's cache cold."""
     n = max(1, math.ceil(L2_ROTATION_BYTES / kv_bytes))
     return [(k, v, *scales)] + [tuple(t.clone() for t in (k, v, *scales))
                                 for _ in range(n - 1)]
@@ -782,7 +937,7 @@ def _ragged_timed(torch, name, q, k, v, lengths, window, scales=()) -> dict:
     s, kvh = k.shape[1], k.shape[2]
     lens = lengths.long()
     band, kv_bytes = _ragged_bytes(k, lengths, window, bool(scales))
-    copies = _ragged_copies(torch, k, v, scales, kv_bytes)
+    copies = _kv_copies(torch, k, v, scales, kv_bytes)
     slots = torch.arange(s, device=q.device)[None, :]
     m = slots < lens[:, None]
     if window is not None:
@@ -821,18 +976,33 @@ def _ragged_timed(torch, name, q, k, v, lengths, window, scales=()) -> dict:
     split_len, n_splits = decode_attn.ragged_split_plan(
         b, kvh, s, window, decode_attn._sm_count(q.device))
     device_ms = _device_ms(torch, _rotate([kern(c) for c in copies]))
+    enqueue_ms = _enqueue_ms(torch, _rotate([kern(c) for c in copies]))
     timed = _timed(
         name, {"B": b, "H": h, "KVH": kvh, "D": d, "S": s, "window": window,
                "sum_band": band},
         t, *_bound(kv_bytes, 2 * q.numel() * 2 + b * 4, 4 * band * h * d),
         kv_bytes,
         split_len=split_len, n_splits=n_splits, cache_copies=len(copies),
-        device_ms_per_call=device_ms,
+        device_ms_per_call=device_ms, host_enqueue_ms_per_call=enqueue_ms,
         library="F.scaled_dot_product_attention(attn_mask=band, "
                 "enable_gqa=True)" + (" over the dequantized cache"
                                       if scales else ""))
     del copies, lib_kv
     return timed
+
+
+def _enqueue_ms(torch, fn, calls=50) -> float:
+    """Host milliseconds per call of ``fn`` to enqueue its work (no
+    synchronisation between calls): where it reaches the CUDA-event time,
+    the calls are bound by the host, not the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
 
 
 def _device_ms(torch, fn, calls=20) -> dict:
@@ -869,8 +1039,8 @@ def ragged_split_sweep(torch, name, q, k, v, lengths, window,
 
     s, kvh = k.shape[1], k.shape[2]
     span = s if window is None else min(s, window)
-    copies = _ragged_copies(torch, k, v, scales,
-                            _ragged_bytes(k, lengths, window, bool(scales))[1])
+    copies = _kv_copies(torch, k, v, scales,
+                        _ragged_bytes(k, lengths, window, bool(scales))[1])
     kw = [{"k_scale": c[2], "v_scale": c[3]} if scales else {} for c in copies]
     planner = decode_attn.ragged_split_plan
     times, device = {}, {}
@@ -1802,7 +1972,23 @@ def phase_profile(torch, label, batcher) -> None:
          wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
          profiled_wall_ms=prof_wall * 1e3, device_kernel_ms=split,
          device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else
-         "not measured")
+         "not measured",
+         decode_attention_kernels=_kernel_names(
+             torch, prof, "decode_attention_kernel"))
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_kernel" in name:
+        return "flash_kernel"
+    if "quant_matmul" in name:
+        return "quant_matmul_kernel"
+    if any(k in name for k in ("paged_decode_kernel", "ragged_decode_kernel",
+                               "split_decode_merge")):
+        return "decode_attention_kernel"
+    if any(k in name for k in ("gemm", "nvjet", "cutlass", "splitK",
+                               "sm90_xmma")):
+        return "matmul"
+    return "other"
 
 
 def _kernel_split(torch, prof) -> dict:
@@ -1810,24 +1996,24 @@ def _kernel_split(torch, prof) -> dict:
     split = {"flash_kernel": 0.0, "quant_matmul_kernel": 0.0,
              "decode_attention_kernel": 0.0, "matmul": 0.0, "other": 0.0}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.device_time_total
-        name = e.name
-        if "flash_kernel" in name:
-            split["flash_kernel"] += us
-        elif "quant_matmul" in name:
-            split["quant_matmul_kernel"] += us
-        elif any(k in name for k in ("paged_decode_kernel",
-                                     "ragged_decode_kernel",
-                                     "split_decode_merge")):
-            split["decode_attention_kernel"] += us
-        elif any(k in name for k in ("gemm", "nvjet", "cutlass", "splitK",
-                                     "sm90_xmma")):
-            split["matmul"] += us
-        else:
-            split["other"] += us
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[_kernel_class(e.name)] += e.device_time_total
     return {k: v / 1e3 for k, v in split.items()}
+
+
+def _kernel_names(torch, prof, cls: str) -> dict:
+    """Launches of each device function of class ``cls`` in a profile, by
+    its name without template arguments: which kernels a class counted."""
+    import re
+
+    names = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and _kernel_class(e.name) == cls):
+            m = re.search(r"(\w+)(?:<|\()", e.name)
+            key = m.group(1) if m else e.name[:60]
+            names[key] = names.get(key, 0) + 1
+    return names
 
 
 def _profiled(torch, fn) -> tuple[dict, float]:

@@ -78,8 +78,9 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const bool direct = n_splits == 1;
   dlt_split::attend_split<KV, kQuant, kVec>(
       q + q_base, k + off, v + off, kQuant ? k_scale + sc_off : nullptr,
-      kQuant ? v_scale + sc_off : nullptr, n, slot_stride, (size_t)KVH, G, D,
-      scale, direct ? out + q_base : nullptr, direct ? nullptr : acc + part * D,
+      kQuant ? v_scale + sc_off : nullptr, n,
+      dlt_split::ContiguousSlots{slot_stride, (size_t)KVH}, G, D, scale,
+      direct ? out + q_base : nullptr, direct ? nullptr : acc + part * D,
       direct ? nullptr : pm + part, direct ? nullptr : pl + part);
 }
 

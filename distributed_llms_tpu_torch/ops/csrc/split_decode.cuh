@@ -2,9 +2,10 @@
 // one query token per row, grouped-query attention, a row's slots cut into
 // SPLITS that separate blocks attend in parallel, each leaving a partial
 // softmax state that a second kernel merges.  ragged_decode_attn.cu (K2,
-// K2q) walks a contiguous row's band with it; the body takes any span of
-// slots contiguous in memory, so a paged kernel can hand it one page run
-// at a time.
+// K2q) walks a contiguous row's band with it (ContiguousSlots);
+// paged_decode_attn.cu (K1, K1q) walks a run of whole pages of the pool
+// through the split's page ids (PagedSlots).  The addressing policy maps
+// a split slot to its K/V rows and scales; everything else is shared.
 //
 // Why splits: decode attention moves bytes (every K/V element of the band
 // is read once and serves the G = H / KVH query heads of its group, ~4
@@ -18,10 +19,12 @@
 //   whose D is not a multiple of 16 take 8 bytes), neighbouring threads on
 //   neighbouring addresses, issued with cp.async into a ring of kStages
 //   shared-memory tiles — double-buffered: the next 16 KB tile in flight
-//   while one is reduced, one block barrier per tile.  At D = 128, 6 K2
-//   blocks fit an SM (96 KB in flight, ~4x what 3.35 TB/s at ~1 us needs;
-//   K2q: 4, bounded by registers): the block is bound by its instruction
-//   issue, not by bytes in flight (PERF.md);
+//   while one is reduced, one block barrier per tile, one pipeline over
+//   the whole split (a paged tile may straddle pages: each of its rows
+//   resolves its own page).  At D = 128, 6 K2 blocks fit an SM (96
+//   KB in flight, ~4x what 3.35 TB/s at ~1 us needs; K2q: 4, bounded by
+//   registers): the block is bound by its instruction issue, not by bytes
+//   in flight (PERF.md);
 // - the int8 leg's per-(slot, head) scales ride in the same tile, one
 //   4-byte copy per slot issued by different threads, not a dependent load
 //   per slot in the walk;
@@ -37,7 +40,9 @@
 // int8 leg), a running max / running sum in float32, the sum adding p
 // BEFORE the int8 leg's v_scale, the value product reading bf16(p *
 // v_scale) (bf16(p) for bf16) and accumulating in float32, and a split or
-// row with no live slot giving zeros through max(l, 1e-37), never NaN.
+// row with no live slot giving zeros, never NaN (an empty split writes
+// its empty state and leaves before loading anything; the merge divides
+// by max(l, 1e-37)).
 // One rounding point differs, as it already differed by tile size between
 // the TPU kernel's block (chosen by its wrapper) and any other: p is
 // rounded to bf16 relative to the running max of its slot group's slots
@@ -160,24 +165,61 @@ __device__ __forceinline__ void load_chunk(const int8_t* p, float (&x)[8]) {
   i8x4(w.y, x + 4);
 }
 
+// -- addressing: split slot t -> its K/V row and its scales ------------------
+
+// A run of slots contiguous in memory (a contiguous row's band): slot t's
+// K/V row at t * slot_stride elements, its scales at t * scale_stride.
+struct ContiguousSlots {
+  size_t slot_stride;
+  size_t scale_stride;
+  __device__ __forceinline__ size_t kv_offset(int t) const {
+    return (size_t)t * slot_stride;
+  }
+  __device__ __forceinline__ size_t scale_offset(int t) const {
+    return (size_t)t * scale_stride;
+  }
+};
+
+// A run of whole pages of a [NB, BLK, KVH, ...] pool: slot t lies in page
+// pages[t / blk] (the split's page ids, in shared memory), at row t % blk
+// of it.  Offsets are from the KV head's first element of pool page 0.
+struct PagedSlots {
+  const int* pages;
+  int blk;
+  size_t page_stride;        // BLK * KVH * D elements
+  size_t slot_stride;        // KVH * D
+  size_t scale_page_stride;  // BLK * KVH
+  size_t scale_slot_stride;  // KVH
+  __device__ __forceinline__ size_t kv_offset(int t) const {
+    const int i = t / blk;
+    return (size_t)pages[i] * page_stride + (size_t)(t - i * blk) * slot_stride;
+  }
+  __device__ __forceinline__ size_t scale_offset(int t) const {
+    const int i = t / blk;
+    return (size_t)pages[i] * scale_page_stride +
+           (size_t)(t - i * blk) * scale_slot_stride;
+  }
+};
+
 // -- the split body ---------------------------------------------------------
 
-// Attend n_slots slots contiguous in memory for one (row, KV head): slot t's
-// K row is kp[t * slot_stride .. + D) (likewise vp), its int8 scales
-// ksp[t * scale_stride] and vsp[t * scale_stride].  q_group is the group's
-// [G, D] bf16 queries.  With out_group set the block writes the normalized
-// output ([G, D] bf16: the span is the row's whole band); otherwise its
-// partial state: acc_part [G, D] (unnormalized), m_part and l_part [G].
-// An empty span (n_slots <= 0) writes zeros / m = -inf, l = 0, acc = 0.
-// Every thread of the block must call it.
-template <typename KV, bool kQuant, int kVec>
+// Attend n_slots slots for one (row, KV head): slot t's K row is
+// kp[slots.kv_offset(t) .. + D) (likewise vp), its int8 scales
+// ksp[slots.scale_offset(t)] and vsp[...].  Only slots t < n_slots are
+// addressed.  q_group is the group's [G, D] bf16 queries.  With out_group
+// set the block writes the normalized output ([G, D] bf16: the span is the
+// row's whole band); otherwise its partial state: acc_part [G, D]
+// (unnormalized), m_part and l_part [G].  An empty span (n_slots <= 0)
+// writes zeros / m = -inf, l = 0, acc = 0.  Every thread of the block must
+// call it.
+template <typename KV, bool kQuant, int kVec, typename Slots>
 __device__ __forceinline__ void attend_split(
     const __nv_bfloat16* __restrict__ q_group, const KV* __restrict__ kp,
     const KV* __restrict__ vp, const float* __restrict__ ksp,
-    const float* __restrict__ vsp, int n_slots, size_t slot_stride,
-    size_t scale_stride, int G, int D, float scale,
-    __nv_bfloat16* __restrict__ out_group, float* __restrict__ acc_part,
-    float* __restrict__ m_part, float* __restrict__ l_part) {
+    const float* __restrict__ vsp, int n_slots, const Slots slots, int G,
+    int D, float scale, __nv_bfloat16* __restrict__ out_group,
+    float* __restrict__ acc_part, float* __restrict__ m_part,
+    float* __restrict__ l_part) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kChunkBytes = kVec * (int)sizeof(KV);
   const Geometry geo = geometry<KV, kQuant, kVec>(D, G);
@@ -191,6 +233,26 @@ __device__ __forceinline__ void attend_split(
   const int warp_base = tid & ~31;
   const int in_warp = min(32, geo.threads - warp_base);
   const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+
+  if (n_slots <= 0) {  // uniform over the block: write the empty state, leave
+    if (tz == 0 && lane_live) {
+#pragma unroll
+      for (int e = 0; e < kVec; e += 4) {
+        if (out_group != nullptr) {
+          *reinterpret_cast<uint2*>(out_group + ty * D + e0 + e) =
+              make_uint2(0u, 0u);
+        } else {
+          *reinterpret_cast<float4*>(acc_part + ty * D + e0 + e) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+    if (tz == 0 && tx == 0 && out_group == nullptr) {
+      m_part[ty] = -INFINITY;
+      l_part[ty] = 0.f;
+    }
+    return;
+  }
 
   float qv[kVec], o[kVec];
 #pragma unroll
@@ -212,7 +274,7 @@ __device__ __forceinline__ void attend_split(
     if (lane_live) {
       for (int r = tid / geo.bdx; r < geo.tile; r += rows_per_pass) {
         const bool valid = base + r < n_slots;
-        const size_t src = valid ? (size_t)(base + r) * slot_stride + e0 : 0;
+        const size_t src = valid ? slots.kv_offset(base + r) + e0 : 0;
         cp_async<kChunkBytes>(k_s + r * D + e0, kp + src, valid);
         cp_async<kChunkBytes>(v_s + r * D + e0, vp + src, valid);
       }
@@ -222,7 +284,7 @@ __device__ __forceinline__ void attend_split(
       for (int i = tid; i < 2 * geo.tile; i += geo.threads) {
         const int r = i < geo.tile ? i : i - geo.tile;
         const bool valid = base + r < n_slots;
-        const size_t src = valid ? (size_t)(base + r) * scale_stride : 0;
+        const size_t src = valid ? slots.scale_offset(base + r) : 0;
         cp_async<4>(ks_s + i, (i < geo.tile ? ksp : vsp) + src, valid);
       }
     }

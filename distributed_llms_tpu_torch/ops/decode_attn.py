@@ -30,17 +30,19 @@ implementation:
   legs, and after a gather of the row's pages for the pool
   (:func:`paged_reference`).
 
-K2 and K2q split each row's band across blocks (split-K, as in
-flash-decoding) and merge the blocks' partial softmax states in a second
-kernel; :func:`ragged_split_plan` picks the split length from shapes alone
-(and the card's SM count), never from ``lengths``, so a decode step does
-not wait on the device to plan.
+Every kernel is split-K, as in flash-decoding (``csrc/split_decode.cuh``):
+separate blocks attend runs of a row's slots — runs of whole pages for K1
+and K1q, runs of the band for K2 and K2q — and a second kernel merges
+their partial softmax states.  :func:`paged_split_plan` and
+:func:`ragged_split_plan` pick the split length from shapes alone (and the
+card's SM count), never from ``lengths``, so a decode step does not wait
+on the device to plan.
 
 Each kernel counts its launches: ``paged_decode_attention.launches`` (K1),
 ``paged_decode_attention.int8_launches`` (K1q),
 ``ragged_decode_attention.launches`` (K2) and
-``ragged_decode_attention.int8_launches`` (K2q).  A K2/K2q call counts one
-launch, whether or not its merge kernel runs.
+``ragged_decode_attention.int8_launches`` (K2q).  A call counts one launch,
+whether or not its merge kernel runs.
 """
 
 from __future__ import annotations
@@ -62,19 +64,23 @@ MAX_HEAD_DIM = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "dlt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "dlt_paged_decode_attention_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "dlt_paged_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "dlt_paged_decode_attention_int8": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "dlt_paged_decode_resources": [_I] * 3 + [_P],
     "dlt_ragged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
     "dlt_ragged_decode_attention_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
     "dlt_ragged_decode_resources": [_I] * 3 + [_P],
 }
 
-# The split-K plan of K2/K2q (csrc/split_decode.cuh): a split is a multiple
-# of SPLIT_UNIT slots, and the plan aims at BLOCKS_PER_SM blocks per SM over
+# The split-K plans (csrc/split_decode.cuh): a split is a multiple of
+# SPLIT_UNIT slots (K2/K2q), or of whole pages spanning at least that many
+# slots and at most MAX_SPLIT_PAGES pages (K1/K1q: csrc/paged_decode_attn.cu
+# kMaxSplitPages), and the plan aims at BLOCKS_PER_SM blocks per SM over
 # the whole grid — a few waves, so blocks that find their split short or
-# past a row's band give their SM to the next one.
+# past a row's depth give their SM to the next one.
 SPLIT_UNIT = 64
 BLOCKS_PER_SM = 8
+MAX_SPLIT_PAGES = 256
 
 
 def ragged_split_plan(b: int, kvh: int, s: int, window: int | None,
@@ -104,8 +110,36 @@ def ragged_split_bounds(length: int, s: int, window: int | None,
     return (start, min(end, start + split_len)) if start < end else (end, end)
 
 
-def ragged_split_scratch(b: int, kvh: int, g: int, d: int,
-                         n_splits: int) -> dict:
+def paged_split_plan(b: int, kvh: int, p: int, blk: int,
+                     sm_count: int) -> tuple[int, int]:
+    """``(split_len, n_splits)`` for a [B, P] page table over pages of BLK
+    slots: the table's reach ``P * BLK`` cut into ``n_splits`` runs of
+    ``split_len`` slots, each a run of whole pages (at least SPLIT_UNIT
+    slots where the table reaches that far, at most MAX_SPLIT_PAGES
+    pages), so that the ``n_splits * KVH * B`` blocks come near
+    ``BLOCKS_PER_SM * sm_count``.  Shapes only: the row lengths are on the
+    device."""
+    unit = max(1, -(-SPLIT_UNIT // blk))  # pages of the smallest split
+    units = -(-p // unit)
+    want = -(-(BLOCKS_PER_SM * sm_count) // (b * kvh))
+    pages = max(1, min(-(-units // max(1, min(units, want))) * unit, p,
+                       MAX_SPLIT_PAGES))
+    return pages * blk, -(-p // pages)
+
+
+def paged_split_bounds(length: int, p: int, blk: int, split_len: int,
+                       split: int) -> tuple[int, int]:
+    """Slots ``[start, end)`` that split ``split`` attends for a row of
+    ``length`` (the kernel's arithmetic: the length clamped to the
+    table's reach ``[0, P * BLK]``); ``start == end`` when the split lies
+    past the row's depth.  The split reads the table entries of pages
+    ``start // blk`` to ``(end - 1) // blk``."""
+    end = max(0, min(length, p * blk))
+    start = split * split_len
+    return (start, min(end, start + split_len)) if start < end else (end, end)
+
+
+def split_scratch(b: int, kvh: int, g: int, d: int, n_splits: int) -> dict:
     """Shapes of the float32 partials a split launch needs: the
     unnormalized accumulators and the running max / sum of every (row,
     KV head, split, query head of the group); none with one split, whose
@@ -119,6 +153,28 @@ def ragged_split_scratch(b: int, kvh: int, g: int, d: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_parts(q: torch.Tensor, kvh: int, n_splits: int):
+    """(acc, m, l) pointers into one float32 scratch for a split launch's
+    partials — null with one split — and the scratch, which the caller
+    holds until the launch is enqueued."""
+    b, _, h, d = q.shape
+    shapes = split_scratch(b, kvh, h // kvh, d, n_splits)
+    if not shapes:
+        return [0, 0, 0], None
+    sizes = [math.prod(shapes[name]) for name in ("acc", "m", "l")]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    base = scratch.data_ptr()
+    return [base, base + 4 * sizes[0], base + 4 * (sizes[0] + sizes[1])], scratch
+
+
+def _check_aligned(name: str, tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(
+            f"{name}: the CUDA kernel reads q and the K/V with 16-byte "
+            "loads; pass 16-byte aligned tensors"
+        )
 
 
 def dense_reference(q, k, v, lengths, window=None):
@@ -281,22 +337,28 @@ def paged_decode_attention(
             + f", got {k_pages.dtype} / {v_pages.dtype}"
             + "".join(f" / {s.dtype}" for s in scales)
         )
+    _check_aligned("paged_decode_attention", (q, k_pages, v_pages))
     h, d = q.shape[2], q.shape[3]
     nb, blk, kvh, _ = k_pages.shape
+    p = tables.shape[1]
+    split_len, n_splits = paged_split_plan(b, kvh, p, blk,
+                                           _sm_count(q.device))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = (b, h, kvh, d, nb, blk, tables.shape[1], float(d) ** -0.5, stream)
+    parts, _scratch = _split_parts(q, kvh, n_splits)
+    shape = (b, h, kvh, d, nb, blk, p, split_len, n_splits,
+             float(d) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
         err = build.entry(PAGED_SOURCE, "dlt_paged_decode_attention_int8",
                           _ARGTYPES["dlt_paged_decode_attention_int8"])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-            tables.data_ptr(), out.data_ptr(), *shape)
+            tables.data_ptr(), out.data_ptr(), *parts, *shape)
     else:
         err = build.entry(PAGED_SOURCE, "dlt_paged_decode_attention",
                           _ARGTYPES["dlt_paged_decode_attention"])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), *shape)
+            lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), *parts,
+            *shape)
     if err != 0:
         raise RuntimeError(
             f"paged decode attention kernel launch failed (cudaError {err})"
@@ -351,24 +413,13 @@ def ragged_decode_attention(
             + f", got {k.dtype} / {v.dtype}"
             + "".join(f" / {sc.dtype}" for sc in scales)
         )
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(
-            "ragged_decode_attention: the CUDA kernel reads q, k and v with "
-            "16-byte loads; pass 16-byte aligned tensors"
-        )
+    _check_aligned("ragged_decode_attention", (q, k, v))
     h, d = q.shape[2], q.shape[3]
     _, s, kvh, _ = k.shape
     split_len, n_splits = ragged_split_plan(b, kvh, s, window,
                                             _sm_count(q.device))
     out = torch.empty_like(q)
-    parts = [0, 0, 0]  # acc, m, l: null with one split
-    shapes = ragged_split_scratch(b, kvh, h // kvh, d, n_splits)
-    if shapes:
-        sizes = [math.prod(shapes[name]) for name in ("acc", "m", "l")]
-        scratch = torch.empty(sum(sizes), dtype=torch.float32,
-                              device=q.device)
-        base = scratch.data_ptr()
-        parts = [base, base + 4 * sizes[0], base + 4 * (sizes[0] + sizes[1])]
+    parts, _scratch = _split_parts(q, kvh, n_splits)
     shape = (b, h, kvh, d, s, min(window or 0, 2**31 - 1),  # 0: no window
              split_len, n_splits, float(d) ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -394,20 +445,32 @@ def ragged_decode_attention(
     return out
 
 
+def _kernel_resources(source: str, name: str, d: int, g: int,
+                      quant: bool) -> dict:
+    info = (ctypes.c_int * 7)()
+    err = build.entry(source, name, _ARGTYPES[name])(
+        d, g, int(quant), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{name} failed ({err})")
+    keys = ("threads", "tile_slots", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes", "merge_registers")
+    return dict(zip(keys, info))
+
+
 def ragged_kernel_resources(d: int, g: int, quant: bool) -> dict:
     """What the K2 (``quant=False``) or K2q split kernel takes on the
     current card at head dim ``d`` and group ``g``: threads and tile slots
     per block, dynamic shared memory, resident blocks per SM, registers and
     local (spill) bytes per thread, and the merge kernel's registers."""
-    info = (ctypes.c_int * 7)()
-    err = build.entry(RAGGED_SOURCE, "dlt_ragged_decode_resources",
-                      _ARGTYPES["dlt_ragged_decode_resources"])(
-        d, g, int(quant), ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"ragged decode resources query failed ({err})")
-    keys = ("threads", "tile_slots", "smem_bytes", "blocks_per_sm",
-            "registers", "local_bytes", "merge_registers")
-    return dict(zip(keys, info))
+    return _kernel_resources(RAGGED_SOURCE, "dlt_ragged_decode_resources",
+                             d, g, quant)
+
+
+def paged_kernel_resources(d: int, g: int, quant: bool) -> dict:
+    """The same for the K1 (``quant=False``) or K1q split kernel; its
+    shared memory includes the split's page ids."""
+    return _kernel_resources(PAGED_SOURCE, "dlt_paged_decode_resources",
+                             d, g, quant)
 
 
 ragged_decode_attention.launches = 0

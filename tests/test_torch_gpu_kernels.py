@@ -5,10 +5,13 @@ CPU mode).  Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 
-Paged decode attention (K1, bf16; K1q, int8 pools with float32 scales)
-at shapes that walk the kernel's edges (group size 1 and 16, head dims
-64/72/256, odd page sizes, length 1, garbage table entries past each
-row's depth), and ragged decode attention (K2, a contiguous bf16 cache;
+Paged decode attention (K1, bf16; K1q, int8 pools with float32 scales;
+the split-K kernel over page runs) at shapes that walk the kernel's edges
+(group size 1 and 16, head dims 64/72/256, page sizes 1/16/48/64/128 —
+tiles that straddle pages —, lengths 0, 1, page edges +- 1, split edges
++- 1, past the table's reach, one 8192-slot row at batch 1, garbage
+table entries past each row's depth), with no local-memory spill in
+either leg; and ragged decode attention (K2, a contiguous bf16 cache;
 the split-K kernel) over group sizes 1/3/4/16, head dims 64/72/128/256,
 windows none / 1 / 300 / 4096 / longer than the cache, and lengths 0, 1,
 S, S + 1 and 64-slot split edges +- 1, and one 32768-slot row at batch 1
@@ -103,9 +106,18 @@ def cuda():
     return torch.device("cuda")
 
 
+# On 132 SMs the first case plans 2-page splits (the smoke's timing
+# shape), the second 4-page splits of 256 slots, the 8192-slot row 128
+# one-page splits, and 16-slot pages over 2048 slots 8-page splits whose
+# 32-slot bf16 and 64-slot int8 tiles span 2 and 4 pages.
+PAGED_EDGES = [0, 1, 63, 64, 65, 127, 129, 255, 256, 257, 511, 513, 2047,
+               2048, 2049, 1000]
 GPU_CASES = [
     # b, h, kvh, d, blk, p, lengths
     (8, 32, 8, 128, 64, 32, [1, 77, 640, 2048, 1000, 64, 65, 1500]),
+    (16, 32, 8, 128, 64, 32, PAGED_EDGES),
+    (1, 32, 8, 128, 64, 128, [8192]),         # one long row, batch 1
+    (8, 32, 8, 128, 16, 128, [2048, 0, 15, 16, 17, 127, 129, 1000]),
     (3, 8, 8, 64, 16, 7, [1, 50, 112]),        # group 1
     (2, 12, 4, 72, 48, 5, [200, 49]),          # D not a multiple of 32
     (2, 32, 2, 256, 128, 3, [300, 129]),       # group 16, D 256
@@ -113,13 +125,24 @@ GPU_CASES = [
 ]
 
 
+def _junk_past_depth(tables, lengths, blk, fill):
+    """The table with every entry past each row's depth replaced by an id
+    outside the pool: the kernel must never read one."""
+    p = tables.shape[1]
+    depth = -(-np.clip(np.asarray(lengths), 0, p * blk) // blk)
+    past = np.arange(p)[None, :] >= depth[:, None]
+    return np.where(past, fill, tables).astype(np.int32)
+
+
+def _paged_dead(lengths, cuda):
+    return torch.tensor([x <= 0 for x in lengths], device=cuda)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,kvh,d,blk,p,lengths", GPU_CASES)
 def test_cuda_kernel_matches_plain(cuda, b, h, kvh, d, blk, p, lengths):
     q, k, v, ln, tables = _paged_inputs(5, b, h, kvh, d, blk, p, lengths)
-    depth = -(-np.asarray(lengths) // blk)
-    past = np.arange(p)[None, :] >= depth[:, None]
-    junk = np.where(past, -(2 ** 30), tables).astype(np.int32)
+    junk = _junk_past_depth(tables, lengths, blk, -(2 ** 30))
     args = [torch.from_numpy(x) for x in (q, k, v)]
     args = [a.to(torch.bfloat16).to(cuda) for a in args]
     ln_t = torch.from_numpy(ln).to(cuda)
@@ -130,7 +153,7 @@ def test_cuda_kernel_matches_plain(cuda, b, h, kvh, d, blk, p, lengths):
     assert decode_attn.paged_decode_attention.launches == before + 1
     want = decode_attn.paged_reference(
         *args, ln_t, torch.from_numpy(tables).to(cuda))
-    _decode_held(got, want, GPU_DECODE_ROW_REL)
+    _decode_held(got, want, GPU_DECODE_ROW_REL, _paged_dead(lengths, cuda))
 
 
 @pytest.mark.gpu
@@ -148,9 +171,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
 @pytest.mark.parametrize("b,h,kvh,d,blk,p,lengths", GPU_CASES)
 def test_cuda_int8_kernel_matches_plain(cuda, b, h, kvh, d, blk, p, lengths):
     q, k, v, ln, tables = _paged_inputs(7, b, h, kvh, d, blk, p, lengths)
-    depth = -(-np.asarray(lengths) // blk)
-    past = np.arange(p)[None, :] >= depth[:, None]
-    junk = np.where(past, 2 ** 30, tables).astype(np.int32)
+    junk = _junk_past_depth(tables, lengths, blk, 2 ** 30)
     kq, ks = kv_quantize(torch.from_numpy(k).to(cuda))
     vq, vs = kv_quantize(torch.from_numpy(v).to(cuda))
     qb = torch.from_numpy(q).to(torch.bfloat16).to(cuda)
@@ -166,7 +187,18 @@ def test_cuda_int8_kernel_matches_plain(cuda, b, h, kvh, d, blk, p, lengths):
                 before[0], before[1] + 1)
     want = decode_attn.paged_reference(
         qb, kq, vq, ln_t, torch.from_numpy(tables).to(cuda), ks, vs)
-    _decode_held(got, want, GPU_DECODE_ROW_REL_INT8)
+    _decode_held(got, want, GPU_DECODE_ROW_REL_INT8,
+                 _paged_dead(lengths, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["K1", "K1q"])
+def test_cuda_paged_kernel_does_not_spill(cuda, quant):
+    """The split kernel keeps its state in registers at Llama-3-8B's heads
+    (D 128, group 4): no local memory, and at least one block per SM."""
+    got = decode_attn.paged_kernel_resources(128, 4, quant)
+    assert got["local_bytes"] == 0, got
+    assert got["blocks_per_sm"] >= 1, got
 
 
 # Split and tile edges: on 132 SMs the B=8 cases below plan 64-slot

@@ -7,7 +7,7 @@ itself is held against the plain version on the card
 (tests/test_torch_gpu_kernels.py, chip_smoke.py).
 
 (a) The planner (``ragged_split_plan``, ``ragged_split_bounds``,
-    ``ragged_split_scratch``): for random shapes, windows and SM counts the
+    ``split_scratch``): for random shapes, windows and SM counts the
     split length is a multiple of 64, the splits cover every possible row's
     band ``[lo, len)`` exactly once (lengths 0, 1, S, S + 1 and multiples
     of the split length +- 1), the grid comes near the target block count,
@@ -117,12 +117,12 @@ def test_scratch_follows_from_the_plan():
                                         (1, 8, 4, 128, 32768, None, 132),
                                         (3, 2, 16, 256, 300, 5000, 8)):
         _, n = decode_attn.ragged_split_plan(b, kvh, s, window, sm)
-        shapes = decode_attn.ragged_split_scratch(b, kvh, g, d, n)
+        shapes = decode_attn.split_scratch(b, kvh, g, d, n)
         assert shapes == {"acc": (b, kvh, n, g, d), "m": (b, kvh, n, g),
                           "l": (b, kvh, n, g)}
     # One split: the blocks write the output, no partials.
     assert decode_attn.ragged_split_plan(2, 2, 64, None, 132) == (64, 1)
-    assert decode_attn.ragged_split_scratch(2, 2, 4, 128, 1) == {}
+    assert decode_attn.split_scratch(2, 2, 4, 128, 1) == {}
 
 
 # -- (b) split-and-merge against the JAX kernel ------------------------------

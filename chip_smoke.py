@@ -9,10 +9,11 @@ Phases, each printing result lines:
 1. ``build``  — compile every kernel source under
    ``distributed_llms_tpu_torch/ops/csrc`` (one nvcc per source, started
    together) and print the build seconds and the register report; for the
-   split-K decode kernels (K1, K1q, K2, K2q) also each function's
+   split-K decode kernels (K1, K1q, K2, K2q) and K5 also each function's
    registers, spills and static shared memory from ``-Xptxas -v`` and, at
-   the served heads (D 128, group 4), the threads, dynamic shared memory,
-   local (spill) bytes and resident blocks per SM.
+   the served heads (D 128, group 4) or K5's served rows (M 8 and 512,
+   int8 and int4), the threads, dynamic shared memory, local (spill)
+   bytes and resident blocks per SM.
 2. ``kernel`` — hold each kernel against its plain PyTorch version on the
    card, at its path's shapes: K1 and K1q at Llama-3-8B's heads (H=32,
    KVH=8, D=128; K1q's pools quantized by the port's ``kv_quantize``):
@@ -27,7 +28,10 @@ Phases, each printing result lines:
    4096 and none), each decode output row within 1% of the plain row's L2
    norm (1% + 2^-7 for the int8 legs), K5 (int8 and int4 weights, bf16 x) at
    Llama-3-8B's projections: M=8 (decode) for wq, wk/wv, gate/up, down and
-   wo through ``k_lead=2``, and M=512 (prefill) for gate/up; the flash
+   wo through ``k_lead=2``, and M=512 (prefill) for gate/up, and at the
+   edges of its split plan (M of 1, 16, 17, 64 and 65; a K off the tiles
+   cut into uneven splits), each output within 2e-2 + 2^-7 |plain|
+   elementwise; the flash
    kernels K3 at path g's shapes (B=1, T=4096, H=32, KVH=8, D=128, causal;
    and window 4096 at T=8192) and K4 at path f's admission (8192 queries
    over a 32768-slot row with the first 8192 slots written, window 4096;
@@ -44,8 +48,11 @@ Phases, each printing result lines:
    cache: K1 and K1q at the kernel phase's first shape and at path a's
    own (B=8, 16 pages, lengths 300..364; SDPA over rows gathered before
    the timer), K2 and K2q also at batch 1 over one 32768-slot row (window
-   4096); then, for information, K1, K2 and K2q at sweeps of split
-   lengths.
+   4096); K5 at each projection, int8 and int4, with its plan, profiler
+   device time, host enqueue time and cuBLAS's device time over the
+   dequantized bf16 weight, operands rotated over >= 150 MB; then, for
+   information, K1, K2 and K2q at sweeps of split lengths and K5 at sweeps
+   of split counts (down, wk/wv).
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
    a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
@@ -99,7 +106,7 @@ Phases, each printing result lines:
 7. ``profile`` — path a's weights, and then path d's, serve a batch of 8
    requests once more under ``torch.profiler``: host wall time against
    device kernel time, split into K5, the decode-attention kernels (with
-   the launches of each device function counted there, by name), other
+   the launches of each device function of both counted, by name), other
    matrix products and the rest; path f's weights admit one 8000-byte
    prompt, and path g takes one step, under the profiler too, split the
    same way with the flash kernels apart (information, not a gate).
@@ -244,6 +251,14 @@ def phase_build() -> None:
                resources(128, 4, quant) for quant in (False, True)}
         emit("build", source=source,
              functions=ptxas_functions(built[source]["log"]), **got)
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    emit("build", source=quant_matmul.SOURCE,
+         functions=ptxas_functions(built[quant_matmul.SOURCE]["log"]),
+         **{f"K5_int{bits}_M{m}_N{n}":
+            quant_matmul.quant_matmul_resources(m, n, bits)
+            for m, n in ((8, 14336), (8, 1024), (512, 14336))
+            for bits in (8, 4)})
 
 
 def ptxas_functions(log: str) -> list:
@@ -429,12 +444,30 @@ QMM_SHAPES = [
     ("gate_up_prefill", 512, (4096, 14336), 1, -2),
 ]
 QMM_REPORTED = "gate_up"  # the shape of K5's entries in the JSON line
+QMM_ALSO_REPORTED = "down"  # ... and of the "down" entry inside each
 QMM_NAMES = {8: "quant_matmul", 4: "quant_matmul_int4"}
+# K5 at the edges of its plan (``qmm_plan`` on 132 SMs), each for int8 and
+# int4 codes, block 128: (label, M, K, N).  M of 1 and 16 (the decode
+# tiles' ends), 17 and 64 (the 64-row prefill tile's: its M tail, and
+# full), 65 (the 128-row tile with one row of 65 past the first 64);
+# K = 4320 at M = 8 is 67.5 K tiles, cut into 14 splits of 5 with a last
+# split of 3 whose last tile is half (uneven splits, a K tail off the
+# tiles, int4 pairs at every split edge); the prefill tiles at N = 1024
+# split K 16 ways.
+QMM_EDGES = [
+    ("m1", 1, 4096, 4096),
+    ("m16", 16, 4096, 4096),
+    ("m17", 17, 4096, 1024),
+    ("m64", 64, 4096, 4096),
+    ("m65", 65, 4096, 1024),
+    ("k_uneven", 8, 4320, 4096),
+]
 
 
 def _held(torch, name, got, want, rel=0.0, **info) -> float:
     """K5's output against its plain version: |err| <= TOL + rel x
-    |plain| elementwise; returns the largest |err|."""
+    |plain| elementwise; returns the largest |err|.  The line also gives
+    the largest |err| / (TOL + rel x |plain|), which passes at <= 1."""
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name} output {tuple(got.shape)}/{got.dtype} vs plain "
@@ -442,10 +475,11 @@ def _held(torch, name, got, want, rel=0.0, **info) -> float:
     check(bool(torch.isfinite(got.float()).all()), f"{name} output not finite")
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    over = (diff - rel * want.float().abs() - TOL).max().item()
+    ratio = (diff / (rel * want.float().abs() + TOL)).max().item()
     tol = f"{TOL} + {rel} * |plain|" if rel else TOL
-    emit("kernel", name=name, max_abs_err=err, tol=tol, **info)
-    check(over <= 0, f"{name} |err| exceeds {tol} (max |err| {err})")
+    emit("kernel", name=name, max_abs_err=err, err_over_limit=ratio, tol=tol,
+         **info)
+    check(ratio <= 1, f"{name} |err| exceeds {tol} (max |err| {err})")
     return err
 
 
@@ -462,6 +496,48 @@ def qmm_case(torch, m, wshape, k_lead, pack_axis, bits, seed):
     x = torch.randn((m, *wshape[:k_lead]), generator=g,
                     device="cuda").to(torch.bfloat16)
     return x, qt
+
+
+def qmm_edge_case(torch, m, k, n, bits, seed):
+    """bf16 x [M, K] and a [K, N] weight, block 128, as ``qmm_case``."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import quantize
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+    qt = quantize(w.to(torch.bfloat16), bits=bits, pack_axis=-2)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    return x, qt
+
+
+def qmm_kernel_checks(torch) -> dict:
+    """K5 (int8 and int4) against its plain version at every
+    Llama-3-8B projection of QMM_SHAPES and every plan edge of QMM_EDGES;
+    returns each width's largest |err|."""
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    worst = {}
+    for bits, name in QMM_NAMES.items():
+        cases = [(label, *qmm_case(torch, m, wshape, k_lead, pack, bits,
+                                   seed=20 + i), k_lead,
+                  {"M": m, "weight": list(wshape), "k_lead": k_lead})
+                 for i, (label, m, wshape, k_lead, pack)
+                 in enumerate(QMM_SHAPES)]
+        cases += [(label, *qmm_edge_case(torch, m, k, n, bits, seed=60 + i),
+                   1, {"M": m, "K": k, "N": n})
+                  for i, (label, m, k, n) in enumerate(QMM_EDGES)]
+        for label, x, qt, k_lead, info in cases:
+            q2, s2 = quant_matmul.flatten_qt(qt, k_lead)
+            plan = quant_matmul.qmm_plan(
+                x.shape[0], s2.shape[0], q2.shape[1],
+                quant_matmul._sm_count(x.device))
+            err = _held(torch, name,
+                        quant_matmul.quant_contract(x, qt, k_lead),
+                        qmm_plain(torch, x, qt, k_lead), rel=TOL_REL_QMM,
+                        shape=label, plan=list(plan), **info)
+            worst[name] = max(worst.get(name, 0.0), err)
+        del cases
+    _free(torch)
+    return worst
 
 
 def qmm_plain(torch, x, qt, k_lead):
@@ -587,20 +663,11 @@ def ragged_kernel_checks(torch) -> dict:
 
 
 def phase_kernel(torch) -> dict:
-    from distributed_llms_tpu_torch.ops import quant_matmul
-
     worst = {name: 0.0 for name in KERNELS}
     worst.update(paged_kernel_checks(torch))
     worst.update(ragged_kernel_checks(torch))
     worst.update(flash_kernel_checks(torch))
-    for bits, name in QMM_NAMES.items():
-        for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
-            x, qt = qmm_case(torch, m, wshape, k_lead, pack, bits, seed=20 + i)
-            err = _held(torch, name,
-                        quant_matmul.quant_contract(x, qt, k_lead),
-                        qmm_plain(torch, x, qt, k_lead), rel=TOL_REL_QMM,
-                        shape=label, M=m, weight=list(wshape), k_lead=k_lead)
-            worst[name] = max(worst[name], err)
+    worst.update(qmm_kernel_checks(torch))
     return {name: {"max_abs_err": e} for name, e in worst.items()}
 
 
@@ -1021,9 +1088,19 @@ def _device_ms(torch, fn, calls=20) -> dict:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = ("merge" if "split_decode_merge" in e.name else
-                    "split" if "decode_kernel" in e.name else e.name[:40])
+                    "split" if "decode_kernel" in e.name else
+                    _function_name(e.name))
             out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / calls
     return out
+
+
+def _function_name(name: str) -> str:
+    """A device function's name without its template arguments and
+    parameters (the first 60 characters where none is found)."""
+    import re
+
+    m = re.search(r"(\w+)(?:<|\()", name)
+    return m.group(1) if m else name[:60]
 
 
 SPLIT_SWEEP = (64, 128, 256, 512, 1024, 4096)
@@ -1201,14 +1278,22 @@ def _rotate(fns):
     return run
 
 
+QMM_SPLIT_SWEEP = (1, 2, 4, 8, 16)  # splits of K (at most MAX_SPLITS)
+QMM_SWEPT = ("down", "wk_wv")
+
+
 def qmm_timing(torch) -> dict:
     """K5 at each Llama-3-8B projection shape, int8 and int4, against its
-    plain version and cuBLAS over the pre-dequantized bf16 weight."""
+    plain version and cuBLAS over the pre-dequantized bf16 weight, each
+    rotated over >= L2_ROTATION_BYTES of operand copies: CUDA-event times,
+    the plan, the profiler's device time of K5 and of cuBLAS, and the
+    host's enqueue time per call; then, at down and wk/wv, a sweep of split
+    counts."""
     from distributed_llms_tpu_torch.checkpoint.quantize import (
         QuantizedTensor, dequantize)
     from distributed_llms_tpu_torch.ops import quant_matmul
 
-    out = {}
+    out, also = {}, {}
     for bits, name in QMM_NAMES.items():
         for i, (label, m, wshape, k_lead, pack) in enumerate(QMM_SHAPES):
             x, qt = qmm_case(torch, m, wshape, k_lead, pack, bits, seed=40 + i)
@@ -1227,26 +1312,71 @@ def qmm_timing(torch) -> dict:
             lib_err = ((torch.matmul(x2, w16[0]).float() - plain).abs()
                        - TOL_REL_QMM * plain.abs()).max().item()
             check(lib_err <= TOL, f"K5 library yardstick disagrees ({label})")
+
+            def kern():
+                return _rotate([lambda q=q: quant_matmul.quant_contract(
+                    x, q, k_lead) for q in qts])
+
+            def lib():
+                return _rotate([lambda w=w: torch.matmul(x2, w) for w in w16])
+
             t = _turns(
-                torch,
-                _rotate([lambda q=q: quant_matmul.quant_contract(x, q, k_lead)
-                         for q in qts]),
+                torch, kern(),
                 _rotate([lambda q=q: qmm_plain(torch, x, q, k_lead)
-                         for q in qts]),
-                _rotate([lambda w=w: torch.matmul(x2, w) for w in w16]))
+                         for q in qts]), lib())
             io_bytes = 2 * m * k + 2 * m * n
             timed = _timed(
                 name, {"shape": label, "M": m, "K": k, "N": n,
                        "weight": list(wshape), "k_lead": k_lead,
                        "bits": bits, "operand_copies": copies},
                 t, *_bound(w_bytes, io_bytes, 2 * m * k * n), w_bytes,
+                plan=list(quant_matmul.qmm_plan(
+                    m, k, n, quant_matmul._sm_count(x.device))),
+                device_ms_per_call=_device_ms(torch, kern()),
+                library_device_ms_per_call=_device_ms(torch, lib()),
+                host_enqueue_ms_per_call=_enqueue_ms(torch, kern()),
                 library="torch.matmul over the pre-dequantized bf16 weight "
                         "(cuBLAS; reads 2 bytes per weight, twice int8's "
                         "codes and four times int4's)")
             if label == QMM_REPORTED:
                 out[name] = timed
+            elif label == QMM_ALSO_REPORTED:
+                also[name] = timed
+            if label in QMM_SWEPT:
+                qmm_split_sweep(torch, name, label, x, qts, k_lead)
             del qts, w16
+            _free(torch)
+    for name, timed in out.items():
+        timed[QMM_ALSO_REPORTED] = also[name]
     return out
+
+
+def qmm_split_sweep(torch, name, label, x, qts, k_lead) -> None:
+    """K5 at each split count of QMM_SPLIT_SWEEP on these operands (rotated
+    as in the timing lines): CUDA-event and device ms per call — what the
+    planner's choice costs against the others.  Information, not a gate."""
+    from distributed_llms_tpu_torch.ops import quant_matmul
+
+    q2, s2 = quant_matmul.flatten_qt(qts[0], k_lead)
+    m, k, n = x.shape[0], s2.shape[0], q2.shape[1]
+    planner = quant_matmul.qmm_plan
+    planned = planner(m, k, n, quant_matmul._sm_count(x.device))
+    k_tiles = -(-k // quant_matmul.BK)
+    times, device = {}, {}
+    try:
+        for splits in QMM_SPLIT_SWEEP:
+            per = -(-k_tiles // splits)
+            plan = (*planned[:2], per * quant_matmul.BK, -(-k_tiles // per))
+            quant_matmul.qmm_plan = lambda *a, _p=plan: _p
+            run = _rotate([lambda q=q: quant_matmul.quant_contract(
+                x, q, k_lead) for q in qts])
+            times[plan[3]] = cuda_ms(torch, run)
+            device[plan[3]] = sum(_device_ms(torch, run).values())
+    finally:
+        quant_matmul.qmm_plan = planner
+    emit("split_sweep", name=name, shape=label, M=m, K=k, N=n,
+         planned=list(planned), kernel_ms_by_splits=times,
+         device_ms_by_splits=device, operand_copies=len(qts))
 
 
 # -- phase 4: a small model through each kernel vs the plain version -------
@@ -1974,7 +2104,9 @@ def phase_profile(torch, label, batcher) -> None:
          device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else
          "not measured",
          decode_attention_kernels=_kernel_names(
-             torch, prof, "decode_attention_kernel"))
+             torch, prof, "decode_attention_kernel"),
+         quant_matmul_kernels=_kernel_names(torch, prof,
+                                            "quant_matmul_kernel"))
 
 
 def _kernel_class(name: str) -> str:
@@ -2004,14 +2136,11 @@ def _kernel_split(torch, prof) -> dict:
 def _kernel_names(torch, prof, cls: str) -> dict:
     """Launches of each device function of class ``cls`` in a profile, by
     its name without template arguments: which kernels a class counted."""
-    import re
-
     names = {}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and _kernel_class(e.name) == cls):
-            m = re.search(r"(\w+)(?:<|\()", e.name)
-            key = m.group(1) if m else e.name[:60]
+            key = _function_name(e.name)
             names[key] = names.get(key, 0) + 1
     return names
 

@@ -14,6 +14,7 @@ a kernel wrapper calls :func:`entry` on its first CUDA launch, and
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -127,3 +128,12 @@ def entry(source: str, name: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of the CUDA ``device``, read once: kernel plans are
+    made from shapes and this count, never from a device query per call."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -52,6 +52,7 @@
 #pragma once
 
 #include "decode_attn_common.cuh"
+#include "ptx_ops.cuh"
 
 namespace dlt_split {
 
@@ -100,32 +101,10 @@ __host__ __device__ inline Geometry geometry(int D, int G) {
 
 // -- loads ------------------------------------------------------------------
 
-// Asynchronous global -> shared copy of kBytes (16, 8 or 4); a copy that
-// is not `valid` reads nothing and fills the destination with zeros.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? kBytes : 0;
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                 "l"(src), "n"(kBytes), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
+// Asynchronous 16-, 8- or 4-byte global -> shared copies (ptx_ops.cuh).
+using dlt_ptx::cp_async;
+using dlt_ptx::cp_async_commit;
+using dlt_ptx::cp_async_wait;
 
 __device__ __forceinline__ void bf16x2(unsigned w, float* x) {
   x[0] = __uint_as_float(w << 16);

@@ -48,7 +48,6 @@ whether or not its merge kernel runs.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -150,9 +149,7 @@ def split_scratch(b: int, kvh: int, g: int, d: int, n_splits: int) -> dict:
             "l": (b, kvh, n_splits, g)}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+_sm_count = build.sm_count
 
 
 def _split_parts(q: torch.Tensor, kvh: int, n_splits: int):

@@ -17,12 +17,20 @@ The device decides the implementation:
 An int4 weight must pack its pairs along its last contracted axis (the
 layout ``checkpoint.quantize.quantize_tree`` writes); any other packing
 raises ``NotImplementedError``.  The kernel counts its launches per width:
-``quant_matmul.launches`` (int8) and ``quant_matmul.int4_launches``.
+``quant_matmul.launches`` (int8) and ``quant_matmul.int4_launches``, one
+a call.
+
+On bf16 activations the kernel splits K over separate blocks where the
+output alone would not fill the card (decode): :func:`qmm_plan` picks the
+tile and the split from the shapes and the card's SM count.  The splits of
+a tile run as one thread-block cluster and sum their float32 partials in
+split order — the same inputs give the same bits on every call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -33,7 +41,68 @@ from . import build
 SOURCE = "quant_matmul.cu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
+_ARGTYPES = {
+    "dlt_quant_matmul": [_P] * 4 + [_I] * 9 + [_P],
+    "dlt_quant_matmul_f32": [_P] * 4 + [_I] * 5 + [_P],
+    "dlt_quant_matmul_resources": [_I] * 4 + [_P],
+}
+
+# The bf16 kernel's tiles (csrc/quant_matmul.cu DLT_QMM_TILES): rows of x
+# and output columns a block owns, widest first for each row count, and
+# the blocks per SM the split plan aims at — a few of the decode tiles,
+# two of the prefill tiles of 64 and 128 rows.  K runs in BK-row steps;
+# a split walks at least MIN_SPLIT_TILES of them, and the splits of a
+# tile (one thread-block cluster) number at most MAX_SPLITS.  A narrower
+# tile is taken where the wider one cannot reach WAVES blocks per SM even
+# split MAX_SPLITS ways.
+TILES = ((8, 128, 4), (8, 64, 4), (16, 128, 4), (16, 64, 4), (64, 128, 2),
+         (128, 128, 2))
+BK = 64
+MIN_SPLIT_TILES = 2
+MAX_SPLITS = 16
+WAVES = 2
+
+
+def qmm_tile(m: int, n: int, sm_count: int) -> tuple[int, int, int]:
+    """``(tile_m, tile_n, blocks per SM aimed at)`` for M rows and N
+    columns: the smallest tile row count that holds M (128 above 64), and
+    of its tiles the widest whose grid split MAX_SPLITS ways reaches WAVES
+    blocks per SM (else the narrowest)."""
+    rows = next((t[0] for t in TILES if m <= t[0]), TILES[-1][0])
+    tiles = [t for t in TILES if t[0] == rows]
+    for tile in tiles:
+        blocks = -(-m // tile[0]) * -(-n // tile[1])
+        if blocks * MAX_SPLITS >= WAVES * sm_count:
+            return tile
+    return tiles[-1]
+
+
+@functools.lru_cache(maxsize=4096)
+def qmm_plan(m: int, k: int, n: int,
+             sm_count: int) -> tuple[int, int, int, int]:
+    """``(tile_m, tile_n, k_per_split, n_splits)`` of the bf16 kernel for
+    ``[M, K] @ [K, N]``: the tile of :func:`qmm_tile`, and K cut into
+    ``n_splits`` runs of ``k_per_split`` rows — whole BK-row tiles, so
+    every split edge falls on an int4 pair, the last run the shortest — so
+    that the ``m_tiles * n_tiles * n_splits`` blocks come near the tile's
+    blocks per SM times ``sm_count``, with at most MAX_SPLITS splits.
+    Shapes only."""
+    tile_m, tile_n, per_sm = qmm_tile(m, n, sm_count)
+    k_tiles = -(-k // BK)
+    blocks = -(-m // tile_m) * -(-n // tile_n)
+    want = -(-(per_sm * sm_count) // blocks)
+    per_split = min(k_tiles, max(MIN_SPLIT_TILES, -(-k_tiles // want),
+                                 -(-k_tiles // MAX_SPLITS)))
+    return tile_m, tile_n, per_split * BK, -(-k_tiles // per_split)
+
+
+def qmm_split_bounds(k: int, k_per_split: int, split: int) -> tuple[int, int]:
+    """K rows ``[start, end)`` that split ``split`` of a plan sums."""
+    start = split * k_per_split
+    return start, min(k, start + k_per_split)
+
+
+_sm_count = build.sm_count
 
 
 def flatten_qt(qt: QuantizedTensor, k_lead: int):
@@ -87,31 +156,53 @@ def _check_operands(x2, q2, s2, bits) -> None:
             f"{s2.shape[1]} scale blocks do not divide N = {n}")
 
 
+def _route(tensors) -> str:
+    """"cpu" when every tensor lies on the CPU, "cuda" when all lie on one
+    CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if {d.type for d in devices} == {"cpu"}:
+        return "cpu"
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            "quant_matmul needs every tensor on one CUDA device (or all on "
+            f"the CPU), got {[str(d) for d in devices]}")
+    return "cuda"
+
+
 def quant_matmul(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
                  bits: int) -> torch.Tensor:
     """``x2 [M, K] @ dequant(q2, s2) -> [M, N]`` in x's dtype (K5)."""
     _check_operands(x2, q2, s2, bits)
-    devices = {t.device for t in (x2, q2, s2)}
-    if {d.type for d in devices} == {"cpu"}:
+    if _route((x2, q2, s2)) == "cpu":
         return quant_matmul_plain(x2, q2, s2, bits)
-    if len(devices) != 1 or x2.device.type != "cuda":
-        raise ValueError(
-            "quant_matmul needs every tensor on one CUDA device (or all on "
-            f"the CPU), got {[str(d) for d in devices]}")
     if x2.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(
             f"the CUDA kernel takes bfloat16 or float32 x, got {x2.dtype}")
     m, k = x2.shape
-    n = q2.shape[1]
+    n, nb = q2.shape[1], s2.shape[1]
     if max(m, k, n) >= 2**31:  # the kernel's sizes are 32-bit ints
         raise ValueError(f"shape [{m}, {k}] x [{k}, {n}] exceeds the kernel")
     x2, q2, s2 = (t.contiguous() for t in (x2, q2, s2))
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    err = build.entry(SOURCE, "dlt_quant_matmul", _ARGTYPES)(
-        x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
-        m, k, n, s2.shape[1], bits, int(x2.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x2.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    if x2.dtype == torch.float32:
+        err = build.entry(SOURCE, "dlt_quant_matmul_f32",
+                          _ARGTYPES["dlt_quant_matmul_f32"])(
+            x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
+            m, k, n, nb, bits, stream)
+    else:
+        # 16-byte loads of x rows (K % 8 == 0) and code rows (N % 16 == 0)
+        # need 16-byte aligned bases; odd shapes load element by element.
+        if (k % 8 == 0 and x2.data_ptr() % 16) or (
+                n % 16 == 0 and q2.data_ptr() % 16):
+            raise ValueError(
+                "quant_matmul: the CUDA kernel reads x and the codes with "
+                "16-byte loads; pass 16-byte aligned tensors")
+        err = build.entry(SOURCE, "dlt_quant_matmul",
+                          _ARGTYPES["dlt_quant_matmul"])(
+            x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
+            m, k, n, nb, bits, *qmm_plan(m, k, n, _sm_count(x2.device)),
+            stream)
     if err != 0:
         raise RuntimeError(
             f"quant matmul kernel launch failed (cudaError {err})")
@@ -120,6 +211,25 @@ def quant_matmul(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
     else:
         quant_matmul.launches += 1
     return out
+
+
+def quant_matmul_resources(m: int, n: int, bits: int,
+                           block: int = 128) -> dict:
+    """What the bf16 kernel a product of M rows and N columns launches
+    takes on the current card (int8 codes with ``bits=8``, int4 with 4;
+    scale blocks of ``block`` columns): threads, tile rows and columns,
+    dynamic shared memory of its stages, resident blocks per SM, and
+    registers and local (spill) bytes per thread."""
+    tile_m, tile_n, _ = qmm_tile(m, n, _sm_count(torch.device("cuda")))
+    info = (ctypes.c_int * 7)()
+    err = build.entry(SOURCE, "dlt_quant_matmul_resources",
+                      _ARGTYPES["dlt_quant_matmul_resources"])(
+        tile_m, tile_n, bits, block, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"dlt_quant_matmul_resources failed ({err})")
+    keys = ("threads", "tile_m", "tile_n", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, info))
 
 
 quant_matmul.launches = 0

@@ -33,12 +33,18 @@ and dense reference do).
 
 The weight-only dequant-matmul (K5, int8 and row-packed int4 codes with
 float32 scales per (K row, block of N)) over M = 1 / 8 / 17 / 300, K and N
-off the kernel's 64-wide tiles, scale blocks 32 / 64 / 128 (and 8, which
-is narrower than one 16-byte load), the wo layout through ``k_lead=2``,
-bf16 and float32 activations.  Tolerance: bf16 outputs within 2^-7 |out|
-+ 1e-2 (one output ulp plus summation order: both sides round the weight
-to bf16 and accumulate in float32), float32 within 1e-4 |out| + 1e-4.
-Wrong dtypes and a legacy int4 pack axis raise.
+off the kernel's 64-row K tiles and 64- to 256-column tiles, scale blocks
+32 / 64 / 128 (and 8, 40 and 130: narrower than a lane's 4 columns, or not
+a multiple of 4, which takes the kernel's scale per column), Llama-3-8B's
+six projection shapes (decode M = 8 and prefill M = 512), the edges of the
+split plan (M of 1, 16, 17, 64 and 65; a K off the tiles in uneven
+splits), the wo layout through ``k_lead=2``, bf16 and float32
+activations.  Tolerance: bf16 outputs within 2^-7 |out| + 1e-2 (one
+output ulp plus summation order: both sides round the weight to bf16 and
+accumulate in float32), float32 within 1e-4 |out| + 1e-4.  Two calls on
+the same inputs give the same bits (the split reduction has a fixed
+order), the served instantiations keep their state in registers, and
+wrong dtypes, a misaligned base and a legacy int4 pack axis raise.
 
 The int8 leg of the contiguous decode kernel (K2q: int8 cache with
 [B, S, KVH] float32 scales from ``kv_quantize``) over K2's shapes, with
@@ -279,6 +285,17 @@ QMM_GPU_CASES = [
     (300, 512, 384, 64, 4),
     (8, 96, 72, 8, 4),          # block narrower than a 16-byte load
     (33, 130, 130, 130, 8),     # K, N not multiples of 16
+    # Llama-3-8B's projections (flat [K, N]): decode M = 8, prefill 512.
+    *[(m, k, n, 128, bits) for bits in (8, 4) for m, k, n in (
+        (8, 4096, 4096), (8, 4096, 14336), (8, 14336, 4096),
+        (512, 4096, 14336))],
+    # The plan's edges on 132 SMs: M of 1, 16 (decode tiles), 17, 64
+    # (the 64-row prefill tile), 65 (the 128-row one); K = 4320 in 14 splits
+    # of 320 rows but the last of 160, whose last 64-row tile is half
+    # (uneven splits, a K tail off the tiles, int4 at split edges).
+    *[(m, k, n, 128, bits) for bits in (8, 4) for m, k, n in (
+        (1, 4096, 4096), (16, 4096, 4096), (17, 4096, 1024),
+        (64, 4096, 4096), (65, 4096, 1024), (8, 4320, 4096))],
 ]
 
 
@@ -308,6 +325,34 @@ def test_cuda_quant_matmul_matches_plain(cuda, m, k, n, block, bits):
     assert getattr(quant_matmul.quant_matmul, attr) == before + 1
     want = quant_matmul.quant_matmul_plain(x, qt.data, qt.scale, bits)
     _held(got, want, 2.0 ** -7, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quant_matmul_is_deterministic(cuda, bits):
+    """Two calls on the same inputs give the same bits: the split-K
+    partials are summed in split order, with no atomics (down's 16
+    splits and a prefill tile)."""
+    for m, k, n in ((8, 14336, 4096), (512, 4096, 1024)):
+        x, qt = _qmm_case(cuda, m, k, n, 128, bits, seed=14)
+        first = quant_matmul.quant_contract(x, qt, 1)
+        second = quant_matmul.quant_contract(x, qt, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,n", [(8, 14336), (8, 1024), (64, 14336),
+                                 (512, 14336)])
+def test_cuda_quant_matmul_does_not_spill(cuda, bits, m, n):
+    """The instantiations the served shapes launch (decode's 128- and
+    64-column tiles, the 64- and 128-row tiles of prefill)
+    keep their state in registers: no local memory, and at least one
+    block per SM."""
+    got = quant_matmul.quant_matmul_resources(m, n, bits)
+    assert got["local_bytes"] == 0, got
+    assert got["blocks_per_sm"] >= 1, got
 
 
 @pytest.mark.gpu
@@ -349,6 +394,10 @@ def test_cuda_quant_matmul_raises_on_wrong_inputs(cuda):
     legacy = quantize(w, bits=4, pack_axis=-1)  # pairs along N, not K
     with pytest.raises(NotImplementedError):
         quant_matmul.quant_contract(x, legacy, 1)
+    buf = torch.empty(4 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # x 2 bytes past a 16-byte boundary
+        quant_matmul.quant_matmul(buf[1:1 + 4 * 256].view(4, 256), qt.data,
+                                  qt.scale, 8)
 
 
 # -- K2q: the contiguous decode kernel's int8 leg -----------------------------

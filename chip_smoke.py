@@ -12,8 +12,9 @@ Phases, each printing result lines:
    split-K decode kernels (K1, K1q, K2, K2q) and K5 also each function's
    registers, spills and static shared memory from ``-Xptxas -v`` and, at
    the served heads (D 128, group 4) or K5's served rows (M 8 and 512,
-   int8 and int4), the threads, dynamic shared memory, local (spill)
-   bytes and resident blocks per SM.
+   int8 and int4) and the flash kernels K3 and K4 (head dims 64, 128 and
+   256: threads, query and key tile, ring stages), the threads, dynamic
+   shared memory, local (spill) bytes and resident blocks per SM.
 2. ``kernel`` — hold each kernel against its plain PyTorch version on the
    card, at its path's shapes: K1 and K1q at Llama-3-8B's heads (H=32,
    KVH=8, D=128; K1q's pools quantized by the port's ``kv_quantize``):
@@ -33,12 +34,18 @@ Phases, each printing result lines:
    cut into uneven splits), each output within 2e-2 + 2^-7 |plain|
    elementwise; the flash
    kernels K3 at path g's shapes (B=1, T=4096, H=32, KVH=8, D=128, causal;
-   and window 4096 at T=8192) and K4 at path f's admission (8192 queries
-   over a 32768-slot row with the first 8192 slots written, window 4096;
-   the same without causality or window; 1000 queries at positions
-   5000..5999), each output row within 1% of the plain row's L2 norm;
-   and K3's backward (gradients through the kernel's autograd function,
-   the bf16 dense recompute) within 1% of the float32 gradient.
+   and window 4096 at T=8192; T=4097 and 127, off the 128-row query
+   tiles; head dims 64 and 256 at small sizes) and K4 at path f's
+   admission (8192 queries over a 32768-slot row with the first 8192
+   slots written, window 4096; the same without causality or window;
+   1000 queries at positions 5000 and at 4097, where each query tile ends
+   on a key tile's first slot; 16 queries over the 32768 slots; two rows
+   written to different lengths; shuffled positions; rows with no live
+   key, held to exact zeros; head dims 64 and 256), each output row within
+   1% of the plain row's L2 norm; K4's pre-pass (the per-key-tile
+   summary) equal to its plain version; and K3's backward (gradients
+   through the kernel's autograd function, the bf16 dense recompute)
+   within 1% of the float32 gradient.
 3. ``timing`` — CUDA-event times of each kernel, its plain version and one
    PyTorch library call computing the same function, beside the least
    time the card could take (the byte and operation bounds).  The decode
@@ -52,7 +59,10 @@ Phases, each printing result lines:
    device time, host enqueue time and cuBLAS's device time over the
    dequantized bf16 weight, operands rotated over >= 150 MB; then, for
    information, K1, K2 and K2q at sweeps of split lengths and K5 at sweeps
-   of split counts (down, wk/wv).
+   of split counts (down, wk/wv).  K3 and K4 carry their tile
+   configuration and profiler device time by function (K4's pre-pass
+   apart, and timed alone), SDPA's device time beside them, and K4 a
+   short admission's time (16 queries over 32768 slots).
 4. ``model``  — a small bf16 llama decoding through each kernel on the
    card against the same weights through the plain versions on the CPU:
    a paged bf16 pool (K1), an int8 pool (K1q), a contiguous cache with a
@@ -96,7 +106,8 @@ Phases, each printing result lines:
    ``torch.cuda.memory_allocated``) must be below path a's on paths d and
    e by at least 90% of what their quantized block weights save over
    bf16 (computed from the served leaves), and path d must peak below
-   path a.  Path f must launch K4 at least 32 times per admission.
+   path a.  Path f must launch K4 at least 32 times per admission, and
+   K4's pre-pass once per K4 launch.
 6. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -173,6 +184,11 @@ KERNELS = {
     "flash_attention_dynamic": {
         "route": "cuda", "source": CSRC + "flash_attn.cu",
         "replaces": "distributed_llms_tpu/ops/flash.py:335"},
+    # K4's pre-pass: the per-tile summary that stands in for the TPU
+    # kernel's per-tile liveness test (pl.when(jnp.any(mask)), :201).
+    "flash_tile_summary": {
+        "route": "cuda", "source": CSRC + "flash_attn.cu",
+        "replaces": "distributed_llms_tpu/ops/flash.py:335"},
     "quant_matmul": {
         "route": "cuda", "source": CSRC + "quant_matmul.cu",
         "replaces": "distributed_llms_tpu/ops/quant_matmul.py:139"},
@@ -199,6 +215,7 @@ def _counters():
         "flash_attention_static": (flash.flash_attention, "static_launches"),
         "flash_attention_dynamic": (flash.flash_attention,
                                     "dynamic_launches"),
+        "flash_tile_summary": (flash.tile_summary, "launches"),
     }
 
 
@@ -251,6 +268,13 @@ def phase_build() -> None:
                resources(128, 4, quant) for quant in (False, True)}
         emit("build", source=source,
              functions=ptxas_functions(built[source]["log"]), **got)
+    from distributed_llms_tpu_torch.ops import flash
+
+    emit("build", source=flash.SOURCE,
+         functions=ptxas_functions(built[flash.SOURCE]["log"]),
+         **{f"{'K4' if dynamic else 'K3'}_at_D{d}":
+            flash.flash_kernel_resources(d, dynamic)
+            for d in flash.HEAD_DIMS for dynamic in (False, True)})
     from distributed_llms_tpu_torch.ops import quant_matmul
 
     emit("build", source=quant_matmul.SOURCE,
@@ -423,10 +447,11 @@ TOL_REL_QMM = 2.0 ** -7
 # one head): L2 error <= FLASH_ROW_REL x the row's L2 norm.  A row that
 # averages n live keys is ~sqrt(e / n) in size (0.02 at path f's 4096-key
 # window), so an absolute limit would pass a wrong key set at these
-# lengths.  On the H100 the sound kernels read 0.0044-0.0046 at every
-# shape below; kernels with a planted fault (a key off by one at the
-# diagonal or the window edge, a skipped edge tile, a zeroed output) read
-# 0.26-1.9.
+# lengths.  Sound kernels differ from the plain version by where bf16
+# rounds the probabilities (per 128-slot tile under the running max in
+# the kernels, under the row's final max in the plain version), exp2 of
+# pre-scaled scores against exp, and the bf16 output rounding; planted
+# faults are read by decode_mutations.py (PERF.md).
 FLASH_ROW_REL = 1e-2
 # K3's bf16 backward against the float32 gradient, relative L2 error of
 # each of dq, dk, dv: 0.0023-0.0029 measured on the H100.
@@ -709,35 +734,128 @@ def _row_held(torch, name, got, want, limit, dead=None, **info) -> float:
     return err
 
 
+# K3 against flash_reference: (case, B, T, H, KVH, D, window).  Path g's
+# sequence and twice it under Mistral-7B's window; lengths off the 128-row
+# query tiles (4097: one row past, 127: one short); head dims 64 and 256.
+FLASH_STATIC_CHECKS = [
+    ("train", 1, TRAIN_T, 32, 8, 128, None),
+    ("train_window", 1, 2 * TRAIN_T, 32, 8, 128, WINDOW),
+    ("off_tiles_4097", 1, TRAIN_T + 1, 32, 8, 128, None),
+    ("off_tiles_127", 1, 127, 32, 8, 128, None),
+    ("d64", 2, 1000, 8, 2, 64, 300),
+    ("d256", 1, 600, 16, 16, 256, None),
+]
+
+
+def flash_dynamic_checks(torch):
+    """K4's cases: (case, B, Tq, S, KVH, D, keyword arguments).  Path f's
+    admission, without causality or window, offset queries (first position
+    5000, and 4097, where each 128-row query tile ends on the first slot
+    of a key tile: a dead-tile rule that is off by one drops a live tile
+    there), two rows written to different lengths (the summary is per
+    row), shuffled positions (the summary is loose), a short admission of
+    16 queries over 32768 slots, query rows with no live key, and head
+    dims 64 and 256."""
+    s = FLASH_MAX_LEN
+    dev = "cuda"
+    cases = [("admission", 1, ADMIT_T, s, 8, 128,
+              admission_args(torch, ADMIT_T, s)),
+             ("admission_not_causal", 1, ADMIT_T, s, 8, 128,
+              admission_args(torch, ADMIT_T, s, 0, None, False)),
+             ("offset_5000", 1, 1000, s, 8, 128,
+              admission_args(torch, 1000, s, 5000)),
+             ("first_off_tiles_4097", 1, 1000, s, 8, 128,
+              admission_args(torch, 1000, s, 4097)),
+             ("short_admission", 1, 16, s, 8, 128,
+              admission_args(torch, 16, s, 8000))]
+    # Rows written to 3000 and 8192 slots, each admitting its last 1024.
+    written = torch.tensor([[3000], [8192]], device=dev)
+    kpos = torch.arange(8192, device=dev).expand(2, 8192)
+    cases.append(("per_row_lengths", 2, 1024, 8192, 8, 128, {
+        "q_positions": written - 1024 + torch.arange(1024, device=dev),
+        "k_positions": kpos, "k_valid": kpos < written, "window": WINDOW}))
+    g = torch.Generator(device="cpu").manual_seed(70)
+    perm = torch.randperm(8192, generator=g).to(dev)[None]
+    cases.append(("shuffled", 1, 1024, 8192, 8, 128, {
+        "q_positions": perm[:, :1024], "k_positions": perm, "window": 700}))
+    # Row 0 sees slots from position 100 on: its queries at 0..99 have no
+    # live key; row 1 is an ordinary prefill at an offset.
+    kpos = torch.arange(2048, device=dev).expand(2, 2048)
+    first = torch.tensor([[0], [1500]], device=dev)
+    cases.append(("rows_without_keys", 2, 256, 2048, 8, 128, {
+        "q_positions": first + torch.arange(256, device=dev),
+        "k_positions": kpos,
+        "k_valid": torch.stack([kpos[0] >= 100, kpos[1] < 1756])}))
+    cases.append(("d64", 2, 300, 1500, 2, 64, {
+        "q_positions": first + torch.arange(300, device=dev),
+        "k_positions": kpos[:, :1500], "k_valid": kpos[:, :1500] < first + 300,
+        "window": 100}))
+    cases.append(("d256", 1, 200, 700, 4, 256, {
+        "q_positions": 500 + torch.arange(200, device=dev)[None],
+        "k_positions": kpos[:1, :700]}))
+    return cases
+
+
+def _dead_rows(torch, kw, b, tq, s):
+    """[B, Tq] bool: query rows with no live key slot (small cases only)."""
+    qp = kw["q_positions"].expand(b, tq).long()[:, :, None]
+    kp = kw["k_positions"].expand(b, s).long()[:, None, :]
+    live = kw.get("k_valid", torch.ones(b, s, dtype=torch.bool,
+                                        device=qp.device))[:, None, :]
+    if kw.get("causal", True):
+        live = live & (kp <= qp)
+    if kw.get("window") is not None:
+        live = live & (kp > qp - kw["window"])
+    return ~live.any(-1)
+
+
 def flash_kernel_checks(torch) -> dict:
-    """K3 at path g's shapes (and windowed at twice the length), K4 at
-    path f's admission (and without causality or window, and a ragged
-    query count at an offset), each against ``flash_reference``; K3's
-    backward (bf16) against the float32 gradient of ``dense_reference``."""
+    """K3 (FLASH_STATIC_CHECKS) and K4 (flash_dynamic_checks) against
+    ``flash_reference``, each output row within FLASH_ROW_REL of the plain
+    row and rows with no live key exactly zero; K4's pre-pass against its
+    plain version, exactly; K3's backward (bf16) against the float32
+    gradient of ``dense_reference``."""
     from distributed_llms_tpu_torch.ops import flash
 
-    worst = {"flash_attention_static": 0.0, "flash_attention_dynamic": 0.0}
-    for t, window in ((TRAIN_T, None), (2 * TRAIN_T, WINDOW)):
-        q, k, v = flash_case(torch, tq=t, seed=30 + t)
+    worst = {"flash_attention_static": 0.0, "flash_attention_dynamic": 0.0,
+             "flash_tile_summary": 0.0}
+    for case, b, t, h, kvh, d, window in FLASH_STATIC_CHECKS:
+        q, k, v = flash_case(torch, b=b, tq=t, h=h, kvh=kvh, d=d,
+                             seed=30 + t)
         err = _row_held(torch, "flash_attention_static",
                         flash.flash_attention(q, k, v, window=window),
                         flash.flash_reference(q, k, v, window=window),
-                        FLASH_ROW_REL, T=t, window=window)
+                        FLASH_ROW_REL, case=case, B=b, T=t, H=h, KVH=kvh,
+                        D=d, window=window)
         worst["flash_attention_static"] = max(
             worst["flash_attention_static"], err)
-    s = FLASH_MAX_LEN
-    for tq, first, causal, window in ((ADMIT_T, 0, True, WINDOW),
-                                      (ADMIT_T, 0, False, None),
-                                      (1000, 5000, True, WINDOW)):
-        q, k, v = flash_case(torch, tq=tq, s=s, seed=40 + tq)
-        kw = admission_args(torch, tq, s, first, window, causal)
+        del q, k, v
+    for case, b, tq, s, kvh, d, kw in flash_dynamic_checks(torch):
+        q, k, v = flash_case(torch, b=b, tq=tq, s=s, kvh=kvh, d=d,
+                             seed=40 + tq)
+        dead = (_dead_rows(torch, kw, b, tq, s) if s * tq <= 1 << 24
+                else None)
         err = _row_held(torch, "flash_attention_dynamic",
                         flash.flash_attention(q, k, v, **kw),
                         flash.flash_reference(q, k, v, **kw),
-                        FLASH_ROW_REL, Tq=tq, S=s, first_position=first,
-                        causal=causal, window=window)
+                        FLASH_ROW_REL, dead=dead, case=case, B=b, Tq=tq,
+                        S=s, KVH=kvh, D=d, causal=kw.get("causal", True),
+                        window=kw.get("window"))
         worst["flash_attention_dynamic"] = max(
             worst["flash_attention_dynamic"], err)
+        kp = kw["k_positions"].expand(b, s).to(torch.int32).contiguous()
+        kv = kw.get("k_valid", torch.ones(b, s, dtype=torch.bool,
+                                          device="cuda")).to(torch.int32)
+        got = flash.tile_summary(kp, kv, flash.KEY_TILE[d])
+        want = flash.tile_summary_reference(kp, kv, flash.KEY_TILE[d])
+        torch.cuda.synchronize()
+        diff = (got.long() - want.long()).abs().max().item()
+        emit("kernel", name="flash_tile_summary", case=case, B=b, S=s,
+             key_tile=flash.KEY_TILE[d], tiles=got.shape[1],
+             max_abs_err=diff, tol="exact")
+        check(torch.equal(got, want),
+              f"flash_tile_summary differs from its plain version ({case})")
+        worst["flash_tile_summary"] = max(worst["flash_tile_summary"], diff)
         del q, k, v
     # K3's backward is the dense recompute in bf16; held against the exact
     # (float32) gradient of the same attention, it shows that the recompute
@@ -1200,6 +1318,7 @@ def flash_timing(torch) -> dict:
     tm = _turns(torch, lambda: flash.flash_attention(q, k, v),
                 lambda: flash.flash_reference(q, k, v), library,
                 plain_iters=3, iters=20, plain_warmup=1)
+    dev = _device_ms(torch, lambda: flash.flash_attention(q, k, v))
     out["flash_attention_static"] = _timed(
         "flash_attention_static",
         {"B": b, "T": t, "H": h, "KVH": kvh, "D": d, "causal": True,
@@ -1207,7 +1326,12 @@ def flash_timing(torch) -> dict:
         tm, *_bound(0, io, 4 * pairs * d * h * b), io,
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
-        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12)
+        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12,
+        device_ms_per_call=dev,
+        device_tflop_s=4 * pairs * d * h * b / (dev["flash_kernel"] * 1e-3)
+        / 1e12,
+        library_device_ms_per_call=_device_ms(torch, library),
+        tiles=_tile_config(flash, d, False))
     del q, k, v, qt, kt, vt, ref
 
     # K4: path f's admission.  Library: SDPA with the boolean mask of the
@@ -1246,6 +1370,9 @@ def flash_timing(torch) -> dict:
     tm = _turns(torch, lambda: flash.flash_attention(q, k, v, **kw),
                 lambda: flash.flash_reference(q, k, v, **kw), library,
                 plain_iters=1, iters=10, plain_warmup=1)
+    # Device time by function: the kernel, its pre-pass, and the wrapper's
+    # int32 conversions of the position and validity vectors.
+    dev = _device_ms(torch, lambda: flash.flash_attention(q, k, v, **kw))
     out["flash_attention_dynamic"] = _timed(
         "flash_attention_dynamic",
         {"B": b, "Tq": ADMIT_T, "S": s, "H": h, "KVH": kvh, "D": d,
@@ -1253,10 +1380,56 @@ def flash_timing(torch) -> dict:
         tm, *_bound(0, io, 4 * pairs * d * h * b), io,
         library="F.scaled_dot_product_attention(attn_mask=bool) under "
                 "EFFICIENT_ATTENTION/CUDNN_ATTENTION, K/V heads expanded",
-        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12)
-    del q, k, v, qt, kt, vt, mask
+        achieved_tflop_s=4 * pairs * d * h * b / (tm["ms"] * 1e-3) / 1e12,
+        device_ms_per_call=dev,
+        device_tflop_s=4 * pairs * d * h * b / (dev["flash_kernel"] * 1e-3)
+        / 1e12,
+        library_device_ms_per_call=(_device_ms(torch, library) if library
+                                    else None),
+        tiles=_tile_config(flash, d, True))
+    del qt, kt, vt, mask
+
+    # K4's pre-pass alone at the admission's vectors.  Plain version: the
+    # same table from torch reductions on the card.  Bound: the vectors
+    # read once and the table written once.
+    bk = flash.KEY_TILE[d]
+    kp = kw["k_positions"].to(torch.int32).contiguous()
+    kv = kw["k_valid"].to(torch.int32).contiguous()
+    n_tiles = -(-s // bk)
+    io = 4 * 2 * s + 16 * n_tiles
+    tm = _turns(torch, lambda: flash.tile_summary(kp, kv, bk),
+                lambda: flash.tile_summary_reference(kp, kv, bk), None)
+    out["flash_tile_summary"] = _timed(
+        "flash_tile_summary", {"B": b, "S": s, "key_tile": bk,
+                               "tiles": n_tiles},
+        tm, *_bound(0, io, 0), io,
+        device_ms_per_call=_device_ms(
+            torch, lambda: flash.tile_summary(kp, kv, bk)))
+
+    # A short admission (information): 16 queries over the 32768 slots
+    # launch one query tile a head, 32 blocks on 132 SMs.
+    q16 = q[:, :16].contiguous()
+    kw16 = admission_args(torch, 16, s, 8000)
+    pairs = live_pairs(torch, 16, s, kw16)
+    emit("timing", name="flash_attention_dynamic", shape="short_admission",
+         shapes={"B": b, "Tq": 16, "S": s, "first_position": 8000,
+                 "window": WINDOW, "live_pairs_per_head": pairs},
+         kernel_ms=cuda_ms(torch, lambda: flash.flash_attention(
+             q16, k, v, **kw16), iters=20),
+         device_ms_per_call=_device_ms(torch, lambda: flash.flash_attention(
+             q16, k, v, **kw16)),
+         bound_ms=_bound(0, 2 * (2 * q16.numel() + k.numel() + v.numel()),
+                         4 * pairs * d * h * b)[0])
+    del q, k, v, q16
     _free(torch)
     return out
+
+
+def _tile_config(flash, d, dynamic) -> dict:
+    """The tile configuration of a flash kernel instantiation."""
+    got = flash.flash_kernel_resources(d, dynamic)
+    return {key: got[key] for key in ("threads", "query_tile", "key_tile",
+                                      "stages", "smem_bytes")}
 
 
 # A decode step reads each layer's weights once, cold; a weight that fits
@@ -1842,10 +2015,10 @@ def _mistral_7b_flash(cfg) -> None:
     check(cfg.attn_impl == "flash", "the store's model is not flash")
 
 
-def serve_flash(torch, profile: bool) -> int:
+def serve_flash(torch, profile: bool) -> dict:
     """Path f: write the flash-config Mistral-7B store into a temporary
-    directory, serve it at 32768 slots, remove it.  Returns K4's launches
-    on the path."""
+    directory, serve it at 32768 slots, remove it.  Returns the launches
+    of K4 and of its pre-pass on the path."""
     tmp = tempfile.mkdtemp(prefix="dlt_store_flash_")
     try:
         info = write_store(torch, "int8", tmp, "mistral-7b",
@@ -1864,10 +2037,15 @@ def serve_flash(torch, profile: bool) -> int:
     check(launches["flash_attention_dynamic"] >= want,
           f"flash_prefill: K4 launched {launches['flash_attention_dynamic']}"
           f" times, under {want} (32 layers x {admissions} admissions)")
+    check(launches["flash_tile_summary"] ==
+          launches["flash_attention_dynamic"],
+          f"flash_prefill: K4's pre-pass launched "
+          f"{launches['flash_tile_summary']} times, not once per K4 launch")
     flash_admission(torch, b, profile)
     del server, b
     _free(torch)
-    return launches["flash_attention_dynamic"]
+    return {name: launches[name]
+            for name in ("flash_attention_dynamic", "flash_tile_summary")}
 
 
 def write_store(torch, quantization: str, out_dir: str,
@@ -1985,7 +2163,7 @@ def phase_serve(torch, profile: bool) -> dict:
     del server
     _free(torch)
 
-    out["flash_attention_dynamic"] = serve_flash(torch, profile)
+    out.update(serve_flash(torch, profile))
     return out
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Do the kernel checks fail a wrong kernel?  A mutation run of the split-K
-decode kernels — paged (K1, K1q) and contiguous (K2, K2q) — and of the
-split-K weight-only dequant-matmul (K5, int8 and int4 codes) on one NVIDIA
-GPU.
+decode kernels — paged (K1, K1q) and contiguous (K2, K2q) —, of the
+split-K weight-only dequant-matmul (K5, int8 and int4 codes) and of the
+flash-attention kernels (K3 static causal, K4 dynamic) on one NVIDIA GPU.
 
     python3 decode_mutations.py           # on the card; a few minutes
 
@@ -19,8 +19,13 @@ slots, and every edge of the plan —, ``chip_smoke.ragged_kernel_checks``
 — K2 and K2q at path c's shapes and at batch 1 over 32768 slots, window
 4096 and none — and ``chip_smoke.qmm_kernel_checks`` — K5 at Llama-3-8B's
 six projection shapes and at the edges of its plan (M of 1, 16, 17, 64
-and 65, a K off the tiles in uneven splits).  The sound variant runs them
-all.  A variant that faults on the card (a trap on a page id it should
+and 65, a K off the tiles in uneven splits) — and
+``chip_smoke.flash_kernel_checks`` — K3 at path g's sequence, windowed,
+off the query tiles and at head dims 64 and 256, and K4 at path f's
+admission and beside it (offset queries, one offset whose query tiles end
+on a key tile's first slot, per-row lengths, shuffled positions, a short
+admission, rows with no live key held to exact zeros), each per output
+row.  The sound variant runs them all.  A variant that faults on the card (a trap on a page id it should
 not have read) records the error and counts as caught for every kernel.
 Prints one JSON line per variant (each check's largest per-row relative
 error, or K5's largest |err| over its limit, and which checks failed),
@@ -43,6 +48,7 @@ CSRC = "distributed_llms_tpu_torch/ops/csrc/"
 K1, K1Q = "paged_decode_attention", "paged_decode_attention_int8"
 K2, K2Q = "ragged_decode_attention", "ragged_decode_attention_int8"
 K5, K5Q4 = "quant_matmul", "quant_matmul_int4"
+K3, K4 = "flash_attention_static", "flash_attention_dynamic"
 KERNELS = (K1, K1Q, K2, K2Q)
 
 # name -> (file, text, replacement, the kernels it breaks).  Each text
@@ -111,14 +117,39 @@ MUTATIONS = {
     "qmm_m_tail_row_zero": (  # rows past the last full 8 load as zeros
         "quant_matmul.cu", "const bool valid = k_in && m0 + r < a.M;",
         "const bool valid = k_in && m0 + r < a.M / 8 * 8;", (K5, K5Q4)),
+    # The flash kernels' faults.
+    "k3_diagonal_off_by_one": (  # a row loses its own key
+        "flash_attn.cu", "keep = kc <= rw.qp[i] &&",
+        "keep = kc < rw.qp[i] &&", (K3,)),
+    "k3_window_edge_off_by_one": (  # one key too many below the window
+        "flash_attn.cu", "(long long)kc > (long long)rw.qp[i] - a.window",
+        "(long long)kc >= (long long)rw.qp[i] - a.window", (K3,)),
+    "k3_last_tile_dropped": (  # the diagonal tile is never walked
+        "flash_attn.cu", "const int t_hi = q_last / T::kBK + 1;",
+        "const int t_hi = q_last / T::kBK;", (K3,)),
+    "k4_dead_rule_off_by_one": (  # a tile starting at qmax is skipped
+        "flash_attn.cu", "(causal && kmin > qmax)",
+        "(causal && kmin >= qmax)", (K4,)),
+    "flash_rescale_omitted": (  # the accumulator keeps its old scale
+        "flash_attn.cu",
+        "      acc[n8 * 4 + 0] *= alpha[0];\n"
+        "      acc[n8 * 4 + 1] *= alpha[0];\n"
+        "      acc[n8 * 4 + 2] *= alpha[1];\n"
+        "      acc[n8 * 4 + 3] *= alpha[1];\n", "", (K3, K4)),
+    "flash_unseeded_shift_removed": (  # rows without keys average them
+        "flash_attn.cu",
+        "shift[i] = m_new <= kNegInf * 0.5f ? 0.f : m_new;",
+        "shift[i] = m_new;", (K4,)),
 }
 # The sources each kernel's checks build, and the checks that hold it.
 SOURCES = {"paged_decode_attn.cu": "paged_kernel_checks",
            "ragged_decode_attn.cu": "ragged_kernel_checks",
-           "quant_matmul.cu": "qmm_kernel_checks"}
+           "quant_matmul.cu": "qmm_kernel_checks",
+           "flash_attn.cu": "flash_kernel_checks"}
 OF_SOURCE = {K1: "paged_decode_attn.cu", K1Q: "paged_decode_attn.cu",
              K2: "ragged_decode_attn.cu", K2Q: "ragged_decode_attn.cu",
-             K5: "quant_matmul.cu", K5Q4: "quant_matmul.cu"}
+             K5: "quant_matmul.cu", K5Q4: "quant_matmul.cu",
+             K3: "flash_attn.cu", K4: "flash_attn.cu"}
 
 # Runs in each variant's copy: the named checks, recorded instead of
 # raised.
@@ -151,10 +182,15 @@ def sources_of(name: str) -> list:
 
 def reading(line: dict):
     """(where, value) of one check line: K5's largest |err| over its
-    limit at a shape, or a decode kernel's largest per-row relative
-    error."""
+    limit at a shape, or an attention kernel's largest per-row relative
+    error (a flash line by its case; K3's backward by its gradient)."""
     if "err_over_limit" in line:
         return f"shape={line['shape']}", line["err_over_limit"]
+    if "case" in line:
+        return (f"case={line['case']}",
+                line.get("max_row_rel_err", line.get("max_abs_err")))
+    if "grad_of" in line:
+        return f"grad_of={line['grad_of']}", line["rel_err"]
     where = (f"shape={line['shape']}" if "shape" in line else
              f"B={line.get('B')} window={line.get('window')}")
     return where, line.get("max_row_rel_err")

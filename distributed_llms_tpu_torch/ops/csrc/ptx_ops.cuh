@@ -1,9 +1,10 @@
 // PTX wrappers of the port's kernels: asynchronous global -> shared copies
 // (the decode kernels' split body, split_decode.cuh, and K5,
 // quant_matmul.cu), and for K5 bf16 tensor-core products, the block's
-// dynamic shared memory and its thread-block cluster.  Everything the
-// kernels do through inline PTX or cluster hardware goes through these
-// few functions.
+// dynamic shared memory and its thread-block cluster; for the flash
+// kernels (flash_attn.cu) Hopper's mbarriers, TMA tile copies and
+// warpgroup products (wgmma).  Everything the kernels do through inline
+// PTX or cluster hardware goes through these few functions.
 
 #pragma once
 
@@ -79,5 +80,262 @@ __device__ __forceinline__ const float* cluster_smem(const float* p,
   return cooperative_groups::this_cluster().map_shared_rank(
       const_cast<float*>(p), rank);
 }
+
+// -- Hopper: mbarriers, TMA and wgmma (flash_attn.cu) -----------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One thread initialises a barrier that completes a phase after `count`
+// arrivals (and the bytes its arrivals announce); every thread syncs after
+// the block's barriers are initialised.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive, announcing `bytes` that asynchronous copies will complete on
+// this phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_timer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.  A wait
+// still open after ~10 s of wall time cannot complete (every phase the
+// kernels wait for is a copy or a tile of work, microseconds): it traps,
+// so a broken pipeline is a launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint64_t t0 = 0;
+  for (uint32_t spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 4095) == 0) {
+      const uint64_t now = global_timer_ns();
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// TMA: copy the box of a 4-D tensor map at coordinates (c0 innermost ..
+// c3) into shared memory at `dst`; its bytes complete on `bar`.  `map` is
+// the address of a __grid_constant__ CUtensorMap kernel parameter.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Warp specialisation: a warpgroup gives up registers down to kRegs a
+// thread (a producer), or takes them up to kRegs (a consumer), from the
+// block's pool; every warp of the warpgroup executes it.
+template <int kRegs>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// A wgmma shared-memory operand in the 128-byte swizzle that TMA writes
+// (CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, the 16-byte chunks of
+// row r XORed with r % 8, groups of 8 rows `sbo` bytes apart; `lbo` is the
+// stride between 64-element atoms along M / N of an MN-major operand.
+// `p` must lie in a 1024-byte aligned atom (plus a K offset of 32-byte
+// steps for a K-major operand).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most kPending committed wgmma groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across this point.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Warpgroup products, bf16 inputs and float32 accumulators d [64 x N]:
+// thread t of the warpgroup (warp w = t / 32, g = t % 32 / 4, c = t % 4)
+// holds, for each 8-column chunk n, d[4n .. 4n + 3] = D[16w + g][8n + 2c],
+// D[16w + g][8n + 2c + 1], D[16w + g + 8][8n + 2c], D[16w + g + 8][8n + 2c
+// + 1]; scale_d 0 overwrites d, 1 accumulates.
+//   wgmma_ss:    d (+)= A [64 x 16] * B [16 x N], A and B in shared memory,
+//                both K-major (descriptors a, b).
+//   wgmma_rs_mn: d (+)= A [64 x 16] * B [16 x N], A in registers as
+//                mma.m16n8k16's A fragment of the warp's 16 rows
+//                (mma_bf16_16816 above), B in shared memory MN-major
+//                (N contiguous; the transpose bit).
+#define DLT_F8(i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DLT_F8(0), DLT_F8(8), DLT_F8(16), DLT_F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DLT_F8(0), DLT_F8(8), DLT_F8(16), DLT_F8(24), DLT_F8(32),
+        DLT_F8(40), DLT_F8(48), DLT_F8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DLT_F8(0), DLT_F8(8), DLT_F8(16), DLT_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : DLT_F8(0), DLT_F8(8), DLT_F8(16), DLT_F8(24), DLT_F8(32),
+        DLT_F8(40), DLT_F8(48), DLT_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<256>(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, "
+      "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
+      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "
+      "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "
+      "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : DLT_F8(0), DLT_F8(8), DLT_F8(16), DLT_F8(24), DLT_F8(32),
+        DLT_F8(40), DLT_F8(48), DLT_F8(56), DLT_F8(64), DLT_F8(72),
+        DLT_F8(80), DLT_F8(88), DLT_F8(96), DLT_F8(104), DLT_F8(112),
+        DLT_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+#undef DLT_F8
 
 }  // namespace dlt_ptx

@@ -16,14 +16,17 @@
   ``k_valid[b, j]``, ``k_positions[b, j] <= q_positions[b, i]`` if causal,
   and ``k_positions[b, j] > q_positions[b, i] - window`` with a window
   (position space).  Absent vectors default to ``arange(Tq)``,
-  ``arange(S)`` and all-valid.  Tiles with no live (row, slot) pair skip
-  their products.
+  ``arange(S)`` and all-valid.  A pre-pass (:func:`tile_summary`) sums up
+  each key tile's validity and position range; the kernel never loads a
+  tile that this summary shows holds no live pair for its query rows.
 
 The device decides the implementation:
 
 - CUDA tensors launch the hand-written Hopper kernels
-  (``csrc/flash_attn.cu``), or raise — bfloat16 only, there is no
-  fallback;
+  (``csrc/flash_attn.cu``: two consumer warpgroups of 64 query rows keep
+  scores, softmax state and accumulator in registers and run ``wgmma``
+  products over a TMA-filled ring of K/V tiles), or raise — bfloat16
+  only, head dims in :data:`HEAD_DIMS`, there is no fallback;
 - CPU tensors take the plain version, :func:`flash_reference`: the
   kernels' numerics written out densely (float32 scores, a row with no
   live key outputs zeros, probabilities rounded to v's dtype before the
@@ -33,8 +36,9 @@ Differentiable through :class:`_FlashFn`, as the JAX package's
 ``custom_vjp``: the backward recomputes :func:`dense_reference` (the
 mirror of the JAX ``_dense_reference``) under autograd from the saved q,
 k, v and masks — a dense O(Tq * S) recompute, not a kernel, as in the
-reference.  Launch counts: ``flash_attention.static_launches`` (K3) and
-``flash_attention.dynamic_launches`` (K4).
+reference.  Launch counts: ``flash_attention.static_launches`` (K3),
+``flash_attention.dynamic_launches`` (K4) and ``tile_summary.launches``
+(K4's pre-pass).
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from .decode_attn import _route
 
 SOURCE = "flash_attn.cu"
 HEAD_DIMS = (64, 128, 256)  # head dims the kernels are built for
+# Key slots per tile of each head dim's kernel (``Tiles<D>::kBK``); K4's
+# tile summary is cut at the same tiles.
+KEY_TILE = {64: 128, 128: 128, 256: 64}
 
 _NEG_INF = torch.finfo(torch.float32).min
 # Score elements one plain-version chunk holds (1 GiB of float32): the
@@ -60,8 +67,11 @@ _CHUNK_SCORES = 1 << 28
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dlt_flash_attention_static": [_P] * 4 + [_I] * 6 + [_F, _P],
-    "dlt_flash_attention_dynamic": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "dlt_flash_tile_summary": [_P] * 3 + [_I] * 3 + [_P],
+    "dlt_flash_attention_dynamic": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "dlt_flash_resources": [_I, _I, _P],
 }
+_INT32_MIN, _INT32_MAX = -2**31, 2**31 - 1
 
 
 def _mask(b, tq, s, device, q_positions, k_positions, k_valid, causal,
@@ -136,6 +146,65 @@ def dense_reference(q, k, v, q_positions=None, k_positions=None, k_valid=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf).to(q.dtype)
 
 
+def tile_summary_reference(k_positions, k_valid, bk):
+    """The plain version of K4's pre-pass: for each batch row and key tile
+    of ``bk`` slots (the last one cut at S; slots past S are invalid), an
+    int32 ``[flags, min, max, 0]`` with flags bit 0 = some slot valid,
+    bit 1 = every slot valid, and min / max the positions over the valid
+    slots (``INT32_MAX`` / ``INT32_MIN`` without one).  ``[B, ceil(S /
+    bk), 4]``."""
+    b, s = k_valid.shape
+    n = -(-s // bk)
+    pad = n * bk - s
+    valid = torch.nn.functional.pad(k_valid != 0, (0, pad)).view(b, n, bk)
+    pos = torch.nn.functional.pad(k_positions.to(torch.int64),
+                                  (0, pad)).view(b, n, bk)
+    flags = valid.any(-1).int() | (valid.all(-1).int() << 1)
+    lo = torch.where(valid, pos, _INT32_MAX).amin(-1)
+    hi = torch.where(valid, pos, _INT32_MIN).amax(-1)
+    return torch.stack([flags.long(), lo, hi, torch.zeros_like(lo)],
+                       -1).to(torch.int32)
+
+
+def tile_summary(k_positions, k_valid, bk):
+    """K4's pre-pass (``flash_kernel_tile_summary``) on int32 ``[B, S]``
+    positions and validity: :func:`tile_summary_reference`'s table,
+    computed on the card for CUDA tensors (one launch, counted in
+    ``tile_summary.launches``) and by the plain version on the CPU."""
+    if _route("tile_summary", [k_positions, k_valid]) == "cpu":
+        return tile_summary_reference(k_positions, k_valid, bk)
+    kp, kv = (t.to(torch.int32).contiguous() for t in (k_positions, k_valid))
+    b, s = kv.shape
+    summary = torch.empty(b, -(-s // bk), 4, dtype=torch.int32,
+                          device=kv.device)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    err = build.entry(SOURCE, "dlt_flash_tile_summary",
+                      _ARGTYPES["dlt_flash_tile_summary"])(
+        kp.data_ptr(), kv.data_ptr(), summary.data_ptr(), b, s, bk, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash tile summary kernel launch failed (cudaError {err})")
+    tile_summary.launches += 1
+    return summary
+
+
+def flash_kernel_resources(d: int, dynamic: bool) -> dict:
+    """What the K3 (``dynamic=False``) or K4 kernel of head dim ``d`` takes
+    on the current card: threads, query rows and key slots a tile, ring
+    stages, dynamic shared memory, resident blocks per SM, registers and
+    local (spill) bytes per thread, and the pre-pass's registers."""
+    info = (ctypes.c_int * 9)()
+    err = build.entry(SOURCE, "dlt_flash_resources",
+                      _ARGTYPES["dlt_flash_resources"])(
+        d, int(dynamic), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"dlt_flash_resources failed ({err})")
+    keys = ("threads", "query_tile", "key_tile", "stages", "smem_bytes",
+            "blocks_per_sm", "registers", "local_bytes",
+            "summary_registers")
+    return dict(zip(keys, info))
+
+
 def is_static(q, k, q_positions, k_positions, k_valid, causal) -> bool:
     """Whether a call takes the static-causal kernel K3 (the reference's
     ``static_causal``): causal, no position or validity vector, and as
@@ -190,11 +259,14 @@ def _forward(q, k, v, q_positions, k_positions, k_valid, causal, window):
                 f"positions must be [B, Tq] / [B, S] and k_valid [B, S]; got "
                 f"{tuple(qp.shape)} / {tuple(kp.shape)} / {tuple(kv.shape)}"
             )
+        bk = KEY_TILE[d]
+        summary = tile_summary(kp, kv, bk)
         err = build.entry(SOURCE, "dlt_flash_attention_dynamic",
                           _ARGTYPES["dlt_flash_attention_dynamic"])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-            kp.data_ptr(), kv.data_ptr(), out.data_ptr(),
-            b, tq, s, h, kvh, d, int(causal), win, float(d) ** -0.5, stream)
+            kp.data_ptr(), kv.data_ptr(), summary.data_ptr(), out.data_ptr(),
+            b, tq, s, h, kvh, d, bk, int(causal), win, float(d) ** -0.5,
+            stream)
         counter = "dynamic_launches"
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed (cudaError {err})")
@@ -259,3 +331,4 @@ def flash_attention(
 
 flash_attention.static_launches = 0
 flash_attention.dynamic_launches = 0
+tile_summary.launches = 0

@@ -50,20 +50,23 @@ The int8 leg of the contiguous decode kernel (K2q: int8 cache with
 [B, S, KVH] float32 scales from ``kv_quantize``) over K2's shapes, with
 K1q's tolerance.
 
-Flash attention: the static-causal kernel (K3) over lengths 1 to 1000
-that are not multiples of the 64-row tiles, groups 1 / 4 / 16, head dims
-64 / 128 / 256 and windows none / 1 / 17 / 100; the dynamic kernel (K4)
-over a padded cache prefill (``k_valid`` past the written slots, window
-in position space), ``causal=False``, shuffled positions, ragged query
-counts and a query row with no live key (zeros).  Tolerance per output
-row (one query, one head) against ``flash_reference``: L2 error <= 1e-2 x
-the row's L2 norm, scaled to the row because a row over n keys is only
-~sqrt(e / n) in size.  Probabilities are rounded to bf16 per 64-slot
-tile under the running max in the kernels, under the row's final max in
-the plain version, then the bf16 output rounding.  Gradients through the
-kernel's autograd function equal autograd through ``dense_reference``
-(the backward IS that recompute).  float32 inputs and an unsupported head
-dim raise; each call counts one launch of its kernel.
+Flash attention: the static-causal kernel (K3) over lengths 1 to 4097,
+most off the 128-row query tiles (127, 129, 4097), groups 1 / 4 / 16, head
+dims 64 / 128 / 256 and windows none / 1 / 17 / 100; the dynamic kernel
+(K4) over a padded cache prefill (``k_valid`` past the written slots,
+window in position space), rows written to different lengths, a single
+query, ``causal=False``, shuffled positions, ragged query counts and a
+query row with no live key (zeros).  Tolerance per output row (one query,
+one head) against ``flash_reference``: L2 error <= 1e-2 x the row's L2
+norm, scaled to the row because a row over n keys is only ~sqrt(e / n) in
+size.  Probabilities are rounded to bf16 per key tile (64 or 128 slots)
+under the running max in the kernels, under the row's final max in the
+plain version, then the bf16 output rounding.  K4's pre-pass equals its
+plain version exactly; two calls give the same bits (no atomics); the
+served instantiations (head dim 128) keep their state in registers.
+Gradients through the kernel's autograd function equal autograd through
+``dense_reference`` (the backward IS that recompute).  float32 inputs and
+an unsupported head dim raise; each call counts one launch of its kernel.
 """
 
 import numpy as np
@@ -468,6 +471,9 @@ FLASH_STATIC_CASES = [
     (3, 65, 8, 8, 128, 1),         # window 1: the diagonal only
     (1, 1000, 32, 2, 256, 100),    # group 16, D 256
     (1, 1024, 32, 8, 128, None),
+    (1, 127, 4, 1, 128, None),     # one row short of a query tile
+    (2, 129, 8, 2, 64, None),      # one row past it
+    (1, 4097, 32, 8, 128, None),   # path g's sequence, one row past
 ]
 
 
@@ -504,6 +510,13 @@ def _dynamic_case(cuda, name, b, tq, s):
     if name == "row_without_keys":
         valid = kpos >= 5
         return dict(q_positions=qpos, k_positions=kpos, k_valid=valid)
+    if name == "per_row_lengths":  # written to s // 2 and s; the last tq
+        written = torch.tensor([[s // 2], [s]][:b], device=cuda)
+        return dict(q_positions=written - tq + torch.arange(tq, device=cuda),
+                    k_positions=kpos, k_valid=kpos < written, window=700)
+    if name == "single_query":  # one new token over each row's cache
+        return dict(q_positions=offset + tq - 1 - torch.arange(b, device=cuda)
+                    [:, None] * 3, k_positions=kpos, k_valid=kpos < offset + tq)
     raise KeyError(name)
 
 
@@ -514,6 +527,8 @@ FLASH_DYNAMIC_CASES = [
     ("not_causal", 2, 77, 300, 8, 8, 128),
     ("shuffled", 2, 130, 500, 16, 1, 128),
     ("row_without_keys", 1, 64, 128, 4, 2, 256),
+    ("per_row_lengths", 2, 300, 2048, 32, 8, 128),
+    ("single_query", 2, 1, 777, 8, 2, 128),
 ]
 
 
@@ -531,6 +546,47 @@ def test_cuda_flash_dynamic_matches_plain(cuda, case, b, tq, s, h, kvh, d):
     _flash_held(got, flash.flash_reference(q, k, v, **kw))
     if case == "row_without_keys":  # positions 0..4 see only slots < 5
         assert float(got[0, :5].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_flash_is_deterministic(cuda):
+    """Two calls on the same inputs give the same bits (K3 and K4: one
+    block per query tile and head, no atomics)."""
+    q, k, v = _flash_inputs(cuda, 16, 1, 1000, 32, 8, 128)
+    kpos = torch.arange(1000, device=cuda)[None]
+    for kw in ({}, {"q_positions": kpos, "k_positions": kpos,
+                    "window": 300}):
+        first = flash.flash_attention(q, k, v, **kw)
+        second = flash.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_cuda_flash_does_not_spill(cuda, dynamic):
+    """The served instantiations (head dim 128: K3 on path g, K4 on path
+    f) keep their state in registers: no local memory, one block per
+    SM."""
+    got = flash.flash_kernel_resources(128, dynamic)
+    assert got["local_bytes"] == 0, got
+    assert got["blocks_per_sm"] >= 1, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,bk", [(1, 128), (777, 64), (32768, 128)])
+def test_cuda_flash_tile_summary_matches_plain(cuda, s, bk):
+    """K4's pre-pass equals its plain version bit for bit: shuffled
+    positions near the int32 limits, random validity, a partial tile."""
+    rng = np.random.default_rng(s)
+    kpos = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (3, s))
+                            .astype(np.int32)).to(cuda)
+    kval = torch.from_numpy((rng.random((3, s)) < 0.6).astype(np.int32)).to(cuda)
+    kval[1] = 1
+    kval[2] = 0
+    got = flash.tile_summary(kpos, kval, bk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, flash.tile_summary_reference(kpos, kval, bk))
 
 
 @pytest.mark.gpu

@@ -97,7 +97,26 @@ Phases, each printing result lines:
       streamed request with an 8000-byte prompt (an 8192-token
       admission, past the 4096 window) beside three short ones; then,
       outside HTTP, a prompt of that length admitted alone, its time to
-      first token read engine-side from submit to the admission token.
+      first token read engine-side from submit to the admission token;
+   h. ``dlt-serve-torch --preset mistral-7b --max-len 32768 --slots 4
+      --prefill-chunk 1024`` (contiguous, dense ``attn_impl="dot"``,
+      window 4096, the mixed schedule; K2): three short greedy SSE
+      streams decode while a 30000-byte prompt (30001 tokens, no cut)
+      admits in 1024-token bites over its 32768-slot row; then, outside
+      HTTP, the same traffic timed engine-side (the long prompt's time to
+      first token, the short streams' delivery gaps before and while it
+      admits, the peak memory), and again on a server booted with
+      ``--schedule alternate``: the short greedy streams must be
+      identical under the two schedules.
+   Every path runs the default engine loop: the decode chunk replays a
+   captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
+   dispatched ahead (``overlap``).  A replay adds the launches its
+   capture recorded to each kernel's count.  Paths a and d also run 8
+   greedy requests (300-token prompts, 64 new tokens, cold admissions)
+   on fresh batchers over the served weights under three engine loops —
+   graphs with the overlap, graphs without it, and the eager synchronous
+   loop (the batcher module's own ``_decode_steps``) — and their token
+   streams must be identical.
    Every kernel's launch count is reset just before each path and read
    just after; the run fails unless the path's kernels launched at least
    layers x decode steps times (7 x that for K5, one per projection).
@@ -114,13 +133,15 @@ Phases, each printing result lines:
    3 steps on one fixed batch [2, 4097], then one with ``remat=True``.
    The loss must be finite and fall over the 3 steps, and K3 must launch
    8 times per step (16 under remat).
-7. ``profile`` — path a's weights, and then path d's, serve a batch of 8
-   requests once more under ``torch.profiler``: host wall time against
-   device kernel time, split into K5, the decode-attention kernels (with
-   the launches of each device function of both counted, by name), other
-   matrix products and the rest; path f's weights admit one 8000-byte
-   prompt, and path g takes one step, under the profiler too, split the
-   same way with the flash kernels apart (information, not a gate).
+7. ``profile`` — on paths a and d, the eager synchronous loop and the
+   default loop (graphs and overlap) run the 8-request batch once more
+   under ``torch.profiler``: device kernel time by class (K5, the
+   decode-attention kernels, other matrix products, the rest) and the
+   device's busy share, beside each loop's ms per decode step, chunks
+   dispatched ahead, carry syncs and mean device gap; path f's weights
+   admit one 8000-byte prompt, and path g takes one step, under the
+   profiler too, split the same way with the flash kernels apart
+   (information, not a gate).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and last ``{"ok": true, "device": {...}}``.  Any
@@ -158,6 +179,16 @@ SERVE_WINDOW_ARGS = ["--preset", "mistral-7b", "--max-len", "6144",
 # Paths d and e: SERVE_ARGS over a quantized store in place of the preset.
 SERVE_STORE_ARGS = ["--override", "runtime.serve_quantized=true",
                     *SERVE_ARGS[2:]]
+# Path h: Mistral-7B at its published context on the default dense
+# attention, long prompts admitted by chunked prefill under the mixed
+# schedule (and once more under --schedule alternate).
+LONG_MAX_LEN = 32768
+LONG_PROMPT_BYTES = 30000  # + BOS: 30001 prompt tokens, no cut
+PREFILL_CHUNK = 1024
+SERVE_LONG_ARGS = ["--preset", "mistral-7b", "--max-len", str(LONG_MAX_LEN),
+                   "--slots", "4", "--prefill-chunk", str(PREFILL_CHUNK),
+                   "--host", "127.0.0.1", "--port", "0", "--seed", "0"]
+SHORT_NEW = 512  # the short streams decode through the long admission
 # Path f: a flash-config Mistral-7B store at its published context.
 FLASH_MAX_LEN = 32768
 FLASH_PROMPT_BYTES = 8000  # + BOS: an 8192-token admission bucket
@@ -2114,15 +2145,14 @@ def _check_resident(label, mem, mem_a) -> None:
 
 
 def phase_serve(torch, profile: bool) -> dict:
-    """The five paths, one engine at a time.  Returns each kernel's
+    """The serving paths, one engine at a time.  Returns each kernel's
     launches on its own path."""
     launches, server, mem_a = serve_path(
         torch, "paged", SERVE_ARGS, {"paged_decode_attention": 1},
         _serve_requests, _llama_3_8b)
     check(server.batcher.prefix_cache.hits > 0, "paged: no prefix-cache hit")
     out = {"paged_decode_attention": launches["paged_decode_attention"]}
-    if profile:
-        phase_profile(torch, "paged", server.batcher)
+    loop_variants(torch, "paged", server.batcher, profile)
     del server
     _free(torch)
 
@@ -2151,8 +2181,7 @@ def phase_serve(torch, profile: bool) -> dict:
           f"store_int8 peaked at {mem['peak_mem_gb']:.2f} GB, not below the "
           f"bf16 path's {mem_a['peak_mem_gb']:.2f} GB")
     out["quant_matmul"] = launches["quant_matmul"]
-    if profile:
-        phase_profile(torch, "store_int8", server.batcher)
+    loop_variants(torch, "store_int8", server.batcher, profile)
     del server
     _free(torch)
 
@@ -2164,6 +2193,8 @@ def phase_serve(torch, profile: bool) -> dict:
     _free(torch)
 
     out.update(serve_flash(torch, profile))
+    # Path h runs K2 too; path c's count stays the line's (its own path).
+    serve_long(torch)
     return out
 
 
@@ -2251,40 +2282,296 @@ def phase_train(torch, profile: bool) -> int:
 
 # -- phase 7: where a full-width batch's time goes ---------------------------
 
-def phase_profile(torch, label, batcher) -> None:
-    """A fresh batcher over the served weights runs 8 requests (300-token
-    prompts, 64 new tokens) once to warm up and once under the profiler:
-    host wall time against device kernel time, split into K5, the decode-
-    attention kernels, the other matrix products and everything else.
-    Information for PERF.md, not a gate."""
-    from torch.profiler import ProfilerActivity, profile
+LOOP_PROMPT_TOKENS = 300
+LOOP_NEW_TOKENS = 64
+LOOP_TIMED_RUNS = 3  # host-clock walls vary run to run: the median
+# The engine loops a served batcher is driven through: (name, overlap,
+# eager).  "eager_sync" is the loop of the port before the chunk graphs:
+# every kernel of a decode chunk launched from Python, one host round trip
+# per chunk.  It is reached through the batcher module's own eager chunk
+# (``_decode_steps``); nothing a user sets selects it.
+LOOPS = (("graph_overlap", True, False), ("graph_sync", False, False),
+         ("eager_sync", False, True))
 
-    def run():
-        b = batcher.respawn()
-        g = torch.Generator().manual_seed(5)
-        for _ in range(b.b):
-            b.submit(torch.randint(0, 256, (300,), generator=g).tolist(),
-                     max_new_tokens=64)
-        t0 = time.perf_counter()
-        b.run()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, b.decode_steps
 
-    wall, steps = run()  # warm-up, and the unprofiled wall time
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_wall, _ = run()
-    split = _kernel_split(torch, prof)
-    busy_ms = sum(split.values())
-    emit("profile", path=label, requests=batcher.b, prompt_tokens=300,
-         new_tokens=64, decode_steps=steps, wall_ms=wall * 1e3,
-         wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
-         profiled_wall_ms=prof_wall * 1e3, device_kernel_ms=split,
-         device_busy_share=(busy_ms / (prof_wall * 1e3)) if busy_ms else
-         "not measured",
-         decode_attention_kernels=_kernel_names(
-             torch, prof, "decode_attention_kernel"),
-         quant_matmul_kernels=_kernel_names(torch, prof,
-                                            "quant_matmul_kernel"))
+def _eager_decode_chunk(*args, graphs=None, **kw):
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    return batcher_lib._decode_steps(*args, **kw)
+
+
+def _run_batch(torch, b, prompts) -> tuple:
+    """Run ``prompts`` (greedy, LOOP_NEW_TOKENS each) to the end on batcher
+    ``b``: (streams, wall seconds, decode steps, overlap counters)."""
+    steps0 = b.decode_steps
+    stats0 = dict(b.overlap_stats)
+    # Cold admissions every run: a prefix-cache hit prefills only the
+    # suffix, whose bf16 rounding differs from the cold prefill's.
+    rids = [b.submit(p, max_new_tokens=LOOP_NEW_TOKENS, prefix_cache=False)
+            for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {k: v - stats0[k] for k, v in b.overlap_stats.items()}
+    return [res[r] for r in rids], wall, b.decode_steps - steps0, stats
+
+
+def loop_variants(torch, label, batcher, profile: bool) -> None:
+    """Paths a and d: a fresh batcher over the served weights runs 8 greedy
+    requests (300-token prompts, 64 new tokens) under each of LOOPS —
+    once to capture the chunk graphs, then LOOP_TIMED_RUNS times timed
+    (the median kept) — and every run's token streams must be identical
+    across runs and loops.  With
+    ``profile``, the eager synchronous loop and the default (graphs and
+    overlap) run once more under the profiler: device kernel time by
+    class and the device's busy share.  Each loop's line gives ms per
+    decode step, chunks dispatched ahead, carry syncs and the mean device
+    gap."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (LOOP_PROMPT_TOKENS,),
+                             generator=g).tolist() for _ in range(batcher.b)]
+    graph_chunk = batcher_lib.decode_chunk
+    streams = {}
+    for name, overlap, eager in LOOPS:
+        b = batcher_lib.ContinuousBatcher(
+            **{**batcher._ctor_args, "overlap": overlap})
+        if eager:
+            batcher_lib.decode_chunk = _eager_decode_chunk
+        try:
+            first, _, _, _ = _run_batch(torch, b, prompts)
+            walls = []
+            for _ in range(LOOP_TIMED_RUNS):
+                got, wall, steps, stats = _run_batch(torch, b, prompts)
+                check(got == first,
+                      f"{label}/{name}: a second run gave other tokens")
+                walls.append(wall)
+            wall = sorted(walls)[len(walls) // 2]
+            line = {}
+            if profile and name != "graph_sync":
+                split, prof_wall = _profiled(
+                    torch, lambda: _run_batch(torch, b, prompts))
+                busy = sum(split.values())
+                line = {"profiled_wall_ms": prof_wall,
+                        "device_kernel_ms": split,
+                        "device_busy_share": (busy / prof_wall if busy
+                                              else "not measured")}
+        finally:
+            batcher_lib.decode_chunk = graph_chunk
+        streams[name] = got
+        gaps = stats["gap_samples"]
+        emit("profile", path=label, loop=name, requests=len(prompts),
+             prompt_tokens=LOOP_PROMPT_TOKENS, new_tokens=LOOP_NEW_TOKENS,
+             decode_steps=steps, wall_ms=wall * 1e3,
+             wall_ms_runs=[w * 1e3 for w in walls],
+             wall_ms_per_decode_step=wall * 1e3 / max(steps, 1),
+             chunks=stats["chunks"],
+             dispatched_ahead=stats["dispatched_ahead"],
+             carry_syncs=stats["carry_syncs"],
+             mean_device_gap_ms=(stats["device_gap_s"] * 1e3 / gaps if gaps
+                                 else "not measured"),
+             host_lag_ms=stats["host_lag_s"] * 1e3,
+             graph_captures=b._graphs.captures,
+             graph_replays=b._graphs.replays, **line)
+        check(all(len(t) == LOOP_NEW_TOKENS for t in got),
+              f"{label}/{name}: a request ended early")
+        if overlap:
+            check(stats["dispatched_ahead"] > 0,
+                  f"{label}/{name}: no chunk was dispatched ahead")
+        check((b._graphs.replays > 0) != eager,
+              f"{label}/{name}: graph replays {b._graphs.replays}")
+        del b
+        _free(torch)
+    check(streams["graph_overlap"] == streams["graph_sync"]
+          == streams["eager_sync"],
+          f"{label}: temperature-0 streams differ between the engine loops")
+
+
+# -- path h: long context through chunked dense prefill ----------------------
+
+def _long_prompt() -> str:
+    text = "Shipping manifest, container by container: " + "".join(
+        f"container {i:05d} sealed at gate {i % 17:02d} with {i % 89:02d} "
+        f"crates; " for i in range(600))
+    check(len(text) >= LONG_PROMPT_BYTES, "long prompt under 30000 bytes")
+    return text[:LONG_PROMPT_BYTES]
+
+
+SHORT_PROMPTS = ("Short stream one: list the days of the week.",
+                 "Short stream two: name the planets in order.",
+                 "Short stream three: count from one to twenty.")
+
+
+async def _serve_long_requests(port: int) -> dict:
+    """Path h's burst over HTTP: three short greedy SSE streams start
+    decoding, then a 30000-byte prompt (30001 tokens with BOS, past path
+    c's 6144-slot cut) arrives and admits in 1024-token bites."""
+    shorts = [asyncio.create_task(_http(port, "/v1/completions", {
+        "prompt": p, "max_tokens": SHORT_NEW, "temperature": 0.0,
+        "stream": True, "logprobs": True}, stream=True))
+        for p in SHORT_PROMPTS]
+    await asyncio.sleep(2.0)  # the shorts are admitted and decoding
+    t0 = time.perf_counter()
+    status, resp = await _http(port, "/v1/completions", {
+        "prompt": _long_prompt(), "max_tokens": 16, "temperature": 0.0,
+        "logprobs": True})
+    long_s = time.perf_counter() - t0
+    outs = await asyncio.gather(*shorts)
+    check(status == 200, f"long request answered {status}: {resp}")
+    usage = resp["usage"]
+    check(usage["prompt_tokens"] == LONG_PROMPT_BYTES + 1,
+          f"long prompt of {usage['prompt_tokens']} tokens")
+    check(usage["completion_tokens"] == 16
+          or resp["choices"][0]["finish_reason"] == "stop",
+          f"long request produced {usage['completion_tokens']}/16 tokens")
+    lps = resp["choices"][0]["logprobs"]["token_logprobs"]
+    check(all(math.isfinite(x) and x <= 0 for x in lps),
+          "non-finite or positive logprob")
+    n_tokens = usage["completion_tokens"]
+    for status, out in outs:
+        check(status == 200 and out["done"], "a short stream did not end")
+        finals = [e["choices"][0] for e in out["events"]
+                  if e["choices"][0].get("finish_reason")]
+        check(len(finals) == 1, "a short stream has no single final chunk")
+        got = sum(len(e["choices"][0]["logprobs"]["tokens"])
+                  for e in out["events"] if e["choices"][0].get("logprobs"))
+        check(got == SHORT_NEW or finals[0]["finish_reason"] == "stop",
+              f"a short stream produced {got}/{SHORT_NEW} tokens")
+        n_tokens += got
+    return {"requests": 1 + len(outs), "completion_tokens": n_tokens,
+            "long_prompt_tokens": usage["prompt_tokens"],
+            "long_request_s": long_s}
+
+
+def long_context_run(torch, batcher, label) -> dict:
+    """Path h's traffic outside HTTP, timed engine-side: the three short
+    greedy streams admit, and once each has 16 tokens the long prompt is
+    submitted from the delivery callback.  Returns the streams (rid order:
+    the three shorts, then the long one) and emits the long prompt's time
+    to first token and the short streams' delivery gaps before and while
+    it admits."""
+    tok = batcher.tokenizer
+    # Warm-up: the decode chunk's graph is captured before the timed run.
+    batcher.submit(tok.encode(SHORT_PROMPTS[0]), max_new_tokens=16)
+    batcher.run()
+    deliveries: dict = {}
+    streams: dict = {}
+    long = []
+    shorts = [batcher.submit(tok.encode(p), max_new_tokens=SHORT_NEW)
+              for p in SHORT_PROMPTS]
+
+    def on_tokens(rid, toks, done, lps):
+        now = time.perf_counter()
+        if toks:
+            deliveries.setdefault(rid, []).append(now)
+        streams.setdefault(rid, []).extend(toks)
+        if not long and all(len(streams.get(r, [])) >= 16 for r in shorts):
+            long.append((batcher.submit(tok.encode(_long_prompt()),
+                                        max_new_tokens=16),
+                         time.perf_counter()))
+
+    # Host time inside each fused dispatch (the bite's eager launches) and
+    # each chunk fetch (the wait for the device): where the host spends a
+    # step while a prompt admits.
+    host = {"_dispatch_mixed": [], "_fetch_chunk": []}
+
+    def timed(name):
+        fn = getattr(batcher, name)
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[name].append(time.perf_counter() - t)
+        return run
+
+    for name in host:
+        setattr(batcher, name, timed(name))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = batcher.run(on_tokens=on_tokens)
+    finally:
+        for name in host:
+            delattr(batcher, name)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(long), f"{label}: the long prompt was never submitted")
+    long_rid, t_sub = long[0]
+    first = deliveries[long_rid][0]
+    before, during, at = [], [], []
+    for r in shorts:
+        times = deliveries[r]
+        for a, b in zip(times, times[1:]):
+            if b <= t_sub:
+                before.append(b - a)
+            elif a < first:
+                during.append(b - a)
+                at.append(b - t_sub)
+    check(bool(during), f"{label}: no short stream decoded while the long "
+          "prompt admitted")
+    out = [res[r] for r in shorts] + [res[long_rid]]
+    check(all(len(t) == SHORT_NEW for t in out[:3]) and len(out[3]) == 16,
+          f"{label}: a request ended early")
+    emit("serve_long", path=label, schedule=batcher.sched.name,
+         prompt_tokens=LONG_PROMPT_BYTES + 1, prefill_chunk=PREFILL_CHUNK,
+         short_new_tokens=SHORT_NEW, ttft_s=first - t_sub, wall_s=wall,
+         short_gap_ms_before={"median": 1e3 * sorted(before)[len(before) // 2]
+                              if before else "not measured",
+                              "max": 1e3 * max(before) if before else
+                              "not measured"},
+         short_gap_ms_while_admitting={
+             "median": 1e3 * sorted(during)[len(during) // 2],
+             "max": 1e3 * max(during), "deliveries": len(during),
+             "max_ends_s_after_arrival": at[during.index(max(during))]},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         host_ms={name: {"calls": len(v), "first": 1e3 * v[0],
+                         "median": 1e3 * sorted(v)[len(v) // 2],
+                         "max": 1e3 * max(v)} if v else "none"
+                  for name, v in host.items()},
+         dispatched_ahead=batcher.overlap_stats["dispatched_ahead"],
+         carry_syncs=batcher.overlap_stats["carry_syncs"])
+    return out
+
+
+def serve_long(torch) -> int:
+    """Path h: ``dlt-serve-torch --preset mistral-7b --max-len 32768 --slots
+    4 --prefill-chunk 1024`` (contiguous, dense ``attn_impl="dot"``,
+    window 4096, the mixed schedule) answers the HTTP burst, then runs the
+    engine-side traffic; then the same server with ``--schedule
+    alternate`` runs the engine-side traffic too.  The short greedy
+    streams must be identical under the two schedules.  Returns K2's
+    launches on the HTTP burst."""
+    from distributed_llms_tpu_torch.cli import serve_main
+
+    launches, server, _ = serve_path(
+        torch, "long_context", SERVE_LONG_ARGS, {"ragged_decode_attention": 1},
+        _serve_long_requests, _mistral_7b)
+    b = server.batcher
+    check(not b.paged and b.s == LONG_MAX_LEN and b.cfg.attn_impl == "dot"
+          and b.sched.name == "mixed" and b.overlap,
+          "long_context: not contiguous dense mixed at 32768 slots")
+    mixed = long_context_run(torch, b, "long_context")
+    del server, b
+    _free(torch)
+    alt_server = serve_main.build_server(serve_main.parser().parse_args(
+        SERVE_LONG_ARGS + ["--schedule", "alternate"]))
+    check(alt_server.batcher.sched.name == "alternate",
+          "long_context: --schedule alternate not taken")
+    alternate = long_context_run(torch, alt_server.batcher,
+                                 "long_context_alternate")
+    del alt_server
+    _free(torch)
+    emit("serve_long_streams", short_streams_identical=mixed[:3] ==
+         alternate[:3], long_stream_identical=mixed[3] == alternate[3])
+    check(mixed[:3] == alternate[:3],
+          "long_context: the short greedy streams differ between the mixed "
+          "and alternate schedules")
+    return launches["ragged_decode_attention"]
 
 
 def _kernel_class(name: str) -> str:

@@ -6,7 +6,10 @@ paged, prefix-cached continuous batcher (``--kv-bits 8``: int8 pages) in
 the OpenAI-style HTTP gateway (runtime/server.py), and serves until
 SIGTERM/SIGINT.  Without ``--paged-pages`` (or with ``--paged-pages 0``)
 the batcher serves contiguous mode, the one mode for sliding-window
-models: ``dlt-serve-torch --preset mistral-7b --max-len 6144``.
+models: ``dlt-serve-torch --preset mistral-7b --max-len 6144``, or at the
+model's whole context with chunked prefill: ``dlt-serve-torch --preset
+mistral-7b --max-len 32768 --prefill-chunk 1024``.  The engine loop
+dispatches ahead unless ``--overlap off``.
 ``dlt-serve-torch --store DIR`` serves a shard store instead (model
 config and tokenizer from its manifest); with ``--override
 runtime.serve_quantized=true`` an int8/int4 store keeps its decoder-block
@@ -37,8 +40,6 @@ log = get_logger("serve_main")
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
     "host_pages": "the host-RAM KV tier (--host-pages)",
-    "token_budget": "the mixed schedule's token budget (--token-budget)",
-    "prefill_chunk": "chunked prefill (--prefill-chunk)",
     "spec_decode": "speculative decoding (--spec-decode)",
     "constrained": "constrained output (--constrained)",
     "tenant_weights": "multi-tenant scheduling (--tenant-weights)",
@@ -48,8 +49,8 @@ _LATER_SLICE_FLAGS: dict[str, str] = {
     "disaggregate": "disaggregated prefill/decode (--disaggregate)",
     "fault": "fault injection (--fault)",
 }
-_LATER_SLICE_DEFAULTS = {"host_pages": 0, "token_budget": 0,
-                         "replicas": 1, "disaggregate": False, "fault": []}
+_LATER_SLICE_DEFAULTS = {"host_pages": 0, "replicas": 1,
+                         "disaggregate": False, "fault": []}
 
 
 def _refuse_later_slices(args) -> None:
@@ -59,10 +60,6 @@ def _refuse_later_slices(args) -> None:
         # port already does.
         if value not in (None, False) and value != _LATER_SLICE_DEFAULTS.get(dest):
             raise NotImplementedError(f"{what} is not ported yet")
-    if args.overlap == "on":
-        raise NotImplementedError(
-            "the dispatch-ahead overlap loop (--overlap on) is not ported yet"
-        )
 
 
 def _build_engine(args):
@@ -105,12 +102,16 @@ def _server_factory(args, engine, default_name, rt):
             batch_slots=args.slots,
             max_len=args.max_len,
             chunk_steps=args.chunk_steps,
+            prefill_chunk=args.prefill_chunk,
+            prefill_concurrency=args.prefill_concurrency,
             paged_pages=args.paged_pages,
             page_size=args.page_size,
             prefix_cache=args.prefix_cache,
             kv_bits=args.kv_bits,
-            overlap=args.overlap == "on",
+            overlap=(None if args.overlap is None
+                     else args.overlap == "on"),
             schedule=args.schedule,
+            token_budget=args.token_budget,
         )
 
     def make_server():
@@ -209,10 +210,34 @@ def parser() -> argparse.ArgumentParser:
                          "Default: runtime.kv_bits (16)")
     ap.add_argument("--schedule", choices=["mixed", "alternate"],
                     default=None,
-                    help="scheduling policy (default: runtime.schedule)")
-    ap.add_argument("--overlap", choices=["on", "off"], default="off",
-                    help="dispatch-ahead engine loop (not ported yet: "
-                         "only 'off')")
+                    help="scheduling policy: 'mixed' runs pending prefill "
+                         "bites in the decode step, so decode rows never "
+                         "stall for a serialized prefill forward; "
+                         "'alternate' runs them as rounds of their own.  "
+                         "Temp-0 tokens identical either way (default: "
+                         "runtime.schedule, mixed)")
+    ap.add_argument("--overlap", choices=["on", "off"], default=None,
+                    help="dispatch-ahead engine loop: chunk N+1 dispatches "
+                         "from chunk N's carry on the device while chunk "
+                         "N's host work (delivery, digest hashing, "
+                         "metrics) runs.  Temp-0 tokens identical on or "
+                         "off; gauges under batcher_overlap_* on /metrics "
+                         "(default: runtime.overlap, on)")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="per-step token budget of the mixed schedule: "
+                         "each fused step runs one decode leg per active "
+                         "slot plus up to budget - n_active prefill "
+                         "tokens; prompts longer than the budget "
+                         "auto-chunk.  0 = prefill-chunk-sized bites "
+                         "(default: runtime.token_budget)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: admit at most this many prompt "
+                         "tokens per scheduling round per pending prefill, "
+                         "so long prompts never stall in-flight decodes "
+                         "(default: monolithic admission)")
+    ap.add_argument("--prefill-concurrency", type=int, default=2,
+                    help="chunked prefills in flight at once (per-round "
+                         "prefill work is bounded by prefill-chunk x this)")
     ap.add_argument("--max-pending", type=int, default=256,
                     help="in-flight request cap before 429s")
     ap.add_argument("--drain-timeout", type=float, default=30.0,
@@ -232,10 +257,6 @@ def parser() -> argparse.ArgumentParser:
                          "for this many seconds")
     # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--host-pages", type=int, default=None,
-                    help="not ported yet")
-    ap.add_argument("--token-budget", type=int, default=None,
-                    help="not ported yet")
-    ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="not ported yet")
     ap.add_argument("--spec-decode", action=argparse.BooleanOptionalAction,
                     default=None, help="not ported yet")

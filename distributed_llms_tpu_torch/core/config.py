@@ -256,10 +256,11 @@ class RuntimeConfig:
     # restores instead of re-prefilling).  0 disables.
     host_pages: int = 0
     # Dispatch-ahead engine loop: while no scheduling work is pending,
-    # decode chunk N+1 dispatches from chunk N's device-resident carry.
-    # Not ported yet: the port runs the fully-synchronous loop (one host
-    # round-trip per chunk), so its default is off and True is refused.
-    overlap: bool = False
+    # decode chunk N+1 dispatches from chunk N's device-resident carry
+    # and chunk N's host work (token copy, delivery, digest hashing,
+    # metrics) runs while N+1 executes.  Temp-0 outputs are identical to
+    # the synchronous loop (overlap=False).
+    overlap: bool = True
     # Scheduling policy (runtime/scheduler.py): "mixed" (default) fuses
     # pending prefill-chunk bites into the decode step as one compiled
     # token-budget program, so resident decode rows never stall for a

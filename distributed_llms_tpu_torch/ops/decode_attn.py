@@ -42,7 +42,10 @@ Each kernel counts its launches: ``paged_decode_attention.launches`` (K1),
 ``paged_decode_attention.int8_launches`` (K1q),
 ``ragged_decode_attention.launches`` (K2) and
 ``ragged_decode_attention.int8_launches`` (K2q).  A call counts one launch,
-whether or not its merge kernel runs.
+whether or not its merge kernel runs.  Every launch goes to
+``torch.cuda.current_stream()``, so a decode chunk captured as a CUDA graph
+records it (``runtime/chunk_graph.py``); a capture launches nothing, so its
+count is taken back there, and each replay adds the launches it recorded.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ An int4 weight must pack its pairs along its last contracted axis (the
 layout ``checkpoint.quantize.quantize_tree`` writes); any other packing
 raises ``NotImplementedError``.  The kernel counts its launches per width:
 ``quant_matmul.launches`` (int8) and ``quant_matmul.int4_launches``, one
-a call.
+a call; a launch recorded in a decode chunk's CUDA graph counts at each
+replay instead (``runtime/chunk_graph.py``).  The launch, the cluster launch
+included, goes to ``torch.cuda.current_stream()``, which is what a capture
+records.
 
 On bf16 activations the kernel splits K over separate blocks where the
 output alone would not fill the card (decode): :func:`qmm_plan` picks the

@@ -20,24 +20,41 @@ generating.  Two cache modes, as in the reference:
   byte-identical digests) and later admissions reuse the longest cached
   run copy-free through their page tables, prefilling only the suffix.
 
+A prompt longer than the scheduler's chunk threshold (``prefill_chunk``,
+or ``token_budget`` under the mixed schedule) prefills in bites into a
+transient row, ``prefill_concurrency`` prompts at a time, and splices
+into the cache only when complete.  The mixed schedule (the default) runs
+each bite in the same step as the decode chunk of the live rows; the
+alternate schedule runs bites as rounds of their own.
+
+The engine loop dispatches ahead (``overlap=True``, the default): while no
+scheduling work is pending, chunk N+1 is dispatched from chunk N's carry on
+the device, and chunk N's host work (its one batched copy to the host,
+delivery, digest hashing, metrics) runs while N+1 executes.  Every
+scheduling decision still runs against host mirrors synced at the span's
+end, so temperature-0 outputs are identical with the overlap off.
+
 Device programs (the JAX package's jitted functions, same names):
 ``admit_row`` (prefill into a transient row, spliced into the slot's
 row), ``admit_row_paged`` / ``admit_row_auto_paged`` (the same, spliced
-into pool pages — quantized once there in an int8 pool) and
-``decode_chunk`` (K decode steps for every slot; each step's attention is
-a decode kernel of ``ops/decode_attn.py``).  Caches are updated IN PLACE
-where the JAX programs donate them.  Host scheduling state lives in numpy
-mirrors synced once per chunk.
+into pool pages — quantized once there in an int8 pool),
+``prefill_chunk_step`` / ``finish_chunked_admission(_paged)`` (one bite;
+the finishing splice), ``decode_chunk`` (K decode steps for every slot;
+each step's attention is a decode kernel of ``ops/decode_attn.py``; on
+CUDA tensors a replay of a captured graph, ``runtime/chunk_graph.py``) and
+``mixed_step`` (one bite, then a decode chunk).  Caches are updated IN
+PLACE where the JAX programs donate them.  Host scheduling state lives in
+numpy mirrors synced once per span.
 
-Invariant (tests/test_torch_batcher_modes.py, tests/test_torch_serving.py):
-at temperature 0 the token streams equal the JAX batcher's on the same
+Invariant (tests/test_torch_batcher_modes.py, tests/test_torch_serving.py,
+tests/test_torch_overlap.py, tests/test_torch_chunked_prefill.py): at
+temperature 0 the token streams equal the JAX batcher's on the same
 weights and prompts.
 
-Not ported yet: chunked prefill and token budgets, the dispatch-ahead
-overlap loop and the host-RAM tier (the constructor refuses each with
-``NotImplementedError``), and speculative decoding, constrained output,
-presence/frequency penalties, named prefixes, tenants, meshes and fault
-injection (absent from the API).
+Not ported yet: the host-RAM tier (the constructor refuses ``host_pages``
+with ``NotImplementedError``), and speculative decoding, constrained
+output, presence/frequency penalties, named prefixes, tenants, meshes and
+fault injection (absent from the API).
 """
 
 from __future__ import annotations
@@ -56,12 +73,12 @@ import torch
 from ..core.config import ModelConfig
 from ..core.observability import METRICS, get_logger
 from ..models import model as model_lib
-from ..checkpoint.quantize import kv_dequantize, kv_quantize
+from ..checkpoint.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..models.model import KVCache, QuantKVCache
-from . import sampling
-from .scheduler import make_scheduler
+from . import chunk_graph, sampling
+from .scheduler import SyncView, make_scheduler
 from .session import continuation_mask
-from .shapes import bucket_length as _bucket
+from .shapes import BUCKET_FLOOR, bucket_length as _bucket
 
 log = get_logger("batcher")
 
@@ -277,16 +294,76 @@ def admit_row_auto_paged(params, cfg, cache, read_list, write_list,
                          topp_req, topk_req)
 
 
-def _decode_steps(params, cfg, cache, last_tok, real_lens, active, budget,
-                  generator, chunk_steps, temperature, top_k, top_p, eos_id,
-                  pad_id, tables, temp_row=None, topp_row=None,
-                  topk_row=None):
-    """K decode steps for every slot, on device with no host sync.  Each
-    step is ONE batched forward with per-row positions and write slots.
-    Validity is implicit in ``real_lens`` (the decode kernels' prefix
-    contract): paged mode reads and writes through the page table;
-    contiguous mode writes slot ``real_lens[b]`` of row b and attends its
-    prefix (or window band) through the ragged kernel."""
+def prefill_chunk_step(params, cfg, row_k, row_v, done, chunk, clen):
+    """One bite of a CHUNKED prefill — the one definition shared by the
+    alternate schedule's rounds and the fused :func:`mixed_step` (the
+    reference's ``prefill_chunk_step`` and ``_prefill_leg``): consume
+    ``chunk`` [Tc] (right-padded, ``clen`` real tokens) into the transient
+    row at offset ``done`` (host ints) — the prefix-cached admission's
+    continuation math, the "prefix" being the row's own partial prompt.
+    The row is updated in place.  Returns (row_k, row_v, last_logits [1, V]
+    at the bite's last real position)."""
+    logits, row_cache = _prefill_row_with_prefix(params, cfg, row_k, row_v,
+                                                 done, chunk)
+    return row_cache.k, row_cache.v, logits[:, max(clen - 1, 0)]
+
+
+def finish_chunked_admission(cache, slot, row_k, row_v, last_logits,
+                             total_len, generator, temperature=0.0, top_k=0,
+                             top_p=1.0, temp_req=None, topp_req=None,
+                             topk_req=None):
+    """Tail of a chunked admission: sample the first token from the last
+    bite's logits and splice the prefilled transient row into row
+    ``slot`` — the monolithic paths' :func:`_finish_admission`.  Returns
+    (cache, tok, row_valid, logprob)."""
+    return _finish_admission(cache, slot, KVCache(k=row_k, v=row_v),
+                             last_logits[:, None, :], 1, generator,
+                             temperature, top_k, top_p, total_len, temp_req,
+                             topp_req, topk_req)
+
+
+def finish_chunked_admission_paged(cache, page_list, row_k, row_v,
+                                   last_logits, generator, temperature=0.0,
+                                   top_k=0, top_p=1.0, temp_req=None,
+                                   topp_req=None, topk_req=None):
+    """Tail of a chunked admission in paged mode: the first token from the
+    last bite's logits, the transient row's pages scattered into the pool
+    through ``page_list`` — :func:`_paged_splice`, as every monolithic
+    paged admission.  Pages are allocated only here: a long prompt pins no
+    pool page while it chunks in.  Returns (cache, tok, logprob)."""
+    return _paged_splice(cache, page_list, KVCache(k=row_k, v=row_v),
+                         last_logits[:, None, :], 1, generator, temperature,
+                         top_k, top_p, temp_req, topp_req, topk_req)
+
+
+# The scheduling carry of a decode chunk: one [4, B] int32 tensor whose rows
+# are (last_tok, real_lens, active as 0/1, budget), so a chunk's carry feeds
+# the next chunk, or returns to the host, in one copy.
+CARRY_ROWS = 4
+
+
+def unpack_chunk(packed: np.ndarray, b: int, k: int):
+    """A chunk's packed output on the host, [2*B*K + 4*B] int32 -> (toks
+    [B, K] int32, logprobs [B, K] float32, carry [4, B] int32): views."""
+    n = b * k
+    return (packed[:n].reshape(b, k),
+            packed[n:2 * n].view(np.float32).reshape(b, k),
+            packed[2 * n:].reshape(CARRY_ROWS, b))
+
+
+def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
+                  temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
+                  tables=None, temp_row=None, topp_row=None, topk_row=None):
+    """K decode steps for every slot, on device with no host sync, each
+    kernel launched from here (:func:`decode_chunk` replays them from a
+    graph on the card).  Each step is ONE batched forward with per-row
+    positions and write slots.  Validity is implicit in ``real_lens`` (the
+    decode kernels' prefix contract): paged mode reads and writes through
+    the page table; contiguous mode writes slot ``real_lens[b]`` of row b
+    and attends its prefix (or window band) through the ragged kernel.
+    Returns the packed output (:func:`unpack_chunk`)."""
+    last_tok, real_lens, active, budget = (carry[0], carry[1],
+                                           carry[2].bool(), carry[3])
     toks, lps = [], []
     for _ in range(chunk_steps):
         was_active = active
@@ -315,23 +392,74 @@ def _decode_steps(params, cfg, cache, last_tok, real_lens, active, budget,
         )[:, 0]
         lps.append(torch.where(was_active, lp, 0.0))
         last_tok = torch.where(was_active, tok, last_tok)
-    return (torch.stack(toks, dim=1), cache, last_tok, real_lens, active,
-            budget, torch.stack(lps, dim=1))
+    return torch.cat([torch.stack(toks, dim=1).reshape(-1),
+                      torch.stack(lps, dim=1).reshape(-1).view(torch.int32),
+                      last_tok, real_lens, active.to(torch.int32), budget])
 
 
-def decode_chunk(params, cfg, cache, last_tok, real_lens, active, budget,
-                 generator, chunk_steps, temperature=0.0, top_k=0, top_p=1.0,
-                 eos_id=-1, pad_id=0, tables=None, temp_row=None,
-                 topp_row=None, topk_row=None):
+def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
+                 temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
+                 tables=None, temp_row=None, topp_row=None, topk_row=None,
+                 graphs=None):
     """K decode steps with per-row positions over the page pool
-    (``tables``) or the contiguous cache (``tables=None``).  Returns
-    (toks [B, K], cache, last_tok', real_lens', active', budget',
-    logprobs [B, K]).  ``temp_row``/``topp_row``/``topk_row`` switch to
-    per-row sampling (sampling.sample_rows)."""
-    return _decode_steps(params, cfg, cache, last_tok, real_lens, active,
-                         budget, generator, chunk_steps, temperature, top_k,
-                         top_p, eos_id, pad_id, tables, temp_row, topp_row,
-                         topk_row)
+    (``tables``) or the contiguous cache (``tables=None``), from ``carry``
+    [4, B] int32 (:data:`CARRY_ROWS`).  Returns the packed output (see
+    :func:`unpack_chunk`); the cache is written in place.
+    ``temp_row``/``topp_row``/``topk_row`` switch to per-row sampling
+    (sampling.sample_rows).
+
+    On CPU tensors the steps run eagerly.  On CUDA tensors they replay the
+    captured graph of this plan in ``graphs`` (a
+    :class:`~.chunk_graph.ChunkGraphs` tied to this cache and these
+    weights; the JAX package's counterpart is the jitted program): the
+    key is the batch and step count, the cache kind and table width, the
+    weights' quantization, the per-row arrays present and the sampling
+    scalars."""
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+              eos_id=eos_id, pad_id=pad_id)
+    if not carry.is_cuda:
+        return _decode_steps(params, cfg, cache, carry, generator,
+                             chunk_steps, tables=tables, temp_row=temp_row,
+                             topp_row=topp_row, topk_row=topk_row, **kw)
+    if graphs is None:
+        raise ValueError(
+            "a decode chunk on CUDA tensors replays a captured graph; pass "
+            "graphs (runtime.chunk_graph.ChunkGraphs)"
+        )
+    inputs = {"carry": carry}
+    for name, t in (("tables", tables), ("temp_row", temp_row),
+                    ("topp_row", topp_row), ("topk_row", topk_row)):
+        if t is not None:
+            inputs[name] = t
+    quantized = isinstance(params["blocks"]["attn"]["wq"], QuantizedTensor)
+    key = (chunk_steps, tuple(sorted(kw.items())), type(cache).__name__,
+           cache.k.dtype, quantized,
+           tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
+
+    def chunk(ins):
+        return _decode_steps(params, cfg, cache, ins["carry"], generator,
+                             chunk_steps, tables=ins.get("tables"),
+                             temp_row=ins.get("temp_row"),
+                             topp_row=ins.get("topp_row"),
+                             topk_row=ins.get("topk_row"), **kw)
+
+    return graphs.run(key, chunk, inputs, generator)
+
+
+def mixed_step(params, cfg, cache, carry, generator, chunk_steps, row_k,
+               row_v, done, pchunk, pclen, graphs=None, **decode_kw):
+    """ONE fused token-budget step (``schedule=mixed``): a bite of the head
+    pending prefill (:func:`prefill_chunk_step`, launched eagerly: its offset
+    ``done`` is a host int and its width varies) and then
+    :func:`decode_chunk` for every slot, on one stream with no host sync
+    between them.  The legs touch disjoint buffers (the transient row vs
+    the shared cache), so fusion changes dispatch, never bytes.  Returns
+    (packed decode output, row_k, row_v, last_logits [1, V])."""
+    prow_k, prow_v, plast = prefill_chunk_step(params, cfg, row_k, row_v,
+                                               done, pchunk, pclen)
+    packed = decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
+                          graphs=graphs, **decode_kw)
+    return packed, prow_k, prow_v, plast
 
 
 @dataclass(eq=False)  # identity equality: deque.remove compares pointers
@@ -591,8 +719,31 @@ class PagePool:
 
 
 @dataclass
+class _PendingPrefill:
+    """A chunked prefill in flight: the prompt enters the row's TRANSIENT
+    single-row cache a bite per scheduling round (decode interleaves) and
+    splices into the shared cache only when complete."""
+
+    req: _Request
+    row_k: Any          # transient [L, 1, S, KVH, HD] accumulating KV
+    row_v: Any
+    done: int           # prompt tokens already consumed (incl. cached ones)
+    total_len: int
+    last_logits: Any | None = None  # [1, V] after the latest bite
+    # Automatic prefix-cache hit (paged mode): the cached page run seeding
+    # the transient row, RETAINED for the whole prefill (mirrored into the
+    # reserving row's ``pages`` so cancel / preemption release them); the
+    # finishing splice routes their positions to the scratch page.
+    cached_pages: list[int] = field(default_factory=list)
+    cached_len: int = 0
+    digests: list = field(default_factory=list)
+
+
+@dataclass
 class _RowState:
     rid: int | None = None
+    prefilling: bool = False  # chunked prefill in flight: the slot is
+    #                           reserved but must not publish or decode yet
     req: "_Request | None" = None  # as admitted — preemption rebuilds from it
     priority: int = 0   # mirror of req.priority (victim selection)
     admit_seq: int = 0  # among equal priorities the MOST recently admitted
@@ -642,10 +793,24 @@ class ContinuousBatcher:
         #   = contiguous mode (each slot owns a max_len-slot cache row)
         page_size: int = 64,
         prefix_cache: bool = False,  # automatic prefix caching (paged)
-        overlap: bool = False,  # dispatch-ahead loop: later slice
+        # Dispatch-ahead engine loop: while no scheduling work is pending
+        # (nothing queued, no prefill to finish, no growth under pressure,
+        # no cancel), chunk N+1 dispatches from chunk N's carry on the
+        # device while chunk N's host work runs.  Temp-0 outputs are
+        # identical with it off.
+        overlap: bool = True,
+        # "mixed" fuses pending prefill bites into the decode step;
+        # "alternate" runs them as serialized rounds (runtime/scheduler.py).
         schedule: str = "mixed",
-        prefill_chunk: int | None = None,  # chunked prefill: later slice
-        token_budget: int | None = None,   # mixed bites: later slice
+        # Chunked prefill: a prompt longer than this prefills at most this
+        # many tokens per round (None = monolithic admission), up to
+        # ``prefill_concurrency`` prompts at once.
+        prefill_chunk: int | None = None,
+        prefill_concurrency: int = 2,
+        # The mixed step's per-step token budget: one decode leg per live
+        # row plus up to token_budget - n_active prompt tokens; set, it
+        # also auto-chunks prompts longer than the budget.
+        token_budget: int | None = None,
         kv_bits: int = 16,                 # 8 = int8 pool pages (paged)
         host_pages: int = 0,               # host-RAM tier: later slice
         # The lockstep clock: the one time source scheduling DECISIONS may
@@ -659,12 +824,6 @@ class ContinuousBatcher:
         }
         self._clock = clock if clock is not None else time.perf_counter
         model_lib.check_supported(cfg)
-        if overlap:
-            _refuse("the dispatch-ahead overlap loop (overlap=True)")
-        if prefill_chunk is not None:
-            _refuse("chunked prefill (prefill_chunk)")
-        if token_budget is not None:
-            _refuse("the mixed schedule's token budget (token_budget)")
         if host_pages:
             _refuse("the host-RAM KV tier (host_pages)")
         # The reference's checks, with its messages.
@@ -697,12 +856,28 @@ class ContinuousBatcher:
                     f"paged_pages {paged_pages} cannot hold even one "
                     f"full-depth row (+1 scratch page)"
                 )
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}"
+            )
+        if prefill_concurrency < 1:
+            raise ValueError(
+                f"prefill_concurrency must be >= 1, got "
+                f"{prefill_concurrency}"
+            )
         if prefix_cache and paged_pages is None:
             raise ValueError(
                 "automatic prefix caching runs over the paged KV pool; "
                 "pass paged_pages"
             )
-        self.sched = make_scheduler(schedule, chunk_steps=chunk_steps)
+        self.prefill_chunk = prefill_chunk
+        self.prefill_concurrency = prefill_concurrency
+        self.sched = make_scheduler(
+            schedule, chunk_steps=chunk_steps, prefill_chunk=prefill_chunk,
+            prefill_concurrency=prefill_concurrency,
+            token_budget=token_budget,
+        )
+        self._prefills: dict[int, _PendingPrefill] = {}  # slot -> pending
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["wte"].device
@@ -773,6 +948,23 @@ class ContinuousBatcher:
         self._gen.manual_seed(seed)
         self._next_rid = 0  # guarded-by: self._lock
         self._on_tokens = None  # set per run() call (streaming callback)
+        # The decode chunks' CUDA graphs (runtime/chunk_graph.py): tied to
+        # this cache and these weights, so they live and die with them.
+        self._graphs = chunk_graph.ChunkGraphs()
+        # Dispatch-ahead engine loop: per-batcher counters (mirrored into
+        # METRICS as batcher.overlap.*).  ``_cancel_dirty`` flags a
+        # resident-row cancel taken while the carry was on the device (the
+        # next boundary must sync); ``_tables_dirty`` a table grown inside
+        # a span; ``_t_complete`` when the host last saw a chunk complete
+        # (the device-gap metric's reference point).
+        self.overlap = bool(overlap)
+        self.overlap_stats = {
+            "chunks": 0, "dispatched_ahead": 0, "carry_syncs": 0,
+            "host_lag_s": 0.0, "device_gap_s": 0.0, "gap_samples": 0,
+        }
+        self._cancel_dirty = False
+        self._tables_dirty = False
+        self._t_complete: float | None = None
 
     # -- paged pool (PagePool: refcounted, prefix-cache LRU) ---------------
 
@@ -799,7 +991,13 @@ class ContinuousBatcher:
                                         kv_bits=self.kv_bits)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A device copy of a host array: on CUDA through pinned memory
+        without a host sync (the pinned block is not reused before the
+        copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # -- crash recovery ----------------------------------------------------
 
@@ -929,11 +1127,19 @@ class ContinuousBatcher:
                 if row.pages:
                     self.pool.release(row.pages)
                     self.tables[i] = 0
+                # A chunked prefill in flight drops its transient row:
+                # nothing reached the shared cache yet.
+                self._prefills.pop(i, None)
                 if row.req is not None:
                     self.sched.note_freed(row.req, len(row.emitted))
                 self.rows[i] = _RowState()
                 self.active[i] = False
                 self.budget[i] = 0
+                # With the carry on the device (a span dispatching ahead)
+                # the device still runs this row: the next chunk boundary
+                # must sync, so the cancel lands there as it does on the
+                # synchronous loop.
+                self._cancel_dirty = True
                 METRICS.inc("batcher.cancelled")
                 return True
         return False
@@ -1002,15 +1208,22 @@ class ContinuousBatcher:
         so temperature-0 streams stay exact."""
         row = self.rows[i]
         req = row.req
-        prior = list(req.resume_emitted or [])
-        base_ids = req.ids[: len(req.ids) - len(prior)] if prior else req.ids
-        resume = _Request(
-            req.rid, list(base_ids) + list(row.emitted),
-            max(1, row.remaining), temperature=req.temperature,
-            top_p=req.top_p, top_k=req.top_k, prefix_cache=req.prefix_cache,
-            priority=req.priority, deadline=req.deadline,
-            resume_emitted=list(row.emitted), resume_lps=list(row.lps),
-        )
+        if self._prefills.pop(i, None) is not None or row.prefilling:
+            # A chunked prefill in flight: nothing reached the pool yet —
+            # drop the transient row and requeue the request as it was.
+            resume = req
+        else:
+            prior = list(req.resume_emitted or [])
+            base_ids = (req.ids[: len(req.ids) - len(prior)] if prior
+                        else req.ids)
+            resume = _Request(
+                req.rid, list(base_ids) + list(row.emitted),
+                max(1, row.remaining), temperature=req.temperature,
+                top_p=req.top_p, top_k=req.top_k,
+                prefix_cache=req.prefix_cache, priority=req.priority,
+                deadline=req.deadline, resume_emitted=list(row.emitted),
+                resume_lps=list(row.lps),
+            )
         freed = len(row.pages)
         if row.pages:
             self.pool.release(row.pages)
@@ -1100,7 +1313,7 @@ class ContinuousBatcher:
         blk = self.page_size
         for i in range(self.b):
             row = self.rows[i]
-            if row.rid is None or not self.active[i]:
+            if row.rid is None or not self.active[i] or row.prefilling:
                 continue
             horizon = int(self.real_lens[i]) + min(
                 self.chunk_steps, int(self.budget[i])
@@ -1137,6 +1350,15 @@ class ContinuousBatcher:
 
     def _admit_pending(self) -> None:
         self._shed_expired_queued()
+        # Advance the pending chunked prefills.  ALTERNATE: one serialized
+        # bite per prefill per round.  MIXED: while decode rows are live
+        # the bites ride the fused step (_dispatch_mixed), so only a
+        # completed prompt's finishing splice runs here; with no decode
+        # row live the bite runs here.  Decided per slot: a splice earlier
+        # in this loop activates a decode row.
+        for slot in list(self._prefills):
+            fused = self.sched.fuse_prefill() and bool(self.active.any())
+            self._advance_chunk(slot, advance=not fused)
         while True:
             i = self._free_slot()
             if i is None:
@@ -1145,6 +1367,15 @@ class ContinuousBatcher:
             if req is None:
                 return
             total_len = len(req.ids)
+            thr = self.sched.chunk_threshold()
+            if thr is not None and total_len > thr:
+                if len(self._prefills) >= self.prefill_concurrency:
+                    # Prefill slots full; admission order is strict, so
+                    # the selected request is never jumped.
+                    return
+                self._unqueue(req)
+                self._start_chunked(i, req)
+                continue
             if not self.paged:
                 self._unqueue(req)
                 req_t, req_p, req_k, extra = self._request_sampling(req)
@@ -1201,6 +1432,163 @@ class ContinuousBatcher:
                                cached_pages + pages, req_k=req_k,
                                cached_len=cached_len)
 
+    # -- chunked prefill ---------------------------------------------------
+
+    def _start_chunked(self, i: int, req: _Request) -> None:
+        """Reserve slot ``i`` and begin a chunked prefill.  With the
+        automatic prefix cache, the prompt's full pages are hashed, the
+        longest cached run is retained for the whole prefill and gathered
+        into the transient row once, and only the un-cached suffix chunks
+        through the model (capped one page short of the prompt, so at least
+        one real token prefills)."""
+        cached_pages: list[int] = []
+        cached_len = 0
+        digests: list[bytes] = []
+        total_len = len(req.ids)
+        pc = self.prefix_cache
+        if pc is not None and req.prefix_cache:
+            blk = self.page_size
+            if req.digests is None:
+                req.digests = self._page_digests(req.ids, total_len // blk)
+            digests = req.digests
+            cached_pages = pc.match(digests[: (total_len - 1) // blk])
+            for p in cached_pages:
+                self.pool.retain(p)
+            cached_len = len(cached_pages) * blk
+            pc.record_lookup(cached_len, total_len - cached_len)
+        if cached_pages:
+            read_list = np.zeros((self.pages_per_row,), np.int32)
+            read_list[: len(cached_pages)] = cached_pages
+            row_k, row_v = _gather_row_pages(self.cache,
+                                             self._dev(read_list))
+        else:
+            rc = model_lib.init_cache(self.cfg, 1, self.s,
+                                      dtype=_row_dtype_of(self.cache),
+                                      device=self.device)
+            row_k, row_v = rc.k, rc.v
+        self._admit_seq += 1
+        # The reserving row holds the cached pages, so cancel / preemption
+        # release them and the pool audit sees the references (a
+        # prefilling row stays inactive: never a victim).
+        self.rows[i] = _RowState(rid=req.rid, prefilling=True,
+                                 remaining=req.max_new_tokens, req=req,
+                                 priority=req.priority,
+                                 admit_seq=self._admit_seq,
+                                 pages=list(cached_pages))
+        self._prefills[i] = _PendingPrefill(
+            req=req, row_k=row_k, row_v=row_v, done=cached_len,
+            total_len=total_len, cached_pages=cached_pages,
+            cached_len=cached_len, digests=digests,
+        )
+        # Alternate runs the first bite now; mixed defers it to the fused
+        # step whenever decode rows are live to stall.
+        self._advance_chunk(i, advance=not (self.sched.fuse_prefill()
+                                            and bool(self.active.any())))
+
+    def _mixed_width(self, done: int) -> int:
+        """Width of a bite's chunk, for both schedules: ONE bucket sized to
+        the policy's largest bite, so the mixed and alternate schedules
+        compute the same shapes (and on the card the same bits).  At the
+        row's tail, where done + width <= S must hold, the width shrinks
+        down the bucket ladder (:meth:`_clamp_bite` keeps every bite
+        boundary off the last sub-floor slots)."""
+        cap = self.sched.token_budget or self.sched.prefill_chunk or self.s
+        w = _bucket(min(cap, self.s))
+        room = self.s - done
+        while w > room and w > BUCKET_FLOOR:
+            w //= 2
+        return min(w, room)
+
+    def _clamp_bite(self, done: int, bite: int, total_len: int) -> int:
+        """Keep every bite boundary off the row's last sub-floor slots
+        (s - 8 < done' < total_len would force the next width off the
+        ladder): a bite ending there shortens to end on s - 8, and a bite
+        starting there finishes the prompt (at most 7 tokens)."""
+        if self.s - BUCKET_FLOOR <= done:
+            return total_len - done
+        end = done + bite
+        if end < total_len and self.s - end < BUCKET_FLOOR:
+            bite = (self.s - BUCKET_FLOOR) - done
+        return bite
+
+    def _next_bite(self, pp: _PendingPrefill, n_active: int):
+        """(bite, chunk) of ``pp``'s next prefill step: the scheduler's
+        bite against ``n_active`` decode rows, in a right-padded chunk of
+        :meth:`_mixed_width` tokens (a host array)."""
+        tw = self._mixed_width(pp.done)
+        bite = self._clamp_bite(
+            pp.done,
+            min(self.sched.prefill_bite(pp.total_len - pp.done, n_active),
+                tw),
+            pp.total_len,
+        )
+        bite = min(bite, tw)
+        chunk = np.full((tw,), self.pad_id, np.int32)
+        chunk[:bite] = pp.req.ids[pp.done: pp.done + bite]
+        return bite, chunk
+
+    def _advance_chunk(self, i: int, advance: bool = True) -> None:
+        """Consume one bite of slot ``i``'s pending prompt (``advance=False``
+        — the mixed schedule's fused step runs the bites — only checks for
+        the finish); finish the admission once the prompt is in.  In paged
+        mode the finish allocates the row's pages (prompt + one decode
+        page): a dry pool preempts a strictly lower-priority victim, else
+        the finish retries next round with the prefilled row kept."""
+        pp = self._prefills[i]
+        if advance and pp.done < pp.total_len:
+            bite, chunk = self._next_bite(pp, int(self.active.sum()))
+            pp.row_k, pp.row_v, pp.last_logits = prefill_chunk_step(
+                self.params, self.cfg, pp.row_k, pp.row_v, pp.done,
+                self._dev(chunk), bite,
+            )
+            pp.done += bite
+            METRICS.inc("batcher.prefill_chunks")
+            METRICS.inc("batcher.sched.prefill_tokens", bite)
+            if bool(self.active.any()):
+                # Live decode rows waited out this serialized bite: the
+                # stall the mixed schedule exists to remove.
+                METRICS.inc("batcher.sched.stall_rounds")
+        if pp.done < pp.total_len:
+            return
+        req = pp.req
+        req_t, req_p, req_k, extra = self._request_sampling(req)
+        if self.paged:
+            blk = self.page_size
+            n_cached = len(pp.cached_pages)
+            n_full = -(-(pp.total_len + req.max_new_tokens) // blk)
+            n_init = min(n_full, -(-pp.total_len // blk) + 1)
+            if not self._ensure_pages(n_init - n_cached,
+                                      below_priority=req.priority):
+                return  # retry the finish next round; the prefill is kept
+            # Table first, allocation last: nothing between the pool
+            # handing out pages and the table owning them may raise.
+            page_list = np.zeros((self.pages_per_row,), np.int32)
+            page_list[:n_cached] = pp.cached_pages
+            pages = self.pool.alloc(n_init - n_cached)
+            page_list[n_cached:n_init] = pages
+            self.tables[i] = page_list
+            # Cached positions scatter to the scratch page: the shared
+            # pages already hold that KV and other rows may read them.
+            write_list = page_list.copy()
+            write_list[:n_cached] = 0
+            self.cache, tok, lp = finish_chunked_admission_paged(
+                self.cache, self._dev(write_list), pp.row_k, pp.row_v,
+                pp.last_logits, self._gen, **self.sampling, **extra,
+            )
+            for j in range(n_cached, len(pp.digests)):
+                self.pool.publish_prefix(int(page_list[j]), pp.digests[j])
+            pages = pp.cached_pages + pages
+        else:
+            pages = []
+            self.cache, tok, row_valid, lp = finish_chunked_admission(
+                self.cache, i, pp.row_k, pp.row_v, pp.last_logits,
+                pp.total_len, self._gen, **self.sampling, **extra,
+            )
+            self.valid[i] = row_valid
+        del self._prefills[i]
+        self._activate_row(i, req, tok, lp, pp.total_len, req_t, req_p,
+                           pages, req_k=req_k, cached_len=pp.cached_len)
+
     def _activate_row(self, i, req, tok, lp, total_len, req_t, req_p, pages,
                       req_k=None, cached_len=0):
         """Host bookkeeping tail of every admission: record the sampled
@@ -1239,7 +1627,13 @@ class ContinuousBatcher:
         METRICS.inc("batcher.admitted")
 
     def _collect(self, toks: np.ndarray, was_active: np.ndarray,
-                 lps: np.ndarray | None = None) -> None:
+                 lps: np.ndarray | None = None,
+                 active_host: np.ndarray | None = None) -> None:
+        """Commit a chunk's tokens, publish the rows that finished, stream
+        the rest.  ``active_host``: the post-chunk activity vector — a
+        dispatched-ahead chunk passes its fetched one (the mirrors are
+        stale while the carry is on the device); None reads the synced
+        mirror."""
         for i in range(self.b):
             row = self.rows[i]
             if row.rid is None or not was_active[i]:
@@ -1254,10 +1648,14 @@ class ContinuousBatcher:
                 row.remaining -= 1
                 if t == self.eos_id:
                     break
-        # Rows that finished this chunk publish their result and free up.
+        # Rows that finished this chunk publish their result and free up
+        # (chunked prefills in flight are inactive but not finished).
+        if active_host is None:
+            active_host = self.active
         for i in range(self.b):
             row = self.rows[i]
-            if row.rid is not None and not self.active[i]:
+            if row.rid is not None and not active_host[i] \
+                    and not row.prefilling:
                 if self.eos_id >= 0 and self.eos_id in row.emitted:
                     cut = row.emitted.index(self.eos_id) + 1
                     row.emitted = row.emitted[:cut]
@@ -1291,6 +1689,8 @@ class ContinuousBatcher:
         ``on_tokens(rid, new_tokens, done, logprobs)`` streams
         incrementally: the admission token first, then each chunk's new
         tokens, and exactly once ``done=True`` with any final tokens.
+        With ``overlap`` on, a callback sees each chunk one dispatch later
+        than the synchronous loop would; the stream per rid is unchanged.
         Exceptions from the callback propagate (and abort the run); recover
         through :meth:`respawn`."""
         self._on_tokens = on_tokens
@@ -1300,6 +1700,8 @@ class ContinuousBatcher:
             self._on_tokens = None
 
     def _run_loop(self) -> dict[int, list[int]]:
+        self._t_complete = None  # a fresh run's first chunk follows no
+        #                          observed completion
         while self.has_queued() or bool(self.active.any()) or any(
             r.rid is not None for r in self.rows
         ):
@@ -1310,6 +1712,7 @@ class ContinuousBatcher:
             self._grow_rows()
             was_active = self.active.copy()
             if not was_active.any():
+                self._t_complete = None  # idle boundary: no chunk to gap
                 # Publish 1-token requests finished by admission alone.
                 self._collect(np.zeros((self.b, 0), np.int32), was_active)
                 if not self.has_queued() and all(
@@ -1320,14 +1723,21 @@ class ContinuousBatcher:
             self._decode_span(was_active)
         return dict(self.results)
 
+    # -- dispatch-ahead decode (the overlap plane) -------------------------
+
     def _span_plan(self) -> dict:
-        """The per-chunk program choice, from the host mirrors: the per-row
-        sampling path only while a custom-sampled row is live (the
-        all-default batch keeps the plain sampler; greedy is a bare
-        argmax)."""
+        """The plan of ONE decode span, decided from the fresh host mirrors
+        at span start and kept for every chunk the span dispatches ahead
+        (row sampling state changes only at admission, and a span never
+        admits): the per-row sampling path only while a custom-sampled
+        row is live (the all-default batch keeps the plain sampler; greedy
+        is a bare argmax), and under the mixed schedule the head pending
+        prefill — the first with prompt left — whose bites ride every
+        chunk."""
         plan: dict = {
             "tables": self._dev(self.tables) if self.paged else None
         }
+        self._tables_dirty = False  # the plan holds the current tables
         rows_live = self.active & (
             (self.temp_row != self.sampling["temperature"])
             | (self.topp_row != self.sampling["top_p"])
@@ -1344,64 +1754,261 @@ class ContinuousBatcher:
                 per_row["topk_row"] = self._dev(self.topk_row)
         plan["per_row"] = per_row
         plan["n_active"] = int(self.active.sum())
+        plan["mixed"] = None
+        if self.sched.fuse_prefill():
+            for slot, pp in self._prefills.items():
+                if pp.done < pp.total_len:
+                    plan["mixed"] = slot
+                    break
         return plan
 
-    def _dispatch_chunk(self, plan: dict) -> tuple:
-        """Dispatch one decode chunk from the host mirrors (returns device
-        tensors; nothing synchronises here)."""
+    def _dispatch_chunk(self, plan: dict, carry) -> torch.Tensor:
+        """Dispatch one decode chunk (a fused mixed step when the plan's
+        prefill still has prompt left) and return its packed output on the
+        device; nothing synchronises here.  ``carry``: None for the host
+        mirrors (a span's first chunk), else the previous chunk's carry on
+        the device."""
+        if carry is None:
+            carry = self._dev(np.stack([
+                self.last_tok, self.real_lens, self.active.astype(np.int32),
+                self.budget,
+            ]).astype(np.int32))
+        self.overlap_stats["chunks"] += 1
         METRICS.inc("batcher.sched.decode_tokens",
                     plan["n_active"] * self.chunk_steps)
-        (toks, self.cache, last_tok, real_lens, active, budget,
-         lps) = decode_chunk(
-            self.params, self.cfg, self.cache, self._dev(self.last_tok),
-            self._dev(self.real_lens), self._dev(self.active),
-            self._dev(self.budget), self._gen, self.chunk_steps,
-            eos_id=self.eos_id, pad_id=self.pad_id, tables=plan["tables"],
-            **self.sampling, **plan["per_row"],
-        )
+        kw = dict(eos_id=self.eos_id, pad_id=self.pad_id,
+                  tables=plan["tables"], graphs=self._graphs,
+                  **self.sampling, **plan["per_row"])
+        pp = (self._prefills.get(plan["mixed"])
+              if plan["mixed"] is not None else None)
+        if pp is not None and pp.done < pp.total_len:
+            packed = self._dispatch_mixed(plan, carry, pp, kw)
+        else:
+            packed = decode_chunk(self.params, self.cfg, self.cache, carry,
+                                  self._gen, self.chunk_steps, **kw)
         self.decode_steps += self.chunk_steps
-        return toks, lps, (last_tok, real_lens, active, budget)
+        return packed
 
-    def _sync_carry(self, out: tuple) -> tuple:
-        """Chunk boundary: the tokens, logprobs and scheduling carry return
-        to the host mirrors in one pass.  Slots whose host bookkeeping
-        dropped the row are forced inactive."""
-        toks, lps, carry = out
-        toks_h = toks.cpu().numpy()
-        lps_h = lps.cpu().numpy()
-        lt, rl, ac, bu = (t.cpu().numpy() for t in carry)
-        before = self.real_lens
-        self.last_tok = lt.astype(np.int32)
-        self.real_lens = rl.astype(np.int32)
-        self.active = ac.astype(bool)
-        self.budget = bu.astype(np.int32)
+    def _dispatch_mixed(self, plan: dict, carry, pp: _PendingPrefill,
+                        kw: dict) -> torch.Tensor:
+        """ONE fused token-budget step: the head pending prefill's next
+        bite, then the decode chunk.  ``pp.done`` advances at dispatch; the
+        transient row and its last logits stay on the device across
+        dispatched-ahead chunks, like the decode carry."""
+        bite, chunk = self._next_bite(pp, plan["n_active"])
+        packed, pp.row_k, pp.row_v, pp.last_logits = mixed_step(
+            self.params, self.cfg, self.cache, carry, self._gen,
+            self.chunk_steps, pp.row_k, pp.row_v, pp.done, self._dev(chunk),
+            bite, **kw,
+        )
+        pp.done += bite
+        METRICS.inc("batcher.prefill_chunks")
+        METRICS.inc("batcher.sched.prefill_tokens", bite)
+        budget_t = self.sched.token_budget or (plan["n_active"] + bite)
+        METRICS.inc("batcher.sched.budget_tokens", budget_t)
+        METRICS.set_gauge("batcher.sched.budget_utilization",
+                          (plan["n_active"] + bite) / max(budget_t, 1))
+        return packed
+
+    def _overlap_ok(self, was_active: np.ndarray, chunks: int) -> bool:
+        """Whether the NEXT chunk may dispatch ahead from the device carry:
+        nothing needs the host mirrors at this boundary — the scheduler's
+        ``sync_triggers`` over a host-state snapshot.  ``head_left`` is the
+        prompt the first prefill with work left still owes; any completed
+        prefill awaiting its finishing splice forces 0, so the finish runs
+        at the next boundary.  (The port has no KV imports.)"""
+        head_left = 0
+        for pp in self._prefills.values():
+            left = pp.total_len - pp.done
+            if left <= 0:
+                head_left = 0
+                break
+            if head_left == 0:
+                head_left = left
+        view = SyncView(
+            any_active=bool(was_active.any()),
+            cancel_dirty=self._cancel_dirty,
+            queued=self.has_queued(),
+            kv_imports=False,
+            prefills=len(self._prefills),
+            head_prefill_left=head_left,
+            live_budgets=tuple(
+                int(self.budget[i]) for i in range(self.b)
+                if self.rows[i].rid is not None and self.active[i]
+                and not self.rows[i].prefilling
+            ),
+            chunks_ahead=chunks,
+            grow_blocked=lambda: (
+                self.paged and not self._grow_ahead(chunks + 1)
+            ),
+        )
+        return not self.sched.sync_triggers(view)
+
+    def _note_gap(self, gap_s: float) -> None:
+        """Record one chunk's device gap: host time between the previous
+        chunk completing and this one dispatching.  A dispatched-ahead
+        chunk records 0: it was dispatched before its predecessor
+        completed, so the stream runs back to back."""
+        self.overlap_stats["device_gap_s"] += gap_s
+        self.overlap_stats["gap_samples"] += 1
+        METRICS.observe("batcher.overlap.device_gap_seconds", gap_s)
+
+    def _grow_ahead(self, horizon_chunks: int) -> bool:
+        """Page growth inside a span: rows grow against a CONSERVATIVE
+        frontier off the stale mirrors (``horizon_chunks`` chunks may have
+        advanced every row since the sync; the budget only shrinks, so
+        ``min(..., budget)`` stays an upper bound).  A live row
+        over-allocates at most one page; a row already dead on the device
+        may hold pages it never writes until its fetch publishes it.  Only
+        from spare capacity: growth that needs PRESSURE (preemption runs
+        on fresh mirrors) returns False and the span syncs."""
+        blk = self.page_size
+        for i in range(self.b):
+            row = self.rows[i]
+            if row.rid is None or not self.active[i] or row.prefilling:
+                continue
+            horizon = int(self.real_lens[i]) + min(
+                horizon_chunks * self.chunk_steps, int(self.budget[i])
+            )
+            need = -(-horizon // blk) - len(row.pages)
+            if need <= 0:
+                continue
+            if self.pool.available() < need:
+                return False  # pressure: sync and let _grow_rows preempt
+            have = len(row.pages)
+            fresh = self.pool.alloc(need)
+            row.pages.extend(fresh)
+            self.tables[i][have: have + need] = fresh
+            self._tables_dirty = True
+            METRICS.inc("batcher.pages_grown", need)
+        return True
+
+    def _fetch_chunk(self, packed: torch.Tensor):
+        """A chunk's packed output on the host — tokens, logprobs and the
+        carry in ONE copy (into pinned memory on CUDA) and one event wait,
+        unpacked (:func:`unpack_chunk`).  Blocks until the chunk completes;
+        a dispatched-ahead chunk already runs behind it."""
+        if packed.is_cuda:
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            packed = host
+        got = unpack_chunk(packed.numpy(), self.b, self.chunk_steps)
+        self._t_complete = time.perf_counter()
+        return got
+
+    def _sync_carry(self, packed: torch.Tensor, written: np.ndarray) -> tuple:
+        """Span end: the tokens, logprobs and the whole carry return to the
+        host mirrors in one copy.  Slots whose host bookkeeping dropped the
+        row while the carry was on the device (a cancel mid-span) are
+        forced inactive: their device activity bit is stale."""
+        toks_h, lps_h, carry = self._fetch_chunk(packed)
+        self.last_tok = carry[0].copy()
+        self.real_lens = carry[1].copy()
+        self.active = carry[2].astype(bool)
+        self.budget = carry[3].copy()
         for i in range(self.b):
             if self.rows[i].rid is None and self.active[i]:
                 self.active[i] = False
                 self.budget[i] = 0
+        self._cancel_dirty = False
         if not self.paged:
-            self._note_written(before)
+            self._note_written(written, self.real_lens)
         return toks_h, lps_h
 
-    def _note_written(self, before: np.ndarray) -> None:
-        """Contiguous mode: mark the slots this chunk's decode steps wrote
-        (an active row writes slot real_lens, then advances it: slots
-        [before, real_lens)), and check the contract the ragged kernel
-        reads by — a resident row's valid slots are exactly the prefix
-        [0, real_lens)."""
+    def _note_written(self, before: np.ndarray,
+                      after: np.ndarray) -> np.ndarray:
+        """Contiguous mode: mark the slots a chunk's decode steps wrote (an
+        active row writes slot real_lens, then advances it: slots [before,
+        after)), and check the contract the ragged kernel reads by — a
+        resident row's valid slots are exactly the prefix [0, after).
+        Called for every fetched chunk, not only at the span's sync.
+        Returns ``after``, the next chunk's ``before``."""
         slots = np.arange(self.s)[None, :]
-        prefix = slots < self.real_lens[:, None]
+        prefix = slots < after[:, None]
         self.valid |= prefix & (slots >= before[:, None])
-        resident = np.array([r.rid is not None for r in self.rows])
+        resident = np.array([r.rid is not None and not r.prefilling
+                             for r in self.rows])
         assert (self.valid[resident] == prefix[resident]).all(), (
             "a resident row's valid slots are not the prefix "
             "[0, real_lens) the ragged decode kernel reads"
         )
+        return after
+
+    def _prehash_queued(self) -> None:
+        """Overlapped host window: memoize the page digests of requests
+        that arrived while the span ran, so the next admission round (a
+        sync point: the device waits on it) finds the hashing done."""
+        if self.prefix_cache is None:
+            return
+        for req in self.queue_snapshot():
+            if req.digests is None and req.prefix_cache:
+                req.digests = self._page_digests(
+                    req.ids, len(req.ids) // self.page_size
+                )
 
     def _decode_span(self, was_active: np.ndarray) -> None:
-        """One decode chunk: dispatch from the fresh host mirrors, sync the
-        carry back, deliver.  (The JAX package dispatches further chunks
-        ahead from the device carry here; the port's loop is synchronous.)"""
+        """One decode SPAN: a first chunk dispatched from the fresh host
+        mirrors, then — while :meth:`_overlap_ok` holds — chunk N+1
+        dispatched from chunk N's carry on the device, with chunk N's host
+        work (its copy to the host, delivery, digest pre-hashing, metrics)
+        running while N+1 executes.  Every span ends by syncing the carry
+        into the host mirrors, so code outside the span always sees fresh
+        scheduling state: temperature-0 outputs are identical with the
+        overlap off."""
+        # Mirrors are fresh here (every span ends in _sync_carry): only a
+        # cancel taken DURING the span must force the next sync.
+        self._cancel_dirty = False
         plan = self._span_plan()
-        toks, lps = self._sync_carry(self._dispatch_chunk(plan))
+        if self._t_complete is not None:
+            # The host time since the previous span's sync is device idle:
+            # collect / admit / grow ran with nothing in flight.
+            self._note_gap(max(0.0, time.perf_counter() - self._t_complete))
+        written = self.real_lens.copy()
+        out = self._dispatch_chunk(plan, None)
+        chunks = 1
+        while self.overlap and self._overlap_ok(was_active, chunks):
+            if self._tables_dirty:
+                # In-span growth extended a table: the next chunk reads
+                # and writes through the grown pages.
+                plan["tables"] = self._dev(self.tables)
+                self._tables_dirty = False
+            rng_before = self._gen.get_state()  # the ghost refund point
+            nxt = self._dispatch_chunk(
+                plan, out[-CARRY_ROWS * self.b:].view(CARRY_ROWS, self.b))
+            self._note_gap(0.0)
+            chunks += 1
+            self.overlap_stats["dispatched_ahead"] += 1
+            METRICS.inc("batcher.overlap.dispatched_ahead")
+            METRICS.set_gauge("batcher.overlap.depth", 1)
+            # Chunk N's host work, while chunk N+1 runs on the device.
+            host_t0 = time.perf_counter()
+            toks, lps, carry = self._fetch_chunk(out)
+            active_after = carry[2].astype(bool)
+            if not active_after.any():
+                # Every row died (EOS) in the chunk just fetched: the one
+                # dispatched behind it is a GHOST that samples nothing.
+                # Refund its draws, so the generator stays where the
+                # synchronous loop (which never dispatches it) leaves it:
+                # later sampled requests match overlap off.
+                self._gen.set_state(rng_before)
+            if not self.paged:
+                written = self._note_written(written, carry[1])
+            self._collect(toks, was_active, lps=lps, active_host=active_after)
+            self._prehash_queued()
+            lag = time.perf_counter() - host_t0
+            self.overlap_stats["host_lag_s"] += lag
+            METRICS.observe("batcher.overlap.host_lag_seconds", lag)
+            was_active = active_after
+            out = nxt
+        # Sync exit: the mirrors refresh BEFORE _collect, so a cancel taken
+        # in the delivery callbacks lands on fresh state.
+        toks, lps = self._sync_carry(out, written)
+        METRICS.set_gauge("batcher.overlap.depth", 0)
+        if self.overlap:
+            self.overlap_stats["carry_syncs"] += 1
+            METRICS.inc("batcher.overlap.carry_syncs")
         self._collect(toks, was_active, lps=lps)

@@ -148,7 +148,9 @@ class InferenceEngine:
         page_size: int | None = None,
         prefix_cache: bool | None = None,  # None -> rt.prefix_cache
         speculative: bool | None = None,
-        prefill_chunk: int | None = None,
+        prefill_chunk: int | None = None,  # chunked prefill: admit at most
+        #   this many prompt tokens per round per pending prefill
+        prefill_concurrency: int = 2,  # chunked prefills in flight at once
         kv_bits: int | None = None,
         host_pages: int | None = None,
         overlap: bool | None = None,  # None -> rt.overlap
@@ -164,8 +166,12 @@ class InferenceEngine:
         (``kv_bits=8``).  The paged-only knobs follow the reference's
         policy: an explicit request on a contiguous engine raises
         ``ValueError``, a config-inherited one is dropped with a warning.
-        Knobs of later port slices raise ``NotImplementedError``, whether
-        passed here or inherited from the config."""
+        ``overlap`` (None: ``rt.overlap``, on by default) runs the
+        dispatch-ahead loop; ``prefill_chunk`` / ``prefill_concurrency`` /
+        ``token_budget`` (None: ``rt.token_budget``; 0 disables) chunk long
+        prompts.  Knobs of later port slices raise
+        ``NotImplementedError``, whether passed here or inherited from the
+        config."""
         from .batcher import ContinuousBatcher
 
         for what, requested in (
@@ -179,8 +185,7 @@ class InferenceEngine:
                 raise NotImplementedError(f"{what} is not ported yet")
         # RuntimeConfig knobs are the defaults; explicit arguments win
         # (paged_pages=0 explicitly requests contiguous).  The batcher
-        # refuses the values of later slices it shares with the reference
-        # (chunked prefill, token budgets, the host tier, overlap).
+        # refuses the host tier, a later slice.
         paged = (self.rt.paged_pages if paged_pages is None
                  else paged_pages) or None
         if paged is None:
@@ -212,6 +217,7 @@ class InferenceEngine:
             prefix_cache=bool(self.rt.prefix_cache if prefix_cache is None
                               else prefix_cache),
             prefill_chunk=prefill_chunk,
+            prefill_concurrency=prefill_concurrency,
             token_budget=(self.rt.token_budget if token_budget is None
                           else token_budget) or None,
             kv_bits=self.rt.kv_bits if kv_bits is None else kv_bits,

@@ -7,6 +7,10 @@ Gumbel-max over the warped logits — ``jax.random.categorical``'s method —
 with noise from an explicit ``torch.Generator``; the two frameworks'
 random streams differ, so sampled tokens are held to the mask semantics,
 never to the bytes.
+
+Everything here can be captured in a CUDA graph (runtime/chunk_graph.py):
+no host copy, no host sync; the generator is registered with the graph,
+so each replay draws as the eager chunk would.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ def _mask_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(logits < cutoff, -torch.inf, logits)
 
 
-def _top_p_cutoff(logits: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def _top_p_cutoff(logits: torch.Tensor,
+                  p: "torch.Tensor | float") -> torch.Tensor:
     """Smallest kept logit per row: keep the shortest prefix of the sorted
-    distribution whose mass reaches ``p`` (top-1 always kept).  p: [B, 1]."""
+    distribution whose mass reaches ``p`` (top-1 always kept).  p: [B, 1],
+    or a float compared at the logits' dtype."""
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
@@ -41,8 +47,9 @@ def _top_p_cutoff(logits: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     if p >= 1.0:
         return logits
-    cutoff = _top_p_cutoff(logits, torch.tensor(p, dtype=logits.dtype,
-                                                device=logits.device))
+    # A Python float, not a tensor made from it: a decode chunk captured
+    # as a CUDA graph may not copy from the host.
+    cutoff = _top_p_cutoff(logits, float(p))
     return torch.where(logits < cutoff, -torch.inf, logits)
 
 

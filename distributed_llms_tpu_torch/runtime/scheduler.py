@@ -10,10 +10,11 @@ base policies are copied unchanged:
 - ``mixed`` (default) — pending prefill bites fuse into the decode step;
 - ``alternate`` — chunked prefills run as their own serialized forwards.
 
-The port's batcher has no chunked prefill and no token budget yet, so
-``mixed`` never has a bite to fuse and both policies admit every prompt
-monolithically.  The tenant-fair and speculative policies are later
-slices.  Hooks are model-free: plain host data in, decisions out.
+The batcher's chunked prefill, mixed step and dispatch-ahead loop
+consult these hooks (``chunk_threshold``, ``prefill_bite``,
+``fuse_prefill``, ``sync_triggers``).  The tenant-fair and speculative
+policies are later slices.  Hooks are model-free: plain host data in,
+decisions out.
 """
 
 from __future__ import annotations

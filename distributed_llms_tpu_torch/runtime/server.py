@@ -13,7 +13,11 @@ server.py``, colocated role).
 
 Endpoints: ``POST /v1/completions`` and ``POST /v1/chat/completions``
 (``stream: true`` serves SSE), ``GET /v1/models``, ``GET /healthz`` and
-``GET /metrics`` (Prometheus).
+``GET /metrics`` (Prometheus: the reference's names, the batcher's
+dispatch-ahead loop included — ``batcher_overlap_dispatched_ahead``,
+``batcher_overlap_carry_syncs``, ``batcher_overlap_device_gap_seconds``,
+``batcher_overlap_host_lag_seconds`` — and its chunked prefill —
+``batcher_prefill_chunks``, ``batcher_sched_*``).
 
 Kept from the reference: the crash supervisor (a crashed ``batcher.run``
 respawns the batcher and re-admits zero-streamed requests), per-request

@@ -86,8 +86,8 @@ def _prompts(seed, long=False):
 
 def _run_both(w, budgets, prompts, **kw):
     cfg_j, cfg_t, pj, pt = w
-    jbat = jb.ContinuousBatcher(cfg_j, pj, JaxByteTokenizer(), overlap=False,
-                                **kw)
+    jbat = jb.ContinuousBatcher(cfg_j, pj, JaxByteTokenizer(),
+                                **{"overlap": False, **kw})
     tbat = tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), **kw)
     for prompt, n in zip(prompts, budgets):
         assert jbat.submit(prompt, max_new_tokens=n) == tbat.submit(
@@ -150,7 +150,7 @@ def test_window_changes_the_stream(weights, windowed):
 def test_contiguous_valid_mirror_is_a_prefix(weights):
     cfg_j, cfg_t, pj, pt = weights
     bat = tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), batch_slots=2,
-                               max_len=64, chunk_steps=3)
+                               max_len=64, chunk_steps=3, overlap=False)
     bat.submit(list(range(1, 20)), max_new_tokens=30)
     bat.submit(list(range(1, 5)), max_new_tokens=4)
     bat._admit_pending()
@@ -168,10 +168,14 @@ def test_contiguous_valid_mirror_is_a_prefix(weights):
 
 def test_int8_paged_streams_identical_to_jax(weights):
     budgets = [12, 9, 12, 6, 10, 8]
+    # Both loops synchronous: the pools are compared to the byte, and a
+    # chunk dispatched ahead writes an idle row's K/V where the
+    # synchronous loop writes nothing (tests/test_torch_overlap.py holds
+    # the dispatch-ahead loop's streams).
     jbat, want, tbat, got = _run_both(
         weights, budgets, _prompts(1), batch_slots=3, max_len=96,
         chunk_steps=4, paged_pages=24, page_size=16, prefix_cache=True,
-        kv_bits=8)
+        kv_bits=8, overlap=False)
     assert isinstance(tbat.cache, tm.QuantKVCache)
     assert tbat.cache.k.dtype == torch.int8
     assert got == want

@@ -10,7 +10,8 @@
 - The port's HTTP server answers completions on the CPU.
 - The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 - Entry points without an explicit device raise when CUDA is missing;
-  flags of later slices raise ``NotImplementedError``.
+  flags of later slices raise ``NotImplementedError``; ``--token-budget``,
+  ``--prefill-chunk`` and ``--overlap on`` serve the default's answer.
 
 Contiguous mode and int8 pages are held against the JAX package in
 tests/test_torch_batcher_modes.py.
@@ -292,7 +293,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--tenant-quota-tps", "5"], ["--host-pages", "64"],
-    ["--token-budget", "64"], ["--prefill-chunk", "32"], ["--overlap", "on"],
     ["--spec-decode"], ["--tenant-weights", "a:1"], ["--replicas", "2"],
     ["--disaggregate"], ["--tenant-max-rows", "2"],
     ["--override", "runtime.kv_host_spill=true"],
@@ -308,10 +308,51 @@ def test_later_slice_flags_raise(flags):
         serve_main.build_server(args)
 
 
+async def _greedy_answer(flags):
+    from distributed_llms_tpu_torch.cli import serve_main
+
+    args = serve_main.parser().parse_args([
+        "--preset", "llama-tiny", "--device", "cpu", "--paged-pages", "40",
+        "--page-size", "16", "--prefix-cache", "--slots", "2",
+        "--host", "127.0.0.1", "--port", "0", "--max-len", "128", *flags,
+    ])
+    server = serve_main.build_server(args)
+    await server.start()
+    try:
+        # 97 prompt tokens: past the chunk (32) and the budget (64).
+        status, body = await _post(server.bound_port, "/v1/completions", {
+            "prompt": "served flags, " * 6 + "then a tail", "max_tokens": 8,
+            "temperature": 0.0, "logprobs": True})
+    finally:
+        await server.stop()
+    assert status == 200, body
+    server.batcher.assert_pool_consistent()
+    return server.batcher, json.loads(body)["choices"][0]["logprobs"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--token-budget", "64"], ["--prefill-chunk", "32"], ["--overlap", "on"],
+])
+async def test_slice_flags_serve_as_the_default(flags):
+    """--token-budget, --prefill-chunk and --overlap on are served now: the
+    CPU server built with each answers a greedy completion (a prompt that
+    chunks under the first two) with the default server's tokens, and
+    logprobs within float drift (a chunked prefill reduces the same
+    attention in other shapes)."""
+    bat, got = await _greedy_answer(flags)
+    _, want = await _greedy_answer([])
+    assert got["tokens"] == want["tokens"]
+    np.testing.assert_allclose(got["token_logprobs"], want["token_logprobs"],
+                               atol=1e-3)
+    if flags[0] == "--overlap":
+        assert bat.overlap
+    else:
+        assert bat.sched.chunk_threshold() == int(flags[1])
+
+
 def test_later_slice_batcher_options_raise(weights):
     cfg_j, cfg_t, pj, pt = weights
     base = dict(batch_slots=2, max_len=64, paged_pages=12, page_size=16)
-    for extra in ({"overlap": True}, {"prefill_chunk": 16},
-                  {"token_budget": 32}, {"host_pages": 8}):
+    for extra in ({"host_pages": 8},):
         with pytest.raises(NotImplementedError):
             tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), **{**base, **extra})

@@ -108,10 +108,33 @@ Phases, each printing result lines:
       admits, the peak memory), and again on a server booted with
       ``--schedule alternate``: the short greedy streams must be
       identical under the two schedules.
+   i. (run by the ``tier`` phase) ``dlt-serve-torch --preset llama-3-8b
+      --paged-pages 40 --page-size 64 --prefix-cache --host-pages 128
+      --max-len 1024`` (K1): a pool of
+      39 usable pages (8 MiB each) under 9 streamed greedy requests of
+      300-400 bytes and 192 new tokens each — three over a shared
+      256-byte prefix (the first alone until admitted), four more without
+      it (one with presence/frequency penalties 0.6/0.4), one naming the
+      prefix "sys" registered through ``batcher.register_prefix``, and
+      after that wave one more over the shared prefix.  Rows must swap out
+      and back (>= 2 each, no fallback to recompute), cached pages must
+      spill and a hit be restored from the host tier, the pool-and-tier
+      audit must pass with no swap parcel left, and every stream must
+      equal the same requests' submitted in order engine-side to an
+      unpressured batcher (256 pages, no tier) over the same weights; the
+      same pair of runs engine-side with ``--kv-bits 8`` (K1q, int8 codes
+      and scales swapped verbatim) too.  The penalized stream must differ
+      from the plain one and be identical under the three engine loops
+      (path i's batcher, pressured: swaps run under each loop); the named
+      prefix's first-token logits (``admit_row_with_prefix_paged``'s
+      prefill) must agree with the whole prompt's (``admit_row_paged``'s)
+      within 5% of the logit scale; a 9-page parcel (bf16, and int8 codes
+      with scales) must come back from the pinned host arena equal to the
+      bit, its swap-out and restore timed in parts.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
-   capture recorded to each kernel's count.  Paths a and d also run 8
+   capture recorded to each kernel's count.  Paths a, d and i also run 8
    greedy requests (300-token prompts, 64 new tokens, cold admissions)
    on fresh batchers over the served weights under three engine loops —
    graphs with the overlap, graphs without it, and the eager synchronous
@@ -127,13 +150,16 @@ Phases, each printing result lines:
    bf16 (computed from the served leaves), and path d must peak below
    path a.  Path f must launch K4 at least 32 times per admission, and
    K4's pre-pass once per K4 launch.
-6. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
+6. ``tier`` — path i (in ``serve``'s list above): the host tier, swap
+   preemption, prefix-cache spill, penalties and named prefixes.
+   ``--phases build,tier`` runs it alone.
+7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
    3 steps on one fixed batch [2, 4097], then one with ``remat=True``.
    The loss must be finite and fall over the 3 steps, and K3 must launch
    8 times per step (16 under remat).
-7. ``profile`` — on paths a and d, the eager synchronous loop and the
+8. ``profile`` — on paths a and d, the eager synchronous loop and the
    default loop (graphs and overlap) run the 8-request batch once more
    under ``torch.profiler``: device kernel time by class (K5, the
    decode-attention kernels, other matrix products, the rest) and the
@@ -1974,14 +2000,15 @@ def _free(torch) -> None:
 
 
 def serve_path(torch, label, argv, kernels, requests, check_cfg,
-               **info) -> tuple:
+               setup=None, **info) -> tuple:
     """Boot ``dlt-serve-torch argv`` in-process through the user's entry
     point, answer ``requests(port)`` over HTTP, and hold the path to its
     kernels: every count 0 just before, read just after, each of the
     path's ``kernels`` ({name: launches per layer per decode step}) at
-    least that many times layers x decode steps.  Returns (launches,
-    server, {"resident_gb": device memory the booted engine holds,
-    "peak_mem_gb": peak over boot and serving})."""
+    least that many times layers x decode steps.  ``setup(server)`` runs
+    between the boot and the first request.  Returns (launches, server,
+    {"resident_gb": device memory the booted engine holds, "peak_mem_gb":
+    peak over boot and serving})."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
 
@@ -1995,6 +2022,8 @@ def serve_path(torch, label, argv, kernels, requests, check_cfg,
     mem = {"resident_gb": (torch.cuda.memory_allocated() - before) / 1e9}
     cfg = server.batcher.cfg
     check_cfg(cfg)
+    if setup is not None:
+        setup(server)
 
     async def run():
         await server.start()
@@ -2300,15 +2329,17 @@ def _eager_decode_chunk(*args, graphs=None, **kw):
     return batcher_lib._decode_steps(*args, **kw)
 
 
-def _run_batch(torch, b, prompts) -> tuple:
-    """Run ``prompts`` (greedy, LOOP_NEW_TOKENS each) to the end on batcher
-    ``b``: (streams, wall seconds, decode steps, overlap counters)."""
+def _run_batch(torch, b, prompts, penalties=None) -> tuple:
+    """Run ``prompts`` (greedy, LOOP_NEW_TOKENS each; the first with
+    ``penalties``) to the end on batcher ``b``: (streams, wall seconds,
+    decode steps, overlap counters)."""
     steps0 = b.decode_steps
     stats0 = dict(b.overlap_stats)
     # Cold admissions every run: a prefix-cache hit prefills only the
     # suffix, whose bf16 rounding differs from the cold prefill's.
-    rids = [b.submit(p, max_new_tokens=LOOP_NEW_TOKENS, prefix_cache=False)
-            for p in prompts]
+    rids = [b.submit(p, max_new_tokens=LOOP_NEW_TOKENS, prefix_cache=False,
+                     **(penalties if penalties and j == 0 else {}))
+            for j, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = b.run()
@@ -2318,12 +2349,15 @@ def _run_batch(torch, b, prompts) -> tuple:
     return [res[r] for r in rids], wall, b.decode_steps - steps0, stats
 
 
-def loop_variants(torch, label, batcher, profile: bool) -> None:
-    """Paths a and d: a fresh batcher over the served weights runs 8 greedy
-    requests (300-token prompts, 64 new tokens) under each of LOOPS —
-    once to capture the chunk graphs, then LOOP_TIMED_RUNS times timed
-    (the median kept) — and every run's token streams must be identical
-    across runs and loops.  With
+def loop_variants(torch, label, batcher, profile: bool, penalties=None,
+                  timed_runs=LOOP_TIMED_RUNS) -> None:
+    """Paths a, d and i: a fresh batcher over the served weights (and with
+    the served batcher's options) runs 8 greedy requests (300-token
+    prompts, 64 new tokens; on path i the first penalized) under each of
+    LOOPS — once to capture the chunk graphs, then ``timed_runs`` times
+    timed (the median kept; with none, the capturing run's wall) — and
+    every run's token streams must be identical across runs and loops.
+    With
     ``profile``, the eager synchronous loop and the default (graphs and
     overlap) run once more under the profiler: device kernel time by
     class and the device's busy share.  Each loop's line gives ms per
@@ -2342,18 +2376,22 @@ def loop_variants(torch, label, batcher, profile: bool) -> None:
         if eager:
             batcher_lib.decode_chunk = _eager_decode_chunk
         try:
-            first, _, _, _ = _run_batch(torch, b, prompts)
+            got, wall, steps, stats = _run_batch(torch, b, prompts,
+                                                 penalties)
+            first = got
             walls = []
-            for _ in range(LOOP_TIMED_RUNS):
-                got, wall, steps, stats = _run_batch(torch, b, prompts)
+            for _ in range(timed_runs):
+                got, wall, steps, stats = _run_batch(torch, b, prompts,
+                                                     penalties)
                 check(got == first,
                       f"{label}/{name}: a second run gave other tokens")
                 walls.append(wall)
-            wall = sorted(walls)[len(walls) // 2]
+            # timed_runs=0: the one run's wall, its graph captures included.
+            wall = sorted(walls)[len(walls) // 2] if walls else wall
             line = {}
             if profile and name != "graph_sync":
                 split, prof_wall = _profiled(
-                    torch, lambda: _run_batch(torch, b, prompts))
+                    torch, lambda: _run_batch(torch, b, prompts, penalties))
                 busy = sum(split.values())
                 line = {"profiled_wall_ms": prof_wall,
                         "device_kernel_ms": split,
@@ -2364,6 +2402,7 @@ def loop_variants(torch, label, batcher, profile: bool) -> None:
         streams[name] = got
         gaps = stats["gap_samples"]
         emit("profile", path=label, loop=name, requests=len(prompts),
+             penalties=penalties,
              prompt_tokens=LOOP_PROMPT_TOKENS, new_tokens=LOOP_NEW_TOKENS,
              decode_steps=steps, wall_ms=wall * 1e3,
              wall_ms_runs=[w * 1e3 for w in walls],
@@ -2574,6 +2613,471 @@ def serve_long(torch) -> int:
     return launches["ragged_decode_attention"]
 
 
+# -- path i: the host tier, penalties and named prefixes ----------------------
+
+# Path i: Llama-3-8B at full width over a pool too small for its traffic (39
+# usable pages of 8 MiB: 32 layers x 64 slots x 8 KV heads x 128 x bf16, K
+# and V), with 128 pages of pinned host RAM behind it.
+TIER_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "40", "--page-size",
+             "64", "--prefix-cache", "--host-pages", "128", "--max-len",
+             "1024", *_COMMON_ARGS]
+TIER_NEW = 192
+TIER_PENALTIES = {"presence_penalty": 0.6, "frequency_penalty": 0.4}
+# 4 full pages of 64 tokens with the BOS: the shared run of every request
+# that starts with it, and the named prefix "sys".
+TIER_PREFIX = ("You are a careful assistant for a logistics company. Answer "
+               "in one short paragraph, cite the relevant policy number, and "
+               "never invent shipment identifiers. Policy 12 covers delayed "
+               "freight; policy 19 covers damaged goods; policy 31 covers "
+               "customs holds; po")
+PARCEL_PAGES = 9  # a row of path i at its full depth (576 slots)
+
+
+def _tier_text(tag: str, n: int) -> str:
+    """``n`` bytes of distinct filler for request ``tag``."""
+    text = "".join(f"{tag} item {i:03d} waits at bay {i % 11:02d}; "
+                   for i in range(40))
+    return text[:n]
+
+
+def tier_requests() -> list:
+    """Path i's traffic in submission order: three requests over the
+    shared prefix (300-400 bytes), four more of the same lengths without it
+    (the second one penalized), one naming the prefix "sys", and, after
+    that wave, one more over the shared prefix (the spill hit).  The four
+    and the named one come at priority 1: once the pool is dry their
+    admissions preempt the first three (an admission preempts only
+    strictly lower priority), so the wave swaps rows out by design, not
+    by the timing of growth."""
+    check(len(TIER_PREFIX) == 256, "path i's prefix is not 256 bytes")
+    shared = [TIER_PREFIX + _tier_text(f"case {c}", n)
+              for c, n in (("A", 130), ("B", 136), ("C", 144))]
+    pressure = [_tier_text(f"load {c}", n)
+                for c, n in (("D", 384), ("E", 392), ("F", 400), ("G", 388))]
+    reqs = [{"prompt": p, "max_tokens": TIER_NEW, "temperature": 0.0}
+            for p in shared + pressure]
+    reqs[4].update(TIER_PENALTIES)
+    reqs.append({"prompt": _tier_text("named H", 90), "prefix": "sys",
+                 "max_tokens": TIER_NEW, "temperature": 0.0})
+    for r in reqs[3:]:
+        r["priority"] = 1
+    reqs.append({"prompt": TIER_PREFIX + _tier_text("case S", 120),
+                 "max_tokens": TIER_NEW, "temperature": 0.0})
+    return reqs
+
+
+async def _sse(port: int, body: dict) -> tuple:
+    """One streamed completion: (status, seconds to the first event, wall
+    seconds).  An event carries text, so the first comes with the first
+    token that decodes to some."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps({**body, "stream": True}).encode()
+    t0 = time.perf_counter()
+    writer.write(
+        f"POST /v1/completions HTTP/1.1\r\nHost: x\r\nContent-Type: "
+        f"application/json\r\nContent-Length: {len(payload)}\r\n\r\n"
+        .encode() + payload)
+    await writer.drain()
+    raw, first = b"", None
+    while True:
+        got = await reader.read(1 << 16)
+        if not got:
+            break
+        raw += got
+        if first is None and b"data: " in raw:
+            first = time.perf_counter() - t0
+    writer.close()
+    status = int(raw.split(b"\r\n", 1)[0].split()[1])
+    check(status == 200 and b"data: [DONE]" in raw,
+          f"path i: a streamed request answered {status}: {raw[-300:]!r}")
+    return status, first, time.perf_counter() - t0
+
+
+def _record_streams(b) -> tuple:
+    """Wrap the served batcher so every delivered token id is kept per
+    request, {(prompt ids, prefix): ids}, and each request's time from its
+    submit to its first token, engine-side (the SSE stream shows a token
+    only once it decodes to text, which random weights rarely pick)."""
+    rid_of, ids, t_submit, ttft = {}, {}, {}, {}
+    submit, run = b.submit, b.run
+
+    def submit_rec(prompt, *a, prefix=None, **kw):
+        t0 = time.perf_counter()
+        rid = submit(prompt, *a, prefix=prefix, **kw)
+        rid_of[rid] = (tuple(prompt), prefix)
+        t_submit[rid] = t0
+        return rid
+
+    def run_rec(on_tokens=None):
+        def rec(rid, toks, done, lps):
+            if toks and rid not in ttft:
+                ttft[rid] = time.perf_counter() - t_submit[rid]
+            ids.setdefault(rid_of[rid], []).extend(toks)
+            return on_tokens(rid, toks, done, lps)
+
+        return run(on_tokens=rec)
+
+    b.submit, b.run = submit_rec, run_rec
+    return ids, ttft
+
+
+def _tier_key(b, body) -> tuple:
+    return (tuple(b.tokenizer.encode(body["prompt"])), body.get("prefix"))
+
+
+async def _serve_tier_requests(server, reqs) -> dict:
+    """Path i over HTTP, every request streamed: the first shared-prefix
+    request alone until it is admitted (its cold prefill publishes the
+    prefix's pages), then the rest of the wave at once, then the spill
+    hit."""
+    from distributed_llms_tpu_torch.core.observability import METRICS
+
+    port = server.bound_port
+    admitted = METRICS.get_counter("batcher.admitted")
+    t0 = time.perf_counter()
+    first = asyncio.create_task(_sse(port, reqs[0]))
+    while METRICS.get_counter("batcher.admitted") == admitted:
+        await asyncio.sleep(0.005)
+    outs = await asyncio.gather(first, *[_sse(port, r) for r in reqs[1:-1]])
+    outs.append(await _sse(port, reqs[-1]))
+    wall = time.perf_counter() - t0
+    return {"requests": len(reqs), "wall_s": wall,
+            "first_text_event_s": [o[1] for o in outs],
+            "request_wall_s": [o[2] for o in outs]}
+
+
+def _tier_engine_run(torch, b, reqs, extra=()) -> tuple:
+    """``reqs`` submitted engine-side to batcher ``b`` as the HTTP run
+    submits them: the first alone, the rest of the wave (and ``extra``)
+    once the first has its admission token, the last once the wave is
+    done.  Returns (streams in ``reqs + extra`` order, wall seconds,
+    decode steps)."""
+    if "sys" not in b.prefixes:
+        b.register_prefix("sys", TIER_PREFIX)
+
+    def submit(r):
+        return b.submit(r["prompt"], max_new_tokens=r["max_tokens"],
+                        prefix=r.get("prefix"),
+                        presence_penalty=r.get("presence_penalty", 0.0),
+                        frequency_penalty=r.get("frequency_penalty", 0.0),
+                        priority=r.get("priority", 0))
+
+    rids = [submit(reqs[0])]
+    wave: set = set()
+    streams: dict = {}
+
+    def on_tokens(rid, toks, done, lps):
+        streams.setdefault(rid, []).extend(toks)
+        if rid == rids[0] and len(rids) == 1:
+            rids.extend(submit(r) for r in [*reqs[1:-1], *extra])
+            wave.update(rids)
+        if done:
+            wave.discard(rid)
+            if not wave and len(rids) == len(reqs) + len(extra) - 1:
+                rids.insert(len(reqs) - 1, submit(reqs[-1]))
+
+    steps0 = b.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.run(on_tokens=on_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b.assert_pool_consistent()
+    check(len(rids) == len(reqs) + len(extra), "path i: a request was "
+          "never submitted engine-side")
+    return [streams[r] for r in rids], wall, b.decode_steps - steps0
+
+
+_TIER_COUNTERS = ("batcher.kv_swaps.out", "batcher.kv_swaps.in",
+                  "batcher.kv_swaps.fallback",
+                  "batcher.host_tier.spilled_pages",
+                  "batcher.host_tier.restored_pages",
+                  "batcher.host_tier.hits",
+                  "batcher.host_tier.spill_evictions",
+                  "batcher.preemptions_total")
+
+
+def _tier_counts(before=None) -> dict:
+    from distributed_llms_tpu_torch.core.observability import METRICS
+
+    now = {n.removeprefix("batcher."): METRICS.get_counter(n)
+           for n in _TIER_COUNTERS}
+    return now if before is None else {k: v - before[k]
+                                       for k, v in now.items()}
+
+
+def _check_swapped(label, c) -> None:
+    check(c["kv_swaps.out"] >= 2 and c["kv_swaps.in"] >= 2,
+          f"{label}: swapped out {c['kv_swaps.out']} and in "
+          f"{c['kv_swaps.in']} times, under 2")
+    check(c["kv_swaps.fallback"] == 0,
+          f"{label}: {c['kv_swaps.fallback']} swap(s) fell back to "
+          f"recompute")
+
+
+def _first_diff(got, want) -> str:
+    for j, (a, w) in enumerate(zip(got, want)):
+        if a != w:
+            return f"token {j}: {a} vs {w}"
+    return f"lengths {len(got)} vs {len(want)}"
+
+
+def _same_streams(label, reqs, got, want) -> None:
+    for r, g, w in zip(reqs, got, want):
+        check(g == w, f"{label}: the stream of {r['prompt'][:24]!r} "
+                      f"(prefix {r.get('prefix')}) differs from the "
+                      f"unpressured run's at {_first_diff(g, w)}")
+
+
+def serve_tiered(torch) -> dict:
+    """Path i: ``dlt-serve-torch --preset llama-3-8b --paged-pages 40
+    --page-size 64 --prefix-cache --host-pages 128 --max-len 1024`` answers
+    :func:`tier_requests` over HTTP under pool pressure: rows swap out and
+    back, the shared prefix's cached pages spill to the host tier and a
+    later hit restores them, one request is penalized and one names a
+    registered prefix.  Every stream must equal the same requests' on an
+    unpressured batcher over the same weights (256 pages, no tier), at bf16
+    (K1) and, engine-side, at int8 (K1q).  Then the penalized stream's
+    eager and graph loops, the named prefix's first-token logits, and a
+    parcel's round trip at full width.  Returns path i's K1 and K1q
+    launches."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    reqs = tier_requests()
+    parcel_round_trip(torch)
+    box: dict = {}
+
+    def setup(server) -> None:
+        server.batcher.register_prefix("sys", TIER_PREFIX)
+        box["streams"], box["ttft"] = _record_streams(server.batcher)
+        box["server"] = server
+        # The serving peak, not the boot's (random weights are drawn in
+        # float32 leaf by leaf).
+        torch.cuda.reset_peak_memory_stats()
+
+    async def requests(_port):
+        return await _serve_tier_requests(box["server"], reqs)
+
+    counts0 = _tier_counts()
+    launches, server, mem = serve_path(
+        torch, "tiered", TIER_ARGS, {"paged_decode_attention": 1}, requests,
+        _llama_3_8b, setup=setup)
+    b = server.batcher
+    streams = box.pop("streams")
+    ttft = sorted(box.pop("ttft").values())
+    box.clear()
+    served = _tier_counts(counts0)
+    tier = b.host_tier.stats()
+    emit("serve_tier", path="tiered", counters=served, host_tier=tier,
+         pinned_host_bytes=b.host_tier.pinned_bytes,
+         http_decode_steps=b.decode_steps,
+         ttft_s_p50=ttft[len(ttft) // 2], ttft_s_max=ttft[-1],
+         ttft_s=ttft, serving_peak_mem_gb=mem["peak_mem_gb"])
+    _check_swapped("tiered", served)
+    check(served["host_tier.spilled_pages"] > 0,
+          "tiered: no cached page spilled to the host tier")
+    check(served["host_tier.hits"] > 0,
+          "tiered: no prefix-cache hit was restored from the host tier")
+    b.assert_pool_consistent()
+    check(tier["swap_parcels"] == 0 and tier["used"] == tier["spill_entries"],
+          f"tiered: the host tier still holds swap parcels: {tier}")
+    got = [streams.get(_tier_key(b, r)) for r in reqs]
+    check(all(g is not None for g in got), "tiered: a stream was not seen")
+
+    ctor = dict(b._ctor_args)
+    calm_b = batcher_lib.ContinuousBatcher(
+        **{**ctor, "paged_pages": 256, "host_pages": 0})
+    plain_pen = {k: v for k, v in reqs[4].items()
+                 if k not in TIER_PENALTIES}
+    calm, calm_wall, calm_steps = _tier_engine_run(
+        torch, calm_b, reqs, extra=[plain_pen])
+    _same_streams("tiered", reqs, got, calm[:-1])
+    check(calm[4] != calm[-1], "tiered: the penalized stream equals the "
+          "same prompt's without penalties")
+    del calm_b
+    _free(torch)
+    c0 = _tier_counts()
+    busy_b = batcher_lib.ContinuousBatcher(**ctor)
+    pressed, pressed_wall, pressed_steps = _tier_engine_run(torch, busy_b,
+                                                            reqs)
+    _same_streams("tiered/engine-side", reqs, pressed, calm[:-1])
+    emit("serve_tier_walls", path="tiered",
+         pressured_ms_per_decode_step=pressed_wall * 1e3 / pressed_steps,
+         unpressured_ms_per_decode_step=calm_wall * 1e3 / calm_steps,
+         pressured_decode_steps=pressed_steps,
+         unpressured_decode_steps=calm_steps,
+         pressured_wall_s=pressed_wall, unpressured_wall_s=calm_wall,
+         counters=_tier_counts(c0))
+    del busy_b
+    _free(torch)
+    named_prefix_logits(torch, b)
+    # The penalized request's three engine loops (and swaps under them),
+    # one run each: the streams are the check here, not the walls.
+    loop_variants(torch, "tiered", b, False, penalties=TIER_PENALTIES,
+                  timed_runs=0)
+
+    # The int8 leg (K1q): the same pair of runs, int8 codes and scales
+    # swapped and spilled verbatim.
+    reset_launches()
+    c0 = _tier_counts()
+    q_b = batcher_lib.ContinuousBatcher(**{**ctor, "kv_bits": 8})
+    q_pressed, q_wall, q_steps = _tier_engine_run(torch, q_b, reqs)
+    q_launches = read_launches()
+    q_counts = _tier_counts(c0)
+    del q_b
+    _free(torch)
+    q_calm_b = batcher_lib.ContinuousBatcher(
+        **{**ctor, "kv_bits": 8, "paged_pages": 256, "host_pages": 0})
+    q_calm, _, _ = _tier_engine_run(torch, q_calm_b, reqs)
+    del q_calm_b
+    _free(torch)
+    emit("serve_tier_int8", path="tiered", counters=q_counts,
+         decode_steps=q_steps, ms_per_decode_step=q_wall * 1e3 / q_steps,
+         launches={k: v for k, v in q_launches.items() if v})
+    _check_swapped("tiered/int8", q_counts)
+    want = b.cfg.num_layers * q_steps
+    check(q_launches["paged_decode_attention_int8"] >= want,
+          f"tiered/int8: K1q launched "
+          f"{q_launches['paged_decode_attention_int8']} times, under {want}")
+    _same_streams("tiered/int8", reqs, q_pressed, q_calm)
+    del server, b
+    _free(torch)
+    return {"paged_decode_attention": launches["paged_decode_attention"],
+            "paged_decode_attention_int8":
+                q_launches["paged_decode_attention_int8"]}
+
+
+def named_prefix_logits(torch, b) -> None:
+    """The named prefix at full width: the first-token logits of a
+    prefix-seeded admission (``admit_row_with_prefix_paged``'s prefill)
+    against the whole prompt's (``admit_row_paged``'s), by phase_model's
+    rule; and each admission samples its logits' argmax."""
+    from distributed_llms_tpu_torch.runtime import batcher as bl
+    from distributed_llms_tpu_torch.runtime.shapes import bucket_length
+
+    pfx = b.prefixes["sys"]
+    suffix = b.tokenizer.encode(_tier_text("named H", 90))
+    whole = pfx.ids + suffix
+    chunk = torch.zeros(min(bucket_length(len(suffix)), b.s - len(pfx.ids)),
+                        dtype=torch.int32)
+    chunk[:len(suffix)] = torch.tensor(suffix)
+    prompt = torch.zeros(min(bucket_length(len(whole)), b.s),
+                         dtype=torch.int32)
+    prompt[:len(whole)] = torch.tensor(whole)
+    chunk, prompt = chunk.cuda(), prompt.cuda()
+    with torch.no_grad():
+        lp, _ = bl._prefill_row_with_prefix(b.params, b.cfg, pfx.k.clone(),
+                                            pfx.v.clone(), len(pfx.ids),
+                                            chunk)
+        lw, _ = bl._prefill_row(b.params, b.cfg, pfx.k.dtype, b.s, prompt)
+    lp, lw = lp[0, len(suffix) - 1].float(), lw[0, len(whole) - 1].float()
+    err = (lp - lw).abs().max().item()
+    scale = lw.abs().max().item()
+    pool = bl._paged_pool(b.cfg, 1 + b.pages_per_row, b.page_size,
+                          device="cuda")
+    pages = torch.arange(1, 1 + b.pages_per_row, dtype=torch.int32,
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, tok_p, _ = bl.admit_row_with_prefix_paged(
+        b.params, b.cfg, pool, pages, pfx.k, pfx.v, len(pfx.ids), chunk,
+        len(suffix), gen)
+    _, tok_w, _ = bl.admit_row_paged(b.params, b.cfg, pool, pages, prompt,
+                                     len(whole), gen)
+    emit("named_prefix", prefix_tokens=len(pfx.ids),
+         suffix_tokens=len(suffix), max_abs_logit_err=err, logit_scale=scale,
+         argmax_agree=int(lp.argmax()) == int(lw.argmax()))
+    check(err <= 0.05 * max(scale, 1.0),
+          f"named prefix: first-token logits off by {err} (scale {scale})")
+    check(int(tok_p) == int(lp.argmax()) and int(tok_w) == int(lw.argmax()),
+          "named prefix: an admission did not sample its logits' argmax")
+    del pool
+    _free(torch)
+
+
+def parcel_round_trip(torch) -> None:
+    """A 9-page parcel of Llama-3-8B pages (bf16, and int8 codes with
+    their f32 scales) through the pinned arena and back into other pages
+    of the pool: equal to the bit.  Timed in parts (median of 3): the
+    swap-out's gather, device-to-host copy and checksum, the restore's
+    verification, host-to-device copy and scatter."""
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import batcher as bl
+    from distributed_llms_tpu_torch.runtime.kv_tier import HostTier
+
+    cfg = get_preset("llama-3-8b")
+    n = PARCEL_PAGES
+    src = torch.arange(1, 1 + n, dtype=torch.int32, device="cuda")
+    dest = torch.arange(1 + n, 1 + 2 * n, dtype=torch.int32, device="cuda")
+    for kv_bits in (16, 8):
+        pool = bl._paged_pool(cfg, 1 + 2 * n, 64, device="cuda",
+                              kv_bits=kv_bits)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        leaves = [pool.k, pool.v] + ([pool.k_scale, pool.v_scale]
+                                     if kv_bits == 8 else [])
+        for t in leaves:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device="cuda", dtype=torch.int8))
+            elif t.dtype == torch.float32:
+                torch.nn.init.uniform_(t, generator=g)
+            else:
+                torch.nn.init.normal_(t, generator=g)
+        tier = HostTier(n, bl.page_layout(pool), pin=True)
+        parcel_bytes = sum(t[:, :n].numel() * t.element_size()
+                           for t in leaves)
+        parts: dict = {}
+        for _ in range(3):
+            for t in leaves:
+                t[:, 1 + n:].zero_()
+            marks = []
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            payload = bl._export_pages_raw(pool, src)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            h = tier.park_swap(payload, n)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            entry = tier._swaps[h]
+            entry.future.result()
+            t0 = time.perf_counter()
+            tier._checksum(entry.slots)
+            checksum = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            parcel = tier.take_swap(h)
+            verify = time.perf_counter() - t0
+            check(parcel is not None, "parcel round trip: verification "
+                                      "failed")
+            t0 = time.perf_counter()
+            arrays = parcel.to("cuda")
+            torch.cuda.synchronize()
+            h2d = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bl._import_pages_raw(pool, dest, *arrays)
+            torch.cuda.synchronize()
+            scatter = time.perf_counter() - t0
+            for name, v in (("gather", marks[1] - marks[0]),
+                            ("d2h", marks[2] - marks[1]),
+                            ("checksum", checksum), ("verify", verify),
+                            ("h2d", h2d), ("scatter", scatter)):
+                parts.setdefault(name, []).append(v * 1e3)
+            for t in leaves:
+                check(torch.equal(t[:, dest.long()], t[:, src.long()]),
+                      f"parcel round trip (kv_bits {kv_bits}): the pages "
+                      f"came back changed")
+        med = {k: sorted(v)[1] for k, v in parts.items()}
+        emit("parcel", kv_bits=kv_bits, pages=n, parcel_bytes=parcel_bytes,
+             pinned_host_bytes=tier.pinned_bytes,
+             **{f"{k}_ms": v for k, v in med.items()},
+             swap_out_ms=med["gather"] + med["d2h"] + med["checksum"],
+             restore_ms=med["verify"] + med["h2d"] + med["scatter"],
+             d2h_gb_per_s=parcel_bytes / med["d2h"] / 1e6,
+             h2d_gb_per_s=parcel_bytes / med["h2d"] / 1e6)
+        tier.assert_consistent([])
+        del pool, tier, payload, parcel, arrays
+        _free(torch)
+
+
 def _kernel_class(name: str) -> str:
     if "flash_kernel" in name:
         return "flash_kernel"
@@ -2663,7 +3167,8 @@ def flash_admission(torch, batcher, profile: bool) -> None:
 
 # -- main -------------------------------------------------------------------
 
-PHASES = ("build", "kernel", "timing", "model", "serve", "train", "profile")
+PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "train",
+          "profile")
 
 
 def main() -> int:
@@ -2701,6 +3206,10 @@ def main() -> int:
         if "serve" in phases:
             for name, n in phase_serve(torch, "profile" in phases).items():
                 kernels[name]["launches"] = n
+        if "tier" in phases:
+            # Path i runs K1 and K1q too; paths a and b keep the line's
+            # counts (their own paths).
+            emit("serve_tier_launches", **serve_tiered(torch))
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = phase_train(
                 torch, "profile" in phases)

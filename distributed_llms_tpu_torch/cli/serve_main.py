@@ -9,7 +9,9 @@ the batcher serves contiguous mode, the one mode for sliding-window
 models: ``dlt-serve-torch --preset mistral-7b --max-len 6144``, or at the
 model's whole context with chunked prefill: ``dlt-serve-torch --preset
 mistral-7b --max-len 32768 --prefill-chunk 1024``.  The engine loop
-dispatches ahead unless ``--overlap off``.
+dispatches ahead unless ``--overlap off``.  ``--host-pages N`` puts N
+pages of host RAM behind the paged pool: preempted rows swap out and back,
+and cold cached pages spill there instead of being lost.
 ``dlt-serve-torch --store DIR`` serves a shard store instead (model
 config and tokenizer from its manifest); with ``--override
 runtime.serve_quantized=true`` an int8/int4 store keeps its decoder-block
@@ -39,7 +41,6 @@ log = get_logger("serve_main")
 # dlt-serve flags of later port slices: argparse dest -> the feature.  Any
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
-    "host_pages": "the host-RAM KV tier (--host-pages)",
     "spec_decode": "speculative decoding (--spec-decode)",
     "constrained": "constrained output (--constrained)",
     "tenant_weights": "multi-tenant scheduling (--tenant-weights)",
@@ -49,7 +50,7 @@ _LATER_SLICE_FLAGS: dict[str, str] = {
     "disaggregate": "disaggregated prefill/decode (--disaggregate)",
     "fault": "fault injection (--fault)",
 }
-_LATER_SLICE_DEFAULTS = {"host_pages": 0, "replicas": 1,
+_LATER_SLICE_DEFAULTS = {"replicas": 1,
                          "disaggregate": False, "fault": []}
 
 
@@ -108,6 +109,7 @@ def _server_factory(args, engine, default_name, rt):
             page_size=args.page_size,
             prefix_cache=args.prefix_cache,
             kv_bits=args.kv_bits,
+            host_pages=args.host_pages,
             overlap=(None if args.overlap is None
                      else args.overlap == "on"),
             schedule=args.schedule,
@@ -255,9 +257,12 @@ def parser() -> argparse.ArgumentParser:
                     help="engine watchdog: /healthz flips unhealthy when "
                          "in-flight work exists but no chunk was delivered "
                          "for this many seconds")
-    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--host-pages", type=int, default=None,
-                    help="not ported yet")
+                    help="host-RAM KV tier size in pages: preemption swaps "
+                         "rows out (byte-exact restore) and cold cached "
+                         "pages spill before eviction.  Needs "
+                         "--paged-pages.  Default: runtime.host_pages (0)")
+    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--spec-decode", action=argparse.BooleanOptionalAction,
                     default=None, help="not ported yet")
     ap.add_argument("--constrained", action=argparse.BooleanOptionalAction,

@@ -14,11 +14,22 @@ generating.  Two cache modes, as in the reference:
   absmax scales (``kv_bits=8``).  Rows admit with pages for the prompt
   plus one decode page and grow on demand at chunk boundaries; a dry pool
   evicts LRU-cold cached pages, then preempts the lowest-priority /
-  most-recently-admitted row for exact recompute, then back-pressures
-  admission.  Automatic prefix caching content-hashes every full prompt
-  page (the reference's blake2b chain, salted by the KV width,
-  byte-identical digests) and later admissions reuse the longest cached
-  run copy-free through their page tables, prefilling only the suffix.
+  most-recently-admitted row, then back-pressures admission.  Automatic
+  prefix caching content-hashes every full prompt page (the reference's
+  blake2b chain, salted by the KV width, byte-identical digests) and later
+  admissions reuse the longest cached run copy-free through their page
+  tables, prefilling only the suffix.
+- the host tier (``host_pages``, ``runtime/kv_tier.py``) behind the pool: a
+  preempted row's raw pages swap out to host RAM and scatter back at its
+  resume (no recompute; exact recompute when the budget is dry), and an
+  LRU-evicted cached page spills there, so a later hit restores it instead
+  of prefilling it again.
+
+Requests may carry presence/frequency penalties (OpenAI semantics: the
+logits less ``freq * counts + pres * (counts > 0)`` over the request's own
+output, a ``[B, V]`` histogram carried on the device) and a named prefix
+(``register_prefix``: prefilled once, its KV seeds every admission that
+names it).
 
 A prompt longer than the scheduler's chunk threshold (``prefill_chunk``,
 or ``token_budget`` under the mixed schedule) prefills in bites into a
@@ -38,6 +49,8 @@ Device programs (the JAX package's jitted functions, same names):
 ``admit_row`` (prefill into a transient row, spliced into the slot's
 row), ``admit_row_paged`` / ``admit_row_auto_paged`` (the same, spliced
 into pool pages — quantized once there in an int8 pool),
+``admit_row_with_prefix(_paged)`` (a named prefix's KV seeds the row),
+``_export_pages_raw`` / ``_import_pages_raw`` (host-tier parcels),
 ``prefill_chunk_step`` / ``finish_chunked_admission(_paged)`` (one bite;
 the finishing splice), ``decode_chunk`` (K decode steps for every slot;
 each step's attention is a decode kernel of ``ops/decode_attn.py``; on
@@ -47,14 +60,13 @@ PLACE where the JAX programs donate them.  Host scheduling state lives in
 numpy mirrors synced once per span.
 
 Invariant (tests/test_torch_batcher_modes.py, tests/test_torch_serving.py,
-tests/test_torch_overlap.py, tests/test_torch_chunked_prefill.py): at
-temperature 0 the token streams equal the JAX batcher's on the same
-weights and prompts.
+tests/test_torch_overlap.py, tests/test_torch_chunked_prefill.py,
+tests/test_torch_host_tier_serving.py, tests/test_torch_penalties.py,
+tests/test_torch_named_prefix.py): at temperature 0 the token streams
+equal the JAX batcher's on the same weights and prompts.
 
-Not ported yet: the host-RAM tier (the constructor refuses ``host_pages``
-with ``NotImplementedError``), and speculative decoding, constrained
-output, presence/frequency penalties, named prefixes, tenants, meshes and
-fault injection (absent from the API).
+Not ported yet: speculative decoding, constrained output, tenants, meshes
+and fault injection (absent from the API).
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from ..models import model as model_lib
 from ..checkpoint.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..models.model import KVCache, QuantKVCache
 from . import chunk_graph, sampling
+from .kv_tier import HostTier
 from .scheduler import SyncView, make_scheduler
 from .session import continuation_mask
 from .shapes import BUCKET_FLOOR, bucket_length as _bucket
@@ -294,6 +307,73 @@ def admit_row_auto_paged(params, cfg, cache, read_list, write_list,
                          topp_req, topk_req)
 
 
+def admit_row_with_prefix(params, cfg, cache, slot, prefix_k, prefix_v,
+                          prefix_len, chunk, clen, generator,
+                          temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
+                          topp_req=None, topk_req=None):
+    """Named-prefix admission into row ``slot`` of a contiguous cache: the
+    prefix's KV (computed once by ``register_prefix``) seeds a copy of the
+    row, only the request's suffix ``chunk`` (right-padded, ``clen`` real
+    tokens) prefills.  Returns (cache, tok, row_valid, logprob)."""
+    logits, row_cache = _prefill_row_with_prefix(
+        params, cfg, prefix_k.clone(), prefix_v.clone(), prefix_len, chunk)
+    return _finish_admission(cache, slot, row_cache, logits, clen, generator,
+                             temperature, top_k, top_p, prefix_len + clen,
+                             temp_req, topp_req, topk_req)
+
+
+def admit_row_with_prefix_paged(params, cfg, cache, page_list, prefix_k,
+                                prefix_v, prefix_len, chunk, clen, generator,
+                                temperature=0.0, top_k=0, top_p=1.0,
+                                temp_req=None, topp_req=None, topk_req=None):
+    """Named-prefix admission into the paged pool: the prefix's KV seeds a
+    copy of the transient row, only the suffix prefills, then the row's
+    pages scatter into the pool through ``page_list``.  Returns (cache,
+    tok, logprob)."""
+    logits, row_cache = _prefill_row_with_prefix(
+        params, cfg, prefix_k.clone(), prefix_v.clone(), prefix_len, chunk)
+    return _paged_splice(cache, page_list, row_cache, logits, clen,
+                         generator, temperature, top_k, top_p, temp_req,
+                         topp_req, topk_req)
+
+
+def page_layout(cache) -> tuple:
+    """(shape, dtype) of each array of one pool page, in parcel order:
+    K and V ``[L, BLK, KVH, HD]``, plus the int8 pool's f32 scales
+    ``[L, BLK, KVH]`` — a host-tier slot's layout."""
+    arrays = ((cache.k, cache.v, cache.k_scale, cache.v_scale)
+              if isinstance(cache, QuantKVCache) else (cache.k, cache.v))
+    return tuple(((a.shape[0],) + tuple(a.shape[2:]), a.dtype)
+                 for a in arrays)
+
+
+def _export_pages_raw(cache, page_list: torch.Tensor) -> tuple:
+    """Gather pages VERBATIM in pool layout and pool dtype: (k, v) page
+    stacks ``[L, n, BLK, ...]``, plus the scale stacks of an int8 pool.
+    This is the host-tier parcel format (swap preemption, prefix-cache
+    spill): importing the same bytes through :func:`_import_pages_raw`
+    restores the pool to the bit, at either KV width."""
+    idx = page_list.long()
+    if isinstance(cache, QuantKVCache):
+        return (cache.k[:, idx], cache.v[:, idx], cache.k_scale[:, idx],
+                cache.v_scale[:, idx])
+    return (cache.k[:, idx], cache.v[:, idx])
+
+
+def _import_pages_raw(cache, page_list: torch.Tensor, k_pages, v_pages,
+                      k_scale=None, v_scale=None):
+    """Scatter a raw parcel (:func:`_export_pages_raw` layout) into pool
+    pages ``page_list``, in place and verbatim: no quantize step, so the
+    restore is exact."""
+    idx = page_list.long()
+    cache.k[:, idx] = k_pages
+    cache.v[:, idx] = v_pages
+    if isinstance(cache, QuantKVCache):
+        cache.k_scale[:, idx] = k_scale
+        cache.v_scale[:, idx] = v_scale
+    return cache
+
+
 def prefill_chunk_step(params, cfg, row_k, row_v, done, chunk, clen):
     """One bite of a CHUNKED prefill — the one definition shared by the
     alternate schedule's rounds and the fused :func:`mixed_step` (the
@@ -353,7 +433,8 @@ def unpack_chunk(packed: np.ndarray, b: int, k: int):
 
 def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
                   temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
-                  tables=None, temp_row=None, topp_row=None, topk_row=None):
+                  tables=None, temp_row=None, topp_row=None, topk_row=None,
+                  counts=None, pres_row=None, freq_row=None):
     """K decode steps for every slot, on device with no host sync, each
     kernel launched from here (:func:`decode_chunk` replays them from a
     graph on the card).  Each step is ONE batched forward with per-row
@@ -361,7 +442,12 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
     decode kernels' prefix contract): paged mode reads and writes through
     the page table; contiguous mode writes slot ``real_lens[b]`` of row b
     and attends its prefix (or window band) through the ragged kernel.
-    Returns the packed output (:func:`unpack_chunk`)."""
+    ``counts`` [B, V] int32 (with ``pres_row``/``freq_row`` [B]) engages
+    the presence/frequency penalties: each step samples from ``logits -
+    freq * counts - pres * (counts > 0)`` and adds the pre-step-active
+    rows' tokens to ``counts`` in place (a scatter-add, one index a row).
+    Logprobs stay those of the raw logits.  Returns the packed output
+    (:func:`unpack_chunk`)."""
     last_tok, real_lens, active, budget = (carry[0], carry[1],
                                            carry[2].bool(), carry[3])
     toks, lps = [], []
@@ -373,13 +459,24 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
         )
         logits = logits[:, 0]
         real_lens = real_lens + active.to(torch.int32)
+        if counts is not None:
+            sample_from = (
+                logits - freq_row[:, None] * counts.to(logits.dtype)
+                - pres_row[:, None] * (counts > 0).to(logits.dtype)
+            )
+        else:
+            sample_from = logits
         if temp_row is None:
-            tok = sampling.sample(generator, logits, temperature, top_k, top_p)
+            tok = sampling.sample(generator, sample_from, temperature, top_k,
+                                  top_p)
         else:
             tok = sampling.sample_rows(
-                generator, logits, temp_row, top_k,
+                generator, sample_from, temp_row, top_k,
                 1.0 if topp_row is None else topp_row, top_k_rows=topk_row,
             )
+        if counts is not None:
+            counts.scatter_add_(1, tok.long()[:, None],
+                                was_active.to(torch.int32)[:, None])
         budget = budget - active.to(torch.int32)
         if eos_id >= 0:
             active = active & (tok != eos_id)
@@ -400,27 +497,33 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
 def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                  temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
                  tables=None, temp_row=None, topp_row=None, topk_row=None,
-                 graphs=None):
+                 counts=None, pres_row=None, freq_row=None, graphs=None):
     """K decode steps with per-row positions over the page pool
     (``tables``) or the contiguous cache (``tables=None``), from ``carry``
     [4, B] int32 (:data:`CARRY_ROWS`).  Returns the packed output (see
     :func:`unpack_chunk`); the cache is written in place.
     ``temp_row``/``topp_row``/``topk_row`` switch to per-row sampling
-    (sampling.sample_rows).
+    (sampling.sample_rows); ``counts``/``pres_row``/``freq_row`` to the
+    penalized sampler, ``counts`` updated in place like the cache.
 
     On CPU tensors the steps run eagerly.  On CUDA tensors they replay the
     captured graph of this plan in ``graphs`` (a
     :class:`~.chunk_graph.ChunkGraphs` tied to this cache and these
     weights; the JAX package's counterpart is the jitted program): the
     key is the batch and step count, the cache kind and table width, the
-    weights' quantization, the per-row arrays present and the sampling
-    scalars."""
+    weights' quantization, the per-row arrays present, whether the
+    penalty histogram is, and the sampling scalars.  The histogram is
+    carried, not copied: the graph reads and writes the batcher's one
+    ``counts`` buffer, so a row's counts set before a replay (device ops,
+    stream-ordered) are the ones it reads."""
     kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
               eos_id=eos_id, pad_id=pad_id)
     if not carry.is_cuda:
         return _decode_steps(params, cfg, cache, carry, generator,
                              chunk_steps, tables=tables, temp_row=temp_row,
-                             topp_row=topp_row, topk_row=topk_row, **kw)
+                             topp_row=topp_row, topk_row=topk_row,
+                             counts=counts, pres_row=pres_row,
+                             freq_row=freq_row, **kw)
     if graphs is None:
         raise ValueError(
             "a decode chunk on CUDA tensors replays a captured graph; pass "
@@ -428,12 +531,14 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
         )
     inputs = {"carry": carry}
     for name, t in (("tables", tables), ("temp_row", temp_row),
-                    ("topp_row", topp_row), ("topk_row", topk_row)):
+                    ("topp_row", topp_row), ("topk_row", topk_row),
+                    ("pres_row", pres_row), ("freq_row", freq_row)):
         if t is not None:
             inputs[name] = t
     quantized = isinstance(params["blocks"]["attn"]["wq"], QuantizedTensor)
     key = (chunk_steps, tuple(sorted(kw.items())), type(cache).__name__,
            cache.k.dtype, quantized,
+           None if counts is None else ("counts", tuple(counts.shape)),
            tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
 
     def chunk(ins):
@@ -441,9 +546,12 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                              chunk_steps, tables=ins.get("tables"),
                              temp_row=ins.get("temp_row"),
                              topp_row=ins.get("topp_row"),
-                             topk_row=ins.get("topk_row"), **kw)
+                             topk_row=ins.get("topk_row"), counts=counts,
+                             pres_row=ins.get("pres_row"),
+                             freq_row=ins.get("freq_row"), **kw)
 
-    return graphs.run(key, chunk, inputs, generator)
+    carried = () if counts is None else (counts,)
+    return graphs.run(key, chunk, inputs, generator, carried=carried)
 
 
 def mixed_step(params, cfg, cache, carry, generator, chunk_steps, row_k,
@@ -484,6 +592,29 @@ class _Request:
     # resume_emitted and the admission token continues the sequence.
     resume_emitted: list[int] | None = None
     resume_lps: list[float] | None = None
+    # A registered prefix (register_prefix) whose KV seeds the row; ``ids``
+    # holds only what follows it.
+    prefix: str | None = None
+    # OpenAI presence/frequency penalties over this request's own output.
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # Swap-preemption state (host tier): the victim's raw pages are parked
+    # under ``swap_handle``; restore scatters them back and rebuilds the
+    # row's scheduling state from ``swap_pages``/``swap_last_tok``/
+    # ``swap_pos`` (no admission token: ``max_new_tokens`` already holds
+    # the remaining budget).  A failed restore clears swap_handle and the
+    # request takes the recompute path (``ids`` is prompt + emitted).
+    swap_handle: int | None = None
+    swap_pages: int = 0
+    swap_last_tok: int = 0
+    swap_pos: int = 0
+
+
+@dataclass
+class _Prefix:
+    ids: list[int]
+    k: Any  # [L, 1, S, KVH, HD] single-row KV holding the prefix
+    v: Any
 
 
 class PrefixCache:
@@ -571,8 +702,14 @@ class PagePool:
     never allocated, never freed, never read by a live row."""
 
     def __init__(self, num_pages: int,
-                 prefix_cache: "PrefixCache | None" = None) -> None:
+                 prefix_cache: "PrefixCache | None" = None,
+                 host_tier: "HostTier | None" = None) -> None:
         self.num_pages = num_pages
+        # The host tier BEHIND the pool: the batcher spills eviction
+        # candidates into it before alloc reclaims them and parks swapped
+        # rows there.  The pool only audits and reports it; every data
+        # move is the batcher's (no device call under the allocator lock).
+        self.host_tier = host_tier
         # Mutation happens on the engine thread; the occupancy view
         # (stats/publish_gauges behind /metrics, the supervisor's audit)
         # reads from the serving loop thread.  The PrefixCache LRU is
@@ -610,10 +747,33 @@ class PagePool:
             }
 
     def publish_gauges(self) -> None:
-        """Mirror the occupancy view into METRICS (batcher_pool_*)."""
+        """Mirror the occupancy view into METRICS (batcher_pool_*); the
+        host tier's occupancy rides along as batcher_host_tier_*."""
         METRICS.set_gauges({
             f"batcher.pool.{k}": float(v) for k, v in self.stats().items()
         })
+        if self.host_tier is not None:
+            METRICS.set_gauges({
+                f"batcher.host_tier.{k}": float(v)
+                for k, v in self.host_tier.stats().items()
+            })
+
+    def eviction_candidates(self, n: int) -> list[tuple[int, bytes]]:
+        """The (page, digest) pairs :meth:`alloc`\\ (n) would evict from
+        the LRU, oldest first — the spill reads these BEFORE the alloc so
+        their content can move to the host tier.  Engine thread only:
+        nothing may mutate the pool between this and the alloc."""
+        pc = self.prefix_cache
+        with self._lock:
+            if pc is None:
+                return []
+            m = max(0, n - len(self.free_pages))
+            out: list[tuple[int, bytes]] = []
+            for p in pc.lru:
+                if len(out) >= m:
+                    break
+                out.append((p, pc.page_hash[p]))
+            return out
 
     # graftlint: holds(self._lock)
     def _available_locked(self) -> int:
@@ -676,10 +836,14 @@ class PagePool:
         with self._lock:
             self.prefix_cache.register(page, digest)
 
-    def assert_consistent(self, live_rows=()) -> None:
+    def assert_consistent(self, live_rows=(), swap_handles=()) -> None:
         """Audit the allocator's partition invariants; AssertionError on the
         first violation.  ``live_rows`` is the page lists of resident rows:
-        per-page refcounts must EQUAL the row-hold counts."""
+        per-page refcounts must EQUAL the row-hold counts.  With a host
+        tier the audit spans it: ``swap_handles`` (those of queued resume
+        requests) must own every parked parcel."""
+        if self.host_tier is not None:
+            self.host_tier.assert_consistent(swap_handles)
         pc = self.prefix_cache
         with self._lock:
             lru = set(pc.lru) if pc is not None else set()
@@ -727,7 +891,9 @@ class _PendingPrefill:
     req: _Request
     row_k: Any          # transient [L, 1, S, KVH, HD] accumulating KV
     row_v: Any
-    done: int           # prompt tokens already consumed (incl. cached ones)
+    done: int           # prompt tokens already consumed (incl. cached ones
+    #                     and a named prefix's)
+    ids: list[int]      # the request's own ids (a named prefix pre-seeded)
     total_len: int
     last_logits: Any | None = None  # [1, V] after the latest bite
     # Automatic prefix-cache hit (paged mode): the cached page run seeding
@@ -753,10 +919,6 @@ class _RowState:
     remaining: int = 0  # decode tokens this row may still emit
     pages: list[int] = field(default_factory=list)  # pool pages held
     streamed: int = 0  # tokens already delivered to run()'s on_tokens
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 class ContinuousBatcher:
@@ -812,7 +974,9 @@ class ContinuousBatcher:
         # also auto-chunks prompts longer than the budget.
         token_budget: int | None = None,
         kv_bits: int = 16,                 # 8 = int8 pool pages (paged)
-        host_pages: int = 0,               # host-RAM tier: later slice
+        # Host-RAM KV tier behind the paged pool (pages of host RAM, one
+        # pinned arena): swap preemption and prefix-cache spill.  0 = off.
+        host_pages: int = 0,
         # The lockstep clock: the one time source scheduling DECISIONS may
         # consult (queue-deadline shedding).  Defaults to perf_counter.
         clock: "Callable[[], float] | None" = None,
@@ -824,8 +988,6 @@ class ContinuousBatcher:
         }
         self._clock = clock if clock is not None else time.perf_counter
         model_lib.check_supported(cfg)
-        if host_pages:
-            _refuse("the host-RAM KV tier (host_pages)")
         # The reference's checks, with its messages.
         if max_len > cfg.max_seq_len:
             raise ValueError(
@@ -837,6 +999,12 @@ class ContinuousBatcher:
             raise ValueError(
                 "int8 KV pages live in the paged pool; pass paged_pages "
                 "(contiguous caches stay full-width)"
+            )
+        if host_pages < 0:
+            raise ValueError(f"host_pages must be >= 0, got {host_pages}")
+        if host_pages and paged_pages is None:
+            raise ValueError(
+                "the host-RAM KV tier backs the paged pool; pass paged_pages"
             )
         if paged_pages is not None:
             if cfg.sliding_window is not None:
@@ -894,6 +1062,7 @@ class ContinuousBatcher:
         self.prefix_cache: PrefixCache | None = None
         self.pool: PagePool | None = None
         self.tables: np.ndarray | None = None
+        self.host_tier: HostTier | None = None
         if self.paged:
             self.cache = _paged_pool(cfg, paged_pages, page_size,
                                      dtype=kv_dtype, device=self.device,
@@ -901,9 +1070,17 @@ class ContinuousBatcher:
             self.pages_per_row = max_len // page_size
             if prefix_cache:
                 self.prefix_cache = PrefixCache()
+            if host_pages:
+                # One arena of page slots, pinned when the pool is on the
+                # card: allocated once, so parking never allocates.
+                self.host_tier = HostTier(
+                    host_pages, page_layout(self.cache),
+                    pin=self.device.type == "cuda",
+                )
             # Page 0 is the permanent scratch page: fixed-shape admissions
             # pad their page lists with it, and no live row ever reads it.
-            self.pool = PagePool(paged_pages, prefix_cache=self.prefix_cache)
+            self.pool = PagePool(paged_pages, prefix_cache=self.prefix_cache,
+                                 host_tier=self.host_tier)
             self.tables = np.zeros((batch_slots, self.pages_per_row),
                                    np.int32)
         else:
@@ -927,6 +1104,14 @@ class ContinuousBatcher:
         self.temp_row = np.full((batch_slots,), temperature, np.float32)
         self.topp_row = np.full((batch_slots,), top_p, np.float32)
         self.topk_row = np.full((batch_slots,), top_k, np.int32)
+        self.pres_row = np.zeros((batch_slots,), np.float32)
+        self.freq_row = np.zeros((batch_slots,), np.float32)
+        # Output-token histogram [B, V] int32 on the device, allocated at
+        # the first penalized admission (a server that never sees a penalty
+        # pays nothing) and never replaced: the decode graphs carry it.
+        self.tok_counts: torch.Tensor | None = None
+        # Named prefixes (register_prefix): name -> its prefilled KV row.
+        self.prefixes: dict[str, _Prefix] = {}
         self.rows = [_RowState() for _ in range(batch_slots)]
         # Decode forward steps dispatched (chunks x chunk_steps): every
         # step runs each layer's paged decode attention once.
@@ -965,6 +1150,10 @@ class ContinuousBatcher:
         self._cancel_dirty = False
         self._tables_dirty = False
         self._t_complete: float | None = None
+        # True from a span's first dispatch to its carry sync: chunks may
+        # be in flight and the mirrors stale.  Swap-out (a gather of a
+        # victim's pages) happens only outside it.
+        self._span_open = False
 
     # -- paged pool (PagePool: refcounted, prefix-cache LRU) ---------------
 
@@ -978,10 +1167,74 @@ class ContinuousBatcher:
 
     def assert_pool_consistent(self) -> None:
         """Audit the page pool against the resident rows (no-op in
-        contiguous mode)."""
+        contiguous mode), and the host tier against the queued resume
+        requests: every swap parcel must be owned by exactly one of them."""
         if self.pool is not None:
             self.pool.assert_consistent(
-                [r.pages for r in self.rows if r.pages])
+                [r.pages for r in self.rows if r.pages],
+                swap_handles=[
+                    r.swap_handle for r in self.queue_snapshot()
+                    if r.swap_handle is not None
+                ],
+            )
+
+    def register_prefix(self, name: str, prefix: str | list[int]) -> None:
+        """Prefill a shared prefix (e.g. a system prompt) ONCE; requests
+        submitted with ``prefix=name`` reuse its KV instead of recomputing
+        it — admission then prefills only the request's suffix."""
+        ids = (
+            self.tokenizer.encode(prefix)
+            if isinstance(prefix, str)
+            else list(prefix)
+        )
+        if len(ids) >= self.s:
+            raise ValueError(
+                f"prefix ({len(ids)} tokens) does not fit slot capacity {self.s}"
+            )
+        _, row_cache = _prefill_row(
+            self.params, self.cfg, _row_dtype_of(self.cache), self.s,
+            self._dev(np.asarray(ids, np.int32)),
+        )
+        self.prefixes[name] = _Prefix(ids, row_cache.k, row_cache.v)
+
+    # -- the host tier (swap preemption, prefix-cache spill) ----------------
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Pool allocation with the spill tier in front: any LRU-cached
+        page this alloc would evict first has its content parked in the
+        host tier (keyed by digest), so a later hit restores it instead of
+        prefilling it again.  Best effort: a dry host budget degrades to
+        plain eviction."""
+        if (self.host_tier is not None and n
+                and "evict_spill" in self.sched.pressure_rungs()):
+            self._spill_cold_pages(n)
+        return self.pool.alloc(n)
+
+    def _spill_cold_pages(self, n: int) -> None:
+        """ENGINE THREAD, just before an alloc(n): park the eviction
+        candidates' raw pages in the host tier.  The gather and the copy
+        to host RAM are enqueued here; the tier's worker thread waits for
+        them.  Inside a span this runs behind the chunk in flight: an LRU
+        page has refcount 0 and is published, and no decode step writes a
+        published page (a row writes at ``real_lens``, past its full prompt
+        pages; a released row's table is scratch from the next chunk on)."""
+        cand = self.pool.eviction_candidates(n)
+        if not cand or not self.host_tier.can_fit(1):
+            # Saturated with swap parcels (never evicted for spills):
+            # skip the gather park_spill would refuse.
+            return
+        payload = _export_pages_raw(
+            self.cache, self._dev(np.asarray([p for p, _ in cand], np.int32)))
+        parked = self.host_tier.park_spill([d for _, d in cand], payload)
+        if parked:
+            METRICS.inc("batcher.host_tier.spilled_pages", parked)
+
+    def _drop_req_swap(self, req: "_Request") -> None:
+        """Free a queued resume request's swap parcel (cancel / shed:
+        nothing will ever restore it)."""
+        if req.swap_handle is not None and self.host_tier is not None:
+            self.host_tier.drop_swap(req.swap_handle)
+            req.swap_handle = None
 
     def _page_digests(self, ids: list[int], n_pages: int) -> list[bytes]:
         """This pool's content digests: chained over token ids AND the KV
@@ -1026,17 +1279,22 @@ class ContinuousBatcher:
 
     def submit(
         self, prompt: str | list[int], max_new_tokens: int = 32,
-        temperature: float | None = None, top_p: float | None = None,
-        top_k: int | None = None, prefix_cache: bool = True,
-        priority: int = 0, deadline: float | None = None,
+        prefix: str | None = None, temperature: float | None = None,
+        top_p: float | None = None, top_k: int | None = None,
+        presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+        prefix_cache: bool = True, priority: int = 0,
+        deadline: float | None = None,
     ) -> int:
         """Queue a request; the same validation as the JAX batcher.
+        ``prefix`` names a registered prefix whose KV seeds the row;
         ``temperature``/``top_p``/``top_k`` override the batcher's sampling
-        config for this request; ``prefix_cache=False`` opts it out of
+        config for this request; ``presence_penalty``/``frequency_penalty``
+        (OpenAI semantics, [-2, 2]) adjust the logits against the
+        request's own output; ``prefix_cache=False`` opts it out of
         automatic prefix caching; ``priority`` orders admission and shields
         from preemption; ``deadline`` (absolute perf_counter) sheds it if
-        still queued past it.  (Named prefixes, penalties, constrained
-        output and tenants are later slices.)"""
+        still queued past it.  (Constrained output and tenants are later
+        slices.)"""
         ids = (
             self.tokenizer.encode(prompt)
             if isinstance(prompt, str)
@@ -1081,18 +1339,31 @@ class ContinuousBatcher:
                     f"got {deadline!r}"
                 )
             deadline = float(deadline)
-        if len(ids) + max_new_tokens > self.s:
+        for name, pen in (("presence_penalty", presence_penalty),
+                          ("frequency_penalty", frequency_penalty)):
+            if not -2.0 <= pen <= 2.0:  # also rejects NaN/inf
+                raise ValueError(f"{name} must be in [-2, 2], got {pen}")
+        pfx_len = 0
+        if prefix is not None:
+            if prefix not in self.prefixes:
+                raise KeyError(
+                    f"unknown prefix {prefix!r} (register_prefix first)")
+            pfx_len = len(self.prefixes[prefix].ids)
+        if pfx_len + len(ids) + max_new_tokens > self.s:
             raise ValueError(
-                f"prompt ({len(ids)} tokens) + {max_new_tokens} new "
-                f"exceeds slot capacity {self.s}"
+                f"prompt ({pfx_len}+{len(ids)} tokens) + {max_new_tokens} "
+                f"new exceeds slot capacity {self.s}"
             )
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
             self.queue.append(_Request(
-                rid, ids, max_new_tokens, temperature=temperature,
-                top_p=top_p, top_k=top_k, prefix_cache=prefix_cache,
-                priority=priority, deadline=deadline,
+                rid, ids, max_new_tokens, prefix=prefix,
+                temperature=temperature, top_p=top_p, top_k=top_k,
+                presence_penalty=float(presence_penalty),
+                frequency_penalty=float(frequency_penalty),
+                prefix_cache=prefix_cache, priority=priority,
+                deadline=deadline,
             ))
         return rid
 
@@ -1111,6 +1382,9 @@ class ContinuousBatcher:
             if dropped is not None:
                 self.queue.remove(dropped)
         if dropped is not None:
+            # A swap-preempted request also frees its host parcel: nothing
+            # will ever restore it (the tier audit would catch the leak).
+            self._drop_req_swap(dropped)
             self.results[rid] = list(dropped.resume_emitted or [])
             self.result_logprobs[rid] = list(dropped.resume_lps or [])
             METRICS.inc("batcher.cancelled")
@@ -1127,6 +1401,7 @@ class ContinuousBatcher:
                 if row.pages:
                     self.pool.release(row.pages)
                     self.tables[i] = 0
+                    self._tables_dirty = True
                 # A chunked prefill in flight drops its transient row:
                 # nothing reached the shared cache yet.
                 self._prefills.pop(i, None)
@@ -1175,6 +1450,7 @@ class ContinuousBatcher:
                 self.queue.remove(req)
                 expired.append(req)
         for req in expired:
+            self._drop_req_swap(req)
             self.results[req.rid] = list(req.resume_emitted or [])
             self.result_logprobs[req.rid] = list(req.resume_lps or [])
             if req.resume_emitted:
@@ -1202,10 +1478,12 @@ class ContinuousBatcher:
 
     def _preempt_row(self, i: int, reason: str) -> None:
         """Preempt resident row ``i``: free its pages now, keep the tokens it
-        emitted, and requeue it for RECOMPUTE — the resume request prefills
-        prompt + emitted prefix (cheap while the prefix cache still holds
-        the prompt pages) and its admission token continues the sequence,
-        so temperature-0 streams stay exact."""
+        emitted, and requeue it.  With the host tier its raw pages swap out
+        and its resume scatters them back; otherwise (or when the tier
+        cannot take them) the resume RECOMPUTES — it prefills prompt +
+        emitted prefix (cheap while the prefix cache still holds the
+        prompt pages) and its admission token continues the sequence.
+        Either way temperature-0 streams stay exact."""
         row = self.rows[i]
         req = row.req
         if self._prefills.pop(i, None) is not None or row.prefilling:
@@ -1218,12 +1496,24 @@ class ContinuousBatcher:
                         else req.ids)
             resume = _Request(
                 req.rid, list(base_ids) + list(row.emitted),
-                max(1, row.remaining), temperature=req.temperature,
-                top_p=req.top_p, top_k=req.top_k,
+                max(1, row.remaining), prefix=req.prefix,
+                temperature=req.temperature, top_p=req.top_p,
+                top_k=req.top_k, presence_penalty=req.presence_penalty,
+                frequency_penalty=req.frequency_penalty,
                 prefix_cache=req.prefix_cache, priority=req.priority,
                 deadline=req.deadline, resume_emitted=list(row.emitted),
                 resume_lps=list(row.lps),
             )
+            # The swap rung is the scheduler's to declare: a policy
+            # without it sends every victim to exact recompute.
+            handle = (self._swap_out_row(i, row)
+                      if "swap_preempt" in self.sched.pressure_rungs()
+                      else None)
+            if handle is not None:
+                resume.swap_handle = handle
+                resume.swap_pages = len(row.pages)
+                resume.swap_last_tok = int(self.last_tok[i])
+                resume.swap_pos = int(self.real_lens[i])
         freed = len(row.pages)
         if row.pages:
             self.pool.release(row.pages)
@@ -1238,9 +1528,110 @@ class ContinuousBatcher:
         METRICS.inc("batcher.preemptions_total")
         log.info(
             "preempted rid %d from slot %d (%s): freed %d page(s), %d "
-            "token(s) kept for recompute", resume.rid, i, reason, freed,
+            "token(s) kept for %s", resume.rid, i, reason, freed,
             len(resume.resume_emitted or []),
+            "swap restore" if resume.swap_handle is not None else "recompute",
         )
+
+    def _swap_out_row(self, i: int, row: "_RowState") -> int | None:
+        """Park resident row ``i``'s raw pages in the host tier (swap
+        preemption).  Returns the parcel handle, or None to fall back to
+        exact recompute (no tier, or its budget cannot fit the row).  The
+        gather and the copy to host RAM are enqueued on the stream after
+        the last chunk that wrote the row (preemption runs only at a sync
+        point) and before any admission scatter into the freed pages."""
+        tier = self.host_tier
+        if tier is None or not row.pages:
+            return None
+        assert not self._span_open, "swap-out inside a decode span"
+        if not tier.can_fit(len(row.pages)):
+            METRICS.inc("batcher.kv_swaps.fallback")
+            return None
+        payload = _export_pages_raw(
+            self.cache, self._dev(np.asarray(row.pages, np.int32)))
+        handle = tier.park_swap(payload, len(row.pages))
+        if handle is None:
+            METRICS.inc("batcher.kv_swaps.fallback")
+            return None
+        METRICS.inc("batcher.kv_swaps.out")
+        return handle
+
+    def _set_count_row(self, i: int, tokens: list[int]) -> None:
+        """Row ``i`` of the penalty histogram := the counts of ``tokens``
+        (every token the request has emitted), by device ops enqueued
+        before the next chunk; the histogram never visits the host."""
+        if self.tok_counts is None:
+            self.tok_counts = torch.zeros((self.b, self.cfg.vocab_size),
+                                          dtype=torch.int32,
+                                          device=self.device)
+        row = self.tok_counts[i]
+        row.zero_()
+        idx = self._dev(np.asarray(tokens, np.int64))
+        row.index_put_((idx,), torch.ones_like(idx, dtype=torch.int32),
+                       accumulate=True)
+
+    def _try_restore_swapped(self, i: int, req: "_Request") -> bool | None:
+        """Restore a swap-preempted request into free slot ``i``: its parked
+        raw pages scatter back into fresh pool pages, with no model call
+        and no token sampled — the row's scheduling state is rebuilt and
+        decode continues from ``swap_last_tok``, so the stream equals the
+        never-preempted run's at either KV width.
+
+        Returns True on restore, False after degrading the request to
+        exact recompute (parcel missing or corrupted: swap_handle cleared,
+        the request stays queued), None on back-pressure (nothing
+        consumed; the caller stops admitting this round)."""
+        n = req.swap_pages
+        if not self._ensure_pages(n, below_priority=req.priority):
+            return None  # the parcel stays parked; retry next round
+        parcel = self.host_tier.take_swap(req.swap_handle)
+        req.swap_handle = None
+        if parcel is None:
+            METRICS.inc("batcher.kv_swaps.fallback")
+            log.warning("swap restore for rid %d failed verification; "
+                        "recomputing", req.rid)
+            return False
+        self._unqueue(req)
+        # Read the freed slots BEFORE the alloc: its spill may park into
+        # them (on the card the two copies are stream-ordered).
+        arrays = parcel.to(self.device)
+        # Table first, allocation last: nothing between the pool handing
+        # out pages and the row table owning them may raise.
+        page_list = np.zeros((self.pages_per_row,), np.int32)
+        pages = self._alloc_pages(n)
+        page_list[:n] = pages
+        self.tables[i] = page_list
+        self._tables_dirty = True
+        self.cache = _import_pages_raw(
+            self.cache, self._dev(np.asarray(pages, np.int32)), *arrays)
+        req_t, req_p, req_k, _ = self._request_sampling(req)
+        self.temp_row[i] = req_t
+        self.topp_row[i] = req_p
+        self.topk_row[i] = req_k
+        self.pres_row[i] = req.presence_penalty
+        self.freq_row[i] = req.frequency_penalty
+        emitted = list(req.resume_emitted or [])
+        if req.presence_penalty or req.frequency_penalty:
+            # The histogram must see every token this request emitted
+            # across residencies, as the recompute resume rebuilds it.
+            self._set_count_row(i, emitted)
+        self.last_tok[i] = req.swap_last_tok
+        self.real_lens[i] = req.swap_pos
+        self.active[i] = True
+        # No admission token on a swap restore: max_new_tokens IS the
+        # remaining budget (set by _preempt_row from row.remaining).
+        self.budget[i] = req.max_new_tokens
+        self._admit_seq += 1
+        self.rows[i] = _RowState(
+            rid=req.rid, emitted=emitted, lps=list(req.resume_lps or []),
+            remaining=req.max_new_tokens, pages=pages, req=req,
+            priority=req.priority, admit_seq=self._admit_seq,
+            streamed=len(emitted),
+        )
+        METRICS.inc("batcher.kv_swaps.in")
+        log.info("restored swapped rid %d into slot %d (%d page(s))",
+                 req.rid, i, n)
+        return True
 
     def _ensure_pages(self, need: int, below_priority: int | None = None,
                       self_slot: int | None = None) -> bool:
@@ -1264,18 +1655,97 @@ class ContinuousBatcher:
             avail = self.pool.available()
         return True
 
-    def _reserve_row_pages(self, i, req, total_len):
+    def _host_restorable(self, digests: list[bytes], start: int,
+                         cap: int) -> list[bytes]:
+        """The consecutive digest run PAST the device-cached run whose
+        pages are parked in the host spill tier."""
+        if self.host_tier is None:
+            return []
+        out: list[bytes] = []
+        for d in digests[start:cap]:
+            if not self.host_tier.has_spill(d):
+                break
+            out.append(d)
+        return out
+
+    def _match_tiered(self, digests: list[bytes], cap: int,
+                      n_init: int = 0) -> list[int]:
+        """The longest cached page run across BOTH tiers: alternate device
+        matches (retained) and host-tier restores until the chain breaks.
+        LRU eviction reclaims a run's head pages first, so a host-parked
+        head often sits in front of a still-resident tail.  Restores use
+        spare capacity only (``n_init`` is what the admission itself still
+        needs; a restore never preempts a live row), and restored pages
+        come back row-held and published, so a back-pressured caller
+        releasing them parks them in the device LRU."""
+        pc = self.prefix_cache
+        pages = pc.match(digests[:cap])
+        for p in pages:
+            self.pool.retain(p)
+        k = len(pages)
+        while k < cap:
+            run = self._host_restorable(digests, k, cap)
+            if not run:
+                break
+            spare = self.pool.available() - max(0, n_init - k - len(run))
+            restored = self._restore_spilled_run(run[: max(spare, 0)])
+            if not restored:
+                break
+            pages += restored
+            k += len(restored)
+            if len(restored) < len(run):
+                break
+            more = pc.match(digests[k:cap])
+            if not more:
+                break
+            for p in more:
+                self.pool.retain(p)
+            pages += more
+            k += len(more)
+        return pages
+
+    def _restore_spilled_run(self, run: list[bytes]) -> list[int]:
+        """Scatter a host-spilled digest run back into fresh pool pages and
+        publish the digests: the pages come back exactly as they left, so
+        a hit over them is a hit over never-evicted pages.  The caller
+        guarantees pool availability.  Returns the restored pages (a
+        prefix of ``run``; empty when the first page fails verification)."""
+        parcels = []
+        for d in run:
+            got = self.host_tier.take_spill(d)
+            if got is None:
+                break
+            parcels.append(got)
+        if not parcels:
+            return []
+        # The freed slots are read BEFORE the alloc, whose spill may park
+        # into them; one scatter for the run: the one-slot parcels' device
+        # copies stacked along the page axis.
+        parts = [p.to(self.device) for p in parcels]
+        pages = self._alloc_pages(len(parcels))
+        self.cache = _import_pages_raw(
+            self.cache, self._dev(np.asarray(pages, np.int32)),
+            *(torch.cat([p[j] for p in parts], dim=1)
+              for j in range(len(parts[0]))))
+        for pg, d in zip(pages, run):
+            self.pool.publish_prefix(pg, d)
+        METRICS.inc("batcher.host_tier.restored_pages", len(pages))
+        METRICS.inc("batcher.host_tier.hits")
+        return pages
+
+    def _reserve_row_pages(self, i, req, total_len, pfx=None):
         """Paged admission reservation, ON-DEMAND: pages for the prompt plus
         one decode page (growth allocates the rest at chunk boundaries).
-        With the prefix cache, the longest cached run of the prompt's full
-        pages is retained (capped one page short of the prompt, so at least
-        one real token prefills).  Returns (page_list, pages, cached_pages,
+        With the prefix cache (and no named prefix), the longest cached run
+        of the prompt's full pages across both tiers is retained or
+        restored (capped one page short of the prompt, so at least one
+        real token prefills).  Returns (page_list, pages, cached_pages,
         cached_len, digests), or None on back-pressure."""
         blk = self.page_size
         n_full = -(-(total_len + req.max_new_tokens) // blk)
         n_init = min(n_full, -(-total_len // blk) + 1)
         pc = self.prefix_cache
-        auto = pc is not None and req.prefix_cache
+        auto = pc is not None and pfx is None and req.prefix_cache
         cached_pages: list[int] = []
         cached_len = 0
         digests: list[bytes] = []
@@ -1284,12 +1754,12 @@ class ContinuousBatcher:
                 req.digests = self._page_digests(req.ids, len(req.ids) // blk)
             digests = req.digests
             cap = (len(req.ids) - 1) // blk
-            cached_pages = pc.match(digests[:cap])
-            for p in cached_pages:
-                self.pool.retain(p)
+            cached_pages = self._match_tiered(digests, cap, n_init=n_init)
             cached_len = len(cached_pages) * blk
         need = n_init - len(cached_pages)
         if not self._ensure_pages(need, below_priority=req.priority):
+            # Restored pages release to the device LRU (still addressable);
+            # retained hits just drop the reference.
             self.pool.release(cached_pages)
             return None
         if auto:
@@ -1298,7 +1768,7 @@ class ContinuousBatcher:
         # out pages and the row table owning them may raise.
         page_list = np.zeros((self.pages_per_row,), np.int32)
         page_list[: len(cached_pages)] = cached_pages
-        pages = self.pool.alloc(need)
+        pages = self._alloc_pages(need)
         page_list[len(cached_pages): n_init] = pages  # + scratch pad
         self.tables[i] = page_list
         return page_list, pages, cached_pages, cached_len, digests
@@ -1325,7 +1795,7 @@ class ContinuousBatcher:
             n = need_pages - have
             if not self._ensure_pages(n, self_slot=i):
                 continue  # the grower itself was preempted
-            fresh = self.pool.alloc(n)
+            fresh = self._alloc_pages(n)
             row.pages.extend(fresh)
             self.tables[i][have:need_pages] = fresh
             METRICS.inc("batcher.pages_grown", n)
@@ -1366,40 +1836,51 @@ class ContinuousBatcher:
             req = self._next_request()
             if req is None:
                 return
-            total_len = len(req.ids)
+            if req.swap_handle is not None:
+                # Swap-preempted resume: scatter the parked pages back
+                # instead of recomputing.  True = restored; False = the
+                # parcel was unusable and the request fell through to
+                # recompute (still queued, swap_handle cleared: selected
+                # again next iteration); None = back-pressure.
+                if self._try_restore_swapped(i, req) is None:
+                    return
+                continue
+            pfx = self.prefixes[req.prefix] if req.prefix is not None else None
+            pfx_len = len(pfx.ids) if pfx else 0
+            total_len = pfx_len + len(req.ids)
             thr = self.sched.chunk_threshold()
-            if thr is not None and total_len > thr:
+            if thr is not None and len(req.ids) > thr:
                 if len(self._prefills) >= self.prefill_concurrency:
                     # Prefill slots full; admission order is strict, so
                     # the selected request is never jumped.
                     return
                 self._unqueue(req)
-                self._start_chunked(i, req)
+                self._start_chunked(i, req, pfx)
                 continue
-            if not self.paged:
-                self._unqueue(req)
-                req_t, req_p, req_k, extra = self._request_sampling(req)
-                # Bucket for shape reuse, never past the row's width.
-                tp = min(_bucket(total_len), self.s)
-                prompt = np.full((tp,), self.pad_id, np.int32)
-                prompt[:total_len] = req.ids
-                self.cache, tok, row_valid, lp = admit_row(
-                    self.params, self.cfg, self.cache, i, self._dev(prompt),
-                    total_len, self._gen, **self.sampling, **extra,
-                )
-                self.valid[i] = row_valid
-                self._activate_row(i, req, tok, lp, total_len, req_t, req_p,
-                                   [], req_k=req_k)
-                continue
-            got = self._reserve_row_pages(i, req, total_len)
-            if got is None:
-                # Dry pool with no preemptable victim: back-pressure.  The
-                # request stays queued; admission stops for this round.
-                return
-            page_list, pages, cached_pages, cached_len, digests = got
+            cached_pages: list[int] = []
+            pages: list[int] = []
+            cached_len = 0
+            digests: list[bytes] = []
+            if self.paged:
+                got = self._reserve_row_pages(i, req, total_len, pfx)
+                if got is None:
+                    # Dry pool with no preemptable victim: back-pressure.
+                    # The request stays queued; admission stops this round.
+                    return
+                page_list, pages, cached_pages, cached_len, digests = got
             self._unqueue(req)
             req_t, req_p, req_k, extra = self._request_sampling(req)
-            if cached_len:
+            # Bucket for shape reuse, never past what fits after the prefix.
+            tp = min(_bucket(len(req.ids)), self.s - pfx_len)
+            prompt = np.full((tp,), self.pad_id, np.int32)
+            prompt[: len(req.ids)] = req.ids
+            if self.paged and pfx is not None:
+                self.cache, tok, lp = admit_row_with_prefix_paged(
+                    self.params, self.cfg, self.cache, self._dev(page_list),
+                    pfx.k, pfx.v, pfx_len, self._dev(prompt), len(req.ids),
+                    self._gen, **self.sampling, **extra,
+                )
+            elif self.paged and cached_len:
                 # Prefix-cache HIT: the cached run seeds the row through a
                 # pool gather; only the suffix prefills.  Writes for the
                 # cached positions go to the scratch page.
@@ -1414,16 +1895,25 @@ class ContinuousBatcher:
                     self._dev(write_list), cached_len, self._dev(chunk),
                     len(suffix), self._gen, **self.sampling, **extra,
                 )
-            else:
-                # Bucket for shape reuse, never past the row's width.
-                tp = min(_bucket(len(req.ids)), self.s)
-                prompt = np.full((tp,), self.pad_id, np.int32)
-                prompt[: len(req.ids)] = req.ids
+            elif self.paged:
                 self.cache, tok, lp = admit_row_paged(
                     self.params, self.cfg, self.cache, self._dev(page_list),
                     self._dev(prompt), len(req.ids), self._gen,
                     **self.sampling, **extra,
                 )
+            elif pfx is not None:
+                self.cache, tok, row_valid, lp = admit_row_with_prefix(
+                    self.params, self.cfg, self.cache, i, pfx.k, pfx.v,
+                    pfx_len, self._dev(prompt), len(req.ids), self._gen,
+                    **self.sampling, **extra,
+                )
+                self.valid[i] = row_valid
+            else:
+                self.cache, tok, row_valid, lp = admit_row(
+                    self.params, self.cfg, self.cache, i, self._dev(prompt),
+                    total_len, self._gen, **self.sampling, **extra,
+                )
+                self.valid[i] = row_valid
             # Publish the row's fresh full prompt pages (first writer
             # wins); the cached run is already published.
             for j in range(len(cached_pages), len(digests)):
@@ -1434,38 +1924,48 @@ class ContinuousBatcher:
 
     # -- chunked prefill ---------------------------------------------------
 
-    def _start_chunked(self, i: int, req: _Request) -> None:
-        """Reserve slot ``i`` and begin a chunked prefill.  With the
+    def _start_chunked(self, i: int, req: _Request, pfx=None) -> None:
+        """Reserve slot ``i`` and begin a chunked prefill.  A named prefix
+        seeds the transient row with a copy of its KV.  Otherwise, with the
         automatic prefix cache, the prompt's full pages are hashed, the
-        longest cached run is retained for the whole prefill and gathered
-        into the transient row once, and only the un-cached suffix chunks
-        through the model (capped one page short of the prompt, so at least
-        one real token prefills)."""
+        longest cached run across both tiers is retained (or restored from
+        the host) for the whole prefill and gathered into the transient row
+        once, and only the un-cached suffix chunks through the model
+        (capped one page short of the prompt, so at least one real token
+        prefills)."""
         cached_pages: list[int] = []
         cached_len = 0
         digests: list[bytes] = []
         total_len = len(req.ids)
+        done = 0
         pc = self.prefix_cache
-        if pc is not None and req.prefix_cache:
-            blk = self.page_size
-            if req.digests is None:
-                req.digests = self._page_digests(req.ids, total_len // blk)
-            digests = req.digests
-            cached_pages = pc.match(digests[: (total_len - 1) // blk])
-            for p in cached_pages:
-                self.pool.retain(p)
-            cached_len = len(cached_pages) * blk
-            pc.record_lookup(cached_len, total_len - cached_len)
-        if cached_pages:
-            read_list = np.zeros((self.pages_per_row,), np.int32)
-            read_list[: len(cached_pages)] = cached_pages
-            row_k, row_v = _gather_row_pages(self.cache,
-                                             self._dev(read_list))
+        if pfx is not None:
+            row_k, row_v = pfx.k.clone(), pfx.v.clone()
+            done = len(pfx.ids)
+            total_len += done
         else:
-            rc = model_lib.init_cache(self.cfg, 1, self.s,
-                                      dtype=_row_dtype_of(self.cache),
-                                      device=self.device)
-            row_k, row_v = rc.k, rc.v
+            if pc is not None and req.prefix_cache:
+                blk = self.page_size
+                if req.digests is None:
+                    req.digests = self._page_digests(req.ids,
+                                                     total_len // blk)
+                digests = req.digests
+                # A chunked prefill holds no pages of its own yet, so host
+                # restores take spare capacity alone.
+                cached_pages = self._match_tiered(
+                    digests, (total_len - 1) // blk)
+                cached_len = done = len(cached_pages) * blk
+                pc.record_lookup(cached_len, total_len - cached_len)
+            if cached_pages:
+                read_list = np.zeros((self.pages_per_row,), np.int32)
+                read_list[: len(cached_pages)] = cached_pages
+                row_k, row_v = _gather_row_pages(self.cache,
+                                                 self._dev(read_list))
+            else:
+                rc = model_lib.init_cache(self.cfg, 1, self.s,
+                                          dtype=_row_dtype_of(self.cache),
+                                          device=self.device)
+                row_k, row_v = rc.k, rc.v
         self._admit_seq += 1
         # The reserving row holds the cached pages, so cancel / preemption
         # release them and the pool audit sees the references (a
@@ -1476,8 +1976,8 @@ class ContinuousBatcher:
                                  admit_seq=self._admit_seq,
                                  pages=list(cached_pages))
         self._prefills[i] = _PendingPrefill(
-            req=req, row_k=row_k, row_v=row_v, done=cached_len,
-            total_len=total_len, cached_pages=cached_pages,
+            req=req, row_k=row_k, row_v=row_v, done=done,
+            ids=list(req.ids), total_len=total_len, cached_pages=cached_pages,
             cached_len=cached_len, digests=digests,
         )
         # Alternate runs the first bite now; mixed defers it to the fused
@@ -1523,8 +2023,9 @@ class ContinuousBatcher:
             pp.total_len,
         )
         bite = min(bite, tw)
+        off = pp.done - (pp.total_len - len(pp.ids))  # past a named prefix
         chunk = np.full((tw,), self.pad_id, np.int32)
-        chunk[:bite] = pp.req.ids[pp.done: pp.done + bite]
+        chunk[:bite] = pp.ids[off: off + bite]
         return bite, chunk
 
     def _advance_chunk(self, i: int, advance: bool = True) -> None:
@@ -1564,7 +2065,7 @@ class ContinuousBatcher:
             # handing out pages and the table owning them may raise.
             page_list = np.zeros((self.pages_per_row,), np.int32)
             page_list[:n_cached] = pp.cached_pages
-            pages = self.pool.alloc(n_init - n_cached)
+            pages = self._alloc_pages(n_init - n_cached)
             page_list[n_cached:n_init] = pages
             self.tables[i] = page_list
             # Cached positions scatter to the scratch page: the shared
@@ -1600,10 +2101,17 @@ class ContinuousBatcher:
         self.topp_row[i] = req_p
         self.topk_row[i] = (self.sampling["top_k"] if req_k is None
                             else req_k)
+        self.pres_row[i] = req.presence_penalty
+        self.freq_row[i] = req.frequency_penalty
         if self.prefix_cache is not None:
             self.prefix_cached_tokens[req.rid] = cached_len
         prior = list(req.resume_emitted or [])
         prior_lps = list(req.resume_lps or [])
+        if req.presence_penalty or req.frequency_penalty:
+            # A resumed request's histogram counts every token it emitted
+            # across residencies, or the recompute would sample from other
+            # logits than the unpreempted run.
+            self._set_count_row(i, prior + [tok])
         self.real_lens[i] = total_len
         self.active[i] = True
         # The first token came out of admission; decode may emit
@@ -1666,6 +2174,11 @@ class ContinuousBatcher:
                 if row.pages:
                     self.pool.release(row.pages)
                     self.tables[i] = 0
+                    # From the next dispatch on the released row's table is
+                    # the scratch page: only the chunk already in flight
+                    # writes its junk K/V into these pages, at real_lens,
+                    # past every page the row published.
+                    self._tables_dirty = True
                 final_lps = row.lps[row.streamed:]
                 if row.req is not None:
                     self.sched.note_freed(row.req, len(row.emitted))
@@ -1752,6 +2265,14 @@ class ContinuousBatcher:
                 self.topk_row[self.active] == self.sampling["top_k"]
             ).all()):
                 per_row["topk_row"] = self._dev(self.topk_row)
+        # The penalized plan only while a penalized row is live: the
+        # default batch keeps the plain sampler (and its graph).
+        pen_live = self.active & ((self.pres_row != 0.0)
+                                  | (self.freq_row != 0.0))
+        plan["counts"] = bool(pen_live.any())
+        if plan["counts"]:
+            per_row["pres_row"] = self._dev(self.pres_row)
+            per_row["freq_row"] = self._dev(self.freq_row)
         plan["per_row"] = per_row
         plan["n_active"] = int(self.active.sum())
         plan["mixed"] = None
@@ -1779,6 +2300,8 @@ class ContinuousBatcher:
         kw = dict(eos_id=self.eos_id, pad_id=self.pad_id,
                   tables=plan["tables"], graphs=self._graphs,
                   **self.sampling, **plan["per_row"])
+        if plan["counts"]:
+            kw["counts"] = self.tok_counts
         pp = (self._prefills.get(plan["mixed"])
               if plan["mixed"] is not None else None)
         if pp is not None and pp.done < pp.total_len:
@@ -1876,7 +2399,7 @@ class ContinuousBatcher:
             if self.pool.available() < need:
                 return False  # pressure: sync and let _grow_rows preempt
             have = len(row.pages)
-            fresh = self.pool.alloc(need)
+            fresh = self._alloc_pages(need)
             row.pages.extend(fresh)
             self.tables[i][have: have + need] = fresh
             self._tables_dirty = True
@@ -1945,7 +2468,8 @@ class ContinuousBatcher:
         if self.prefix_cache is None:
             return
         for req in self.queue_snapshot():
-            if req.digests is None and req.prefix_cache:
+            if (req.digests is None and req.prefix_cache
+                    and req.prefix is None and req.swap_handle is None):
                 req.digests = self._page_digests(
                     req.ids, len(req.ids) // self.page_size
                 )
@@ -1968,6 +2492,7 @@ class ContinuousBatcher:
             # collect / admit / grow ran with nothing in flight.
             self._note_gap(max(0.0, time.perf_counter() - self._t_complete))
         written = self.real_lens.copy()
+        self._span_open = True
         out = self._dispatch_chunk(plan, None)
         chunks = 1
         while self.overlap and self._overlap_ok(was_active, chunks):
@@ -2007,6 +2532,7 @@ class ContinuousBatcher:
         # Sync exit: the mirrors refresh BEFORE _collect, so a cancel taken
         # in the delivery callbacks lands on fresh state.
         toks, lps = self._sync_carry(out, written)
+        self._span_open = False
         METRICS.set_gauge("batcher.overlap.depth", 0)
         if self.overlap:
             self.overlap_stats["carry_syncs"] += 1

@@ -20,7 +20,9 @@ key and replayed after that:
 - it is captured after one eager run of the same chunk on the same
   inputs, which sets up every kernel outside the capture (attributes,
   lazy loading, library workspaces);  the eager run's cache writes are
-  the ones the first replay repeats;
+  the ones the first replay repeats.  A buffer the chunk accumulates into
+  (the penalty histogram: ``carried``) is saved before that run and put
+  back after it, so only replays count;
 - the batcher's ``torch.Generator`` is registered with it, so each replay
   advances the generator as the eager chunk would;
 - the kernels' launch counters count at capture only; the capture's own
@@ -83,14 +85,17 @@ class ChunkGraphs:
 
     def run(self, key, fn: Callable[[dict], torch.Tensor],
             inputs: dict[str, torch.Tensor],
-            generator: torch.Generator) -> torch.Tensor:
+            generator: torch.Generator, carried=()) -> torch.Tensor:
         """``fn(inputs)`` — the chunk, reading only ``inputs`` and the
         tensors it closes over — by replay of the graph of ``key``,
-        captured now if this is the key's first call.  Returns a fresh
-        copy of the packed output."""
+        captured now if this is the key's first call.  ``carried``: the
+        closed-over tensors the chunk updates by accumulation (not
+        idempotent, unlike the cache writes), restored after the warm-up.
+        Returns a fresh copy of the packed output."""
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(fn, inputs, generator)
+            g = self._graphs[key] = self._capture(fn, inputs, generator,
+                                                  carried)
         for name, src in inputs.items():
             g.static[name].copy_(src, non_blocking=True)
         g.graph.replay()
@@ -98,11 +103,14 @@ class ChunkGraphs:
         self.replays += 1
         return g.out.clone()
 
-    def _capture(self, fn, inputs, generator) -> _Graph:
+    def _capture(self, fn, inputs, generator, carried=()) -> _Graph:
         static = {name: t.clone() for name, t in inputs.items()}
         rng = generator.get_state()
+        saved = [t.clone() for t in carried]
         fn(static)  # the warm-up run: its launches are real, and count
         generator.set_state(rng)
+        for t, s in zip(carried, saved):
+            t.copy_(s)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()

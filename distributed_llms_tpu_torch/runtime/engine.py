@@ -184,10 +184,26 @@ class InferenceEngine:
             if requested:
                 raise NotImplementedError(f"{what} is not ported yet")
         # RuntimeConfig knobs are the defaults; explicit arguments win
-        # (paged_pages=0 explicitly requests contiguous).  The batcher
-        # refuses the host tier, a later slice.
+        # (paged_pages=0 explicitly requests contiguous).
         paged = (self.rt.paged_pages if paged_pages is None
                  else paged_pages) or None
+        # The host tier backs the paged pool: asked for explicitly on a
+        # contiguous engine it raises, inherited from the config it is
+        # dropped with a warning (the reference's rule).
+        explicit_host = host_pages is not None
+        if host_pages is None:
+            host_pages = self.rt.host_pages
+        if host_pages and paged is None:
+            if explicit_host:
+                raise ValueError(
+                    "the host-RAM KV tier backs the paged pool; pass "
+                    "paged_pages (or set runtime.paged_pages)"
+                )
+            log.warning(
+                "runtime.host_pages ignored: this engine serves "
+                "contiguous KV (no paged pool to tier)"
+            )
+            host_pages = 0
         if paged is None:
             for what, explicit, inherited in (
                     ("automatic prefix caching", prefix_cache,
@@ -221,7 +237,7 @@ class InferenceEngine:
             token_budget=(self.rt.token_budget if token_budget is None
                           else token_budget) or None,
             kv_bits=self.rt.kv_bits if kv_bits is None else kv_bits,
-            host_pages=self.rt.host_pages if host_pages is None else host_pages,
+            host_pages=host_pages,
             overlap=self.rt.overlap if overlap is None else overlap,
             schedule=schedule or self.rt.schedule,
         )

@@ -20,15 +20,17 @@ dispatch-ahead loop included — ``batcher_overlap_dispatched_ahead``,
 ``batcher_prefill_chunks``, ``batcher_sched_*``).
 
 Kept from the reference: the crash supervisor (a crashed ``batcher.run``
-respawns the batcher and re-admits zero-streamed requests), per-request
-deadlines, the engine watchdog, priority admission, the queue-full and
-estimated-cost shed gates with ``Retry-After``, graceful drain.
+respawns the batcher, carries its named prefixes over and re-admits
+zero-streamed requests), per-request deadlines, the engine watchdog,
+priority admission, presence/frequency penalties, named prefixes
+(``prefix``: a name given to ``batcher.register_prefix``), the queue-full
+and estimated-cost shed gates with ``Retry-After``, graceful drain.
 
 Not ported yet: the disaggregated prefill/decode roles and the KV
 transfer plane (``/v1/prefill``, ``/v1/kv_export``, the KV listener),
 constrained output (``response_format``/``logit_bias``/
-``banned_tokens``), named prefixes (``prefix``), tenant quotas
-(``tenant`` / ``X-Tenant``) and fault injection.  Requests that ask for
+``banned_tokens``), tenant quotas (``tenant`` / ``X-Tenant``) and fault
+injection.  Requests that ask for
 them get a 400 naming the feature.
 """
 
@@ -71,7 +73,6 @@ _REASONS = {
 # Request fields of later port slices: a request carrying one is answered
 # 400 naming the feature, never served with the field ignored.
 _UNPORTED_FIELDS = {
-    "prefix": "named prefixes",
     "response_format": "constrained output",
     "logit_bias": "constrained output",
     "banned_tokens": "constrained output",
@@ -332,6 +333,9 @@ class InferenceServer:
         old = self.batcher
         new = (self._batcher_factory() if self._batcher_factory is not None
                else old.respawn())
+        # Named prefixes are device KV the batcher only reads; carry them
+        # over so registered system prompts survive the restart.
+        new.prefixes.update(old.prefixes)
         retried: list[int] = []
         failed: list[int] = []
         with self._submit_lock:
@@ -602,7 +606,9 @@ class InferenceServer:
 
     def _parse_sampling(self, req: dict):
         """Per-request temperature/top_p/top_k ride the batcher's per-row
-        sampling path.  Returns (temperature, top_p, top_k)."""
+        sampling path; presence/frequency penalties its penalized plan.
+        Returns (temperature, top_p, top_k, presence_penalty,
+        frequency_penalty)."""
         out = []
         for name in ("temperature", "top_p"):
             want = req.get(name)
@@ -621,17 +627,20 @@ class InferenceServer:
             out.append(want)
         for name in ("presence_penalty", "frequency_penalty"):
             pen = req.get(name)
-            if pen is not None and pen != 0:
-                raise BadRequest(
-                    f"{name!r} is not ported yet (presence/frequency "
-                    "penalties)"
-                )
+            if pen is None:
+                out.append(0.0)
+                continue
+            if not isinstance(pen, (int, float)) or isinstance(pen, bool):
+                raise BadRequest(f"{name!r} must be a number")
+            # The range is submit()'s to check: its ValueError becomes a
+            # 400 at the call site.
+            out.append(float(pen))
         want_k = req.get("top_k")
         if want_k is not None:
             if not isinstance(want_k, int) or isinstance(want_k, bool) \
                     or want_k < 0:
                 raise BadRequest("'top_k' must be an integer >= 0")
-        return out[0], out[1], want_k
+        return out[0], out[1], want_k, out[2], out[3]
 
     async def _completions(self, writer, req: dict, chat: bool,
                            t0: float | None = None) -> None:
@@ -647,10 +656,15 @@ class InferenceServer:
         )
         stream = bool(req.get("stream", False))
         stop = _stop_list(req)
+        prefix = req.get("prefix")
+        if prefix is not None and not isinstance(prefix, str):
+            raise BadRequest("'prefix' must be the name of a registered "
+                             "prefix")
         use_cache = req.get("prefix_cache", True)
         if not isinstance(use_cache, bool):
             raise BadRequest("'prefix_cache' must be a boolean")
-        temperature, top_p, top_k = self._parse_sampling(req)
+        temperature, top_p, top_k, pres_pen, freq_pen = \
+            self._parse_sampling(req)
         lp_req = req.get("logprobs")
         if lp_req is None or lp_req is False:
             want_lp = False
@@ -716,8 +730,9 @@ class InferenceServer:
         # request hits the queue.
         deadline = t0 + timeout_s if timeout_s is not None else None
         meta = dict(
-            ids=list(prompt_ids), max_new_tokens=max_tokens,
+            ids=list(prompt_ids), max_new_tokens=max_tokens, prefix=prefix,
             temperature=temperature, top_p=top_p, top_k=top_k,
+            presence_penalty=pres_pen, frequency_penalty=freq_pen,
             prefix_cache=use_cache, priority=priority, deadline=deadline,
         )
         subs: list[tuple[int, int, _Mailbox]] = []  # (choice index, rid, mbox)
@@ -735,8 +750,9 @@ class InferenceServer:
                 self._requests[rid] = mbox
                 try:
                     got = self.batcher.submit(
-                        prompt_ids, max_new_tokens=max_tokens,
+                        prompt_ids, max_new_tokens=max_tokens, prefix=prefix,
                         temperature=temperature, top_p=top_p, top_k=top_k,
+                        presence_penalty=pres_pen, frequency_penalty=freq_pen,
                         prefix_cache=use_cache, priority=priority,
                         deadline=deadline,
                     )

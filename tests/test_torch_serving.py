@@ -292,7 +292,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tenant-quota-tps", "5"], ["--host-pages", "64"],
+    ["--tenant-quota-tps", "5"],
     ["--spec-decode"], ["--tenant-weights", "a:1"], ["--replicas", "2"],
     ["--disaggregate"], ["--tenant-max-rows", "2"],
     ["--override", "runtime.kv_host_spill=true"],
@@ -350,9 +350,25 @@ async def test_slice_flags_serve_as_the_default(flags):
         assert bat.sched.chunk_threshold() == int(flags[1])
 
 
+async def test_host_pages_flag_boots_the_tier():
+    """--host-pages N (refused before the host tier was ported) boots the
+    server through the normal entry point with an N-page tier behind the
+    pool, and a request is answered with the default server's tokens."""
+    bat, got = await _greedy_answer(["--host-pages", "64"])
+    assert bat.host_tier is not None and bat.host_tier.pages == 64
+    assert bat.host_tier.stats()["used"] == 0
+    _, want = await _greedy_answer([])
+    assert got["tokens"] == want["tokens"]
+
+
 def test_later_slice_batcher_options_raise(weights):
+    """The host tier is ported: its options raise the reference's
+    ValueErrors — a negative size, and a tier without the paged pool."""
     cfg_j, cfg_t, pj, pt = weights
     base = dict(batch_slots=2, max_len=64, paged_pages=12, page_size=16)
-    for extra in ({"host_pages": 8},):
-        with pytest.raises(NotImplementedError):
-            tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), **{**base, **extra})
+    with pytest.raises(ValueError, match="host_pages"):
+        tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(),
+                             **{**base, "host_pages": -1})
+    with pytest.raises(ValueError, match="paged"):
+        tb.ContinuousBatcher(cfg_t, pt, ByteTokenizer(), batch_slots=2,
+                             max_len=64, host_pages=8)

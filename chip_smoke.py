@@ -131,6 +131,34 @@ Phases, each printing result lines:
       within 5% of the logit scale; a 9-page parcel (bf16, and int8 codes
       with scales) must come back from the pinned host arena equal to the
       bit, its swap-out and restore timed in parts.
+   j. (run by the ``spec`` phase) ``dlt-serve-torch --preset llama-3-8b
+      --paged-pages 256 --page-size 64 --prefix-cache --spec-decode
+      --max-len 1024`` (spec_k 4, the int4 self-draft: K5 for the draft's
+      projections, K2 for its 4 steps and backfill over its contiguous
+      cache, K1 once a layer for the 5-token verify window over 40
+      virtual rows): path a's seven prompts, all greedy, 64 new tokens,
+      three over the shared prefix, one over SSE, one naming the
+      registered prefix "sys".  Then, engine-side over the same weights:
+      (a) the HTTP streams against a plain batcher's; (b) the same with
+      ``kv_bits=8`` (K1q's window) against the plain int8 batcher; (c)
+      an explicit draft, ``attach_draft(cfg, params)`` with the bf16
+      target itself, against the plain batcher (its acceptance printed),
+      and its streams equal to the int4 self-draft's to the token (a
+      greedy round commits the verify's tokens, whatever the draft);
+      a greedy stream that leaves the plain one must stay within 4x the
+      plain streams' own worst teacher-forced margin of the target's
+      greedy choice at every position (the verify's 40-row products round
+      differently from a plain step's 8); (d) a sampled batcher
+      (temperature 0.8, seed 7): the same streams under the eager loop,
+      the graph and the graph with the overlap; (e) the one-launch
+      window against 5 single-offset K1 and K1q launches and the plain
+      version at path j's shape, every row within 1% of its norm (+ 2^-7
+      int8).  The round's cost: 8 requests (300-token prompts, 64 new)
+      timed on the speculative batcher and on the plain one, and under
+      the profiler the round's device split (draft K5, draft K2, verify
+      K1, cuBLAS, the rest).  K1 must launch once a layer a round, K2
+      5 times, K5 (int4) 35 times.  Path j's launches ride in the JSON
+      line as ``spec_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -153,6 +181,8 @@ Phases, each printing result lines:
 6. ``tier`` — path i (in ``serve``'s list above): the host tier, swap
    preemption, prefix-cache spill, penalties and named prefixes.
    ``--phases build,tier`` runs it alone.
+6b. ``spec`` — path j (in ``serve``'s list above): speculative decoding.
+   ``--phases build,spec`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -1815,13 +1845,16 @@ async def _http(port: int, path: str, body: dict, stream: bool = False):
     return status, {"events": events, "done": b"data: [DONE]" in rest}
 
 
+PATH_A_PREFIX = (
+    "You are a careful assistant for a logistics company. Answer in one "
+    "short paragraph, cite the relevant policy number, and never invent "
+    "shipment identifiers. Policy 12 covers delayed freight; policy 19 "
+    "covers damaged goods; policy 31 covers customs holds; policy 44 covers "
+    "refused deliveries at the dock. ")
+
+
 async def _serve_requests(port: int) -> dict:
-    prefix = ("You are a careful assistant for a logistics company. Answer "
-              "in one short paragraph, cite the relevant policy number, and "
-              "never invent shipment identifiers. Policy 12 covers delayed "
-              "freight; policy 19 covers damaged goods; policy 31 covers "
-              "customs holds; policy 44 covers refused deliveries at the "
-              "dock. ")
+    prefix = PATH_A_PREFIX
     # Byte tokenizer: one token per byte (+ BOS).
     check(len(prefix) >= 256, "shared prefix under 256 tokens")
     reqs = [
@@ -2176,6 +2209,7 @@ def _check_resident(label, mem, mem_a) -> None:
 def phase_serve(torch, profile: bool) -> dict:
     """The serving paths, one engine at a time.  Returns each kernel's
     launches on its own path."""
+    lap = _lap("serve_time")
     launches, server, mem_a = serve_path(
         torch, "paged", SERVE_ARGS, {"paged_decode_attention": 1},
         _serve_requests, _llama_3_8b)
@@ -2184,6 +2218,7 @@ def phase_serve(torch, profile: bool) -> dict:
     loop_variants(torch, "paged", server.batcher, profile)
     del server
     _free(torch)
+    lap("a")
 
     launches, server, _ = serve_path(
         torch, "paged_int8", SERVE_INT8_ARGS,
@@ -2194,6 +2229,7 @@ def phase_serve(torch, profile: bool) -> dict:
     out["paged_decode_attention_int8"] = launches["paged_decode_attention_int8"]
     del server
     _free(torch)
+    lap("b")
 
     launches, server, _ = serve_path(
         torch, "windowed", SERVE_WINDOW_ARGS, {"ragged_decode_attention": 1},
@@ -2202,6 +2238,7 @@ def phase_serve(torch, profile: bool) -> dict:
     out["ragged_decode_attention"] = launches["ragged_decode_attention"]
     del server
     _free(torch)
+    lap("c")
 
     launches, server, mem = serve_store(
         torch, "store_int8", "int8", 8, path_a_mem_gb=mem_a)
@@ -2213,6 +2250,7 @@ def phase_serve(torch, profile: bool) -> dict:
     loop_variants(torch, "store_int8", server.batcher, profile)
     del server
     _free(torch)
+    lap("d")
 
     launches, server, mem = serve_store(
         torch, "store_int4", "int4", 4, path_a_mem_gb=mem_a)
@@ -2220,10 +2258,13 @@ def phase_serve(torch, profile: bool) -> dict:
     out["quant_matmul_int4"] = launches["quant_matmul_int4"]
     del server
     _free(torch)
+    lap("e")
 
     out.update(serve_flash(torch, profile))
+    lap("f")
     # Path h runs K2 too; path c's count stays the line's (its own path).
     serve_long(torch)
+    lap("h")
     return out
 
 
@@ -2329,15 +2370,16 @@ def _eager_decode_chunk(*args, graphs=None, **kw):
     return batcher_lib._decode_steps(*args, **kw)
 
 
-def _run_batch(torch, b, prompts, penalties=None) -> tuple:
-    """Run ``prompts`` (greedy, LOOP_NEW_TOKENS each; the first with
+def _run_batch(torch, b, prompts, penalties=None,
+               new=LOOP_NEW_TOKENS) -> tuple:
+    """Run ``prompts`` (greedy, ``new`` tokens each; the first with
     ``penalties``) to the end on batcher ``b``: (streams, wall seconds,
     decode steps, overlap counters)."""
     steps0 = b.decode_steps
     stats0 = dict(b.overlap_stats)
     # Cold admissions every run: a prefix-cache hit prefills only the
     # suffix, whose bf16 rounding differs from the cold prefill's.
-    rids = [b.submit(p, max_new_tokens=LOOP_NEW_TOKENS, prefix_cache=False,
+    rids = [b.submit(p, max_new_tokens=new, prefix_cache=False,
                      **(penalties if penalties and j == 0 else {}))
             for j, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -2689,7 +2731,7 @@ async def _sse(port: int, body: dict) -> tuple:
     writer.close()
     status = int(raw.split(b"\r\n", 1)[0].split()[1])
     check(status == 200 and b"data: [DONE]" in raw,
-          f"path i: a streamed request answered {status}: {raw[-300:]!r}")
+          f"a streamed request answered {status}: {raw[-300:]!r}")
     return status, first, time.perf_counter() - t0
 
 
@@ -3078,6 +3120,504 @@ def parcel_round_trip(torch) -> None:
         _free(torch)
 
 
+# -- path j: speculative decoding on path a's model ---------------------------
+
+SPEC_K = 4  # runtime.spec_k's default: --spec-decode alone gives it
+SPEC_NEW = 64
+SPEC_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "256", "--page-size",
+             "64", "--prefix-cache", "--spec-decode", "--max-len", "1024",
+             *_COMMON_ARGS]
+# Check (a)'s bound on a greedy stream that left the plain batcher's: at
+# every position the committed token's logit under a teacher-forced
+# reference forward (one no-cache forward over prompt + stream, dense
+# attention) lies within this many times the plain stream's own worst
+# margin under the same forward (the plain decode's bf16 rounding against
+# the reference's) of the maximum.  A wrong commit lands O(1) logits
+# below (random weights: logits ~N(0, 1), the top ~4.5 above the mean).
+SPEC_MARGIN_FACTOR = 4.0
+SPEC_SAMPLED_TEMPERATURE = 0.8
+SPEC_WINDOW_LENGTHS = (0, 1, 63, 64, 303, 352, 700, 1023)  # cache_index
+# The profiled batch of the round's cost: 16 new tokens (15 rounds, ~60k
+# device kernels) keep the profiler's own host-side processing short.
+SPEC_PROFILED_NEW = 16
+
+
+def _lap(phase: str):
+    """A stopwatch emitting ``{"phase": phase, "part": ..., "seconds":
+    ...}`` lines: each call times the part since the previous one."""
+    last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        emit(phase, part=part, seconds=now - last[0])
+        last[0] = now
+    return lap
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip()
+
+
+def spec_requests() -> list:
+    """Path j's traffic: path a's seven prompts, all greedy, 64 new tokens
+    each — three over path a's 303-byte prefix, one over SSE, one naming
+    the registered prefix "sys" (path a's top-p and top-k requests would
+    now be refused: a speculative engine samples with its own config)."""
+    def completion(prompt, **kw):
+        return ("/v1/completions", {"prompt": prompt, "max_tokens": SPEC_NEW,
+                                    "temperature": 0.0, **kw})
+
+    def chat(*messages):
+        return ("/v1/chat/completions", {
+            "messages": [{"role": r, "content": c} for r, c in messages],
+            "max_tokens": SPEC_NEW, "temperature": 0.0})
+
+    return [
+        completion(PATH_A_PREFIX + "Case A: a pallet arrived late.",
+                   logprobs=True),
+        completion(PATH_A_PREFIX + "Case B: a crate is dented."),
+        completion(PATH_A_PREFIX + "Case A: a pallet arrived late.",
+                   logprobs=True),
+        completion("Summarise policy 12 in a line.", prefix="sys"),
+        completion("Streaming check: count to ten.", stream=True),
+        completion("Top-k sampling check."),
+        chat(("system", "Be brief."), ("user", "Name three ports.")),
+    ]
+
+
+def _record_submits(b) -> tuple:
+    """Wrap batcher ``b`` so that each submit's (rid, prompt ids, prefix) is
+    kept in order, and each request's delivered token ids by rid."""
+    subs, streams = [], {}
+    submit, run = b.submit, b.run
+
+    def submit_rec(prompt, *a, prefix=None, **kw):
+        rid = submit(prompt, *a, prefix=prefix, **kw)
+        ids = b.tokenizer.encode(prompt) if isinstance(prompt, str) else prompt
+        subs.append((rid, list(ids), prefix))
+        return rid
+
+    def run_rec(on_tokens=None):
+        def rec(rid, toks, done, lps):
+            streams.setdefault(rid, []).extend(toks)
+            return on_tokens(rid, toks, done, lps)
+        return run(on_tokens=rec)
+
+    b.submit, b.run = submit_rec, run_rec
+    return subs, streams
+
+
+async def _serve_spec_requests(port: int, reqs) -> dict:
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[
+        _sse(port, body) if body.get("stream") else _http(port, path, body)
+        for path, body in reqs])
+    wall = time.perf_counter() - t0
+    n = 0
+    for (path, body), out in zip(reqs, outs):
+        if body.get("stream"):
+            continue  # _sse checked the status and the [DONE]
+        status, resp = out
+        check(status == 200, f"spec: {path} answered {status}: {resp}")
+        got = resp["usage"]["completion_tokens"]
+        check(got == SPEC_NEW or resp["choices"][0]["finish_reason"] == "stop",
+              f"spec: {path} produced {got}/{SPEC_NEW} tokens")
+        n += got
+        lp = resp["choices"][0].get("logprobs")
+        if lp:
+            check(all(math.isfinite(x) and x <= 0
+                      for x in lp["token_logprobs"]),
+                  "spec: non-finite or positive logprob")
+    return {"requests": len(reqs), "completion_tokens_non_sse": n,
+            "wall_s": wall}
+
+
+def _engine_run(torch, b, subs, new=SPEC_NEW) -> tuple:
+    """``subs`` [(rid, ids, prefix)] submitted to batcher ``b`` engine-side
+    in order: (streams in that order, wall seconds)."""
+    if "sys" not in b.prefixes:
+        b.register_prefix("sys", PATH_A_PREFIX)
+    rids = [b.submit(ids, max_new_tokens=new, prefix=pfx)
+            for _, ids, pfx in subs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b.assert_pool_consistent()
+    return [res[r] for r in rids], wall
+
+
+def _margins(torch, b, ctx, stream) -> list:
+    """Teacher-forced greedy margins of ``stream`` after context ``ctx``:
+    at each position the maximum logit less the streamed token's, from one
+    no-cache forward of the target over ctx + stream (dense attention)."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    toks = torch.tensor([ctx + stream[:-1]], device=b.device)
+    with torch.no_grad():
+        logits, _ = model_lib.forward(b.params, b.cfg, toks)
+    lg = logits[0, len(ctx) - 1:]
+    chosen = lg.gather(-1, torch.tensor(stream, device=b.device)[:, None])
+    return (lg.max(-1).values - chosen[:, 0]).float().cpu().tolist()
+
+
+def _held_to_plain(torch, label, b, subs, got, want) -> dict:
+    """Check (a)/(b)/(c): the speculative streams ``got`` against the plain
+    batcher's ``want`` for the same requests.  Identical streams pass; a
+    stream that leaves the plain one must be the target's greedy stream up
+    to rounding: its worst teacher-forced margin within SPEC_MARGIN_FACTOR
+    x the plain streams' worst (both against the same reference forward).
+    Returns what it measured."""
+    identical = [g == w for g, w in zip(got, want)]
+    first = [next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                  None if len(g) == len(w) else min(len(g), len(w)))
+             for g, w in zip(got, want)]
+    out = {"streams": len(got), "identical": sum(identical),
+           "first_divergence": first}
+    if not all(identical):
+        pfx = b.prefixes["sys"].ids
+        spec_m, plain_m = [], []
+        for (_, ids, p), g, w in zip(subs, got, want):
+            ctx = (pfx if p else []) + ids
+            spec_m += _margins(torch, b, ctx, g)
+            plain_m += _margins(torch, b, ctx, w)
+        bound = SPEC_MARGIN_FACTOR * max(max(plain_m), 1e-3)
+        out.update(spec_margin_max=max(spec_m), plain_margin_max=max(plain_m),
+                   margin_bound=bound,
+                   spec_positions_off_argmax=sum(m > 0 for m in spec_m),
+                   plain_positions_off_argmax=sum(m > 0 for m in plain_m),
+                   positions=len(spec_m))
+        check(max(spec_m) <= bound,
+              f"{label}: a speculative stream commits a token "
+              f"{max(spec_m):.4f} logits below the target's greedy choice "
+              f"(plain streams' worst {max(plain_m):.4f}, bound {bound:.4f})")
+    return out
+
+
+def _spec_kernel_split(torch, prof) -> dict:
+    """Device milliseconds of a speculative profile: draft K5, draft K2,
+    verify K1 (each with its split-merge launches: a merge is charged to
+    the decode kernel launched before it), cuBLAS, the rest."""
+    split = {"draft_k5": 0.0, "draft_k2": 0.0, "verify_k1": 0.0,
+             "cublas": 0.0, "rest": 0.0}
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    last = "rest"
+    for e in events:
+        name = e.name
+        if "quant_matmul" in name:
+            cls = "draft_k5"
+        elif "ragged_decode_kernel" in name:
+            cls = last = "draft_k2"
+        elif "paged_decode_kernel" in name:
+            cls = last = "verify_k1"
+        elif "split_decode_merge" in name:
+            cls = last
+        elif _kernel_class(name) == "matmul":
+            cls = "cublas"
+        else:
+            cls = "rest"
+        split[cls] += e.device_time_total
+    return {k: v / 1e3 for k, v in split.items()}
+
+
+def _spec_loops(torch, label, ctor, subs) -> dict:
+    """Check (d): a sampled speculative batcher (temperature 0.8, seed 7)
+    gives the same streams under the eager loop (every kernel launched
+    from Python, ``_spec_steps``), the graph without the overlap and the
+    default (graph and overlap)."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    graph_round = batcher_lib.spec_chunk
+    streams, stats = {}, {}
+    for name, overlap, eager in LOOPS:
+        b = batcher_lib.ContinuousBatcher(**{
+            **ctor, "temperature": SPEC_SAMPLED_TEMPERATURE, "seed": 7,
+            "overlap": overlap})
+        if eager:
+            batcher_lib.spec_chunk = (
+                lambda *a, graphs=None, **kw: batcher_lib._spec_steps(*a, **kw))
+        try:
+            streams[name], wall = _engine_run(torch, b, subs)
+        finally:
+            batcher_lib.spec_chunk = graph_round
+        stats[name] = {"rounds": b.spec_stats["rounds"], "wall_s": wall,
+                       "graph_replays": b._graphs.replays,
+                       "dispatched_ahead": b.overlap_stats["dispatched_ahead"]}
+        check((b._graphs.replays > 0) != eager,
+              f"{label}/{name}: graph replays {b._graphs.replays}")
+        del b
+        _free(torch)
+    same = (streams["graph_overlap"] == streams["graph_sync"]
+            == streams["eager_sync"])
+    emit("serve_spec_sampled", path=label, card=_card(),
+         temperature=SPEC_SAMPLED_TEMPERATURE, loops=stats,
+         streams_identical=same)
+    check(same, f"{label}: sampled streams differ between the engine loops")
+    check(stats["graph_overlap"]["dispatched_ahead"] > 0,
+          f"{label}: no round was dispatched ahead")
+    return stats
+
+
+def spec_window_checks(torch) -> dict:
+    """Check (e): the verify window's one K1/K1q launch over B*T virtual
+    rows at path j's shape (B=8, T=k+1, 32/8 heads of 128, 64-slot pages,
+    a 17-page table: 1029 slots) against T single-offset launches (the
+    reference's formulation) and the plain version, every row within 1%
+    of its L2 norm (+ 2^-7 int8)."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import kv_quantize
+    from distributed_llms_tpu_torch.models.model import paged_window_rows
+    from distributed_llms_tpu_torch.ops import decode_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, t, h, kvh, d, blk = 8, SPEC_K + 1, 32, 8, 128, 64
+    p = -(-(1024 + SPEC_K + 1) // blk)
+    nb = 1 + b * p
+    bf = [torch.randn((nb, blk, kvh, d), generator=gen, device="cuda",
+                      dtype=torch.bfloat16) for _ in range(2)]
+    tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[: b * p]
+              .reshape(b, p).to(torch.int32) + 1)
+    cache_index = torch.tensor(SPEC_WINDOW_LENGTHS, dtype=torch.int32,
+                               device="cuda")
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    _, _, lengths, rep = paged_window_rows(tables, cache_index, t, blk)
+    out = {}
+    for quant in (False, True):
+        pool, scales = bf, {}
+        if quant:
+            (kq, ks), (vq, vs) = (kv_quantize(a) for a in bf)
+            pool, scales = [kq, vq], dict(k_scale=ks, v_scale=vs)
+        one = decode_attn.paged_decode_attention(
+            q.reshape(b * t, 1, h, d), *pool, lengths, rep, **scales)
+        each = torch.cat([decode_attn.paged_decode_attention(
+            q[:, j:j + 1].contiguous(), *pool, cache_index + 1 + j, tables,
+            **scales) for j in range(t)], dim=1)
+        plain = decode_attn.paged_reference(
+            q.reshape(b * t, 1, h, d), *pool, lengths, rep, *scales.values())
+        limit = DECODE_ROW_REL + (2.0 ** -7 if quant else 0.0)
+        vs_each = row_rel_err(torch, one.reshape(b, t, h, d), each)
+        vs_plain = row_rel_err(torch, one, plain)
+        name = ("paged_decode_attention_int8" if quant
+                else "paged_decode_attention")
+        emit("kernel", name=name, shape="spec_window", B=b, T=t,
+             cache_index=list(SPEC_WINDOW_LENGTHS), pages=p,
+             max_row_rel_err_vs_per_offset=vs_each,
+             max_row_rel_err_vs_plain=vs_plain, limit=limit)
+        check(vs_each <= limit and vs_plain <= limit,
+              f"{name}: the one-launch window disagrees ({vs_each:.4g} vs "
+              f"the per-offset launches, {vs_plain:.4g} vs plain)")
+        out[name] = vs_plain
+    return out
+
+
+def _timed_batch(torch, b, prompts, profile) -> dict:
+    """8 greedy requests (300-token prompts, 64 new, cold admissions) on
+    batcher ``b``: wall, rounds or decode steps, committed tokens; with
+    ``profile`` once more, with SPEC_PROFILED_NEW new tokens, under the
+    profiler (its device split also per round or decode step)."""
+    rounds0 = b.spec_stats["rounds"]
+    steps0 = b.decode_steps
+    stats0 = dict(b.spec_stats)
+    got, wall, _, _ = _run_batch(torch, b, prompts)
+    committed = sum(len(t) - 1 for t in got)  # decode tokens (admission's not)
+    line = {"wall_ms": wall * 1e3, "decode_steps": b.decode_steps - steps0,
+            "committed_decode_tokens": committed}
+    if b.speculative:
+        r = b.spec_stats["rounds"] - rounds0
+        acc = b.spec_stats["accepted"] - stats0["accepted"]
+        rej = b.spec_stats["rejected"] - stats0["rejected"]
+        line.update(rounds=r, ms_per_round=wall * 1e3 / r,
+                    tokens_per_round_per_row=committed / (r * len(prompts)),
+                    acceptance=acc / max(acc + rej, 1),
+                    ms_per_committed_token_per_row=(
+                        wall * 1e3 * len(prompts) / committed))
+    else:
+        line.update(ms_per_decode_step=wall * 1e3 / max(line["decode_steps"],
+                                                         1))
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+
+        steps0, rounds0 = b.decode_steps, b.spec_stats["rounds"]
+        with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _run_batch(torch, b, prompts, new=SPEC_PROFILED_NEW)
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        split = (_spec_kernel_split(torch, prof) if b.speculative
+                 else _kernel_split(torch, prof))
+        busy = sum(split.values())
+        n = (b.spec_stats["rounds"] - rounds0 if b.speculative
+             else b.decode_steps - steps0)
+        line.update(profiled_new_tokens=SPEC_PROFILED_NEW,
+                    profiled_wall_ms=pwall, profiled_steps=n,
+                    device_kernel_ms=split,
+                    device_kernel_ms_per_step={k: v / max(n, 1)
+                                               for k, v in split.items()},
+                    device_busy_share=busy / pwall if busy else "not measured")
+    return line, got
+
+
+def serve_spec(torch, profile: bool) -> dict:
+    """Path j: ``dlt-serve-torch --preset llama-3-8b --paged-pages 256
+    --page-size 64 --prefix-cache --spec-decode --max-len 1024 --slots 8``
+    (spec_k 4, the int4 self-draft) answers :func:`spec_requests` over
+    HTTP, then checks (a)-(e) engine-side over the same weights: (a) the
+    HTTP streams against a plain batcher's; (b) the same with int8 pages
+    (K1q's window) against the plain int8 batcher; (c) an explicit draft
+    ``attach_draft(cfg, params)`` (the bf16 target itself); (d) a sampled
+    batcher under the three engine loops; (e) the one-launch window
+    against per-offset K1/K1q launches.  Then the round's cost: 8 requests
+    timed on the speculative batcher and the plain one, and (with
+    ``profile``) the round's device split.  Returns path j's launches of
+    K1, K1q, K2 and K5 int4."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    card = _card()
+    lap = _lap("spec_time")
+    reqs = spec_requests()
+    box: dict = {}
+
+    def setup(server) -> None:
+        b = server.batcher
+        check(b.speculative and b.spec_k == SPEC_K and b.paged,
+              "spec: the served batcher does not speculate")
+        wq = b.draft_params["blocks"]["attn"]["wq"]
+        check(isinstance(wq, QuantizedTensor) and wq.bits == 4,
+              "spec: the draft is not the int4 self-draft")
+        b.register_prefix("sys", PATH_A_PREFIX)
+        box["subs"], box["streams"] = _record_submits(b)
+        torch.cuda.reset_peak_memory_stats()
+
+    per_round = {"paged_decode_attention": 1,
+                 "ragged_decode_attention": SPEC_K + 1,
+                 "quant_matmul_int4": 7 * (SPEC_K + 1)}
+    launches, server, mem = serve_path(
+        torch, "spec", SPEC_ARGS, per_round,
+        lambda port: _serve_spec_requests(port, reqs), _llama_3_8b,
+        setup=setup)
+    b = server.batcher
+    subs, streams = box.pop("subs"), box.pop("streams")
+    got = [streams[rid] for rid, _, _ in subs]
+    out = {k: launches[k] for k in per_round}
+    acc, rej = b.spec_stats["accepted"], b.spec_stats["rejected"]
+    emit("serve_spec", path="spec", card=card, rounds=b.spec_stats["rounds"],
+         spec_stats=b.spec_stats, acceptance=acc / max(acc + rej, 1),
+         committed_decode_tokens=sum(len(t) - 1 for t in got),
+         tokens_per_round_per_row_http=(
+             sum(len(t) - 1 for t in got) / max(b.spec_stats["rounds"], 1)
+             / len(got)),
+         serving_peak_mem_gb=mem["peak_mem_gb"],
+         resident_gb=mem["resident_gb"],
+         draft_cache_gb=2 * b.draft_cache.k.nbytes / 1e9,
+         prefix_cache_hits=b.prefix_cache.hits)
+    check(b.prefix_cache.hits > 0, "spec: no prefix-cache hit")
+    lap("boot_and_http")
+    ctor = dict(b._ctor_args)
+    plain_ctor = {**ctor, "draft_params": None, "draft_cfg": None}
+
+    # (a) the HTTP streams against the plain batcher's, engine-side.
+    plain_b = batcher_lib.ContinuousBatcher(**plain_ctor)
+    want, _ = _engine_run(torch, plain_b, subs)
+    del plain_b
+    _free(torch)
+    emit("serve_spec_check", path="spec", check="a_http_vs_plain", card=card,
+         **_held_to_plain(torch, "spec/a", b, subs, got, want))
+    lap("a")
+
+    # (b) int8 pages: the speculative int8 batcher (K1q's window) against
+    # the plain int8 batcher.
+    reset_launches()
+    q_spec = batcher_lib.ContinuousBatcher(**{**ctor, "kv_bits": 8})
+    q_got, _ = _engine_run(torch, q_spec, subs)
+    q_launches = read_launches()
+    q_rounds = q_spec.spec_stats["rounds"]
+    del q_spec
+    _free(torch)
+    check(q_launches["paged_decode_attention_int8"]
+          >= b.cfg.num_layers * q_rounds,
+          f"spec/int8: K1q launched {q_launches['paged_decode_attention_int8']}"
+          f" times, under {b.cfg.num_layers} x {q_rounds} rounds")
+    q_plain = batcher_lib.ContinuousBatcher(**{**plain_ctor, "kv_bits": 8})
+    q_want, _ = _engine_run(torch, q_plain, subs)
+    del q_plain
+    _free(torch)
+    out["paged_decode_attention_int8"] = q_launches[
+        "paged_decode_attention_int8"]
+    emit("serve_spec_check", path="spec", check="b_int8_vs_plain_int8",
+         card=card, rounds=q_rounds,
+         launches={k: v for k, v in q_launches.items() if v},
+         **_held_to_plain(torch, "spec/b", b, subs, q_got, q_want))
+    lap("b")
+
+    # (c) an explicit draft through attach_draft: the bf16 target itself.
+    eng = InferenceEngine(b.cfg, RuntimeConfig(spec_k=SPEC_K), b.params,
+                          tokenizer=b.tokenizer, device=b.device)
+    eng.attach_draft(b.cfg, b.params)
+    x_b = eng.continuous_batcher(batch_slots=b.b, max_len=b.s,
+                                 paged_pages=ctor["paged_pages"],
+                                 page_size=b.page_size, prefix_cache=True,
+                                 speculative=True)
+    x_got, _ = _engine_run(torch, x_b, subs)
+    x_acc, x_rej = x_b.spec_stats["accepted"], x_b.spec_stats["rejected"]
+    # A greedy round commits the verify's own tokens, so the stream does
+    # not depend on the draft: the bf16 draft's streams equal the int4
+    # self-draft's (path j's HTTP streams) to the token.
+    emit("serve_spec_check", path="spec", check="c_explicit_draft_vs_plain",
+         card=card, spec_stats=x_b.spec_stats,
+         acceptance=x_acc / max(x_acc + x_rej, 1),
+         streams_equal_the_int4_draft=x_got == got,
+         **_held_to_plain(torch, "spec/c", b, subs, x_got, want))
+    check(x_got == got, "spec/c: the bf16 draft's greedy streams differ from "
+          "the int4 self-draft's")
+    del x_b, eng
+    _free(torch)
+    lap("c")
+
+    # (d) a sampled batcher under the three engine loops.
+    _spec_loops(torch, "spec", ctor, subs)
+    lap("d")
+
+    # (e) the one-launch verify window at path j's shape.
+    spec_window_checks(torch)
+    lap("e")
+
+    # The round's cost against a plain decode step at the same batch.
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (LOOP_PROMPT_TOKENS,),
+                             generator=g).tolist() for _ in range(b.b)]
+    lines = {}
+    for name, kw in (("spec", ctor), ("plain", plain_ctor)):
+        tb_ = batcher_lib.ContinuousBatcher(**kw)
+        _run_batch(torch, tb_, prompts)  # captures the graphs
+        lines[name], _ = _timed_batch(torch, tb_, prompts, profile)
+        if name == "spec":
+            lines[name]["peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                          / 1e9)
+        del tb_
+        _free(torch)
+    lap("cost")
+    emit("serve_spec_cost", path="spec", card=card, requests=b.b,
+         prompt_tokens=LOOP_PROMPT_TOKENS, new_tokens=LOOP_NEW_TOKENS,
+         spec=lines["spec"], plain=lines["plain"],
+         spec_ms_per_token_over_plain_ms_per_step=(
+             lines["spec"]["ms_per_committed_token_per_row"]
+             / lines["plain"]["ms_per_decode_step"]))
+    del server, b
+    _free(torch)
+    return out
+
+
 def _kernel_class(name: str) -> str:
     if "flash_kernel" in name:
         return "flash_kernel"
@@ -3167,8 +3707,8 @@ def flash_admission(torch, batcher, profile: bool) -> None:
 
 # -- main -------------------------------------------------------------------
 
-PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "train",
-          "profile")
+PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
+          "train", "profile")
 
 
 def main() -> int:
@@ -3192,27 +3732,44 @@ def main() -> int:
                       "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, info in KERNELS.items()}
+    t_start = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            emit("phase_time", name=phase,
+                 seconds=time.perf_counter() - t0,
+                 since_start_s=time.perf_counter() - t_start)
+
+    profile = "profile" in phases
     try:
         if "build" in phases:
-            phase_build()
+            timed("build", phase_build)
         if "kernel" in phases:
-            for name, got in phase_kernel(torch).items():
+            for name, got in timed("kernel", phase_kernel, torch).items():
                 kernels[name].update(got)
         if "timing" in phases:
-            for name, got in phase_timing(torch).items():
+            for name, got in timed("timing", phase_timing, torch).items():
                 kernels[name].update(got)
         if "model" in phases:
-            phase_model(torch)
+            timed("model", phase_model, torch)
         if "serve" in phases:
-            for name, n in phase_serve(torch, "profile" in phases).items():
+            for name, n in timed("serve", phase_serve, torch,
+                                 profile).items():
                 kernels[name]["launches"] = n
         if "tier" in phases:
             # Path i runs K1 and K1q too; paths a and b keep the line's
             # counts (their own paths).
-            emit("serve_tier_launches", **serve_tiered(torch))
+            emit("serve_tier_launches", **timed("tier", serve_tiered, torch))
+        if "spec" in phases:
+            # Path j's launches ride beside each kernel's own path's.
+            for name, n in timed("spec", serve_spec, torch, profile).items():
+                kernels[name]["spec_launches"] = n
         if "train" in phases:
-            kernels["flash_attention_static"]["launches"] = phase_train(
-                torch, "profile" in phases)
+            kernels["flash_attention_static"]["launches"] = timed(
+                "train", phase_train, torch, profile)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

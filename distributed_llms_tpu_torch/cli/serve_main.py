@@ -12,6 +12,9 @@ mistral-7b --max-len 32768 --prefill-chunk 1024``.  The engine loop
 dispatches ahead unless ``--overlap off``.  ``--host-pages N`` puts N
 pages of host RAM behind the paged pool: preempted rows swap out and back,
 and cold cached pages spill there instead of being lost.
+``--spec-decode`` serves speculatively: the engine attaches its int4
+self-draft and every round drafts ``--spec-k`` tokens a row and verifies
+them in one target forward (temperature 0: the target's greedy tokens).
 ``dlt-serve-torch --store DIR`` serves a shard store instead (model
 config and tokenizer from its manifest); with ``--override
 runtime.serve_quantized=true`` an int8/int4 store keeps its decoder-block
@@ -41,7 +44,6 @@ log = get_logger("serve_main")
 # dlt-serve flags of later port slices: argparse dest -> the feature.  Any
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
-    "spec_decode": "speculative decoding (--spec-decode)",
     "constrained": "constrained output (--constrained)",
     "tenant_weights": "multi-tenant scheduling (--tenant-weights)",
     "tenant_quota_tps": "tenant rate quotas (--tenant-quota-tps)",
@@ -69,6 +71,20 @@ def _build_engine(args):
     _refuse_later_slices(args)
     cfg = load_config(args.config, args.override)
     rt = cfg.runtime
+    # The speculative knobs land on the RuntimeConfig BEFORE the engine
+    # builds: the engine attaches its self-draft at construction from
+    # rt.spec_decode (a flag wins over the config when given).
+    spec_overrides = {
+        field: val for field, val in (
+            ("spec_decode", args.spec_decode),
+            ("spec_k", args.spec_k),
+            ("spec_adaptive_k", args.spec_adaptive_k),
+        ) if val is not None
+    }
+    if spec_overrides:
+        import dataclasses
+
+        rt = dataclasses.replace(rt, **spec_overrides)
     if args.store:
         mesh_cfg = cfg.mesh if cfg.mesh.num_devices > 1 else None
         engine = InferenceEngine.from_store(args.store, rt=rt,
@@ -262,9 +278,25 @@ def parser() -> argparse.ArgumentParser:
                          "rows out (byte-exact restore) and cold cached "
                          "pages spill before eviction.  Needs "
                          "--paged-pages.  Default: runtime.host_pages (0)")
-    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--spec-decode", action=argparse.BooleanOptionalAction,
-                    default=None, help="not ported yet")
+                    default=None,
+                    help="speculative decoding: the engine drafts spec-k "
+                         "tokens a row with its own int4-quantized "
+                         "self-draft and verifies them in one target "
+                         "forward; at temperature 0 every token is the "
+                         "target's greedy token.  Composes with --paged-pages, "
+                         "--prefix-cache, --kv-bits 8 and --host-pages; "
+                         "not with --prefill-chunk (default: "
+                         "runtime.spec_decode)")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens per speculative round (default: "
+                         "runtime.spec_k)")
+    ap.add_argument("--spec-adaptive-k",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="adaptive per-row spec-k downshift from the "
+                         "acceptance-rate EMA and the token budget "
+                         "(default: runtime.spec_adaptive_k)")
+    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--constrained", action=argparse.BooleanOptionalAction,
                     default=None, help="not ported yet")
     ap.add_argument("--tenant-weights", default=None, help="not ported yet")

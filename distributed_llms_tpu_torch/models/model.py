@@ -9,10 +9,15 @@ package runs ``lax.scan``.  Three cache layouts, as in the reference:
 - a contiguous row cache ``[L, B, S, KVH, HD]``: a scalar ``cache_index``
   (admission prefill, causal or caller-supplied mask), or per-row
   ``cache_index`` (contiguous decode, one token per row, read by the
-  ragged decode-attention kernel with the model's sliding window);
+  ragged decode-attention kernel with the model's sliding window; or a
+  T-token window a row, the speculative verify pass, dense under the
+  caller's mask with the window ANDed in);
 - a paged pool ``[L, NB, BLK, KVH, HD]`` addressed through ``kv_tables``
-  (paged decode: per-row ``cache_index``, one token per row), read by the
-  paged decode-attention kernel (``ops/decode_attn.py``);
+  (paged decode: per-row ``cache_index``, one token per row, or a T-token
+  window a row), read by the paged decode-attention kernel
+  (``ops/decode_attn.py``): a window's T query offsets are B*T virtual
+  rows of ONE launch a layer, offset j reading its row's prefix through
+  slot ``cache_index + j``;
 - the same pool in int8 with float32 absmax scales
   (:class:`QuantKVCache`), quantized at the write and read by the
   kernel's int8 leg.
@@ -132,12 +137,13 @@ def _attention(
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] int32 page table: the
     #   layer cache is a PAGE POOL [NB, BLK, KVH, HD] and row b's slot s
-    #   lives at (tables[b, s // BLK], s % BLK).  Decode only (T == 1,
-    #   per-row cache_index); the mask is implicitly the prefix
-    #   [0, cache_index[b]].
+    #   lives at (tables[b, s // BLK], s % BLK).  Per-row cache_index; the
+    #   mask is implicitly the prefix [0, cache_index[b] + j] for query j.
     std_layout: bool = False,  # positions are the standard arange (forward
     #   made them itself): the no-cache flash path takes the static-causal
     #   kernel
+    paged_window: tuple | None = None,  # a T-token paged window's
+    #   coordinates (:func:`paged_window_rows`), built once per forward
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...] | None]:
     q, k, v = layers.qkv_project(x, p, cfg)
     rope_scale = (
@@ -162,10 +168,11 @@ def _attention(
                 "cannot honor sliding_window"
             )
         if x.shape[1] > 1:
-            raise NotImplementedError(
-                "multi-token paged windows (speculative verify) are not "
-                "ported yet"
-            )
+            # The speculative verify pass: row b's T tokens write through
+            # the page table at slots cache_index[b]..+T-1, and query j
+            # reads the row's prefix through slot cache_index[b] + j.
+            return _paged_window_attention(q, k, v, p, layer_cache,
+                                           paged_window)
         from ..ops import decode_attn
 
         ck, cv = layer_cache[:2]  # [NB, BLK, KVH, HD] views into the pool
@@ -208,10 +215,9 @@ def _attention(
             # attends its prefix [0, cache_index + 1), or the window band
             # of it, through the ragged kernel.
             if x.shape[1] > 1:
-                raise NotImplementedError(
-                    "multi-token per-row windows (speculative verify) are "
-                    "not ported yet"
-                )
+                return _row_window_attention(q, k, v, p, cfg, positions,
+                                             (ck, cv), cache_index,
+                                             attn_mask)
             from ..ops import decode_attn
 
             rows = torch.arange(x.shape[0], device=x.device)
@@ -289,13 +295,97 @@ def _attention(
     return layers.out_project(out, p), None
 
 
+def paged_window_rows(kv_tables: torch.Tensor, cache_index: torch.Tensor,
+                      t: int, blk: int) -> tuple:
+    """Coordinates of a T-token paged window (the speculative verify pass),
+    shared by every layer of one forward: the write's (page, offset) of
+    each row's slots ``cache_index..cache_index+T-1`` ([B, T] each), and
+    the read's B*T virtual rows — lengths ``cache_index + 1 + j`` and the
+    row's table repeated T times.  Table columns past the table clamp to
+    its last (the JAX package's gather clamps the same way); the batcher
+    grows a row's pages over its whole window before the round."""
+    idx = cache_index.long()[:, None] + torch.arange(
+        t, device=kv_tables.device)[None, :]                   # [B, T]
+    col = torch.clamp(idx // blk, max=kv_tables.shape[1] - 1)
+    page = torch.gather(kv_tables.long(), 1, col)
+    lengths = (idx + 1).reshape(-1).to(torch.int32)
+    # kv_tables.repeat_interleave(t, dim=0), spelled as an expand so that
+    # no backend computes the output size on the host (a captured graph
+    # may not sync).
+    b, p = kv_tables.shape
+    tables = kv_tables[:, None, :].expand(b, t, p).reshape(b * t, p)
+    return page, idx % blk, lengths, tables
+
+
+def _paged_window_attention(q, k, v, p, layer_cache, window):
+    """T-token paged attention (T >= 2): the window's K/V scatter through
+    the page table first, then ONE paged decode-attention launch over B*T
+    virtual rows reads, for query offset j of row b, the row's prefix
+    through slot cache_index + j — the reference's T per-offset launches
+    (``_paged_window_attention``) in one call of the same kernel.  Freed
+    rows' tables point at the scratch page 0, so duplicate scatter targets
+    are possible and tolerated as in the single-token leg.  An int8 pool
+    quantizes the whole window once at the write and hands the kernel the
+    scales."""
+    from ..ops import decode_attn
+
+    page, off, lengths, tables = window
+    b, t, h, d = q.shape
+    qr = q.reshape(b * t, 1, h, d)
+    if len(layer_cache) == 4:
+        from ..checkpoint.quantize import kv_quantize
+
+        ck, cv, sk, sv = layer_cache
+        ck[page, off], sk[page, off] = kv_quantize(k)
+        cv[page, off], sv[page, off] = kv_quantize(v)
+        out = decode_attn.paged_decode_attention(qr, ck, cv, lengths, tables,
+                                                 k_scale=sk, v_scale=sv)
+    else:
+        ck, cv = layer_cache
+        ck[page, off] = k.to(ck.dtype)
+        cv[page, off] = v.to(cv.dtype)
+        out = decode_attn.paged_decode_attention(qr, ck, cv, lengths, tables)
+    return layers.out_project(out.reshape(b, t, h, d), p), layer_cache
+
+
+def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
+                          cache_index, attn_mask):
+    """T-token per-row window over a contiguous cache (the contiguous
+    speculative verify pass, the reference's masked per-row branch): each
+    row writes its T slots in place from ``cache_index`` — the start
+    clamped to S - T, as the JAX package's dynamic_update_slice clamps it
+    (the batcher's k+1 headroom slots keep it from clamping) — then dense
+    attention under the caller's [B, 1, T, S] mask, the sliding window
+    ANDed in.  The JAX package computes it outside any Pallas kernel."""
+    if attn_mask is None:
+        raise ValueError("per-row cache_index requires an explicit attn_mask")
+    ck, cv = layer_cache
+    b, t = q.shape[:2]
+    s = ck.shape[1]
+    start = cache_index.long().clamp(0, s - t)
+    idx = start[:, None] + torch.arange(t, device=q.device)[None, :]
+    rows = torch.arange(b, device=q.device)[:, None]
+    ck[rows, idx] = k.to(ck.dtype)
+    cv[rows, idx] = v.to(cv.dtype)
+    if cfg.sliding_window is not None:
+        k_positions = torch.arange(s, device=q.device).expand(b, s)
+        attn_mask = layers.and_window(attn_mask, positions, k_positions,
+                                      cfg.sliding_window)
+    k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
+    v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
+    out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
+    return layers.out_project(out, p), (ck, cv)
+
+
 def llama_block(x, p, cfg, positions, layer_cache, cache_index,
-                attn_mask=None, kv_tables=None, std_layout=False):
+                attn_mask=None, kv_tables=None, std_layout=False,
+                paged_window=None):
     """-> (x, new_cache)."""
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     attn_out, new_cache = _attention(
         h, p["attn"], cfg, positions, layer_cache, cache_index,
         attn_mask=attn_mask, kv_tables=kv_tables, std_layout=std_layout,
+        paged_window=paged_window,
     )
     x = x + attn_out
     h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
@@ -334,6 +424,10 @@ def run_blocks(
     scan body): its activations are recomputed in the backward pass
     instead of kept."""
     n_layers = blocks["ln1"]["scale"].shape[0]
+    window = None
+    if kv_tables is not None and x.shape[1] > 1 and cache_k is not None:
+        window = paged_window_rows(kv_tables, cache_index, x.shape[1],
+                                   cache_k.shape[2])
     for i in range(n_layers):
         if cache_k is None:
             layer_cache = None
@@ -342,7 +436,7 @@ def run_blocks(
         else:
             layer_cache = (cache_k[i], cache_v[i], cache_sk[i], cache_sv[i])
         args = (x, layer_params(blocks, i), cfg, positions, layer_cache,
-                cache_index, attn_mask, kv_tables, std_layout)
+                cache_index, attn_mask, kv_tables, std_layout, window)
         if remat:
             x, _ = torch.utils.checkpoint.checkpoint(
                 llama_block, *args, use_reentrant=False)
@@ -394,7 +488,8 @@ def forward(
     positions: torch.Tensor | None = None,  # [B, T] int
     cache: "KVCache | QuantKVCache | None" = None,
     cache_index=None,  # int/scalar write offset, or [B] per-row offsets
-    #   (contiguous or paged decode, one token per row)
+    #   (contiguous or paged decode: one token a row, or a T-token window
+    #   a row — the speculative verify pass)
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] page table: the cache
     #   holds page POOLS [L, NB, BLK, KVH, HD] (paged decode)

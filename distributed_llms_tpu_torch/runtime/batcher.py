@@ -65,8 +65,18 @@ tests/test_torch_host_tier_serving.py, tests/test_torch_penalties.py,
 tests/test_torch_named_prefix.py): at temperature 0 the token streams
 equal the JAX batcher's on the same weights and prompts.
 
-Not ported yet: speculative decoding, constrained output, tenants, meshes
-and fault injection (absent from the API).
+Speculative batching (``draft_params``/``draft_cfg``/``spec_k``): every
+round drafts ``spec_k`` tokens a row with a draft model over its own
+contiguous cache and verifies them in ONE (k+1)-token target forward
+(:func:`spec_chunk`), in either cache mode; at temperature 0 every
+committed token is the target's greedy token (the plain batcher's stream,
+to the token where the verify's wider products round as a plain step's:
+always in float32, up to near-ties in bf16), above it rejection sampling
+keeps the target's distribution.  A per-row acceptance EMA lets the scheduler shorten a cold
+row's rounds (``spec_adaptive_k``).
+
+Not ported yet: constrained output, tenants, meshes and fault injection
+(absent from the API).
 """
 
 from __future__ import annotations
@@ -94,6 +104,10 @@ from .session import continuation_mask
 from .shapes import BUCKET_FLOOR, bucket_length as _bucket
 
 log = get_logger("batcher")
+
+# Acceptance-EMA smoothing for the adaptive spec_k downshift: ~5 rounds of
+# history (the reference's constant).
+_SPEC_EMA_ALPHA = 0.2
 
 
 def _sample_first(logits, last_idx, generator, temperature, top_k, top_p,
@@ -156,23 +170,42 @@ def _finish_admission(cache, slot, row_cache, logits, last_idx, generator,
     cache), report the row's valid slots (a prefix)."""
     tok, lp = _sample_first(logits, last_idx, generator, temperature, top_k,
                             top_p, temp_req, topp_req, topk_req)
-    cache.k[:, slot] = row_cache.k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = row_cache.v[:, 0].to(cache.v.dtype)
+    w = row_cache.k.shape[2]  # a speculative cache's headroom slots stay
+    cache.k[:, slot, :w] = row_cache.k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot, :w] = row_cache.v[:, 0].to(cache.v.dtype)
     row_valid = np.arange(cache.k.shape[2]) < total_len
     return cache, tok, row_valid, lp
 
 
 def admit_row(params, cfg, cache, slot, prompt, plen, generator,
               temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
-              topp_req=None, topk_req=None):
+              topp_req=None, topk_req=None, width=None):
     """Prefill one request into batch row ``slot`` of a contiguous cache.
-    ``prompt`` [Tp] right-padded, ``plen`` its true length.  Returns
-    (cache, first_token, row_valid [S] bool, first_token_logprob)."""
+    ``prompt`` [Tp] right-padded, ``plen`` its true length; ``width`` the
+    transient row's slots (default the cache's: a speculative batcher
+    passes its ``max_len``, so the prefill has the plain batcher's
+    shapes).  Returns (cache, first_token, row_valid [S] bool,
+    first_token_logprob)."""
     logits, row_cache = _prefill_row(params, cfg, cache.k.dtype,
-                                     cache.k.shape[2], prompt)
+                                     width or cache.k.shape[2], prompt)
     return _finish_admission(cache, slot, row_cache, logits, plen, generator,
                              temperature, top_k, top_p, plen, temp_req,
                              topp_req, topk_req)
+
+
+def admit_row_kv(params, cfg, cache, slot, prompt, plen):
+    """KV-only admission: prefill one row and copy it into row ``slot`` of
+    a contiguous cache, sampling nothing.  Speculative batching seeds the
+    DRAFT cache with it for every admitted row (the prefix cache and named
+    prefixes hold target KV only, so the draft prefills the whole
+    prompt).  The transient prefill writes all ``Tp`` slots; slots past
+    ``plen`` are junk that the draft's steps overwrite before any read."""
+    del plen
+    _, row_cache = _prefill_row(params, cfg, cache.k.dtype, cache.k.shape[2],
+                                prompt)
+    cache.k[:, slot] = row_cache.k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = row_cache.v[:, 0].to(cache.v.dtype)
+    return cache
 
 
 def _gather_row_pages(cache, read_list: torch.Tensor):
@@ -422,13 +455,17 @@ def finish_chunked_admission_paged(cache, page_list, row_k, row_v,
 CARRY_ROWS = 4
 
 
-def unpack_chunk(packed: np.ndarray, b: int, k: int):
-    """A chunk's packed output on the host, [2*B*K + 4*B] int32 -> (toks
-    [B, K] int32, logprobs [B, K] float32, carry [4, B] int32): views."""
+def unpack_chunk(packed: np.ndarray, b: int, k: int, commits: bool = False):
+    """A chunk's packed output on the host, [2*B*K (+ B) + 4*B] int32 ->
+    (toks [B, K] int32, logprobs [B, K] float32, m, carry [4, B] int32):
+    views.  A speculative round (``commits``; K = spec_k + 1) packs each
+    row's commit count ``m`` [B] between the logprobs and the carry — row
+    b's tokens are ``toks[b, :m[b]]``; a plain chunk has none (m None)."""
     n = b * k
+    m = packed[2 * n:2 * n + b] if commits else None
     return (packed[:n].reshape(b, k),
-            packed[n:2 * n].view(np.float32).reshape(b, k),
-            packed[2 * n:].reshape(CARRY_ROWS, b))
+            packed[n:2 * n].view(np.float32).reshape(b, k), m,
+            packed[-CARRY_ROWS * b:].reshape(CARRY_ROWS, b))
 
 
 def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
@@ -494,6 +531,13 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
                       last_tok, real_lens, active.to(torch.int32), budget])
 
 
+def _weights_key(params) -> tuple:
+    """The weights' quantization as a graph key: None for plain blocks,
+    else the bits of the projections' ``QuantizedTensor`` leaves."""
+    wq = params["blocks"]["attn"]["wq"]
+    return (wq.bits,) if isinstance(wq, QuantizedTensor) else (None,)
+
+
 def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                  temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
                  tables=None, temp_row=None, topp_row=None, topk_row=None,
@@ -535,9 +579,8 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                     ("pres_row", pres_row), ("freq_row", freq_row)):
         if t is not None:
             inputs[name] = t
-    quantized = isinstance(params["blocks"]["attn"]["wq"], QuantizedTensor)
     key = (chunk_steps, tuple(sorted(kw.items())), type(cache).__name__,
-           cache.k.dtype, quantized,
+           cache.k.dtype, _weights_key(params),
            None if counts is None else ("counts", tuple(counts.shape)),
            tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
 
@@ -552,6 +595,219 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
 
     carried = () if counts is None else (counts,)
     return graphs.run(key, chunk, inputs, generator, carried=carried)
+
+
+def _spec_steps(params, cfg, draft_params, draft_cfg, cache, draft_cache,
+                carry, generator, k, temperature=0.0, top_k=0, top_p=1.0,
+                eos_id=-1, pad_id=0, tables=None, k_row=None, counts=None,
+                pres_row=None, freq_row=None):
+    """ONE speculative round for every slot, on the device with no host
+    sync, each kernel launched from here (:func:`spec_chunk` replays them
+    from a graph on the card) — the reference's ``spec_chunk``:
+
+    - the draft: k single-token steps against its contiguous cache, row
+      b's step j at slot ``real_lens[b] + j`` reading the prefix through
+      it (the decode kernel's prefix contract: the reference's row masks
+      are ``valid | [real_lens, idx]``, and ``valid`` is the prefix
+      ``[0, real_lens)``);
+    - the verify: one (k+1)-token target forward over ``[last_tok,
+      d_1..d_k]`` — through the page tables (``tables``: one paged
+      decode-attention launch a layer over B*(k+1) virtual rows) or the
+      contiguous cache (dense, row b's query j masked to the prefix
+      ``[0, real_lens + j]``);
+    - the commit: greedy (temperature 0: the target's own argmax at every
+      committed position, whatever the draft) or rejection sampling (``u_j < p_j(d_j) / q_j(d_j)``, the residual
+      ``normalize(max(p - q, 0))`` at the first rejection, a bonus draw
+      from p after k acceptances: the target's warped distribution,
+      exactly), clamped by ``k_row`` [B] (acceptance stops at
+      ``j < k_row``; the forced stop emits the target's own token);
+    - the backfill: one draft step at :func:`~.speculative.backfill_coords`,
+      the slot a fully accepted round left unwritten.
+
+    ``counts``/``pres_row``/``freq_row`` engage the penalties: draft step j
+    and verify position j penalize with the histogram plus the one-hots of
+    ``d_1..d_j``, and the committed tokens are added to ``counts`` in
+    place.  Random draws, in this order, from ``generator`` (sampled rounds
+    only): each draft step's, the k uniforms, the residual's.  Logprobs
+    are the target's raw log-softmax of each committed token.  Returns the
+    packed round (:func:`unpack_chunk` with ``commits``)."""
+    from .speculative import backfill_coords, commit_clamp, greedy_accept_commit
+
+    last_tok, real_lens, active, budget = (carry[0], carry[1],
+                                           carry[2].bool(), carry[3])
+    b = last_tok.shape[0]
+    dev = last_tok.device
+    penalized = counts is not None
+    sampled = temperature > 0.0
+
+    def pen(logits, cnt):  # [B(, T), V] logits and int32 counts
+        if not penalized:
+            return logits
+        extra = (1,) * (logits.dim() - 1)
+        f = freq_row.reshape(-1, *extra)
+        p = pres_row.reshape(-1, *extra)
+        return (logits - f * cnt.to(logits.dtype)
+                - p * (cnt > 0).to(logits.dtype))
+
+    # -- the draft: k single-token steps, the histogram carried along.
+    cnt = counts.clone() if penalized else None
+    cur = last_tok
+    drafts, qs = [], []
+    for j in range(k):
+        idx = real_lens + j
+        logits, _ = model_lib.forward(
+            draft_params, draft_cfg, cur[:, None], positions=idx[:, None],
+            cache=draft_cache, cache_index=idx)
+        step = pen(logits[:, 0], cnt)
+        if sampled:
+            warped = sampling.warp_logits(step, temperature, top_k, top_p)
+            cur = sampling._categorical(generator, warped)
+            qs.append(torch.softmax(warped, dim=-1))
+        else:
+            cur = sampling.greedy(step)
+        if penalized:
+            cnt.scatter_add_(1, cur.long()[:, None],
+                             torch.ones_like(cur)[:, None])
+        drafts.append(cur)
+    drafts = torch.stack(drafts, dim=1)                       # [B, k]
+
+    # -- the verify: one (k+1)-token target forward.
+    vtoks = torch.cat([last_tok[:, None], drafts], dim=1)
+    j_ar = torch.arange(k + 1, device=dev)
+    vpos = real_lens[:, None] + j_ar[None, :]                 # [B, k+1]
+    if tables is not None:
+        vlogits, _ = model_lib.forward(params, cfg, vtoks, positions=vpos,
+                                       cache=cache, cache_index=real_lens,
+                                       kv_tables=tables)
+    else:
+        slots = torch.arange(cache.k.shape[2], device=dev)
+        vmask = (slots[None, None, :] <= vpos[:, :, None])[:, None]
+        vlogits, _ = model_lib.forward(params, cfg, vtoks, positions=vpos,
+                                       cache=cache, cache_index=real_lens,
+                                       attn_mask=vmask)
+    if penalized:
+        # Position j consumed [last_tok, d_1..d_j]: its histogram is the
+        # base plus the one-hots of d_1..d_j.
+        oneh = torch.zeros((b, k, counts.shape[1]), dtype=torch.int32,
+                           device=dev).scatter_(2, drafts.long()[..., None], 1)
+        c = torch.cat([torch.zeros_like(oneh[:, :1]),
+                       torch.cumsum(oneh, dim=1, dtype=torch.int32)], dim=1)
+        pen_v = pen(vlogits, counts[:, None, :] + c)
+    else:
+        pen_v = vlogits
+
+    if sampled:
+        ps = torch.softmax(
+            sampling.warp_logits(pen_v, temperature, top_k, top_p), dim=-1)
+        qs = torch.stack(qs, dim=1)                           # [B, k, V]
+        di = drafts.long()[..., None]
+        p_at = torch.gather(ps[:, :k], 2, di)[..., 0]
+        q_at = torch.gather(qs, 2, di)[..., 0]
+        u = torch.rand((b, k), generator=generator, device=dev)
+        accept = u * torch.clamp(q_at, min=1e-20) < p_at
+        if k_row is not None:
+            # A forced stop at j == k_row with the draft distribution
+            # zeroed past it: the "residual" there is p itself, a fresh
+            # target sample, so the output distribution is unchanged.
+            accept = accept & (j_ar[None, :k] < k_row[:, None])
+        a = torch.cumprod(accept.to(torch.int32), dim=1).sum(
+            dim=1, dtype=torch.int32)
+        q_ext = torch.cat([qs, torch.zeros_like(ps[:, :1])], dim=1)
+        if k_row is not None:
+            q_ext = q_ext * (j_ar[None, :] < k_row[:, None]).to(
+                q_ext.dtype)[..., None]
+        ai = a.long()[:, None, None].expand(b, 1, ps.shape[-1])
+        p_a = torch.gather(ps, 1, ai)[:, 0]
+        q_a = torch.gather(q_ext, 1, ai)[:, 0]
+        resid = torch.clamp(p_a - q_a, min=0.0)
+        norm = resid.sum(dim=-1, keepdim=True)
+        # p == q on the whole support leaves no residual: any draw from p.
+        resid = torch.where(norm > 1e-9, resid / torch.clamp(norm, min=1e-9),
+                            p_a)
+        corr = sampling._categorical(
+            generator, torch.where(resid > 0,
+                                   torch.log(torch.clamp(resid, min=1e-30)),
+                                   -torch.inf))
+        cand = torch.where(j_ar[None, :] < a[:, None],
+                           torch.cat([drafts, drafts[:, -1:]], dim=1),
+                           corr[:, None]).to(torch.int32)
+        m, has_eos = commit_clamp(cand, a, active, budget, eos_id, k)
+    else:
+        cand, m, has_eos, _ = greedy_accept_commit(
+            drafts, sampling.greedy(pen_v), active, budget, eos_id, k,
+            k_row=k_row)
+    # Raw target log-softmax of each committed token: vlogits[:, j]
+    # predicts the token committed at offset j.
+    lps = torch.gather(torch.log_softmax(vlogits.float(), dim=-1), 2,
+                       cand.long()[..., None])[..., 0]       # [B, k+1]
+    committed = j_ar[None, :] < m[:, None]
+    toks = torch.where(committed, cand, pad_id)
+    if penalized:
+        # Every committed token, EOS included (the plain chunk's rule).
+        counts.scatter_add_(1, cand.long(), committed.to(torch.int32))
+    new_last = torch.gather(cand, 1, torch.clamp(m - 1, min=0).long()[:, None])
+    last_tok = torch.where(m > 0, new_last[:, 0], last_tok)
+    real_lens = real_lens + m
+    budget = budget - m
+    active = active & ~has_eos & (budget > 0)
+    # -- the backfill: the draft's KV at the slot a fully accepted round
+    # left unwritten (one slot below the new frontier).
+    bf_idx, bf_tok = backfill_coords(cand, m, real_lens)
+    model_lib.forward(draft_params, draft_cfg, bf_tok[:, None],
+                      positions=bf_idx[:, None], cache=draft_cache,
+                      cache_index=bf_idx)
+    return torch.cat([toks.reshape(-1), lps.reshape(-1).view(torch.int32), m,
+                      last_tok, real_lens, active.to(torch.int32), budget])
+
+
+def spec_chunk(params, cfg, draft_params, draft_cfg, cache, draft_cache,
+               carry, generator, k, temperature=0.0, top_k=0, top_p=1.0,
+               eos_id=-1, pad_id=0, tables=None, k_row=None, counts=None,
+               pres_row=None, freq_row=None, graphs=None):
+    """ONE speculative round (:func:`_spec_steps`) from ``carry`` [4, B]
+    int32 over the target's page pool (``tables``) or contiguous cache
+    and the draft's contiguous cache, both written in place.  Returns the
+    packed round (:func:`unpack_chunk` with ``commits``).
+
+    On CPU tensors the round runs eagerly.  On CUDA tensors it replays the
+    captured graph of its plan in ``graphs``, keyed as
+    :func:`decode_chunk`'s plus k, the draft's quantization and the draft
+    cache's kind and shape; ``k_row`` is an input buffer, so every clamp
+    value replays one graph, and ``counts`` is carried as in
+    :func:`decode_chunk`.  A capture that fails raises."""
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+              eos_id=eos_id, pad_id=pad_id)
+    if not carry.is_cuda:
+        return _spec_steps(params, cfg, draft_params, draft_cfg, cache,
+                           draft_cache, carry, generator, k, tables=tables,
+                           k_row=k_row, counts=counts, pres_row=pres_row,
+                           freq_row=freq_row, **kw)
+    if graphs is None:
+        raise ValueError(
+            "a speculative round on CUDA tensors replays a captured graph; "
+            "pass graphs (runtime.chunk_graph.ChunkGraphs)"
+        )
+    inputs = {"carry": carry}
+    for name, t in (("tables", tables), ("k_row", k_row),
+                    ("pres_row", pres_row), ("freq_row", freq_row)):
+        if t is not None:
+            inputs[name] = t
+    key = ("spec", k, tuple(sorted(kw.items())), type(cache).__name__,
+           cache.k.dtype, _weights_key(params), _weights_key(draft_params),
+           type(draft_cache).__name__, tuple(draft_cache.k.shape),
+           draft_cache.k.dtype,
+           None if counts is None else ("counts", tuple(counts.shape)),
+           tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
+
+    def round_(ins):
+        return _spec_steps(params, cfg, draft_params, draft_cfg, cache,
+                           draft_cache, ins["carry"], generator, k,
+                           tables=ins.get("tables"), k_row=ins.get("k_row"),
+                           counts=counts, pres_row=ins.get("pres_row"),
+                           freq_row=ins.get("freq_row"), **kw)
+
+    carried = () if counts is None else (counts,)
+    return graphs.run(key, round_, inputs, generator, carried=carried)
 
 
 def mixed_step(params, cfg, cache, carry, generator, chunk_steps, row_k,
@@ -955,6 +1211,16 @@ class ContinuousBatcher:
         #   = contiguous mode (each slot owns a max_len-slot cache row)
         page_size: int = 64,
         prefix_cache: bool = False,  # automatic prefix caching (paged)
+        # Speculative batching: every round drafts spec_k tokens a row
+        # with the draft model and verifies them in ONE target forward;
+        # temperature 0 commits the target's greedy tokens, temperature > 0
+        # samples the target's distribution by rejection sampling.
+        draft_params: Any = None,
+        draft_cfg: ModelConfig | None = None,
+        spec_k: int = 4,
+        # Adaptive per-row spec_k downshift (greedy, schedule=mixed): a
+        # row's acceptance EMA shortens its rounds; streams are unchanged.
+        spec_adaptive_k: bool = True,
         # Dispatch-ahead engine loop: while no scheduling work is pending
         # (nothing queued, no prefill to finish, no growth under pressure,
         # no cancel), chunk N+1 dispatches from chunk N's carry on the
@@ -1019,10 +1285,32 @@ class ContinuousBatcher:
                     f"max_len {max_len} must be a multiple of page_size "
                     f"{page_size}"
                 )
-            if paged_pages < max_len // page_size + 1:
+            # Speculative rows hold scratch-TAIL pages past max_len: the
+            # verify window writes up to spec_k + 1 slots past the row's
+            # frontier (the contiguous cache's headroom slots, as pages).
+            tail = spec_k + 1 if draft_params is not None else 0
+            if paged_pages < -(-(max_len + tail) // page_size) + 1:
                 raise ValueError(
                     f"paged_pages {paged_pages} cannot hold even one "
                     f"full-depth row (+1 scratch page)"
+                )
+        self.speculative = draft_params is not None
+        if self.speculative:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            model_lib.check_supported(draft_cfg)
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}"
+                )
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if prefill_chunk is not None:
+                raise ValueError(
+                    "chunked prefill does not compose with speculative "
+                    "batching (the draft admission prefills the full "
+                    "prompt monolithically)"
                 )
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
@@ -1043,9 +1331,20 @@ class ContinuousBatcher:
         self.sched = make_scheduler(
             schedule, chunk_steps=chunk_steps, prefill_chunk=prefill_chunk,
             prefill_concurrency=prefill_concurrency,
-            token_budget=token_budget,
+            token_budget=token_budget, speculative=self.speculative,
+            spec_adaptive=bool(spec_adaptive_k),
         )
         self._prefills: dict[int, _PendingPrefill] = {}  # slot -> pending
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = spec_k
+        # Per-row acceptance-rate EMA (optimistic 1.0 at admission: a fresh
+        # row drafts the full k) and cumulative accounting — functions of
+        # the committed stream, so downshifts repeat run to run.
+        self.spec_ema = np.ones((batch_slots,), np.float64)
+        self.spec_stats = {
+            "rounds": 0, "accepted": 0, "rejected": 0, "downshifts": 0,
+        }
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["wte"].device
@@ -1063,11 +1362,23 @@ class ContinuousBatcher:
         self.pool: PagePool | None = None
         self.tables: np.ndarray | None = None
         self.host_tier: HostTier | None = None
+        # Speculative mode reserves k+1 HEADROOM slots past max_len: a
+        # near-capacity row's verify window writes up to k+1 slots past
+        # its frontier; they are never valid, only overwritten.
+        cache_len = max_len + (spec_k + 1 if self.speculative else 0)
+        self.draft_cache: KVCache | None = None
+        if self.speculative:
+            self.draft_cache = model_lib.init_cache(
+                draft_cfg, batch_slots, cache_len, dtype=kv_dtype,
+                device=self.device)
         if self.paged:
             self.cache = _paged_pool(cfg, paged_pages, page_size,
                                      dtype=kv_dtype, device=self.device,
                                      kv_bits=kv_bits)
-            self.pages_per_row = max_len // page_size
+            # A speculative table reaches past max_len by the k+1-token
+            # window (the scratch tail); admissions address the first
+            # max_len // page_size entries, as on a plain batcher.
+            self.pages_per_row = -(-cache_len // page_size)
             if prefix_cache:
                 self.prefix_cache = PrefixCache()
             if host_pages:
@@ -1084,18 +1395,19 @@ class ContinuousBatcher:
             self.tables = np.zeros((batch_slots, self.pages_per_row),
                                    np.int32)
         else:
-            self.cache = model_lib.init_cache(cfg, batch_slots, max_len,
+            self.cache = model_lib.init_cache(cfg, batch_slots, cache_len,
                                               dtype=kv_dtype,
                                               device=self.device)
         # Scheduling state lives as HOST numpy mirrors, synced from the
         # device once per decode chunk.
         self.last_tok = np.zeros((batch_slots,), np.int32)
         self.real_lens = np.zeros((batch_slots,), np.int32)
-        # Contiguous mode: the slots each row has written.  It is always a
-        # prefix [0, real_lens) of a resident row — the contract the
-        # ragged kernel reads by (lengths = real_lens + 1 after the step's
-        # write); _sync_carry checks it.
-        self.valid = np.zeros((batch_slots, 0 if self.paged else max_len),
+        # Contiguous mode: the slots each row has written (the cache's
+        # width, headroom included).  It is always a prefix [0, real_lens)
+        # of a resident row — the contract the decode kernels read by
+        # (lengths = real_lens + 1 after the step's write), and the masks
+        # of a speculative round; _sync_carry checks it.
+        self.valid = np.zeros((batch_slots, 0 if self.paged else cache_len),
                               bool)
         self.active = np.zeros((batch_slots,), bool)
         self.budget = np.zeros((batch_slots,), np.int32)
@@ -1113,8 +1425,9 @@ class ContinuousBatcher:
         # Named prefixes (register_prefix): name -> its prefilled KV row.
         self.prefixes: dict[str, _Prefix] = {}
         self.rows = [_RowState() for _ in range(batch_slots)]
-        # Decode forward steps dispatched (chunks x chunk_steps): every
-        # step runs each layer's paged decode attention once.
+        # Decode forward steps dispatched (chunks x chunk_steps; one a
+        # speculative round, its verify forward): every step runs each
+        # layer's decode attention once.
         self.decode_steps = 0
         # Submission lock: the ONE cross-thread boundary of this class
         # (serving front-ends submit() from their own thread while the
@@ -1308,13 +1621,36 @@ class ContinuousBatcher:
             math.isfinite(temperature) and temperature >= 0.0
         ):
             raise ValueError(f"temperature must be >= 0, got {temperature}")
+        # A speculative round warps target and draft with ONE engine-wide
+        # config (the rejection test compares the two distributions), so
+        # per-request overrides are refused (the gateway answers 400).
+        if (self.speculative and temperature is not None
+                and temperature != self.sampling["temperature"]):
+            raise ValueError(
+                "speculative batching samples with the engine-wide "
+                f"temperature ({self.sampling['temperature']}); per-request "
+                "overrides are not supported"
+            )
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if (self.speculative and top_p is not None
+                and top_p != self.sampling["top_p"]):
+            raise ValueError(
+                "speculative batching samples with the engine-wide top_p "
+                f"({self.sampling['top_p']}); per-request overrides are "
+                "not supported"
+            )
         if top_k is not None:
             if isinstance(top_k, bool) or not isinstance(top_k, int) \
                     or not 0 <= top_k <= 2**31 - 1:
                 raise ValueError(
                     f"top_k must be an int in [0, 2**31), got {top_k!r}"
+                )
+            if self.speculative and top_k != self.sampling["top_k"]:
+                raise ValueError(
+                    "speculative batching samples with the engine-wide "
+                    f"top_k ({self.sampling['top_k']}); per-request "
+                    "overrides are not supported"
                 )
             eff_t = (self.sampling["temperature"] if temperature is None
                      else temperature)
@@ -1615,6 +1951,13 @@ class ContinuousBatcher:
             # The histogram must see every token this request emitted
             # across residencies, as the recompute resume rebuilds it.
             self._set_count_row(i, emitted)
+        if self.speculative:
+            # The draft is never swapped: one KV-only prefill of the first
+            # swap_pos tokens (the slots the target's parcel holds) rebuilds
+            # its row.
+            pfx = self.prefixes[req.prefix] if req.prefix is not None else None
+            self._seed_draft(i, (pfx.ids if pfx else []) + req.ids,
+                             req.swap_pos)
         self.last_tok[i] = req.swap_last_tok
         self.real_lens[i] = req.swap_pos
         self.active[i] = True
@@ -1785,9 +2128,14 @@ class ContinuousBatcher:
             row = self.rows[i]
             if row.rid is None or not self.active[i] or row.prefilling:
                 continue
-            horizon = int(self.real_lens[i]) + min(
-                self.chunk_steps, int(self.budget[i])
-            )
+            if self.speculative:
+                # The verify window writes slots real_lens..real_lens+k
+                # whatever the budget (the commit clamps, not the write).
+                horizon = int(self.real_lens[i]) + self.spec_k + 1
+            else:
+                horizon = int(self.real_lens[i]) + min(
+                    self.chunk_steps, int(self.budget[i])
+                )
             need_pages = -(-horizon // blk)
             have = len(row.pages)
             if need_pages <= have:
@@ -1874,6 +2222,11 @@ class ContinuousBatcher:
             tp = min(_bucket(len(req.ids)), self.s - pfx_len)
             prompt = np.full((tp,), self.pad_id, np.int32)
             prompt[: len(req.ids)] = req.ids
+            if self.paged:
+                # Admissions address max_len's pages (all the pages a row
+                # admits with): a speculative table's scratch tail is the
+                # verify window's, so the prefill keeps the plain shapes.
+                page_list = page_list[: self.s // self.page_size]
             if self.paged and pfx is not None:
                 self.cache, tok, lp = admit_row_with_prefix_paged(
                     self.params, self.cfg, self.cache, self._dev(page_list),
@@ -1912,12 +2265,18 @@ class ContinuousBatcher:
                 self.cache, tok, row_valid, lp = admit_row(
                     self.params, self.cfg, self.cache, i, self._dev(prompt),
                     total_len, self._gen, **self.sampling, **extra,
+                    width=self.s,
                 )
                 self.valid[i] = row_valid
             # Publish the row's fresh full prompt pages (first writer
             # wins); the cached run is already published.
             for j in range(len(cached_pages), len(digests)):
                 self.pool.publish_prefix(int(page_list[j]), digests[j])
+            if self.speculative:
+                # The draft prefills the whole prompt (prefix included):
+                # the prefix cache and named prefixes hold target KV only.
+                full_ids = (pfx.ids if pfx else []) + req.ids
+                self._seed_draft(i, full_ids, len(full_ids))
             self._activate_row(i, req, tok, lp, total_len, req_t, req_p,
                                cached_pages + pages, req_k=req_k,
                                cached_len=cached_len)
@@ -2090,6 +2449,20 @@ class ContinuousBatcher:
         self._activate_row(i, req, tok, lp, pp.total_len, req_t, req_p,
                            pages, req_k=req_k, cached_len=pp.cached_len)
 
+    def _seed_draft(self, i: int, ids: list[int], n: int) -> None:
+        """Speculative mode: prefill the draft cache's row ``i`` with the
+        first ``n`` of ``ids`` (:func:`admit_row_kv`, bucketed like an
+        admission) and reset the row's acceptance EMA (a fresh row drafts
+        the full k)."""
+        seed = ids[:n]
+        td = min(_bucket(len(seed)), self.s)
+        dprompt = np.full((td,), self.pad_id, np.int32)
+        dprompt[: len(seed)] = seed
+        self.draft_cache = admit_row_kv(self.draft_params, self.draft_cfg,
+                                        self.draft_cache, i,
+                                        self._dev(dprompt), len(seed))
+        self.spec_ema[i] = 1.0
+
     def _activate_row(self, i, req, tok, lp, total_len, req_t, req_p, pages,
                       req_k=None, cached_len=0):
         """Host bookkeeping tail of every admission: record the sampled
@@ -2136,17 +2509,20 @@ class ContinuousBatcher:
 
     def _collect(self, toks: np.ndarray, was_active: np.ndarray,
                  lps: np.ndarray | None = None,
-                 active_host: np.ndarray | None = None) -> None:
+                 active_host: np.ndarray | None = None,
+                 counts: np.ndarray | None = None) -> None:
         """Commit a chunk's tokens, publish the rows that finished, stream
         the rest.  ``active_host``: the post-chunk activity vector — a
         dispatched-ahead chunk passes its fetched one (the mirrors are
         stale while the carry is on the device); None reads the synced
-        mirror."""
+        mirror.  ``counts``: a speculative round's commit counts (row i
+        took ``toks[i, :counts[i]]``; the columns past it are padding)."""
         for i in range(self.b):
             row = self.rows[i]
             if row.rid is None or not was_active[i]:
                 continue
-            for j, t in enumerate(toks[i]):
+            row_toks = toks[i] if counts is None else toks[i][: counts[i]]
+            for j, t in enumerate(row_toks):
                 if row.remaining <= 0:
                     break
                 t = int(t)
@@ -2274,6 +2650,12 @@ class ContinuousBatcher:
             per_row["pres_row"] = self._dev(self.pres_row)
             per_row["freq_row"] = self._dev(self.freq_row)
         plan["per_row"] = per_row
+        if self.speculative:
+            # The k_row clamp is not frozen with the plan: it is an input
+            # buffer of the round's graph, re-planned at every dispatch
+            # from the freshest EMAs; ``k_hist`` pairs each dispatched
+            # clamp with its fetch (FIFO: rounds fetch in dispatch order).
+            plan["k_hist"] = deque()
         plan["n_active"] = int(self.active.sum())
         plan["mixed"] = None
         if self.sched.fuse_prefill():
@@ -2295,13 +2677,15 @@ class ContinuousBatcher:
                 self.budget,
             ]).astype(np.int32))
         self.overlap_stats["chunks"] += 1
-        METRICS.inc("batcher.sched.decode_tokens",
-                    plan["n_active"] * self.chunk_steps)
         kw = dict(eos_id=self.eos_id, pad_id=self.pad_id,
                   tables=plan["tables"], graphs=self._graphs,
                   **self.sampling, **plan["per_row"])
         if plan["counts"]:
             kw["counts"] = self.tok_counts
+        if self.speculative:
+            return self._dispatch_spec(plan, carry, kw)
+        METRICS.inc("batcher.sched.decode_tokens",
+                    plan["n_active"] * self.chunk_steps)
         pp = (self._prefills.get(plan["mixed"])
               if plan["mixed"] is not None else None)
         if pp is not None and pp.done < pp.total_len:
@@ -2311,6 +2695,70 @@ class ContinuousBatcher:
                                   self._gen, self.chunk_steps, **kw)
         self.decode_steps += self.chunk_steps
         return packed
+
+    def _dispatch_spec(self, plan: dict, carry, kw: dict) -> torch.Tensor:
+        """Dispatch one speculative round.  The per-row draft length comes
+        from the scheduler's ``spec_round_k`` (the token-budget clamp and
+        the acceptance-EMA downshift; greedy engines only — a sampled
+        forced stop changes the per-seed stream), always passed as the
+        [B] ``k_row`` buffer (the full k when inert) so one graph serves
+        every value.  Mid-span the activity mirrors are stale the same way
+        every run, so the downshifts repeat.  A round charges ``k_row + 1``
+        committable tokens a live row to the budget ledger."""
+        live = self.active & np.asarray([r.rid is not None for r in self.rows])
+        emas = tuple(float(self.spec_ema[i]) if live[i] else 1.0
+                     for i in range(self.b))
+        if self.sampling["temperature"] == 0.0:
+            ks = self.sched.spec_round_k(self.spec_k, emas, int(live.sum()))
+        else:
+            ks = [self.spec_k] * self.b
+        kh = np.clip(np.asarray(ks, np.int32), 1, self.spec_k)
+        plan["k_hist"].append(kh)
+        METRICS.inc("batcher.spec.rounds")
+        self.spec_stats["rounds"] += 1
+        METRICS.inc("batcher.sched.decode_tokens", int(np.sum((kh + 1)[live])))
+        if bool((kh[live] < self.spec_k).any()):
+            METRICS.inc("batcher.spec.k_downshifts")
+            self.spec_stats["downshifts"] += 1
+        packed = spec_chunk(self.params, self.cfg, self.draft_params,
+                            self.draft_cfg, self.cache, self.draft_cache,
+                            carry, self._gen, self.spec_k,
+                            k_row=self._dev(kh), **kw)
+        self.decode_steps += 1  # one verify forward
+        return packed
+
+    def _spec_note(self, m, was_active: np.ndarray, plan: dict) -> None:
+        """Per-round speculative accounting from a fetched round's commit
+        counts: each row's acceptance EMA (the next dispatch's downshift
+        reads it) and the ``batcher.spec.*`` counters and acceptance gauge.
+        ``accepted`` counts committed drafts (the bonus / correction token
+        excluded); EOS and budget cuts deflate it, as in the reference."""
+        if m is None:
+            return
+        kh = (plan["k_hist"].popleft() if plan["k_hist"]
+              else np.full((self.b,), self.spec_k, np.int32))
+        acc = rej = 0
+        for i in range(self.b):
+            if not was_active[i] or m[i] <= 0:
+                continue
+            drafted = int(kh[i])
+            accepted = min(int(m[i]) - 1, drafted)
+            acc += accepted
+            rej += drafted - accepted
+            self.spec_ema[i] = ((1.0 - _SPEC_EMA_ALPHA) * float(self.spec_ema[i])
+                                + _SPEC_EMA_ALPHA * (accepted / max(drafted, 1)))
+        if acc:
+            METRICS.inc("batcher.spec.accepted_tokens", acc)
+        if rej:
+            METRICS.inc("batcher.spec.rejected_tokens", rej)
+        self.spec_stats["accepted"] += acc
+        self.spec_stats["rejected"] += rej
+        total = self.spec_stats["accepted"] + self.spec_stats["rejected"]
+        if total:
+            METRICS.set_gauge("batcher.spec.acceptance",
+                              self.spec_stats["accepted"] / total)
+        if acc + rej:
+            METRICS.observe("engine.spec_acceptance", acc / (acc + rej))
 
     def _dispatch_mixed(self, plan: dict, carry, pp: _PendingPrefill,
                         kw: dict) -> torch.Tensor:
@@ -2390,9 +2838,16 @@ class ContinuousBatcher:
             row = self.rows[i]
             if row.rid is None or not self.active[i] or row.prefilling:
                 continue
-            horizon = int(self.real_lens[i]) + min(
-                horizon_chunks * self.chunk_steps, int(self.budget[i])
-            )
+            if self.speculative:
+                # A round commits at most spec_k + 1 tokens and writes a
+                # spec_k + 1 window past its frontier.
+                horizon = int(self.real_lens[i]) + min(
+                    horizon_chunks * (self.spec_k + 1), int(self.budget[i])
+                ) + self.spec_k + 1
+            else:
+                horizon = int(self.real_lens[i]) + min(
+                    horizon_chunks * self.chunk_steps, int(self.budget[i])
+                )
             need = -(-horizon // blk) - len(row.pages)
             if need <= 0:
                 continue
@@ -2419,7 +2874,9 @@ class ContinuousBatcher:
             done.record()
             done.synchronize()
             packed = host
-        got = unpack_chunk(packed.numpy(), self.b, self.chunk_steps)
+        width = self.spec_k + 1 if self.speculative else self.chunk_steps
+        got = unpack_chunk(packed.numpy(), self.b, width,
+                           commits=self.speculative)
         self._t_complete = time.perf_counter()
         return got
 
@@ -2428,7 +2885,7 @@ class ContinuousBatcher:
         host mirrors in one copy.  Slots whose host bookkeeping dropped the
         row while the carry was on the device (a cancel mid-span) are
         forced inactive: their device activity bit is stale."""
-        toks_h, lps_h, carry = self._fetch_chunk(packed)
+        toks_h, lps_h, m_h, carry = self._fetch_chunk(packed)
         self.last_tok = carry[0].copy()
         self.real_lens = carry[1].copy()
         self.active = carry[2].astype(bool)
@@ -2440,7 +2897,7 @@ class ContinuousBatcher:
         self._cancel_dirty = False
         if not self.paged:
             self._note_written(written, self.real_lens)
-        return toks_h, lps_h
+        return toks_h, lps_h, m_h
 
     def _note_written(self, before: np.ndarray,
                       after: np.ndarray) -> np.ndarray:
@@ -2450,7 +2907,7 @@ class ContinuousBatcher:
         resident row's valid slots are exactly the prefix [0, after).
         Called for every fetched chunk, not only at the span's sync.
         Returns ``after``, the next chunk's ``before``."""
-        slots = np.arange(self.s)[None, :]
+        slots = np.arange(self.valid.shape[1])[None, :]
         prefix = slots < after[:, None]
         self.valid |= prefix & (slots >= before[:, None])
         resident = np.array([r.rid is not None and not r.prefilling
@@ -2511,7 +2968,8 @@ class ContinuousBatcher:
             METRICS.set_gauge("batcher.overlap.depth", 1)
             # Chunk N's host work, while chunk N+1 runs on the device.
             host_t0 = time.perf_counter()
-            toks, lps, carry = self._fetch_chunk(out)
+            toks, lps, m, carry = self._fetch_chunk(out)
+            self._spec_note(m, was_active, plan)
             active_after = carry[2].astype(bool)
             if not active_after.any():
                 # Every row died (EOS) in the chunk just fetched: the one
@@ -2522,7 +2980,8 @@ class ContinuousBatcher:
                 self._gen.set_state(rng_before)
             if not self.paged:
                 written = self._note_written(written, carry[1])
-            self._collect(toks, was_active, lps=lps, active_host=active_after)
+            self._collect(toks, was_active, lps=lps, active_host=active_after,
+                          counts=m)
             self._prehash_queued()
             lag = time.perf_counter() - host_t0
             self.overlap_stats["host_lag_s"] += lag
@@ -2531,10 +2990,11 @@ class ContinuousBatcher:
             out = nxt
         # Sync exit: the mirrors refresh BEFORE _collect, so a cancel taken
         # in the delivery callbacks lands on fresh state.
-        toks, lps = self._sync_carry(out, written)
+        toks, lps, m = self._sync_carry(out, written)
+        self._spec_note(m, was_active, plan)
         self._span_open = False
         METRICS.set_gauge("batcher.overlap.depth", 0)
         if self.overlap:
             self.overlap_stats["carry_syncs"] += 1
             METRICS.inc("batcher.overlap.carry_syncs")
-        self._collect(toks, was_active, lps=lps)
+        self._collect(toks, was_active, lps=lps, counts=m)

@@ -6,9 +6,12 @@ The engine owns the weights on one device and hands out
 :class:`~.batcher.ContinuousBatcher` instances over them: random seeded
 weights of a preset (:meth:`InferenceEngine.from_preset`) or a shard store
 (:meth:`InferenceEngine.from_store`), whose decoder-block weights can stay
-int8/int4 on the device (``runtime.serve_quantized``).  Entry points run
-on CUDA unless the caller asks for the CPU by name (``device="cpu"``);
-without a GPU and without that request they raise.
+int8/int4 on the device (``runtime.serve_quantized``).  With
+``runtime.spec_decode`` the engine attaches a self-draft (its own decoder
+blocks, weight-only quantized to ``runtime.spec_draft_quantize`` bits)
+and its batchers speculate (:meth:`InferenceEngine.attach_draft`).  Entry
+points run on CUDA unless the caller asks for the CPU by name
+(``device="cpu"``); without a GPU and without that request they raise.
 """
 
 from __future__ import annotations
@@ -45,12 +48,9 @@ class InferenceEngine:
         self.cfg = cfg
         self.rt = rt
         self.device = resolve_device(device)
-        for name, knob in (("spec_decode", rt.spec_decode),
-                           ("kv_host_spill", rt.kv_host_spill)):
-            if knob:
-                raise NotImplementedError(
-                    f"runtime.{name} is not ported yet"
-                )
+        if rt.kv_host_spill:
+            raise NotImplementedError(
+                "runtime.kv_host_spill is not ported yet")
         self.tokenizer = tokenizer or get_tokenizer(None)
         # Out-of-vocab ids would index past the embedding table; reject the
         # mismatch loudly.
@@ -61,6 +61,27 @@ class InferenceEngine:
                 f"vocab ({cfg.vocab_size}); token ids would be out of range"
             )
         self.params = _to_device(params, self.device)
+        self.draft_cfg: ModelConfig | None = None
+        self.draft_params: Any = None
+        if rt.spec_decode:
+            # The reference's construction policy: malformed configs raise;
+            # an engine that cannot self-draft serves plain with a warning
+            # (an explicit attach_draft(cfg, params) still works there).
+            if cfg.ragged_decode:
+                raise ValueError(
+                    "runtime.spec_decode is incompatible with "
+                    "model.ragged_decode; unset one"
+                )
+            if rt.spec_k < 1:
+                raise ValueError(f"runtime.spec_k must be >= 1, got {rt.spec_k}")
+            if self._serves_quantized():
+                log.warning(
+                    "spec_decode requested but the engine serves quantized "
+                    "weights; serving PLAIN (no self-draft to quantize). "
+                    "Attach an explicit draft for speculative serving."
+                )
+            else:
+                self.attach_draft(quantize_bits=rt.spec_draft_quantize)
 
     @classmethod
     def from_preset(
@@ -169,13 +190,16 @@ class InferenceEngine:
         ``overlap`` (None: ``rt.overlap``, on by default) runs the
         dispatch-ahead loop; ``prefill_chunk`` / ``prefill_concurrency`` /
         ``token_budget`` (None: ``rt.token_budget``; 0 disables) chunk long
-        prompts.  Knobs of later port slices raise
-        ``NotImplementedError``, whether passed here or inherited from the
-        config."""
+        prompts.  ``speculative`` (None: ``rt.spec_decode`` at temperature
+        0 with a draft attached) drafts with the attached draft and
+        verifies ``rt.spec_k + 1`` tokens a round; inherited from the
+        config it yields to chunked prefill with a warning, asked for
+        explicitly the batcher refuses the pair.  Knobs of later port
+        slices raise ``NotImplementedError``, whether passed here or
+        inherited from the config."""
         from .batcher import ContinuousBatcher
 
         for what, requested in (
-            ("speculative decoding", speculative),
             ("multi-tenant scheduling (tenant_weights/tenant_max_rows)",
              tenant_weights or self.rt.tenant_weights or tenant_max_rows
              or self.rt.tenant_max_rows),
@@ -219,8 +243,36 @@ class InferenceEngine:
                     log.warning("%s from the config ignored: this engine "
                                 "serves contiguous KV", what)
             prefix_cache, kv_bits = False, 16
+        explicit_spec = speculative is not None
+        if speculative is None:
+            # The config's default speculates only where it keeps the plain
+            # batcher's streams: greedy, with a draft attached.  Sampled
+            # speculation (the target's distribution, another random
+            # stream) takes speculative=True.
+            speculative = (self.rt.spec_decode and self.rt.temperature == 0.0
+                           and self.draft_params is not None)
+        if speculative and prefill_chunk is not None and not explicit_spec:
+            log.warning(
+                "runtime.spec_decode ignored: chunked prefill is "
+                "configured (prefill_chunk=%d) and the speculative draft "
+                "admission prefills monolithically; serving plain",
+                prefill_chunk,
+            )
+            speculative = False
+        spec_kwargs = {}
+        if speculative:
+            if self.draft_params is None:
+                raise ValueError(
+                    "speculative batching needs a draft: call "
+                    "attach_draft(...) first"
+                )
+            spec_kwargs = dict(
+                draft_params=self.draft_params, draft_cfg=self.draft_cfg,
+                spec_k=self.rt.spec_k,
+                spec_adaptive_k=self.rt.spec_adaptive_k,
+            )
         return ContinuousBatcher(
-            self.cfg, self.params, tokenizer=self.tokenizer,
+            self.cfg, self.params, tokenizer=self.tokenizer, **spec_kwargs,
             batch_slots=batch_slots,
             max_len=min(max_len or self.rt.max_seq_len, self.cfg.max_seq_len),
             chunk_steps=chunk_steps,
@@ -241,6 +293,88 @@ class InferenceEngine:
             overlap=self.rt.overlap if overlap is None else overlap,
             schedule=schedule or self.rt.schedule,
         )
+
+
+    # -- speculative decoding: the draft -----------------------------------
+
+    def _serves_quantized(self) -> bool:
+        """Whether the decoder-block weights are resident as
+        ``QuantizedTensor`` leaves (a ``serve_quantized`` store): such
+        weights cannot be quantized again into a self-draft."""
+        from ..checkpoint.quantize import QuantizedTensor
+
+        def leaves(t):
+            if isinstance(t, dict):
+                for v in t.values():
+                    yield from leaves(v)
+            else:
+                yield t
+
+        return any(isinstance(x, QuantizedTensor)
+                   for x in leaves(self.params.get("blocks", {})))
+
+    def attach_draft(self, draft_cfg: ModelConfig | None = None,
+                     draft_params: Any = None,
+                     quantize_bits: int | None = None) -> None:
+        """Attach the draft model speculative batchers use: an explicit
+        ``(draft_cfg, draft_params)`` pair (any model sharing this
+        engine's vocabulary), or ``quantize_bits=4|8`` for the self-draft
+        — this engine's own decoder blocks weight-only quantized
+        (``checkpoint/quantize.py``'s layout), every projection then
+        running the dequant-matmul kernel; the embedding and the
+        unembedding are shared with the target.  Exactness at temperature
+        0 never depends on the draft."""
+        if quantize_bits is not None:
+            if draft_cfg is not None or draft_params is not None:
+                raise ValueError("pass draft_cfg/draft_params OR quantize_bits")
+            if self._serves_quantized():
+                raise ValueError(
+                    "engine already serves quantized weights; build the "
+                    "draft explicitly (attach_draft(draft_cfg, draft_params))"
+                )
+            draft_cfg = self.cfg
+            draft_params = {**self.params,
+                            "blocks": _quantize_blocks(self.params["blocks"],
+                                                       quantize_bits)}
+        if draft_cfg is None or draft_params is None:
+            raise ValueError("need draft_cfg + draft_params (or quantize_bits)")
+        if draft_cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size}"
+            )
+        model_lib.check_supported(draft_cfg)
+        self.draft_cfg = draft_cfg
+        self.draft_params = _to_device(draft_params, self.device)
+
+
+def _quantize_blocks(blocks: Any, bits: int) -> Any:
+    """``checkpoint.quantize.quantize_tree`` of the stacked decoder blocks,
+    one layer at a time (the float32 temporaries of a whole stacked leaf
+    would take several times its bytes), the layers' codes and scales
+    stacked back: the same codes, since every scale block and int4 pair
+    lies within one layer."""
+    from ..checkpoint import quantize as quant_lib
+    from ..models.layers import K_LEAD
+    from ..ops.quant_matmul import check_pack_axis
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        should, pack_axis = quant_lib.leaf_plan(path, tree[0])
+        if not should:
+            return tree
+        per = [quant_lib.quantize(tree[i], bits=bits, pack_axis=pack_axis)
+               for i in range(tree.shape[0])]
+        qt = quant_lib.QuantizedTensor(
+            data=torch.stack([q.data for q in per]),
+            scale=torch.stack([q.scale for q in per]),
+            bits=bits, orig_shape=tuple(tree.shape), pack_axis=pack_axis)
+        check_pack_axis(qt, K_LEAD[path.split("/")[-1]], stacked=1)
+        return qt
+
+    return walk(blocks, "")
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

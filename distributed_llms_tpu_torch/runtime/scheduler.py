@@ -12,9 +12,10 @@ base policies are copied unchanged:
 
 The batcher's chunked prefill, mixed step and dispatch-ahead loop
 consult these hooks (``chunk_threshold``, ``prefill_bite``,
-``fuse_prefill``, ``sync_triggers``).  The tenant-fair and speculative
-policies are later slices.  Hooks are model-free: plain host data in,
-decisions out.
+``fuse_prefill``, ``sync_triggers``); a speculative batcher's ``mixed``
+policy is :class:`SpecMixedScheduler`, whose ``spec_round_k`` sizes each
+row's rounds.  The tenant-fair policy is a later slice.  Hooks are
+model-free: plain host data in, decisions out.
 """
 
 from __future__ import annotations
@@ -258,6 +259,36 @@ class MixedScheduler(Scheduler):
         return None if view.head_prefill_left > 0 else "prefill_finish"
 
 
+class SpecMixedScheduler(MixedScheduler):
+    """Budget-aware speculative rounds: the ``mixed`` policy of a
+    speculative batcher (:func:`make_scheduler` picks it).  A round
+    charges ``k_row + 1`` committable tokens a live row to the token
+    budget, and two clamps size each row's bound:
+
+    - the budget (engine-wide): k shrinks until the round's committable
+      sum fits ``token_budget``;
+    - the acceptance (per row): ``max(1, round(ema * k_max))`` — a cold
+      draft's rounds shrink toward plain-decode granularity.
+
+    These bound commits, not work: the round always drafts ``k_max``
+    tokens and verifies ``k_max + 1`` (one captured graph for every
+    clamp), and the forced stop emits the target's own token, so streams
+    are the same at any clamp.  ``spec_adaptive=False`` keeps the full k.
+    """
+
+    name = "mixed"
+
+    def spec_round_k(self, k_max: int, emas: Sequence[float],
+                     n_active: int) -> list[int]:
+        if not self.spec_adaptive:
+            return [k_max] * len(emas)
+        kb = k_max
+        if self.token_budget is not None and n_active:
+            while kb > 1 and n_active * (kb + 1) > self.token_budget:
+                kb -= 1
+        return [min(kb, max(1, int(e * k_max + 0.5))) for e in emas]
+
+
 POLICIES: dict[str, type[Scheduler]] = {
     "alternate": Scheduler,
     "mixed": MixedScheduler,
@@ -267,11 +298,14 @@ POLICIES: dict[str, type[Scheduler]] = {
 def make_scheduler(name: str, **knobs: Any) -> Scheduler:
     """Build the named policy (``--schedule`` / ``RuntimeConfig.schedule``).
     Unknown names fail loudly — a typo'd schedule must not silently serve
-    the default."""
+    the default.  A speculative batcher's ``mixed`` policy is
+    :class:`SpecMixedScheduler`."""
     try:
         cls = POLICIES[name]
     except KeyError:
         raise ValueError(
             f"unknown schedule {name!r}; known: {sorted(POLICIES)}"
         ) from None
+    if knobs.get("speculative") and cls is MixedScheduler:
+        cls = SpecMixedScheduler
     return cls(**knobs)

@@ -293,7 +293,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--tenant-quota-tps", "5"],
-    ["--spec-decode"], ["--tenant-weights", "a:1"], ["--replicas", "2"],
+    ["--tenant-weights", "a:1"], ["--replicas", "2"],
     ["--disaggregate"], ["--tenant-max-rows", "2"],
     ["--override", "runtime.kv_host_spill=true"],
     ["--fault", "batcher.decode:raise@1"], ["--constrained"],
@@ -348,6 +348,21 @@ async def test_slice_flags_serve_as_the_default(flags):
         assert bat.overlap
     else:
         assert bat.sched.chunk_threshold() == int(flags[1])
+
+
+async def test_spec_decode_flag_serves_as_the_default():
+    """--spec-decode (refused before speculative decoding was ported) boots
+    the server through the normal entry point with the int4 self-draft;
+    a greedy completion is answered with the default server's tokens, and
+    logprobs within float drift (the verify pass reduces in other
+    shapes)."""
+    bat, got = await _greedy_answer(["--spec-decode"])
+    assert bat.speculative and bat.spec_k == 4
+    assert bat.draft_params["blocks"]["attn"]["wq"].bits == 4
+    _, want = await _greedy_answer([])
+    assert got["tokens"] == want["tokens"]
+    np.testing.assert_allclose(got["token_logprobs"], want["token_logprobs"],
+                               atol=1e-3)
 
 
 async def test_host_pages_flag_boots_the_tier():

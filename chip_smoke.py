@@ -159,6 +159,37 @@ Phases, each printing result lines:
       K1, cuBLAS, the rest).  K1 must launch once a layer a round, K2
       5 times, K5 (int4) 35 times.  Path j's launches ride in the JSON
       line as ``spec_launches``.
+   k. (run by the ``constrain`` phase) path a's flags with ``--max-len
+      1024`` (K1): eight concurrent completions of 64 new tokens — two
+      JSON-schema ``response_format`` requests (an object with a string of
+      at most 16 bytes, an integer, a boolean and an enum; an array of at
+      most 4 integers), a regex (``\\d{4}-\\d{2}-\\d{2}``), one with
+      ``banned_tokens`` (the first 8 tokens its prompt gives greedily
+      unconstrained) and a ``logit_bias``, three free ones (greedy over
+      path a's prefix, top-p over SSE, top-k) and the object schema
+      sampled at 0.8.  Every constrained output that ended on EOS matches
+      its pattern (the JSON ones parse and validate), one cut by the
+      budget is a live prefix, no banned token appears, the free greedy
+      stream equals the same free requests' served engine-side without the
+      constrained ones, and a malformed schema answers 400.  Engine-side
+      over the same weights: the constrained greedy set under the three
+      engine loops (identical streams, equal to the served ones), with
+      int8 pages (K1q; valid outputs), and 8 constrained rows of 192 new
+      tokens on path i's 40-page pool with 128 host pages, where rows swap
+      out and back (streams equal the unpressured run's).  For
+      information: each constraint's compile at V=128256 (cold, then an
+      LRU hit), the automaton stack's padded states and MB, and decode ms
+      a step with 8 constrained rows against 8 free.  Then two more boots:
+      ``--fault batcher.decode:raise@3`` (10 requests on 8 slots: the
+      supervisor respawns the batcher, a fresh graph set is captured, the
+      requests still queued re-admit and equal an undisturbed run, the
+      streamed ones end in the structured ``engine_error``; the respawn's
+      wall time and the crash's distance to the first decode delivery
+      after it printed) and ``--no-constrained --fault
+      batcher.decode:stall@2:3 --watchdog-timeout 1`` (a constrained
+      request answers 400; ``/healthz`` turns unhealthy during the stall
+      and healthy after).  Path k's launches ride in the JSON line as
+      ``constrain_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -183,6 +214,8 @@ Phases, each printing result lines:
    ``--phases build,tier`` runs it alone.
 6b. ``spec`` — path j (in ``serve``'s list above): speculative decoding.
    ``--phases build,spec`` runs it alone.
+6c. ``constrain`` — path k (in ``serve``'s list above): constrained output
+   and the fault drills.  ``--phases build,constrain`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -3705,10 +3738,615 @@ def flash_admission(torch, batcher, profile: bool) -> None:
              device_busy_share=busy / wall if busy else "not measured")
 
 
+# -- path k: constrained output and the fault plane ---------------------------
+
+CON_ARGS = [*SERVE_ARGS, "--max-len", "1024"]
+CON_NEW = 64
+CON_OBJECT = {"type": "object",
+              "properties": {"name": {"type": "string", "maxLength": 16},
+                             "count": {"type": "integer"},
+                             "ok": {"type": "boolean"},
+                             "colour": {"enum": ["red", "green", "blue"]}},
+              "required": ["name", "count", "ok", "colour"]}
+CON_ARRAY = {"type": "array", "items": {"type": "integer"}, "maxItems": 4}
+CON_DATE = r"\d{4}-\d{2}-\d{2}"
+CON_BIAS = {"65": 5.0, "97": -5.0}
+CON_SAMPLED_TEMPERATURE = 0.8
+# Rows that never end before their budget (EOS banned): the swap leg and
+# the timed leg.  Two automaton states a row.
+CON_LONG = {"response_format": {"type": "regex", "regex": "[0-9a-f ]+"},
+            "banned_tokens": [258]}  # the byte tokenizer's EOS
+CON_SWAP_ARGS = dict(paged_pages=40, host_pages=128)  # path i's pool and tier
+CON_SWAP_NEW = 192
+CON_STALL_S = 3.0
+CON_WATCHDOG_S = 1.0
+CON_CRASH_REQUESTS = 10  # 8 slots: at least 2 still queued at the crash
+CON_CRASH_NEW = 32
+
+
+def _rf(schema=None, regex=None) -> dict:
+    if schema is not None:
+        return {"type": "json_schema", "json_schema": {"schema": schema}}
+    return {"type": "regex", "regex": regex}
+
+
+def con_requests(banned: list) -> list:
+    """Path k's traffic: (kind, body), all completions with distinct
+    prompts, 64 new tokens: two JSON schemas, a regex, banned tokens with
+    a logit bias, three free requests (greedy over path a's prefix, top-p
+    over SSE, top-k) and one constrained request sampled at 0.8."""
+    def body(prompt, **kw):
+        return {"prompt": prompt, "max_tokens": CON_NEW, "temperature": 0.0,
+                **kw}
+
+    return [
+        ("object", body("Return the crate record as JSON: ",
+                        response_format=_rf(CON_OBJECT))),
+        ("array", body("Return the bay numbers as a JSON list: ",
+                       response_format=_rf(CON_ARRAY))),
+        ("date", body("The delivery date was ",
+                      response_format=_rf(regex=CON_DATE))),
+        ("banned", body(_con_ban_prompt(), banned_tokens=banned,
+                        logit_bias=CON_BIAS)),
+        ("free_greedy", body(PATH_A_PREFIX + "Case K: a seal is broken.")),
+        ("free_top_p", body("Free top-p check over SSE.", temperature=0.8,
+                            top_p=0.9, stream=True)),
+        ("free_top_k", body("Free top-k check.", temperature=1.0,
+                            top_k=40)),
+        ("sampled_object", body("Sample a crate record as JSON: ",
+                                temperature=CON_SAMPLED_TEMPERATURE,
+                                response_format=_rf(CON_OBJECT))),
+    ]
+
+
+def _con_ban_prompt() -> str:
+    return "Banned-token check: describe dock seven."
+
+
+def _con_pattern(kind_or_body) -> tuple:
+    """(regex, schema or None) of a constrained body."""
+    from distributed_llms_tpu_torch.runtime import constrain
+
+    rf = kind_or_body["response_format"]
+    if rf["type"] == "regex":
+        return rf["regex"], None
+    schema = rf["json_schema"]["schema"]
+    return constrain.schema_to_regex(schema), schema
+
+
+def _con_valid(label, ids, body, eos) -> dict:
+    """A constrained stream: ended on EOS, its bytes match the pattern (and
+    a JSON one parses and validates); cut by the budget, the bytes are a
+    live prefix (the char DFA never dead).  Returns its facts."""
+    from distributed_llms_tpu_torch.runtime import constrain
+
+    regex, schema = _con_pattern(body)
+    ended = bool(ids) and ids[-1] == eos
+    text_ids = ids[:-1] if ended else ids
+    check(all(0 <= t < 256 for t in text_ids),
+          f"{label}: a constrained stream holds a non-byte token")
+    data = bytes(text_ids)
+    dfa = constrain.regex_to_char_dfa(regex)
+    if ended:
+        check(constrain.char_dfa_matches(dfa, data),
+              f"{label}: {data!r} does not match {regex!r}")
+        if schema is not None:
+            check(constrain.validates(schema, json.loads(data)),
+                  f"{label}: {data!r} does not validate")
+    else:
+        state = 0
+        for byte in data:
+            state = int(dfa.trans[state, byte])
+            check(state >= 0, f"{label}: {data!r} leaves {regex!r}")
+    return {"ended_on_eos": ended, "bytes": len(data),
+            "text": data.decode("utf-8", "replace")}
+
+
+def _record_con(b, subs: list, streams: dict) -> None:
+    """Keep, on batcher ``b``, each submit's (rid, prompt ids, keyword
+    arguments) in order and each rid's delivered token ids (into the given
+    containers, so a respawned batcher can record into them too)."""
+    submit, run = b.submit, b.run
+
+    def submit_rec(prompt, *a, **kw):
+        rid = submit(prompt, *a, **kw)
+        ids = b.tokenizer.encode(prompt) if isinstance(prompt, str) else prompt
+        subs.append((rid, list(ids), dict(kw)))
+        return rid
+
+    def run_rec(on_tokens=None):
+        def rec(rid, toks, done, lps):
+            streams.setdefault(rid, []).extend(toks)
+            streams.setdefault(("t", rid), []).append(time.perf_counter())
+            return on_tokens(rid, toks, done, lps)
+        return run(on_tokens=rec)
+
+    b.submit, b.run = submit_rec, run_rec
+
+
+def _con_submit_kw(body) -> dict:
+    kw = {"max_new_tokens": body["max_tokens"]}
+    for k in ("temperature", "top_p", "top_k", "response_format",
+              "logit_bias", "banned_tokens"):
+        if k in body:
+            kw[k] = body[k]
+    return kw
+
+
+def _con_engine(torch, b, bodies) -> tuple:
+    """``bodies`` submitted engine-side to batcher ``b`` in order: (streams
+    in that order, wall seconds, decode steps)."""
+    rids = [b.submit(body["prompt"], **_con_submit_kw(body))
+            for body in bodies]
+    steps0 = b.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b.assert_pool_consistent()
+    return [res[r] for r in rids], wall, b.decode_steps - steps0
+
+
+def _con_compile_ms(b, bodies) -> list:
+    """Each constraint's compile at the served vocabulary, cold then an
+    LRU hit (the cache cleared first; the tokenizer's byte table timed
+    apart, as the first compile would build it)."""
+    from distributed_llms_tpu_torch.runtime import constrain
+
+    constrain.clear_cache()
+    t0 = time.perf_counter()
+    constrain._token_byte_table(b.tokenizer, b.cfg.vocab_size)
+    out = [{"what": "token_byte_table",
+            "ms": (time.perf_counter() - t0) * 1e3}]
+    seen = []
+    for kind, body in bodies:
+        kw = {k: body[k] for k in ("response_format", "logit_bias",
+                                   "banned_tokens") if k in body}
+        if not kw or kw in seen:
+            continue
+        seen.append(kw)
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            dfa = constrain.compile_request(
+                **kw, tokenizer=b.tokenizer, vocab_size=b.cfg.vocab_size,
+                eos_id=b.eos_id)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append({"what": kind, "states": dfa.n_states, "cold_ms": ms[0],
+                    "lru_hit_ms": ms[1]})
+    return out
+
+
+async def _con_http(server, reqs) -> dict:
+    port = server.bound_port
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[
+        _http(port, "/v1/completions", body, stream=bool(body.get("stream")))
+        for _, body in reqs])
+    wall = time.perf_counter() - t0
+    # A malformed schema: a structured 400 before any admission state.
+    bad_status, bad = await _http(port, "/v1/completions", {
+        "prompt": "x", "max_tokens": 4, "response_format": _rf({
+            "type": "object", "properties": {"a": {"type": "null"}},
+            "required": []})})
+    check(bad_status == 400
+          and bad["error"]["type"] == "invalid_request_error",
+          f"constrain: a malformed schema answered {bad_status}: {bad}")
+    check(server._inflight() == 0 and not server.batcher.has_queued(),
+          "constrain: the malformed request left admission state")
+    return {"outs": outs, "wall_s": wall}
+
+
+def _con_timed(torch, ctor) -> dict:
+    """Decode ms a step with and without constrained rows: 8 requests of
+    300 random bytes and 64 new tokens on a fresh batcher, free or each
+    under CON_LONG, once to capture the graphs, then twice timed (the
+    faster kept).  The host time of the span plans' stack builds (numpy
+    stack, pinned copy) is read apart and taken out of a second figure."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (LOOP_PROMPT_TOKENS,),
+                             generator=g).tolist() for _ in range(8)]
+    out = {}
+    for label, extra in (("free", {}), ("constrained", CON_LONG)):
+        b = batcher_lib.ContinuousBatcher(**ctor)
+        planned = [0.0]
+        plan = b._plan_constraints
+
+        def timed_plan(p, plan=plan, planned=planned):
+            t0 = time.perf_counter()
+            plan(p)
+            planned[0] += time.perf_counter() - t0
+
+        b._plan_constraints = timed_plan
+        walls = []
+        for _ in range(3):
+            rids = [b.submit(p, max_new_tokens=LOOP_NEW_TOKENS,
+                             prefix_cache=False, **extra) for p in prompts]
+            steps0 = b.decode_steps
+            planned[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = b.run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0,
+                          b.decode_steps - steps0, planned[0]))
+            check(all(len(res[r]) == LOOP_NEW_TOKENS for r in rids),
+                  f"constrain/timed {label}: a request ended early")
+        wall, steps, plan_s = min(walls[1:])
+        out[label] = {"ms_per_decode_step": wall * 1e3 / steps,
+                      "plan_host_ms": plan_s * 1e3,
+                      "ms_per_decode_step_less_plans":
+                          (wall - plan_s) * 1e3 / steps,
+                      "decode_steps": steps, "wall_ms": wall * 1e3,
+                      "graph_captures": b._graphs.captures,
+                      "stack_rungs": sorted(b._con_bufs)}
+        del b
+        _free(torch)
+    for key in ("ms_per_decode_step", "ms_per_decode_step_less_plans"):
+        out["constrained_over_free_" + key] = (out["constrained"][key]
+                                               / out["free"][key])
+    return out
+
+
+def serve_constrain(torch) -> dict:
+    """Path k: ``dlt-serve-torch --preset llama-3-8b --paged-pages 256
+    --page-size 64 --prefix-cache --max-len 1024 --slots 8`` answers
+    :func:`con_requests` over HTTP (the default loop: graphs, overlap):
+    every constrained output valid, no banned token, the free greedy
+    stream equal to the same requests served engine-side without the
+    constrained ones, a malformed schema 400.  Engine-side over the same
+    weights: the constrained greedy set under the three engine loops
+    (identical streams, equal to the HTTP ones), with int8 pages (K1q;
+    valid), and on path i's 40-page pool with a host tier, where
+    constrained rows swap out and back (streams equal the unpressured
+    run).  Then the fault drills on two more boots: ``--fault
+    batcher.decode:raise@3`` (respawn, zero-streamed requests re-admitted
+    exactly, partly streamed ones a structured engine_error) and
+    ``--no-constrained --fault batcher.decode:stall@2:3
+    --watchdog-timeout 1`` (a constrained request 400; /healthz unhealthy,
+    then healthy).  Returns path k's launches of K1 and K1q."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    lap = _lap("constrain_time")
+    box: dict = {"subs": [], "streams": {}}
+
+    def setup(server) -> None:
+        b = server.batcher
+        check(b.paged and b.prefix_cache is not None and b.s == 1024,
+              "constrain: not path a's paged, prefix-cached batcher")
+        eos = b.eos_id
+        # The banned request's list: the first 8 tokens its prompt gives
+        # greedily unconstrained, on a batcher like the served one.
+        pb = batcher_lib.ContinuousBatcher(**b._ctor_args)
+        rid = pb.submit(_con_ban_prompt(), max_new_tokens=8)
+        first8 = pb.run()[rid]
+        del pb
+        _free(torch)
+        box["banned"] = sorted({t for t in first8 if t != eos})
+        box["reqs"] = con_requests(box["banned"])
+        emit("constrain_compile", card=_card(), vocab=b.cfg.vocab_size,
+             compiles=_con_compile_ms(b, box["reqs"]))
+        _record_con(b, box["subs"], box["streams"])
+        box["server"] = server
+        torch.cuda.reset_peak_memory_stats()
+
+    async def requests(_port):
+        got = await _con_http(box["server"], box["reqs"])
+        box["http"] = got
+        return {"requests": len(box["reqs"]), "wall_s": got["wall_s"]}
+
+    launches, server, mem = serve_path(
+        torch, "constrain", CON_ARGS, {"paged_decode_attention": 1},
+        requests, _llama_3_8b, setup=setup)
+    lap("boot_and_http")
+    b = server.batcher
+    eos = b.eos_id
+    reqs, outs = box["reqs"], box["http"]["outs"]
+    rid_of = {tuple(ids): rid for rid, ids, _ in box["subs"]}
+    streams = {}
+    facts = {}
+    for (kind, body), (status, resp) in zip(reqs, outs):
+        check(status == 200, f"constrain: {kind} answered {status}: {resp}")
+        rid = rid_of[tuple(b.tokenizer.encode(body["prompt"]))]
+        ids = box["streams"][rid]
+        streams[kind] = ids
+        if "response_format" in body:
+            facts[kind] = _con_valid(f"constrain/{kind}", ids, body, eos)
+            if not body.get("stream"):
+                check(resp["choices"][0]["text"] == facts[kind]["text"],
+                      f"constrain/{kind}: the served text is not the "
+                      f"stream's bytes")
+    check(not set(box["banned"]) & set(streams["banned"]),
+          f"constrain: a banned token was emitted: {streams['banned']}")
+    bufs = {n: 8 * n * b.cfg.vocab_size / 1e6 for n in b._con_bufs}
+    emit("constrain_served", card=_card(), outputs=facts,
+         banned=box["banned"], banned_stream_head=streams["banned"][:16],
+         stack_rungs_states_mb=bufs, graph_captures=b._graphs.captures,
+         graph_replays=b._graphs.replays, decode_steps=b.decode_steps,
+         launches={k: v for k, v in launches.items() if v},
+         peak_mem_gb=mem["peak_mem_gb"])
+    check(bufs, "constrain: no constrained span ran")
+    ctor = dict(b._ctor_args)
+
+    # Free greedy streams equal the same free requests served without the
+    # constrained ones (rows are independent of their slot mates).
+    free = [body for kind, body in reqs if "response_format" not in body
+            and "banned_tokens" not in body]
+    fb = batcher_lib.ContinuousBatcher(**ctor)
+    got, _, _ = _con_engine(torch, fb, [dict(r, stream=False) for r in free])
+    want = streams["free_greedy"]
+    check(got[0] == want, f"constrain: the free greedy stream moved next to "
+          f"constrained rows, at {_first_diff(want, got[0])}")
+    del fb
+    _free(torch)
+    lap("free_replay")
+
+    # The constrained greedy set under the three engine loops.
+    greedy = [body for kind, body in reqs
+              if kind in ("object", "array", "date", "banned",
+                          "free_greedy")]
+    kinds = [kind for kind, _ in reqs
+             if kind in ("object", "array", "date", "banned", "free_greedy")]
+    graph_chunk = batcher_lib.decode_chunk
+    loop_streams = {}
+    for name, overlap, eager in LOOPS:
+        lb = batcher_lib.ContinuousBatcher(**{**ctor, "overlap": overlap})
+        if eager:
+            batcher_lib.decode_chunk = _eager_decode_chunk
+        try:
+            got, wall, steps = _con_engine(torch, lb, greedy)
+        finally:
+            batcher_lib.decode_chunk = graph_chunk
+        loop_streams[name] = got
+        emit("constrain_loop", loop=name, decode_steps=steps,
+             wall_ms=wall * 1e3, graph_captures=lb._graphs.captures,
+             stack_rungs=sorted(lb._con_bufs))
+        del lb
+        _free(torch)
+    check(loop_streams["graph_overlap"] == loop_streams["graph_sync"]
+          == loop_streams["eager_sync"],
+          "constrain: the constrained streams differ between the loops")
+    for kind, got in zip(kinds, loop_streams["graph_overlap"]):
+        check(got == streams[kind], f"constrain: the engine-side {kind} "
+              f"stream differs from the served one at "
+              f"{_first_diff(got, streams[kind])}")
+    lap("loops")
+
+    # int8 pages (K1q): the same set, every output valid.
+    reset_launches()
+    qb = batcher_lib.ContinuousBatcher(**{**ctor, "kv_bits": 8})
+    q_got, q_wall, q_steps = _con_engine(torch, qb, greedy)
+    q_launches = read_launches()
+    del qb
+    _free(torch)
+    q_facts = {}
+    for kind, body, got in zip(kinds, greedy, q_got):
+        if "response_format" in body:
+            q_facts[kind] = _con_valid(f"constrain/int8/{kind}", got, body,
+                                       eos)
+    check(not set(box["banned"]) & set(q_got[kinds.index("banned")]),
+          "constrain/int8: a banned token was emitted")
+    want = b.cfg.num_layers * q_steps
+    check(q_launches["paged_decode_attention_int8"] >= want,
+          f"constrain/int8: K1q launched "
+          f"{q_launches['paged_decode_attention_int8']} times, under {want}")
+    emit("constrain_int8", outputs=q_facts, decode_steps=q_steps,
+         launches={k: v for k, v in q_launches.items() if v})
+    lap("int8")
+
+    # Path i's pool and tier: constrained rows swap out and back; their
+    # streams equal the unpressured run's.
+    swap_bodies = [{"prompt": _tier_text(f"swap {c}", n),
+                    "max_tokens": CON_SWAP_NEW, "temperature": 0.0,
+                    **CON_LONG}
+                   for c, n in zip("ABCDEFGH", (300, 320, 340, 360, 380,
+                                                 400, 310, 330))]
+    calm_b = batcher_lib.ContinuousBatcher(**ctor)
+    calm, _, _ = _con_engine(torch, calm_b, swap_bodies)
+    check(calm_b.preemptions == 0, "constrain: the unpressured run preempted")
+    del calm_b
+    _free(torch)
+    c0 = _tier_counts()
+    swap_b = batcher_lib.ContinuousBatcher(**{**ctor, **CON_SWAP_ARGS})
+    pressed, p_wall, p_steps = _con_engine(torch, swap_b, swap_bodies)
+    counts = _tier_counts(c0)
+    emit("constrain_swap", counters=counts, preemptions=swap_b.preemptions,
+         decode_steps=p_steps, ms_per_decode_step=p_wall * 1e3 / p_steps,
+         stack_rungs=sorted(swap_b._con_bufs))
+    del swap_b
+    _free(torch)
+    check(counts["kv_swaps.in"] >= 1 and counts["kv_swaps.fallback"] == 0,
+          f"constrain: no constrained row swapped back exactly: {counts}")
+    for j, (g, w) in enumerate(zip(pressed, calm)):
+        check(g == w, f"constrain: swapped stream {j} differs from the "
+                      f"unpressured run's at {_first_diff(g, w)}")
+        _con_valid(f"constrain/swap/{j}", g, swap_bodies[j], eos)
+    lap("swap")
+
+    emit("constrain_timed", card=_card(), **_con_timed(torch, ctor))
+    lap("timed")
+    del server, b
+    _free(torch)
+
+    con_crash_drill(torch)
+    lap("crash_drill")
+    con_stall_drill(torch)
+    lap("stall_drill")
+    return {"paged_decode_attention": launches["paged_decode_attention"],
+            "paged_decode_attention_int8":
+                q_launches["paged_decode_attention_int8"]}
+
+
+def con_crash_drill(torch) -> None:
+    """``--fault batcher.decode:raise@3`` on path k's flags: 10 greedy
+    requests on 8 slots; the third decode dispatch raises.  The supervisor
+    respawns the batcher (a fresh graph set is captured); the requests
+    still queued re-admit under their rids and their streams equal an
+    undisturbed run's; the ones that streamed end in the structured
+    ``engine_error``.  Prints the respawn's wall time and the time to the
+    first decode delivery after it (the graph recapture included)."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    args = serve_main.parser().parse_args(
+        [*CON_ARGS, "--fault", "batcher.decode:raise@3"])
+    server = serve_main.build_server(args)
+    plane = server.batcher.faults
+    check(plane is not None and plane.describe() == "batcher.decode:raise@3",
+          "crash drill: the fault plane is not armed")
+    subs, streams, marks = [], {}, {}
+    old = server.batcher
+    _record_con(old, subs, streams)
+    factory, recover = server._batcher_factory, server._recover_engine
+
+    def factory_rec():
+        nb = factory()
+        _record_con(nb, subs, streams)
+        marks["respawned"] = nb
+        return nb
+
+    def recover_timed():
+        marks["t_crash"] = time.perf_counter()
+        recover()
+        marks["t_respawned"] = time.perf_counter()
+
+    server._batcher_factory = factory_rec
+    server._recover_engine = recover_timed
+    prompts = [_tier_text(f"drill {j}", 120) for j in range(CON_CRASH_REQUESTS)]
+
+    async def run():
+        await server.start()
+        try:
+            return await asyncio.gather(*[
+                _http(server.bound_port, "/v1/completions",
+                      {"prompt": p, "max_tokens": CON_CRASH_NEW,
+                       "temperature": 0.0}) for p in prompts])
+        finally:
+            await server.stop()
+
+    outs = asyncio.run(run())
+    new = server.batcher
+    check(server._restarts == 1 and new is not old
+          and new is marks.get("respawned"),
+          f"crash drill: {server._restarts} restart(s)")
+    check(new.faults is plane and plane.rules[0].fired == 1,
+          "crash drill: the respawn does not share the fired plane")
+    check(new._graphs.captures >= 1, "crash drill: no graph recaptured")
+    rid_of = {}
+    for rid, ids, _ in subs:
+        rid_of.setdefault(tuple(ids), rid)
+    retried, failed = [], []
+    for p, (status, resp) in zip(prompts, outs):
+        if status == 200:
+            retried.append(p)
+        else:
+            check(status == 500 and resp["error"]["type"] == "engine_error"
+                  and "restarted" in resp["error"]["message"],
+                  f"crash drill: a streamed request answered {status}: "
+                  f"{resp}")
+            failed.append(p)
+    check(retried and failed, f"crash drill: {len(retried)} re-admitted, "
+          f"{len(failed)} failed")
+    calm = batcher_lib.ContinuousBatcher(**{**new._ctor_args,
+                                            "faults": None})
+    want, _, _ = _con_engine(torch, calm, [
+        {"prompt": p, "max_tokens": CON_CRASH_NEW, "temperature": 0.0}
+        for p in retried])
+    del calm
+    t_first = None
+    for p, w in zip(retried, want):
+        rid = rid_of[tuple(new.tokenizer.encode(p))]
+        check(streams[rid] == w, f"crash drill: re-admitted rid {rid} "
+              f"differs from the undisturbed run at "
+              f"{_first_diff(streams[rid], w)}")
+        stamps = streams[("t", rid)]
+        if len(stamps) > 1:  # the first decode delivery after the respawn
+            t_first = min(t_first or stamps[1], stamps[1])
+    emit("constrain_crash_drill", restarts=server._restarts,
+         re_admitted=len(retried), failed_streamed=len(failed),
+         respawn_s=marks["t_respawned"] - marks["t_crash"],
+         crash_to_first_decode_delivery_s=(
+             t_first - marks["t_crash"] if t_first else "not measured"),
+         graph_captures_after=new._graphs.captures)
+    del server, old, new
+    _free(torch)
+
+
+def con_stall_drill(torch) -> None:
+    """``--no-constrained --fault batcher.decode:stall@2:3
+    --watchdog-timeout 1`` on path k's flags: a constrained request answers
+    400; one request's second decode dispatch stalls 3 s, /healthz turns
+    unhealthy (engine_stalled) while it does and healthy once the request
+    completes."""
+    from distributed_llms_tpu_torch.cli import serve_main
+
+    args = serve_main.parser().parse_args(
+        [*CON_ARGS, "--no-constrained", "--fault",
+         f"batcher.decode:stall@2:{CON_STALL_S:g}", "--watchdog-timeout",
+         f"{CON_WATCHDOG_S:g}"])
+    server = serve_main.build_server(args)
+
+    async def health(port):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(b"GET /healthz HTTP/1.1\r\nHost: x\r\n\r\n")
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, rest = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), json.loads(rest)
+
+    async def run():
+        await server.start()
+        port = server.bound_port
+        try:
+            status, resp = await _http(port, "/v1/completions", {
+                "prompt": "x", "max_tokens": 4,
+                "response_format": _rf(regex=CON_DATE)})
+            check(status == 400 and "disabled" in resp["error"]["message"],
+                  f"stall drill: --no-constrained answered {status}")
+            t0 = time.perf_counter()
+            req = asyncio.create_task(_http(port, "/v1/completions", {
+                "prompt": "wedge the engine", "max_tokens": CON_NEW,
+                "temperature": 0.0}))
+            flipped = None
+            while not req.done():
+                code, rep = await health(port)
+                if code == 503 and rep["engine_stalled"] and flipped is None:
+                    flipped = time.perf_counter() - t0
+                await asyncio.sleep(0.1)
+            status, _ = await req
+            check(status == 200, f"stall drill: the request answered {status}")
+            healthy = None
+            for _ in range(50):
+                code, _ = await health(port)
+                if code == 200:
+                    healthy = time.perf_counter() - t0
+                    break
+                await asyncio.sleep(0.1)
+            return flipped, healthy, time.perf_counter() - t0
+        finally:
+            await server.stop()
+
+    flipped, healthy, wall = asyncio.run(run())
+    emit("constrain_stall_drill", stall_s=CON_STALL_S,
+         watchdog_timeout_s=CON_WATCHDOG_S, unhealthy_after_s=flipped,
+         healthy_again_after_s=healthy, wall_s=wall,
+         fired=server.batcher.faults.rules[0].fired)
+    check(flipped is not None, "stall drill: /healthz never turned unhealthy")
+    check(healthy is not None, "stall drill: /healthz never healthy again")
+    check(server.batcher.faults.rules[0].fired == 1,
+          "stall drill: the stall rule did not fire once")
+    del server
+    _free(torch)
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "train", "profile")
+          "constrain", "train", "profile")
 
 
 def main() -> int:
@@ -3767,6 +4405,11 @@ def main() -> int:
             # Path j's launches ride beside each kernel's own path's.
             for name, n in timed("spec", serve_spec, torch, profile).items():
                 kernels[name]["spec_launches"] = n
+        if "constrain" in phases:
+            # Path k's launches ride beside each kernel's own path's.
+            for name, n in timed("constrain", serve_constrain,
+                                 torch).items():
+                kernels[name]["constrain_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

@@ -22,6 +22,14 @@ weights quantized on the device and every projection runs the
 dequant-matmul kernel.  ``--device cpu`` runs on the CPU; without a GPU
 and without it, the boot raises.
 
+Requests may constrain their output (``response_format``: a JSON schema
+or a regex; ``logit_bias``; ``banned_tokens``) unless the server runs
+``--no-constrained``; ``--constrain-cache N`` sizes the LRU of compiled
+automata.  ``--fault SPEC`` (repeatable; runtime/faults.py grammar, e.g.
+``batcher.decode:raise@3``) arms deterministic fault injection, parsed
+strictly before the engine builds: a site the port does not wire fails
+the boot.
+
 The flags mirror ``dlt-serve``'s.  Those of later port slices are
 accepted by the parser and refused with ``NotImplementedError`` when set,
 never silently ignored.
@@ -44,30 +52,27 @@ log = get_logger("serve_main")
 # dlt-serve flags of later port slices: argparse dest -> the feature.  Any
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
-    "constrained": "constrained output (--constrained)",
     "tenant_weights": "multi-tenant scheduling (--tenant-weights)",
     "tenant_quota_tps": "tenant rate quotas (--tenant-quota-tps)",
     "tenant_max_rows": "tenant row caps (--tenant-max-rows)",
     "replicas": "replica fleets (--replicas)",
     "disaggregate": "disaggregated prefill/decode (--disaggregate)",
-    "fault": "fault injection (--fault)",
 }
-_LATER_SLICE_DEFAULTS = {"replicas": 1,
-                         "disaggregate": False, "fault": []}
+_LATER_SLICE_DEFAULTS = {"replicas": 1, "disaggregate": False}
 
 
 def _refuse_later_slices(args) -> None:
     for dest, what in _LATER_SLICE_FLAGS.items():
         value = getattr(args, dest)
-        # False (--no-spec-decode, --no-constrained) asks for what the
-        # port already does.
+        # None, False or the flag's default asks for what the port
+        # already does.
         if value not in (None, False) and value != _LATER_SLICE_DEFAULTS.get(dest):
             raise NotImplementedError(f"{what} is not ported yet")
 
 
 def _build_engine(args):
-    """Config + engine.  Returns (engine, default model name, runtime
-    config)."""
+    """Config + fault plane + engine.  Returns (engine, default model
+    name, runtime config, fault plane or None)."""
     _refuse_later_slices(args)
     cfg = load_config(args.config, args.override)
     rt = cfg.runtime
@@ -85,12 +90,23 @@ def _build_engine(args):
         import dataclasses
 
         rt = dataclasses.replace(rt, **spec_overrides)
+    # The fault spec parses BEFORE the (slow) engine build, strictly: a
+    # typo'd site, or one of a part of the stack not ported yet, fails the
+    # boot in milliseconds instead of arming a rule that never fires.
+    faults = None
+    fault_spec = ",".join(args.fault or []) or rt.faults
+    if fault_spec:
+        from ..runtime.faults import FaultPlane
+
+        faults = FaultPlane.parse(fault_spec, strict=True)
+        log.warning("fault injection armed: %s", faults.describe())
     if args.store:
         mesh_cfg = cfg.mesh if cfg.mesh.num_devices > 1 else None
         engine = InferenceEngine.from_store(args.store, rt=rt,
                                             mesh_cfg=mesh_cfg,
                                             device=args.device)
-        return engine, os.path.basename(os.path.normpath(args.store)), rt
+        return (engine, os.path.basename(os.path.normpath(args.store)), rt,
+                faults)
     if not args.preset:
         raise SystemExit("one of --store or --preset is required")
     # Random-weight serving with the byte tokenizer: tiny presets (vocab
@@ -107,14 +123,24 @@ def _build_engine(args):
         args.preset, rt=rt, rng_seed=args.seed, device=args.device,
         **overrides,
     )
-    return engine, args.preset, rt
+    return engine, args.preset, rt, faults
 
 
-def _server_factory(args, engine, default_name, rt):
+def _server_factory(args, engine, default_name, rt, faults):
     """() -> a fresh, unstarted InferenceServer over a fresh batcher."""
+    from ..runtime import constrain as constrain_lib
+
+    # The compiled-constraint LRU is module-level: one size per serving
+    # process, shared by respawned batchers.
+    constrain_lib.configure_cache(
+        args.constrain_cache if args.constrain_cache is not None
+        else rt.constrain_cache_size
+    )
 
     def make_batcher():
-        # Called at boot and again by the supervisor after an engine crash.
+        # Called at boot and again by the supervisor after an engine crash,
+        # with the SAME fault plane: its rules' counters survive the
+        # restart, so a once-only rule does not fire again.
         return engine.continuous_batcher(
             batch_slots=args.slots,
             max_len=args.max_len,
@@ -130,6 +156,7 @@ def _server_factory(args, engine, default_name, rt):
                      else args.overlap == "on"),
             schedule=args.schedule,
             token_budget=args.token_budget,
+            faults=faults,
         )
 
     def make_server():
@@ -147,14 +174,16 @@ def _server_factory(args, engine, default_name, rt):
             shed_cost_factor=(args.shed_cost_factor
                               if args.shed_cost_factor is not None
                               else rt.shed_cost_factor),
+            constrained=(args.constrained if args.constrained is not None
+                         else rt.constrained_decoding),
         )
 
     return make_server
 
 
 def build_server(args) -> InferenceServer:
-    engine, default_name, rt = _build_engine(args)
-    return _server_factory(args, engine, default_name, rt)()
+    engine, default_name, rt, faults = _build_engine(args)
+    return _server_factory(args, engine, default_name, rt, faults)()
 
 
 async def _serve(args) -> None:
@@ -296,9 +325,28 @@ def parser() -> argparse.ArgumentParser:
                     help="adaptive per-row spec-k downshift from the "
                          "acceptance-rate EMA and the token budget "
                          "(default: runtime.spec_adaptive_k)")
-    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--constrained", action=argparse.BooleanOptionalAction,
-                    default=None, help="not ported yet")
+                    default=None,
+                    help="grammar-constrained output: the response_format "
+                         "({\"type\": \"json_schema\"|\"regex\"}), "
+                         "logit_bias and banned_tokens request fields, "
+                         "served as token-mask automata inside the decode "
+                         "step.  --no-constrained answers every "
+                         "constrained request 400 (default: "
+                         "runtime.constrained_decoding, on)")
+    ap.add_argument("--constrain-cache", type=int, default=None,
+                    help="LRU capacity of the compiled (constraint, "
+                         "tokenizer) automaton cache (default: "
+                         "runtime.constrain_cache_size)")
+    ap.add_argument("--fault", action="append", default=[],
+                    help="deterministic fault injection spec "
+                         "(runtime/faults.py grammar, repeatable): e.g. "
+                         "'batcher.decode:raise@3' crashes the 3rd decode "
+                         "chunk (the supervisor respawns the batcher), "
+                         "'batcher.decode:stall@2:5' wedges the 2nd for "
+                         "the watchdog.  Parsed strictly before the "
+                         "engine builds (default: runtime.faults)")
+    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
     ap.add_argument("--tenant-weights", default=None, help="not ported yet")
     ap.add_argument("--tenant-quota-tps", type=float, default=None,
                     help="not ported yet")
@@ -306,8 +354,6 @@ def parser() -> argparse.ArgumentParser:
                     help="not ported yet")
     ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="not ported yet")
-    ap.add_argument("--fault", action="append", default=[],
                     help="not ported yet")
     return ap
 

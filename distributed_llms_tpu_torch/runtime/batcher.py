@@ -75,8 +75,22 @@ always in float32, up to near-ties in bf16), above it rejection sampling
 keeps the target's distribution.  A per-row acceptance EMA lets the scheduler shorten a cold
 row's rounds (``spec_adaptive_k``).
 
-Not ported yet: constrained output, tenants, meshes and fault injection
-(absent from the API).
+Constrained output (``response_format`` / ``logit_bias`` /
+``banned_tokens``, runtime/constrain.py): a constrained row's first token
+draws under its automaton's start-state mask, and every decode step adds
+the row's state mask to the sampling logits (after the penalties, before
+the warps and the draw) and advances the row's state on the token it drew.
+The live rows' automata stack into one (bias, next) pair per span, padded
+up the bucket ladder and read in place by the step; the states ride the
+device carry.  Free rows ride state 0, whose mask row is all zeros, so
+their tokens and logprobs equal a batch without constrained neighbours.
+
+A :class:`~.faults.FaultPlane` (``faults=``) arms the reference's
+injection sites: ``batcher.admit``, ``batcher.decode``,
+``batcher.page_alloc``, ``batcher.preempt``, ``batcher.spec_verify``,
+``batcher.mixed_step``, ``kv.swap_out``, ``kv.swap_in`` and ``kv.spill``.
+
+Not ported yet: tenants and meshes (absent from the API).
 """
 
 from __future__ import annotations
@@ -97,7 +111,7 @@ from ..core.observability import METRICS, get_logger
 from ..models import model as model_lib
 from ..checkpoint.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..models.model import KVCache, QuantKVCache
-from . import chunk_graph, sampling
+from . import chunk_graph, constrain as constrain_lib, sampling
 from .kv_tier import HostTier
 from .scheduler import SyncView, make_scheduler
 from .session import continuation_mask
@@ -111,19 +125,23 @@ _SPEC_EMA_ALPHA = 0.2
 
 
 def _sample_first(logits, last_idx, generator, temperature, top_k, top_p,
-                  temp_req=None, topp_req=None, topk_req=None):
+                  temp_req=None, topp_req=None, topk_req=None,
+                  mask_req=None):
     """Sample the admitted row's first token from the last real position's
     logits — the one sampling tail shared by every admission path.
     ``temp_req``/``topp_req``/``topk_req`` override the batcher-wide knobs
-    for a per-request sampled row.  Returns (token, its raw logprob)."""
+    for a per-request sampled row.  ``mask_req`` [V] is a constrained or
+    biased request's start-state token mask (runtime/constrain.py): added
+    before the draw AND the greedy argmax, never to the logprob.  Returns
+    (token, its raw logprob)."""
     next_logits = logits[:, max(last_idx - 1, 0)]  # [1, V]
+    src = next_logits if mask_req is None else next_logits + mask_req[None, :]
     if temp_req is None:
-        tok = sampling.sample(generator, next_logits, temperature, top_k,
-                              top_p)[0]
+        tok = sampling.sample(generator, src, temperature, top_k, top_p)[0]
     else:
         dev = next_logits.device
         tok = sampling.sample_rows(
-            generator, next_logits, torch.tensor([temp_req], device=dev),
+            generator, src, torch.tensor([temp_req], device=dev),
             top_k, torch.tensor([topp_req], device=dev),
             top_k_rows=(None if topk_req is None
                         else torch.tensor([topk_req], device=dev)),
@@ -163,13 +181,13 @@ def _prefill_row_with_prefix(params, cfg, prefix_k, prefix_v, prefix_len,
 
 def _finish_admission(cache, slot, row_cache, logits, last_idx, generator,
                       temperature, top_k, top_p, total_len, temp_req=None,
-                      topp_req=None, topk_req=None):
+                      topp_req=None, topk_req=None, mask_req=None):
     """Contiguous admission tail: sample the first token from the last
     real position's logits, copy the prefilled row into the shared cache's
     row ``slot`` (in place: the JAX program splices into the donated
     cache), report the row's valid slots (a prefix)."""
     tok, lp = _sample_first(logits, last_idx, generator, temperature, top_k,
-                            top_p, temp_req, topp_req, topk_req)
+                            top_p, temp_req, topp_req, topk_req, mask_req)
     w = row_cache.k.shape[2]  # a speculative cache's headroom slots stay
     cache.k[:, slot, :w] = row_cache.k[:, 0].to(cache.k.dtype)
     cache.v[:, slot, :w] = row_cache.v[:, 0].to(cache.v.dtype)
@@ -179,18 +197,18 @@ def _finish_admission(cache, slot, row_cache, logits, last_idx, generator,
 
 def admit_row(params, cfg, cache, slot, prompt, plen, generator,
               temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
-              topp_req=None, topk_req=None, width=None):
+              topp_req=None, topk_req=None, width=None, mask_req=None):
     """Prefill one request into batch row ``slot`` of a contiguous cache.
     ``prompt`` [Tp] right-padded, ``plen`` its true length; ``width`` the
     transient row's slots (default the cache's: a speculative batcher
     passes its ``max_len``, so the prefill has the plain batcher's
-    shapes).  Returns (cache, first_token, row_valid [S] bool,
-    first_token_logprob)."""
+    shapes); ``mask_req`` [V] a constrained request's first-token mask.
+    Returns (cache, first_token, row_valid [S] bool, first_token_logprob)."""
     logits, row_cache = _prefill_row(params, cfg, cache.k.dtype,
                                      width or cache.k.shape[2], prompt)
     return _finish_admission(cache, slot, row_cache, logits, plen, generator,
                              temperature, top_k, top_p, plen, temp_req,
-                             topp_req, topk_req)
+                             topp_req, topk_req, mask_req)
 
 
 def admit_row_kv(params, cfg, cache, slot, prompt, plen):
@@ -272,7 +290,7 @@ def pool_page_bytes(cfg: ModelConfig, page_size: int, kv_bits: int = 16,
 
 def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
                   temperature, top_k, top_p, temp_req=None, topp_req=None,
-                  topk_req=None):
+                  topk_req=None, mask_req=None):
     """Admission tail for the paged pool: sample the first token, then
     write the contiguous transient row's pages into the pool through
     ``page_list`` [P].  Past the allocation the list is padded with the
@@ -280,7 +298,7 @@ def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
     there too (shared pages are never rewritten); those duplicate targets
     leave the scratch page with some winner, which no live row reads."""
     tok, lp = _sample_first(logits, last_idx, generator, temperature, top_k,
-                            top_p, temp_req, topp_req, topk_req)
+                            top_p, temp_req, topp_req, topk_req, mask_req)
     p = page_list.shape[0]
     blk = cache.k.shape[2]
     idx = page_list.long()
@@ -306,7 +324,7 @@ def _paged_splice(cache, page_list, row_cache, logits, last_idx, generator,
 
 def admit_row_paged(params, cfg, cache, page_list, prompt, plen, generator,
                     temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
-                    topp_req=None, topk_req=None):
+                    topp_req=None, topk_req=None, mask_req=None):
     """Paged admission: dense causal prefill on a transient contiguous row
     cache, then splice its pages into the pool.  ``page_list`` [P] int32
     (scratch-padded), ``prompt`` [Tp] right-padded, ``plen`` its true
@@ -317,13 +335,13 @@ def admit_row_paged(params, cfg, cache, page_list, prompt, plen, generator,
     )
     return _paged_splice(cache, page_list, row_cache, logits, plen, generator,
                          temperature, top_k, top_p, temp_req, topp_req,
-                         topk_req)
+                         topk_req, mask_req)
 
 
 def admit_row_auto_paged(params, cfg, cache, read_list, write_list,
                          prefix_len, chunk, clen, generator, temperature=0.0,
                          top_k=0, top_p=1.0, temp_req=None, topp_req=None,
-                         topk_req=None):
+                         topk_req=None, mask_req=None):
     """AUTOMATIC prefix-cache admission: the row's cached prefix KV is
     gathered out of its shared pool pages (``read_list``: the full page
     table) into the transient row, only the un-cached suffix ``chunk``
@@ -337,13 +355,13 @@ def admit_row_auto_paged(params, cfg, cache, read_list, write_list,
     )
     return _paged_splice(cache, write_list, row_cache, logits, clen,
                          generator, temperature, top_k, top_p, temp_req,
-                         topp_req, topk_req)
+                         topp_req, topk_req, mask_req)
 
 
 def admit_row_with_prefix(params, cfg, cache, slot, prefix_k, prefix_v,
                           prefix_len, chunk, clen, generator,
                           temperature=0.0, top_k=0, top_p=1.0, temp_req=None,
-                          topp_req=None, topk_req=None):
+                          topp_req=None, topk_req=None, mask_req=None):
     """Named-prefix admission into row ``slot`` of a contiguous cache: the
     prefix's KV (computed once by ``register_prefix``) seeds a copy of the
     row, only the request's suffix ``chunk`` (right-padded, ``clen`` real
@@ -352,13 +370,14 @@ def admit_row_with_prefix(params, cfg, cache, slot, prefix_k, prefix_v,
         params, cfg, prefix_k.clone(), prefix_v.clone(), prefix_len, chunk)
     return _finish_admission(cache, slot, row_cache, logits, clen, generator,
                              temperature, top_k, top_p, prefix_len + clen,
-                             temp_req, topp_req, topk_req)
+                             temp_req, topp_req, topk_req, mask_req)
 
 
 def admit_row_with_prefix_paged(params, cfg, cache, page_list, prefix_k,
                                 prefix_v, prefix_len, chunk, clen, generator,
                                 temperature=0.0, top_k=0, top_p=1.0,
-                                temp_req=None, topp_req=None, topk_req=None):
+                                temp_req=None, topp_req=None, topk_req=None,
+                                mask_req=None):
     """Named-prefix admission into the paged pool: the prefix's KV seeds a
     copy of the transient row, only the suffix prefills, then the row's
     pages scatter into the pool through ``page_list``.  Returns (cache,
@@ -367,7 +386,7 @@ def admit_row_with_prefix_paged(params, cfg, cache, page_list, prefix_k,
         params, cfg, prefix_k.clone(), prefix_v.clone(), prefix_len, chunk)
     return _paged_splice(cache, page_list, row_cache, logits, clen,
                          generator, temperature, top_k, top_p, temp_req,
-                         topp_req, topk_req)
+                         topp_req, topk_req, mask_req)
 
 
 def page_layout(cache) -> tuple:
@@ -424,7 +443,7 @@ def prefill_chunk_step(params, cfg, row_k, row_v, done, chunk, clen):
 def finish_chunked_admission(cache, slot, row_k, row_v, last_logits,
                              total_len, generator, temperature=0.0, top_k=0,
                              top_p=1.0, temp_req=None, topp_req=None,
-                             topk_req=None):
+                             topk_req=None, mask_req=None):
     """Tail of a chunked admission: sample the first token from the last
     bite's logits and splice the prefilled transient row into row
     ``slot`` — the monolithic paths' :func:`_finish_admission`.  Returns
@@ -432,13 +451,14 @@ def finish_chunked_admission(cache, slot, row_k, row_v, last_logits,
     return _finish_admission(cache, slot, KVCache(k=row_k, v=row_v),
                              last_logits[:, None, :], 1, generator,
                              temperature, top_k, top_p, total_len, temp_req,
-                             topp_req, topk_req)
+                             topp_req, topk_req, mask_req)
 
 
 def finish_chunked_admission_paged(cache, page_list, row_k, row_v,
                                    last_logits, generator, temperature=0.0,
                                    top_k=0, top_p=1.0, temp_req=None,
-                                   topp_req=None, topk_req=None):
+                                   topp_req=None, topk_req=None,
+                                   mask_req=None):
     """Tail of a chunked admission in paged mode: the first token from the
     last bite's logits, the transient row's pages scattered into the pool
     through ``page_list`` — :func:`_paged_splice`, as every monolithic
@@ -446,32 +466,39 @@ def finish_chunked_admission_paged(cache, page_list, row_k, row_v,
     pool page while it chunks in.  Returns (cache, tok, logprob)."""
     return _paged_splice(cache, page_list, KVCache(k=row_k, v=row_v),
                          last_logits[:, None, :], 1, generator, temperature,
-                         top_k, top_p, temp_req, topp_req, topk_req)
+                         top_k, top_p, temp_req, topp_req, topk_req, mask_req)
 
 
 # The scheduling carry of a decode chunk: one [4, B] int32 tensor whose rows
 # are (last_tok, real_lens, active as 0/1, budget), so a chunk's carry feeds
-# the next chunk, or returns to the host, in one copy.
+# the next chunk, or returns to the host, in one copy.  A span with
+# constrained rows carries a fifth row: each row's automaton state (an
+# absolute index into the span's stack; 0 = free).
 CARRY_ROWS = 4
 
 
-def unpack_chunk(packed: np.ndarray, b: int, k: int, commits: bool = False):
-    """A chunk's packed output on the host, [2*B*K (+ B) + 4*B] int32 ->
-    (toks [B, K] int32, logprobs [B, K] float32, m, carry [4, B] int32):
-    views.  A speculative round (``commits``; K = spec_k + 1) packs each
-    row's commit count ``m`` [B] between the logprobs and the carry — row
-    b's tokens are ``toks[b, :m[b]]``; a plain chunk has none (m None)."""
+def unpack_chunk(packed: np.ndarray, b: int, k: int, commits: bool = False,
+                 dfa: bool = False):
+    """A chunk's packed output on the host, [2*B*K (+ B) + R*B] int32 ->
+    (toks [B, K] int32, logprobs [B, K] float32, m, carry [R, B] int32):
+    views; R is :data:`CARRY_ROWS`, plus one with the automaton states
+    (``dfa``).  A speculative round (``commits``; K = spec_k + 1) packs
+    each row's commit count ``m`` [B] between the logprobs and the carry —
+    row b's tokens are ``toks[b, :m[b]]``; a plain chunk has none (m
+    None)."""
     n = b * k
+    rows = CARRY_ROWS + int(dfa)
     m = packed[2 * n:2 * n + b] if commits else None
     return (packed[:n].reshape(b, k),
             packed[n:2 * n].view(np.float32).reshape(b, k), m,
-            packed[-CARRY_ROWS * b:].reshape(CARRY_ROWS, b))
+            packed[-rows * b:].reshape(rows, b))
 
 
 def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
                   temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
                   tables=None, temp_row=None, topp_row=None, topk_row=None,
-                  counts=None, pres_row=None, freq_row=None):
+                  counts=None, pres_row=None, freq_row=None, mask_stack=None,
+                  next_stack=None):
     """K decode steps for every slot, on device with no host sync, each
     kernel launched from here (:func:`decode_chunk` replays them from a
     graph on the card).  Each step is ONE batched forward with per-row
@@ -483,10 +510,15 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
     the presence/frequency penalties: each step samples from ``logits -
     freq * counts - pres * (counts > 0)`` and adds the pre-step-active
     rows' tokens to ``counts`` in place (a scatter-add, one index a row).
-    Logprobs stay those of the raw logits.  Returns the packed output
-    (:func:`unpack_chunk`)."""
+    Logprobs stay those of the raw logits.  A carry with a fifth row (the
+    automaton states) engages constrained output: each step adds
+    ``mask_stack[state]`` [B, V] to the (penalized) logits it samples from
+    and moves each pre-step-active row to ``next_stack[state, tok]``;
+    free rows ride state 0, whose mask row is zeros.  Returns the packed
+    output (:func:`unpack_chunk`)."""
     last_tok, real_lens, active, budget = (carry[0], carry[1],
                                            carry[2].bool(), carry[3])
+    dstate = carry[CARRY_ROWS] if carry.shape[0] > CARRY_ROWS else None
     toks, lps = [], []
     for _ in range(chunk_steps):
         was_active = active
@@ -503,14 +535,26 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
             )
         else:
             sample_from = logits
+        # The grammar mask after the penalties: its -1e30 entries dominate
+        # any finite adjustment.
+        bias = (constrain_lib.gather_bias(mask_stack, dstate)
+                if dstate is not None else None)
         if temp_row is None:
-            tok = sampling.sample(generator, sample_from, temperature, top_k,
-                                  top_p)
+            src = sample_from if bias is None else sample_from + bias
+            tok = sampling.sample(generator, src, temperature, top_k, top_p)
         else:
             tok = sampling.sample_rows(
                 generator, sample_from, temp_row, top_k,
                 1.0 if topp_row is None else topp_row, top_k_rows=topk_row,
+                mask_rows=bias,
             )
+        if dstate is not None:
+            # Only pre-step-active rows advance: an idle row's junk token
+            # moves no automaton.
+            dstate = torch.where(
+                was_active,
+                constrain_lib.advance_states(next_stack, dstate, tok),
+                dstate)
         if counts is not None:
             counts.scatter_add_(1, tok.long()[:, None],
                                 was_active.to(torch.int32)[:, None])
@@ -528,7 +572,8 @@ def _decode_steps(params, cfg, cache, carry, generator, chunk_steps,
         last_tok = torch.where(was_active, tok, last_tok)
     return torch.cat([torch.stack(toks, dim=1).reshape(-1),
                       torch.stack(lps, dim=1).reshape(-1).view(torch.int32),
-                      last_tok, real_lens, active.to(torch.int32), budget])
+                      last_tok, real_lens, active.to(torch.int32), budget]
+                     + ([] if dstate is None else [dstate.to(torch.int32)]))
 
 
 def _weights_key(params) -> tuple:
@@ -541,14 +586,17 @@ def _weights_key(params) -> tuple:
 def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                  temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
                  tables=None, temp_row=None, topp_row=None, topk_row=None,
-                 counts=None, pres_row=None, freq_row=None, graphs=None):
+                 counts=None, pres_row=None, freq_row=None, mask_stack=None,
+                 next_stack=None, graphs=None):
     """K decode steps with per-row positions over the page pool
     (``tables``) or the contiguous cache (``tables=None``), from ``carry``
     [4, B] int32 (:data:`CARRY_ROWS`).  Returns the packed output (see
     :func:`unpack_chunk`); the cache is written in place.
     ``temp_row``/``topp_row``/``topk_row`` switch to per-row sampling
     (sampling.sample_rows); ``counts``/``pres_row``/``freq_row`` to the
-    penalized sampler, ``counts`` updated in place like the cache.
+    penalized sampler, ``counts`` updated in place like the cache;
+    ``mask_stack``/``next_stack`` [S, V] with a five-row carry to
+    constrained output (:func:`_decode_steps`).
 
     On CPU tensors the steps run eagerly.  On CUDA tensors they replay the
     captured graph of this plan in ``graphs`` (a
@@ -559,15 +607,24 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
     penalty histogram is, and the sampling scalars.  The histogram is
     carried, not copied: the graph reads and writes the batcher's one
     ``counts`` buffer, so a row's counts set before a replay (device ops,
-    stream-ordered) are the ones it reads."""
+    stream-ordered) are the ones it reads.  The automaton stacks are read
+    in place the same way: a graph closes over the batcher's buffer of the
+    stack's padded state count (the key carries that shape), and a stack
+    rebuilt into it before a replay is the one the replay reads."""
     kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
               eos_id=eos_id, pad_id=pad_id)
+    if (carry.shape[0] > CARRY_ROWS) != (mask_stack is not None):
+        raise ValueError(
+            "constrained decode needs both the automaton-state carry row "
+            "and the mask/next stacks"
+        )
     if not carry.is_cuda:
         return _decode_steps(params, cfg, cache, carry, generator,
                              chunk_steps, tables=tables, temp_row=temp_row,
                              topp_row=topp_row, topk_row=topk_row,
                              counts=counts, pres_row=pres_row,
-                             freq_row=freq_row, **kw)
+                             freq_row=freq_row, mask_stack=mask_stack,
+                             next_stack=next_stack, **kw)
     if graphs is None:
         raise ValueError(
             "a decode chunk on CUDA tensors replays a captured graph; pass "
@@ -582,6 +639,11 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
     key = (chunk_steps, tuple(sorted(kw.items())), type(cache).__name__,
            cache.k.dtype, _weights_key(params),
            None if counts is None else ("counts", tuple(counts.shape)),
+           # The stacks' buffer itself: a graph reads the one it closed
+           # over, so another buffer of the same shape is another graph.
+           None if mask_stack is None
+           else ("constrain", tuple(mask_stack.shape), mask_stack.data_ptr(),
+                 next_stack.data_ptr()),
            tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items()))
 
     def chunk(ins):
@@ -591,7 +653,9 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                              topp_row=ins.get("topp_row"),
                              topk_row=ins.get("topk_row"), counts=counts,
                              pres_row=ins.get("pres_row"),
-                             freq_row=ins.get("freq_row"), **kw)
+                             freq_row=ins.get("freq_row"),
+                             mask_stack=mask_stack, next_stack=next_stack,
+                             **kw)
 
     carried = () if counts is None else (counts,)
     return graphs.run(key, chunk, inputs, generator, carried=carried)
@@ -854,6 +918,10 @@ class _Request:
     # OpenAI presence/frequency penalties over this request's own output.
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
+    # Grammar-constrained output / logit bias / banned tokens: ONE compiled
+    # token-mask automaton (constrain.TokenDFA) or None.  Its state is a
+    # function of the emitted tokens, so a resume replays them.
+    constraint: Any = None
     # Swap-preemption state (host tier): the victim's raw pages are parked
     # under ``swap_handle``; restore scatters them back and rebuilds the
     # row's scheduling state from ``swap_pages``/``swap_last_tok``/
@@ -1246,6 +1314,10 @@ class ContinuousBatcher:
         # The lockstep clock: the one time source scheduling DECISIONS may
         # consult (queue-deadline shedding).  Defaults to perf_counter.
         clock: "Callable[[], float] | None" = None,
+        # Deterministic fault injection (runtime/faults.py FaultPlane): the
+        # hot paths consult it at the reference's sites.  A respawn shares
+        # it by reference, so a rule that fired stays fired.
+        faults: Any = None,
     ) -> None:
         # Snapshot the constructor arguments FIRST so respawn() can rebuild
         # an identical fresh batcher after an engine crash.
@@ -1253,6 +1325,7 @@ class ContinuousBatcher:
             k: v for k, v in locals().items() if k not in ("self", "__class__")
         }
         self._clock = clock if clock is not None else time.perf_counter
+        self.faults = faults  # FaultPlane | None
         model_lib.check_supported(cfg)
         # The reference's checks, with its messages.
         if max_len > cfg.max_seq_len:
@@ -1418,6 +1491,16 @@ class ContinuousBatcher:
         self.topk_row = np.full((batch_slots,), top_k, np.int32)
         self.pres_row = np.zeros((batch_slots,), np.float32)
         self.freq_row = np.zeros((batch_slots,), np.float32)
+        # Constrained output: each constrained row's automaton state,
+        # relative to its own automaton (synced from the carry at span
+        # end; 0 for free rows).  ``_con_stack`` memoizes the span's stack
+        # (key, padded state count, offsets) while the constraint mix is
+        # unchanged; ``_con_bufs`` holds one device buffer pair per padded
+        # state count, allocated once and rewritten in place, because the
+        # decode graphs read the stack they closed over.
+        self.dfa_row = np.zeros((batch_slots,), np.int32)
+        self._con_stack: tuple | None = None
+        self._con_bufs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         # Output-token histogram [B, V] int32 on the device, allocated at
         # the first penalized admission (a server that never sees a penalty
         # pays nothing) and never replaced: the decode graphs carry it.
@@ -1536,9 +1619,15 @@ class ContinuousBatcher:
             # Saturated with swap parcels (never evicted for spills):
             # skip the gather park_spill would refuse.
             return
+        rule = (self.faults.fire("kv.spill", tag="out")
+                if self.faults is not None else None)
+        if rule is not None and rule.action == "drop":
+            return
+        corrupt = rule is not None and rule.action == "corrupt"
         payload = _export_pages_raw(
             self.cache, self._dev(np.asarray([p for p, _ in cand], np.int32)))
-        parked = self.host_tier.park_spill([d for _, d in cand], payload)
+        parked = self.host_tier.park_spill([d for _, d in cand], payload,
+                                           corrupt=corrupt)
         if parked:
             METRICS.inc("batcher.host_tier.spilled_pages", parked)
 
@@ -1597,6 +1686,10 @@ class ContinuousBatcher:
         presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
         prefix_cache: bool = True, priority: int = 0,
         deadline: float | None = None,
+        response_format: dict | None = None,
+        logit_bias: dict | None = None,
+        banned_tokens: list[int] | None = None,
+        constraint: Any = None,
     ) -> int:
         """Queue a request; the same validation as the JAX batcher.
         ``prefix`` names a registered prefix whose KV seeds the row;
@@ -1606,8 +1699,15 @@ class ContinuousBatcher:
         request's own output; ``prefix_cache=False`` opts it out of
         automatic prefix caching; ``priority`` orders admission and shields
         from preemption; ``deadline`` (absolute perf_counter) sheds it if
-        still queued past it.  (Constrained output and tenants are later
-        slices.)"""
+        still queued past it.  ``response_format`` (``{"type":
+        "json_schema", "json_schema": {...}}`` or ``{"type": "regex",
+        "regex": ...}``) constrains the output to a grammar, and
+        ``logit_bias`` (token id -> [-100, 100]) / ``banned_tokens`` ride
+        the same token-mask automaton (runtime/constrain.py, LRU-cached);
+        ``constraint`` is one the caller already compiled (the gateway
+        compiles off its event loop).  A malformed constraint raises
+        :class:`~.constrain.ConstraintError` (a ValueError) before
+        anything is queued.  (Tenants are a later slice.)"""
         ids = (
             self.tokenizer.encode(prompt)
             if isinstance(prompt, str)
@@ -1679,6 +1779,22 @@ class ContinuousBatcher:
                           ("frequency_penalty", frequency_penalty)):
             if not -2.0 <= pen <= 2.0:  # also rejects NaN/inf
                 raise ValueError(f"{name} must be in [-2, 2], got {pen}")
+        if (response_format is not None or logit_bias is not None
+                or banned_tokens is not None or constraint is not None):
+            if self.speculative:
+                raise ValueError(
+                    "speculative batching does not support constrained or "
+                    "biased sampling (response_format/logit_bias/"
+                    "banned_tokens) yet — the draft/verify chain would "
+                    "need the mask on both models; serve constrained "
+                    "traffic through a plain engine"
+                )
+            if constraint is None:
+                constraint = constrain_lib.compile_request(
+                    response_format, logit_bias, banned_tokens,
+                    tokenizer=self.tokenizer,
+                    vocab_size=self.cfg.vocab_size, eos_id=self.eos_id,
+                )
         pfx_len = 0
         if prefix is not None:
             if prefix not in self.prefixes:
@@ -1698,6 +1814,7 @@ class ContinuousBatcher:
                 temperature=temperature, top_p=top_p, top_k=top_k,
                 presence_penalty=float(presence_penalty),
                 frequency_penalty=float(frequency_penalty),
+                constraint=constraint,
                 prefix_cache=prefix_cache, priority=priority,
                 deadline=deadline,
             ))
@@ -1820,6 +1937,10 @@ class ContinuousBatcher:
         emitted prefix (cheap while the prefix cache still holds the
         prompt pages) and its admission token continues the sequence.
         Either way temperature-0 streams stay exact."""
+        if self.faults is not None:
+            # Injection site "batcher.preempt": one hit per preemption,
+            # before the victim's pages are freed.
+            self.faults.fire("batcher.preempt")
         row = self.rows[i]
         req = row.req
         if self._prefills.pop(i, None) is not None or row.prefilling:
@@ -1836,6 +1957,7 @@ class ContinuousBatcher:
                 temperature=req.temperature, top_p=req.top_p,
                 top_k=req.top_k, presence_penalty=req.presence_penalty,
                 frequency_penalty=req.frequency_penalty,
+                constraint=req.constraint,
                 prefix_cache=req.prefix_cache, priority=req.priority,
                 deadline=req.deadline, resume_emitted=list(row.emitted),
                 resume_lps=list(row.lps),
@@ -1880,12 +2002,20 @@ class ContinuousBatcher:
         if tier is None or not row.pages:
             return None
         assert not self._span_open, "swap-out inside a decode span"
+        rule = (self.faults.fire("kv.swap_out")
+                if self.faults is not None else None)
+        corrupt = False
+        if rule is not None:
+            if rule.action == "drop":
+                METRICS.inc("batcher.kv_swaps.fallback")
+                return None
+            corrupt = rule.action == "corrupt"
         if not tier.can_fit(len(row.pages)):
             METRICS.inc("batcher.kv_swaps.fallback")
             return None
         payload = _export_pages_raw(
             self.cache, self._dev(np.asarray(row.pages, np.int32)))
-        handle = tier.park_swap(payload, len(row.pages))
+        handle = tier.park_swap(payload, len(row.pages), corrupt=corrupt)
         if handle is None:
             METRICS.inc("batcher.kv_swaps.fallback")
             return None
@@ -1914,13 +2044,24 @@ class ContinuousBatcher:
         never-preempted run's at either KV width.
 
         Returns True on restore, False after degrading the request to
-        exact recompute (parcel missing or corrupted: swap_handle cleared,
-        the request stays queued), None on back-pressure (nothing
+        exact recompute (parcel dropped, missing or corrupted: swap_handle
+        cleared, the request stays queued), None on back-pressure (nothing
         consumed; the caller stops admitting this round)."""
+        tier = self.host_tier
+        rule = (self.faults.fire("kv.swap_in")
+                if self.faults is not None else None)
+        if rule is not None and rule.action == "drop":
+            tier.drop_swap(req.swap_handle)
+            req.swap_handle = None
+            METRICS.inc("batcher.kv_swaps.fallback")
+            log.warning("swap restore for rid %d dropped; recomputing",
+                        req.rid)
+            return False
+        corrupt = rule is not None and rule.action == "corrupt"
         n = req.swap_pages
-        if not self._ensure_pages(n, below_priority=req.priority):
+        if not self._ensure_pages(n, "admit", below_priority=req.priority):
             return None  # the parcel stays parked; retry next round
-        parcel = self.host_tier.take_swap(req.swap_handle)
+        parcel = tier.take_swap(req.swap_handle, corrupt=corrupt)
         req.swap_handle = None
         if parcel is None:
             METRICS.inc("batcher.kv_swaps.fallback")
@@ -1951,6 +2092,11 @@ class ContinuousBatcher:
             # The histogram must see every token this request emitted
             # across residencies, as the recompute resume rebuilds it.
             self._set_count_row(i, emitted)
+        # The automaton state is a function of the emitted tokens: the
+        # replay puts the restored row under the masks the unpreempted
+        # run would have seen.
+        self.dfa_row[i] = (req.constraint.advance(0, emitted)
+                           if req.constraint is not None else 0)
         if self.speculative:
             # The draft is never swapped: one KV-only prefill of the first
             # swap_pos tokens (the slots the target's parcel holds) rebuilds
@@ -1976,14 +2122,20 @@ class ContinuousBatcher:
                  req.rid, i, n)
         return True
 
-    def _ensure_pages(self, need: int, below_priority: int | None = None,
+    def _ensure_pages(self, need: int, tag: str,
+                      below_priority: int | None = None,
                       self_slot: int | None = None) -> bool:
-        """THE pressure loop (admission and growth): preempt victims until
-        available() covers ``need``.  ``below_priority`` restricts victims
-        to STRICTLY lower priority (admission); ``self_slot`` lets the
-        grower itself yield when no other victim exists.  Returns True when
-        ``need`` pages are obtainable (the caller allocs)."""
-        avail = self.pool.available()
+        """THE pressure loop (admission and growth): fire the
+        ``batcher.page_alloc`` site (tag ``admit`` or ``grow``; an
+        ``exhaust`` rule makes the pool look dry), then preempt victims
+        until available() covers ``need``.  ``below_priority`` restricts
+        victims to STRICTLY lower priority (admission); ``self_slot`` lets
+        the grower itself yield when no other victim exists.  Returns True
+        when ``need`` pages are obtainable (the caller allocs)."""
+        rule = (self.faults.fire("batcher.page_alloc", tag=tag)
+                if self.faults is not None else None)
+        avail = (0 if rule is not None and rule.action == "exhaust"
+                 else self.pool.available())
         while avail < need:
             v = self._pick_victim(below_priority=below_priority)
             if v is None:
@@ -2052,7 +2204,14 @@ class ContinuousBatcher:
         publish the digests: the pages come back exactly as they left, so
         a hit over them is a hit over never-evicted pages.  The caller
         guarantees pool availability.  Returns the restored pages (a
-        prefix of ``run``; empty when the first page fails verification)."""
+        prefix of ``run``; empty when a ``kv.spill`` restore drill drops it
+        or the first page fails verification)."""
+        if not run:
+            return []
+        rule = (self.faults.fire("kv.spill", tag="restore")
+                if self.faults is not None else None)
+        if rule is not None and rule.action == "drop":
+            return []
         parcels = []
         for d in run:
             got = self.host_tier.take_spill(d)
@@ -2100,7 +2259,7 @@ class ContinuousBatcher:
             cached_pages = self._match_tiered(digests, cap, n_init=n_init)
             cached_len = len(cached_pages) * blk
         need = n_init - len(cached_pages)
-        if not self._ensure_pages(need, below_priority=req.priority):
+        if not self._ensure_pages(need, "admit", below_priority=req.priority):
             # Restored pages release to the device LRU (still addressable);
             # retained hits just drop the reference.
             self.pool.release(cached_pages)
@@ -2141,7 +2300,7 @@ class ContinuousBatcher:
             if need_pages <= have:
                 continue
             n = need_pages - have
-            if not self._ensure_pages(n, self_slot=i):
+            if not self._ensure_pages(n, "grow", self_slot=i):
                 continue  # the grower itself was preempted
             fresh = self._alloc_pages(n)
             row.pages.extend(fresh)
@@ -2166,7 +2325,18 @@ class ContinuousBatcher:
             extra["topk_req"] = req_k
         return req_t, req_p, req_k, extra
 
+    def _first_mask(self, req: "_Request", extra: dict) -> None:
+        """A constrained request's admission token draws under its
+        automaton's state after the tokens it already emitted (a resume
+        replays them): ``extra["mask_req"]``, that state's [V] bias row."""
+        if req.constraint is not None:
+            st0 = req.constraint.advance(0, req.resume_emitted or [])
+            extra["mask_req"] = self._dev(req.constraint.bias[st0])
+
     def _admit_pending(self) -> None:
+        if self.faults is not None:
+            # Injection site "batcher.admit": one hit per admission round.
+            self.faults.fire("batcher.admit")
         self._shed_expired_queued()
         # Advance the pending chunked prefills.  ALTERNATE: one serialized
         # bite per prefill per round.  MIXED: while decode rows are live
@@ -2218,6 +2388,7 @@ class ContinuousBatcher:
                 page_list, pages, cached_pages, cached_len, digests = got
             self._unqueue(req)
             req_t, req_p, req_k, extra = self._request_sampling(req)
+            self._first_mask(req, extra)
             # Bucket for shape reuse, never past what fits after the prefix.
             tp = min(_bucket(len(req.ids)), self.s - pfx_len)
             prompt = np.full((tp,), self.pad_id, np.int32)
@@ -2412,12 +2583,13 @@ class ContinuousBatcher:
             return
         req = pp.req
         req_t, req_p, req_k, extra = self._request_sampling(req)
+        self._first_mask(req, extra)
         if self.paged:
             blk = self.page_size
             n_cached = len(pp.cached_pages)
             n_full = -(-(pp.total_len + req.max_new_tokens) // blk)
             n_init = min(n_full, -(-pp.total_len // blk) + 1)
-            if not self._ensure_pages(n_init - n_cached,
+            if not self._ensure_pages(n_init - n_cached, "admit",
                                       below_priority=req.priority):
                 return  # retry the finish next round; the prefill is kept
             # Table first, allocation last: nothing between the pool
@@ -2470,6 +2642,14 @@ class ContinuousBatcher:
         tok = int(tok)
         lp = float(lp)
         self.last_tok[i] = tok
+        if req.constraint is not None:
+            # The automaton state after the admission token: a host replay
+            # of (the resumed prefix and) the token.
+            self.dfa_row[i] = req.constraint.advance(
+                0, list(req.resume_emitted or []) + [tok])
+            METRICS.inc("batcher.constrain.rows")
+        else:
+            self.dfa_row[i] = 0
         self.temp_row[i] = req_t
         self.topp_row[i] = req_p
         self.topk_row[i] = (self.sampling["top_k"] if req_k is None
@@ -2650,6 +2830,7 @@ class ContinuousBatcher:
             per_row["pres_row"] = self._dev(self.pres_row)
             per_row["freq_row"] = self._dev(self.freq_row)
         plan["per_row"] = per_row
+        self._plan_constraints(plan)
         if self.speculative:
             # The k_row clamp is not frozen with the plan: it is an input
             # buffer of the round's graph, re-planned at every dispatch
@@ -2665,6 +2846,54 @@ class ContinuousBatcher:
                     break
         return plan
 
+    def _plan_constraints(self, plan: dict) -> None:
+        """Constrained output for the span: the live constrained rows'
+        automata stacked into ONE (bias, next) pair (state 0 free), padded
+        up the bucket ladder so the graph key does not change with the mix
+        of live schemas, and written into that padded size's device buffers
+        (on the stream: a chunk already dispatched reads the stack it was
+        planned with).  The stack is memoized by ``(slot, rid)`` per
+        constrained row: a row's constraint is fixed for its residency and
+        rids are never reused.  Sets ``plan["constrain"]`` to the rows'
+        ``(slot, offset, rid)``, ``plan["stacks"]`` and the span's first
+        absolute states ``plan["dfa0"]`` (the carry's fifth row)."""
+        plan["constrain"] = []
+        con = [
+            i for i in range(self.b)
+            if self.active[i] and self.rows[i].req is not None
+            and self.rows[i].req.constraint is not None
+        ]
+        if not con:
+            self._con_stack = None
+            return
+        key = tuple((i, self.rows[i].rid) for i in con)
+        if self._con_stack is None or self._con_stack[0] != key:
+            dfas = [self.rows[i].req.constraint for i in con]
+            n = _bucket(1 + sum(d.n_states for d in dfas))
+            bias, nxt, offs = constrain_lib.build_stack(
+                dfas, self.cfg.vocab_size, pad_states_to=n)
+            bufs = self._con_bufs.get(n)
+            if bufs is None:
+                bufs = self._con_bufs[n] = (
+                    torch.empty(bias.shape, dtype=torch.float32,
+                                device=self.device),
+                    torch.empty(nxt.shape, dtype=torch.int32,
+                                device=self.device))
+            for buf, host in zip(bufs, (bias, nxt)):
+                src = torch.from_numpy(host)
+                if self.device.type == "cuda":
+                    src = src.pin_memory()
+                buf.copy_(src, non_blocking=True)
+            self._con_stack = (key, n, offs)
+        _, n, offs = self._con_stack
+        dfa0 = np.zeros((self.b,), np.int32)
+        for off, i in zip(offs, con):
+            dfa0[i] = off + int(self.dfa_row[i])
+        plan["constrain"] = [(i, off, self.rows[i].rid)
+                             for off, i in zip(offs, con)]
+        plan["stacks"] = self._con_bufs[n]
+        plan["dfa0"] = dfa0
+
     def _dispatch_chunk(self, plan: dict, carry) -> torch.Tensor:
         """Dispatch one decode chunk (a fused mixed step when the plan's
         prefill still has prompt left) and return its packed output on the
@@ -2672,16 +2901,19 @@ class ContinuousBatcher:
         mirrors (a span's first chunk), else the previous chunk's carry on
         the device."""
         if carry is None:
-            carry = self._dev(np.stack([
-                self.last_tok, self.real_lens, self.active.astype(np.int32),
-                self.budget,
-            ]).astype(np.int32))
+            rows = [self.last_tok, self.real_lens,
+                    self.active.astype(np.int32), self.budget]
+            if plan["constrain"]:
+                rows.append(plan["dfa0"])
+            carry = self._dev(np.stack(rows).astype(np.int32))
         self.overlap_stats["chunks"] += 1
         kw = dict(eos_id=self.eos_id, pad_id=self.pad_id,
                   tables=plan["tables"], graphs=self._graphs,
                   **self.sampling, **plan["per_row"])
         if plan["counts"]:
             kw["counts"] = self.tok_counts
+        if plan["constrain"]:
+            kw["mask_stack"], kw["next_stack"] = plan["stacks"]
         if self.speculative:
             return self._dispatch_spec(plan, carry, kw)
         METRICS.inc("batcher.sched.decode_tokens",
@@ -2691,6 +2923,10 @@ class ContinuousBatcher:
         if pp is not None and pp.done < pp.total_len:
             packed = self._dispatch_mixed(plan, carry, pp, kw)
         else:
+            if self.faults is not None and self.sched.fuse_prefill():
+                # Injection site "batcher.mixed_step" tag "decode": a
+                # mixed-schedule dispatch with no prefill bite riding.
+                self.faults.fire("batcher.mixed_step", tag="decode")
             packed = decode_chunk(self.params, self.cfg, self.cache, carry,
                                   self._gen, self.chunk_steps, **kw)
         self.decode_steps += self.chunk_steps
@@ -2714,6 +2950,12 @@ class ContinuousBatcher:
             ks = [self.spec_k] * self.b
         kh = np.clip(np.asarray(ks, np.int32), 1, self.spec_k)
         plan["k_hist"].append(kh)
+        if self.faults is not None:
+            # Injection site "batcher.spec_verify": the round is one graph,
+            # so both tags fire at its dispatch ('draft' = the k draft
+            # steps, 'verify' = the (k+1)-token target pass).
+            self.faults.fire("batcher.spec_verify", tag="draft")
+            self.faults.fire("batcher.spec_verify", tag="verify")
         METRICS.inc("batcher.spec.rounds")
         self.spec_stats["rounds"] += 1
         METRICS.inc("batcher.sched.decode_tokens", int(np.sum((kh + 1)[live])))
@@ -2767,6 +3009,10 @@ class ContinuousBatcher:
         transient row and its last logits stay on the device across
         dispatched-ahead chunks, like the decode carry."""
         bite, chunk = self._next_bite(pp, plan["n_active"])
+        if self.faults is not None:
+            # Injection site "batcher.mixed_step" tag "prefill": one hit
+            # per fused dispatch carrying a prefill bite.
+            self.faults.fire("batcher.mixed_step", tag="prefill")
         packed, pp.row_k, pp.row_v, pp.last_logits = mixed_step(
             self.params, self.cfg, self.cache, carry, self._gen,
             self.chunk_steps, pp.row_k, pp.row_v, pp.done, self._dev(chunk),
@@ -2832,7 +3078,11 @@ class ContinuousBatcher:
         over-allocates at most one page; a row already dead on the device
         may hold pages it never writes until its fetch publishes it.  Only
         from spare capacity: growth that needs PRESSURE (preemption runs
-        on fresh mirrors) returns False and the span syncs."""
+        on fresh mirrors) returns False and the span syncs.  So does a
+        fault-armed batcher: a ``batcher.page_alloc`` drill window counts
+        exactly one hit per growth round."""
+        if self.faults is not None:
+            return False
         blk = self.page_size
         for i in range(self.b):
             row = self.rows[i]
@@ -2861,11 +3111,12 @@ class ContinuousBatcher:
             METRICS.inc("batcher.pages_grown", need)
         return True
 
-    def _fetch_chunk(self, packed: torch.Tensor):
+    def _fetch_chunk(self, packed: torch.Tensor, dfa: bool = False):
         """A chunk's packed output on the host — tokens, logprobs and the
-        carry in ONE copy (into pinned memory on CUDA) and one event wait,
-        unpacked (:func:`unpack_chunk`).  Blocks until the chunk completes;
-        a dispatched-ahead chunk already runs behind it."""
+        carry (with the automaton states: ``dfa``) in ONE copy (into pinned
+        memory on CUDA) and one event wait, unpacked (:func:`unpack_chunk`).
+        Blocks until the chunk completes; a dispatched-ahead chunk already
+        runs behind it."""
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,
                                pin_memory=True)
@@ -2876,20 +3127,27 @@ class ContinuousBatcher:
             packed = host
         width = self.spec_k + 1 if self.speculative else self.chunk_steps
         got = unpack_chunk(packed.numpy(), self.b, width,
-                           commits=self.speculative)
+                           commits=self.speculative, dfa=dfa)
         self._t_complete = time.perf_counter()
         return got
 
-    def _sync_carry(self, packed: torch.Tensor, written: np.ndarray) -> tuple:
+    def _sync_carry(self, packed: torch.Tensor, written: np.ndarray,
+                    plan: dict) -> tuple:
         """Span end: the tokens, logprobs and the whole carry return to the
         host mirrors in one copy.  Slots whose host bookkeeping dropped the
         row while the carry was on the device (a cancel mid-span) are
-        forced inactive: their device activity bit is stale."""
-        toks_h, lps_h, m_h, carry = self._fetch_chunk(packed)
+        forced inactive: their device activity bit is stale.  The
+        constrained rows still resident take their advanced automaton
+        states back, relative to their own automaton."""
+        con = plan["constrain"]
+        toks_h, lps_h, m_h, carry = self._fetch_chunk(packed, dfa=bool(con))
         self.last_tok = carry[0].copy()
         self.real_lens = carry[1].copy()
         self.active = carry[2].astype(bool)
         self.budget = carry[3].copy()
+        for i, off, rid in con:
+            if self.rows[i].rid == rid:
+                self.dfa_row[i] = int(carry[CARRY_ROWS][i]) - off
         for i in range(self.b):
             if self.rows[i].rid is None and self.active[i]:
                 self.active[i] = False
@@ -2950,9 +3208,20 @@ class ContinuousBatcher:
             self._note_gap(max(0.0, time.perf_counter() - self._t_complete))
         written = self.real_lens.copy()
         self._span_open = True
+        if self.faults is not None:
+            # Injection site "batcher.decode": one hit per decode or
+            # speculative chunk about to dispatch (dispatched-ahead chunks
+            # too).  A "raise" is the canonical engine crash (out of run()
+            # into the serving supervisor; a chunk in flight is dropped
+            # with the batcher); "stall" models a wedged device call.
+            self.faults.fire("batcher.decode")
         out = self._dispatch_chunk(plan, None)
         chunks = 1
+        dfa = bool(plan["constrain"])
+        rows = CARRY_ROWS + int(dfa)
         while self.overlap and self._overlap_ok(was_active, chunks):
+            if self.faults is not None:
+                self.faults.fire("batcher.decode")
             if self._tables_dirty:
                 # In-span growth extended a table: the next chunk reads
                 # and writes through the grown pages.
@@ -2960,7 +3229,7 @@ class ContinuousBatcher:
                 self._tables_dirty = False
             rng_before = self._gen.get_state()  # the ghost refund point
             nxt = self._dispatch_chunk(
-                plan, out[-CARRY_ROWS * self.b:].view(CARRY_ROWS, self.b))
+                plan, out[-rows * self.b:].view(rows, self.b))
             self._note_gap(0.0)
             chunks += 1
             self.overlap_stats["dispatched_ahead"] += 1
@@ -2968,7 +3237,7 @@ class ContinuousBatcher:
             METRICS.set_gauge("batcher.overlap.depth", 1)
             # Chunk N's host work, while chunk N+1 runs on the device.
             host_t0 = time.perf_counter()
-            toks, lps, m, carry = self._fetch_chunk(out)
+            toks, lps, m, carry = self._fetch_chunk(out, dfa=dfa)
             self._spec_note(m, was_active, plan)
             active_after = carry[2].astype(bool)
             if not active_after.any():
@@ -2990,7 +3259,7 @@ class ContinuousBatcher:
             out = nxt
         # Sync exit: the mirrors refresh BEFORE _collect, so a cancel taken
         # in the delivery callbacks lands on fresh state.
-        toks, lps, m = self._sync_carry(out, written)
+        toks, lps, m = self._sync_carry(out, written, plan)
         self._spec_note(m, was_active, plan)
         self._span_open = False
         METRICS.set_gauge("batcher.overlap.depth", 0)

@@ -179,7 +179,7 @@ class InferenceEngine:
         token_budget: int | None = None,
         tenant_weights: "str | dict | None" = None,
         tenant_max_rows: int | None = None,
-        faults: Any = None,
+        faults: Any = None,  # FaultPlane | None; None -> parse rt.faults
     ):
         """A ContinuousBatcher over this engine's model: contiguous KV
         (``paged_pages`` None or 0, from the argument or the config), or a
@@ -194,19 +194,26 @@ class InferenceEngine:
         0 with a draft attached) drafts with the attached draft and
         verifies ``rt.spec_k + 1`` tokens a round; inherited from the
         config it yields to chunked prefill with a warning, asked for
-        explicitly the batcher refuses the pair.  Knobs of later port
-        slices raise ``NotImplementedError``, whether passed here or
-        inherited from the config."""
+        explicitly the batcher refuses the pair.  ``faults`` (a
+        :class:`~.faults.FaultPlane`; None parses ``rt.faults`` strictly,
+        a fresh plane per batcher) arms the batcher's injection sites.
+        Knobs of later port slices raise ``NotImplementedError``, whether
+        passed here or inherited from the config."""
         from .batcher import ContinuousBatcher
 
-        for what, requested in (
-            ("multi-tenant scheduling (tenant_weights/tenant_max_rows)",
-             tenant_weights or self.rt.tenant_weights or tenant_max_rows
-             or self.rt.tenant_max_rows),
-            ("fault injection (faults)", faults or self.rt.faults),
-        ):
-            if requested:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if (tenant_weights or self.rt.tenant_weights or tenant_max_rows
+                or self.rt.tenant_max_rows):
+            raise NotImplementedError(
+                "multi-tenant scheduling (tenant_weights/tenant_max_rows) "
+                "is not ported yet")
+        if faults is None and self.rt.faults:
+            # Each batcher gets its own plane (a respawn shares it by
+            # reference, so once-only rules stay once-only); strict, so a
+            # rule naming a site the port does not wire fails here
+            # instead of never firing.
+            from .faults import FaultPlane
+
+            faults = FaultPlane.parse(self.rt.faults, strict=True)
         # RuntimeConfig knobs are the defaults; explicit arguments win
         # (paged_pages=0 explicitly requests contiguous).
         paged = (self.rt.paged_pages if paged_pages is None
@@ -292,6 +299,7 @@ class InferenceEngine:
             host_pages=host_pages,
             overlap=self.rt.overlap if overlap is None else overlap,
             schedule=schedule or self.rt.schedule,
+            faults=faults,
         )
 
 

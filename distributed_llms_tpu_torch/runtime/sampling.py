@@ -114,10 +114,17 @@ def sample_rows(
     top_k: int = 0,
     top_p: "torch.Tensor | float" = 1.0,  # [B] or scalar
     top_k_rows: torch.Tensor | None = None,  # [B] int — overrides top_k
+    mask_rows: torch.Tensor | None = None,  # [B, V] additive token mask
 ) -> torch.Tensor:
-    """Per-row sampling: each row draws with its OWN temperature, top-p
-    and (via ``top_k_rows``) top-k, in the reference's warp order.  Rows
-    with temperature == 0 take the greedy token."""
+    """Per-row sampling: each row draws with its OWN temperature, top-p,
+    (via ``top_k_rows``) top-k and (via ``mask_rows``) token mask, in the
+    reference's warp order.  ``mask_rows`` (grammar-constrained / biased
+    rows, runtime/constrain.py: 0 keeps a token, -1e30 forbids it; free
+    rows carry an all-zero row) applies BEFORE the temperature warp and
+    before the greedy fallback, so a constrained greedy row takes the
+    masked argmax.  Rows with temperature == 0 take the greedy token."""
+    if mask_rows is not None:
+        logits = logits + mask_rows
     temperature = temperature.to(device=logits.device, dtype=logits.dtype)
     safe_t = torch.where(temperature > 0, temperature, 1.0)[:, None]
     warped = logits / safe_t

@@ -23,15 +23,20 @@ Kept from the reference: the crash supervisor (a crashed ``batcher.run``
 respawns the batcher, carries its named prefixes over and re-admits
 zero-streamed requests), per-request deadlines, the engine watchdog,
 priority admission, presence/frequency penalties, named prefixes
-(``prefix``: a name given to ``batcher.register_prefix``), the queue-full
-and estimated-cost shed gates with ``Retry-After``, graceful drain.
+(``prefix``: a name given to ``batcher.register_prefix``), constrained
+output (``response_format`` as a JSON schema or a regex, ``logit_bias``,
+``banned_tokens``: compiled to a token-mask automaton off the event loop
+and handed to the batcher; a malformed one answers a structured 400
+before any admission state exists; ``constrained=False`` refuses them
+all), the queue-full and estimated-cost shed gates with ``Retry-After``,
+graceful drain.  A batcher armed with a fault plane
+(runtime/faults.py) crashes or stalls at its sites, and the supervisor
+and the watchdog answer as they do for a real fault.
 
 Not ported yet: the disaggregated prefill/decode roles and the KV
-transfer plane (``/v1/prefill``, ``/v1/kv_export``, the KV listener),
-constrained output (``response_format``/``logit_bias``/
-``banned_tokens``), tenant quotas (``tenant`` / ``X-Tenant``) and fault
-injection.  Requests that ask for
-them get a 400 naming the feature.
+transfer plane (``/v1/prefill``, ``/v1/kv_export``, the KV listener) and
+tenant quotas (``tenant`` / ``X-Tenant``).  Requests that ask for them
+get a 400 naming the feature.
 """
 
 from __future__ import annotations
@@ -73,9 +78,6 @@ _REASONS = {
 # Request fields of later port slices: a request carrying one is answered
 # 400 naming the feature, never served with the field ignored.
 _UNPORTED_FIELDS = {
-    "response_format": "constrained output",
-    "logit_bias": "constrained output",
-    "banned_tokens": "constrained output",
     "tenant": "multi-tenant quotas",
 }
 
@@ -153,6 +155,11 @@ class InferenceServer:
         # token mass already queued + resident would exceed this multiple
         # of the batcher's KV capacity.  None/0 disables the gate.
         shed_cost_factor: float | None = 2.0,
+        # Grammar-constrained output (runtime/constrain.py): the
+        # response_format / logit_bias / banned_tokens request fields.
+        # False answers 400 to any constrained request (the operator
+        # kill-switch: runtime.constrained_decoding / --no-constrained).
+        constrained: bool = True,
     ) -> None:
         if batcher.tokenizer is None:
             raise ValueError(
@@ -173,6 +180,7 @@ class InferenceServer:
         self.watchdog_timeout_s = watchdog_timeout_s
         self.max_request_retries = max_request_retries
         self.shed_cost_factor = shed_cost_factor
+        self.constrained = bool(constrained)
         # Serializes (next_rid + submit) on the loop thread against the
         # supervisor's batcher swap on the engine thread, and guards the
         # mailbox registry and cancel-flag set.  Held only for host
@@ -665,6 +673,35 @@ class InferenceServer:
             raise BadRequest("'prefix_cache' must be a boolean")
         temperature, top_p, top_k, pres_pen, freq_pen = \
             self._parse_sampling(req)
+        response_format = req.get("response_format")
+        logit_bias = req.get("logit_bias")
+        banned_tokens = req.get("banned_tokens")
+        dfa = None
+        if (response_format is not None or logit_bias is not None
+                or banned_tokens is not None):
+            if not self.constrained:
+                raise BadRequest(
+                    "constrained decoding is disabled on this server "
+                    "(runtime.constrained_decoding / --no-constrained)"
+                )
+            from . import constrain as constrain_lib
+
+            b = self.batcher
+            try:
+                # Compile (or hit the LRU) OFF the event loop: a large
+                # schema's automaton is host numpy work measured in wall
+                # time.  The automaton itself goes to submit(): a second
+                # lookup could miss after an eviction and rebuild here.
+                dfa = await asyncio.to_thread(
+                    constrain_lib.compile_request,
+                    response_format, logit_bias, banned_tokens,
+                    tokenizer=b.tokenizer, vocab_size=b.cfg.vocab_size,
+                    eos_id=b.eos_id,
+                )
+            except constrain_lib.ConstraintError as e:
+                # Malformed schema / regex / bias: a structured 400 before
+                # any admission state exists.
+                raise BadRequest(str(e)) from None
         lp_req = req.get("logprobs")
         if lp_req is None or lp_req is False:
             want_lp = False
@@ -734,6 +771,8 @@ class InferenceServer:
             temperature=temperature, top_p=top_p, top_k=top_k,
             presence_penalty=pres_pen, frequency_penalty=freq_pen,
             prefix_cache=use_cache, priority=priority, deadline=deadline,
+            response_format=response_format, logit_bias=logit_bias,
+            banned_tokens=banned_tokens, constraint=dfa,
         )
         subs: list[tuple[int, int, _Mailbox]] = []  # (choice index, rid, mbox)
         sub_err: Exception | None = None
@@ -754,7 +793,9 @@ class InferenceServer:
                         temperature=temperature, top_p=top_p, top_k=top_k,
                         presence_penalty=pres_pen, frequency_penalty=freq_pen,
                         prefix_cache=use_cache, priority=priority,
-                        deadline=deadline,
+                        deadline=deadline, response_format=response_format,
+                        logit_bias=logit_bias, banned_tokens=banned_tokens,
+                        constraint=dfa,
                     )
                     assert got == rid
                 except (ValueError, KeyError) as e:

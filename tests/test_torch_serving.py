@@ -10,7 +10,8 @@
 - The port's HTTP server answers completions on the CPU.
 - The port and ``chip_smoke.py`` import neither JAX nor the JAX package.
 - Entry points without an explicit device raise when CUDA is missing;
-  flags of later slices raise ``NotImplementedError``; ``--token-budget``,
+  flags of later slices (and their config twins) raise
+  ``NotImplementedError``; ``--token-budget``,
   ``--prefill-chunk`` and ``--overlap on`` serve the default's answer.
 
 Contiguous mode and int8 pages are held against the JAX package in
@@ -238,8 +239,11 @@ async def test_http_server_answers_on_cpu(weights):
             "max_tokens": 4, "stream": True})
         assert status == 200 and body.rstrip().endswith(b"data: [DONE]")
         status, body = await _post(port, "/v1/completions", {
-            "prompt": "x", "response_format": {"type": "regex"}})
+            "prompt": "x", "tenant": "a"})
         assert status == 400 and b"not ported yet" in body
+        status, body = await _post(port, "/v1/completions", {
+            "prompt": "x", "response_format": {"type": "regex"}})
+        assert status == 400 and b"'regex' string" in body
     finally:
         await server.stop()
     server.batcher.assert_pool_consistent()
@@ -296,7 +300,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ["--tenant-weights", "a:1"], ["--replicas", "2"],
     ["--disaggregate"], ["--tenant-max-rows", "2"],
     ["--override", "runtime.kv_host_spill=true"],
-    ["--fault", "batcher.decode:raise@1"], ["--constrained"],
+    ["--override", "runtime.tenant_weights=a:1"],
+    ["--override", "runtime.tenant_max_rows=2"],
 ])
 def test_later_slice_flags_raise(flags):
     from distributed_llms_tpu_torch.cli import serve_main

@@ -190,6 +190,36 @@ Phases, each printing result lines:
       request answers 400; ``/healthz`` turns unhealthy during the stall
       and healthy after).  Path k's launches ride in the JSON line as
       ``constrain_launches``.
+   l. (run by the ``generate`` phase) the engine's batch API, as the
+      source system's worker calls it, engine-side (no HTTP):
+      ``InferenceEngine.from_preset("llama-3-8b")`` (bf16, max_seq_len
+      1024, ``kv_host_spill`` with ``max_resident_sessions=1``):
+      ``generate_text`` on path a's seven prompts and one more (8 ragged
+      rows, padded up the bucket ladder to 512, 64 new tokens, greedy;
+      the eager decode loop, dense attention under the gapped mask)
+      against the paged batcher's greedy streams for the same prompts on
+      the same engine (path a's flags); sessions: A (2 rows) opened, B
+      opened (A spills to host memory), A continued twice (A restored, B
+      spilled), A's turns equal to the same turns on an engine without
+      spill, A's first turn held to ``generate_text``, each spill's and
+      restore's MB and ms and the ``kv_spill.*`` gauges printed;
+      ``runtime.spec_decode`` (the int4 self-draft, spec_k 4):
+      ``generate_text`` must route through the standalone speculative
+      loop (a spy on ``speculative_generate_tokens``), its greedy streams
+      held to the plain ``generate_text``'s, K5 (int4) at least 7 x 32 x
+      5 x rounds launches, one sampled run (0.8, 16 new tokens) with
+      tokens in range and accepted <= drafted; then ``mistral-7b`` with
+      ``attn_impl="flash"`` (max_seq_len 6144): ``generate_text`` on
+      path c's 4400-byte prompt beside 3 short ones (32 new tokens; the
+      short rows' generated slots sit past T at positions len + j, the
+      gapped windowed layout), K4 at least once a layer, against the
+      contiguous batcher's streams on the same engine, and a session on
+      the long prompt whose second turn is held to ``generate_tokens``
+      run one-shot over the token history.  Streams are compared by the
+      near-tie rule (``GEN_NEAR_TIE``): where one leaves the other, the
+      step is recomputed once in float32 and the two tokens' logits must
+      lie within 0.1.  Path l's launches ride in the JSON line as
+      ``generate_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -216,6 +246,9 @@ Phases, each printing result lines:
    ``--phases build,spec`` runs it alone.
 6c. ``constrain`` — path k (in ``serve``'s list above): constrained output
    and the fault drills.  ``--phases build,constrain`` runs it alone.
+6d. ``generate`` — path l (in ``serve``'s list above): one-shot generation,
+   sessions with host spill and the standalone speculative loop.
+   ``--phases build,generate`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -4343,10 +4376,416 @@ def con_stall_drill(torch) -> None:
     _free(torch)
 
 
+# -- path l: one-shot generation, sessions and the standalone loop ------------
+
+GEN_NEW = 64
+GEN_MAX_LEN = 1024
+# Path a's seven prompts (the chat messages' text as plain prompts) and one
+# more: 8 ragged rows, 23-335 tokens with BOS.
+GEN_PROMPTS = (
+    PATH_A_PREFIX + "Case A: a pallet arrived late.",
+    PATH_A_PREFIX + "Case B: a crate is dented.",
+    PATH_A_PREFIX + "Case A: a pallet arrived late.",
+    "Summarise policy 12 in a line.",
+    "Streaming check: count to ten.",
+    "Top-k sampling check.",
+    "Be brief. Name three ports.",
+    "Which policy covers a customs hold at the port of Rotterdam?",
+)
+GEN_SESSION_NEW = 32
+GEN_SESSION_TURNS = (
+    (PATH_A_PREFIX + "Case C: a refused delivery.", "Short question two."),
+    ("Follow-up: which policy number?", "And the second?"),
+    ("Thanks. One more line.", "Done."),
+)
+GEN_SAMPLED_TEMPERATURE = 0.8
+GEN_SAMPLED_NEW = 16
+GEN_WINDOW_MAX_LEN = 6144  # path c's
+GEN_WINDOW_PROMPT_BYTES = 4400  # path c's long prompt: past the window
+GEN_WINDOW_NEW = 32
+# The near-tie rule: where a stream of the path leaves the stream it is
+# held to, the step is recomputed once in float32 (a no-cache forward of
+# the shared context, dense attention) and the two tokens' logits there
+# must lie within this many logits of each other.  Stated before the
+# first run: 3x the worst teacher-forced bf16 margin path j's speculative
+# streams showed on the card (0.033); a wrong token on random weights
+# lands O(1) logits below.
+GEN_NEAR_TIE = 0.1
+
+
+def _cut(stream, eos: int) -> list:
+    """A stream up to and including its first EOS."""
+    stream = [int(x) for x in stream]
+    return stream[:stream.index(eos) + 1] if eos in stream else stream
+
+
+def _f32_last_logits(torch, params, cfg, ids):
+    """Float32 logits [V] after ``ids``: one no-cache forward, dense
+    attention, each layer's weights upcast as it runs (the bf16 weights
+    exactly, the arithmetic float32)."""
+    import dataclasses
+
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="dot")
+    dev = params["embed"]["wte"].device
+
+    def layer(tree, i):
+        return {k: (layer(v, i) if isinstance(v, dict) else v[i:i + 1].float())
+                for k, v in tree.items()}
+
+    with torch.no_grad():
+        toks = torch.tensor([ids], device=dev)
+        x = model_lib.embed(params, cfg32, toks)
+        pos = torch.arange(len(ids), device=dev)[None]
+        for i in range(cfg.num_layers):
+            x = model_lib.run_blocks(x, layer(params["blocks"], i), cfg32,
+                                     pos, None, None, None)
+        head = {"final_norm": {"scale": params["final_norm"]["scale"].float()},
+                "embed": params["embed"]}
+        if "lm_head" in params:
+            head["lm_head"] = {"w": params["lm_head"]["w"]}
+        return model_lib.unembed(head, cfg32, x[:, -1:])[0, 0]
+
+
+def _near_ties(torch, label, params, cfg, contexts, got, want, eos) -> dict:
+    """``got`` against ``want`` (streams after ``contexts``): identical, or
+    leaving it at a near-tie — at the first differing step the float32
+    logits of the two tokens within GEN_NEAR_TIE.  Returns what it
+    measured."""
+    gaps, first = [], []
+    for ctx, g, w in zip(contexts, got, want):
+        g, w = _cut(g, eos), _cut(w, eos)
+        j = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        first.append(j)
+        if j is None:
+            check(len(g) == len(w), f"{label}: streams of unequal length "
+                  f"{len(g)} / {len(w)} agree to the shorter's end")
+            continue
+        lg = _f32_last_logits(torch, params, cfg, list(ctx) + g[:j])
+        gap = abs(float(lg[g[j]] - lg[w[j]]))
+        gaps.append(gap)
+        check(gap <= GEN_NEAR_TIE,
+              f"{label}: a stream leaves its reference at step {j} with a "
+              f"float32 gap of {gap:.4f} logits (near-tie margin "
+              f"{GEN_NEAR_TIE})")
+    return {"streams": len(got),
+            "identical": sum(j is None for j in first),
+            "first_divergence": first, "f32_gaps": gaps,
+            "near_tie_margin": GEN_NEAR_TIE}
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _batcher_streams(torch, b, id_lists, new) -> list:
+    """The same prompts as token ids through batcher ``b`` (greedy, cold
+    admissions): their streams in order."""
+    rids = [b.submit(ids, max_new_tokens=new, prefix_cache=False)
+            for ids in id_lists]
+    res = b.run()
+    torch.cuda.synchronize()
+    return [res[r] for r in rids]
+
+
+def _spill_timers(torch, sessions) -> list:
+    """Time each spill and restore of ``sessions`` (a SessionManager):
+    records (kind, MB, ms)."""
+    log = []
+    spill, restore = sessions._spill, sessions.ensure_resident
+
+    def timed_spill(sess):
+        nbytes = sum(t.nbytes for t in (sess.cache.k, sess.cache.v))
+        _, dt = _sync_time(torch, lambda: spill(sess))
+        log.append(("spill", nbytes / 1e6, dt * 1e3))
+
+    def timed_restore(sess):
+        if not sess.spilled:
+            return restore(sess)
+        sessions.make_room(keep=sess.sid)  # its spill timed on its own
+        nbytes = sess.cache.nbytes
+        _, dt = _sync_time(torch, lambda: restore(sess))
+        log.append(("restore", nbytes / 1e6, dt * 1e3))
+
+    sessions._spill, sessions.ensure_resident = timed_spill, timed_restore
+    return log
+
+
+def generate_llama(torch, card) -> dict:
+    """Path l, steps 1-3 on ``llama-3-8b`` (bf16, max_seq_len 1024):
+    ``generate_text`` against the paged batcher, sessions with host spill,
+    and ``generate_text`` routed through the speculative loop.  Returns the
+    launches of the path's own calls."""
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.core.observability import METRICS
+    from distributed_llms_tpu_torch.runtime import speculative as spec_lib
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    lap = _lap("generate_time")
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    rt = RuntimeConfig(max_seq_len=GEN_MAX_LEN, max_decode_steps=GEN_NEW,
+                       kv_host_spill=True, max_resident_sessions=1)
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine.from_preset("llama-3-8b", rt=rt, rng_seed=0)
+    _llama_3_8b(eng.cfg)
+    tok = eng.tokenizer
+    ids = [tok.encode(p) for p in GEN_PROMPTS]
+    lap("boot")
+
+    # 1. generate_text against the paged batcher (path a's flags).
+    eng.generate_text(list(GEN_PROMPTS), max_new_tokens=1)  # warm-up
+    reset_launches()
+    res, wall = _sync_time(torch, lambda: eng.generate_text(
+        list(GEN_PROMPTS)))
+    add(read_launches())
+    _, wall1 = _sync_time(torch, lambda: eng.generate_text(
+        list(GEN_PROMPTS), max_new_tokens=1))
+    check(res.tokens.shape == (len(GEN_PROMPTS), GEN_NEW),
+          f"generate: tokens of shape {res.tokens.shape}")
+    width = eng._bucket_prompt(eng._encode_rows(list(GEN_PROMPTS), None)[0],
+                               GEN_NEW).shape[1]
+    b = eng.continuous_batcher(batch_slots=8, max_len=GEN_MAX_LEN,
+                               paged_pages=256, page_size=64,
+                               prefix_cache=True)
+    want = _batcher_streams(torch, b, ids, GEN_NEW)
+    del b
+    _free(torch)
+    held = _near_ties(torch, "generate/text_vs_batcher", eng.params, eng.cfg,
+                      ids, res.tokens.tolist(), want, tok.eos_id)
+    emit("generate", path="l", step="text_vs_paged_batcher", card=card,
+         rows=len(ids), prompt_tokens=[len(x) for x in ids],
+         padded_width=width, new_tokens=GEN_NEW, wall_ms=wall * 1e3,
+         prefill_and_one_step_ms=wall1 * 1e3,
+         eager_ms_per_decode_step=(wall - wall1) * 1e3 / (GEN_NEW - 1),
+         tokens_per_second=res.tokens_per_second,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **held)
+    lap("text")
+
+    # 2. Sessions with host spill, against the same turns without it.
+    ctl = InferenceEngine(eng.cfg, RuntimeConfig(
+        max_seq_len=GEN_MAX_LEN, max_decode_steps=GEN_SESSION_NEW),
+        eng.params, tokenizer=tok, device=eng.device)
+    moves = _spill_timers(torch, eng.sessions)
+    reset_launches()
+    a_turns = []
+    sid_a, r = eng.start_session(list(GEN_SESSION_TURNS[0]),
+                                 max_new_tokens=GEN_SESSION_NEW)
+    a_turns.append(r.tokens.tolist())
+    sid_b, _ = eng.start_session(["A second conversation opens here."],
+                                 max_new_tokens=GEN_SESSION_NEW)
+    check(eng.sessions.get(sid_a).spilled, "sessions: opening B did not "
+          "spill A")
+    for turn in GEN_SESSION_TURNS[1:]:
+        a_turns.append(eng.continue_session(
+            sid_a, list(turn), max_new_tokens=GEN_SESSION_NEW).tokens.tolist())
+        check(eng.sessions.get(sid_b).spilled and not
+              eng.sessions.get(sid_a).spilled,
+              "sessions: continuing A did not restore A and spill B")
+    add(read_launches())
+    gauges = {k: v for k, v in METRICS.snapshot()["gauges"].items()
+              if k.startswith("kv_spill.")}
+    counters = {k: v for k, v in METRICS.snapshot()["counters"].items()
+                if k.startswith("kv_spill.")}
+    c_turns = []
+    cid, r = ctl.start_session(list(GEN_SESSION_TURNS[0]),
+                               max_new_tokens=GEN_SESSION_NEW)
+    c_turns.append(r.tokens.tolist())
+    ctl.start_session(["A second conversation opens here."],
+                      max_new_tokens=GEN_SESSION_NEW)
+    for turn in GEN_SESSION_TURNS[1:]:
+        c_turns.append(ctl.continue_session(
+            cid, list(turn), max_new_tokens=GEN_SESSION_NEW).tokens.tolist())
+    check(a_turns == c_turns, "sessions: a spilled-and-restored session's "
+          "turns differ from the same turns without spill")
+    one = eng.generate_text(list(GEN_SESSION_TURNS[0]),
+                            max_new_tokens=GEN_SESSION_NEW)
+    first_ids = [tok.encode(p) for p in GEN_SESSION_TURNS[0]]
+    held = _near_ties(torch, "generate/session_vs_text", eng.params, eng.cfg,
+                      first_ids, a_turns[0], one.tokens.tolist(), tok.eos_id)
+    check([k for k, _, _ in moves] == ["spill", "spill", "restore"],
+          f"sessions: spills and restores {[k for k, _, _ in moves]}, "
+          "not A's spill, B's spill and A's restore")
+    emit("generate", path="l", step="sessions_spill", card=card,
+         turns=len(a_turns), rows=2, new_tokens=GEN_SESSION_NEW,
+         turns_equal_without_spill=True,
+         moves=[{"kind": k, "mb": mb, "ms": ms} for k, mb, ms in moves],
+         kv_spill_gauges=gauges, kv_spill_counters=counters,
+         first_turn_vs_generate_text=held)
+    for sid in list(eng.sessions.sessions):
+        eng.end_session(sid)
+    del ctl
+    _free(torch)
+    lap("sessions")
+
+    # 3. Transparent speculation: the int4 self-draft, spec_k 4.
+    spec_rt = RuntimeConfig(max_seq_len=GEN_MAX_LEN, max_decode_steps=GEN_NEW,
+                            spec_decode=True, spec_k=SPEC_K)
+    spec = InferenceEngine(eng.cfg, spec_rt, eng.params, tokenizer=tok,
+                           device=eng.device)
+    wq = spec.draft_params["blocks"]["attn"]["wq"]
+    check(getattr(wq, "bits", None) == 4, "generate/spec: no int4 self-draft")
+    calls = []
+    loop = spec_lib.speculative_generate_tokens
+
+    def spy(*a, **kw):
+        out = loop(*a, **kw)
+        calls.append(out[1])
+        return out
+
+    spec_lib.speculative_generate_tokens = spy
+    try:
+        reset_launches()
+        got, spec_wall = _sync_time(torch, lambda: spec.generate_text(
+            list(GEN_PROMPTS)))
+        spec_launches = read_launches()
+        add(spec_launches)
+        check(len(calls) == 1, "generate/spec: generate_text did not route "
+              "through the speculative loop")
+        stats = calls[-1]
+        held = _near_ties(torch, "generate/spec_vs_text", eng.params,
+                          eng.cfg, ids, got.tokens.tolist(),
+                          res.tokens.tolist(), tok.eos_id)
+        want_k5 = 7 * eng.cfg.num_layers * (SPEC_K + 1) * stats["rounds"]
+        check(spec_launches["quant_matmul_int4"] >= want_k5,
+              f"generate/spec: K5 int4 launched "
+              f"{spec_launches['quant_matmul_int4']} times, under {want_k5}")
+        sampled = InferenceEngine(eng.cfg, RuntimeConfig(
+            max_seq_len=GEN_MAX_LEN, temperature=GEN_SAMPLED_TEMPERATURE),
+            eng.params, tokenizer=tok, device=eng.device)
+        sampled.attach_draft(spec.draft_cfg, spec.draft_params)
+        s_res = sampled.generate_text_speculative(
+            list(GEN_PROMPTS), max_new_tokens=GEN_SAMPLED_NEW, k=SPEC_K,
+            seed=7)
+        s_stats = calls[-1]
+    finally:
+        spec_lib.speculative_generate_tokens = loop
+    check(bool(((s_res.tokens >= 0) & (s_res.tokens < eng.cfg.vocab_size))
+               .all()), "generate/spec: a sampled token out of range")
+    check(0 <= s_stats["accepted"] <= s_stats["drafted"],
+          f"generate/spec: sampled stats {s_stats}")
+    emit("generate", path="l", step="spec_routed", card=card, k=SPEC_K,
+         stats=stats, acceptance=stats["accepted"] / max(stats["drafted"], 1),
+         wall_ms=spec_wall * 1e3, plain_wall_ms=wall * 1e3,
+         ms_per_position=spec_wall * 1e3 / GEN_NEW,
+         plain_ms_per_position=wall * 1e3 / GEN_NEW,
+         k5_int4_launches=spec_launches["quant_matmul_int4"],
+         k5_int4_floor=want_k5, sampled_stats=s_stats,
+         sampled_temperature=GEN_SAMPLED_TEMPERATURE,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **held)
+    del spec, sampled, eng, res, got
+    _free(torch)
+    lap("spec")
+    return launches
+
+
+def generate_mistral(torch, card) -> dict:
+    """Path l, step 4 on ``mistral-7b`` with ``attn_impl="flash"``: a long
+    prompt beside three short ones through ``generate_text`` (K4 prefill,
+    the gapped windowed decode) against the contiguous batcher, then a
+    session on the long prompt against ``generate_tokens`` over the whole
+    history.  Returns the launches of the path's own calls."""
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime import generate as gen_lib
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    lap = _lap("generate_time")
+    rt = RuntimeConfig(max_seq_len=GEN_WINDOW_MAX_LEN,
+                       max_decode_steps=GEN_WINDOW_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine.from_preset("mistral-7b", rt=rt, rng_seed=0,
+                                      attn_impl="flash")
+    _mistral_7b_flash(eng.cfg)
+    tok = eng.tokenizer
+    long_prompt = ("Freight log, dock 7, one line per pallet: " + "".join(
+        f"pallet {i:04d} checked in at bay {i % 13:02d}; "
+        for i in range(200)))[:GEN_WINDOW_PROMPT_BYTES]
+    prompts = [long_prompt, "Short check one: name a colour.",
+               "Short check two: count to five.", "Short check three."]
+    ids = [tok.encode(p) for p in prompts]
+    lap("boot")
+    eng.generate_text(prompts, max_new_tokens=1)  # warm-up
+    reset_launches()
+    res, wall = _sync_time(torch, lambda: eng.generate_text(prompts))
+    launches = read_launches()
+    _, wall1 = _sync_time(torch, lambda: eng.generate_text(
+        prompts, max_new_tokens=1))
+    check(launches["flash_attention_dynamic"] >= eng.cfg.num_layers,
+          f"generate/flash: K4 launched "
+          f"{launches['flash_attention_dynamic']} times, under "
+          f"{eng.cfg.num_layers}")
+    width = eng._bucket_prompt(eng._encode_rows(prompts, None)[0],
+                               GEN_WINDOW_NEW).shape[1]
+    b = eng.continuous_batcher(batch_slots=8, max_len=GEN_WINDOW_MAX_LEN)
+    check(not b.paged, "generate/flash: the batcher is not contiguous")
+    want = _batcher_streams(torch, b, ids, GEN_WINDOW_NEW)
+    del b
+    _free(torch)
+    held = _near_ties(torch, "generate/flash_vs_batcher", eng.params,
+                      eng.cfg, ids, res.tokens.tolist(), want, tok.eos_id)
+    emit("generate", path="l", step="flash_window_text_vs_contiguous_batcher",
+         card=card, prompt_tokens=[len(x) for x in ids], padded_width=width,
+         new_tokens=GEN_WINDOW_NEW, wall_ms=wall * 1e3,
+         prefill_and_one_step_ms=wall1 * 1e3,
+         eager_ms_per_decode_step=(wall - wall1) * 1e3 / (GEN_WINDOW_NEW - 1),
+         k4_launches=launches["flash_attention_dynamic"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **held)
+    lap("text")
+
+    # A session on the long prompt; its second turn against one-shot
+    # generate_tokens over the token history.
+    reset_launches()
+    sid, r1 = eng.start_session([long_prompt])
+    turn2 = "Which bay held pallet 0042, and when did it check in?"
+    r2 = eng.continue_session(sid, [turn2])
+    add_launches = read_launches()
+    for k, v in add_launches.items():
+        launches[k] += v
+    history = ids[0] + r1.tokens[0].tolist() + tok.encode(turn2)
+    check(len(history) + GEN_WINDOW_NEW > WINDOW,
+          "generate/session: the history does not cross the window")
+    one = gen_lib.generate_tokens(
+        eng.params, eng.cfg, torch.tensor([history], device=eng.device),
+        torch.tensor([len(history)], device=eng.device), None,
+        max_new_tokens=GEN_WINDOW_NEW, eos_id=tok.eos_id, pad_id=tok.pad_id,
+        make_cache=eng._make_cache)
+    held2 = _near_ties(torch, "generate/session_vs_oneshot", eng.params,
+                       eng.cfg, [history], [r2.tokens[0].tolist()],
+                       one.cpu().tolist(), tok.eos_id)
+    emit("generate", path="l", step="flash_window_session_vs_oneshot",
+         card=card, history_tokens=len(history), window=WINDOW,
+         session_launches={k: v for k, v in add_launches.items() if v},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **held2)
+    eng.end_session(sid)
+    del eng, res
+    _free(torch)
+    lap("session")
+    return launches
+
+
+def serve_generate(torch) -> dict:
+    """Path l: the engine's batch API as the worker calls it.  Returns the
+    launches of the path's own calls (the comparison batchers' apart)."""
+    card = _card()
+    got = generate_llama(torch, card)
+    for k, v in generate_mistral(torch, card).items():
+        got[k] = got.get(k, 0) + v
+    return got
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "train", "profile")
+          "constrain", "generate", "train", "profile")
 
 
 def main() -> int:
@@ -4410,6 +4849,10 @@ def main() -> int:
             for name, n in timed("constrain", serve_constrain,
                                  torch).items():
                 kernels[name]["constrain_launches"] = n
+        if "generate" in phases:
+            # Path l's launches ride beside each kernel's own path's.
+            for name, n in timed("generate", serve_generate, torch).items():
+                kernels[name]["generate_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

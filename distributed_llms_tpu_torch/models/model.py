@@ -8,10 +8,14 @@ package runs ``lax.scan``.  Three cache layouts, as in the reference:
 
 - a contiguous row cache ``[L, B, S, KVH, HD]``: a scalar ``cache_index``
   (admission prefill, causal or caller-supplied mask), or per-row
-  ``cache_index`` (contiguous decode, one token per row, read by the
-  ragged decode-attention kernel with the model's sliding window; or a
-  T-token window a row, the speculative verify pass, dense under the
-  caller's mask with the window ANDed in);
+  ``cache_index`` (contiguous decode, one token per row: without a
+  caller mask, or under ``cfg.ragged_decode``, read by the ragged
+  decode-attention kernel with the model's sliding window, else dense
+  under the caller's mask; or a T-token window a row, the speculative
+  verify pass, dense under the caller's mask).  A caller's mask carries
+  causality and validity by slot; the window is ANDed in by position,
+  from ``key_positions`` where the layout is gapped (the right-padded
+  generate and session layouts: slot != position);
 - a paged pool ``[L, NB, BLK, KVH, HD]`` addressed through ``kv_tables``
   (paged decode: per-row ``cache_index``, one token per row, or a T-token
   window a row), read by the paged decode-attention kernel
@@ -144,6 +148,12 @@ def _attention(
     #   kernel
     paged_window: tuple | None = None,  # a T-token paged window's
     #   coordinates (:func:`paged_window_rows`), built once per forward
+    key_positions: torch.Tensor | None = None,  # [B, S] true RoPE position
+    #   of each cache slot, read ONLY by the sliding-window mask: gapped
+    #   layouts (the right-padded generate / speculative layout, where
+    #   generated token j sits at slot T + j but position len + j, and
+    #   multi-turn sessions) pass it, or the window widens by the pad;
+    #   contiguous layouts (slot == position) leave it None
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...] | None]:
     q, k, v = layers.qkv_project(x, p, cfg)
     rope_scale = (
@@ -207,27 +217,36 @@ def _attention(
         ck, cv = layer_cache  # [B, S, KVH, HD] views into the row cache
         s = ck.shape[1]
         if per_row:
-            # Contiguous batching: rows admitted at different times sit at
-            # different depths.  Each row writes its one slot in place —
-            # clamped to the last slot, as the JAX package's
-            # dynamic_update_slice clamps a start past S - 1 (the batcher
-            # never passes S: a finished row idles at S - 1 at most) — and
-            # attends its prefix [0, cache_index + 1), or the window band
-            # of it, through the ragged kernel.
+            # Per-row write slots: rows sit at different depths.  Each row
+            # writes its slots in place — the start clamped as the JAX
+            # package's dynamic_update_slice clamps it (the batcher never
+            # passes S: a finished row idles at S - 1 at most).
             if x.shape[1] > 1:
                 return _row_window_attention(q, k, v, p, cfg, positions,
                                              (ck, cv), cache_index,
-                                             attn_mask)
-            from ..ops import decode_attn
-
+                                             attn_mask, key_positions)
             rows = torch.arange(x.shape[0], device=x.device)
             slot = cache_index.long().clamp(0, s - 1)
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
-            out = decode_attn.ragged_decode_attention(
-                q, ck, cv, (cache_index + 1).to(torch.int32), window=window
-            )
-            return layers.out_project(out, p), (ck, cv)
+            if attn_mask is None or cfg.ragged_decode:
+                # The prefix contract: row b attends [0, cache_index + 1),
+                # or the window band of it, through the ragged kernel.  No
+                # mask (the port batcher's call) or cfg.ragged_decode (the
+                # caller's promise that its mask IS that prefix) — slot ==
+                # position in both.
+                from ..ops import decode_attn
+
+                out = decode_attn.ragged_decode_attention(
+                    q, ck, cv, (cache_index + 1).to(torch.int32),
+                    window=window,
+                )
+                return layers.out_project(out, p), (ck, cv)
+            # A caller's mask over a gapped layout (the speculative draft
+            # steps and backfill): dense under that mask, the window
+            # ANDed in by true key position.
+            return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
+                                 key_positions)
         ci = int(cache_index)
         t = x.shape[1]
         if ci < 0 or ci + t > s:
@@ -239,15 +258,19 @@ def _attention(
         ck[:, ci:ci + t] = k.to(ck.dtype)
         cv[:, ci:ci + t] = v.to(cv.dtype)
         # Causality and validity compare slots, the window positions; the
-        # caller-supplied masks (prefix continuation) carry the first two,
-        # and every path ANDs in the window.  Slot == position here.
+        # caller-supplied masks (prefix continuation, the gapped generate
+        # and session layouts) carry the first two, and every path ANDs
+        # in the window — by ``key_positions`` where the caller gives them.
         k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
-        if cfg.attn_impl == "flash" and attn_mask is None and t > 1:
+        if (cfg.attn_impl == "flash" and attn_mask is None and t > 1
+                and (window is None or key_positions is None)):
             # Prefill into the (longer, padded) row cache: the flash kernel
             # masks the unwritten tail instead of computing a dense
             # [T, S] score matrix; its one k_positions vector drives
             # causality and the window, exact because slot == position
-            # here.  Single-token prefill stays dense, as in the reference.
+            # here (a windowed caller with a key_positions map takes the
+            # dense window path below).  Single-token prefill stays dense,
+            # as in the reference.
             from ..ops import flash
 
             out = flash.flash_attention(
@@ -257,16 +280,10 @@ def _attention(
             )
             return layers.out_project(out, p), (ck, cv)
         if attn_mask is None:
-            attn_mask = layers.causal_mask(
-                positions, k_positions, k_positions < ci + t, window=window
-            )
-        elif window is not None:
-            attn_mask = layers.and_window(attn_mask, positions, k_positions,
-                                          window)
-        k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
-        v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
-        out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
-        return layers.out_project(out, p), (ck, cv)
+            attn_mask = layers.causal_mask(positions, k_positions,
+                                           k_positions < ci + t)
+        return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
+                             key_positions)
 
     if cfg.attn_impl == "flash" and attn_mask is None:
         # Self-attention over the input block (training, no-cache eval):
@@ -348,8 +365,25 @@ def _paged_window_attention(q, k, v, p, layer_cache, window):
     return layers.out_project(out.reshape(b, t, h, d), p), layer_cache
 
 
+def _dense_cached(q, p, cfg, positions, ck, cv, attn_mask, key_positions):
+    """Dense attention over a whole row cache ``[B, S, KVH, HD]`` under
+    ``attn_mask`` (causality and validity, by slot), the sliding window
+    ANDed in by each slot's true position (``key_positions``, or the slot
+    itself).  The JAX package computes it outside any Pallas kernel."""
+    if cfg.sliding_window is not None:
+        if key_positions is None:
+            b, s = ck.shape[:2]
+            key_positions = torch.arange(s, device=q.device).expand(b, s)
+        attn_mask = layers.and_window(attn_mask, positions, key_positions,
+                                      cfg.sliding_window)
+    k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
+    v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
+    out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
+    return layers.out_project(out, p), (ck, cv)
+
+
 def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
-                          cache_index, attn_mask):
+                          cache_index, attn_mask, key_positions=None):
     """T-token per-row window over a contiguous cache (the contiguous
     speculative verify pass, the reference's masked per-row branch): each
     row writes its T slots in place from ``cache_index`` — the start
@@ -367,25 +401,19 @@ def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
     rows = torch.arange(b, device=q.device)[:, None]
     ck[rows, idx] = k.to(ck.dtype)
     cv[rows, idx] = v.to(cv.dtype)
-    if cfg.sliding_window is not None:
-        k_positions = torch.arange(s, device=q.device).expand(b, s)
-        attn_mask = layers.and_window(attn_mask, positions, k_positions,
-                                      cfg.sliding_window)
-    k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
-    v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
-    out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
-    return layers.out_project(out, p), (ck, cv)
+    return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
+                         key_positions)
 
 
 def llama_block(x, p, cfg, positions, layer_cache, cache_index,
                 attn_mask=None, kv_tables=None, std_layout=False,
-                paged_window=None):
+                paged_window=None, key_positions=None):
     """-> (x, new_cache)."""
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     attn_out, new_cache = _attention(
         h, p["attn"], cfg, positions, layer_cache, cache_index,
         attn_mask=attn_mask, kv_tables=kv_tables, std_layout=std_layout,
-        paged_window=paged_window,
+        paged_window=paged_window, key_positions=key_positions,
     )
     x = x + attn_out
     h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
@@ -413,6 +441,7 @@ def run_blocks(
     cache_sv: torch.Tensor | None = None,  #   int8 pool
     remat: bool = False,  # recompute each block in the backward pass
     std_layout: bool = False,  # see _attention
+    key_positions: torch.Tensor | None = None,  # [B, S]; see _attention
 ) -> torch.Tensor:
     """Run the stacked blocks over x, layer by layer (the JAX package's
     ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``
@@ -436,7 +465,8 @@ def run_blocks(
         else:
             layer_cache = (cache_k[i], cache_v[i], cache_sk[i], cache_sv[i])
         args = (x, layer_params(blocks, i), cfg, positions, layer_cache,
-                cache_index, attn_mask, kv_tables, std_layout, window)
+                cache_index, attn_mask, kv_tables, std_layout, window,
+                key_positions)
         if remat:
             x, _ = torch.utils.checkpoint.checkpoint(
                 llama_block, *args, use_reentrant=False)
@@ -494,6 +524,9 @@ def forward(
     kv_tables: torch.Tensor | None = None,  # [B, P] page table: the cache
     #   holds page POOLS [L, NB, BLK, KVH, HD] (paged decode)
     remat: bool = False,  # recompute each block in the backward pass
+    key_positions: torch.Tensor | None = None,  # [B, S] true RoPE position
+    #   of each cache slot, for the sliding-window mask of gapped layouts
+    #   (see _attention)
 ) -> tuple[torch.Tensor, "KVCache | QuantKVCache | None"]:
     """Full forward.  Returns (logits [B, T, V] float32, the cache — the
     same object, updated in place).  A :class:`QuantKVCache` serves paged
@@ -525,7 +558,7 @@ def forward(
     else:
         x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
                        cache_index, attn_mask, kv_tables, remat=remat,
-                       std_layout=std_layout)
+                       std_layout=std_layout, key_positions=key_positions)
     return unembed(params, cfg, x), cache
 
 

@@ -9,26 +9,63 @@ weights of a preset (:meth:`InferenceEngine.from_preset`) or a shard store
 int8/int4 on the device (``runtime.serve_quantized``).  With
 ``runtime.spec_decode`` the engine attaches a self-draft (its own decoder
 blocks, weight-only quantized to ``runtime.spec_draft_quantize`` bits)
-and its batchers speculate (:meth:`InferenceEngine.attach_draft`).  Entry
-points run on CUDA unless the caller asks for the CPU by name
+and its batchers speculate (:meth:`InferenceEngine.attach_draft`).
+
+Besides the batchers, the engine serves whole batches itself, as the
+source system's worker calls it: :meth:`InferenceEngine.generate_text`
+(one prefill and a decode loop over the right-padded batch; routed
+through the standalone speculative loop under ``runtime.spec_decode`` at
+temperature 0), multi-turn sessions whose KV cache persists between turns
+(:meth:`~InferenceEngine.start_session`,
+:meth:`~InferenceEngine.continue_session`,
+:meth:`~InferenceEngine.end_session`; with ``runtime.kv_host_spill`` at
+most ``runtime.max_resident_sessions`` caches stay on the device, the rest
+wait in host memory) and :meth:`~InferenceEngine.generate_text_speculative`.
+Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``); without a GPU and without that request they raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
+from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.config import ModelConfig, RuntimeConfig
 from ..core.device import resolve_device
-from ..core.observability import get_logger
+from ..core.observability import METRICS, get_logger
 from ..models import model as model_lib
 from ..models.presets import get_preset
-from .tokenizer import get_tokenizer
+from . import generate as gen_lib
+from . import shapes as shapes_lib
+from .session import SessionManager, session_step
+from .tokenizer import get_tokenizer, pad_batch
 
 log = get_logger("engine")
+
+
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """Device -> host for generation outputs (waits for the device)."""
+    return out.cpu().numpy()
+
+
+@dataclass
+class GenerationResult:
+    text: list[str]
+    tokens: np.ndarray  # [B, N]
+    prompt_tokens: int
+    generated_tokens: int
+    seconds: float
+
+    @property
+    def tokens_per_second(self) -> float:
+        return self.generated_tokens / max(self.seconds, 1e-9)
 
 
 class InferenceEngine:
@@ -48,9 +85,6 @@ class InferenceEngine:
         self.cfg = cfg
         self.rt = rt
         self.device = resolve_device(device)
-        if rt.kv_host_spill:
-            raise NotImplementedError(
-                "runtime.kv_host_spill is not ported yet")
         self.tokenizer = tokenizer or get_tokenizer(None)
         # Out-of-vocab ids would index past the embedding table; reject the
         # mismatch loudly.
@@ -82,6 +116,17 @@ class InferenceEngine:
                 )
             else:
                 self.attach_draft(quantize_bits=rt.spec_draft_quantize)
+        # The KV cache of generate_text and of sessions: rt.kv_cache_dtype
+        # on the engine's device.
+        self._make_cache = lambda cfg_, b, s, prompt_len=None: \
+            model_lib.init_cache(cfg_, b, s, dtype=rt.kv_cache_dtype,
+                                 device=self.device)
+        self._timer = profiling.StepTimer("engine.generate")
+        # Session store: caches persist across turns; with kv_host_spill
+        # only the most recent max_resident_sessions stay on the device.
+        self.sessions = SessionManager(
+            max_resident=rt.max_resident_sessions if rt.kv_host_spill
+            else (1 << 30))
 
     @classmethod
     def from_preset(
@@ -162,6 +207,199 @@ class InferenceEngine:
         else:
             params = store_lib.reconstruct(store_dir, dtype=dtype, device=dev)
         return cls(cfg, rt, params, tokenizer=tokenizer, device=dev)
+
+    # -- whole-batch generation -------------------------------------------
+
+    def _generator(self, seed: int | None) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.rt.seed if seed is None else seed)
+        return gen
+
+    def _profile(self):
+        return (profiling.trace(self.rt.profile_dir) if self.rt.profile_dir
+                else contextlib.nullcontext())
+
+    def _result(self, out: np.ndarray, lens: torch.Tensor, n_real: int,
+                seconds: float) -> GenerationResult:
+        """The result of ``out`` [n_real, N], with the engine's metrics."""
+        gen_count = int(out.shape[0] * out.shape[1])
+        METRICS.inc("engine.generated_tokens", gen_count)
+        METRICS.observe("engine.generate_seconds", seconds)
+        return GenerationResult(
+            text=[self.tokenizer.decode(row) for row in out], tokens=out,
+            prompt_tokens=int(lens[:n_real].sum()),
+            generated_tokens=gen_count, seconds=seconds,
+        )
+
+    def generate_text(self, prompts: list[str],
+                      max_new_tokens: int | None = None,
+                      seed: int | None = None) -> GenerationResult:
+        """Generate ``max_new_tokens`` (None: ``rt.max_decode_steps``) for
+        each prompt: one prefill of the right-padded batch, then the decode
+        loop (``runtime.generate.generate_tokens``), sampling with the
+        runtime config's knobs from a generator seeded with ``seed``
+        (None: ``rt.seed``).  Under ``rt.spec_decode`` at temperature 0
+        with a draft attached, the batch goes through the speculative loop
+        instead — the same tokens — unless its verify window would not fit
+        under the sequence limit."""
+        tok = self.tokenizer
+        prompt_arr, lens, n_real = self._encode_rows(prompts, batch=None)
+        n_new = (self.rt.max_decode_steps if max_new_tokens is None
+                 else max_new_tokens)
+        gen_lib.check_sequence_budget(prompt_arr.shape[1], n_new, self.rt,
+                                      self.cfg)
+        limit = min(self.rt.max_seq_len, self.cfg.max_seq_len)
+        if (
+            self.rt.spec_decode
+            and self.rt.temperature == 0.0
+            and self.draft_params is not None
+            and n_new >= 1
+            # The verify writes up to k+1 slots past the budget; near the
+            # sequence cap the plain loop still fits, so fall through.
+            and prompt_arr.shape[1] + self.rt.spec_k + 1 + n_new <= limit
+        ):
+            return self._speculative_result(prompt_arr, lens, n_real, n_new,
+                                            self.rt.spec_k)
+        # Bucket only on the plain path, after the budget check (which sees
+        # the raw width) and the speculative gate (whose near-cap test on
+        # the raw width keeps routing prompts the loop can still fit).
+        prompt_arr = self._bucket_prompt(prompt_arr, n_new)
+        t0 = time.perf_counter()
+        with self._profile(), self._timer.step(tokens=n_real * n_new):
+            out = gen_lib.generate_tokens(
+                self.params, self.cfg, prompt_arr, lens, self._generator(seed),
+                max_new_tokens=n_new, temperature=self.rt.temperature,
+                top_k=self.rt.top_k, top_p=self.rt.top_p,
+                eos_id=tok.eos_id, pad_id=tok.pad_id,
+                make_cache=self._make_cache,
+            )
+            out = _to_host(out)[:n_real]
+        dt = time.perf_counter() - t0
+        profiling.record_memory_stats()
+        return self._result(out, lens, n_real, dt)
+
+    def _bucket_prompt(self, prompt_arr: torch.Tensor,
+                       n_new: int) -> torch.Tensor:
+        """Pad the prompt width up the shared bucket ladder
+        (``runtime/shapes.py``), as the reference pads it to bound its
+        compiled programs; exact, since pad slots sit to the right of every
+        real token and the decode mask admits only real prompt slots and
+        generated slots.  Skipped when the bucket would not fit the
+        sequence budget."""
+        t = int(prompt_arr.shape[1])
+        limit = min(self.rt.max_seq_len, self.cfg.max_seq_len)
+        target = shapes_lib.generate_pad_len(t, n_new, limit)
+        if target <= t:
+            return prompt_arr
+        return torch.nn.functional.pad(prompt_arr, (0, target - t),
+                                       value=self.tokenizer.pad_id)
+
+    # -- sessions: KV persists across turns; host spill under kv_host_spill
+
+    def _batch_multiple(self) -> int:
+        """Rows a batch must be a multiple of: 1 on one device."""
+        return 1
+
+    def _session_max_len(self) -> int:
+        return min(self.rt.max_seq_len, self.cfg.max_seq_len)
+
+    def _encode_rows(self, prompts: list[str], batch: int | None) -> tuple:
+        """Encode and right-pad the rows: (tokens [B, T] int32, lens [B]
+        int32, both on the engine's device; the caller's row count).
+        ``batch=None``: a new batch, rows padded up to
+        :meth:`_batch_multiple`; otherwise a continuation, padded to the
+        session's ``batch`` rows by repeating row 0."""
+        tok = self.tokenizer
+        seqs = [tok.encode(p) for p in prompts]
+        n_real = len(seqs)
+        want = (-(-n_real // self._batch_multiple()) * self._batch_multiple()
+                if batch is None else batch)
+        seqs += [seqs[0]] * (want - n_real)
+        arr, lens = pad_batch(seqs, tok.pad_id)
+        return (torch.from_numpy(arr).to(self.device),
+                torch.from_numpy(lens).to(self.device), n_real)
+
+    def _session_turn(self, sess, chunk, lens, n_new: int,
+                      seed: int | None) -> GenerationResult:
+        t = int(chunk.shape[1])
+        if sess.base + t + n_new > sess.max_len:
+            raise ValueError(
+                f"session {sess.sid}: {sess.base} used + {t} chunk + {n_new} "
+                f"new tokens exceeds session max_len {sess.max_len}"
+            )
+        tok = self.tokenizer
+        t0 = time.perf_counter()
+        with self._timer.step(tokens=sess.n_real * n_new):
+            toks, cache, valid, real, spos = session_step(
+                self.params, self.cfg, chunk, lens, sess.real_lens,
+                sess.valid_mask, sess.cache, sess.base, self._generator(seed),
+                max_new_tokens=n_new, temperature=self.rt.temperature,
+                top_k=self.rt.top_k, top_p=self.rt.top_p,
+                eos_id=tok.eos_id, pad_id=tok.pad_id,
+                slot_positions=sess.slot_positions,
+            )
+            out = _to_host(toks)[:sess.n_real]
+        dt = time.perf_counter() - t0
+        sess.cache, sess.valid_mask, sess.real_lens = cache, valid, real
+        sess.slot_positions = spos
+        sess.base += t + n_new
+        return self._result(out, lens, sess.n_real, dt)
+
+    def start_session(self, prompts: list[str],
+                      max_new_tokens: int | None = None,
+                      seed: int | None = None) -> tuple[str, GenerationResult]:
+        """Open a session: prefill and decode, keeping the KV cache for
+        continuation turns.  Returns (session_id, result)."""
+        n_new = (self.rt.max_decode_steps if max_new_tokens is None
+                 else max_new_tokens)
+        max_len = self._session_max_len()
+        chunk, lens, n_real = self._encode_rows(prompts, batch=None)
+        b, t = int(chunk.shape[0]), int(chunk.shape[1])
+        if t + n_new > max_len:  # validate BEFORE allocating/registering
+            raise ValueError(
+                f"prompt ({t} padded tokens) + {n_new} new tokens exceeds "
+                f"session max_len {max_len}"
+            )
+        self.sessions.make_room()  # spill an LRU cache before allocating
+        cache = self._make_cache(self.cfg, b, max_len)
+        valid = torch.zeros((b, max_len), dtype=torch.bool, device=self.device)
+        real = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        sess = self.sessions.new_session(cache, valid, real, base=0,
+                                         max_len=max_len)
+        sess.n_real = n_real
+        if self.cfg.sliding_window is not None:
+            # The padded multi-turn layout makes slot != position and the
+            # window compares positions: session_step keeps the map.
+            sess.slot_positions = torch.zeros((b, max_len), dtype=torch.int32,
+                                              device=self.device)
+        try:
+            res = self._session_turn(sess, chunk, lens, n_new, seed)
+        except Exception:
+            self.sessions.drop(sess.sid)  # no orphaned device cache
+            raise
+        return sess.sid, res
+
+    def continue_session(self, sid: str, prompts: list[str],
+                         max_new_tokens: int | None = None,
+                         seed: int | None = None) -> GenerationResult:
+        """Append a turn to a session (copying its cache back from host
+        memory first if it was spilled)."""
+        sess = self.sessions.get(sid)
+        if len(prompts) != sess.n_real:
+            raise ValueError(
+                f"session {sid} has {sess.n_real} rows; got {len(prompts)} "
+                "prompts"
+            )
+        self.sessions.ensure_resident(sess)
+        self.sessions.touch(sess)
+        n_new = (self.rt.max_decode_steps if max_new_tokens is None
+                 else max_new_tokens)
+        chunk, lens, _ = self._encode_rows(
+            prompts, batch=int(sess.valid_mask.shape[0]))
+        return self._session_turn(sess, chunk, lens, n_new, seed)
+
+    def end_session(self, sid: str) -> None:
+        self.sessions.drop(sid)
 
     def continuous_batcher(
         self, batch_slots: int = 8, max_len: int | None = None,
@@ -354,6 +592,53 @@ class InferenceEngine:
         model_lib.check_supported(draft_cfg)
         self.draft_cfg = draft_cfg
         self.draft_params = _to_device(draft_params, self.device)
+
+
+    def generate_text_speculative(
+        self, prompts: list[str], max_new_tokens: int | None = None,
+        k: int = 4, seed: int | None = None,
+    ) -> GenerationResult:
+        """Generation through the standalone speculative loop
+        (``runtime.speculative.speculative_generate_tokens``): at
+        temperature 0 exactly ``generate_text``'s tokens; above it an exact
+        sample of the same warped target distribution from another random
+        stream.  Needs an attached draft."""
+        if self.draft_params is None:
+            raise ValueError("no draft attached; call attach_draft(...) first")
+        prompt_arr, lens, n_real = self._encode_rows(prompts, batch=None)
+        n_new = (self.rt.max_decode_steps if max_new_tokens is None
+                 else max_new_tokens)
+        gen_lib.check_sequence_budget(prompt_arr.shape[1] + k + 1, n_new,
+                                      self.rt, self.cfg)
+        return self._speculative_result(prompt_arr, lens, n_real, n_new, k,
+                                        seed)
+
+    def _speculative_result(self, prompt_arr, lens, n_real: int, n_new: int,
+                            k: int, seed: int | None = None
+                            ) -> GenerationResult:
+        """The shared tail of generate_text's speculative routing and
+        generate_text_speculative (inputs encoded and budget-checked): the
+        plain path's trace, timer and metrics, and the acceptance rate
+        (``engine.spec_acceptance``)."""
+        from .speculative import speculative_generate_tokens
+
+        tok = self.tokenizer
+        gen = self._generator(seed) if self.rt.temperature > 0.0 else None
+        t0 = time.perf_counter()
+        with self._profile(), self._timer.step(tokens=n_real * n_new):
+            out, stats = speculative_generate_tokens(
+                self.params, self.cfg, self.draft_params, self.draft_cfg,
+                prompt_arr, lens, k=k, max_new_tokens=n_new,
+                eos_id=tok.eos_id, pad_id=tok.pad_id, return_stats=True,
+                temperature=self.rt.temperature, top_k=self.rt.top_k,
+                top_p=self.rt.top_p, generator=gen,
+            )
+            out = _to_host(out)[:n_real]
+        dt = time.perf_counter() - t0
+        profiling.record_memory_stats()
+        METRICS.observe("engine.spec_acceptance",
+                        stats["accepted"] / max(stats["drafted"], 1))
+        return self._result(out, lens, n_real, dt)
 
 
 def _quantize_blocks(blocks: Any, bits: int) -> Any:

@@ -283,3 +283,88 @@ def test_later_slice_models_are_refused(change):
 def test_sliding_window_models_are_served():
     tm.check_supported(get_preset("mistral-7b"))
     tm.check_supported(get_preset("llama-tiny", sliding_window=8))
+
+
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_gapped_decode_step_under_the_callers_mask(window, per_row):
+    """The right-padded generate layout: two rows padded to T=8 (lengths 5
+    and 8), prefilled at slot 0, then one decode step writing slot 8 for
+    both rows at positions [5, 8] under the gapped mask (real prompt slots
+    plus slot 8).  The per-row leg (a [B] cache_index: the speculative
+    draft step) must attend under that mask, not the prefix [0, 8] — the
+    pad slots 5..7 of row 0 are not keys; the scalar leg (generate's
+    decode) likewise.  Windowed, the window compares the slots' true
+    positions (``key_positions``: slot 8 is position 5 on row 0)."""
+    from distributed_llms_tpu.runtime.generate import window_key_positions
+
+    cfg_j, cfg_t, pj, pt = _pair(8, sliding_window=window)
+    rng = np.random.default_rng(8)
+    b, t, s = 2, 8, 12
+    lens = np.array([5, 8], np.int32)
+    prompt = rng.integers(1, 512, (b, t)).astype(np.int32)
+    prompt[0, 5:] = 0
+    pos = np.broadcast_to(np.arange(t, dtype=np.int32), (b, t))
+    cj = jm.init_cache(cfg_j, b, s)
+    ct = tm.init_cache(cfg_t, b, s)
+    _, cj = jm.forward(pj, cfg_j, jnp.asarray(prompt), positions=jnp.asarray(pos),
+                       cache=cj, cache_index=jnp.int32(0))
+    tm.forward(pt, cfg_t, torch.from_numpy(prompt),
+               positions=torch.from_numpy(pos.copy()), cache=ct, cache_index=0)
+    slots = np.arange(s)
+    mask = ((slots[None, :] < lens[:, None]) | (slots[None, :] == t))
+    mask = mask[:, None, None, :]
+    tok = rng.integers(1, 512, (b, 1)).astype(np.int32)
+    kw_j, kw_t = {}, {}
+    if window is not None:
+        kp = np.array(window_key_positions(t, jnp.asarray(lens), s))
+        kw_j["key_positions"] = jnp.asarray(kp)
+        kw_t["key_positions"] = torch.from_numpy(kp)
+    idx = np.full((b,), t, np.int32)
+    lj, cj = jm.forward(pj, cfg_j, jnp.asarray(tok),
+                        positions=jnp.asarray(lens[:, None]), cache=cj,
+                        cache_index=jnp.asarray(idx) if per_row else t,
+                        attn_mask=jnp.asarray(mask), **kw_j)
+    lt, ct = tm.forward(pt, cfg_t, torch.from_numpy(tok),
+                        positions=torch.from_numpy(lens[:, None].copy()),
+                        cache=ct,
+                        cache_index=torch.from_numpy(idx) if per_row else t,
+                        attn_mask=torch.from_numpy(mask), **kw_t)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(ct.k.numpy(), np.asarray(cj.k), **TOL)
+
+
+def test_windowed_flash_prefill_with_key_positions_stays_dense():
+    """A windowed flash model's cached prefill with a ``key_positions`` map
+    (a gapped layout) takes the dense window path, as the reference's
+    condition says; without the map it takes the dynamic flash kernel."""
+    from distributed_llms_tpu_torch.ops import flash
+
+    cfg_j, cfg_t, pj, pt = _pair(9, sliding_window=4, attn_impl="flash")
+    toks = np.random.default_rng(9).integers(0, 512, (1, 10)).astype(np.int32)
+    pos = np.arange(10, dtype=np.int32)[None]
+    kp = np.arange(16, dtype=np.int32)[None] + 3  # a shifted map
+    lj, _ = jm.forward(pj, cfg_j, jnp.asarray(toks), positions=jnp.asarray(pos),
+                       cache=jm.init_cache(cfg_j, 1, 16),
+                       cache_index=jnp.int32(0), key_positions=jnp.asarray(kp))
+    calls = []
+    real = flash.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    flash.flash_attention = spy
+    try:
+        lt, _ = tm.forward(pt, cfg_t, torch.from_numpy(toks),
+                           positions=torch.from_numpy(pos),
+                           cache=tm.init_cache(cfg_t, 1, 16), cache_index=0,
+                           key_positions=torch.from_numpy(kp))
+        assert not calls
+        tm.forward(pt, cfg_t, torch.from_numpy(toks),
+                   positions=torch.from_numpy(pos),
+                   cache=tm.init_cache(cfg_t, 1, 16), cache_index=0)
+        assert len(calls) == cfg_t.num_layers
+    finally:
+        flash.flash_attention = real
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)

@@ -23,14 +23,17 @@ Phases, each printing result lines:
    1 (the model's published context); 16-slot pages over 2048 slots
    (tiles straddling pages); and rows at every edge of the split plan
    (lengths 0, 1, 63-65, each split edge +- 1, 2048, 2049), rows of
-   length 0 exactly zero; K2 and its int8 leg K2q at
+   length 0 exactly zero; the same at group 1 for path m's heads
+   (Pythia-6.9B's H = KVH = 32, D 128; OPT-125M's H = KVH = 12, D 64):
+   the timing shape, one 2048-slot row at batch 1 and the plan's edges
+   at those head counts; K2 and its int8 leg K2q at
    Mistral-7B's (B=8, H=32, KVH=8, D=128, S=6144, ragged lengths 1..6144,
    window 4096 and none; and one row of 32768 slots at batch 1, window
    4096 and none), each decode output row within 1% of the plain row's L2
    norm (1% + 2^-7 for the int8 legs), K5 (int8 and int4 weights, bf16 x) at
    Llama-3-8B's projections: M=8 (decode) for wq, wk/wv, gate/up, down and
-   wo through ``k_lead=2``, and M=512 (prefill) for gate/up, and at the
-   edges of its split plan (M of 1, 16, 17, 64 and 65; a K off the tiles
+   wo through ``k_lead=2``, M=512 (prefill) for gate/up, OPT-125M's MLP
+   (768 x 3072, 3072 x 768) at M=8, and at the edges of its split plan (M of 1, 16, 17, 64 and 65; a K off the tiles
    cut into uneven splits), each output within 2e-2 + 2^-7 |plain|
    elementwise; the flash
    kernels K3 at path g's shapes (B=1, T=4096, H=32, KVH=8, D=128, causal;
@@ -54,8 +57,9 @@ Phases, each printing result lines:
    cache or page pool so that no launch finds its rows in the 50 MB L2
    cache: K1 and K1q at the kernel phase's first shape and at path a's
    own (B=8, 16 pages, lengths 300..364; SDPA over rows gathered before
-   the timer), K2 and K2q also at batch 1 over one 32768-slot row (window
-   4096); K5 at each projection, int8 and int4, with its plan, profiler
+   the timer) and at path m's group-1 heads (Pythia's and OPT's, the
+   timing shape's lengths), K2 and K2q also at batch 1 over one
+   32768-slot row (window 4096); K5 at each projection, int8 and int4, with its plan, profiler
    device time, host enqueue time and cuBLAS's device time over the
    dequantized bf16 weight, operands rotated over >= 150 MB; then, for
    information, K1, K2 and K2q at sweeps of split lengths and K5 at sweeps
@@ -84,8 +88,9 @@ Phases, each printing result lines:
       its decode reads past the window, beside three short ones;
    d. ``dlt-serve-torch --store D8 --override runtime.serve_quantized=true
       --paged-pages 256 --page-size 64 --prefix-cache`` (K5 int8 and K1),
-      path a's requests, where D8 is a Llama-3-8B store (random weights,
-      seed 0) written by the port's ``save_shards`` with
+      path a's requests, where D8 is a store of Llama-3-8B's width cut
+      to STORE_LAYERS (8) layers (random weights, seed 0) written by the
+      port's ``save_shards`` with
       ``quantization="int8"``, 2 raw shards, into a temporary directory
       removed when the path ends;
    e. the same over an int4 store D4 (K5 int4 and K1);
@@ -98,8 +103,9 @@ Phases, each printing result lines:
       admission, past the 4096 window) beside three short ones; then,
       outside HTTP, a prompt of that length admitted alone, its time to
       first token read engine-side from submit to the admission token;
-   h. ``dlt-serve-torch --preset mistral-7b --max-len 32768 --slots 4
-      --prefill-chunk 1024`` (contiguous, dense ``attn_impl="dot"``,
+   h. ``dlt-serve-torch --store DL --max-len 32768 --slots 4
+      --prefill-chunk 1024``, DL a bf16 store of Mistral-7B's width cut
+      to LONG_LAYERS (8) layers (contiguous, dense ``attn_impl="dot"``,
       window 4096, the mixed schedule; K2): three short greedy SSE
       streams decode while a 30000-byte prompt (30001 tokens, no cut)
       admits in 1024-token bites over its 32768-slot row; then, outside
@@ -220,6 +226,51 @@ Phases, each printing result lines:
       step is recomputed once in float32 and the two tokens' logits must
       lie within 0.1.  Path l's launches ride in the JSON line as
       ``generate_launches``.
+   m. (run by the ``families`` phase) the other block families and
+      Mixtral-style MoE, each at its published width, random weights from
+      seed 0, each engine freed before the next boots:
+      ``dlt-serve-torch --preset pythia-6.9b --paged-pages 256
+      --page-size 64 --prefix-cache --max-len 2048`` (neox: LayerNorm,
+      rotary on 32 of 128 dims, parallel residual, erf gelu; K1 at group
+      1) answering path a's seven requests; engine-side path l's eight
+      greedy prompts through the paged batcher with bf16 and with int8
+      pages (K1q) and through ``generate_text``; ``--preset opt-125m``
+      (learned positions with OPT's offset 2, relu, tied embeddings; K1
+      at D 64) the same requests, then an int8 store of it written by
+      ``save_shards`` and served with ``runtime.serve_quantized=true``
+      (every block projection through K5, 6 a layer a step, biases
+      added), engine-side the greedy prompts on both, ``generate_text``
+      with a 2016-token prompt whose 32 new tokens fill the 2048-slot
+      table, and ``gpt2-125m``'s ``generate_text`` (tanh gelu, positions
+      without offset); Mixtral-8x7B as an int4 store (experts, router
+      and attention int4; drawn and quantized on the card a layer at a
+      time, 24.8 GB written into a temporary directory and removed once
+      booted) served with ``--override runtime.serve_quantized=true
+      --paged-pages 128 --page-size 64 --prefix-cache --max-len 2048``
+      (attention through K5, decode through K1, each layer's experts
+      rehydrated to bf16 in every forward): path a's seven requests all
+      greedy, 32 new tokens; engine-side the 8 greedy prompts as one
+      batch at 8 slots (capacity 3 a decode step, so claims drop),
+      first through the eager chunk with every routing decision
+      recorded (the share of claims the decode steps dropped), then
+      through the captured chunk graph under the profiler (ms a step,
+      the profiler's split, one layer's rehydration timed), whose
+      streams must equal the eager ones; and
+      one ``Trainer`` step at Mixtral's width cut to 2 layers
+      (``attn_impl="flash"``, K3, a [1, 1025] batch): loss, aux term,
+      seconds, peak memory, and layer 0's w_gate expert gradient within
+      path g's 5% of a float32 recompute on the card that routes every
+      claim as the bf16 pass did.  Every greedy stream is held to the
+      oracle, the port's uncached float32 forward of the same weights on
+      the card (dense attention, weights upcast or dequantized a layer at
+      a time, no kernel), teacher-forced on the stream: it equals the
+      oracle's greedy choice at every step or leaves it first at a
+      near-tie (``FAM_NEAR_TIE``), the gap printed; for Mixtral's
+      eager batch the oracle replays the recorded routing — each row's
+      padded admission, then its decode tokens with the claims the
+      batch dropped — and holds every served expert choice to its own
+      float32 router logits by the same margin.  Path m's launches
+      ride in the JSON line as ``families_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -235,8 +286,10 @@ Phases, each printing result lines:
    Each engine is freed before the next boots.  The device memory an
    engine holds once booted (its weights and KV pool, measured with
    ``torch.cuda.memory_allocated``) must be below path a's on paths d and
-   e by at least 90% of what their quantized block weights save over
-   bf16 (computed from the served leaves), and path d must peak below
+   e — path a's less its block weights and pool pages of the layers the
+   8-layer stores lack — by at least 90% of what their quantized block
+   weights save over bf16 (computed from the served leaves), and path d
+   must peak below
    path a.  Path f must launch K4 at least 32 times per admission, and
    K4's pre-pass once per K4 launch.
 6. ``tier`` — path i (in ``serve``'s list above): the host tier, swap
@@ -249,6 +302,9 @@ Phases, each printing result lines:
 6d. ``generate`` — path l (in ``serve``'s list above): one-shot generation,
    sessions with host spill and the standalone speculative loop.
    ``--phases build,generate`` runs it alone.
+6e. ``families`` — path m (in ``serve``'s list above): the gpt2, opt and
+   neox families and Mixtral-style MoE.  ``--phases build,families`` runs
+   it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -311,6 +367,16 @@ SERVE_LONG_ARGS = ["--preset", "mistral-7b", "--max-len", str(LONG_MAX_LEN),
                    "--slots", "4", "--prefill-chunk", str(PREFILL_CHUNK),
                    "--host", "127.0.0.1", "--port", "0", "--seed", "0"]
 SHORT_NEW = 512  # the short streams decode through the long admission
+# Path h's depth, cut from Mistral-7B's 32 layers (to keep the whole
+# smoke near half its time limit beside path m): every layer
+# keeps the published width and the 32768-slot context, so each 1024-token
+# bite and decode step is the full model's a layer; served from a bf16
+# store of the cut model (the CLI takes no depth for a preset).
+LONG_LAYERS = 8
+# Paths d and e: Llama-3-8B's int8 and int4 stores cut from 32 layers to
+# 8 (the same reason): each layer keeps the published width, so
+# every K5 launch is at the full model's shapes.
+STORE_LAYERS = 8
 # Path f: a flash-config Mistral-7B store at its published context.
 FLASH_MAX_LEN = 32768
 FLASH_PROMPT_BYTES = 8000  # + BOS: an 8192-token admission bucket
@@ -620,6 +686,9 @@ QMM_SHAPES = [
     ("down", 8, (14336, 4096), 1, -2),
     ("wo", 8, (32, 128, 4096), 2, -2),
     ("gate_up_prefill", 512, (4096, 14336), 1, -2),
+    # Path m's OPT-125M MLP (w_in, w_out) at a decode step of 8 rows.
+    ("opt_w_in", 8, (768, 3072), 1, -2),
+    ("opt_w_out", 8, (3072, 768), 1, -2),
 ]
 QMM_REPORTED = "gate_up"  # the shape of K5's entries in the JSON line
 QMM_ALSO_REPORTED = "down"  # ... and of the "down" entry inside each
@@ -728,7 +797,7 @@ def qmm_plain(torch, x, qt, k_lead):
     return out.reshape(x.shape[0], *qt.data.shape[k_lead:])
 
 
-def paged_edge_lengths(torch, b0=8, p=32, blk=64) -> list:
+def paged_edge_lengths(torch, b0=8, p=32, blk=64, kvh=8) -> list:
     """Row lengths at every edge of K1's plan for a [B, p] table of
     ``blk``-slot pages: 0, 1, blk - 1, blk, blk + 1, each split edge +- 1,
     P x blk and P x blk + 1.  B is the count of these lengths (the plan
@@ -738,7 +807,8 @@ def paged_edge_lengths(torch, b0=8, p=32, blk=64) -> list:
     sm = decode_attn._sm_count(torch.device("cuda"))
     reach, n = p * blk, b0
     for _ in range(8):  # B -> plan -> edges -> B, to a fixed point
-        split_len, n_splits = decode_attn.paged_split_plan(n, 8, p, blk, sm)
+        split_len, n_splits = decode_attn.paged_split_plan(n, kvh, p, blk,
+                                                           sm)
         lengths = {0, 1, blk - 1, blk, blk + 1, reach, reach + 1}
         for i in range(1, n_splits):
             lengths |= {i * split_len - 1, i * split_len + 1}
@@ -753,12 +823,23 @@ def paged_edge_lengths(torch, b0=8, p=32, blk=64) -> list:
 # splits), one row at Llama-3-8B's published 8192-token context at batch 1
 # (128 one-page splits), 16-slot pages over 2048 slots (8-page splits,
 # tiles straddling pages), and every edge of the plan at the timing shape.
+# Then path m's heads at group 1 (a query head per KV head, so the plan
+# sees 4x path a's KV heads): Pythia-6.9B's (H = KVH = 32, D 128) and
+# OPT-125M's (H = KVH = 12, D 64) at the timing shape, over one
+# 2048-slot row at batch 1 (their published context), and at every edge
+# of the plan at their head counts.
 PAGED_CHECKS = [
     ("timing", dict(seed=1)),
     ("timing_garbage", dict(seed=2, garbage=True)),
     ("batch1_8192", dict(b=1, max_len=8192, seed=12, garbage=True)),
     ("page16", dict(blk=16, seed=13, garbage=True)),
     ("edges", dict(seed=14, garbage=True)),
+    ("g1_d128", dict(h=32, kvh=32, seed=15, garbage=True)),
+    ("g1_d128_batch1", dict(b=1, h=32, kvh=32, seed=16, garbage=True)),
+    ("g1_d128_edges", dict(h=32, kvh=32, seed=17, garbage=True)),
+    ("g1_d64", dict(h=12, kvh=12, d=64, seed=18, garbage=True)),
+    ("g1_d64_batch1", dict(b=1, h=12, kvh=12, d=64, seed=19, garbage=True)),
+    ("g1_d64_edges", dict(h=12, kvh=12, d=64, seed=20, garbage=True)),
 ]
 
 
@@ -769,11 +850,13 @@ def paged_kernel_checks(torch) -> dict:
 
     worst = {"paged_decode_attention": 0.0, "paged_decode_attention_int8": 0.0}
     for label, case in PAGED_CHECKS:
-        if label == "edges":
-            case = dict(case, lengths=paged_edge_lengths(torch))
+        if label.endswith("edges"):
+            case = dict(case, lengths=paged_edge_lengths(
+                torch, kvh=case.get("kvh", 8)))
         q, k, v, lengths, tables = paged_case(torch, **case)
         b, blk, p = q.shape[0], k.shape[1], tables.shape[1]
-        info = {"shape": label, "B": b, "BLK": blk, "P": p,
+        info = {"shape": label, "B": b, "H": q.shape[2], "KVH": k.shape[2],
+                "D": q.shape[3], "BLK": blk, "P": p,
                 "split_plan": decode_attn.paged_split_plan(
                     b, k.shape[2], p, blk, decode_attn._sm_count(q.device)),
                 "garbage_tables": bool(case.get("garbage"))}
@@ -1210,16 +1293,19 @@ PATH_A_LENGTHS = (300, 364)
 
 def paged_timing(torch) -> dict:
     """K1 and K1q at the smoke's timing shape (B=8, 2048-slot tables,
-    lengths 1..2048) and at path a's own (B=8, 16 pages, lengths
-    300..364), rotated over pool copies; the split-length sweep of K1 at
-    both and at batch 1 over one 8192-slot row."""
+    lengths 1..2048), at path a's own (B=8, 16 pages, lengths 300..364)
+    and at the timing shape with path m's group-1 heads (Pythia-6.9B's,
+    OPT-125M's), rotated over pool copies; the split-length sweep of K1
+    at the first two and at batch 1 over one 8192-slot row."""
     out = {}
     gen = torch.Generator().manual_seed(9)
     path_a = torch.randint(PATH_A_LENGTHS[0], PATH_A_LENGTHS[1] + 1, (8,),
                            generator=gen).tolist()
     for label, case in (("timing", dict(seed=3)),
                         ("path_a", dict(max_len=1024, lengths=path_a,
-                                        seed=10))):
+                                        seed=10)),
+                        ("pythia_g1_d128", dict(h=32, kvh=32, seed=21)),
+                        ("opt_g1_d64", dict(h=12, kvh=12, d=64, seed=22))):
         q, k, v, lengths, tables = paged_case(torch, **case)
         timed = _paged_timed(torch, "paged_decode_attention", q, k, v,
                              lengths, tables, shape=label)
@@ -1229,7 +1315,8 @@ def paged_timing(torch) -> dict:
         if label == "timing":
             out["paged_decode_attention"] = timed
             out["paged_decode_attention_int8"] = timed_q
-        paged_split_sweep(torch, q, k, v, lengths, tables)
+        if not label.startswith(("pythia", "opt")):
+            paged_split_sweep(torch, q, k, v, lengths, tables)
         del q, k, v, kq, vq, ks, vs
         _free(torch)
     q, k, v, lengths, tables = paged_case(torch, b=1, max_len=8192, seed=11)
@@ -1356,13 +1443,22 @@ def _device_ms(torch, fn, calls=20) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = ("merge" if "split_decode_merge" in e.name else
-                    "split" if "decode_kernel" in e.name else
-                    _function_name(e.name))
-            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / calls
+    for name, _, ms in _device_events(torch, prof):
+        name = ("merge" if "split_decode_merge" in name else
+                "split" if "decode_kernel" in name else _function_name(name))
+        out[name] = out.get(name, 0.0) + ms / calls
     return out
+
+
+def _device_events(torch, prof) -> list:
+    """(name, start ns, device ms) of every device activity a profile
+    recorded, read from the profiler's raw records: building its event
+    tree (``prof.events()``) takes tens of seconds for a decode batch's
+    hundreds of thousands of launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def _function_name(name: str) -> str:
@@ -1919,7 +2015,9 @@ PATH_A_PREFIX = (
     "refused deliveries at the dock. ")
 
 
-async def _serve_requests(port: int) -> dict:
+async def _serve_requests(port: int, greedy_new: int | None = None) -> dict:
+    """Path a's seven requests; with ``greedy_new`` every one greedy with
+    that many new tokens (path m's Mixtral)."""
     prefix = PATH_A_PREFIX
     # Byte tokenizer: one token per byte (+ BOS).
     check(len(prefix) >= 256, "shared prefix under 256 tokens")
@@ -1946,6 +2044,11 @@ async def _serve_requests(port: int) -> dict:
             {"role": "user", "content": "Name three ports."}],
             "max_tokens": 24}, False),
     ]
+    if greedy_new is not None:
+        reqs = [(path, {**{k: v for k, v in body.items()
+                           if k not in ("top_p", "top_k")},
+                        "temperature": 0.0, "max_tokens": greedy_new}, stream)
+                for path, body, stream in reqs]
     t0 = time.perf_counter()
     outs = await asyncio.gather(*[
         _http(port, path, body, stream) for path, body, stream in reqs
@@ -2163,6 +2266,12 @@ def _llama_3_8b(cfg) -> None:
           and cfg.vocab_size == 128256, "not the full-width llama-3-8b")
 
 
+def _llama_3_8b_cut(cfg) -> None:
+    check(cfg.hidden_size == 4096 and cfg.num_layers == STORE_LAYERS
+          and cfg.vocab_size == 128256,
+          f"not llama-3-8b's width at {STORE_LAYERS} layers")
+
+
 def _mistral_7b(cfg) -> None:
     check(cfg.hidden_size == 4096 and cfg.num_layers == 32
           and cfg.num_kv_heads == 8 and cfg.vocab_size == 32000
@@ -2241,11 +2350,12 @@ def serve_store(torch, label, quantization, bits, **info) -> tuple:
 
     tmp = tempfile.mkdtemp(prefix=f"dlt_store_{quantization}_")
     try:
-        info.update(write_store(torch, quantization, tmp))
+        info.update(write_store(torch, quantization, tmp,
+                                num_layers=STORE_LAYERS))
         launches, server, mem = serve_path(
             torch, label, ["--store", tmp, *SERVE_STORE_ARGS],
             {QMM_NAMES[bits]: 7, "paged_decode_attention": 1},
-            _serve_requests, _llama_3_8b, **info)
+            _serve_requests, _llama_3_8b_cut, **info)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check(server.batcher.prefix_cache.hits > 0, f"{label}: no prefix-cache hit")
@@ -2263,13 +2373,18 @@ def serve_store(torch, label, quantization, bits, **info) -> tuple:
 
 
 def _check_resident(label, mem, mem_a) -> None:
-    """A quantized path holds less device memory than path a, by most of
-    what its block weights save (the rest of both engines is alike)."""
-    gained = mem_a["resident_gb"] - mem["resident_gb"]
+    """A quantized path holds less device memory than path a's engine at
+    the store's depth (path a's resident bytes less its block weights and
+    pool pages of the layers the store lacks), by most of what its block
+    weights save (the rest of both engines is alike)."""
+    bf16 = mem_a["resident_gb"] - (
+        (mem_a["num_layers"] - STORE_LAYERS) * mem_a["layer_gb"])
+    gained = bf16 - mem["resident_gb"]
     check(gained >= 0.9 * mem["saved_gb"],
           f"{label} holds {mem['resident_gb']:.3f} GB once booted, only "
-          f"{gained:.3f} GB below the bf16 path's {mem_a['resident_gb']:.3f}"
-          f" GB; its quantized blocks should save {mem['saved_gb']:.3f} GB")
+          f"{gained:.3f} GB below the bf16 path's {bf16:.3f} GB at "
+          f"{STORE_LAYERS} layers; its quantized blocks should save "
+          f"{mem['saved_gb']:.3f} GB")
 
 
 def phase_serve(torch, profile: bool) -> dict:
@@ -2281,6 +2396,13 @@ def phase_serve(torch, profile: bool) -> dict:
         _serve_requests, _llama_3_8b)
     check(server.batcher.prefix_cache.hits > 0, "paged: no prefix-cache hit")
     out = {"paged_decode_attention": launches["paged_decode_attention"]}
+    b = server.batcher
+    mem_a["num_layers"] = b.cfg.num_layers
+    mem_a["layer_gb"] = (sum(t.nbytes for g in b.params["blocks"].values()
+                             for t in g.values())
+                         + b.cache.k.nbytes + b.cache.v.nbytes
+                         ) / b.cfg.num_layers / 1e9
+    del b
     loop_variants(torch, "paged", server.batcher, profile)
     del server
     _free(torch)
@@ -2686,8 +2808,10 @@ def long_context_run(torch, batcher, label) -> dict:
 
 
 def serve_long(torch) -> int:
-    """Path h: ``dlt-serve-torch --preset mistral-7b --max-len 32768 --slots
-    4 --prefill-chunk 1024`` (contiguous, dense ``attn_impl="dot"``,
+    """Path h: ``dlt-serve-torch --store DL --max-len 32768 --slots 4
+    --prefill-chunk 1024`` over a bf16 store DL of Mistral-7B's width at
+    LONG_LAYERS layers, written into a temporary directory and removed
+    after both boots (contiguous, dense ``attn_impl="dot"``,
     window 4096, the mixed schedule) answers the HTTP burst, then runs the
     engine-side traffic; then the same server with ``--schedule
     alternate`` runs the engine-side traffic too.  The short greedy
@@ -2695,9 +2819,36 @@ def serve_long(torch) -> int:
     launches on the HTTP burst."""
     from distributed_llms_tpu_torch.cli import serve_main
 
+    tmp = tempfile.mkdtemp(prefix="dlt_store_long_")
+    try:
+        info = write_store(torch, None, tmp, "mistral-7b",
+                           num_layers=LONG_LAYERS)
+        args = ["--store", tmp, *SERVE_LONG_ARGS[2:]]
+        mixed, alternate, launches = _serve_long_store(torch, serve_main,
+                                                       args, info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("serve_long_streams", short_streams_identical=mixed[:3] ==
+         alternate[:3], long_stream_identical=mixed[3] == alternate[3])
+    check(mixed[:3] == alternate[:3],
+          "long_context: the short greedy streams differ between the mixed "
+          "and alternate schedules")
+    return launches["ragged_decode_attention"]
+
+
+def _mistral_7b_cut(cfg) -> None:
+    check(cfg.hidden_size == 4096 and cfg.num_layers == LONG_LAYERS
+          and cfg.num_kv_heads == 8 and cfg.vocab_size == 32000
+          and cfg.sliding_window == WINDOW,
+          f"not mistral-7b's width at {LONG_LAYERS} layers")
+
+
+def _serve_long_store(torch, serve_main, args, info) -> tuple:
+    """Path h's two boots over the cut store: (mixed streams, alternate
+    streams, the HTTP burst's launches)."""
     launches, server, _ = serve_path(
-        torch, "long_context", SERVE_LONG_ARGS, {"ragged_decode_attention": 1},
-        _serve_long_requests, _mistral_7b)
+        torch, "long_context", args, {"ragged_decode_attention": 1},
+        _serve_long_requests, _mistral_7b_cut, **info)
     b = server.batcher
     check(not b.paged and b.s == LONG_MAX_LEN and b.cfg.attn_impl == "dot"
           and b.sched.name == "mixed" and b.overlap,
@@ -2706,19 +2857,14 @@ def serve_long(torch) -> int:
     del server, b
     _free(torch)
     alt_server = serve_main.build_server(serve_main.parser().parse_args(
-        SERVE_LONG_ARGS + ["--schedule", "alternate"]))
+        args + ["--schedule", "alternate"]))
     check(alt_server.batcher.sched.name == "alternate",
           "long_context: --schedule alternate not taken")
     alternate = long_context_run(torch, alt_server.batcher,
                                  "long_context_alternate")
     del alt_server
     _free(torch)
-    emit("serve_long_streams", short_streams_identical=mixed[:3] ==
-         alternate[:3], long_stream_identical=mixed[3] == alternate[3])
-    check(mixed[:3] == alternate[:3],
-          "long_context: the short greedy streams differ between the mixed "
-          "and alternate schedules")
-    return launches["ragged_decode_attention"]
+    return mixed, alternate, launches
 
 
 # -- path i: the host tier, penalties and named prefixes ----------------------
@@ -3371,12 +3517,9 @@ def _spec_kernel_split(torch, prof) -> dict:
     the decode kernel launched before it), cuBLAS, the rest."""
     split = {"draft_k5": 0.0, "draft_k2": 0.0, "verify_k1": 0.0,
              "cublas": 0.0, "rest": 0.0}
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
     last = "rest"
-    for e in events:
-        name = e.name
+    for name, _, ms in sorted(_device_events(torch, prof),
+                              key=lambda e: e[1]):
         if "quant_matmul" in name:
             cls = "draft_k5"
         elif "ragged_decode_kernel" in name:
@@ -3389,8 +3532,8 @@ def _spec_kernel_split(torch, prof) -> dict:
             cls = "cublas"
         else:
             cls = "rest"
-        split[cls] += e.device_time_total
-    return {k: v / 1e3 for k, v in split.items()}
+        split[cls] += ms
+    return split
 
 
 def _spec_loops(torch, label, ctor, subs) -> dict:
@@ -3702,22 +3845,9 @@ def _kernel_split(torch, prof) -> dict:
     """Device kernel milliseconds of a profile, by kernel class."""
     split = {"flash_kernel": 0.0, "quant_matmul_kernel": 0.0,
              "decode_attention_kernel": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            split[_kernel_class(e.name)] += e.device_time_total
-    return {k: v / 1e3 for k, v in split.items()}
-
-
-def _kernel_names(torch, prof, cls: str) -> dict:
-    """Launches of each device function of class ``cls`` in a profile, by
-    its name without template arguments: which kernels a class counted."""
-    names = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and _kernel_class(e.name) == cls):
-            key = _function_name(e.name)
-            names[key] = names.get(key, 0) + 1
-    return names
+    for name, _, ms in _device_events(torch, prof):
+        split[_kernel_class(name)] += ms
+    return split
 
 
 def _profiled(torch, fn) -> tuple[dict, float]:
@@ -4440,7 +4570,7 @@ def _f32_last_logits(torch, params, cfg, ids):
         pos = torch.arange(len(ids), device=dev)[None]
         for i in range(cfg.num_layers):
             x = model_lib.run_blocks(x, layer(params["blocks"], i), cfg32,
-                                     pos, None, None, None)
+                                     pos, None, None, None)[0]
         head = {"final_norm": {"scale": params["final_norm"]["scale"].float()},
                 "embed": params["embed"]}
         if "lm_head" in params:
@@ -4782,10 +4912,787 @@ def serve_generate(torch) -> dict:
     return got
 
 
+# -- path m: the gpt2, opt and neox families and Mixtral-style MoE ------------
+
+FAM_NEW = 32
+FAM_MAX_LEN = 2048  # Pythia-6.9B's and OPT-125M's published context
+# Path a's seven prompts and one more, greedy (path l's rows).
+FAM_PROMPTS = GEN_PROMPTS
+PYTHIA_PRESET = "pythia-6.9b"
+OPT_PRESET = "opt-125m"
+GPT2_PRESET = "gpt2-125m"
+MIXTRAL_PRESET = "mixtral-8x7b"
+_FAM_PAGED = ["--page-size", "64", "--prefix-cache", "--max-len",
+              str(FAM_MAX_LEN), *_COMMON_ARGS]
+PYTHIA_ARGS = ["--preset", PYTHIA_PRESET, "--paged-pages", "256",
+               *_FAM_PAGED]
+OPT_ARGS = ["--preset", OPT_PRESET, "--paged-pages", "256", *_FAM_PAGED]
+OPT_STORE_ARGS = ["--override", "runtime.serve_quantized=true",
+                  "--paged-pages", "256", *_FAM_PAGED]
+# Mixtral-8x7B as an int4 store: 128 pages of 64 slots x 32 layers x 8 KV
+# heads x 128 x 2 (K, V) x 2 bytes = 8 MiB a page.
+MIXTRAL_ARGS = ["--override", "runtime.serve_quantized=true",
+                "--paged-pages", "128", *_FAM_PAGED]
+MIXTRAL_LAYERS = 32  # the published depth; the store fits the card's disk
+MIXTRAL_TRAIN_LAYERS = 2  # AdamW state of 32 layers (47 B params) won't fit
+MIXTRAL_TRAIN_TOKENS = 1025  # a [1, 1025] batch: 1024 positions through K3
+# The near-tie rule of path l (GEN_NEAR_TIE), against path m's oracle: the
+# port's own uncached float32 forward of the same weights on the card
+# (dense attention, each layer upcast or dequantized to float32 as it
+# runs: no kernel), teacher-forced on the stream.  A stream equals the
+# oracle's greedy choice at every position, or leaves it first where the
+# oracle's logits of the two tokens lie within FAM_NEAR_TIE; past that
+# step the two are no longer comparable.
+FAM_NEAR_TIE = GEN_NEAR_TIE
+
+
+def _pythia(cfg) -> None:
+    check(cfg.family == "neox" and cfg.hidden_size == 4096
+          and cfg.num_layers == 32 and cfg.num_heads == cfg.num_kv_heads == 32
+          and cfg.head_dim_ == 128 and cfg.rotary_pct == 0.25
+          and cfg.parallel_residual and cfg.activation == "gelu_exact"
+          and cfg.vocab_size == 50432, "not the full-width pythia-6.9b")
+
+
+def _opt_125m(cfg) -> None:
+    check(cfg.family == "opt" and cfg.hidden_size == 768
+          and cfg.num_layers == 12 and cfg.num_heads == cfg.num_kv_heads == 12
+          and cfg.head_dim_ == 64 and cfg.activation == "relu"
+          and cfg.tie_embeddings and cfg.intermediate_size == 3072,
+          "not the full-width opt-125m")
+
+
+def _gpt2_125m(cfg) -> None:
+    check(cfg.family == "gpt2" and cfg.hidden_size == 768
+          and cfg.num_layers == 12 and cfg.activation == "gelu"
+          and cfg.vocab_size == 50257, "not the full-width gpt2-125m")
+
+
+def _mixtral(cfg) -> None:
+    check(cfg.family == "llama" and cfg.hidden_size == 4096
+          and cfg.num_heads == 32 and cfg.num_kv_heads == 8
+          and cfg.num_experts == 8 and cfg.num_experts_per_token == 2
+          and cfg.intermediate_size == 14336 and cfg.vocab_size == 32000,
+          "not Mixtral-8x7B's width")
+
+
+def _f32_leaf(torch, v):
+    from distributed_llms_tpu_torch.checkpoint.quantize import (
+        QuantizedTensor, dequantize)
+
+    return (dequantize(v, torch.float32) if isinstance(v, QuantizedTensor)
+            else v.float())
+
+
+def oracle_logits(torch, params, cfg, seqs) -> list:
+    """The oracle's float32 logits of each teacher-forced sequence: one
+    uncached forward, dense attention, the weights upcast (or dequantized)
+    to float32 one layer at a time, every sequence through a layer before
+    the next layer is built.  ``seqs``: dicts with ``ids``, ``pos`` (RoPE
+    or table positions), ``rows`` (the rows whose logits are returned),
+    and, for an MoE model, ``mask`` ([L, L] bool), ``block`` (the rows of
+    the served admission, routed together) and ``routes``: for each layer
+    and each part (the block, then the decode tokens) the served pass's
+    expert choices (``moe_route``'s claim order) and whether each claim
+    kept its place.  The oracle routes by them — its gates from its own
+    float32 logits, a claim the served pass dropped contributes nothing
+    — while ``routing`` (a dict) collects where its own top-k would have
+    chosen otherwise and by how many float32 router logits.  Returns
+    [rows, V] float32 tensors."""
+    import dataclasses
+
+    from distributed_llms_tpu_torch.models import layers
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="dot")
+    dev = params["embed"]["wte"].device
+    moe, route = layers.moe_swiglu, layers.moe_route
+
+    def replay(eid, keep, routing):
+        def forced(logits, c, cap):
+            k, e = c.num_experts_per_token, c.num_experts
+            topi = eid.reshape(k, -1).T
+            own = torch.sort(logits, dim=-1, descending=True,
+                             stable=True)[1][:, :k]
+            gap = (logits.gather(1, own) - logits.gather(1, topi)).amax(1)
+            routing["claims"] += eid.numel()
+            routing["rows_routed_otherwise"] += int((own != topi).any(1).sum())
+            routing["max_f32_gap"] = max(routing["max_f32_gap"],
+                                         float(gap.max()))
+            oh = torch.nn.functional.one_hot(eid, e).float()
+            pos = ((oh.cumsum(dim=0) - 1.0) * oh).sum(dim=-1)
+            slot = torch.where(keep, eid * cap + pos.long(), e * cap)
+            return (torch.softmax(logits.gather(1, topi), dim=-1), eid, oh,
+                    keep, slot)
+        return forced
+
+    def split_moe(sq, layer_of):
+        block = sq["block"]
+        # Capacity s: a row claims an expert at most once, so every
+        # claim finds a place and only the replayed drops apply.
+        lossless = dataclasses.replace(
+            cfg32, moe_capacity_factor=cfg.num_experts
+            / cfg.num_experts_per_token)
+
+        def run(x, p, c):
+            parts = []
+            for i, part in enumerate((x[:, :block], x[:, block:])):
+                layers.moe_route = replay(*sq["routes"][layer_of[0]][i],
+                                          sq["routing"])
+                try:
+                    parts.append(moe(part, p, lossless)[0])
+                finally:
+                    layers.moe_route = route
+            layer_of[0] += 1
+            return torch.cat(parts, dim=1), torch.zeros((), device=x.device)
+        return run
+
+    def layer(tree, i):
+        return {k: (layer(v, i) if isinstance(v, dict)
+                    else _f32_leaf(torch, v[i:i + 1]))
+                for k, v in tree.items()}
+
+    emb = {"embed": {k: v.float() for k, v in params["embed"].items()}}
+    with torch.no_grad():
+        ins = []
+        for sq in seqs:
+            pos = torch.tensor([sq["pos"]], device=dev)
+            mask = (None if sq.get("mask") is None
+                    else sq["mask"].to(dev)[None, None])
+            ins.append((pos, mask))
+        xs = [model_lib.embed(emb, cfg32, torch.tensor([sq["ids"]],
+                                                       device=dev), pos)
+              for sq, (pos, _) in zip(seqs, ins)]
+        runs = [split_moe(sq, [0]) if sq.get("block") else moe for sq in seqs]
+        try:
+            for i in range(cfg.num_layers):
+                lp = layer(params["blocks"], i)
+                for n, (pos, mask) in enumerate(ins):
+                    layers.moe_swiglu = runs[n]
+                    xs[n] = model_lib.run_blocks(xs[n], lp, cfg32, pos, None,
+                                                 None, None, mask)[0]
+                del lp
+        finally:
+            layers.moe_swiglu, layers.moe_route = moe, route
+        head = {"final_norm": {k: v.float()
+                               for k, v in params["final_norm"].items()},
+                "embed": emb["embed"]}
+        if "lm_head" in params:
+            head["lm_head"] = {"w": _f32_leaf(torch, params["lm_head"]["w"])}
+        return [model_lib.unembed(head, cfg32,
+                                  x[:, torch.tensor(sq["rows"], device=dev)])[0]
+                for sq, x in zip(seqs, xs)]
+
+
+def _teacher_forced(ctx, stream) -> dict:
+    """The oracle's sequence for ``stream`` after ``ctx``: the context
+    and every stream token but the last, standard positions."""
+    ids = list(ctx) + list(stream[:-1])
+    return {"ids": ids, "pos": list(range(len(ids))),
+            "rows": list(range(len(ctx) - 1, len(ids)))}
+
+
+def _admission_seq(torch, ctx, stream, width, pad_id) -> dict:
+    """The oracle's sequence for an MoE stream of a batch (a cold
+    admission, every row admitted before the first decode step): the
+    admission prefilled ``ctx`` padded with ``pad_id`` to ``width``
+    (positions 0..width-1, routed together: the pads claim capacity),
+    then each stream token at position len(ctx) + j attending the real
+    prompt and the tokens before it (its steps routed beside the other
+    rows: the served drops are replayed, see :func:`oracle_logits`)."""
+    t, n = len(ctx), len(stream)
+    ids = list(ctx) + [pad_id] * (width - t) + list(stream[:-1])
+    pos = list(range(width)) + [t + j for j in range(n - 1)]
+    size = len(ids)
+    i = torch.arange(size)[:, None]
+    j = torch.arange(size)[None, :]
+    mask = (j <= i) & ((i < width) | (j < t) | (j >= width))
+    return {"ids": ids, "pos": pos, "mask": mask, "block": width,
+            "rows": [t - 1] + [width + j for j in range(n - 1)]}
+
+
+def _held_to_oracle(label, logits, streams, eos, vocab, new) -> dict:
+    """Each stream against its oracle's logits (rows predicting its
+    tokens): tokens in the vocabulary, ``new`` of them unless an EOS ends
+    the stream (a live prefix), equal to the oracle's greedy choice or
+    leaving it first at a near-tie.  Returns what it measured."""
+    gaps, first = [], []
+    for lg, stream in zip(logits, streams):
+        raw = [int(x) for x in stream]
+        st = _cut(raw, eos)
+        check(all(0 <= x < vocab for x in st),
+              f"{label}: a token outside the vocabulary")
+        check(len(st) == new or st[-1] == eos,
+              f"{label}: a stream of {len(st)}/{new} tokens without EOS")
+        pred = lg[:len(st)].argmax(dim=-1).tolist()
+        j = next((i for i, (a, b) in enumerate(zip(pred, st)) if a != b),
+                 None)
+        first.append(j)
+        if j is None:
+            continue
+        gap = float(lg[j, pred[j]] - lg[j, st[j]])
+        gaps.append(gap)
+        check(gap <= FAM_NEAR_TIE,
+              f"{label}: a stream leaves its float32 oracle at step {j} "
+              f"with a gap of {gap:.4f} logits (near-tie margin "
+              f"{FAM_NEAR_TIE})")
+    return {"streams": len(streams),
+            "equal_to_oracle": sum(j is None for j in first),
+            "first_divergence": first, "f32_gaps": gaps,
+            "near_tie_margin": FAM_NEAR_TIE}
+
+
+def _hold_streams(torch, label, params, cfg, ctxs, streams_by_leg, eos,
+                  card, **info) -> None:
+    """Every leg's greedy streams after ``ctxs`` held to the oracle (one
+    teacher-forced forward a stream, the legs' sequences batched through
+    each layer together)."""
+    legs = list(streams_by_leg)
+    seqs = [_teacher_forced(c, _cut(s, eos)) for leg in legs
+            for c, s in zip(ctxs, streams_by_leg[leg])]
+    (logits, dt) = _sync_time(torch, lambda: oracle_logits(
+        torch, params, cfg, seqs))
+    n = len(ctxs)
+    for k, leg in enumerate(legs):
+        held = _held_to_oracle(f"{label}/{leg}", logits[k * n:(k + 1) * n],
+                               streams_by_leg[leg], eos, cfg.vocab_size,
+                               FAM_NEW)
+        emit("families", path="m", model=label, leg=leg, card=card,
+             new_tokens=FAM_NEW, oracle_s=dt, **info, **held)
+
+
+def _engine_over(torch, b, **rt):
+    """An engine over a served batcher's weights (no copy)."""
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    return InferenceEngine(b.cfg, RuntimeConfig(
+        max_seq_len=FAM_MAX_LEN, max_decode_steps=FAM_NEW, **rt), b.params,
+        tokenizer=b.tokenizer, device=b.device)
+
+
+def _paged_streams(torch, eng, ids, kv_bits=16, slots=8, pages=256,
+                   new=FAM_NEW, prefix_cache=True) -> tuple:
+    """Greedy streams of ``ids`` through a fresh paged batcher on
+    ``eng``: (streams, launches, decode steps, wall s)."""
+    b = eng.continuous_batcher(batch_slots=slots, max_len=FAM_MAX_LEN,
+                               paged_pages=pages, page_size=64,
+                               prefix_cache=prefix_cache, kv_bits=kv_bits)
+    reset_launches()
+    streams, wall = _sync_time(torch, lambda: _batcher_streams(
+        torch, b, ids, new))
+    out = (streams, read_launches(), b.decode_steps, wall)
+    del b
+    _free(torch)
+    return out
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def families_pythia(torch, card, lap) -> dict:
+    """Pythia-6.9B: path a's requests over HTTP (K1); engine-side the
+    greedy prompts through the paged batcher with bf16 and int8 pages
+    (K1q) and through ``generate_text``, every stream held to the
+    oracle."""
+    launches, server, mem = serve_path(
+        torch, "pythia", PYTHIA_ARGS, {"paged_decode_attention": 1},
+        _serve_requests, _pythia)
+    check(server.batcher.prefix_cache.hits > 0, "pythia: no prefix-cache hit")
+    out = {"paged_decode_attention": launches["paged_decode_attention"]}
+    eng = _engine_over(torch, server.batcher)
+    del server
+    _free(torch)
+    lap("pythia_http")
+    tok = eng.tokenizer
+    ids = [tok.encode(p) for p in FAM_PROMPTS]
+    streams = {}
+    for leg, bits, kernel in (("paged_bf16", 16, "paged_decode_attention"),
+                              ("paged_int8", 8,
+                               "paged_decode_attention_int8")):
+        streams[leg], got, steps, wall = _paged_streams(torch, eng, ids, bits)
+        want = eng.cfg.num_layers * steps
+        check(got[kernel] >= want, f"pythia/{leg}: {kernel} launched "
+              f"{got[kernel]} times, under {want}")
+        _add(out, {kernel: got[kernel]})
+        emit("families", path="m", model="pythia", leg=leg, card=card,
+             decode_steps=steps, wall_s=wall, launches=got)
+    reset_launches()
+    res, wall = _sync_time(torch, lambda: eng.generate_text(
+        list(FAM_PROMPTS), max_new_tokens=FAM_NEW))
+    streams["generate_text"] = res.tokens.tolist()
+    emit("families", path="m", model="pythia", leg="generate_text",
+         card=card, wall_s=wall, launches=read_launches(),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    lap("pythia_engine")
+    _hold_streams(torch, "pythia", eng.params, eng.cfg, ids, streams,
+                  tok.eos_id, card, **mem)
+    del eng
+    _free(torch)
+    lap("pythia_oracle")
+    return out
+
+
+def families_opt(torch, card, lap) -> dict:
+    """OPT-125M over HTTP in bf16 (K1) and as an int8 store served
+    quantized (K5 at 768/3072 with biases, K1); engine-side its greedy
+    streams, ``generate_text`` with a prompt that runs to the end of the
+    2048-slot table, and gpt2-125m's ``generate_text``, each held to the
+    oracle."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    out = {}
+    launches, server, _ = serve_path(
+        torch, "opt", OPT_ARGS, {"paged_decode_attention": 1},
+        _serve_requests, _opt_125m)
+    _add(out, {"paged_decode_attention": launches["paged_decode_attention"]})
+    eng = _engine_over(torch, server.batcher)
+    del server
+    _free(torch)
+    tok = eng.tokenizer
+    ids = [tok.encode(p) for p in FAM_PROMPTS]
+    streams = {"paged_bf16": _paged_streams(torch, eng, ids)[0]}
+    # A prompt that, with its FAM_NEW tokens, fills the 2048-slot table
+    # (positions up to 2046 fed: table rows 2 + 2046 of OPT's 2050).
+    long_prompt = (PATH_A_PREFIX * 8)[:FAM_MAX_LEN - FAM_NEW - 1]
+    gen_prompts = [long_prompt, FAM_PROMPTS[3]]
+    res = eng.generate_text(gen_prompts, max_new_tokens=FAM_NEW)
+    gen_ids = [tok.encode(p) for p in gen_prompts]
+    check(len(gen_ids[0]) + FAM_NEW == FAM_MAX_LEN,
+          f"opt: the long prompt has {len(gen_ids[0])} tokens")
+    _hold_streams(torch, "opt", eng.params, eng.cfg, ids, streams,
+                  tok.eos_id, card)
+    _hold_streams(torch, "opt", eng.params, eng.cfg, gen_ids,
+                  {"generate_text_to_table_end": res.tokens.tolist()},
+                  tok.eos_id, card, prompt_tokens=[len(x) for x in gen_ids])
+    del eng
+    _free(torch)
+    lap("opt_bf16")
+
+    tmp = tempfile.mkdtemp(prefix="dlt_store_opt_")
+    try:
+        info = write_store(torch, "int8", tmp, OPT_PRESET)
+        launches, server, _ = serve_path(
+            torch, "opt_store_int8", ["--store", tmp, *OPT_STORE_ARGS],
+            {"quant_matmul": 6, "paged_decode_attention": 1},
+            _serve_requests, _opt_125m, **info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for group in ("attn", "mlp"):
+        for name, leaf in server.batcher.params["blocks"][group].items():
+            want = name.startswith("w")
+            check(isinstance(leaf, QuantizedTensor) == want,
+                  f"opt_store_int8: {group}.{name} quantized: "
+                  f"{isinstance(leaf, QuantizedTensor)}")
+    _add(out, {k: launches[k] for k in ("quant_matmul",
+                                        "paged_decode_attention")})
+    eng = _engine_over(torch, server.batcher)
+    del server
+    _free(torch)
+    streams, got, steps, _ = _paged_streams(torch, eng, ids)
+    check(got["quant_matmul"] >= 6 * eng.cfg.num_layers * steps,
+          f"opt_store_int8: K5 launched {got['quant_matmul']} times")
+    _hold_streams(torch, "opt_store_int8", eng.params, eng.cfg, ids,
+                  {"paged_int8_weights": streams}, tok.eos_id, card)
+    del eng
+    _free(torch)
+    lap("opt_store")
+
+    eng = InferenceEngine.from_preset(GPT2_PRESET, rt=RuntimeConfig(
+        max_seq_len=1024, max_decode_steps=FAM_NEW), rng_seed=0,
+        device="cuda")
+    _gpt2_125m(eng.cfg)
+    res = eng.generate_text(list(FAM_PROMPTS), max_new_tokens=FAM_NEW)
+    _hold_streams(torch, "gpt2", eng.params, eng.cfg, ids,
+                  {"generate_text": res.tokens.tolist()}, tok.eos_id, card)
+    del eng
+    _free(torch)
+    lap("gpt2")
+    return out
+
+
+def mixtral_int4_params(torch, cfg) -> dict:
+    """Mixtral-shaped random weights drawn on the card from seed 0 (as
+    ``init_params`` draws them) and quantized to int4 one layer at a time:
+    the bf16 model (93 GB) never exists at once.  Returns the tree with
+    ``QuantizedTensor`` block leaves, ready for ``save_shards``."""
+    from distributed_llms_tpu_torch.checkpoint import quantize as quant_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    H, KVH, HD, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                     cfg.num_experts)
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda")
+        return (w * fan_in ** -0.5).to(torch.bfloat16)
+
+    def stacked(shape, fan_in, path):
+        _, pack = quant_lib.leaf_plan(path, torch.empty(shape,
+                                                        device="meta"))
+        per = [quant_lib.quantize(dense(shape, fan_in), bits=4,
+                                  pack_axis=pack) for _ in range(L)]
+        return quant_lib.QuantizedTensor(
+            data=torch.stack([q.data for q in per]),
+            scale=torch.stack([q.scale for q in per]), bits=4,
+            orig_shape=(L, *shape), pack_axis=pack)
+
+    ones = torch.ones((L, D), dtype=torch.bfloat16, device="cuda")
+    return {
+        "embed": {"wte": dense((cfg.vocab_size, D), D)},
+        "final_norm": {"scale": ones[0].clone()},
+        "lm_head": {"w": dense((D, cfg.vocab_size), D)},
+        "blocks": {
+            "ln1": {"scale": ones}, "ln2": {"scale": ones.clone()},
+            "attn": {"wq": stacked((D, H, HD), D, "wq"),
+                     "wk": stacked((D, KVH, HD), D, "wk"),
+                     "wv": stacked((D, KVH, HD), D, "wv"),
+                     "wo": stacked((H, HD, D), H * HD, "wo")},
+            "mlp": {"router": stacked((D, E), D, "router"),
+                    "w_gate": stacked((E, D, F), D, "w_gate"),
+                    "w_up": stacked((E, D, F), D, "w_up"),
+                    "w_down": stacked((E, F, D), F, "w_down")},
+        },
+    }
+
+
+def _rehydrate_ms(torch, mlp) -> float:
+    """CUDA-event ms of one layer's expert rehydration (router and the
+    three expert stacks dequantized to bf16), as ``moe_swiglu`` does it."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import dequantize_tree
+
+    layer0 = {k: v[0] for k, v in mlp.items()}
+    return cuda_ms(torch, lambda: dequantize_tree(layer0, torch.bfloat16),
+                   iters=5, warmup=1)
+
+
+def _mixtral_batch(torch, eng, ids, record=None) -> tuple:
+    """``ids`` as one greedy batch (cold admissions, every row admitted
+    before the first decode step, the synchronous loop) on a paged
+    batcher of one slot a prompt over ``eng``'s weights: (streams,
+    launches, decode steps, graph replays).  With ``record`` (a list)
+    the eager chunk runs, and every ``moe_route`` call appends its
+    expert choices and kept claims."""
+    from distributed_llms_tpu_torch.models import layers
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    route, graph_chunk = layers.moe_route, batcher_lib.decode_chunk
+
+    def recorded(logits, cfg, cap):
+        out = route(logits, cfg, cap)
+        record.append((out[1].clone(), out[3].clone()))
+        return out
+
+    b = eng.continuous_batcher(batch_slots=len(ids), max_len=FAM_MAX_LEN,
+                               paged_pages=128, page_size=64,
+                               prefix_cache=True, overlap=False)
+    try:
+        if record is not None:
+            layers.moe_route = recorded
+            batcher_lib.decode_chunk = _eager_decode_chunk
+        reset_launches()
+        streams = _batcher_streams(torch, b, ids, FAM_NEW)
+        out = (streams, read_launches(), b.decode_steps, b._graphs.replays)
+    finally:
+        layers.moe_route, batcher_lib.decode_chunk = route, graph_chunk
+    del b
+    _free(torch)
+    return out
+
+
+def _batch_routes(torch, calls, cuts, widths, n_layers, k) -> tuple:
+    """The recorded routing of an eager :func:`_mixtral_batch` split by
+    row: (each row's ``routes`` for the oracle — a layer's (choices,
+    kept) of its admission, then of the decode steps that made its
+    tokens — and the kept claims and claims of every decode step).  The
+    calls come as the batcher made them: each row's admission (a layer
+    a call, ``k * width`` claims), then each step's layers (``k * rows``
+    claims, choice-major)."""
+    rows = len(cuts)
+    adm = rows * n_layers
+    dec = calls[adm:]
+    steps = len(dec) // n_layers
+    check(all(calls[r * n_layers + i][0].numel() == k * widths[r]
+              for r in range(rows) for i in range(n_layers))
+          and len(dec) == steps * n_layers
+          and all(e.numel() == k * rows for e, _ in dec)
+          and steps >= max(len(c) for c in cuts) - 1,
+          f"mixtral/batch: {len(calls)} routing calls do not split into "
+          f"{rows} admissions of {n_layers} layers and the decode steps")
+    kept_all = torch.stack([kp for _, kp in dec])
+    drops = (int(kept_all.sum()), kept_all.numel())
+    routes = []
+    for r, cut in enumerate(cuts):
+        n = len(cut) - 1  # the decode steps that made tokens 1..n
+
+        def tail(i, part):
+            got = [dec[j * n_layers + i][part].reshape(k, rows)[:, r]
+                   for j in range(n)]
+            return torch.stack(got, dim=1).reshape(-1)
+        routes.append([(calls[r * n_layers + i], (tail(i, 0), tail(i, 1)))
+                       for i in range(n_layers)])
+    return routes, drops
+
+
+def families_mixtral(torch, card, lap) -> dict:
+    """Mixtral-8x7B as an int4 store: written layer by layer, served
+    quantized over HTTP (7 greedy requests; the attention through K5,
+    decode through K1, the experts rehydrated per layer).  Engine-side
+    the 8 greedy prompts as one batch at 8 slots (decode drops claims):
+    through the eager chunk with every routing decision recorded — the
+    share of claims the decode steps dropped, and each stream held to
+    the oracle replaying that routing — then through the captured chunk
+    graph under the profiler, whose streams must equal the eager ones."""
+    from distributed_llms_tpu_torch.checkpoint.store import save_shards
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
+    cfg = get_preset(MIXTRAL_PRESET, num_layers=MIXTRAL_LAYERS)
+    _mixtral(cfg)
+    tmp = tempfile.mkdtemp(prefix="dlt_store_mixtral_")
+    try:
+        free_disk = shutil.disk_usage(tmp).free
+        torch.cuda.reset_peak_memory_stats()
+        params, quant_s = _sync_time(torch, lambda: mixtral_int4_params(
+            torch, cfg))
+        t0 = time.perf_counter()
+        save_shards(params, tmp, num_shards=2, model_config=cfg,
+                    quantization="int4", storage="raw")
+        write_s = time.perf_counter() - t0
+        del params
+        _free(torch)
+        store_bytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        emit("families", path="m", model="mixtral", step="store", card=card,
+             num_layers=cfg.num_layers, store_bytes=store_bytes,
+             draw_and_quantize_s=quant_s, write_s=write_s,
+             disk_free_before_bytes=free_disk,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        lap("mixtral_store")
+        launches, server, mem = serve_path(
+            torch, "mixtral_int4", ["--store", tmp, *MIXTRAL_ARGS],
+            {"quant_matmul_int4": 4, "paged_decode_attention": 1},
+            lambda port: _serve_requests(port, greedy_new=FAM_NEW),
+            _mixtral, store_bytes=store_bytes, store_write_s=write_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = server.batcher
+    check(b.prefix_cache.hits > 0, "mixtral_int4: no prefix-cache hit")
+    mlp = b.params["blocks"]["mlp"]
+    check(all(mlp[k].bits == 4 and mlp[k].data.dim() == 4
+              for k in ("w_gate", "w_up", "w_down")),
+          "mixtral_int4: the expert stacks are not int4-resident")
+    out = {k: launches[k] for k in ("quant_matmul_int4",
+                                    "paged_decode_attention")}
+    eng = _engine_over(torch, b)
+    del server, b
+    _free(torch)
+    lap("mixtral_http")
+
+    tok = eng.tokenizer
+    n_layers, k = eng.cfg.num_layers, eng.cfg.num_experts_per_token
+    ids = [tok.encode(p) for p in FAM_PROMPTS]
+    calls = []
+    (eager, got, steps, replays), wall = _sync_time(
+        torch, lambda: _mixtral_batch(torch, eng, ids, calls))
+    check(replays == 0, f"mixtral/batch_eager: {replays} graph replays")
+    _add(out, {name: got[name] for name in out})
+    cuts = [_cut(st, tok.eos_id) for st in eager]
+    widths = [min(batcher_lib._bucket(len(c)), FAM_MAX_LEN) for c in ids]
+    routes, (kept, claims) = _batch_routes(torch, calls, cuts, widths,
+                                           n_layers, k)
+    del calls
+    seqs = []
+    for ctx, cut, w, rt in zip(ids, cuts, widths, routes):
+        sq = _admission_seq(torch, ctx, cut, w, tok.pad_id)
+        sq["routes"] = rt
+        sq["routing"] = {"claims": 0, "rows_routed_otherwise": 0,
+                         "max_f32_gap": 0.0}
+        seqs.append(sq)
+    logits, dt = _sync_time(torch, lambda: oracle_logits(
+        torch, eng.params, eng.cfg, seqs))
+    routing = {key: sum(sq["routing"][key] for sq in seqs)
+               for key in ("claims", "rows_routed_otherwise")}
+    routing["max_f32_gap"] = max(sq["routing"]["max_f32_gap"]
+                                 for sq in seqs)
+    check(routing["max_f32_gap"] <= FAM_NEAR_TIE,
+          f"mixtral/batch_eager: a served expert choice is "
+          f"{routing['max_f32_gap']:.4f} float32 router logits below "
+          f"the oracle's (near-tie margin {FAM_NEAR_TIE})")
+    held = _held_to_oracle("mixtral/batch_eager", logits, eager, tok.eos_id,
+                           eng.cfg.vocab_size, FAM_NEW)
+    emit("families", path="m", model="mixtral", leg="batch8_eager",
+         card=card, rows=len(ids), admission_widths=widths,
+         decode_steps=steps, wall_s=wall, decode_claims=claims,
+         decode_claims_dropped=claims - kept,
+         decode_drop_share=(claims - kept) / claims, oracle_s=dt,
+         oracle_routing=routing, new_tokens=FAM_NEW, **held)
+    del logits, seqs, routes
+    _free(torch)
+    lap("mixtral_eager")
+
+    # The same batch on the captured decode graph, under the profiler:
+    # ms a decode step and where the device time goes.
+    res = []
+    split, pwall = _profiled(torch, lambda: res.append(_mixtral_batch(
+        torch, eng, ids)))
+    streams, got, steps, replays = res[0]
+    check(replays > 0, "mixtral/batch_graph: no graph replay")
+    check(streams == eager, "mixtral/batch_graph: the captured decode "
+          "graph's streams differ from the eager chunk's")
+    _add(out, {name: got[name] for name in out})
+    reh = _rehydrate_ms(torch, eng.params["blocks"]["mlp"])
+    busy = sum(split.values())
+    emit("families", path="m", model="mixtral", leg="batch8_graph",
+         card=card, rows=len(ids), decode_steps=steps, graph_replays=replays,
+         streams_equal_eager=True, profiled_wall_ms=pwall,
+         ms_per_decode_step_incl_admissions=pwall / steps,
+         device_kernel_ms=split,
+         device_busy_share=busy / pwall if busy else "not measured",
+         rehydrate_ms_a_layer=reh, rehydrate_ms_a_forward=reh * n_layers,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    _free(torch)
+    lap("mixtral_graph")
+    return out
+
+
+def families_train(torch, card, lap) -> int:
+    """One ``Trainer`` step at Mixtral's width cut to MIXTRAL_TRAIN_LAYERS
+    layers, ``attn_impl="flash"`` (K3), a [1, 1025] batch: the loss, the
+    aux term, seconds and peak memory; before it, the bf16 gradient of
+    layer 0's w_gate experts against a float32 recompute on the card
+    (dense attention), within path g's TRAIN_GRAD_REL.  The recompute
+    routes every claim to the expert the bf16 pass chose (its gates from
+    its own float32 logits): on random weights many rows' second and
+    third router logits lie within bf16 rounding of each other, and a
+    flipped choice moves a row's whole contribution between experts — a
+    discrete decision, not arithmetic error.  The recompute with its own
+    routing is printed beside it.  Returns K3's launches in the step."""
+    import dataclasses
+
+    from distributed_llms_tpu_torch.models import layers
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import train
+
+    cfg = get_preset(MIXTRAL_PRESET, attn_impl="flash",
+                     num_layers=MIXTRAL_TRAIN_LAYERS)
+    _mixtral(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    n_params = sum(p.numel() for p in train._leaves(params))
+    batch = torch.randint(0, cfg.vocab_size, (1, MIXTRAL_TRAIN_TOKENS),
+                          device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def expert_grad(p, c):
+        leaf = p["blocks"]["mlp"]["w_gate"]
+        leaf.requires_grad_(True)
+        try:
+            loss = train.lm_loss(p, c, batch)
+            (g,) = torch.autograd.grad(loss, [leaf])
+        finally:
+            leaf.requires_grad_(False)
+        return float(loss), g[0].float()
+
+    route = layers.moe_route
+    decisions = []
+
+    def recorded(logits, c, cap):
+        out = route(logits, c, cap)
+        decisions.append([t.detach() for t in out[1:]])
+        return out
+
+    def replayed(logits, c, cap):
+        eid, oh, keep, slot = decisions.pop(0)
+        topi = eid.reshape(c.num_experts_per_token, -1).T
+        return (torch.softmax(logits.gather(1, topi), dim=-1), eid, oh, keep,
+                slot)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="dot")
+    try:
+        layers.moe_route = recorded
+        loss16, g16 = expert_grad(params, cfg)
+        bf16_eids = [d[0].clone() for d in decisions]
+        p32 = _tree_to_dtype(params, torch.float32)
+        layers.moe_route = replayed
+        loss32, g32 = expert_grad(p32, cfg32)
+        layers.moe_route = recorded
+        _, g32_own = expert_grad(p32, cfg32)
+        flipped = sum(int((a != b).sum()) for a, b in zip(
+            bf16_eids, [d[0] for d in decisions]))
+    finally:
+        layers.moe_route = route
+    del p32, decisions
+    _free(torch)
+    grad_rel = ((g16 - g32).norm() / g32.norm()).item()
+    grad_rel_own = ((g16 - g32_own).norm() / g32_own.norm()).item()
+    claims = sum(e.numel() for e in bf16_eids)
+    del g16, g32, g32_own
+    with torch.no_grad():
+        aux = float(model_lib.forward(params, cfg, batch[:, :-1],
+                                      return_aux=True)[2])
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    state = trainer.init(params)
+    step = trainer.make_step()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, batch, None)
+    loss = float(loss)
+    step_s = time.perf_counter() - t0
+    launched = read_launches()["flash_attention_static"]
+    emit("families", path="m", model="mixtral", step="train", card=card,
+         num_layers=cfg.num_layers, params=n_params, batch=list(batch.shape),
+         loss=loss, aux=aux, aux_weight=cfg.moe_aux_loss_weight,
+         loss_bf16_before=loss16, loss_f32_before=loss32, step_s=step_s,
+         expert_grad_rel_err=grad_rel, tol={"grad_rel": TRAIN_GRAD_REL},
+         expert_grad_rel_err_own_routing=grad_rel_own,
+         claims_routed_otherwise_in_float32=flipped, claims=claims,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches={"flash_attention_static": launched})
+    check(math.isfinite(loss) and math.isfinite(aux), "mixtral train: "
+          f"loss {loss} or aux {aux} not finite")
+    check(launched == cfg.num_layers, f"mixtral train: K3 launched "
+          f"{launched} times, not {cfg.num_layers}")
+    check(grad_rel <= TRAIN_GRAD_REL, f"mixtral train: the expert gradient "
+          f"is {grad_rel:.4f} from the float32 recompute")
+    del params, state, batch
+    _free(torch)
+    lap("mixtral_train")
+    return launched
+
+
+def _tree_to_dtype(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def serve_families(torch) -> dict:
+    """Path m: Pythia-6.9B, OPT-125M (and gpt2-125m's generation),
+    Mixtral-8x7B as an int4 store, and a Trainer step at Mixtral's width.
+    Returns the launches of the path's own calls."""
+    card = _card()
+    lap = _lap("families_time")
+    out = {}
+    _add(out, families_pythia(torch, card, lap))
+    _add(out, families_opt(torch, card, lap))
+    _add(out, families_mixtral(torch, card, lap))
+    out["flash_attention_static"] = families_train(torch, card, lap)
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "generate", "train", "profile")
+          "constrain", "generate", "families", "train", "profile")
 
 
 def main() -> int:
@@ -4853,6 +5760,10 @@ def main() -> int:
             # Path l's launches ride beside each kernel's own path's.
             for name, n in timed("generate", serve_generate, torch).items():
                 kernels[name]["generate_launches"] = n
+        if "families" in phases:
+            # Path m's launches ride beside each kernel's own path's.
+            for name, n in timed("families", serve_families, torch).items():
+                kernels[name]["families_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

@@ -20,6 +20,14 @@ blocks.attn.wo                     [L, H, hd, D]
 blocks.attn.bq/bk/bv (qkv_bias)    [L, H|KVH, hd]
 blocks.mlp.w_gate, blocks.mlp.w_up [L, D, F]
 blocks.mlp.w_down                  [L, F, D]
+gpt2/opt/neox: embed.wpe           [S (+2 opt), D]     no wpe for neox
+  final_norm.bias, ln1/ln2.bias    [D], [L, D]
+  blocks.attn.bq/bk/bv, bo         [L, H|KVH, hd], [L, D]
+  blocks.mlp.w_in, b_in            [L, D, F], [L, F]   in place of the
+  blocks.mlp.w_out, b_out          [L, F, D], [L, D]   gated MLP
+MoE (llama): blocks.mlp.router     [L, D, E]
+  blocks.mlp.w_gate, w_up          [L, E, D, F]
+  blocks.mlp.w_down                [L, E, F, D]
 =================================  ==================  ====================
 
 Values convert through float32 to ``dtype`` (default ``cfg.dtype``), so a
@@ -28,7 +36,7 @@ exactly.  A weight-only quantized leaf (the JAX package's
 ``QuantizedTensor``, its codes and scales numpy arrays) crosses as the
 port's ``checkpoint.quantize.QuantizedTensor`` with its int8 codes and
 float32 scales unchanged; it is recognised by its fields, not imported.
-The llama family only, like the rest of the port.
+Every family of the reference crosses.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from ..core.device import resolve_device
 from ..models import model as model_lib
 from .quantize import QuantizedTensor
 
-# The leaves the port's llama forward reads, with their expected shapes.
+# The leaves the port's forward reads for ``cfg``, with their shapes.
 def _expected(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KVH, HD, V = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
@@ -57,11 +65,34 @@ def _expected(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         "blocks.attn.wk": (L, D, KVH, HD),
         "blocks.attn.wv": (L, D, KVH, HD),
         "blocks.attn.wo": (L, H, HD, D),
-        "blocks.mlp.w_gate": (L, D, F),
-        "blocks.mlp.w_up": (L, D, F),
-        "blocks.mlp.w_down": (L, F, D),
     }
-    if cfg.qkv_bias:
+    if model_lib.layernorm_family(cfg):
+        off = model_lib.learned_pos_offset(cfg)
+        if off is not None:
+            out["embed.wpe"] = (cfg.max_seq_len + off, D)
+        out.update({
+            "final_norm.bias": (D,),
+            "blocks.ln1.bias": (L, D), "blocks.ln2.bias": (L, D),
+            "blocks.attn.bq": (L, H, HD), "blocks.attn.bk": (L, KVH, HD),
+            "blocks.attn.bv": (L, KVH, HD), "blocks.attn.bo": (L, D),
+            "blocks.mlp.w_in": (L, D, F), "blocks.mlp.b_in": (L, F),
+            "blocks.mlp.w_out": (L, F, D), "blocks.mlp.b_out": (L, D),
+        })
+    elif cfg.num_experts > 0:
+        E = cfg.num_experts
+        out.update({
+            "blocks.mlp.router": (L, D, E),
+            "blocks.mlp.w_gate": (L, E, D, F),
+            "blocks.mlp.w_up": (L, E, D, F),
+            "blocks.mlp.w_down": (L, E, F, D),
+        })
+    else:
+        out.update({
+            "blocks.mlp.w_gate": (L, D, F),
+            "blocks.mlp.w_up": (L, D, F),
+            "blocks.mlp.w_down": (L, F, D),
+        })
+    if cfg.family == "llama" and cfg.qkv_bias:
         out.update({"blocks.attn.bq": (L, H, HD), "blocks.attn.bk": (L, KVH, HD),
                     "blocks.attn.bv": (L, KVH, HD)})
     if not cfg.tie_embeddings:

@@ -112,27 +112,36 @@ def quantize(x: torch.Tensor, bits: int = 8, block: int = 128,
 
 
 def unpack_int4(q: torch.Tensor, axis: int) -> torch.Tensor:
-    """Packed int4 bytes -> int32 values, pairs interleaved back along
+    """Packed int4 bytes -> int8 values, pairs interleaved back along
     ``axis`` (negative): the sign-extended low nibble is the even index,
-    the high nibble the odd one."""
+    the high nibble the odd one.  Written straight into the interleaved
+    int8 output (a byte an element), so rehydrating an expert stack makes
+    no wider temporaries."""
     a = q.dim() + axis
-    q32 = q.to(torch.int32)
-    lo = ((q32 & 0x0F) ^ 8) - 8  # sign-extend the low nibble
-    hi = q32 >> 4  # the arithmetic shift sign-extends the high nibble
+    out = torch.empty((*q.shape[:a + 1], 2, *q.shape[a + 1:]),
+                      dtype=torch.int8, device=q.device)
+    lo, hi = out.select(a + 1, 0), out.select(a + 1, 1)
+    torch.bitwise_left_shift(q, 4, out=lo)
+    lo.bitwise_right_shift_(4)  # the arithmetic shift sign-extends
+    torch.bitwise_right_shift(q, 4, out=hi)
     shape = list(q.shape)
     shape[a] *= 2
-    return torch.stack([lo, hi], dim=a + 1).reshape(shape)
+    return out.reshape(shape)
 
 
 def dequantize(qt: QuantizedTensor,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``float32(q) * scale`` cast to ``dtype``.  Shapes derive from
-    data/scale, so a per-layer slice of a stacked leaf dequantizes."""
+    """``float32(q) * scale`` rounded to ``dtype``, in one pass: the
+    product is computed in float32 and only its rounding is stored.
+    Shapes derive from data/scale, so a per-layer slice of a stacked leaf
+    dequantizes."""
     q = unpack_int4(qt.data, qt.pack_axis) if qt.bits == 4 else qt.data
     n = q.shape[-1]
     n_blocks = qt.scale.shape[-1]
-    qb = q.float().reshape(*q.shape[:-1], n_blocks, n // n_blocks)
-    return (qb * qt.scale[..., None]).reshape(q.shape).to(dtype)
+    blocked = (*q.shape[:-1], n_blocks, n // n_blocks)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    torch.mul(q.reshape(blocked), qt.scale[..., None], out=out.view(blocked))
+    return out
 
 
 # Weights whose trailing TWO axes are output axes ([D, H, hd]): their

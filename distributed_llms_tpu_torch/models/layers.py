@@ -31,6 +31,17 @@ _F32_MIN = torch.finfo(torch.float32).min
 # Norms
 # ---------------------------------------------------------------------------
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with float32 statistics, cast back to ``x.dtype``."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dtype = x.dtype
     xf = x.float()
@@ -39,7 +50,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (Llama family)
+# Rotary position embeddings (llama and neox families)
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(
@@ -150,9 +161,24 @@ def and_window(
 
 # How many leading axes of each projection weight contract against x: 2 for
 # wo [H, hd, D], 1 for the others.  The store loader reads it too, to refuse
-# an int4 weight packed along another axis.
+# an int4 weight packed along another axis.  An MoE block's expert leaves
+# share the dense MLP's names but never reach the dequant-matmul: they are
+# rehydrated in :func:`moe_swiglu` (see :func:`kernel_leaves`).
 K_LEAD = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
-          "w_down": 1}
+          "w_down": 1, "w_in": 1, "w_out": 1}
+
+
+def kernel_leaves(blocks: Params):
+    """(name, leaf) of every stacked block weight that :func:`_contract`
+    hands to the dequant-matmul when it is quantized: the projections,
+    not an MoE block's router and experts (rehydrated per layer) and not
+    the norms or biases."""
+    for group in blocks.values():
+        if "router" in group:
+            continue
+        for name, leaf in group.items():
+            if name in K_LEAD:
+                yield name, leaf
 
 
 def _contract(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
@@ -190,6 +216,22 @@ def out_project(x: torch.Tensor, p: Params) -> torch.Tensor:
     return out
 
 
+def mlp_gelu(x: torch.Tensor, p: Params, activation: str = "gelu") -> torch.Tensor:
+    """GPT-2-layout MLP: act(x W_in + b) W_out + b.  ``activation``:
+    "relu" (OPT), "gelu_exact" (erf gelu, Pythia), "gelu" / "gelu_new"
+    the tanh approximation (GPT-2); anything else raises."""
+    h = _contract(x, p, "w_in") + p["b_in"]
+    if activation == "relu":
+        h = torch.relu(h)
+    elif activation == "gelu_exact":
+        h = torch.nn.functional.gelu(h)
+    elif activation in ("gelu", "gelu_new"):
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    else:  # loud, not silently gelu: a wrong activation is wrong logits
+        raise ValueError(f"unsupported MLP activation {activation!r}")
+    return _contract(h, p, "w_out") + p["b_out"]
+
+
 def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tensor:
     """Gated MLP: (act(x W_gate) * (x W_up)) W_down, no biases.
     ``gate_act``: "silu" (Llama/Qwen2) or "gelu_tanh" (Gemma's GeGLU)."""
@@ -200,3 +242,84 @@ def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tens
     else:
         act = torch.nn.functional.gelu(gate, approximate="tanh")
     return _contract(act * up, p, "w_down")
+
+
+def moe_capacity(cfg, s: int) -> int:
+    """Expert capacity for ``s`` routed rows: ceil(capacity_factor * k * s
+    / E), at least 1 — computed on the host from static shapes, the
+    reference's expression to the float."""
+    e, k = cfg.num_experts, cfg.num_experts_per_token
+    return max(1, int(-(-cfg.moe_capacity_factor * k * s // e)))
+
+
+def moe_route(logits: torch.Tensor, cfg, cap: int) -> tuple:
+    """The router's decisions for float32 logits [s, E] at capacity
+    ``cap``: (gates [s, k] float32, eid [k*s] the expert of each claim in
+    choice-major order, its one-hot [k*s, E], keep [k*s] whether the
+    claim found a place, slot [k*s] its row of the ``[E*cap + 1, D]``
+    dispatch buffer — the last, a dump row, for a dropped claim)."""
+    e, k = cfg.num_experts, cfg.num_experts_per_token
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(topv[:, :k], dim=-1)
+    eid = topi[:, :k].T.reshape(-1)
+    oh = torch.nn.functional.one_hot(eid, e).float()
+    pos = ((oh.cumsum(dim=0) - 1.0) * oh).sum(dim=-1)
+    keep = pos < cap
+    slot = torch.where(keep, eid * cap + pos.long(), e * cap)
+    return gates, eid, oh, keep, slot
+
+
+def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mixture-of-experts SwiGLU MLP (Mixtral-style top-k routing with the
+    reference's GShard capacity).  Returns (output, the Switch aux term).
+
+    - router: top-k over float32 logits, the lower expert first on equal
+      logits (``lax.top_k``'s order; a stable descending sort gives it);
+      gates are the softmax over the k logits;
+    - capacity: :func:`moe_capacity` over ``s = B*T``, every row passed in
+      (padded and idle rows claim places too, as in the reference);
+    - dispatch: claims in choice-major order (every row's first choice
+      before any second), a claim's place in its expert from the one-hot
+      cumsum; a kept claim scatters its row into its own slot of the
+      ``[E*C + 1, D]`` buffer, an overflow claim into the last (dump) row
+      with weight 0 — kept slots are distinct, so ``index_add_`` is exact
+      and deterministic;
+    - experts: one batched SwiGLU over ``[E, C, D]`` (the reference's
+      einsums; no Pallas kernel there, so none here);
+    - aux: ``E * sum_e importance_e * load_e``.
+
+    p: router [D, E], w_gate/w_up [E, D, F], w_down [E, F, D].  Quantized
+    leaves (a ``serve_quantized`` store) are rehydrated here, per layer,
+    as the reference rehydrates them inside its scan."""
+    if any(isinstance(w, QuantizedTensor) for w in p.values()):
+        from ..checkpoint.quantize import dequantize_tree
+
+        p = dequantize_tree(p, x.dtype)
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_token
+    s = b * t
+    cap = moe_capacity(cfg, s)
+    xf = x.reshape(s, d)
+
+    logits = xf.float() @ p["router"].float()  # [s, e]
+    gates, eid, oh, keep, slot = moe_route(logits, cfg, cap)
+
+    token_idx = torch.arange(s, device=x.device).repeat(k)
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=x.device)
+    buf.index_add_(0, slot, xf[token_idx] * keep[:, None].to(xf.dtype))
+    xe = buf[:-1].reshape(e, cap, d)
+
+    g = torch.bmm(xe, p["w_gate"].to(xe.dtype))
+    u = torch.bmm(xe, p["w_up"].to(xe.dtype))
+    ye = torch.bmm(torch.nn.functional.silu(g) * u, p["w_down"].to(xe.dtype))
+
+    yflat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
+    gathered = yflat[slot]  # dropped claims read the zero row
+    w = (gates.T.reshape(k * s) * keep).to(gathered.dtype)
+    y = (gathered * w[:, None]).reshape(k, s, d).sum(dim=0)
+
+    probs = torch.softmax(logits, dim=-1)
+    importance = probs.mean(dim=0)
+    load = (oh * keep[:, None].float()).sum(dim=0) / (s * k)
+    aux = e * (importance * load).sum()
+    return y.reshape(b, t, d).to(x.dtype), aux

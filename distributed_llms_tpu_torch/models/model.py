@@ -1,10 +1,14 @@
-"""Decoder-only transformer forward pass, llama family (PyTorch port of
-``distributed_llms_tpu/models/model.py``).
+"""Decoder-only transformer forward pass (PyTorch port of
+``distributed_llms_tpu/models/model.py``): the llama family (GQA, RoPE,
+SwiGLU or Mixtral-style MoE, RMSNorm), gpt2 and opt (LayerNorm, learned
+positions, a biased GELU/ReLU MLP) and neox (LayerNorm, partial rotary,
+parallel or sequential residual) — :data:`BLOCK_FNS`.
 
 Parameters are the JAX package's pytree as plain dictionaries of tensors,
 stacked over the layer axis (``params["blocks"][...]`` leaves lead with
 L); :func:`run_blocks` walks the layers in a Python loop where the JAX
-package runs ``lax.scan``.  Three cache layouts, as in the reference:
+package runs ``lax.scan``, summing the MoE blocks' load-balance terms.
+Three cache layouts, as in the reference:
 
 - a contiguous row cache ``[L, B, S, KVH, HD]``: a scalar ``cache_index``
   (admission prefill, causal or caller-supplied mask), or per-row
@@ -64,17 +68,12 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the llama family (GQA + RoPE, SwiGLU, RMSNorm),
-    with global or sliding-window attention, dense (``attn_impl="dot"``)
-    or through the flash kernels (``"flash"``); the other families, MoE
-    and the sequence-parallel attentions (``"ring"``, ``"ulysses"``) are
-    later slices and are refused loudly."""
-    if cfg.family != "llama":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (llama only)"
-        )
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet")
+    """Every block family of the reference is ported, dense and MoE,
+    with attention dense (``attn_impl="dot"``) or through the flash
+    kernels (``"flash"``); the sequence-parallel attentions (``"ring"``,
+    ``"ulysses"``) are a later slice and are refused loudly."""
+    if cfg.family not in BLOCK_FNS:
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_impl not in ("dot", "flash"):
         raise NotImplementedError(
             f"attn_impl {cfg.attn_impl!r} is not ported yet (dot and flash "
@@ -138,6 +137,7 @@ def _attention(
     layer_cache: tuple[torch.Tensor, ...] | None,  # (k, v) views of the
     #   layer's cache, or (k, v, k_scale, v_scale) of an int8 pool
     cache_index: torch.Tensor | int | None,
+    use_rope: bool = True,  # False for the learned-position families
     attn_mask: torch.Tensor | None = None,  # broadcastable to [B, H, Tq, S]
     kv_tables: torch.Tensor | None = None,  # [B, P] int32 page table: the
     #   layer cache is a PAGE POOL [NB, BLK, KVH, HD] and row b's slot s
@@ -156,13 +156,8 @@ def _attention(
     #   contiguous layouts (slot == position) leave it None
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...] | None]:
     q, k, v = layers.qkv_project(x, p, cfg)
-    rope_scale = (
-        (cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
-         cfg.rope_high_freq_factor, cfg.rope_original_max_len)
-        if cfg.rope_scaling_factor != 1.0 else None  # Llama-3.1 rescale
-    )
-    q = layers.apply_rope(q, positions, cfg.rope_theta, rope_scale)
-    k = layers.apply_rope(k, positions, cfg.rope_theta, rope_scale)
+    if use_rope:
+        q, k = _rotate(q, k, positions, cfg)
     window = cfg.sliding_window
     per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
 
@@ -312,6 +307,28 @@ def _attention(
     return layers.out_project(out, p), None
 
 
+def _rotate(q, k, positions, cfg):
+    """RoPE on q and k; with ``rotary_pct < 1`` (GPT-NeoX/Pythia) only
+    the first ``int(head_dim * rotary_pct)`` dims of each head rotate and
+    the rest pass through."""
+    rope_scale = (
+        (cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
+         cfg.rope_high_freq_factor, cfg.rope_original_max_len)
+        if cfg.rope_scaling_factor != 1.0 else None  # Llama-3.1 rescale
+    )
+    if cfg.rotary_pct < 1.0:
+        rot = int(cfg.head_dim_ * cfg.rotary_pct)
+
+        def part(t):
+            return torch.cat([layers.apply_rope(t[..., :rot], positions,
+                                                cfg.rope_theta, rope_scale),
+                              t[..., rot:]], dim=-1)
+
+        return part(q), part(k)
+    return (layers.apply_rope(q, positions, cfg.rope_theta, rope_scale),
+            layers.apply_rope(k, positions, cfg.rope_theta, rope_scale))
+
+
 def paged_window_rows(kv_tables: torch.Tensor, cache_index: torch.Tensor,
                       t: int, blk: int) -> tuple:
     """Coordinates of a T-token paged window (the speculative verify pass),
@@ -405,10 +422,32 @@ def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
                          key_positions)
 
 
+def _ln(x, p, cfg):
+    return layers.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def gpt2_block(x, p, cfg, positions, layer_cache, cache_index,
+               attn_mask=None, kv_tables=None, std_layout=False,
+               paged_window=None, key_positions=None):
+    """-> (x, new_cache, aux): aux is the MoE load-balance term (None
+    here).  Shared by the gpt2 and opt families (pre-LN, learned
+    positions); ``cfg.activation`` picks the MLP's nonlinearity."""
+    attn_out, new_cache = _attention(
+        _ln(x, p["ln1"], cfg), p["attn"], cfg, positions, layer_cache,
+        cache_index, use_rope=False, attn_mask=attn_mask,
+        kv_tables=kv_tables, std_layout=std_layout,
+        paged_window=paged_window, key_positions=key_positions,
+    )
+    x = x + attn_out
+    return (x + layers.mlp_gelu(_ln(x, p["ln2"], cfg), p["mlp"],
+                                cfg.activation), new_cache, None)
+
+
 def llama_block(x, p, cfg, positions, layer_cache, cache_index,
                 attn_mask=None, kv_tables=None, std_layout=False,
                 paged_window=None, key_positions=None):
-    """-> (x, new_cache)."""
+    """-> (x, new_cache, aux): aux is the MoE load-balance term (None for
+    a dense MLP)."""
     h = layers.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     attn_out, new_cache = _attention(
         h, p["attn"], cfg, positions, layer_cache, cache_index,
@@ -417,7 +456,33 @@ def llama_block(x, p, cfg, positions, layer_cache, cache_index,
     )
     x = x + attn_out
     h = layers.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-    return x + layers.mlp_swiglu(h, p["mlp"], cfg.gate_act), new_cache
+    if "router" in p["mlp"]:  # MoE block (cfg.num_experts > 0)
+        mlp_out, aux = layers.moe_swiglu(h, p["mlp"], cfg)
+        return x + mlp_out, new_cache, aux
+    return x + layers.mlp_swiglu(h, p["mlp"], cfg.gate_act), new_cache, None
+
+
+def neox_block(x, p, cfg, positions, layer_cache, cache_index,
+               attn_mask=None, kv_tables=None, std_layout=False,
+               paged_window=None, key_positions=None):
+    """GPT-NeoX/Pythia: LayerNorm, (partial) rotary, and with
+    ``cfg.parallel_residual`` x + attn(ln1 x) + mlp(ln2 x), both norms
+    reading the same input; sequential pre-LN otherwise.  -> (x,
+    new_cache, None)."""
+    attn_out, new_cache = _attention(
+        _ln(x, p["ln1"], cfg), p["attn"], cfg, positions, layer_cache,
+        cache_index, attn_mask=attn_mask, kv_tables=kv_tables,
+        std_layout=std_layout, paged_window=paged_window,
+        key_positions=key_positions,
+    )
+    mlp_in = x if cfg.parallel_residual else x + attn_out
+    mlp_out = layers.mlp_gelu(_ln(mlp_in, p["ln2"], cfg), p["mlp"],
+                              cfg.activation)
+    return x + attn_out + mlp_out, new_cache, None
+
+
+BLOCK_FNS = {"gpt2": gpt2_block, "opt": gpt2_block, "llama": llama_block,
+             "neox": neox_block}
 
 
 def layer_params(blocks: Params, i: int) -> Params:
@@ -442,9 +507,10 @@ def run_blocks(
     remat: bool = False,  # recompute each block in the backward pass
     std_layout: bool = False,  # see _attention
     key_positions: torch.Tensor | None = None,  # [B, S]; see _attention
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked blocks over x, layer by layer (the JAX package's
-    ``lax.scan``).  Cache writes land in place in ``cache_k``/``cache_v``
+    ``lax.scan``).  Returns (x, aux): aux sums the MoE blocks'
+    load-balance terms (a float32 zero without experts).  Cache writes land in place in ``cache_k``/``cache_v``
     (and the scales of an int8 pool).  Under weight-only quantized serving
     the blocks' matmul weights are ``QuantizedTensor`` leaves: they stay
     int8/int4 in device memory and reach the dequant-matmul kernel through
@@ -452,7 +518,9 @@ def run_blocks(
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
     scan body): its activations are recomputed in the backward pass
     instead of kept."""
+    block_fn = BLOCK_FNS[cfg.family]
     n_layers = blocks["ln1"]["scale"].shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     window = None
     if kv_tables is not None and x.shape[1] > 1 and cache_k is not None:
         window = paged_window_rows(kv_tables, cache_index, x.shape[1],
@@ -468,19 +536,56 @@ def run_blocks(
                 cache_index, attn_mask, kv_tables, std_layout, window,
                 key_positions)
         if remat:
-            x, _ = torch.utils.checkpoint.checkpoint(
-                llama_block, *args, use_reentrant=False)
+            x, _, layer_aux = torch.utils.checkpoint.checkpoint(
+                block_fn, *args, use_reentrant=False)
         else:
-            x, _ = llama_block(*args)
-    return x
+            x, _, layer_aux = block_fn(*args)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
 # Full model forward
 # ---------------------------------------------------------------------------
 
-def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["wte"][tokens.long()].to(torch_dtype(cfg.dtype))
+def layernorm_family(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s norms are LayerNorms with biases and its blocks
+    carry projection biases (gpt2, opt, neox), not llama's RMSNorms."""
+    return cfg.family in ("gpt2", "opt", "neox")
+
+
+def learned_pos_offset(cfg: ModelConfig) -> int | None:
+    """The offset of ``cfg``'s learned position table (OPT's 2, as HF
+    stores it; GPT-2's 0), or None for a family that rotates positions."""
+    return {"gpt2": 0, "opt": 2}.get(cfg.family)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of a learned position table: an index in [-n, n) reads its
+    row (a negative one from the end), as the reference's ``jnp.take``
+    reads it; an index past either end reads the nearest end row, where
+    ``jnp.take`` fills a row of NaN.  Only the speculative verify window's
+    headroom slots of a row at the table's end reach past it, and no
+    committed token is read from them; a NaN row there would be written
+    into the scratch page and leak into live rows through the masked
+    products of the plain attention paths (ROADMAP, Queue 3).  Nothing
+    here syncs with the host or asserts on the device, so a captured
+    decode step may feed it any position."""
+    n = table.shape[0]
+    return table[idx.long().clamp(-n, n - 1).remainder(n)]
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings, plus the learned position table of the gpt2 and
+    opt families (``positions`` [B, T]; OPT's table carries HF's offset
+    of 2), read by :func:`take_rows`."""
+    x = params["embed"]["wte"][tokens.long()]
+    off = learned_pos_offset(cfg)
+    if off is not None:
+        x = x + take_rows(params["embed"]["wpe"], positions + off)
+    x = x.to(torch_dtype(cfg.dtype))
     if cfg.embed_scale != 1.0:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     return x
@@ -505,7 +610,10 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    if layernorm_family(cfg):
+        x = _ln(x, params["final_norm"], cfg)
+    else:
+        x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     w = params["embed"]["wte"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     b, t, d = x.shape
     return _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
@@ -527,10 +635,14 @@ def forward(
     key_positions: torch.Tensor | None = None,  # [B, S] true RoPE position
     #   of each cache slot, for the sliding-window mask of gapped layouts
     #   (see _attention)
-) -> tuple[torch.Tensor, "KVCache | QuantKVCache | None"]:
+    return_aux: bool = False,  # also return the summed MoE aux term
+) -> tuple:
     """Full forward.  Returns (logits [B, T, V] float32, the cache — the
-    same object, updated in place).  A :class:`QuantKVCache` serves paged
-    decode only (``kv_tables`` required)."""
+    same object, updated in place), plus the summed MoE load-balance term
+    when ``return_aux`` (scale by ``cfg.moe_aux_loss_weight`` and add it
+    to the task loss when training an MoE model).  A
+    :class:`QuantKVCache` serves paged decode only (``kv_tables``
+    required)."""
     check_supported(cfg)
     b, t = tokens.shape
     # Standard layout: forward made the positions itself with no cache
@@ -539,10 +651,11 @@ def forward(
     if positions is None:
         base = 0 if cache_index is None else int(cache_index)
         positions = (torch.arange(t, device=tokens.device) + base).expand(b, t)
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens, positions)
     if cache is None:
-        x = run_blocks(x, params["blocks"], cfg, positions, None, None, None,
-                       attn_mask, remat=remat, std_layout=std_layout)
+        x, aux = run_blocks(x, params["blocks"], cfg, positions, None, None,
+                            None, attn_mask, remat=remat,
+                            std_layout=std_layout)
     elif isinstance(cache, QuantKVCache):
         # Int8 page pool: the quantized write and the scale-fused read both
         # live on the kv_tables path.
@@ -551,15 +664,17 @@ def forward(
                 "QuantKVCache serves paged decode only (pass kv_tables); "
                 "prefill runs against full-width transient rows"
             )
-        x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
-                       cache_index, attn_mask, kv_tables,
-                       cache_sk=cache.k_scale, cache_sv=cache.v_scale,
-                       remat=remat, std_layout=std_layout)
+        x, aux = run_blocks(x, params["blocks"], cfg, positions, cache.k,
+                            cache.v, cache_index, attn_mask, kv_tables,
+                            cache_sk=cache.k_scale, cache_sv=cache.v_scale,
+                            remat=remat, std_layout=std_layout)
     else:
-        x = run_blocks(x, params["blocks"], cfg, positions, cache.k, cache.v,
-                       cache_index, attn_mask, kv_tables, remat=remat,
-                       std_layout=std_layout, key_positions=key_positions)
-    return unembed(params, cfg, x), cache
+        x, aux = run_blocks(x, params["blocks"], cfg, positions, cache.k,
+                            cache.v, cache_index, attn_mask, kv_tables,
+                            remat=remat, std_layout=std_layout,
+                            key_positions=key_positions)
+    out = (unembed(params, cfg, x), cache)
+    return (*out, aux) if return_aux else out
 
 
 # ---------------------------------------------------------------------------
@@ -569,12 +684,19 @@ def forward(
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 dtype: Any = None,
                 device: "torch.device | str | None" = None) -> Params:
-    """Random llama parameters in the JAX package's stacked layout, drawn
-    from ``generator`` (a ``torch.Generator`` on ``device``): normal
-    weights scaled by fan_in^-0.5, unit norm scales.  The values differ
-    from ``jax.random``'s; tests share weights through
-    ``checkpoint.from_jax`` instead."""
+    """Random parameters of any family in the JAX package's stacked
+    layout, drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``): normal weights scaled by fan_in^-0.5, unit norm scales,
+    zero biases.  The values differ from ``jax.random``'s; tests share
+    weights through ``checkpoint.from_jax`` instead.  Refuses what the
+    reference refuses: MoE outside the llama family, tied neox
+    embeddings."""
     check_supported(cfg)
+    if cfg.num_experts > 0 and cfg.family != "llama":
+        raise ValueError(
+            "MoE (num_experts > 0) is supported for the llama family")
+    if cfg.family == "neox" and cfg.tie_embeddings:
+        raise ValueError("neox checkpoints untie embeddings (embed_out)")
     dtype = torch_dtype(dtype or cfg.dtype)
     L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     H, KVH, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -587,30 +709,49 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     attn = {
         "wq": dense((L, D, H, HD), D),
         "wk": dense((L, D, KVH, HD), D),
         "wv": dense((L, D, KVH, HD), D),
         "wo": dense((L, H, HD, D), H * HD),
     }
-    if cfg.qkv_bias:  # Qwen2-style llama blocks
-        attn["bq"] = torch.zeros((L, H, HD), dtype=dtype, device=device)
-        attn["bk"] = torch.zeros((L, KVH, HD), dtype=dtype, device=device)
-        attn["bv"] = torch.zeros((L, KVH, HD), dtype=dtype, device=device)
     params: Params = {
         "embed": {"wte": dense((cfg.vocab_size, D), D)},
         "final_norm": {"scale": ones((D,))},
-        "blocks": {
-            "ln1": {"scale": ones((L, D))},
-            "ln2": {"scale": ones((L, D))},
-            "attn": attn,
-            "mlp": {
-                "w_gate": dense((L, D, F), D),
-                "w_up": dense((L, D, F), D),
-                "w_down": dense((L, F, D), F),
-            },
-        },
     }
+    if layernorm_family(cfg):
+        off = learned_pos_offset(cfg)
+        if off is not None:  # neox rotates; the others learn positions
+            params["embed"]["wpe"] = dense((cfg.max_seq_len + off, D), D)
+        params["final_norm"]["bias"] = zeros((D,))
+        attn.update(bq=zeros((L, H, HD)), bk=zeros((L, KVH, HD)),
+                    bv=zeros((L, KVH, HD)), bo=zeros((L, D)))
+        norm = {"scale": ones((L, D)), "bias": zeros((L, D))}
+        params["blocks"] = {
+            "ln1": dict(norm), "ln2": {k: v.clone() for k, v in norm.items()},
+            "attn": attn,
+            "mlp": {"w_in": dense((L, D, F), D), "b_in": zeros((L, F)),
+                    "w_out": dense((L, F, D), F), "b_out": zeros((L, D))},
+        }
+    else:
+        if cfg.qkv_bias:  # Qwen2-style llama blocks
+            attn.update(bq=zeros((L, H, HD)), bk=zeros((L, KVH, HD)),
+                        bv=zeros((L, KVH, HD)))
+        if cfg.num_experts > 0:
+            E = cfg.num_experts
+            mlp = {"router": dense((L, D, E), D),
+                   "w_gate": dense((L, E, D, F), D),
+                   "w_up": dense((L, E, D, F), D),
+                   "w_down": dense((L, E, F, D), F)}
+        else:
+            mlp = {"w_gate": dense((L, D, F), D), "w_up": dense((L, D, F), D),
+                   "w_down": dense((L, F, D), F)}
+        params["blocks"] = {"ln1": {"scale": ones((L, D))},
+                            "ln2": {"scale": ones((L, D))},
+                            "attn": attn, "mlp": mlp}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense((D, cfg.vocab_size), D)}
     return params

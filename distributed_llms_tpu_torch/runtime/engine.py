@@ -156,12 +156,15 @@ class InferenceEngine:
         tokenizer from its ``tokenizer`` dir (the byte tokenizer, with a
         warning, when it has none).  With ``rt.serve_quantized`` the
         decoder-block weights stay int8/int4 on the device and every
-        projection runs the dequant-matmul kernel; the embedding and the
-        unembedding are dequantized to ``cfg.dtype`` (a gather cannot read
-        quantized rows).  Otherwise every leaf is dequantized at load."""
+        projection runs the dequant-matmul kernel (an MoE block's router
+        and experts are rehydrated layer by layer in each forward, as in
+        the reference); the embedding (with a learned position table) and
+        the unembedding are dequantized to ``cfg.dtype`` (a gather cannot
+        read quantized rows).  Otherwise every leaf is dequantized at
+        load."""
         from ..checkpoint import quantize as quant_lib
         from ..checkpoint import store as store_lib
-        from ..models.layers import K_LEAD
+        from ..models.layers import K_LEAD, kernel_leaves
         from ..models.model import torch_dtype
         from ..ops.quant_matmul import check_pack_axis
         from .tokenizer import ByteTokenizer
@@ -197,10 +200,11 @@ class InferenceEngine:
                     "quantized; save it with quantization='int8'|'int4'"
                 )
             params = store_lib.load_shards(store_dir, device=dev)
-            for group in params["blocks"].values():
-                for name, leaf in group.items():
-                    if isinstance(leaf, quant_lib.QuantizedTensor):
-                        check_pack_axis(leaf, K_LEAD[name], stacked=1)
+            # The packing check belongs to the leaves the dequant-matmul
+            # reads; an MoE block's experts are rehydrated per layer.
+            for name, leaf in kernel_leaves(params["blocks"]):
+                if isinstance(leaf, quant_lib.QuantizedTensor):
+                    check_pack_axis(leaf, K_LEAD[name], stacked=1)
             params = {k: (v if k == "blocks"
                           else quant_lib.dequantize_tree(v, dtype))
                       for k, v in params.items()}
@@ -648,7 +652,7 @@ def _quantize_blocks(blocks: Any, bits: int) -> Any:
     stacked back: the same codes, since every scale block and int4 pair
     lies within one layer."""
     from ..checkpoint import quantize as quant_lib
-    from ..models.layers import K_LEAD
+    from ..models.layers import K_LEAD, kernel_leaves
     from ..ops.quant_matmul import check_pack_axis
 
     def walk(tree, path):
@@ -660,14 +664,16 @@ def _quantize_blocks(blocks: Any, bits: int) -> Any:
             return tree
         per = [quant_lib.quantize(tree[i], bits=bits, pack_axis=pack_axis)
                for i in range(tree.shape[0])]
-        qt = quant_lib.QuantizedTensor(
+        return quant_lib.QuantizedTensor(
             data=torch.stack([q.data for q in per]),
             scale=torch.stack([q.scale for q in per]),
             bits=bits, orig_shape=tuple(tree.shape), pack_axis=pack_axis)
-        check_pack_axis(qt, K_LEAD[path.split("/")[-1]], stacked=1)
-        return qt
 
-    return walk(blocks, "")
+    out = walk(blocks, "")
+    for name, qt in kernel_leaves(out):
+        if isinstance(qt, quant_lib.QuantizedTensor):
+            check_pack_axis(qt, K_LEAD[name], stacked=1)
+    return out
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

@@ -49,14 +49,19 @@ def lm_loss(
     mask: torch.Tensor | None = None,
     remat: bool = False,
 ) -> torch.Tensor:
-    """Next-token cross-entropy.  MoE models (whose loss adds the router's
-    load-balance term) are not ported and raise."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet")
+    """Next-token cross-entropy; an MoE model adds its Switch-style
+    load-balance term, ``cfg.moe_aux_loss_weight * aux``, so the router
+    cannot collapse onto a few experts and capacity-drop the rest."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, _ = model_lib.forward(params, cfg, inputs, remat=remat)
+    if cfg.num_experts > 0:
+        logits, _, aux = model_lib.forward(params, cfg, inputs, remat=remat,
+                                           return_aux=True)
+    else:
+        logits, _ = model_lib.forward(params, cfg, inputs, remat=remat)
+        aux = 0.0
     tmask = mask[:, 1:] if mask is not None else None
-    return cross_entropy_loss(logits, targets, tmask)
+    return (cross_entropy_loss(logits, targets, tmask)
+            + cfg.moe_aux_loss_weight * aux)
 
 
 def _leaves(tree: Params) -> list[torch.Tensor]:

@@ -271,13 +271,18 @@ def test_bf16_tree_round_trips_exactly():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "gpt2"}, {"num_experts": 4}, {"family": "neox"},
+    {"family": "gpt2", "attn_impl": "ring"},
+    {"num_experts": 4, "attn_impl": "ulysses"},
+    {"family": "neox", "attn_impl": "ulysses"},
     {"attn_impl": "ring"},
 ])
 def test_later_slice_models_are_refused(change):
+    """Every block family and MoE are served; the sequence-parallel
+    attentions, whatever the family, are a later slice."""
     cfg = dataclasses.replace(get_preset("llama-tiny"), **change)
     with pytest.raises(NotImplementedError):
         tm.check_supported(cfg)
+    tm.check_supported(dataclasses.replace(cfg, attn_impl="dot"))
 
 
 def test_sliding_window_models_are_served():

@@ -299,7 +299,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ["--tenant-quota-tps", "5"],
     ["--tenant-weights", "a:1"], ["--replicas", "2"],
     ["--disaggregate"], ["--tenant-max-rows", "2"],
-    ["--preset", "gpt2-tiny"],
+    ["--replicas", "2", "--disaggregate"],
     ["--override", "runtime.tenant_weights=a:1"],
     ["--override", "runtime.tenant_max_rows=2"],
 ])

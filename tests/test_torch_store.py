@@ -164,6 +164,29 @@ def test_flipped_byte_raises_ioerror(bf16, tmp_path):
         tstore.load_shards(tdir, device="cpu")
 
 
+def test_arrays_load_over_partial_reads(bf16, tmp_path, monkeypatch):
+    """One ``read`` returns at most ~2 GiB on Linux, so an array of a
+    large store (Mixtral-8x7B's expert stacks: 7.5 GB) arrives over
+    several: a file object that returns 1000 bytes a call loads the same
+    tree; a truncated shard still raises."""
+    import io
+
+    _, tdir = _save_both(bf16, tmp_path, num_shards=1, quantization="int8")
+    want = jstore.load_shards(tdir)
+
+    class Chunky(io.FileIO):
+        def readinto(self, b):
+            return super().readinto(memoryview(b)[:1000])
+
+    monkeypatch.setattr(tstore, "open", lambda path, mode="r", buffering=-1:
+                        Chunky(path, "rb"), raising=False)
+    _assert_same_tree(want, tstore.load_shards(tdir, device="cpu"))
+    path = os.path.join(tdir, "shard_0.bin")
+    os.truncate(path, os.path.getsize(path) - 1)
+    with pytest.raises(IOError, match="short read"):
+        tstore.load_shards(tdir, device="cpu")
+
+
 @pytest.mark.parametrize("storage", ["raw", "npz"])
 def test_missing_shard_raises(bf16, tmp_path, storage):
     _, tdir = _save_both(bf16, tmp_path, num_shards=3, storage=storage)

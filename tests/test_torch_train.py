@@ -19,7 +19,8 @@ and batches.
   sqrt(nu), so those few percent become a few percent of the step size
   lr = 1e-2 — measured: 3 of 250432 parameters differ by 1.8e-4 to
   2.8e-4, all others by under 1e-4.
-- The knobs of later slices raise: the mesh-parallel step and MoE losses.
+- The knobs of later slices raise: the mesh-parallel step (MoE losses
+  are ported and add their load-balance term).
 
 The batch is numpy-seeded; weights come from the JAX ``init_params``
 through ``checkpoint.from_jax``.
@@ -38,6 +39,7 @@ from distributed_llms_tpu.models import model as jm
 from distributed_llms_tpu.models.presets import get_preset as jax_preset
 from distributed_llms_tpu.runtime import train as jt
 from distributed_llms_tpu_torch.checkpoint.from_jax import params_from_numpy
+from distributed_llms_tpu_torch.models import model as tm
 from distributed_llms_tpu_torch.models.presets import get_preset
 from distributed_llms_tpu_torch.runtime import train as tt
 
@@ -163,6 +165,12 @@ def test_later_slice_training_knobs_raise():
     cfg = get_preset("llama-tiny", vocab_size=512)
     with pytest.raises(NotImplementedError, match="mesh-parallel"):
         tt.Trainer(cfg, parallel=object())
-    moe = dataclasses.replace(cfg, num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.lm_loss({}, moe, torch.zeros(1, 3, dtype=torch.int64))
+    # MoE losses are ported: lm_loss adds the weighted load-balance term.
+    moe = get_preset("moe-tiny")
+    params = tm.init_params(moe, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, moe.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    with_aux = tt.lm_loss(params, moe, toks)
+    without = tt.lm_loss(params, dataclasses.replace(
+        moe, moe_aux_loss_weight=0.0), toks)
+    assert float(with_aux) != float(without)

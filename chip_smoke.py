@@ -137,9 +137,11 @@ Phases, each printing result lines:
       within 5% of the logit scale; a 9-page parcel (bf16, and int8 codes
       with scales) must come back from the pinned host arena equal to the
       bit, its swap-out and restore timed in parts.
-   j. (run by the ``spec`` phase) ``dlt-serve-torch --preset llama-3-8b
+   j. (run by the ``spec`` phase) ``dlt-serve-torch --store DJ
       --paged-pages 256 --page-size 64 --prefix-cache --spec-decode
-      --max-len 1024`` (spec_k 4, the int4 self-draft: K5 for the draft's
+      --max-len 1024``, DJ a bf16 store of Llama-3-8B's width cut to
+      SPEC_LAYERS (8) layers (random weights, seed 0; a temporary
+      directory removed once booted), (spec_k 4, the int4 self-draft: K5 for the draft's
       projections, K2 for its 4 steps and backfill over its contiguous
       cache, K1 once a layer for the 5-token verify window over 40
       virtual rows): path a's seven prompts, all greedy, 64 new tokens,
@@ -271,6 +273,53 @@ Phases, each printing result lines:
       batch dropped — and holds every served expert choice to its own
       float32 router logits by the same margin.  Path m's launches
       ride in the JSON line as ``families_launches``.
+   n. (run by the ``fleet`` phase) replica fleets over ONE copy of
+      ``llama-3-8b``'s weights (bf16, random from seed 0, built once by
+      ``serve_main._build_engine`` and handed to every fleet through
+      ``build_fleet(args, engine_parts=)``), every replica with path a's
+      pool flags and ``--max-len 1024`` (2 GiB of pool each), the fleet's
+      replicas booted at once:
+      n1. ``--replicas 2`` behind the router: path a's seven requests;
+      the three shared-prefix prompts again (each lands by affinity on
+      the replica holding its run and hits); a fresh 4-page prefix served
+      once and a second prompt over it with ``router.place:drop`` tagged
+      at the holder, so the router pulls the run into the cold sibling
+      (4 pages imported, a hit); a 5-page prompt's TTFT colocated; a
+      crash drill: a fresh prompt held in flight on r0 (its engine gated)
+      while ``replica.crash:close`` fires by count at r0's next probe
+      tick, the request failing over to r1, then r0 respawned and six
+      prompts served by both while r0 captures its graphs.  Engine-side,
+      8 greedy requests (300 + 64) timed on one batcher alone and on two
+      at once from two threads.
+      n2. ``--disaggregate --prefill-replicas 1 --decode-replicas 1``:
+      path a's seven requests, three 5-page prompts over path a's prefix
+      handed off one at a time (each served from the imported pages), a
+      5-page prompt's TTFT handed off, the decode replica's imported
+      pages held to the bit against the prefill replica's for the same
+      digests on the card; a 600-byte prompt (9 pages, over MAX_FRAME)
+      falls back to colocated prefill ("frame too large"), then
+      ``xfer.send:corrupt@1`` (a NACK, the retry lands) and
+      ``prefill.crash:close@1`` (colocated fallback), each counted.
+      Every handoff's parts timed where they run (export gather, message
+      build, frame encode, send to ack, inflate, verify, import).  The
+      same handed-off traffic with ``--kv-bits 8`` on both tiers: codes
+      and scales byte-equal to the sender's, decode through K1q.
+      n3. ``--tenant-weights a:3,b:1 --tenant-max-rows 6
+      --tenant-quota-tps 57.6`` on one engine: 16 requests (8 a tenant,
+      40-token prompts, 32 new) queued before the first admission; the
+      admission order printed, no tenant over 6 rows, tenant a at least 5
+      of the first 8; tenant b's 9th request answers 429 with
+      ``Retry-After`` (its 8 fill its 576-token window).  Then behind a
+      2-replica router tenant b's burst of 9 at once: 8 admitted across
+      both replicas and one shed by the router's one ledger.
+      Every greedy stream of n1 and n2 is held to a single engine's
+      stream for its prompt over the same weights (n2's handed-off ones
+      also to the engine's second serving of the prompt, a hit over its
+      own pages) by ``GEN_NEAR_TIE``.  Launch counts are process-wide:
+      under a fleet they sum every replica's kernels; each leg's K1 (n2's
+      int8 leg: K1q) must reach layers x its busiest replica's decode
+      steps.  Path n's launches ride in the JSON line as
+      ``fleet_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -305,6 +354,9 @@ Phases, each printing result lines:
 6e. ``families`` — path m (in ``serve``'s list above): the gpt2, opt and
    neox families and Mixtral-style MoE.  ``--phases build,families`` runs
    it alone.
+6f. ``fleet`` — path n (in ``serve``'s list above): replica fleets, the
+   disaggregated KV handoff and tenant QoS.  ``--phases build,fleet``
+   runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -3336,9 +3388,13 @@ def parcel_round_trip(torch) -> None:
 
 SPEC_K = 4  # runtime.spec_k's default: --spec-decode alone gives it
 SPEC_NEW = 64
-SPEC_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "256", "--page-size",
-             "64", "--prefix-cache", "--spec-decode", "--max-len", "1024",
-             *_COMMON_ARGS]
+SPEC_ARGS = ["--paged-pages", "256", "--page-size", "64", "--prefix-cache",
+             "--spec-decode", "--max-len", "1024", *_COMMON_ARGS]
+# Path j's depth, cut from Llama-3-8B's 32 layers (to keep the whole smoke
+# near its time as path n joined it): every layer keeps the published
+# width, so each draft step, verify window and K5 launch is the full
+# model's a layer; served from a bf16 store of the cut model, as path h.
+SPEC_LAYERS = STORE_LAYERS
 # Check (a)'s bound on a greedy stream that left the plain batcher's: at
 # every position the committed token's logit under a teacher-forced
 # reference forward (one no-cache forward over prompt + stream, dense
@@ -3675,8 +3731,9 @@ def _timed_batch(torch, b, prompts, profile) -> dict:
 
 
 def serve_spec(torch, profile: bool) -> dict:
-    """Path j: ``dlt-serve-torch --preset llama-3-8b --paged-pages 256
+    """Path j: ``dlt-serve-torch --store DJ --paged-pages 256
     --page-size 64 --prefix-cache --spec-decode --max-len 1024 --slots 8``
+    over a bf16 store of Llama-3-8B's width at SPEC_LAYERS layers
     (spec_k 4, the int4 self-draft) answers :func:`spec_requests` over
     HTTP, then checks (a)-(e) engine-side over the same weights: (a) the
     HTTP streams against a plain batcher's; (b) the same with int8 pages
@@ -3711,10 +3768,16 @@ def serve_spec(torch, profile: bool) -> dict:
     per_round = {"paged_decode_attention": 1,
                  "ragged_decode_attention": SPEC_K + 1,
                  "quant_matmul_int4": 7 * (SPEC_K + 1)}
-    launches, server, mem = serve_path(
-        torch, "spec", SPEC_ARGS, per_round,
-        lambda port: _serve_spec_requests(port, reqs), _llama_3_8b,
-        setup=setup)
+    tmp = tempfile.mkdtemp(prefix="dlt_store_spec_")
+    try:
+        info = write_store(torch, None, tmp, "llama-3-8b",
+                           num_layers=SPEC_LAYERS)
+        launches, server, mem = serve_path(
+            torch, "spec", ["--store", tmp, *SPEC_ARGS], per_round,
+            lambda port: _serve_spec_requests(port, reqs), _llama_3_8b_cut,
+            setup=setup, **info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     b = server.batcher
     subs, streams = box.pop("subs"), box.pop("streams")
     got = [streams[rid] for rid, _, _ in subs]
@@ -5689,10 +5752,819 @@ def serve_families(torch) -> dict:
     return out
 
 
+# -- path n: replica fleets, disaggregated prefill/decode, tenants ------------
+
+FLEET_MAX_LEN = 1024
+FLEET_ARGS = [*SERVE_ARGS, "--max-len", str(FLEET_MAX_LEN)]
+FLEET_NEW = 48
+# Path a's prefix with tails of equal length: 333-353 prompt tokens (with
+# BOS), 5 full 64-token pages each, all handed off / pulled.
+FLEET_TAILS = ("Case C: a refused delivery at dock 4.",
+               "Case D: a customs hold on two crates.",
+               "Case E: a damaged pallet was refused.")
+FLEET_PROBE_BYTES = 330  # + BOS: 331 tokens, 5 full pages
+PULL_DEADLINE_S = 5.0  # ReplicaRouter's default
+# n2's handoff deadline: a 5-page handoff is ~5-6 s of host wire work at
+# this width and a drilled retry ~10 s (PERF.md §5), against the
+# router's default 15 s; the drills must not race it.
+HANDOFF_DEADLINE_S = 60.0
+
+
+def _probe(label: str) -> str:
+    """A fresh 5-page prompt (no prefix any replica holds)."""
+    text = f"TTFT probe {label}: " + "".join(
+        f"freight line {i:02d}; " for i in range(20))
+    check(len(text) >= FLEET_PROBE_BYTES, "fleet: the probe prompt is short")
+    return text[:FLEET_PROBE_BYTES]
+# The pull drill's own shared prefix (4 full pages), so that only the
+# replica that served its first prompt holds it: path a's traffic leaves
+# PATH_A_PREFIX's pages on both replicas.
+PULL_BASE = ("Dock roster for the night shift, one crew per bay, names "
+             "withheld: " + "".join(f"bay {i:02d} crew {(7 * i) % 23:02d}; "
+                                    for i in range(24)))[:280]
+# 600 prompt bytes (601 tokens, 9 full pages): 9 x 8 MiB of K+V, over
+# MAX_FRAME once base64'd — the reference's permanent "frame too large".
+FLEET_LONG_BYTES = 600
+FLEET_LONG = ("A ledger past the frame limit: " + "".join(
+    f"crate {i:03d} on aisle {i % 17:02d}; " for i in range(40)))[
+        :FLEET_LONG_BYTES]
+TENANT_NEW = 32
+TENANT_PROMPT_BYTES = 39  # + BOS: 40 tokens; est = 40 + 32 = 72 a request
+TENANT_WINDOW_S = 10.0  # the gateway's and router's default window
+# Tenant b (weight 1) holds exactly 8 requests' est in its window: the
+# 9th of its burst is over quota.  Tenant a (weight 3) holds 24.
+TENANT_QUOTA_TPS = 8 * (TENANT_PROMPT_BYTES + 1 + TENANT_NEW) \
+    / TENANT_WINDOW_S
+TENANT_ARGS = ["--tenant-weights", "a:3,b:1", "--tenant-max-rows", "6",
+               "--tenant-quota-tps", str(TENANT_QUOTA_TPS)]
+
+
+class _FleetRecorder:
+    """Every batcher's submits and finished streams, whichever replica,
+    respawn or engine-side run owns it (the class's ``submit`` and ``run``
+    wrapped for the length of path n): token ids are read engine-side
+    because an HTTP answer carries text, which random weights mostly
+    decode to nothing."""
+
+    def __init__(self, cls) -> None:
+        self.cls = cls
+        self.subs, self.streams, self.first, self.done = {}, {}, {}, []
+        self._serial = [0]
+        self._orig = (cls.submit, cls.run)
+
+    def key(self, b, rid):
+        if "_smoke_serial" not in b.__dict__:
+            self._serial[0] += 1
+            b._smoke_serial = self._serial[0]
+        return (b._smoke_serial, rid)
+
+    def install(self):
+        submit, run = self._orig
+        rec = self
+
+        def submit_rec(b, prompt, max_new_tokens=32, *a, **kw):
+            t0 = time.perf_counter()
+            rid = submit(b, prompt, max_new_tokens, *a, **kw)
+            ids = (b.tokenizer.encode(prompt) if isinstance(prompt, str)
+                   else list(prompt))
+            t = kw.get("temperature")
+            greedy = (b.sampling["temperature"] if t is None else t) == 0.0
+            rec.subs[rec.key(b, rid)] = dict(ids=ids, new=max_new_tokens,
+                                             greedy=greedy, t0=t0)
+            return rid
+
+        def run_rec(b, on_tokens=None):
+            def on(rid, toks, done, lps):
+                k = rec.key(b, rid)
+                if toks and k not in rec.first:
+                    rec.first[k] = time.perf_counter()
+                rec.streams.setdefault(k, []).extend(toks)
+                if done:
+                    rec.done.append(k)
+                if on_tokens is not None:
+                    return on_tokens(rid, toks, done, lps)
+            return run(b, on_tokens=on)
+
+        self.cls.submit, self.cls.run = submit_rec, run_rec
+        return self
+
+    def uninstall(self):
+        self.cls.submit, self.cls.run = self._orig
+
+    def finished(self, since=0, serials=None) -> list:
+        """[(key, ids, new, stream)] of greedy requests that finished
+        (done delivered) since mark ``since``, 1-token prefill admissions
+        left out, on the batchers ``serials`` (None: any)."""
+        out = []
+        for k in self.done[since:]:
+            s = self.subs.get(k)
+            if s is None or not s["greedy"] or s["new"] <= 1:
+                continue
+            if serials is not None and k[0] not in serials:
+                continue
+            out.append((k, s["ids"], s["new"], self.streams.get(k, [])))
+        return out
+
+
+class _HandoffTimers:
+    """Times each part of a KV handoff where the code runs it: the export
+    gather (engine thread, to host memory), the KV_PAGES message build
+    (base64 + checksum), the frame encode (JSON + zlib), the send to its
+    ack, the receiver's inflate, verify (base64 decode + checksum +
+    digest chain) and the import (the scatter, synchronized)."""
+
+    def __init__(self, torch) -> None:
+        from distributed_llms_tpu_torch.cluster import kv_transfer, protocol
+        from distributed_llms_tpu_torch.runtime import batcher as tb
+
+        self.torch = torch
+        self.parts = {k: [] for k in ("export", "message", "encode", "send",
+                                      "inflate", "verify", "import")}
+        self.pages = []  # pages of each export
+        self.sends = []
+        self.mods = (kv_transfer, protocol, tb.ContinuousBatcher)
+        self.saved = []
+
+    def _wrap(self, owner, name, part, sync=False, big=None):
+        fn = getattr(owner, name)
+        self.saved.append((owner, name, fn))
+        parts, torch = self.parts[part], self.torch
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            if big is None or big(a, out):
+                parts.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(owner, name, timed)
+
+    def install(self):
+        kvt, proto, cls = self.mods
+        self._wrap(cls, "export_prefix_pages", "export")
+        export, pages = cls.export_prefix_pages, self.pages
+
+        def counted_export(b, ids):
+            out = export(b, ids)
+            pages.append(0 if out is None else len(out[0]))
+            return out
+        cls.export_prefix_pages = counted_export
+        self._wrap(kvt, "encode_kv_pages", "message")
+        self._wrap(proto, "encode", "encode",
+                   big=lambda a, out: len(out) > 1 << 20)
+        self._wrap(proto, "_inflate", "inflate",
+                   big=lambda a, out: len(out) > 1 << 20)
+        self._wrap(kvt, "verify_and_decode", "verify")
+        self._wrap(cls, "_import_kv_pages", "import", sync=True)
+        send = kvt.send_kv_pages
+        self.saved.append((kvt, "send_kv_pages", send))
+        sends, parts = self.sends, self.parts["send"]
+
+        async def timed_send(*a, **kw):
+            res = await send(*a, **kw)
+            sends.append(res)
+            parts.append(res.elapsed_s * 1e3)
+            return res
+        kvt.send_kv_pages = timed_send
+        return self
+
+    def uninstall(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def _counters_by_prefix(prefixes) -> dict:
+    """Every counter under one of ``prefixes`` (reasons included)."""
+    from distributed_llms_tpu_torch.core.observability import METRICS
+
+    return {k: v for k, v in METRICS.snapshot()["counters"].items()
+            if k.startswith(prefixes)}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def _fleet_args(*extra) -> list:
+    from distributed_llms_tpu_torch.cli import serve_main
+
+    return serve_main.parser().parse_args([*FLEET_ARGS, *extra])
+
+
+async def _fleet_boot(fleet, router) -> float:
+    """Boot every replica at once (each factory off the loop), the router,
+    and wait for the first healthy probe of each: seconds."""
+    t0 = time.perf_counter()
+    await fleet.start()
+    await router.start()
+    check(await fleet.wait_healthy(timeout_s=120.0),
+          f"fleet: not every replica probed healthy: {fleet.report()}")
+    return time.perf_counter() - t0
+
+
+def _launch_floor(label, launches, kernel, layers, steps) -> None:
+    check(launches[kernel] >= layers * steps,
+          f"{label}: {kernel} launched {launches[kernel]} times, under "
+          f"{layers} layers x {steps} decode steps")
+
+
+def _hold_fleet(torch, label, eng, rows, want_fn) -> dict:
+    """Hold each finished greedy stream ``rows`` [(key, ids, new, stream)]
+    to ``want_fn(ids, new)`` by the near-tie rule."""
+    eos = eng.tokenizer.eos_id
+    got = [r[3] for r in rows]
+    want = [want_fn(r[1], r[2]) for r in rows]
+    return _near_ties(torch, label, eng.params, eng.cfg,
+                      [r[1] for r in rows], got, want, eos)
+
+
+def _single_engine(torch, eng, rows, kv_bits=16, second_pass=False) -> dict:
+    """The streams a single colocated engine gives the prompts of
+    ``rows`` [(key, ids, new, stream)] (greedy, path a's pool): cold
+    admissions, or with ``second_pass`` each prompt served once (1 token)
+    and then again as a prefix hit over its own pages.
+    {(ids, new): stream}."""
+    b = eng.continuous_batcher(batch_slots=8, max_len=FLEET_MAX_LEN,
+                               paged_pages=256, page_size=64,
+                               prefix_cache=True, kv_bits=kv_bits)
+    out = {}
+    todo = sorted({(tuple(r[1]), r[2]) for r in rows})
+    if second_pass:
+        for ids, _ in todo:
+            b.submit(list(ids), max_new_tokens=1)
+        b.run()
+    for i in range(0, len(todo), 8):
+        part = todo[i:i + 8]
+        rids = [b.submit(list(ids), max_new_tokens=new,
+                         prefix_cache=second_pass) for ids, new in part]
+        res = b.run()
+        for (ids, new), r in zip(part, rids):
+            out[(ids, new)] = res[r]
+    torch.cuda.synchronize()
+    del b
+    _free(torch)
+    return out
+
+
+async def _greedy(port, prompt, new=FLEET_NEW, **extra) -> dict:
+    status, resp = await _http(port, "/v1/completions", {
+        "prompt": prompt, "max_tokens": new, "temperature": 0.0, **extra})
+    check(status == 200, f"fleet: a greedy request answered {status}: "
+          f"{resp}")
+    return resp
+
+
+def _cached(resp) -> int:
+    return (resp.get("usage", {}).get("prompt_tokens_details") or {}).get(
+        "cached_tokens", 0)
+
+
+def _gate_engine(server):
+    """Hold a replica's engine before its next ``run``: a request sent
+    now is provably in flight with nothing streamed."""
+    import threading
+
+    gate = threading.Event()
+    b = server.batcher
+    run = b.run
+
+    def gated(on_tokens=None):
+        gate.wait(60)
+        b.run = run
+        return run(on_tokens=on_tokens)
+
+    b.run = gated
+    return gate
+
+
+async def _await_inflight(h) -> None:
+    for _ in range(6000):
+        if h.inflight and h.server._inflight():
+            return
+        await asyncio.sleep(0.005)
+    raise SmokeFailure(f"fleet: no request went in flight on {h.name}")
+
+
+def _step_ms(torch, eng) -> dict:
+    """Decode ms a step of 8 greedy requests (300-token prompts, 64 new)
+    on one batcher alone, then on two batchers over the same weights run
+    at once from two threads — the replicas' engine threads share the
+    card (and its one legacy default stream)."""
+    import threading
+
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (LOOP_PROMPT_TOKENS,),
+                             generator=g).tolist() for _ in range(8)]
+
+    def fresh():
+        return eng.continuous_batcher(batch_slots=8, max_len=FLEET_MAX_LEN,
+                                      paged_pages=256, page_size=64,
+                                      prefix_cache=True)
+
+    b1, b2 = fresh(), fresh()
+    for b in (b1, b2):
+        _run_batch(torch, b, prompts)  # capture the graphs
+    alone = _run_batch(torch, b1, prompts)
+    out = [None, None]
+
+    def worker(i, b):
+        out[i] = _run_batch(torch, b, prompts)
+
+    threads = [threading.Thread(target=worker, args=(i, b))
+               for i, b in enumerate((b1, b2))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(all(o is not None for o in out), "fleet: a concurrent run failed")
+    check(out[0][0] == alone[0] and out[1][0] == alone[0],
+          "fleet: two batchers at once gave other streams than one alone")
+    res = {"one_replica_ms_per_step": alone[1] / alone[2] * 1e3,
+           "two_replicas_ms_per_step": [o[1] / o[2] * 1e3 for o in out],
+           "two_replicas_wall_s": wall, "one_replica_wall_s": alone[1],
+           "decode_steps": alone[2]}
+    del b1, b2
+    _free(torch)
+    return res
+
+
+def fleet_replicas(torch, card, lap, parts, rec) -> dict:
+    """n1: ``--replicas 2`` through ``build_fleet`` and the router."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.core.observability import METRICS
+    from distributed_llms_tpu_torch.runtime.faults import FaultPlane
+
+    eng = parts[0]
+    args = _fleet_args("--replicas", "2")
+    fleet, router = serve_main.build_fleet(args, engine_parts=parts)
+    # The shared plane of the replica.* and router.* sites, armed by count
+    # below.
+    fleet.faults = router.faults = FaultPlane()
+    torch.cuda.reset_peak_memory_stats()
+    mark = len(rec.done)
+    counters = ("router.affinity_hits", "directory.hits", "directory.pulls",
+                "batcher.kv_pages_imported", "batcher.kv_pages_exported",
+                "router.failovers", "router.respawns")
+    prefixes = ("router.", "directory.", "batcher.kv_pages_", "xfer.")
+    c0 = _counters_by_prefix(prefixes)
+    info: dict = {}
+
+    async def drive():
+        info["boot_s"] = await _fleet_boot(fleet, router)
+        port = router.bound_port
+        reset_launches()
+        info["path_a"] = await _serve_requests(port)
+        # The three shared-prefix prompts again: each lands on the replica
+        # that holds its longest cached run (epoch-valid affinity) and hits.
+        hits0 = METRICS.get_counter("router.affinity_hits")
+        repeats = []
+        for tail in ("Case A: a pallet arrived late.",
+                     "Case B: a crate is dented.",
+                     "Case A: a pallet arrived late."):
+            resp = await _greedy(port, PATH_A_PREFIX + tail)
+            repeats.append(_cached(resp))
+        check(METRICS.get_counter("router.affinity_hits") - hits0 == 3,
+              "fleet: the repeats did not all follow affinity")
+        check(all(c >= 256 for c in repeats),
+              f"fleet: a repeat missed the prefix pages: {repeats}")
+        info["repeats_cached_tokens"] = repeats
+        # The pull: a fresh prefix served once lands on one replica (the
+        # holder); the holder is vetoed once for a second prompt over the
+        # same prefix, which lands cold on the sibling, and the router
+        # pulls the run from the holder instead of prefilling it.
+        await _greedy(port, PULL_BASE + " First: which bay is free?")
+        digests = router._digests(eng.tokenizer.encode(
+            PULL_BASE + " Second: which crew is late?"))
+        holder = router._affinity_lookup(digests[3])
+        check(holder is not None, "fleet: no affinity recorded for the "
+              "pull drill's prefix")
+        info["pull_holder"] = holder
+        rule = router.faults.add("router.place", "drop", when="1",
+                                 tag=holder)
+        pull0 = {c: METRICS.get_counter(c) for c in counters}
+        # At this width a 4-page pull's host work (JSON + zlib of ~30 MB)
+        # takes ~4 s of the reference's 5 s deadline: the drill, which
+        # must pull, gets the handoff's 15 s.
+        router.pull_deadline_s = router.handoff_deadline_s
+        t0 = time.perf_counter()
+        pulled = await _greedy(port, PULL_BASE + " Second: which crew is "
+                               "late?")
+        info["pull_request_s"] = time.perf_counter() - t0
+        router.pull_deadline_s = PULL_DEADLINE_S
+        check(rule.fired == 1, "fleet: the router.place drop never fired")
+        pulled_delta = {c: METRICS.get_counter(c) - pull0[c]
+                        for c in counters}
+        info["pull"] = {"cached_tokens": _cached(pulled), **pulled_delta}
+        check(pulled_delta["directory.hits"] == 1
+              and pulled_delta["directory.pulls"] == 1
+              and pulled_delta["batcher.kv_pages_imported"] == 4,
+              f"fleet: the drill did not pull 4 pages: {pulled_delta}")
+        check(_cached(pulled) >= 256, "fleet: the pulled run was not hit")
+        # TTFT of a colocated cold prompt (5 pages), for path n2's
+        # handed-off one.
+        t0 = time.perf_counter()
+        await _greedy(port, _probe("colocated"),
+                      new=8)
+        info["probe_sent_t"] = t0
+        # Crash drill: a fresh greedy prompt (no affinity: it places on the
+        # least committed replica, ties by name, r0) held in flight there,
+        # then replica.crash:close fired by count at r0's next probe tick;
+        # it fails over to r1.
+        victim = fleet["r0"]
+        gate = _gate_engine(victim.server)
+        task = asyncio.create_task(_greedy(
+            port, _probe("crash")))
+        await _await_inflight(victim)
+        crash = fleet.faults.add("replica.crash", "close", when="1",
+                                 tag=victim.name)
+        for _ in range(4000):
+            if crash.fired:
+                break
+            await asyncio.sleep(0.005)
+        check(crash.fired == 1, "fleet: replica.crash never fired")
+        failed_over = await task
+        gate.set()
+        for _ in range(4000):
+            if victim.state == "dead" and not victim.server._engine.is_alive():
+                break
+            await asyncio.sleep(0.005)
+        check(victim.state == "dead", "fleet: the crashed replica is not "
+              "dead")
+        info["failover_cached_tokens"] = _cached(failed_over)
+        # Respawn under traffic: the sibling serves while the new
+        # replica's graphs are captured.
+        t0 = time.perf_counter()
+        await fleet.respawn(victim.name, wait_healthy_s=120.0)
+        info["respawn_s"] = time.perf_counter() - t0
+        check(victim.state == "healthy", "fleet: the respawn never probed "
+              "healthy")
+        outs = await asyncio.gather(*[
+            _greedy(port, _probe(f"after {i}"))
+            for i in range(6)])
+        info["after_respawn"] = len(outs)
+        info["captures"] = {h.name: h.server.batcher._graphs.captures
+                            for h in fleet.replicas}
+        check(victim.server.batcher._graphs.captures > 0,
+              "fleet: the respawned replica captured no graph")
+        check(victim.server.batcher.decode_steps > 0,
+              "fleet: the respawned replica decoded nothing")
+        info["launches"] = read_launches()
+        info["steps"] = {h.name: h.server.batcher.decode_steps
+                         for h in fleet.replicas}
+        info["report"] = fleet.report()
+        await router.stop()
+        await fleet.stop()
+
+    asyncio.run(drive())
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    delta = _delta(_counters_by_prefix(prefixes), c0)
+    check(delta.get("router.failovers", 0) >= 1, "fleet: no failover")
+    first = rec.first
+    probe = [k for k, s in rec.subs.items()
+             if s["t0"] >= info["probe_sent_t"] and s["new"] == 8]
+    ttft = (first[probe[0]] - info["probe_sent_t"]) if probe else None
+    _launch_floor("fleet n1", info["launches"], "paged_decode_attention",
+                  eng.cfg.num_layers, max(info["steps"].values()))
+    lap("n1_traffic")
+    rows = rec.finished(mark)
+    single = _single_engine(torch, eng, rows)
+    held = _hold_fleet(torch, "fleet n1", eng, rows,
+                       lambda ids, new: single[(tuple(ids), new)])
+    lap("n1_held")
+    step = _step_ms(torch, eng)
+    lap("n1_step_times")
+    emit("fleet", path="n1", card=card, replicas=2,
+         colocated_probe_ttft_s=ttft, counters=delta, held=held,
+         step_times=step, **{k: v for k, v in info.items()
+                             if k != "probe_sent_t"})
+    del fleet, router
+    _free(torch)
+    return info["launches"]
+
+
+def _pool_bytes_equal(torch, a, b, digests) -> dict:
+    """The pages holding ``digests`` in batchers a and b, compared on the
+    card: k and v (and an int8 pool's scales) equal to the bit."""
+    pa, pb = a.prefix_cache.match(digests), b.prefix_cache.match(digests)
+    check(len(pa) == len(pb) == len(digests),
+          f"fleet: pages not resident on both ({len(pa)}, {len(pb)} of "
+          f"{len(digests)})")
+    ia = torch.tensor(pa, device=a.cache.k.device)
+    ib = torch.tensor(pb, device=b.cache.k.device)
+    names = ["k", "v"] + (["k_scale", "v_scale"]
+                          if hasattr(a.cache, "k_scale") else [])
+    out = {}
+    for n in names:
+        x, y = getattr(a.cache, n)[:, ia], getattr(b.cache, n)[:, ib]
+        out[n] = bool(torch.equal(x, y))
+        check(out[n], f"fleet: imported {n} pages differ from the sender's")
+    return {"pages": len(pa), "equal": out}
+
+
+def fleet_disagg(torch, card, lap, parts, rec, kv_bits) -> dict:
+    """n2: ``--disaggregate --prefill-replicas 1 --decode-replicas 1``."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.core.observability import METRICS
+
+    eng = parts[0]
+    extra = ["--kv-bits", "8"] if kv_bits == 8 else []
+    args = _fleet_args("--disaggregate", "--prefill-replicas", "1",
+                       "--decode-replicas", "1", *extra)
+    fleet, router = serve_main.build_fleet(args, engine_parts=parts)
+    router.handoff_deadline_s = HANDOFF_DEADLINE_S
+    torch.cuda.reset_peak_memory_stats()
+    mark = len(rec.done)
+    prefixes = ("router.", "directory.", "batcher.kv_pages_", "xfer.")
+    c0 = _counters_by_prefix(prefixes)
+    timers = _HandoffTimers(torch).install()
+    info: dict = {}
+    tok = eng.tokenizer
+    handed = [PATH_A_PREFIX + t for t in FLEET_TAILS]
+
+    async def drive():
+        from distributed_llms_tpu_torch.runtime.faults import FaultPlane
+
+        info["boot_s"] = await _fleet_boot(fleet, router)
+        port = router.bound_port
+        reset_launches()
+        if kv_bits == 16:
+            info["path_a"] = await _serve_requests(port)
+        # Handed-off prompts one at a time, so each handoff's parts line
+        # up; their repeats hit the imported pages.
+        info["handoff_cached_tokens"] = [
+            _cached(await _greedy(port, p)) for p in handed]
+        check(all(c >= 256 for c in info["handoff_cached_tokens"]),
+              f"fleet: a handed-off prompt was not served from the "
+              f"imported pages: {info['handoff_cached_tokens']}")
+        # TTFT of a handed-off cold prompt (5 pages), against n1's
+        # colocated one.
+        info["probe_sent_t"] = time.perf_counter()
+        await _greedy(port, _probe("handoff"),
+                      new=8)
+        p0, d0 = fleet["p0"], fleet["d0"]
+        distinct = set()
+        for p in handed:
+            ids = tok.encode(p)
+            digests = p0.server.batcher._page_digests(ids,
+                                                      (len(ids) - 1) // 64)
+            distinct.update(digests)
+            info.setdefault("pages_equal", []).append(_pool_bytes_equal(
+                torch, p0.server.batcher, d0.server.batcher, digests))
+        info["distinct_handed_pages"] = len(distinct)
+        if kv_bits == 16:
+            # Over MAX_FRAME: the prefill replica's send fails permanently
+            # and the router serves colocated.
+            rej = METRICS.get_counter("router.handoff_fallbacks.rejected")
+            check(len(FLEET_LONG) == FLEET_LONG_BYTES, "fleet: the long "
+                  "prompt is short")
+            resp = await _greedy(port, FLEET_LONG, new=32)
+            check(METRICS.get_counter("router.handoff_fallbacks.rejected")
+                  == rej + 1, "fleet: the 9-page handoff did not fall back")
+            check(_cached(resp) == 0, "fleet: the 9-page prompt hit pages")
+            # The drills, on the prefill replica's own plane.
+            plane = p0.server.batcher.faults
+            if plane is None:
+                plane = p0.server.batcher.faults = FaultPlane()
+            corrupt = plane.add("xfer.send", "corrupt", when="1")
+            retries = METRICS.get_counter("xfer.retries")
+            resp = await _greedy(port, _probe("corrupt"))
+            check(corrupt.fired == 1, "fleet: xfer.send corrupt never fired")
+            check(METRICS.get_counter("xfer.retries") == retries + 1,
+                  "fleet: the corrupted frame was not retried")
+            check(_cached(resp) >= 256, "fleet: the retried handoff missed")
+            crash = plane.add("prefill.crash", "close", when="1")
+            err = METRICS.get_counter("router.handoff_fallbacks.error")
+            resp = await _greedy(port, _probe("crash"))
+            check(crash.fired == 1, "fleet: prefill.crash never fired")
+            check(METRICS.get_counter("router.handoff_fallbacks.error")
+                  == err + 1, "fleet: the prefill crash did not fall back")
+            check(_cached(resp) == 0, "fleet: a crashed handoff hit pages")
+        info["launches"] = read_launches()
+        info["steps"] = {h.name: h.server.batcher.decode_steps
+                         for h in fleet.replicas if h.server is not None}
+        info["report"] = fleet.report()
+        await router.stop()
+        await fleet.stop()
+
+    try:
+        asyncio.run(drive())
+    finally:
+        timers.uninstall()
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    delta = _delta(_counters_by_prefix(prefixes), c0)
+    kernel = ("paged_decode_attention_int8" if kv_bits == 8
+              else "paged_decode_attention")
+    _launch_floor(f"fleet n2/{kv_bits}", info["launches"], kernel,
+                  eng.cfg.num_layers, info["steps"]["d0"])
+    check(delta.get("batcher.kv_pages_imported", 0)
+          >= info["distinct_handed_pages"],
+          f"fleet: too few imported pages: {delta}")
+    first = rec.first
+    probe = [k for k, s in rec.subs.items()
+             if s["t0"] >= info["probe_sent_t"] and s["new"] == 8]
+    ttft = (first[probe[0]] - info["probe_sent_t"]) if probe else None
+    lap(f"n2_{kv_bits}_traffic")
+    rows = rec.finished(mark)
+    # The decode replica's streams of handed-off prompts against a
+    # colocated engine's second serving (a hit over its own pages); every
+    # stream (the colocated fallbacks and short prompts too) against its
+    # cold serving.
+    cold_only = {tuple(tok.encode(p)) for p in (
+        FLEET_LONG,
+        _probe("crash"))}
+    hit_rows = [r for r in rows
+                if len(r[1]) > 64 and tuple(r[1]) not in cold_only]
+    hit = _single_engine(torch, eng, hit_rows, kv_bits, second_pass=True)
+    cold = _single_engine(torch, eng, rows, kv_bits)
+    held = {
+        "hit": _hold_fleet(torch, f"fleet n2/{kv_bits} handed off", eng,
+                           hit_rows,
+                           lambda ids, new: hit[(tuple(ids), new)]),
+        "all_vs_cold": _hold_fleet(torch, f"fleet n2/{kv_bits}", eng, rows,
+                                   lambda ids, new: cold[(tuple(ids), new)]),
+    }
+    lap(f"n2_{kv_bits}_held")
+    sends = [(s.ok, s.reason, s.attempts, s.bytes_sent)
+             for s in timers.sends]
+    emit("fleet", path="n2", card=card, kv_bits=kv_bits,
+         handoff_probe_ttft_s=ttft, counters=delta, held=held,
+         handoff_ms=timers.parts, export_pages=timers.pages, sends=sends,
+         **{k: v for k, v in info.items() if k != "probe_sent_t"})
+    del fleet, router
+    _free(torch)
+    return info["launches"]
+
+
+def _tenant_prompt(tenant: str, i: int) -> str:
+    p = f"Tenant {tenant} request {i:02d}: " + "x" * TENANT_PROMPT_BYTES
+    return p[:TENANT_PROMPT_BYTES]
+
+
+async def _tenant_post(port, tenant, i):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps({"prompt": _tenant_prompt(tenant, i),
+                          "max_tokens": TENANT_NEW,
+                          "temperature": 0.0}).encode()
+    writer.write(
+        f"POST /v1/completions HTTP/1.1\r\nHost: x\r\nX-Tenant: {tenant}\r\n"
+        f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    headers = dict(line.split(": ", 1) for line in lines[1:])
+    return int(lines[0].split()[1]), headers.get("Retry-After"), rest
+
+
+def fleet_tenants(torch, card, lap, parts, rec) -> dict:
+    """n3: tenants on one engine, then behind a 2-replica router."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.core.observability import METRICS
+
+    eng, name, rt, faults, _spec = parts
+    args = _fleet_args(*TENANT_ARGS)
+    server = serve_main._server_factory(args, eng, name, rt, faults)()
+    sched = server.batcher.sched
+    check(type(sched).__name__ == "TenantScheduler",
+          "fleet: the tenant flags did not make a TenantScheduler")
+    torch.cuda.reset_peak_memory_stats()
+    order, resident, peak = [], {}, {}
+    admitted, freed = sched.note_admitted, sched.note_freed
+
+    def note_admitted(req, est):
+        order.append(req.tenant)
+        resident[req.tenant] = resident.get(req.tenant, 0) + 1
+        peak[req.tenant] = max(peak.get(req.tenant, 0),
+                               resident[req.tenant])
+        return admitted(req, est)
+
+    def note_freed(req, emitted):
+        resident[req.tenant] = resident.get(req.tenant, 0) - 1
+        return freed(req, emitted)
+
+    sched.note_admitted, sched.note_freed = note_admitted, note_freed
+    info: dict = {}
+
+    async def drive():
+        await server.start()
+        port = server.bound_port
+        try:
+            reset_launches()
+            # All 16 queued before the first admission: the engine is held
+            # until every request is registered.
+            gate = _gate_engine(server)
+            tasks = [asyncio.create_task(_tenant_post(port, t, i))
+                     for i in range(8) for t in ("b", "a")]
+            for _ in range(6000):
+                if server._inflight() == 16:
+                    break
+                await asyncio.sleep(0.005)
+            check(server._inflight() == 16, "fleet: 16 tenant requests "
+                  "never all registered")
+            gate.set()
+            outs = await asyncio.gather(*tasks)
+            check(all(o[0] == 200 for o in outs),
+                  f"fleet: a tenant request failed: "
+                  f"{[o[0] for o in outs]}")
+            over = await _tenant_post(port, "b", 8)
+            info["over_quota"] = {"status": over[0], "retry_after": over[1]}
+            check(over[0] == 429 and over[1] is not None
+                  and b"tenant_quota" in over[2],
+                  f"fleet: tenant b's 9th request answered {over[0]}")
+            info["launches"] = read_launches()
+            info["steps"] = server.batcher.decode_steps
+        finally:
+            await server.stop()
+
+    asyncio.run(drive())
+    info["admission_order"] = "".join(order)
+    info["peak_resident"] = peak
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(max(peak.values()) <= 6, f"fleet: a tenant held over 6 rows: "
+          f"{peak}")
+    check(order[:8].count("a") >= 5, f"fleet: tenant a (weight 3) got "
+          f"{order[:8].count('a')} of the first 8 admissions: {order}")
+    _launch_floor("fleet n3", info["launches"], "paged_decode_attention",
+                  eng.cfg.num_layers, info["steps"])
+    del server
+    _free(torch)
+    lap("n3_one_engine")
+    # Behind a 2-replica router the fleet ledger holds ONE quota.
+    fargs = _fleet_args("--replicas", "2", *TENANT_ARGS)
+    fleet, router = serve_main.build_fleet(fargs, engine_parts=parts)
+    sheds0 = METRICS.get_counter("router.ledger.sheds")
+
+    async def drive_fleet():
+        await _fleet_boot(fleet, router)
+        port = router.bound_port
+        # Tenant b's burst of 9 at once: placement spreads it over both
+        # replicas (least committed), each replica's own gate is a 2x
+        # backstop, so only the router's one ledger can shed the 9th.
+        got = await asyncio.gather(*[_tenant_post(port, "b", 100 + i)
+                                     for i in range(9)])
+        served = [h.server.batcher.sched._vtc.get("b", 0.0) > 0
+                  for h in fleet.replicas]
+        await router.stop()
+        await fleet.stop()
+        return got, served
+
+    got, served = asyncio.run(drive_fleet())
+    statuses = sorted(g[0] for g in got)
+    info["fleet_statuses"] = statuses
+    info["fleet_replicas_serving_b"] = served
+    check(statuses == [200] * 8 + [429], f"fleet: the router's ledger "
+          f"admitted {statuses.count(200)} of tenant b's 9, not 8")
+    check(all(served), "fleet: tenant b's burst did not reach both "
+          "replicas")
+    check(METRICS.get_counter("router.ledger.sheds") == sheds0 + 1,
+          "fleet: the router's ledger did not shed")
+    emit("fleet", path="n3", card=card, quota_tps=TENANT_QUOTA_TPS, **info)
+    del fleet, router
+    _free(torch)
+    lap("n3_fleet")
+    return info["launches"]
+
+
+def serve_fleet(torch) -> dict:
+    """Path n: replica fleets over one copy of Llama-3-8B's weights, the
+    disaggregated handoff (bf16 and int8 pools) and tenant QoS.  Returns
+    the launches of the path's own calls (process-wide counters: every
+    replica's launches together)."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.runtime import batcher as tb
+
+    card = _card()
+    lap = _lap("fleet_time")
+    t0 = time.perf_counter()
+    parts = serve_main._build_engine(_fleet_args())
+    torch.cuda.synchronize()
+    _llama_3_8b(parts[0].cfg)
+    emit("fleet", part="weights", card=card, build_s=time.perf_counter() - t0,
+         resident_gb=torch.cuda.memory_allocated() / 1e9)
+    lap("weights")
+    rec = _FleetRecorder(tb.ContinuousBatcher).install()
+    out = {}
+    try:
+        _add(out, fleet_replicas(torch, card, lap, parts, rec))
+        _add(out, fleet_disagg(torch, card, lap, parts, rec, 16))
+        _add(out, fleet_disagg(torch, card, lap, parts, rec, 8))
+        _add(out, fleet_tenants(torch, card, lap, parts, rec))
+    finally:
+        rec.uninstall()
+    del parts
+    _free(torch)
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "generate", "families", "train", "profile")
+          "constrain", "generate", "families", "fleet", "train", "profile")
 
 
 def main() -> int:
@@ -5764,6 +6636,11 @@ def main() -> int:
             # Path m's launches ride beside each kernel's own path's.
             for name, n in timed("families", serve_families, torch).items():
                 kernels[name]["families_launches"] = n
+        if "fleet" in phases:
+            # Path n's launches (every replica's, process-wide) ride
+            # beside each kernel's own path's.
+            for name, n in timed("fleet", serve_fleet, torch).items():
+                kernels[name]["fleet_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

@@ -30,15 +30,34 @@ automata.  ``--fault SPEC`` (repeatable; runtime/faults.py grammar, e.g.
 strictly before the engine builds: a site the port does not wire fails
 the boot.
 
-The flags mirror ``dlt-serve``'s.  Those of later port slices are
-accepted by the parser and refused with ``NotImplementedError`` when set,
-never silently ignored.
+``--replicas N`` (N >= 2) serves N replica stacks behind a health-aware
+router on ``--port`` (cluster/fleet.py, runtime/router.py): every replica
+shares the engine's weights by reference and has its own pool, caches,
+supervisor and engine thread; the router places by prefix affinity, pulls
+a cached run from a sibling on an affinity miss, and fails zero-streamed
+requests over exactly.  ``--disaggregate`` builds ``--prefill-replicas``
+prefill-role and ``--decode-replicas`` decode-role stacks instead (needs
+``--paged-pages`` and ``--prefix-cache``): the router hands each prompt to
+the prefill tier, which ships the finished KV pages to the decode replica
+over the checksummed handoff (cluster/kv_transfer.py), degrading to
+colocated prefill when that fails.  ``--tenant-weights gold:4,free:1``
+schedules tenants weighted-fair, ``--tenant-max-rows`` caps each tenant's
+resident rows, ``--tenant-quota-tps`` sheds a tenant over its token rate
+with 429 + its own ``Retry-After`` (in a fleet the router holds the one
+ledger).  In a fleet, each replica gets its own fault plane parsed from
+the same ``--fault`` spec; the ``replica.*`` and ``router.*`` sites fire
+on the shared one.  SIGHUP restarts the fleet one replica at a time.
+
+The flags mirror ``dlt-serve``'s.  Those of later port slices (the
+autoscaler's) are accepted by the parser and refused with
+``NotImplementedError`` when set, never silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import os
 import signal
 
@@ -52,27 +71,29 @@ log = get_logger("serve_main")
 # dlt-serve flags of later port slices: argparse dest -> the feature.  Any
 # of them set (to a value other than its default) refuses the boot.
 _LATER_SLICE_FLAGS: dict[str, str] = {
-    "tenant_weights": "multi-tenant scheduling (--tenant-weights)",
-    "tenant_quota_tps": "tenant rate quotas (--tenant-quota-tps)",
-    "tenant_max_rows": "tenant row caps (--tenant-max-rows)",
-    "replicas": "replica fleets (--replicas)",
-    "disaggregate": "disaggregated prefill/decode (--disaggregate)",
+    "replicas_min": "elastic fleets (--replicas-min)",
+    "replicas_max": "elastic fleets (--replicas-max)",
+    "prefill_replicas_max": "the tiered autoscaler (--prefill-replicas-max)",
+    "decode_replicas_max": "the tiered autoscaler (--decode-replicas-max)",
+    "autoscale_interval": "the autoscaler (--autoscale-interval)",
+    "autoscale_up_load": "the autoscaler (--autoscale-up-load)",
+    "autoscale_down_load": "the autoscaler (--autoscale-down-load)",
+    "autoscale_hysteresis": "the autoscaler (--autoscale-hysteresis)",
+    "autoscale_cooldown": "the autoscaler (--autoscale-cooldown)",
 }
-_LATER_SLICE_DEFAULTS = {"replicas": 1, "disaggregate": False}
 
 
 def _refuse_later_slices(args) -> None:
     for dest, what in _LATER_SLICE_FLAGS.items():
-        value = getattr(args, dest)
-        # None, False or the flag's default asks for what the port
-        # already does.
-        if value not in (None, False) and value != _LATER_SLICE_DEFAULTS.get(dest):
+        # None (the parser's default for each of them) asks for what the
+        # port already does.
+        if getattr(args, dest) is not None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
 def _build_engine(args):
     """Config + fault plane + engine.  Returns (engine, default model
-    name, runtime config, fault plane or None)."""
+    name, runtime config, fault plane or None, fault spec)."""
     _refuse_later_slices(args)
     cfg = load_config(args.config, args.override)
     rt = cfg.runtime
@@ -106,7 +127,7 @@ def _build_engine(args):
                                             mesh_cfg=mesh_cfg,
                                             device=args.device)
         return (engine, os.path.basename(os.path.normpath(args.store)), rt,
-                faults)
+                faults, fault_spec)
     if not args.preset:
         raise SystemExit("one of --store or --preset is required")
     # Random-weight serving with the byte tokenizer: tiny presets (vocab
@@ -123,11 +144,15 @@ def _build_engine(args):
         args.preset, rt=rt, rng_seed=args.seed, device=args.device,
         **overrides,
     )
-    return engine, args.preset, rt, faults
+    return engine, args.preset, rt, faults, fault_spec
 
 
-def _server_factory(args, engine, default_name, rt, faults):
-    """() -> a fresh, unstarted InferenceServer over a fresh batcher."""
+def _server_factory(args, engine, default_name, rt, faults, *,
+                    host=None, port=None, role="colocated",
+                    backstop_x=None):
+    """() -> a fresh, unstarted InferenceServer over a fresh batcher.
+    Replicas share the engine's weights by reference; each gets its own
+    pool, caches and supervisor."""
     from ..runtime import constrain as constrain_lib
 
     # The compiled-constraint LRU is module-level: one size per serving
@@ -156,15 +181,30 @@ def _server_factory(args, engine, default_name, rt, faults):
                      else args.overlap == "on"),
             schedule=args.schedule,
             token_budget=args.token_budget,
+            tenant_weights=args.tenant_weights,
+            tenant_max_rows=args.tenant_max_rows,
             faults=faults,
         )
+
+    # Tenant QoS (the gateway half): the flag wins, the config field is
+    # the fallback.  Weights parse ONCE here, so a typo'd spec fails the
+    # boot before any server exists.
+    from ..runtime.scheduler import parse_tenant_weights
+
+    tenant_weights = parse_tenant_weights(
+        args.tenant_weights if args.tenant_weights is not None
+        else rt.tenant_weights
+    )
+    tenant_quota_tps = (args.tenant_quota_tps
+                        if args.tenant_quota_tps is not None
+                        else rt.tenant_quota_tps)
 
     def make_server():
         return InferenceServer(
             make_batcher(),
             model_name=args.model_name or default_name,
-            host=args.host,
-            port=args.port,
+            host=args.host if host is None else host,
+            port=args.port if port is None else port,
             max_pending=args.max_pending,
             batcher_factory=make_batcher,
             request_timeout_s=(args.request_timeout
@@ -176,14 +216,149 @@ def _server_factory(args, engine, default_name, rt, faults):
                               else rt.shed_cost_factor),
             constrained=(args.constrained if args.constrained is not None
                          else rt.constrained_decoding),
+            role=role,
+            tenant_weights=tenant_weights,
+            tenant_quota_tps=tenant_quota_tps,
+            tenant_backstop_x=backstop_x,
         )
 
     return make_server
 
 
 def build_server(args) -> InferenceServer:
-    engine, default_name, rt, faults = _build_engine(args)
+    engine, default_name, rt, faults, _spec = _build_engine(args)
     return _server_factory(args, engine, default_name, rt, faults)()
+
+
+def build_fleet(args, engine_parts=None):
+    """``--replicas N`` (N >= 2) or ``--disaggregate``: full server/batcher
+    stacks on ephemeral local ports behind a health-aware ReplicaRouter on
+    --host/--port.  ``--disaggregate`` builds --prefill-replicas
+    prefill-role and --decode-replicas decode-role stacks instead of N
+    colocated ones.  The ROUTER owns the tenant rate ledger (one
+    admission-commit point, so a fleet of N admits one quota, not N);
+    replica gateways keep a loose 2x backstop.  ``engine_parts`` is a
+    :func:`_build_engine` result to reuse (one copy of the weights for
+    several fleets in one process).  Returns (fleet, router)."""
+    from ..cluster.fleet import ReplicaFleet
+    from ..runtime.router import ReplicaRouter
+    from ..runtime.scheduler import parse_tenant_weights
+
+    engine, default_name, rt, faults, fault_spec = (
+        engine_parts if engine_parts is not None else _build_engine(args))
+
+    def replica_factory(role="colocated"):
+        # Each replica gets its OWN plane parsed from the same spec: its
+        # batcher.* and server-side rule counters are traversed by that
+        # replica's engine thread and loop alone, @N windows count per
+        # replica, and a replica.stall drill wedges its target only.  The
+        # shared ``faults`` plane keeps the replica.* / router.* sites.
+        plane = None
+        if fault_spec:
+            from ..runtime.faults import FaultPlane
+
+            plane = FaultPlane.parse(fault_spec, strict=True)
+        # Behind a router the replica gateway is not the admission-commit
+        # point: it keeps a loose ~2x backstop, so a bypassed router gate
+        # still meters.
+        return _server_factory(args, engine, default_name, rt, plane,
+                               host="127.0.0.1", port=0, role=role,
+                               backstop_x=2.0)()
+
+    if args.disaggregate:
+        if args.prefill_replicas < 1 or args.decode_replicas < 1:
+            raise SystemExit(
+                "--disaggregate needs --prefill-replicas >= 1 and "
+                "--decode-replicas >= 1"
+            )
+        paged = args.paged_pages if args.paged_pages is not None \
+            else rt.paged_pages
+        cache_on = args.prefix_cache if args.prefix_cache is not None \
+            else rt.prefix_cache
+        if not paged or not cache_on:
+            raise SystemExit(
+                "--disaggregate ships content-addressed KV pool pages: it "
+                "needs --paged-pages and --prefix-cache on every replica"
+            )
+        factories = (
+            [functools.partial(replica_factory, "prefill")]
+            * args.prefill_replicas
+            + [functools.partial(replica_factory, "decode")]
+            * args.decode_replicas
+        )
+        names = [f"p{i}" for i in range(args.prefill_replicas)] \
+            + [f"d{i}" for i in range(args.decode_replicas)]
+    else:
+        factories = [replica_factory] * args.replicas
+        names = None
+    fleet = ReplicaFleet(
+        factories, names=names,
+        probe_interval_s=args.probe_interval,
+        faults=faults,
+    )
+    tenant_weights = parse_tenant_weights(
+        args.tenant_weights if args.tenant_weights is not None
+        else rt.tenant_weights
+    )
+    tenant_quota_tps = (args.tenant_quota_tps
+                        if args.tenant_quota_tps is not None
+                        else rt.tenant_quota_tps)
+    router = ReplicaRouter(
+        fleet, host=args.host, port=args.port,
+        tokenizer=engine.tokenizer,
+        page_size=(args.page_size or rt.page_size or 64),
+        max_failover_retries=args.failover_retries,
+        faults=faults,
+        handoff=bool(args.disaggregate),
+        # Affinity/handoff digests must match the fleet's pool digests,
+        # which are salted by the KV width.
+        kv_bits=(args.kv_bits if args.kv_bits is not None else rt.kv_bits),
+        tenant_weights=tenant_weights,
+        tenant_quota_tps=tenant_quota_tps,
+    )
+    return fleet, router
+
+
+async def _serve_fleet(args, stop: asyncio.Event) -> None:
+    loop = asyncio.get_running_loop()
+    fleet, router = build_fleet(args)
+    await fleet.start()
+    host, port = await router.start()
+    # Replicas boot "starting" and only a healthy probe makes them
+    # routable: announce ready once the fleet can place work.
+    if not await fleet.wait_healthy(timeout_s=60.0):
+        log.warning(
+            "not every replica probed healthy within 60s; serving with "
+            "%d routable", fleet.report()["healthy"],
+        )
+    # SIGHUP: a rolling restart of the whole fleet, one replica at a time;
+    # one restart at a time (a second SIGHUP mid-walk is ignored).
+    restart_task: list[asyncio.Task | None] = [None]
+
+    def on_hup():
+        t = restart_task[0]
+        if t is not None and not t.done():
+            log.warning("SIGHUP ignored: a rolling restart is already in "
+                        "progress")
+            return
+
+        async def run():
+            try:
+                await fleet.rolling_restart(
+                    drain_timeout_s=args.drain_timeout)
+                log.info("rolling restart complete")
+            except Exception:
+                log.exception("rolling restart failed")
+
+        restart_task[0] = asyncio.ensure_future(run())
+
+    loop.add_signal_handler(signal.SIGHUP, on_hup)
+    log.info("fleet of %d ready on http://%s:%s (SIGHUP = rolling restart; "
+             "Ctrl-C to stop)", len(fleet.replicas), host, port)
+    await stop.wait()
+    log.info("shutting down fleet...")
+    await router.stop()
+    await fleet.stop()
 
 
 async def _serve(args) -> None:
@@ -197,6 +372,9 @@ async def _serve(args) -> None:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, on_signal)
+    if args.replicas > 1 or args.disaggregate:
+        await _serve_fleet(args, stop)
+        return
     server = build_server(args)
     host, port = await server.start()
     log.info("ready on http://%s:%s (Ctrl-C to stop)", host, port)
@@ -346,15 +524,59 @@ def parser() -> argparse.ArgumentParser:
                          "'batcher.decode:stall@2:5' wedges the 2nd for "
                          "the watchdog.  Parsed strictly before the "
                          "engine builds (default: runtime.faults)")
-    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
-    ap.add_argument("--tenant-weights", default=None, help="not ported yet")
-    ap.add_argument("--tenant-quota-tps", type=float, default=None,
-                    help="not ported yet")
-    ap.add_argument("--tenant-max-rows", type=int, default=None,
-                    help="not ported yet")
-    ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica-fleet serving: N server/batcher stacks "
+                         "sharing one copy of the weights, each with its "
+                         "own supervisor and KV pool, behind a "
+                         "health-aware router on --port: prefix-affinity "
+                         "placement, cross-replica KV pulls, exact "
+                         "failover on replica crash/stall/partition, "
+                         "SIGHUP = rolling restart (1 = one server)")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="not ported yet")
+                    help="disaggregated serving: prefill-role replicas "
+                         "admit prompts and ship the finished KV pages to "
+                         "decode-role replicas over the verified handoff; "
+                         "any handoff failure degrades to colocated "
+                         "prefill on the decode replica.  Needs "
+                         "--paged-pages and --prefix-cache; ignores "
+                         "--replicas")
+    ap.add_argument("--prefill-replicas", type=int, default=1,
+                    help="prefill-role replicas under --disaggregate")
+    ap.add_argument("--decode-replicas", type=int, default=2,
+                    help="decode-role replicas under --disaggregate")
+    ap.add_argument("--probe-interval", type=float, default=0.25,
+                    help="fleet health-probe interval in seconds")
+    ap.add_argument("--failover-retries", type=int, default=2,
+                    help="router failover budget: how many other replicas "
+                         "a zero-streamed request may be re-sent to after "
+                         "a replica failure before answering 503 + "
+                         "Retry-After")
+    ap.add_argument("--tenant-weights", default=None,
+                    help="multi-tenant weighted-fair serving: "
+                         "\"gold:4,free:1\"-style shares (\"*\" sets the "
+                         "default weight).  Requests carry X-Tenant (or a "
+                         "\"tenant\" body field); admission serves tenants "
+                         "by virtual token counter (default: "
+                         "runtime.tenant_weights)")
+    ap.add_argument("--tenant-quota-tps", type=float, default=None,
+                    help="per-tenant token-rate quota: admitted "
+                         "prompt+budget tokens/s per unit weight; a tenant "
+                         "over its rate sheds 429 with its own Retry-After "
+                         "(0 disables; default: runtime.tenant_quota_tps)")
+    ap.add_argument("--tenant-max-rows", type=int, default=None,
+                    help="per-tenant resident-row cap in the batcher "
+                         "(0 = uncapped; default: runtime.tenant_max_rows)")
+    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
+    for flag, kind in (("--replicas-min", int), ("--replicas-max", int),
+                       ("--prefill-replicas-max", int),
+                       ("--decode-replicas-max", int),
+                       ("--autoscale-interval", float),
+                       ("--autoscale-up-load", float),
+                       ("--autoscale-down-load", float),
+                       ("--autoscale-hysteresis", int),
+                       ("--autoscale-cooldown", float)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help="not ported yet (the autoscaler)")
     return ap
 
 

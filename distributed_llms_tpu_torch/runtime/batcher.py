@@ -90,7 +90,21 @@ injection sites: ``batcher.admit``, ``batcher.decode``,
 ``batcher.page_alloc``, ``batcher.preempt``, ``batcher.spec_verify``,
 ``batcher.mixed_step``, ``kv.swap_out``, ``kv.swap_in`` and ``kv.spill``.
 
-Not ported yet: tenants and meshes (absent from the API).
+Tenants (``tenant_weights`` / ``tenant_max_rows``, ``submit(tenant=)``):
+the mixed policy becomes :class:`~.scheduler.TenantScheduler`, weighted-fair
+admission by virtual token counter with a resident-row cap per tenant.
+
+The KV handoff (disaggregated prefill/decode and the fleet's cross-replica
+pull, ``cluster/kv_transfer.py``): :meth:`ContinuousBatcher.
+export_prefix_pages` gathers a prompt's cached full-page run as
+``[L, P, BLK, KVH, HD]`` k/v stacks at the pool's row dtype (an int8 pool
+dequantizes), :meth:`~ContinuousBatcher.submit_kv_import` queues verified
+pages for adoption at the next round boundary (an int8 pool requantizes;
+digests already resident ack "duplicate"; first writer wins on publish),
+and :meth:`~ContinuousBatcher.submit_kv_export` serves a sibling's pull
+there.
+
+Not ported yet: meshes (absent from the API).
 """
 
 from __future__ import annotations
@@ -423,6 +437,22 @@ def _import_pages_raw(cache, page_list: torch.Tensor, k_pages, v_pages,
     if isinstance(cache, QuantKVCache):
         cache.k_scale[:, idx] = k_scale
         cache.v_scale[:, idx] = v_scale
+    return cache
+
+
+def _import_pages(cache, page_list: torch.Tensor, k_pages, v_pages):
+    """Scatter HANDED-OFF KV pages into the pool, in place (the reference's
+    ``_import_pages``): ``k_pages``/``v_pages`` are [L, P, BLK, KVH, HD]
+    stacks at the pool's row dtype, ``page_list`` [P] the freshly
+    allocated destination pages.  An int8 pool quantizes the full-width
+    payload on the way in (the reference's ``kv_quantize`` numerics)."""
+    idx = page_list.long()
+    if isinstance(cache, QuantKVCache):
+        cache.k[:, idx], cache.k_scale[:, idx] = kv_quantize(k_pages)
+        cache.v[:, idx], cache.v_scale[:, idx] = kv_quantize(v_pages)
+    else:
+        cache.k[:, idx] = k_pages.to(cache.k.dtype)
+        cache.v[:, idx] = v_pages.to(cache.v.dtype)
     return cache
 
 
@@ -932,6 +962,11 @@ class _Request:
     swap_pages: int = 0
     swap_last_tok: int = 0
     swap_pos: int = 0
+    # Multi-tenant QoS (runtime/scheduler.py TenantScheduler): the tenant
+    # this request bills against.  None = the anonymous bucket.  The
+    # weighted-fair admission order, virtual token counters, and
+    # resident-row caps all key on it; a preempted resume keeps it.
+    tenant: str | None = None
 
 
 @dataclass
@@ -1318,6 +1353,15 @@ class ContinuousBatcher:
         # hot paths consult it at the reference's sites.  A respawn shares
         # it by reference, so a rule that fired stays fired.
         faults: Any = None,
+        # Multi-tenant weighted-fair admission (runtime/scheduler.py
+        # TenantScheduler): "gold:4,free:1"-style weights (or a parsed
+        # dict) turn the mixed policy into per-tenant virtual-token-
+        # counter fairness; submit(tenant=) bills each request against its
+        # tenant's counter.  None keeps the tenant-blind policies.
+        tenant_weights: "str | dict | None" = None,
+        # Per-tenant RESIDENT-row cap: a tenant at the cap defers
+        # admission (others admit past it).  None = uncapped.
+        tenant_max_rows: int | None = None,
     ) -> None:
         # Snapshot the constructor arguments FIRST so respawn() can rebuild
         # an identical fresh batcher after an engine crash.
@@ -1406,6 +1450,7 @@ class ContinuousBatcher:
             prefill_concurrency=prefill_concurrency,
             token_budget=token_budget, speculative=self.speculative,
             spec_adaptive=bool(spec_adaptive_k),
+            tenant_weights=tenant_weights, tenant_max_rows=tenant_max_rows,
         )
         self._prefills: dict[int, _PendingPrefill] = {}  # slot -> pending
         self.draft_params = draft_params
@@ -1517,6 +1562,12 @@ class ContinuousBatcher:
         # engine thread admits).  Never held across a device call.
         self._lock = threading.Lock()
         self.queue: deque[_Request] = deque()  # guarded-by: self._lock
+        # The KV handoff plane: verified transfers awaiting adoption
+        # (digests, k pages, v pages, on_done) and cached-run exports
+        # awaiting the engine (ids, on_done), queued by the serving loop
+        # and drained by the engine thread at a round boundary.
+        self._kv_imports: deque = deque()  # guarded-by: self._lock
+        self._kv_exports: deque = deque()  # guarded-by: self._lock
         self.shed: dict[int, str] = {}  # rid -> reason, queued past deadline
         self.preemptions = 0
         self._admit_seq = 0
@@ -1654,6 +1705,142 @@ class ContinuousBatcher:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    # -- KV handoff (disaggregated prefill/decode, cross-replica pull) ------
+
+    def export_prefix_pages(
+        self, ids: list[int]
+    ) -> "tuple[list[bytes], torch.Tensor, torch.Tensor] | None":
+        """ENGINE THREAD: gather the prompt's longest cached full-page run
+        out of the pool for handoff to another engine.  Returns (chained
+        page digests, k pages [L, P, BLK, KVH, HD], v pages) as host
+        tensors at the pool's row dtype (an int8 pool dequantizes), or None
+        when nothing exportable is resident (prompt shorter than a page,
+        caching off, or the run was evicted).  The run is capped one page
+        short of the prompt, as the importer's matcher caps hits.  Pages
+        are retained across the gather so pool pressure cannot reclaim
+        them mid-export."""
+        pc = self.prefix_cache
+        if self.pool is None or pc is None:
+            return None
+        blk = self.page_size
+        n = (len(ids) - 1) // blk
+        if n < 1:
+            return None
+        digests = self._page_digests(ids, n)
+        pages = pc.match(digests)
+        if not pages:
+            return None
+        for p in pages:
+            self.pool.retain(p)
+        try:
+            row_k, row_v = _gather_row_pages(
+                self.cache, self._dev(np.asarray(pages, np.int32)))
+            l, _one, _w, kvh, hd = row_k.shape
+            k = row_k.reshape(l, len(pages), blk, kvh, hd).cpu()
+            v = row_v.reshape(l, len(pages), blk, kvh, hd).cpu()
+        finally:
+            self.pool.release(pages)
+        METRICS.inc("batcher.kv_pages_exported", len(pages))
+        return digests[: len(pages)], k, v
+
+    def has_kv_imports(self) -> bool:
+        """Whether a verified handoff awaits adoption (any thread)."""
+        with self._lock:
+            return bool(self._kv_imports)
+
+    def submit_kv_import(self, digests: list[bytes], k_pages, v_pages,
+                         on_done) -> None:
+        """Queue a VERIFIED transfer's pages for adoption (any thread: the
+        server's KV listener calls this from the event loop).  The engine
+        thread applies it at its next round boundary and calls
+        ``on_done(ok, reason)`` from there; the caller wakes the engine."""
+        with self._lock:
+            self._kv_imports.append((digests, k_pages, v_pages, on_done))
+
+    def _drain_kv_imports(self) -> None:
+        """ENGINE THREAD, at a round boundary: adopt every queued handoff.
+        Device work and pool bookkeeping happen outside the submission
+        lock."""
+        while True:
+            with self._lock:
+                if not self._kv_imports:
+                    return
+                digests, k_pages, v_pages, on_done = \
+                    self._kv_imports.popleft()
+            ok, reason = self._import_kv_pages(digests, k_pages, v_pages)
+            try:
+                on_done(ok, reason)
+            except Exception:
+                log.exception("kv-import completion callback raised")
+
+    def has_kv_exports(self) -> bool:
+        """Whether a cached-run export awaits the engine (any thread)."""
+        with self._lock:
+            return bool(self._kv_exports)
+
+    def submit_kv_export(self, ids: list[int], on_done) -> None:
+        """Queue a cached-run export for the engine thread (any thread: the
+        server's /v1/kv_export handler).  The engine gathers the prompt's
+        longest cached run at its next round boundary and calls
+        ``on_done(payload_or_None)`` (the :meth:`export_prefix_pages`
+        result) from there; the caller wakes the engine."""
+        with self._lock:
+            self._kv_exports.append((list(ids), on_done))
+
+    def _drain_kv_exports(self) -> None:
+        """ENGINE THREAD, at a round boundary: serve every queued export —
+        a cache read; nothing is admitted and no row changes."""
+        while True:
+            with self._lock:
+                if not self._kv_exports:
+                    return
+                ids, on_done = self._kv_exports.popleft()
+            payload = self.export_prefix_pages(ids)
+            try:
+                on_done(payload)
+            except Exception:
+                log.exception("kv-export completion callback raised")
+
+    def _import_kv_pages(self, digests, k_pages, v_pages):
+        """Adopt one transfer: allocate pool pages, scatter the payload,
+        publish the digests and park the pages in the prefix-cache LRU,
+        content-addressed and unreferenced like a finished local prompt's
+        pages; the handed-off request's admission then hits them.
+        Idempotent: digests already resident ack "duplicate" without
+        touching the pool, and only the missing pages of a partial overlap
+        are imported."""
+        pc = self.prefix_cache
+        if self.pool is None or pc is None:
+            return False, "not a decode-role engine"
+        l, _nb, blk, kvh, hd = self.cache.k.shape
+        if (tuple(k_pages.shape) != (l, len(digests), blk, kvh, hd)
+                or tuple(v_pages.shape) != tuple(k_pages.shape)):
+            return False, "pool shape mismatch"
+        missing = [i for i, d in enumerate(digests) if d not in pc.by_hash]
+        if not missing:
+            return True, "duplicate"
+        if self.pool.available() < len(missing):
+            return False, "no capacity"
+        sel = torch.tensor(missing, dtype=torch.long)
+        dt = _row_dtype_of(self.cache)
+        pages = self._alloc_pages(len(missing))
+        try:
+            self.cache = _import_pages(
+                self.cache, self._dev(np.asarray(pages, np.int32)),
+                k_pages[:, sel].to(device=self.device, dtype=dt),
+                v_pages[:, sel].to(device=self.device, dtype=dt),
+            )
+            for p, i in zip(pages, missing):
+                # First writer wins: a digest published since the scan
+                # above leaves ours private (it frees on the release).
+                self.pool.publish_prefix(p, digests[i])
+        finally:
+            self.pool.release(pages)
+        METRICS.inc("batcher.kv_pages_imported", len(pages))
+        log.info("imported %d handed-off KV page(s) (%d already resident)",
+                 len(pages), len(digests) - len(pages))
+        return True, "imported"
+
     # -- crash recovery ----------------------------------------------------
 
     def respawn(self) -> "ContinuousBatcher":
@@ -1661,6 +1848,15 @@ class ContinuousBatcher:
         and prefix cache, empty queue and rows.  Weights and tokenizer carry
         over by reference."""
         return ContinuousBatcher(**self._ctor_args)
+
+    def quiesce(self) -> None:
+        """Wait until every device operation this batcher enqueued has
+        run (a no-op on the CPU).  The server calls it on the engine thread
+        before the batcher is dropped (stop, kill, a crash's respawn), so
+        no replay or copy of a dead batcher can write into memory the
+        caching allocator has handed to a successor."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     # -- submission --------------------------------------------------------
 
@@ -1690,6 +1886,7 @@ class ContinuousBatcher:
         logit_bias: dict | None = None,
         banned_tokens: list[int] | None = None,
         constraint: Any = None,
+        tenant: str | None = None,
     ) -> int:
         """Queue a request; the same validation as the JAX batcher.
         ``prefix`` names a registered prefix whose KV seeds the row;
@@ -1707,7 +1904,8 @@ class ContinuousBatcher:
         ``constraint`` is one the caller already compiled (the gateway
         compiles off its event loop).  A malformed constraint raises
         :class:`~.constrain.ConstraintError` (a ValueError) before
-        anything is queued.  (Tenants are a later slice.)"""
+        anything is queued.  ``tenant`` names the tenant the request bills
+        against (weighted-fair admission; None = the anonymous bucket)."""
         ids = (
             self.tokenizer.encode(prompt)
             if isinstance(prompt, str)
@@ -1766,6 +1964,13 @@ class ContinuousBatcher:
             raise ValueError(
                 f"priority must be an int in [-2**31, 2**31), got {priority!r}"
             )
+        if tenant is not None and (
+            not isinstance(tenant, str) or not tenant or len(tenant) > 64
+        ):
+            raise ValueError(
+                f"tenant must be a non-empty string of <= 64 chars, "
+                f"got {tenant!r}"
+            )
         if deadline is not None:
             if isinstance(deadline, bool) \
                     or not isinstance(deadline, (int, float)) \
@@ -1816,7 +2021,7 @@ class ContinuousBatcher:
                 frequency_penalty=float(frequency_penalty),
                 constraint=constraint,
                 prefix_cache=prefix_cache, priority=priority,
-                deadline=deadline,
+                deadline=deadline, tenant=tenant,
             ))
         return rid
 
@@ -1959,7 +2164,8 @@ class ContinuousBatcher:
                 frequency_penalty=req.frequency_penalty,
                 constraint=req.constraint,
                 prefix_cache=req.prefix_cache, priority=req.priority,
-                deadline=req.deadline, resume_emitted=list(row.emitted),
+                deadline=req.deadline, tenant=req.tenant,
+                resume_emitted=list(row.emitted),
                 resume_lps=list(row.lps),
             )
             # The swap rung is the scheduler's to declare: a policy
@@ -2337,6 +2543,11 @@ class ContinuousBatcher:
         if self.faults is not None:
             # Injection site "batcher.admit": one hit per admission round.
             self.faults.fire("batcher.admit")
+        # Adopt handed-off KV pages FIRST: a transfer that raced this
+        # round's admissions should be matchable by them.  Then serve
+        # cross-replica exports, so a freshly landed run is re-exportable.
+        self._drain_kv_imports()
+        self._drain_kv_exports()
         self._shed_expired_queued()
         # Advance the pending chunked prefills.  ALTERNATE: one serialized
         # bite per prefill per round.  MIXED: while decode rows are live
@@ -2773,7 +2984,7 @@ class ContinuousBatcher:
         #                          observed completion
         while self.has_queued() or bool(self.active.any()) or any(
             r.rid is not None for r in self.rows
-        ):
+        ) or self.has_kv_imports() or self.has_kv_exports():
             self._admit_pending()
             # Rows about to write past their pages get them NOW (or
             # preempt / yield): a decode chunk must never scatter a live
@@ -2784,9 +2995,9 @@ class ContinuousBatcher:
                 self._t_complete = None  # idle boundary: no chunk to gap
                 # Publish 1-token requests finished by admission alone.
                 self._collect(np.zeros((self.b, 0), np.int32), was_active)
-                if not self.has_queued() and all(
-                    r.rid is None for r in self.rows
-                ):
+                if not self.has_queued() and not self.has_kv_imports() \
+                        and not self.has_kv_exports() \
+                        and all(r.rid is None for r in self.rows):
                     break
                 continue
             self._decode_span(was_active)
@@ -3033,7 +3244,7 @@ class ContinuousBatcher:
         ``sync_triggers`` over a host-state snapshot.  ``head_left`` is the
         prompt the first prefill with work left still owes; any completed
         prefill awaiting its finishing splice forces 0, so the finish runs
-        at the next boundary.  (The port has no KV imports.)"""
+        at the next boundary."""
         head_left = 0
         for pp in self._prefills.values():
             left = pp.total_len - pp.done
@@ -3046,7 +3257,7 @@ class ContinuousBatcher:
             any_active=bool(was_active.any()),
             cancel_dirty=self._cancel_dirty,
             queued=self.has_queued(),
-            kv_imports=False,
+            kv_imports=self.has_kv_imports(),
             prefills=len(self._prefills),
             head_prefill_left=head_left,
             live_budgets=tuple(

@@ -26,16 +26,29 @@ key and replayed after that:
 - the batcher's ``torch.Generator`` is registered with it, so each replay
   advances the generator as the eager chunk would;
 - the kernels' launch counters count at capture only; the capture's own
-  increments are taken back, and each replay adds them again.
+  increments are taken back, and each replay adds them again.  The
+  counters are process-wide: with several engine threads (a replica
+  fleet) they sum every replica's launches, and the replays other threads
+  add during a capture are kept out of the capture's count (their eager
+  kernel calls in that window would not be: the serving decode path has
+  none on CUDA, where every chunk replays).
 
 The graphs of one :class:`ChunkGraphs` share one memory pool.  A capture
-that fails raises; nothing falls back to the eager chunk.  There is no
+that fails raises; nothing falls back to the eager chunk.
+
+One capture runs in the process at a time (:data:`_CAPTURE_LOCK`): a
+replica fleet runs one engine thread per replica, and torch's capture
+context shares one side stream among every capture that names none and
+empties the allocator's cache on entry, which may not run while another
+thread captures.  Only the captures serialize; replays and eager work of
+the other engine threads go on, on the current (legacy default) stream.  There is no
 switch: the batcher's device decides (CUDA tensors replay, CPU tensors run
 the eager chunk).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
@@ -56,13 +69,25 @@ LAUNCH_COUNTERS = (
 )
 
 
+# Held across a capture and its warm-up: at most one in the process.
+_CAPTURE_LOCK = threading.Lock()
+# Guards the counters' read-modify-writes from replays and the capture
+# window's tally: what other threads' replays add while a capture runs
+# (``_foreign``: [thread id, counts], or None) is not the capture's.
+_COUNT_LOCK = threading.Lock()
+_foreign: list | None = None
+
+
 def read_launches() -> list[int]:
     return [getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS]
 
 
 def add_launches(counts: list[int]) -> None:
-    for (fn, attr), n in zip(LAUNCH_COUNTERS, counts):
-        setattr(fn, attr, getattr(fn, attr) + n)
+    with _COUNT_LOCK:
+        for (fn, attr), n in zip(LAUNCH_COUNTERS, counts):
+            setattr(fn, attr, getattr(fn, attr) + n)
+        if _foreign is not None and _foreign[0] != threading.get_ident():
+            _foreign[1] = [a + n for a, n in zip(_foreign[1], counts)]
 
 
 class _Graph:
@@ -104,6 +129,10 @@ class ChunkGraphs:
         return g.out.clone()
 
     def _capture(self, fn, inputs, generator, carried=()) -> _Graph:
+        with _CAPTURE_LOCK:
+            return self._capture_locked(fn, inputs, generator, carried)
+
+    def _capture_locked(self, fn, inputs, generator, carried=()) -> _Graph:
         static = {name: t.clone() for name, t in inputs.items()}
         rng = generator.get_state()
         saved = [t.clone() for t in carried]
@@ -115,13 +144,22 @@ class ChunkGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        before = read_launches()
-        # "thread_local": the serving front end's own thread may touch the
-        # runtime while the engine thread captures.
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            out = fn(static)
-        launches = [a - b for a, b in zip(read_launches(), before)]
+        global _foreign
+        with _COUNT_LOCK:
+            before = read_launches()
+            _foreign = [threading.get_ident(), [0] * len(before)]
+        try:
+            # "thread_local": the serving front end's own thread, and the
+            # other replicas' engine threads, touch the runtime while this
+            # engine thread captures.
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = fn(static)
+        finally:
+            with _COUNT_LOCK:
+                after, foreign = read_launches(), _foreign[1]
+                _foreign = None
+        launches = [a - b - f for a, b, f in zip(after, before, foreign)]
         add_launches([-n for n in launches])  # a capture launches nothing
         self.captures += 1
         return _Graph(graph, static, out, launches)

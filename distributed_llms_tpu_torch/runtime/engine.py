@@ -419,8 +419,12 @@ class InferenceEngine:
         overlap: bool | None = None,  # None -> rt.overlap
         schedule: str | None = None,  # None -> rt.schedule
         token_budget: int | None = None,
-        tenant_weights: "str | dict | None" = None,
-        tenant_max_rows: int | None = None,
+        tenant_weights: "str | dict | None" = None,  # None ->
+        #   rt.tenant_weights; "gold:4,free:1"-style weights turn the
+        #   mixed policy into per-tenant weighted-fair admission
+        #   (runtime/scheduler.py TenantScheduler)
+        tenant_max_rows: int | None = None,  # None -> rt.tenant_max_rows;
+        #   per-tenant resident-row cap (0 = uncapped)
         faults: Any = None,  # FaultPlane | None; None -> parse rt.faults
     ):
         """A ContinuousBatcher over this engine's model: contiguous KV
@@ -439,15 +443,19 @@ class InferenceEngine:
         explicitly the batcher refuses the pair.  ``faults`` (a
         :class:`~.faults.FaultPlane`; None parses ``rt.faults`` strictly,
         a fresh plane per batcher) arms the batcher's injection sites.
-        Knobs of later port slices raise ``NotImplementedError``, whether
-        passed here or inherited from the config."""
+        ``tenant_weights`` / ``tenant_max_rows`` (None: the config's; ""
+        and 0 disable) schedule tenants weighted-fair; inherited from the
+        config they turn the config's speculation off with a warning."""
         from .batcher import ContinuousBatcher
 
-        if (tenant_weights or self.rt.tenant_weights or tenant_max_rows
-                or self.rt.tenant_max_rows):
-            raise NotImplementedError(
-                "multi-tenant scheduling (tenant_weights/tenant_max_rows) "
-                "is not ported yet")
+        if tenant_weights is None:
+            tenant_weights = self.rt.tenant_weights
+        if tenant_weights == "":  # the CLI/config "disable" spelling
+            tenant_weights = None
+        if tenant_max_rows is None:
+            tenant_max_rows = self.rt.tenant_max_rows
+        if tenant_max_rows == 0:
+            tenant_max_rows = None
         if faults is None and self.rt.faults:
             # Each batcher gets its own plane (a respawn shares it by
             # reference, so once-only rules stay once-only); strict, so a
@@ -508,6 +516,18 @@ class InferenceEngine:
                 prefill_chunk,
             )
             speculative = False
+        if speculative and (tenant_weights or tenant_max_rows) \
+                and not explicit_spec:
+            # Same config-inherited degrade: tenant weighted-fair
+            # scheduling and the speculative round ledger do not compose
+            # (make_scheduler refuses the pair when speculative=True is
+            # explicit).
+            log.warning(
+                "runtime.spec_decode ignored: tenant weighted-fair "
+                "scheduling is configured and does not compose with "
+                "speculative rounds yet; serving plain",
+            )
+            speculative = False
         spec_kwargs = {}
         if speculative:
             if self.draft_params is None:
@@ -542,6 +562,7 @@ class InferenceEngine:
             overlap=self.rt.overlap if overlap is None else overlap,
             schedule=schedule or self.rt.schedule,
             faults=faults,
+            tenant_weights=tenant_weights, tenant_max_rows=tenant_max_rows,
         )
 
 

@@ -25,10 +25,13 @@ Examples::
     kv.swap_out:drop@1                the first swap-out recomputes instead
 
 The sites wired in the port are :data:`FAULT_SITES` (the reference's
-names, at the same points of the same code paths).  The reference's
-cluster, fleet, router, transfer and tenant sites belong to slices not
-ported yet: a strict parse (``dlt-serve-torch --fault``) refuses them by
-name rather than arming a rule that would never fire.
+names, at the same points of the same code paths): the batcher and host
+tier, the KV-handoff plane (``proto.*``, ``xfer.*``, ``prefill.crash``),
+the fleet and router (``replica.*``, ``router.*``, ``directory.lookup``)
+and the tenant gate (``tenant.quota``).  The reference's coordinator/worker
+and autoscaler sites belong to parts not ported yet: a strict parse
+(``dlt-serve-torch --fault``) refuses them by name rather than arming a
+rule that would never fire.
 
 Actions ``raise`` (raises :class:`InjectedFault`) and ``stall`` (blocking
 sleep) are applied by :meth:`FaultPlane.fire` itself; the context-specific
@@ -81,17 +84,84 @@ FAULT_SITES: dict[str, str] = {
         "about to restore spilled pages): 'drop' skips the movement, "
         "'corrupt' flips spilled bytes so restore verification rejects "
         "them",
+    "proto.send":
+        "cluster protocol frame about to be written (tag = message type)",
+    "proto.recv":
+        "cluster protocol frame just read (tag = message type)",
+    "router.place":
+        "each router placement decision (tag = chosen replica name); "
+        "'drop' vetoes the choice and spills to the next-best replica",
+    "replica.crash":
+        "one fleet probe tick per replica (tag = replica name); 'close' "
+        "(or 'raise') kills the replica process-style — connections "
+        "severed unflushed, engine reaped, no drain",
+    "replica.stall":
+        "one fleet probe tick per replica (tag = replica name); "
+        "'delay:<s>' (or 'stall:<s>' — deferred, never blocks the fleet "
+        "loop) wedges the replica's engine for <s> seconds (one blocking "
+        "stall on its next decode chunk — the watchdog drill)",
+    "replica.partition":
+        "one fleet probe tick per replica (tag = replica name); "
+        "'drop[:<s>]' makes the replica unreachable from the router for "
+        "<s> seconds (no arg: until respawn) while it keeps running",
+    "xfer.send":
+        "one KV-handoff transfer attempt about to be sent "
+        "(cluster/kv_transfer.py): 'drop' swallows the frame (the sender "
+        "waits out its ack deadline and retries), 'corrupt' flips payload "
+        "bytes in flight (the receiver's verify rejects), 'dup' delivers "
+        "the frame twice (the import must be idempotent), 'delay:<s>' "
+        "stalls the attempt",
+    "xfer.recv":
+        "one KV_PAGES frame just received by a decode-role engine: 'drop' "
+        "ignores it (no ack — the sender times out and retries), "
+        "'corrupt' mangles the payload before verification, 'delay:<s>' "
+        "stalls the receive path",
+    "xfer.verify":
+        "KV-handoff payload verification (checksum + chained page "
+        "digests): 'corrupt' forces a verification failure — the "
+        "receiver NACKs and the sender retries or degrades to colocated "
+        "prefill",
+    "prefill.crash":
+        "a prefill-role replica about to serve a /v1/prefill handoff "
+        "request: 'close' (or 'raise') kills the replica abruptly "
+        "mid-handoff — the router's degradation ladder must fall back to "
+        "colocated prefill on the decode replica",
+    "tenant.quota":
+        "the serving gateway's per-tenant token-rate gate (tag = "
+        "tenant): 'exhaust' forces the over-quota path — the request "
+        "sheds 429 with the tenant's own Retry-After even under its "
+        "rate, the per-tenant-shed drill",
+    "router.ledger":
+        "the router's fleet-wide tenant-ledger gate, the one admission-"
+        "commit point (tag = tenant): 'exhaust' forces the over-quota "
+        "path (429 + the tenant's fleet-ledger Retry-After), 'stall:<s>' "
+        "wedges the gate (deferred — the admission path slows, never the "
+        "event loop), 'drop' BYPASSES the gate and its charge — the "
+        "replica gateways' loose backstop must still meter, never a "
+        "silent unmetered path",
+    "directory.lookup":
+        "the router's fleet-wide prefix-digest directory about to answer "
+        "a placement lookup: 'drop' makes every entry read stale (a "
+        "directory miss — the decode replica recomputes locally, "
+        "exactly), 'corrupt' mis-steers the lookup to a sibling that "
+        "does not hold the pages (the pull finds nothing exportable and "
+        "degrades to local recompute)",
+    "xfer.pull":
+        "a cross-replica KV pull about to ship off the source replica's "
+        "cache (tag = transfer id): 'drop' refuses the export (the "
+        "router degrades to local recompute), 'corrupt' flips payload "
+        "bytes post-checksum so the pull target's verify NACKs every "
+        "attempt, 'dup' ships the verified frame twice (idempotent "
+        "absorb), 'delay:<s>' stalls the pull toward the router's "
+        "deadline (deferred)",
 }
 
-# The reference's other sites, wired by slices not ported yet (strict
-# parsing names them as such).
+# The reference's other sites, wired by parts the port has not taken (the
+# coordinator/worker control plane, the autoscaler): strict parsing names
+# them as such.
 UNPORTED_SITES = frozenset({
-    "proto.send", "proto.recv", "worker.heartbeat", "worker.result",
-    "worker.handle", "coordinator.dispatch", "router.place",
-    "replica.crash", "replica.stall", "replica.partition", "xfer.send",
-    "xfer.recv", "xfer.verify", "prefill.crash", "fleet.scale_up",
-    "fleet.scale_down", "tenant.quota", "router.ledger", "directory.lookup",
-    "xfer.pull",
+    "worker.heartbeat", "worker.result", "worker.handle",
+    "coordinator.dispatch", "fleet.scale_up", "fleet.scale_down",
 })
 
 
@@ -175,8 +245,10 @@ def _parse_rule(text: str) -> FaultRule:
 class FaultPlane:
     """A set of :class:`FaultRule`\\ s consulted by instrumented hot paths.
 
-    Thread contract: each rule's counters are touched only by the engine
-    thread (every port site is a ``batcher.*`` / ``kv.*`` site); ``add``
+    Thread contract: each rule's counters are touched only by the
+    thread(s) traversing its site (the engine thread for ``batcher.*`` /
+    ``kv.*``, the event loop for ``proto.*``, ``xfer.*``, ``replica.*``,
+    ``router.*``); a fleet gives each replica a plane of its own.  ``add``
     from another thread is a GIL-atomic list append, so tests may arm new
     rules mid-run.  A respawned batcher shares its predecessor's plane by
     reference, so a rule that fired stays fired across the restart.

@@ -14,14 +14,17 @@ The batcher's chunked prefill, mixed step and dispatch-ahead loop
 consult these hooks (``chunk_threshold``, ``prefill_bite``,
 ``fuse_prefill``, ``sync_triggers``); a speculative batcher's ``mixed``
 policy is :class:`SpecMixedScheduler`, whose ``spec_round_k`` sizes each
-row's rounds.  The tenant-fair policy is a later slice.  Hooks are
-model-free: plain host data in, decisions out.
+row's rounds, and a ``mixed`` policy with tenant weights or a tenant row
+cap is :class:`TenantScheduler` (weighted-fair admission by virtual token
+counter).  Hooks are model-free: plain host data in, decisions out.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
+
+from ..core.observability import METRICS
 
 # Rung names of the declared pressure ladder.  "evict_spill" is implicit in
 # pool accounting (available() counts evictable cached pages); the preempt
@@ -289,6 +292,188 @@ class SpecMixedScheduler(MixedScheduler):
         return [min(kb, max(1, int(e * k_max + 0.5))) for e in emas]
 
 
+# Queue entries with no tenant id share one anonymous bucket: they are
+# fair-shared against named tenants at the default weight, so an operator
+# can turn fairness on without forcing every client to tag its traffic.
+ANON_TENANT = "-"
+
+
+def parse_tenant_weights(spec: "str | dict | None") -> dict[str, float]:
+    """Parse the ``--tenant-weights`` / ``RuntimeConfig.tenant_weights``
+    spelling (``"gold:4,free:1"``) into {tenant: weight}.  A ``*`` entry
+    sets the DEFAULT weight unknown (and anonymous) tenants serve at;
+    absent, it is 1.0.  Dicts pass through validated.  Weights must be
+    finite and > 0 — a zero weight is a starvation knob, not a share."""
+    import math
+
+    if spec is None:
+        return {}
+    if isinstance(spec, dict):
+        items = list(spec.items())
+    else:
+        items = []
+        for part in str(spec).split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, sep, w = part.partition(":")
+            if not sep or not name.strip():
+                raise ValueError(
+                    f"tenant weight entry {part!r} must look like "
+                    "name:weight (e.g. gold:4,free:1)"
+                )
+            items.append((name.strip(), w.strip()))
+    out: dict[str, float] = {}
+    for name, w in items:
+        try:
+            weight = float(w)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"tenant {name!r}: weight {w!r} is not a number"
+            ) from None
+        if not math.isfinite(weight) or weight <= 0:
+            raise ValueError(
+                f"tenant {name!r}: weight must be finite and > 0, "
+                f"got {weight}"
+            )
+        out[name] = weight
+    return out
+
+
+class TenantScheduler(MixedScheduler):
+    """Weighted-fair multi-tenant admission — the ``mixed`` policy a
+    tenant-QoS engine schedules under (selected by :func:`make_scheduler`
+    when ``tenant_weights`` is set).  The fairness design is the virtual
+    token counter of *Fairness in Serving Large Language Models* (VTC,
+    OSDI '24), lifted from the request-level priority machinery to
+    the TENANT level:
+
+    - every admission charges its tenant's counter ``est / weight``
+      tokens (est = prompt + decode budget, the same upper bound the
+      router and cost gate use), and the release true-up refunds the
+      unspent budget — so the counter tracks WEIGHTED SERVICE RECEIVED;
+    - :meth:`admission_order` serves the backlogged tenant with the
+      LOWEST counter first (then the base priority-desc / FIFO order
+      within that tenant), so a tenant flooding the queue advances its
+      own counter and cannot crowd out a lighter tenant's share;
+    - the STARVATION GUARD is VTC's counter lift: a tenant returning
+      from idle is lifted to the minimum counter among currently-live
+      tenants, so idling never banks unbounded credit (it would
+      otherwise monopolize the engine for its whole deficit) and a
+      continuously-backlogged tenant can never be starved by returning
+      ones — each admission strictly advances the minimum;
+    - ``tenant_max_rows`` caps RESIDENT rows per tenant: a tenant at its
+      cap defers (its queue entries wait; others admit past them), so
+      one tenant can never hold every batch slot no matter its weight.
+
+    Token-RATE quotas live one layer up at the serving gateway (the
+    cheap place to shed: 429 + per-tenant Retry-After before any state
+    exists); this class owns what must be decided at admission time.
+    Deterministic in (queue contents, admission history) alone — no
+    wall clocks — so multi-process meshes stay lockstep."""
+
+    def __init__(self, *, tenant_weights: dict[str, float] | None = None,
+                 tenant_max_rows: int | None = None, **kw: Any) -> None:
+        super().__init__(**kw)
+        if tenant_max_rows is not None and tenant_max_rows < 1:
+            raise ValueError(
+                f"tenant_max_rows must be >= 1, got {tenant_max_rows}"
+            )
+        self.tenant_weights = dict(tenant_weights or {})
+        self.default_weight = self.tenant_weights.pop("*", 1.0)
+        self.tenant_max_rows = tenant_max_rows
+        self._vtc: dict[str, float] = {}       # weighted service received
+        self._resident: dict[str, int] = {}    # rows currently in slots
+        self._charged: dict[int, tuple[str, float]] = {}  # rid -> charge
+        self._live: set[str] = set()           # tenants seen since idle
+
+    def weight(self, tenant: "str | None") -> float:
+        return self.tenant_weights.get(tenant or ANON_TENANT,
+                                       self.default_weight)
+
+    @staticmethod
+    def _tenant_of(req: Any) -> str:
+        return getattr(req, "tenant", None) or ANON_TENANT
+
+    def _publish(self, tenant: str) -> None:
+        METRICS.set_gauge(f"tenant.vtc.{tenant}",
+                          self._vtc.get(tenant, 0.0))
+        METRICS.set_gauge(f"tenant.resident_rows.{tenant}",
+                          self._resident.get(tenant, 0))
+
+    def admission_order(self, queue: Sequence[Any]) -> Any | None:
+        if not queue:
+            return None
+        by_tenant: dict[str, list[Any]] = {}
+        for r in queue:
+            by_tenant.setdefault(self._tenant_of(r), []).append(r)
+        # Starvation guard (the VTC lift): a tenant re-entering from idle
+        # is lifted to the minimum counter among tenants already live —
+        # idle time banks no credit, and the lift never REDUCES anyone.
+        # sorted(): _live is a set, and this list feeds a decision —
+        # iteration order must not depend on PYTHONHASHSEED / insertion
+        # history, or lockstep processes could diverge (graftsync GS301;
+        # min() below is order-insensitive today, but keep the closure
+        # deterministic by construction, not by accident).
+        live_counters = [
+            self._vtc.get(t, 0.0)
+            for t in sorted(self._live)
+            if t in by_tenant or self._resident.get(t, 0) > 0
+        ]
+        floor = min(live_counters, default=0.0)
+        for t in by_tenant:
+            if t not in self._live:
+                self._vtc[t] = max(self._vtc.get(t, 0.0), floor)
+                self._publish(t)
+        # Live = backlogged or resident; everyone else re-lifts on return.
+        self._live = {t for t in set(self._live) | set(by_tenant)
+                      if t in by_tenant or self._resident.get(t, 0) > 0}
+        # Cardinality bound: tenant ids are client-minted, so idle entries
+        # must not accumulate forever.  An idle tenant AT OR BELOW the
+        # floor carries no information — its return is lifted to the floor
+        # anyway — so dropping it is semantically a no-op; an overserved
+        # idle tenant (counter above floor) keeps its debt until the floor
+        # catches up.
+        for t in [t for t, v in self._vtc.items()
+                  if t not in self._live and v <= floor]:
+            del self._vtc[t]
+            self._resident.pop(t, None)
+            self._publish(t)  # gauges read 0 for the dropped tenant
+        cap = self.tenant_max_rows
+        eligible = [
+            t for t in by_tenant
+            if cap is None or self._resident.get(t, 0) < cap
+        ]
+        if not eligible:
+            # Every backlogged tenant sits at its resident-row cap: defer
+            # admission (rows free at chunk boundaries and re-trigger it).
+            return None
+        pick = min(eligible, key=lambda t: (self._vtc.get(t, 0.0), t))
+        return super().admission_order(by_tenant[pick])
+
+    def note_admitted(self, req: Any, est_tokens: int) -> None:
+        t = self._tenant_of(req)
+        charge = est_tokens / self.weight(t)
+        self._vtc[t] = self._vtc.get(t, 0.0) + charge
+        self._resident[t] = self._resident.get(t, 0) + 1
+        self._charged[req.rid] = (t, charge)
+        self._live.add(t)
+        self._publish(t)
+
+    def note_freed(self, req: Any, emitted: int) -> None:
+        got = self._charged.pop(req.rid, None)
+        if got is None:  # unpaired release (defensive: never double-free)
+            return
+        t, charge = got
+        # True-up: the admission charged prompt + FULL budget; refund the
+        # budget tokens never emitted so a short completion is not billed
+        # like a long one.  actual = prompt + emitted, never below 0.
+        actual = (len(req.ids) + emitted) / self.weight(t)
+        self._vtc[t] = max(0.0, self._vtc[t] - max(0.0, charge - actual))
+        self._resident[t] = max(0, self._resident.get(t, 0) - 1)
+        self._publish(t)
+
+
 POLICIES: dict[str, type[Scheduler]] = {
     "alternate": Scheduler,
     "mixed": MixedScheduler,
@@ -298,14 +483,37 @@ POLICIES: dict[str, type[Scheduler]] = {
 def make_scheduler(name: str, **knobs: Any) -> Scheduler:
     """Build the named policy (``--schedule`` / ``RuntimeConfig.schedule``).
     Unknown names fail loudly — a typo'd schedule must not silently serve
-    the default.  A speculative batcher's ``mixed`` policy is
-    :class:`SpecMixedScheduler`."""
+    the default.  A speculative engine's ``mixed`` policy resolves to the
+    :class:`SpecMixedScheduler` subclass (budget-aware spec rounds), and
+    a ``tenant_weights``-carrying ``mixed`` policy to
+    :class:`TenantScheduler` (weighted-fair tenant admission) — new
+    scheduling behaviors land as subclasses here, not batcher branches."""
+    tenant_weights = knobs.pop("tenant_weights", None)
+    tenant_max_rows = knobs.pop("tenant_max_rows", None)
+    tenant_fair = bool(tenant_weights) or tenant_max_rows is not None
     try:
         cls = POLICIES[name]
     except KeyError:
         raise ValueError(
             f"unknown schedule {name!r}; known: {sorted(POLICIES)}"
         ) from None
+    if tenant_fair:
+        if cls is not MixedScheduler:
+            raise ValueError(
+                "tenant weighted-fair scheduling rides the mixed policy; "
+                "use --schedule mixed (the default) with tenant weights"
+            )
+        if knobs.get("speculative"):
+            raise ValueError(
+                "tenant weighted-fair scheduling does not compose with "
+                "speculative batching yet (the spec round ledger and the "
+                "tenant counters would double-charge the budget); serve "
+                "tenant-fair traffic through a plain engine"
+            )
+        return TenantScheduler(
+            tenant_weights=parse_tenant_weights(tenant_weights),
+            tenant_max_rows=tenant_max_rows, **knobs,
+        )
     if knobs.get("speculative") and cls is MixedScheduler:
         cls = SpecMixedScheduler
     return cls(**knobs)

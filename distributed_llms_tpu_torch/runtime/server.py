@@ -1,6 +1,6 @@
 """HTTP serving gateway: an OpenAI-style REST front door over the
 continuous batcher (PyTorch port of ``distributed_llms_tpu/runtime/
-server.py``, colocated role).
+server.py``).
 
 - the asyncio event loop owns every connection and all request bookkeeping;
 - ONE engine thread owns the ``ContinuousBatcher`` and therefore the
@@ -33,15 +33,28 @@ graceful drain.  A batcher armed with a fault plane
 (runtime/faults.py) crashes or stalls at its sites, and the supervisor
 and the watchdog answer as they do for a real fault.
 
-Not ported yet: the disaggregated prefill/decode roles and the KV
-transfer plane (``/v1/prefill``, ``/v1/kv_export``, the KV listener) and
-tenant quotas (``tenant`` / ``X-Tenant``).  Requests that ask for them
-get a 400 naming the feature.
+Disaggregated serving and the fleet (cluster/fleet.py, runtime/router.py):
+a server has a ``role`` — ``colocated`` (the default), ``prefill`` (serves
+``POST /v1/prefill``: admits the prompt, exports its finished KV pages and
+ships them over cluster/kv_transfer.py to the decode replica named in the
+request) or ``decode``.  A decode replica, and a paged prefix-cached
+colocated one, listens for ``KV_PAGES`` frames on an ephemeral port
+(``kv_bound_port``) and adopts verified pages into its pool; ``POST
+/v1/kv_export`` ships a prompt's cached run to a sibling (the router's
+cross-replica pull).  :meth:`InferenceServer.kill` is abrupt death:
+sockets severed unflushed, the engine reaped.
+
+Tenant QoS: a request names its tenant by the ``X-Tenant`` header or the
+``tenant`` field (header wins); ``tenant_weights`` x ``tenant_quota_tps``
+is each tenant's token rate over a trailing window, and a tenant past it
+sheds 429 with its own ``Retry-After``.  Behind a router (which holds the
+fleet's ledger) the gate is a looser backstop (``tenant_backstop_x``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import json
 import math
 import threading
@@ -49,6 +62,7 @@ import time
 import uuid
 
 from ..core.observability import METRICS, get_logger
+from .scheduler import ANON_TENANT
 
 log = get_logger("server")
 
@@ -75,12 +89,6 @@ _REASONS = {
     503: "Service Unavailable",
 }
 
-# Request fields of later port slices: a request carrying one is answered
-# 400 naming the feature, never served with the field ignored.
-_UNPORTED_FIELDS = {
-    "tenant": "multi-tenant quotas",
-}
-
 
 class _Mailbox:
     """Per-request delivery queue, filled by the engine thread via
@@ -90,10 +98,15 @@ class _Mailbox:
     thread on first delivery; ``deadline`` is the absolute perf_counter
     deadline (None = none).  ``meta``/``delivered``/``retries`` are the
     supervisor's per-request state: the submit arguments, the tokens the
-    ENGINE delivered (the zero-streamed test) and re-admissions used."""
+    ENGINE delivered (the zero-streamed test) and re-admissions used.
+    ``export_ids``/``export_result`` serve the prefill-role handoff: a
+    /v1/prefill request sets ``export_ids`` so the engine thread gathers
+    the prompt's cached KV pages at the done delivery and stashes them in
+    ``export_result`` BEFORE the done notify."""
 
     __slots__ = ("queue", "finished", "t0", "first_seen", "cached_tokens",
-                 "deadline", "meta", "delivered", "retries")
+                 "deadline", "meta", "delivered", "retries",
+                 "export_ids", "export_result")
 
     def __init__(self) -> None:
         self.queue: asyncio.Queue = asyncio.Queue()
@@ -105,10 +118,35 @@ class _Mailbox:
         self.meta: dict | None = None
         self.delivered = 0
         self.retries = 0
+        self.export_ids: list[int] | None = None
+        self.export_result: tuple | None = None  # ("done", payload|None)
 
 
 class BadRequest(ValueError):
     pass
+
+
+# The ONE tenant-id charset, shared with the router (which forwards valid
+# ids verbatim and 400s the rest — never rewrites, so router and replica
+# agree on what a malformed id means).  ASCII-only on purpose: an id is a
+# metric label, a scheduler key, and a header value — Unicode lookalikes
+# would split one tenant's accounting into mojibake buckets.
+_TENANT_CHARS = frozenset(
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789._-"
+)
+
+# Rate-ledger cardinality cap: admitting a NEW tenant id past this first
+# ages every ledger and drops the empties (see _tenant_charge) — ids are
+# client-minted, so the map must not grow with distinct-id count.
+_TENANT_LEDGER_CAP = 4096
+
+
+def valid_tenant_id(tenant) -> bool:
+    # "-" (scheduler.ANON_TENANT) is reserved: a client claiming it would
+    # alias its quota/fairness accounting onto all untagged traffic.
+    return (isinstance(tenant, str) and 0 < len(tenant) <= 64
+            and tenant != ANON_TENANT
+            and all(c in _TENANT_CHARS for c in tenant))
 
 
 def _field(req: dict, name: str, default, kind, *, minimum=None):
@@ -160,6 +198,34 @@ class InferenceServer:
         # False answers 400 to any constrained request (the operator
         # kill-switch: runtime.constrained_decoding / --no-constrained).
         constrained: bool = True,
+        # Disaggregated serving role: "colocated" (prefill and decode in
+        # one engine), "prefill" (serves /v1/prefill handoffs and ships
+        # finished KV pages to decode engines over cluster/kv_transfer.py)
+        # or "decode" (listens for KV_PAGES transfers and adopts verified
+        # pages).  Both disaggregated roles need a paged batcher with the
+        # automatic prefix cache: the handoff ships content-addressed
+        # pool pages.
+        role: str = "colocated",
+        # Sender-side transfer hardening: per-attempt deadline, bounded
+        # jittered-exponential retries, and a cap on concurrent in-flight
+        # transfers.
+        xfer_attempt_s: float = 5.0,
+        xfer_max_retries: int = 3,
+        max_inflight_transfers: int = 4,
+        # Multi-tenant QoS (the gateway half; runtime/scheduler.py
+        # TenantScheduler owns admission fairness): a tenant whose admitted
+        # token mass (prompt + budget) over the trailing window would
+        # exceed weight * tenant_quota_tps tokens/s sheds 429 with its own
+        # Retry-After.  tenant_weights: {name: weight}, "*" the default.
+        # None disables the rate gate.
+        tenant_weights: "dict[str, float] | None" = None,
+        tenant_quota_tps: float | None = None,
+        tenant_rate_window_s: float = 10.0,
+        # Behind a router that holds the fleet-wide tenant ledger, this
+        # gateway's ledger is a LOOSE backstop: its allowance is multiplied
+        # by this factor, so a bypassed router gate still meters.  None =
+        # this gateway is the authority.
+        tenant_backstop_x: float | None = None,
     ) -> None:
         if batcher.tokenizer is None:
             raise ValueError(
@@ -169,6 +235,19 @@ class InferenceServer:
         if request_timeout_s is not None and request_timeout_s <= 0:
             raise ValueError(
                 f"request_timeout_s must be > 0, got {request_timeout_s}"
+            )
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(
+                f"role must be colocated/prefill/decode, got {role!r}"
+            )
+        if role != "colocated" and (
+            getattr(batcher, "pool", None) is None
+            or getattr(batcher, "prefix_cache", None) is None
+        ):
+            raise ValueError(
+                f"role {role!r} needs a paged batcher with the automatic "
+                "prefix cache (paged_pages= + prefix_cache=True) — the "
+                "KV handoff ships content-addressed pool pages"
             )
         self.batcher = batcher
         self.model_name = model_name
@@ -180,7 +259,38 @@ class InferenceServer:
         self.watchdog_timeout_s = watchdog_timeout_s
         self.max_request_retries = max_request_retries
         self.shed_cost_factor = shed_cost_factor
+        self.role = role
+        self.xfer_attempt_s = xfer_attempt_s
+        self.xfer_max_retries = xfer_max_retries
+        self.max_inflight_transfers = max_inflight_transfers
         self.constrained = bool(constrained)
+        if tenant_quota_tps is not None and tenant_quota_tps <= 0:
+            tenant_quota_tps = None  # the CLI/config "disable" spelling
+        if tenant_rate_window_s <= 0:
+            raise ValueError(
+                f"tenant_rate_window_s must be > 0, got {tenant_rate_window_s}"
+            )
+        if tenant_backstop_x is not None and tenant_backstop_x < 1.0:
+            raise ValueError(
+                f"tenant_backstop_x must be >= 1 (a backstop looser than "
+                f"the authority) or None, got {tenant_backstop_x}"
+            )
+        self.tenant_weights = dict(tenant_weights or {})
+        self.tenant_default_weight = self.tenant_weights.pop("*", 1.0)
+        self.tenant_quota_tps = tenant_quota_tps
+        self.tenant_rate_window_s = tenant_rate_window_s
+        self.tenant_backstop_x = tenant_backstop_x
+        # Trailing-window admitted-token-mass ledger per tenant, for the
+        # rate quota: deque of (perf_counter ts, est tokens), appended at
+        # admission, aged out lazily.  Only the loop thread touches it.
+        from collections import deque
+
+        self._tenant_window: dict[str, "deque[tuple[float, int]]"] = {}  # guarded-by: event-loop
+        self._xfer_sem: asyncio.Semaphore | None = None  # made on start()
+        self._kv_server: asyncio.base_events.Server | None = None
+        from ..cluster.kv_transfer import ReceiverStats
+
+        self.kv_stats = ReceiverStats()  # KV listener: import accounting
         # Serializes (next_rid + submit) on the loop thread against the
         # supervisor's batcher swap on the engine thread, and guards the
         # mailbox registry and cancel-flag set.  Held only for host
@@ -208,16 +318,37 @@ class InferenceServer:
     async def start(self) -> tuple[str, int]:
         self._loop = asyncio.get_running_loop()
         self._server = await asyncio.start_server(self._handle, self.host, self.port)
+        self._xfer_sem = asyncio.Semaphore(self.max_inflight_transfers)
+        if self.role == "decode" or (
+            self.role == "colocated"
+            and getattr(self.batcher, "pool", None) is not None
+            and getattr(self.batcher, "prefix_cache", None) is not None
+        ):
+            # The KV import listener (always an ephemeral port; the fleet
+            # records where it landed): prefill peers ship finished pages
+            # here, and a paged prefix-cached COLOCATED replica is a
+            # cross-replica pull target.
+            self._kv_server = await asyncio.start_server(
+                self._handle_kv, self.host, 0
+            )
         self._engine = threading.Thread(
             target=self._engine_loop, name="dlt-serve-engine", daemon=True
         )
         self._engine.start()
         addr = self._server.sockets[0].getsockname()
         log.info(
-            "serving %s on http://%s:%s/v1/completions",
-            self.model_name, addr[0], addr[1],
+            "serving %s (%s) on http://%s:%s/v1/completions",
+            self.model_name, self.role, addr[0], addr[1],
         )
         return addr[0], addr[1]
+
+    @property
+    def kv_bound_port(self) -> int | None:
+        """Where the KV import listener landed (None when this replica
+        cannot import pages)."""
+        if self._kv_server is None:
+            return None
+        return self._kv_server.sockets[0].getsockname()[1]
 
     @property
     def bound_port(self) -> int:
@@ -249,16 +380,50 @@ class InferenceServer:
             deadline = self._loop.time() + 5.0
             while self._inflight() and self._loop.time() < deadline:
                 await asyncio.sleep(0.02)
+        if self._kv_server is not None:
+            self._kv_server.close()
         if self._server is not None:
             self._server.close()
+        # Sever every open connection (HTTP and KV) BEFORE awaiting
+        # wait_closed: an open KV connection from a stalled peer would
+        # otherwise hold shutdown.
         for w in list(self._conns):
             w.close()
         if self._server is not None:
             await self._server.wait_closed()
+        if self._kv_server is not None:
+            await self._kv_server.wait_closed()
 
     def force_stop(self) -> None:
         """Cut a graceful drain short (second SIGTERM/Ctrl-C)."""
         self._stopping = True
+
+    async def kill(self) -> None:
+        """Abrupt death (replica chaos drills, cluster/fleet.py): sever
+        every open connection WITHOUT flushing, stop accepting, and reap
+        the engine thread — the closest an in-process replica gets to
+        SIGKILL.  Clients observe reset sockets mid-response, so a
+        fronting router exercises its real failover path.  The engine
+        thread waits for the batcher's device work before it exits
+        (``ContinuousBatcher.quiesce``): a replica respawned after this
+        is handed no memory a dead replay still writes."""
+        self._draining = True
+        self._stopping = True
+        if self._server is not None:
+            self._server.close()
+        if self._kv_server is not None:
+            self._kv_server.close()
+        for w in list(self._conns):
+            w.close()
+        with self._submit_lock:
+            for rid in list(self._requests):
+                self._cancelled.add(rid)
+        self._work.set()
+        if self._engine is not None:
+            # Cancel flags drain run() within one chunk; never block the loop.
+            await asyncio.to_thread(self._engine.join, 60.0)
+        if self._server is not None:
+            await self._server.wait_closed()
 
     # -- engine thread -----------------------------------------------------
 
@@ -269,7 +434,10 @@ class InferenceServer:
 
     def _pending(self) -> bool:
         b = self.batcher
-        return b.has_queued() or any(r.rid is not None for r in list(b.rows))
+        # A verified KV handoff awaiting adoption, or a sibling's export,
+        # counts as work too (the engine must wake to serve it).
+        return (b.has_queued() or b.has_kv_imports() or b.has_kv_exports()
+                or any(r.rid is not None for r in list(b.rows)))
 
     def _pending_token_mass(self) -> int:
         """Estimated token mass the engine still has to absorb: every
@@ -290,6 +458,114 @@ class InferenceServer:
         cap = max(1, self.batcher.capacity_tokens())
         return int(min(30, max(1, -(-self._pending_token_mass() // cap))))
 
+    # -- multi-tenant QoS: the gateway's rate-quota half -------------------
+
+    @staticmethod
+    def _parse_tenant(req: dict, tenant_hdr: str | None) -> str | None:
+        """The request's tenant id: X-Tenant header first (proxies stamp
+        identity), "tenant" body field as the fallback.  None = the
+        anonymous bucket.  Malformed ids 400 — a tenant id becomes a
+        metric label and a scheduler key, so the charset is tight."""
+        tenant = tenant_hdr if tenant_hdr else req.get("tenant")
+        if tenant is None or tenant == "":
+            return None
+        if not valid_tenant_id(tenant):
+            raise BadRequest(
+                "'tenant' must be 1-64 chars of [A-Za-z0-9._-] "
+                "(X-Tenant header or body field)"
+            )
+        return tenant
+
+    def _tenant_weight(self, tenant: str) -> float:
+        return self.tenant_weights.get(tenant, self.tenant_default_weight)
+
+    def _tenant_allowance(self, tenant: str) -> float:
+        """Token mass the tenant's trailing window may hold HERE.  With a
+        fronting router running the authoritative fleet ledger, the
+        backstop factor loosens this gateway's cap (~2x fair share): it
+        only trips when the router gate was bypassed or drilled — never
+        a silent unmetered path, never a double gate at full strictness."""
+        allowed = (self._tenant_weight(tenant) * self.tenant_quota_tps
+                   * self.tenant_rate_window_s)
+        if self.tenant_backstop_x is not None:
+            allowed *= self.tenant_backstop_x
+        return allowed
+
+    # graftlint: holds(event-loop)
+    def _tenant_retry_after(self, tenant: str, est: int) -> int | None:
+        """Per-tenant token-rate gate (loop thread only).  Returns None
+        when ``est`` more admission tokens fit the tenant's trailing-
+        window quota (weight x tenant_quota_tps tokens/s), else the
+        PER-TENANT Retry-After: when the tenant's own window has aged
+        out enough room — unlike the global ``_retry_after_s`` hint,
+        this is a promise about this tenant's ledger, not fleet load.
+        The ``tenant.quota`` fault site (tag = tenant) can force the
+        over-quota path for drills (action ``exhaust``)."""
+        if self.tenant_quota_tps is None:
+            return None
+        win = self.tenant_rate_window_s
+        allowed = self._tenant_allowance(tenant)
+        now = time.perf_counter()
+        ledger = self._tenant_window.get(tenant)
+        forced = False
+        plane = self.batcher.faults
+        if plane is not None:
+            # defer_stall: this gate runs on the event loop (a stall rule
+            # must not freeze every handler and the fleet's probes).
+            rule = plane.fire("tenant.quota", tag=tenant, defer_stall=True)
+            forced = rule is not None and rule.action == "exhaust"
+        if ledger:
+            while ledger and ledger[0][0] <= now - win:
+                ledger.popleft()
+            if not ledger:  # fully aged out: drop the deque itself too
+                del self._tenant_window[tenant]
+                ledger = None
+        used = sum(n for _, n in ledger) if ledger else 0
+        if not forced and used + est <= allowed:
+            return None
+        # Walk the tenant's own ledger oldest-first: the hint is when
+        # enough of ITS charges age out that est fits again.
+        room_needed = used + est - allowed
+        freed = 0.0
+        hint = win
+        for ts, n in (ledger or ()):
+            freed += n
+            if freed >= room_needed:
+                hint = ts + win - now
+                break
+        return int(min(60, max(1, math.ceil(hint))))
+
+    # graftlint: holds(event-loop)
+    def _tenant_charge(self, tenant: str | None, est: int) -> None:
+        """Record an accepted request's admission-time token mass on its
+        tenant's trailing window (loop thread only) + per-tenant
+        counters.  Anonymous requests bill the shared ANON bucket's
+        ledger (the rate gate checks it) but mint no per-tenant
+        metrics."""
+        if tenant is not None:
+            METRICS.inc(f"tenant.requests.{tenant}")
+            METRICS.inc(f"tenant.admitted_tokens.{tenant}", est)
+        if self.tenant_quota_tps is None:
+            return  # no rate gate -> nothing ever ages the ledger; keep none
+        from collections import deque
+
+        key = tenant if tenant is not None else ANON_TENANT
+        if key not in self._tenant_window \
+                and len(self._tenant_window) >= _TENANT_LEDGER_CAP:
+            # Cardinality bound: tenant ids are client-minted, so a new id
+            # must not grow the map past the cap without first aging every
+            # ledger and dropping the empties.  Ids still inside their
+            # window are genuine concurrent tenants — those stay.
+            cutoff = time.perf_counter() - self.tenant_rate_window_s
+            for t in list(self._tenant_window):
+                d = self._tenant_window[t]
+                while d and d[0][0] <= cutoff:
+                    d.popleft()
+                if not d:
+                    del self._tenant_window[t]
+        ledger = self._tenant_window.setdefault(key, deque())
+        ledger.append((time.perf_counter(), est))
+
     def _engine_loop(self) -> None:
         while True:
             self._work.wait()
@@ -303,6 +579,10 @@ class InferenceServer:
                         self._cancelled.discard(rid)
                         self._notify(rid, [], True,
                                      err="server is shutting down")
+                # The device work this batcher enqueued runs out before the
+                # thread ends: stop() and kill() join it, and whatever is
+                # allocated after that may reuse this batcher's memory.
+                self.batcher.quiesce()
                 return
             if not self._pending():
                 continue
@@ -339,6 +619,12 @@ class InferenceServer:
         exact); partially-streamed ones fail with a structured error."""
         crash_t = time.monotonic()
         old = self.batcher
+        try:
+            # The crashed batcher's chunks in flight run out before its
+            # successor allocates from the same caching allocator.
+            old.quiesce()
+        except Exception:
+            log.exception("waiting for the crashed batcher's device work")
         new = (self._batcher_factory() if self._batcher_factory is not None
                else old.respawn())
         # Named prefixes are device KV the batcher only reads; carry them
@@ -372,6 +658,24 @@ class InferenceServer:
                 self._cancelled.discard(rid)
                 self._notify(rid, [], True, err=_RESTART_ERR)
             new._next_rid = old._next_rid  # rid continuity across the swap
+            # Transplant VERIFIED KV imports awaiting adoption: their
+            # payloads are host-side and their KV-listener coroutines are
+            # waiting.  Queued EXPORTS cannot transplant (the crashed
+            # pool's pages died with it): answer each "nothing to export"
+            # now instead of stranding it for the export timeout.
+            with old._lock:
+                pending_imports = list(old._kv_imports)
+                old._kv_imports.clear()
+                pending_exports = list(old._kv_exports)
+                old._kv_exports.clear()
+            if pending_imports:
+                with new._lock:
+                    new._kv_imports.extend(pending_imports)
+            for _ids, on_done in pending_exports:
+                try:
+                    on_done(None)
+                except Exception:
+                    log.exception("kv-export completion callback raised")
             self.batcher = new
         self._restarts += 1
         if retried:
@@ -407,6 +711,24 @@ class InferenceServer:
         # reason as a structured error (503 + Retry-After, not empty 200).
         shed = self.batcher.shed.pop(rid, None) if done else None
         err = (_SHED_ERR + shed) if shed is not None else None
+        if done:
+            # Prefill-role handoff: gather the finished prompt's cached
+            # pages HERE, on the engine thread (the only thread that may
+            # touch the device), OUTSIDE the submission lock, and stash the
+            # payload before the done notify is queued.
+            with self._submit_lock:
+                mb = self._requests.get(rid)
+                export_ids = mb.export_ids if mb is not None else None
+            if export_ids is not None and err is None:
+                try:
+                    payload = self.batcher.export_prefix_pages(export_ids)
+                except Exception:
+                    log.exception("kv page export failed for rid %d", rid)
+                    payload = None
+                with self._submit_lock:
+                    mb = self._requests.get(rid)
+                    if mb is not None:
+                        mb.export_result = ("done", payload)
         with self._submit_lock:
             mbox = self._requests.get(rid)
             if mbox is not None and toks:
@@ -528,7 +850,9 @@ class InferenceServer:
                   else "unhealthy")
         return (200 if healthy else 503), {
             "status": status,
-            "role": "colocated",  # the disaggregated roles: later slice
+            # The router places completions only on decode-capable
+            # replicas and handoffs only on prefill ones.
+            "role": self.role,
             "engine_alive": alive,
             "engine_stalled": stalled,
             "seconds_since_last_chunk": round(age, 3),
@@ -570,10 +894,34 @@ class InferenceServer:
                 req = json.loads(body or b"{}")
                 if not isinstance(req, dict):
                     raise BadRequest("request body must be a JSON object")
-                if tenant_hdr:
-                    req = {**req, "tenant": tenant_hdr}
                 await self._completions(writer, req, chat="chat" in path,
-                                        t0=t0)
+                                        t0=t0, tenant_hdr=tenant_hdr)
+            except (BadRequest, json.JSONDecodeError) as e:
+                await self._json(writer, 400, _err_body(str(e)))
+        elif method == "POST" and path == "/v1/prefill":
+            if self.role != "prefill":
+                await self._json(writer, 404, _err_body(
+                    "this replica does not serve prefill handoffs "
+                    f"(role {self.role!r})"
+                ))
+                return
+            try:
+                req = json.loads(body or b"{}")
+                if not isinstance(req, dict):
+                    raise BadRequest("request body must be a JSON object")
+                await self._prefill(writer, req)
+            except (BadRequest, json.JSONDecodeError) as e:
+                await self._json(writer, 400, _err_body(str(e)))
+        elif method == "POST" and path == "/v1/kv_export":
+            # Cross-replica pull source (any role with a paged prefix
+            # cache): export a prompt's CACHED page run to a sibling's KV
+            # listener — no admission, no recompute; "nothing to export"
+            # when the run is not resident.
+            try:
+                req = json.loads(body or b"{}")
+                if not isinstance(req, dict):
+                    raise BadRequest("request body must be a JSON object")
+                await self._kv_export(writer, req)
             except (BadRequest, json.JSONDecodeError) as e:
                 await self._json(writer, 400, _err_body(str(e)))
         elif method not in ("GET", "POST"):
@@ -651,12 +999,10 @@ class InferenceServer:
         return out[0], out[1], want_k, out[2], out[3]
 
     async def _completions(self, writer, req: dict, chat: bool,
-                           t0: float | None = None) -> None:
+                           t0: float | None = None,
+                           tenant_hdr: str | None = None) -> None:
         if t0 is None:
             t0 = time.perf_counter()
-        for name, what in _UNPORTED_FIELDS.items():
-            if req.get(name) is not None:
-                raise BadRequest(f"{name!r} ({what}) is not ported yet")
         prompt_ids, _ = self._parse_prompt(req, chat)
         max_tokens = _field(
             req, "max_completion_tokens" if chat else "max_tokens",
@@ -731,6 +1077,10 @@ class InferenceServer:
         if (isinstance(priority, bool) or not isinstance(priority, int)
                 or not -(2**31) <= priority < 2**31):
             raise BadRequest("'priority' must be an integer")
+        tenant = self._parse_tenant(req, tenant_hdr)
+        # THE admission-token estimate (prompt + budget per choice): the
+        # cost gate, the tenant rate gate and the ledger charge all read
+        # it, so what is gated is exactly what is billed.
         est = n * (len(prompt_ids) + max_tokens)
         # Shed gates, all BEFORE any delivery state is registered.
         if self._inflight() + n > self.max_pending:
@@ -746,6 +1096,42 @@ class InferenceServer:
                     writer, 429,
                     f"server overloaded: {mass} tokens of work queued "
                     f"against {cap}-token KV capacity", "cost_gate",
+                )
+                return
+        if self.tenant_quota_tps is not None:
+            # Per-tenant token-rate quota: shed with the TENANT's own
+            # Retry-After (when its trailing window frees) — the other
+            # tenants' headroom is none of this request's business.
+            # Untagged requests bill the shared ANONYMOUS bucket at the
+            # default weight (scheduler parity) — dropping the X-Tenant
+            # header is not an escape hatch from the rate gate.
+            key = tenant if tenant is not None else ANON_TENANT
+            allowed = self._tenant_allowance(key)
+            if est > allowed:
+                # Bigger than the tenant's ENTIRE window allowance: a 429
+                # would promise a Retry-After that can never come true
+                # (the ledger can't free room the quota doesn't hold) —
+                # this is a malformed-for-this-tenant request, not load.
+                await self._json(writer, 400, _err_body(
+                    f"request needs {est} admission tokens but tenant "
+                    f"{key!r}'s quota window holds at most {int(allowed)}"
+                ))
+                return
+            hint = self._tenant_retry_after(key, est)
+            if hint is not None:
+                if tenant is not None:
+                    METRICS.inc(f"tenant.shed.{tenant}")
+                # A backstop trip is a DIFFERENT event from an ordinary
+                # quota shed: the authoritative (router) gate let ~2x
+                # fair share through — it was bypassed, drilled, or is
+                # misconfigured — and dashboards must see that class.
+                await self._shed_json(
+                    writer, 429,
+                    f"tenant {key!r} over its token-rate quota "
+                    f"({est} tokens would exceed the "
+                    f"{self.tenant_rate_window_s:g}s window)",
+                    "tenant_backstop" if self.tenant_backstop_x is not None
+                    else "tenant_quota", retry_after=hint,
                 )
                 return
         if self._draining and not self._stopping:
@@ -772,7 +1158,7 @@ class InferenceServer:
             presence_penalty=pres_pen, frequency_penalty=freq_pen,
             prefix_cache=use_cache, priority=priority, deadline=deadline,
             response_format=response_format, logit_bias=logit_bias,
-            banned_tokens=banned_tokens, constraint=dfa,
+            banned_tokens=banned_tokens, constraint=dfa, tenant=tenant,
         )
         subs: list[tuple[int, int, _Mailbox]] = []  # (choice index, rid, mbox)
         sub_err: Exception | None = None
@@ -795,7 +1181,7 @@ class InferenceServer:
                         prefix_cache=use_cache, priority=priority,
                         deadline=deadline, response_format=response_format,
                         logit_bias=logit_bias, banned_tokens=banned_tokens,
-                        constraint=dfa,
+                        constraint=dfa, tenant=tenant,
                     )
                     assert got == rid
                 except (ValueError, KeyError) as e:
@@ -816,6 +1202,9 @@ class InferenceServer:
             self._work.set()  # let an idle engine drain the flags
             await self._json(writer, 400, _err_body(str(sub_err)))
             return
+        # The rate ledger charges the ACCEPTED request: after the last gate
+        # and a fully successful submit.
+        self._tenant_charge(tenant, est)
         self._work.set()
         METRICS.inc("server.requests")
         try:
@@ -846,6 +1235,321 @@ class InferenceServer:
                     else:
                         self._cancelled.add(rid)
                     self._requests.pop(rid, None)
+
+    # -- disaggregated serving: prefill handoff + KV import ---------------
+
+    async def _prefill(self, writer, req: dict) -> None:
+        """Prefill-role front door (``POST /v1/prefill``): run the
+        prompt through this engine's ordinary admission (max_new_tokens=1,
+        automatic prefix caching ON — the prompt's full pages publish
+        content-addressed), export the cached run, and SHIP it to the
+        requesting decode engine's KV listener over cluster/kv_transfer.py
+        — per-attempt deadline, bounded jittered-exponential retries,
+        bounded in-flight transfers.  Every outcome is a structured JSON
+        answer; the router treats anything but ``ok: true`` as a handoff
+        failure and degrades to colocated prefill."""
+        from ..cluster import kv_transfer
+        from .faults import InjectedFault
+
+        plane = self.batcher.faults
+        if plane is not None:
+            # Injection site "prefill.crash": the mid-handoff death drill.
+            # close/raise = abrupt replica death (sockets severed
+            # unflushed) — the router observes a reset, not an answer.
+            try:
+                rule = plane.fire("prefill.crash", defer_stall=True)
+            except InjectedFault:
+                rule = None
+                await self.kill()
+                return
+            if rule is not None and rule.action == "close":
+                await self.kill()
+                return
+            if rule is not None and rule.action in ("delay", "stall"):
+                await asyncio.sleep(rule.arg or 0.0)
+        prompt_ids, _ = self._parse_prompt(req, chat=False)
+        kv_host = req.get("kv_host")
+        kv_port = req.get("kv_port")
+        transfer_id = req.get("transfer_id")
+        if not isinstance(kv_host, str) or not kv_host:
+            raise BadRequest("'kv_host' must be a non-empty string")
+        if (isinstance(kv_port, bool) or not isinstance(kv_port, int)
+                or not 0 < kv_port < 65536):
+            raise BadRequest("'kv_port' must be a TCP port")
+        if not isinstance(transfer_id, str) or not transfer_id:
+            raise BadRequest("'transfer_id' must be a non-empty string")
+        if self._inflight() + 1 > self.max_pending:
+            await self._shed_json(
+                writer, 429, "server request queue is full", "queue_full"
+            )
+            return
+        if self._draining and not self._stopping:
+            await self._json(
+                writer, 503, _err_body("server is draining"),
+                headers={"Retry-After": str(self._retry_after_s())},
+            )
+            return
+        if self._stopping:
+            await self._json(writer, 500, _err_body("server is shutting down"))
+            return
+        if self._engine_dead:
+            await self._json(
+                writer, 500, _err_body("engine unrecoverable", "engine_error")
+            )
+            return
+        METRICS.inc("server.prefill_requests")
+        meta = dict(ids=list(prompt_ids), max_new_tokens=1,
+                    prefix_cache=True)
+        with self._submit_lock:
+            rid = self.batcher.next_rid
+            mbox = _Mailbox()
+            mbox.meta = meta
+            mbox.export_ids = list(prompt_ids)
+            self._requests[rid] = mbox
+            try:
+                got = self.batcher.submit(
+                    prompt_ids, max_new_tokens=1, prefix_cache=True
+                )
+                assert got == rid
+            except (ValueError, KeyError) as e:
+                self._requests.pop(rid, None)
+                await self._json(writer, 400, _err_body(str(e)))
+                return
+            except BaseException:
+                self._requests.pop(rid, None)
+                raise
+        self._work.set()
+        try:
+            fail = None
+            while True:
+                try:
+                    _toks, done, err, _lps = await asyncio.wait_for(
+                        mbox.queue.get(), 60.0
+                    )
+                except asyncio.TimeoutError:
+                    fail = "prefill timed out"
+                    break
+                if done:
+                    mbox.finished = True
+                    if err is not None:
+                        fail = err
+                    break
+        finally:
+            with self._submit_lock:
+                if not mbox.finished:
+                    self._cancelled.add(rid)
+                self._requests.pop(rid, None)
+        if fail is not None:
+            await self._json(writer, 500, _err_body(fail, _err_type(fail)))
+            return
+        export = mbox.export_result
+        payload = export[1] if export is not None else None
+        if payload is None:
+            # Nothing shipped: prompt under one full page, caching off,
+            # or the run was evicted before the gather.  Not an error —
+            # the router simply serves the request colocated.
+            await self._json(writer, 200, {
+                "ok": False, "reason": "nothing to export", "pages": 0,
+            })
+            return
+        digests, k_pages, v_pages = payload
+        # b64 of a multi-MB payload runs off the loop: this same loop
+        # answers the fleet's /healthz probes.
+        msg = await asyncio.to_thread(
+            kv_transfer.encode_kv_pages, kv_transfer.KVTransferPayload(
+                transfer_id=transfer_id,
+                token_ids=list(
+                    prompt_ids[: len(digests) * self.batcher.page_size]
+                ),
+                page_size=self.batcher.page_size,
+                digests=digests, k_pages=k_pages, v_pages=v_pages,
+            ),
+        )
+        async with self._xfer_sem:
+            res = await kv_transfer.send_kv_pages(
+                kv_host, kv_port, msg, faults=plane,
+                attempt_s=self.xfer_attempt_s,
+                max_retries=self.xfer_max_retries,
+            )
+        await self._json(writer, 200, {
+            "ok": res.ok, "reason": res.reason, "attempts": res.attempts,
+            "pages": len(digests),
+            "tokens": len(digests) * self.batcher.page_size,
+            "bytes": res.bytes_sent,
+            "digests": [d.hex() for d in digests],
+        })
+
+    async def _kv_export(self, writer, req: dict) -> None:
+        """Cross-replica pull source (``POST /v1/kv_export``, from the
+        router's fleet digest directory): gather the prompt's longest
+        CACHED page run — engine thread, at a round boundary; nothing is
+        admitted or recomputed here — and ship it to the pulling decode
+        replica's KV listener over cluster/kv_transfer.py, verified and
+        retried exactly like a prefill handoff.  The ``xfer.pull`` fault
+        site (tag = transfer id) drills the ship path: 'drop' refuses the
+        export, 'corrupt' flips payload bytes after the checksum (the
+        puller-side verify NACKs every attempt), 'dup' ships the verified
+        frame twice (the receiver absorbs the duplicate), 'delay' stalls
+        toward the router's pull deadline.  Every outcome is a structured
+        JSON answer; anything but ``ok: true`` makes the router degrade
+        to local recompute — byte-exact regardless."""
+        from ..cluster import kv_transfer
+
+        prompt_ids, _ = self._parse_prompt(req, chat=False)
+        kv_host = req.get("kv_host")
+        kv_port = req.get("kv_port")
+        transfer_id = req.get("transfer_id")
+        if not isinstance(kv_host, str) or not kv_host:
+            raise BadRequest("'kv_host' must be a non-empty string")
+        if (isinstance(kv_port, bool) or not isinstance(kv_port, int)
+                or not 0 < kv_port < 65536):
+            raise BadRequest("'kv_port' must be a TCP port")
+        if not isinstance(transfer_id, str) or not transfer_id:
+            raise BadRequest("'transfer_id' must be a non-empty string")
+        if self._stopping or self._draining or self._engine_dead:
+            await self._json(writer, 200, {
+                "ok": False, "reason": "replica unavailable", "pages": 0,
+            })
+            return
+        plane = self.batcher.faults
+        rule = None
+        if plane is not None:
+            # defer_stall: this handler runs on the serving event loop —
+            # a delay/stall rule is applied as an awaited sleep below.
+            rule = plane.fire("xfer.pull", tag=transfer_id,
+                              defer_stall=True)
+        if rule is not None and rule.action == "drop":
+            await self._json(writer, 200, {
+                "ok": False, "reason": "pull dropped (drill)", "pages": 0,
+            })
+            return
+        if rule is not None and rule.action in ("delay", "stall"):
+            await asyncio.sleep(rule.arg or 0.0)
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+
+        def on_done(payload) -> None:
+            # Engine thread -> loop: same crossing as mailbox deliveries.
+            def settle() -> None:
+                if not fut.done():
+                    fut.set_result(payload)
+
+            loop.call_soon_threadsafe(settle)
+
+        with self._submit_lock:
+            self.batcher.submit_kv_export(list(prompt_ids), on_done)
+        self._work.set()
+        try:
+            # Bounded so a crashed engine cannot wedge the router's pull
+            # (which has its own, shorter deadline) or leak this handler.
+            payload = await asyncio.wait_for(fut, 30.0)
+        except asyncio.TimeoutError:
+            await self._json(writer, 200, {
+                "ok": False, "reason": "export timed out", "pages": 0,
+            })
+            return
+        if payload is None:
+            # Run not resident: prompt under one full page, caching off,
+            # or the pages were evicted since the directory entry was
+            # recorded (a stale answer).  Not an error — the router
+            # recomputes locally.
+            await self._json(writer, 200, {
+                "ok": False, "reason": "nothing to export", "pages": 0,
+            })
+            return
+        digests, k_pages, v_pages = payload
+        # b64 of a multi-MB payload runs off the loop: this same loop
+        # answers the fleet's /healthz probes.
+        msg = await asyncio.to_thread(
+            kv_transfer.encode_kv_pages, kv_transfer.KVTransferPayload(
+                transfer_id=transfer_id,
+                token_ids=list(
+                    prompt_ids[: len(digests) * self.batcher.page_size]
+                ),
+                page_size=self.batcher.page_size,
+                digests=digests, k_pages=k_pages, v_pages=v_pages,
+            ),
+        )
+        if rule is not None and rule.action == "corrupt":
+            # Post-checksum bit-flip: the frame parses but can never
+            # verify — the pull target NACKs every attempt and the
+            # router degrades to local recompute, cache unpoisoned.
+            msg = kv_transfer.corrupt_payload(msg)
+        async with self._xfer_sem:
+            res = await kv_transfer.send_kv_pages(
+                kv_host, kv_port, msg, faults=plane,
+                attempt_s=self.xfer_attempt_s,
+                max_retries=self.xfer_max_retries,
+            )
+            if res.ok and rule is not None and rule.action == "dup":
+                # Deliver the verified frame AGAIN: the receiver's digest
+                # check absorbs it ("duplicate" ack), pinning pull-path
+                # idempotence.
+                await kv_transfer.send_kv_pages(
+                    kv_host, kv_port, msg, faults=plane,
+                    attempt_s=self.xfer_attempt_s,
+                    max_retries=self.xfer_max_retries,
+                )
+        await self._json(writer, 200, {
+            "ok": res.ok, "reason": res.reason, "attempts": res.attempts,
+            "pages": len(digests),
+            "tokens": len(digests) * self.batcher.page_size,
+            "bytes": res.bytes_sent,
+            "digests": [d.hex() for d in digests],
+        })
+
+    async def _handle_kv(self, reader: asyncio.StreamReader,
+                         writer: asyncio.StreamWriter) -> None:
+        """Decode-role KV listener: verify each KV_PAGES frame (checksum +
+        digest-chain recompute, the ``xfer.recv``/``xfer.verify`` sites)
+        and hand verified payloads to the engine thread for adoption."""
+        from ..cluster import kv_transfer
+        from .batcher import PrefixCache
+
+        self._conns.add(writer)
+        try:
+            await kv_transfer.handle_kv_connection(
+                reader, writer,
+                # Digest recompute must use the engine's salt: pool
+                # digests fold in the KV width (--kv-bits), so a frame
+                # from a differently-configured sender reads as a chain
+                # mismatch instead of poisoning the cache.
+                page_digests_fn=functools.partial(
+                    PrefixCache.page_digests,
+                    kv_bits=getattr(self.batcher, "kv_bits", 16),
+                ),
+                import_fn=self._kv_import,
+                faults=self.batcher.faults,
+                stats=self.kv_stats,
+            )
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            self._conns.discard(writer)
+            writer.close()
+
+    async def _kv_import(self, payload) -> tuple[bool, str]:
+        """Bridge one verified transfer to the engine thread: queue it on
+        the batcher (under the submit lock, so the supervisor's batcher
+        swap cannot strand it unseen), wake the engine, await the
+        engine-side completion."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+
+        def on_done(ok: bool, reason: str) -> None:
+            # Engine thread -> loop: same crossing as mailbox deliveries.
+            def settle() -> None:
+                if not fut.done():
+                    fut.set_result((ok, reason))
+
+            loop.call_soon_threadsafe(settle)
+
+        with self._submit_lock:
+            self.batcher.submit_kv_import(
+                payload.digests, payload.k_pages, payload.v_pages, on_done
+            )
+        self._work.set()
+        return await fut
 
     async def _collect_until_done(self, mbox, rid, stop, need_text=True):
         """Drain the mailbox; yield (text_so_far, ids_so_far, lps, done,
@@ -1173,17 +1877,25 @@ class InferenceServer:
         )
 
     async def _shed_json(self, writer, code: int, msg: str,
-                         reason: str) -> None:
+                         reason: str, retry_after: int | None = None) -> None:
         """Answer a shed request (429 too-busy / 503 not-yet-admitted):
-        structured overloaded_error body with a machine-readable
-        ``reason`` and a Retry-After header."""
+        structured overloaded_error body + a Retry-After header so clients
+        and load balancers back off instead of retrying hot, and the shed
+        counters the dashboards alarm on.  The body carries the machine-
+        readable ``reason`` (queue_full / cost_gate / tenant_quota / ...)
+        so clients can distinguish "the server is busy" from "MY quota is
+        exhausted"; ``retry_after`` overrides the global hint with a
+        per-tenant one."""
         METRICS.inc("server.requests_shed_total")
         METRICS.inc(f"server.requests_shed.{reason}")
         body = _err_body(msg, "overloaded_error")
         body["error"]["reason"] = reason
         await self._json(
             writer, code, body,
-            headers={"Retry-After": str(self._retry_after_s())},
+            headers={"Retry-After": str(
+                retry_after if retry_after is not None
+                else self._retry_after_s()
+            )},
         )
 
     async def _respond(self, writer, code: int, ctype: str, payload: bytes,

@@ -143,9 +143,9 @@ def test_strict_parse_takes_the_wired_sites_only():
     spec = ",".join(f"{s}:raise@9" for s in TF.FAULT_SITES)
     assert len(TF.FaultPlane.parse(spec, strict=True).rules) == len(
         TF.FAULT_SITES)
-    for later in ("router.place:drop@1", "proto.send/HEARTBEAT:drop@1+",
-                  "xfer.send:corrupt@1", "tenant.quota:exhaust@1",
-                  "replica.crash/r0:close@4"):
+    for later in ("worker.heartbeat:drop@1", "worker.result/GENERATE:close@1+",
+                  "coordinator.dispatch:drop@1", "fleet.scale_up:raise@1",
+                  "fleet.scale_down/r0:drop@4"):
         with pytest.raises(ValueError, match="not ported yet"):
             TF.FaultPlane.parse(later, strict=True)
         TF.FaultPlane.parse(later)  # the grammar alone accepts it
@@ -431,7 +431,7 @@ async def test_cli_fault_flag_arms_the_plane_strictly():
             "--host", "127.0.0.1", "--port", "0", "--max-len", "64"]
     with pytest.raises(ValueError, match="not ported yet"):
         serve_main.build_server(serve_main.parser().parse_args(
-            base + ["--fault", "router.place:drop@1"]))
+            base + ["--fault", "fleet.scale_up:raise@1"]))
     args = serve_main.parser().parse_args(
         base + ["--fault", "batcher.decode:raise@2",
                 "--fault", "kv.swap_out:drop@1"])
@@ -467,6 +467,6 @@ def test_engine_takes_faults_and_parses_the_config_strictly():
                                   faults=plane).faults is plane
     bad = InferenceEngine.from_preset(
         "llama-tiny", vocab_size=512, device="cpu",
-        rt=RuntimeConfig(faults="xfer.send:drop@1"))
+        rt=RuntimeConfig(faults="worker.heartbeat:drop@1"))
     with pytest.raises(ValueError, match="not ported yet"):
         bad.continuous_batcher(batch_slots=2, max_len=64)

@@ -239,8 +239,11 @@ async def test_http_server_answers_on_cpu(weights):
             "max_tokens": 4, "stream": True})
         assert status == 200 and body.rstrip().endswith(b"data: [DONE]")
         status, body = await _post(port, "/v1/completions", {
-            "prompt": "x", "tenant": "a"})
-        assert status == 400 and b"not ported yet" in body
+            "prompt": "x", "tenant": "a", "max_tokens": 2})
+        assert status == 200, body
+        status, body = await _post(port, "/v1/completions", {
+            "prompt": "x", "tenant": "no spaces"})
+        assert status == 400 and b"'tenant' must be 1-64 chars" in body
         status, body = await _post(port, "/v1/completions", {
             "prompt": "x", "response_format": {"type": "regex"}})
         assert status == 400 and b"'regex' string" in body
@@ -296,12 +299,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tenant-quota-tps", "5"],
-    ["--tenant-weights", "a:1"], ["--replicas", "2"],
-    ["--disaggregate"], ["--tenant-max-rows", "2"],
-    ["--replicas", "2", "--disaggregate"],
-    ["--override", "runtime.tenant_weights=a:1"],
-    ["--override", "runtime.tenant_max_rows=2"],
+    ["--replicas-min", "2"], ["--replicas-max", "3"],
+    ["--prefill-replicas-max", "2"], ["--decode-replicas-max", "2"],
+    ["--autoscale-interval", "2"], ["--autoscale-up-load", "0.5"],
+    ["--autoscale-down-load", "0.1"], ["--autoscale-hysteresis", "2"],
+    ["--autoscale-cooldown", "5"],
 ])
 def test_later_slice_flags_raise(flags):
     from distributed_llms_tpu_torch.cli import serve_main
@@ -309,7 +311,8 @@ def test_later_slice_flags_raise(flags):
     args = serve_main.parser().parse_args(
         ["--preset", "llama-tiny", "--device", "cpu", "--paged-pages", "40"]
         + flags)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"\({flags[0]}\) is not ported yet"):
         serve_main.build_server(args)
 
 

@@ -320,6 +320,46 @@ Phases, each printing result lines:
       int8 leg: K1q) must reach layers x its busiest replica's decode
       steps.  Path n's launches ride in the JSON line as
       ``fleet_launches``.
+   o. (run by the ``elastic`` phase) the elastic fleet and the source
+      system's control plane:
+      o1. ``llama-3-8b`` (32 layers, bf16, ONE copy of the weights) with
+      path a's pool flags and ``--max-len 1024`` under ``--replicas-min 1
+      --replicas-max 2 --autoscale-interval 0.25 --autoscale-hysteresis 2
+      --autoscale-cooldown 3`` and ``ELASTIC_UP_LOAD`` /
+      ``ELASTIC_DOWN_LOAD``, ``--fault fleet.scale_up:raise@1``, through
+      ``build_fleet`` with the autoscaler started and stopped around the
+      fleet; the unembedding columns past the byte range scaled by 1/64 so
+      the greedy streams decode to text.  A ``runtime/workload.py`` trace
+      (two tenants, 200-600-byte prompts, 32-96 new tokens, bursts x4, half
+      of tenant a's prompts over a 160-byte shared prefix, a diurnal
+      envelope of amplitude 0.9 whose period is the 60 s horizon) replayed
+      over HTTP through the router, then a quiet tail.  It fails unless the
+      injected scale-up failure is counted, a later scale-up brings the
+      fleet to 2 through the boot-time factory, a graceful scale-down
+      brings it back to 1, the fleet never leaves [1, 2], the added replica
+      captures a decode graph while the first one decodes,
+      ``torch.cuda.memory_allocated`` after the scale-down is at least 80%
+      of one replica's pool below the two-replica peak, every answer is a
+      200 or a 429/503 with ``Retry-After``, the survivor's pool audits
+      clean (free + cached = pages - 1, nothing held), and K1 launched 32 x
+      the busiest replica's decode steps.  Printed: ``summarize``'s goodput
+      and SLO attainment, TTFT p50/p99, sheds, each scale action's seconds.
+      o2. an HF checkpoint of Llama-3-8B's published config cut to 8 layers
+      (2.8 B parameters from seed 0, a 5.6 GB ``pytorch_model.bin``, the
+      unembedding rows past the byte range scaled as in o1), ``python -m
+      distributed_llms_tpu_torch.cli.coordinator_main --local-proc 1`` fed
+      ``init`` / ``assign`` / ``distribute`` / ``batch`` (8 requests,
+      budgets 16-64) / ``status`` / ``exit`` with path a's pool as
+      ``--override``s, the worker a second process on the card; then an
+      in-process Coordinator + WorkerHost on the same store: the same
+      batch, its texts equal to the worker process's and none empty, K1
+      counted (8 layers x 63 steps at least), and a
+      ``worker.result/GENERATE:close`` drill whose task is retried on a
+      worker respawned under the same id.  Printed: convert, store write
+      and PLACE_SHARDS seconds, the batch's tokens/s, the worker process's
+      device memory at peak (``torch.cuda.mem_get_info`` over the run, less
+      what was in use before it).  Path o's launches ride in the JSON line
+      as ``elastic_launches``.
    Every path runs the default engine loop: the decode chunk replays a
    captured CUDA graph (``runtime/chunk_graph.py``) and chunks are
    dispatched ahead (``overlap``).  A replay adds the launches its
@@ -357,6 +397,9 @@ Phases, each printing result lines:
 6f. ``fleet`` — path n (in ``serve``'s list above): replica fleets, the
    disaggregated KV handoff and tenant QoS.  ``--phases build,fleet``
    runs it alone.
+6g. ``elastic`` — path o (in ``serve``'s list above): the autoscaled
+   fleet under a replayed trace and the coordinator/worker control
+   plane.  ``--phases build,elastic`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -2594,7 +2637,8 @@ def phase_train(torch, profile: bool) -> int:
 
 LOOP_PROMPT_TOKENS = 300
 LOOP_NEW_TOKENS = 64
-LOOP_TIMED_RUNS = 3  # host-clock walls vary run to run: the median
+LOOP_TIMED_RUNS = 1  # one timed run after the capturing one (a median of
+# three cost two more runs of every loop on paths a, d and i)
 # The engine loops a served batcher is driven through: (name, overlap,
 # eager).  "eager_sync" is the loop of the port before the chunk graphs:
 # every kernel of a decode chunk launched from Python, one host round trip
@@ -6100,7 +6144,7 @@ def fleet_replicas(torch, card, lap, parts, rec) -> dict:
 
     eng = parts[0]
     args = _fleet_args("--replicas", "2")
-    fleet, router = serve_main.build_fleet(args, engine_parts=parts)
+    fleet, router, _ = serve_main.build_fleet(args, engine_parts=parts)
     # The shared plane of the replica.* and router.* sites, armed by count
     # below.
     fleet.faults = router.faults = FaultPlane()
@@ -6274,7 +6318,7 @@ def fleet_disagg(torch, card, lap, parts, rec, kv_bits) -> dict:
     extra = ["--kv-bits", "8"] if kv_bits == 8 else []
     args = _fleet_args("--disaggregate", "--prefill-replicas", "1",
                        "--decode-replicas", "1", *extra)
-    fleet, router = serve_main.build_fleet(args, engine_parts=parts)
+    fleet, router, _ = serve_main.build_fleet(args, engine_parts=parts)
     router.handoff_deadline_s = HANDOFF_DEADLINE_S
     torch.cuda.reset_peak_memory_stats()
     mark = len(rec.done)
@@ -6496,7 +6540,7 @@ def fleet_tenants(torch, card, lap, parts, rec) -> dict:
     lap("n3_one_engine")
     # Behind a 2-replica router the fleet ledger holds ONE quota.
     fargs = _fleet_args("--replicas", "2", *TENANT_ARGS)
-    fleet, router = serve_main.build_fleet(fargs, engine_parts=parts)
+    fleet, router, _ = serve_main.build_fleet(fargs, engine_parts=parts)
     sheds0 = METRICS.get_counter("router.ledger.sheds")
 
     async def drive_fleet():
@@ -6561,10 +6605,578 @@ def serve_fleet(torch) -> dict:
     return out
 
 
+# -- path o: the elastic fleet and the control plane -------------------------
+
+# o1: the autoscaler over path n's replica (weights shared).  A replica's
+# 8 rows turn over a ~470-token request (~400 prompt + ~64 new) in ~1.3 s
+# at path n's ~19 ms decode step; on the card admissions and a second
+# replica's thread stretch that several-fold.  The trace (seed 0: 120
+# arrivals, 101 in the first half) offers 2.0 requests/s at the envelope's
+# mean, 3.8 at its crest, bursts x4: its peak holds several requests in
+# flight on one replica, its trough about none.  Up at 0.10 of one
+# replica's 16320-token pool is ~3.5 such requests; down at 0.03 ~1.
+ELASTIC_HORIZON_S = 60.0
+ELASTIC_UP_LOAD = 0.10
+ELASTIC_DOWN_LOAD = 0.03
+ELASTIC_COOLDOWN_S = 3.0
+ELASTIC_TAIL_S = 45.0  # the longest the quiet tail waits for a scale-down
+ELASTIC_ARGS = ["--replicas-min", "1", "--replicas-max", "2",
+                "--autoscale-interval", "0.25", "--autoscale-hysteresis", "2",
+                "--autoscale-cooldown", str(ELASTIC_COOLDOWN_S),
+                "--autoscale-up-load", str(ELASTIC_UP_LOAD),
+                "--autoscale-down-load", str(ELASTIC_DOWN_LOAD),
+                "--fault", "fleet.scale_up:raise@1"]
+ELASTIC_TTFT_SLO_S = 2.0
+
+# o2: Llama-3-8B's published config.json (meta-llama/Meta-Llama-3-8B), cut
+# from 32 to 8 layers: 2.8 B parameters, 5.6 GB of bf16 in one .bin.
+CP_LAYERS = 8
+CP_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_hidden_layers": CP_LAYERS, "vocab_size": 128256,
+    "rope_theta": 500000.0, "max_position_embeddings": 8192,
+    "rms_norm_eps": 1e-05, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
+CP_SHARDS = 4
+CP_OVERRIDES = ["runtime.max_seq_len=1024", "runtime.paged_pages=256",
+                "runtime.page_size=64", "runtime.prefix_cache=true",
+                "cluster.heartbeat_timeout_s=120",
+                "cluster.task_timeout_s=600"]
+CP_REQUESTS = [(f"Worker batch request {i}: summarize the shipping "
+                f"manifest for dock {i} in one line.", n)
+               for i, n in enumerate((16, 64, 24, 48, 32, 56, 40, 64))]
+
+
+def elastic_specs(workload) -> list:
+    """Two tenants, 200-600-byte prompts, 32-96 new tokens, bursts x4;
+    half of tenant a's prompts open with its 160-byte shared prefix."""
+    common = dict(prompt_len=(200, 600), output_len=(32, 96),
+                  burst_rate_x=4.0, burst_enter_hz=0.2, burst_exit_hz=1.0)
+    return [workload.TenantSpec("a", rate_rps=1.2, shared_frac=0.5,
+                                shared_prefix_len=160, **common),
+            workload.TenantSpec("b", rate_rps=0.8, **common)]
+
+
+def _pct(vals, q):
+    vs = sorted(vals)
+    return vs[min(len(vs) - 1, int(q * len(vs)))] if vs else None
+
+
+def elastic_fleet(torch, card, lap, rec) -> dict:
+    """o1: ``--replicas-min 1 --replicas-max 2`` through ``build_fleet``:
+    a ``workload.generate`` trace replayed over HTTP through the router,
+    the autoscaler started and stopped around it."""
+    from distributed_llms_tpu_torch.cli import serve_main
+    from distributed_llms_tpu_torch.cluster.autoscale import Autoscaler
+    from distributed_llms_tpu_torch.core.observability import METRICS
+    from distributed_llms_tpu_torch.runtime import chunk_graph, workload
+
+    args = _fleet_args(*ELASTIC_ARGS)
+    t0 = time.perf_counter()
+    parts = serve_main._build_engine(args)
+    eng = parts[0]
+    torch.cuda.synchronize()
+    _llama_3_8b(eng.cfg)
+    info = {"weights_gb": torch.cuda.memory_allocated() / 1e9,
+            "build_s": time.perf_counter() - t0}
+    # The byte tokenizer decodes ids under 256 only: with the unembedding
+    # columns of the other 128000 ids scaled by 1/64 the greedy streams
+    # stay in the byte range, so the replay's clients see text (TTFT,
+    # inter-token gaps and characters are read off the SSE deltas).
+    eng.params["lm_head"]["w"][:, 256:].div_(64)
+    fleet, router, scaler = serve_main.build_fleet(args, engine_parts=parts)
+    check(type(scaler) is Autoscaler, "elastic: build_fleet armed no "
+          f"autoscaler ({scaler!r})")
+    check(scaler.factory is fleet.replicas[0].factory,
+          "elastic: scale-ups do not go through the boot-time factory")
+    rule = scaler.faults.rules[0]
+    arrivals = workload.generate(elastic_specs(workload), ELASTIC_HORIZON_S,
+                                 seed=0, diurnal_period_s=ELASTIC_HORIZON_S,
+                                 diurnal_amp=0.9)
+    half = ELASTIC_HORIZON_S / 2
+    info["arrivals"] = len(arrivals)
+    info["arrivals_first_half"] = sum(1 for a in arrivals if a.t < half)
+    pool_bytes = (2 * eng.cfg.num_layers * 256 * 64 * eng.cfg.num_kv_heads
+                  * eng.cfg.head_dim_ * 2)
+    actions, captures, samples = [], [], []
+    add, remove = fleet.add_replica, fleet.remove_replica
+
+    async def timed_add(*a, **kw):
+        t = time.perf_counter()
+        try:
+            h = await add(*a, **kw)
+        except Exception:
+            actions.append(("up", t, time.perf_counter(), False, None))
+            raise
+        actions.append(("up", t, time.perf_counter(), True, h.name))
+        return h
+
+    async def timed_remove(name, *a, **kw):
+        t = time.perf_counter()
+        await remove(name, *a, **kw)
+        actions.append(("down", t, time.perf_counter(), True, name))
+
+    fleet.add_replica, fleet.remove_replica = timed_add, timed_remove
+    capture = chunk_graph.ChunkGraphs._capture
+
+    def timed_capture(graphs, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return capture(graphs, *a, **kw)
+        finally:
+            captures.append((id(graphs), t, time.perf_counter()))
+
+    locked = chunk_graph.ChunkGraphs._capture_locked
+    held = []  # (id(ChunkGraphs), start, end) inside the capture lock
+
+    def timed_locked(graphs, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return locked(graphs, *a, **kw)
+        finally:
+            held.append((id(graphs), t, time.perf_counter()))
+
+    chunk_graph.ChunkGraphs._capture = timed_capture
+    chunk_graph.ChunkGraphs._capture_locked = timed_locked
+    names_of = {}  # id(ChunkGraphs) -> replica name
+    steps = {}     # replica name -> its batcher's decode steps, the most seen
+    f0 = METRICS.get_counter("autoscale.scale_failures")
+    mark = len(rec.done)
+
+    async def monitor(stop):
+        while not stop.is_set():
+            row = {"t": time.perf_counter(), "n": len(fleet.replicas),
+                   "alloc": torch.cuda.memory_allocated(), "steps": {},
+                   "rows": {}}
+            for h in list(fleet.replicas):
+                b = getattr(h.server, "batcher", None)
+                if b is None:
+                    continue
+                names_of[id(b._graphs)] = h.name
+                row["steps"][h.name] = b.decode_steps
+                row["rows"][h.name] = sum(1 for r in b.rows
+                                          if r.rid is not None)
+                steps[h.name] = max(steps.get(h.name, 0), b.decode_steps)
+            samples.append(row)
+            await asyncio.sleep(0.05)
+
+    async def drive():
+        info["boot_s"] = await _fleet_boot(fleet, router)
+        stop = asyncio.Event()
+        mon = None
+        try:
+            port = router.bound_port
+            await scaler.start()
+            mon = asyncio.create_task(monitor(stop))
+            reset_launches()
+            t_start = time.perf_counter()
+            records = await workload.replay("127.0.0.1", port, arrivals,
+                                            request_timeout_s=120.0)
+            info["replay_s"] = time.perf_counter() - t_start
+            t_tail = time.perf_counter()
+            while time.perf_counter() - t_tail < ELASTIC_TAIL_S:
+                if len(fleet.replicas) == 1 and any(
+                        a[0] == "down" for a in actions):
+                    break
+                await asyncio.sleep(0.1)
+            info["tail_s"] = time.perf_counter() - t_tail
+            info["launches"] = read_launches()
+            await scaler.stop()
+            stop.set()
+            await mon
+            import gc
+
+            gc.collect()
+            torch.cuda.synchronize()
+            info["alloc_after_down_gb"] = torch.cuda.memory_allocated() / 1e9
+            for h in fleet.replicas:  # the survivor's pool audits clean
+                b = h.server.batcher
+                b.assert_pool_consistent()
+                pool = b.pool
+                cached = (len(pool.prefix_cache.lru) if pool.prefix_cache
+                          else 0)
+                check(not b.page_refs and len(b.free_pages) + cached
+                      == pool.num_pages - 1,
+                      f"elastic: {h.name}'s pool does not audit clean: "
+                      f"{len(b.free_pages)} free + {cached} cached + "
+                      f"{len(b.page_refs)} held of {pool.num_pages - 1}")
+                info["survivor"] = {"name": h.name, "free_pages":
+                                    len(b.free_pages), "cached_pages": cached,
+                                    "held_pages": len(b.page_refs)}
+            return records
+        finally:
+            stop.set()
+            await scaler.stop()
+            if mon is not None:
+                await mon
+            await router.stop()
+            await fleet.stop()
+
+    try:
+        records = asyncio.run(drive())
+    finally:
+        chunk_graph.ChunkGraphs._capture = capture
+        chunk_graph.ChunkGraphs._capture_locked = locked
+    lap("o1_traffic")
+    # -- the checks ----------------------------------------------------------
+    ups = [a for a in actions if a[0] == "up" and a[3]]
+    downs = [a for a in actions if a[0] == "down"]
+    info["scale_actions"] = [
+        {"kind": k, "at_s": t - samples[0]["t"], "seconds": e - t, "ok": ok,
+         "replica": name} for k, t, e, ok, name in actions]
+    info["scale_failures"] = METRICS.get_counter(
+        "autoscale.scale_failures") - f0
+    check(rule.fired == 1 and info["scale_failures"] >= 1,
+          f"elastic: the injected scale-up failure did not happen "
+          f"(fired {rule.fired}, failures {info['scale_failures']})")
+    check(ups, "elastic: no scale-up succeeded after the injected failure")
+    check(downs, "elastic: no graceful scale-down happened")
+    sizes = sorted({s["n"] for s in samples})
+    info["sizes_seen"] = sizes
+    check(set(sizes) <= {1, 2} and 2 in sizes and samples[-1]["n"] == 1,
+          f"elastic: fleet sizes {sizes}, last {samples[-1]['n']}")
+    added = {a[4] for a in ups}
+    first = [h for h in steps if h not in added]
+    # The added replica captured its decode graph while the first replica
+    # decoded: the first replica's steps advanced across a capture window.
+    overlap = []
+    for gid, c0, c1 in captures:
+        name = names_of.get(gid)
+        if name not in added:
+            continue
+        before = [s for s in samples if s["t"] <= c0]
+        after = [s for s in samples if s["t"] >= c1]
+        if not before or not after:
+            continue
+        adv = {n: after[0]["steps"].get(n, 0) - before[-1]["steps"].get(n, 0)
+               for n in first}
+        overlap.append({"replica": name, "capture_s": c1 - c0,
+                        "locked_s": next((e - b for g, b, e in held
+                                          if g == gid and c0 <= b
+                                          and e <= c1), None),
+                        "first_replica_steps_during": adv})
+    info["added_captures"] = overlap
+    info["captures"] = [
+        {"replica": names_of.get(gid), "at_s": c0 - samples[0]["t"],
+         "wall_s": c1 - c0,
+         "locked_s": next((e - b for g, b, e in held
+                           if g == gid and c0 <= b and e <= c1), None)}
+        for gid, c0, c1 in captures]
+    check(any(any(v > 0 for v in o["first_replica_steps_during"].values())
+              for o in overlap),
+          f"elastic: no capture of the added replica overlapped the first "
+          f"replica's decoding: {overlap}")
+    peak2 = max((s["alloc"] for s in samples if s["n"] == 2), default=0)
+    info["alloc_peak_two_gb"] = peak2 / 1e9
+    info["pool_gb"] = pool_bytes / 1e9
+    check(peak2 - info["alloc_after_down_gb"] * 1e9 >= 0.8 * pool_bytes,
+          f"elastic: memory after the scale-down "
+          f"{info['alloc_after_down_gb']:.2f} GB is not one pool "
+          f"({pool_bytes / 1e9:.2f} GB) below the two-replica peak "
+          f"{peak2 / 1e9:.2f} GB")
+    bad = [(r.status, r.retry_after) for r in records
+           if r.status != 200 and not (r.status in (429, 503)
+                                       and r.retry_after is not None)]
+    check(not bad, f"elastic: answers other than 200 or a structured "
+          f"429/503 with Retry-After: {bad[:8]}")
+    info["steps"] = steps
+    _launch_floor("elastic o1", info["launches"], "paged_decode_attention",
+                  eng.cfg.num_layers, max(steps.values()))
+    summary = workload.summarize(records, ELASTIC_HORIZON_S,
+                                 ttft_slo_s=ELASTIC_TTFT_SLO_S)
+    ok = [r for r in records if r.status == 200]
+    ttfts = [r.ttft_s for r in ok if r.ttft_s is not None]
+    done = rec.finished(mark)
+    info["served"] = {
+        "completed": len(ok), "shed": sum(1 for r in records
+                                          if r.status in (429, 503)),
+        "ttft_p50_s": _pct(ttfts, 0.50), "ttft_p99_s": _pct(ttfts, 0.99),
+        "latency_p50_s": _pct([r.latency_s for r in ok], 0.50),
+        "tokens_engine_side": sum(len(r[3]) for r in done),
+        "tokens_per_s_engine_side": sum(len(r[3]) for r in done)
+        / max(info["replay_s"], 1e-9),
+    }
+    emit("elastic", path="o1", card=card, summary=summary, **info)
+    del fleet, router, scaler, parts, eng
+    _free(torch)
+    return info["launches"]
+
+
+def write_hf_checkpoint(torch, out_dir: str) -> dict:
+    """An HF checkpoint directory of Llama-3-8B's width cut to
+    ``CP_LAYERS`` layers: ``config.json`` with the published values and
+    ``pytorch_model.bin`` under HF's names, bf16, weights drawn on the card
+    from seed 0 (normal, std 0.02; norms 1).  The unembedding rows past
+    the byte tokenizer's 256 ids are scaled by 1/64, so the greedy streams
+    stay in the byte range and the decoded texts carry the tokens (the
+    store has no tokenizer of its own)."""
+    c = CP_HF_CONFIG
+    D, F, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    H, KVH = c["num_attention_heads"], c["num_key_value_heads"]
+    HD = D // H
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.02).to(
+            torch.bfloat16).cpu()
+
+    def ones():
+        return torch.ones(D, dtype=torch.bfloat16)
+
+    t0 = time.perf_counter()
+    sd = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(CP_LAYERS):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "self_attn.q_proj.weight": w(H * HD, D),
+            p + "self_attn.k_proj.weight": w(KVH * HD, D),
+            p + "self_attn.v_proj.weight": w(KVH * HD, D),
+            p + "self_attn.o_proj.weight": w(D, H * HD),
+            p + "mlp.gate_proj.weight": w(F, D),
+            p + "mlp.up_proj.weight": w(F, D),
+            p + "mlp.down_proj.weight": w(D, F),
+            p + "input_layernorm.weight": ones(),
+            p + "post_attention_layernorm.weight": ones(),
+        })
+    sd["model.norm.weight"] = ones()
+    head = w(V, D)
+    head[256:] = (head[256:].float() / 64).to(torch.bfloat16)
+    sd["lm_head.weight"] = head
+    params = sum(t.numel() for t in sd.values())
+    torch.save(sd, str(Path(out_dir) / "pytorch_model.bin"))
+    (Path(out_dir) / "config.json").write_text(json.dumps(c, indent=1))
+    del sd, head
+    return {"params": params, "write_s": time.perf_counter() - t0,
+            "bin_bytes": (Path(out_dir) / "pytorch_model.bin").stat().st_size}
+
+
+def _device_used(torch) -> int:
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def _repl_out(label, text) -> dict:
+    """The numbers and texts a coordinator REPL run printed."""
+    import re
+
+    out = {"texts": {}}
+    for line in text.splitlines():
+        m = re.search(r'\[(\d+)\] ("(?:[^"\\]|\\.)*")\s*$', line)
+        if m:
+            out["texts"][int(m.group(1))] = json.loads(m.group(2))
+        m = re.search(r"convert ([\d.]+) s, write ([\d.]+) s\)", line)
+        if m:
+            out["convert_s"], out["store_write_s"] = map(float, m.groups())
+        m = re.search(r"\[placed in ([\d.]+) s\]", line)
+        if m:
+            out["place_s"] = float(m.group(1))
+        m = re.search(r"\[(\d+) tokens, ([\d.]+) tok/s\]", line)
+        if m:
+            out["generated_tokens"] = int(m.group(1))
+            out["tokens_per_s"] = float(m.group(2))
+    i = text.find('{\n "workers"')
+    if i >= 0:
+        out["status"] = json.JSONDecoder().raw_decode(text, i)[0]
+    check("error:" not in text and len(out["texts"]) == len(CP_REQUESTS)
+          and "place_s" in out and "status" in out,
+          f"{label}: the REPL run did not finish: {text[-3000:]}")
+    return out
+
+
+def control_plane(torch, card, lap) -> dict:
+    """o2: ``dlt-coordinator-torch --local-proc 1`` over a piped REPL script
+    (init / assign / distribute / batch / status / exit) on a generated HF
+    checkpoint, then an in-process Coordinator + WorkerHost on the same
+    store: the same batch, and a ``worker.result:close`` drill retried on
+    a respawned worker."""
+    import dataclasses
+    import threading
+
+    from distributed_llms_tpu_torch.cluster.coordinator import Coordinator
+    from distributed_llms_tpu_torch.cluster.worker import WorkerHost
+    from distributed_llms_tpu_torch.core.config import load_config
+    from distributed_llms_tpu_torch.core.observability import METRICS
+    from distributed_llms_tpu_torch.runtime.faults import FaultPlane
+
+    ckpt = tempfile.mkdtemp(prefix="dlt_hf_ckpt_")
+    store = tempfile.mkdtemp(prefix="dlt_store_cp_")
+    info = {}
+    try:
+        info["checkpoint"] = write_hf_checkpoint(torch, ckpt)
+        _free(torch)
+        lap("o2_checkpoint")
+        script = "\n".join([
+            f"init {ckpt} {CP_SHARDS}", f"assign {CP_SHARDS}", "distribute",
+            "batch", *(f"{n} {p}" for p, n in CP_REQUESTS), "", "status",
+            "exit"]) + "\n"
+        overrides = [f"checkpoint.shard_dir={store}", *CP_OVERRIDES]
+        base = _device_used(torch)
+        peak = [base]
+        done = threading.Event()
+
+        def sample():
+            while not done.is_set():
+                peak[0] = max(peak[0], _device_used(torch))
+                done.wait(0.2)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "distributed_llms_tpu_torch.cli.coordinator_main",
+             "--host", "127.0.0.1", "--port", "0", "--local-proc", "1",
+             *(x for o in overrides for x in ("--override", o))],
+            cwd=str(REPO), stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(script, timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            raise SmokeFailure(f"control plane: the coordinator REPL timed "
+                               f"out: {stdout[-2000:]} {stderr[-2000:]}")
+        finally:
+            done.set()
+            sampler.join()
+        info["repl_wall_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"control plane: the coordinator exited "
+              f"{proc.returncode}: {stderr[-3000:]}")
+        repl = _repl_out("control plane", stdout)
+        info["worker_process_device_peak_gb"] = (peak[0] - base) / 1e9
+        (caps,) = [w["capabilities"]
+                   for w in repl["status"]["workers"].values()]
+        check(caps["platform"] == "gpu" and caps["process_count"] == 1,
+              f"control plane: the worker registered {caps}")
+        check(repl["status"]["num_shards"] == CP_SHARDS,
+              f"control plane: status {repl['status']}")
+        info["repl"] = {k: v for k, v in repl.items()
+                        if k not in ("texts", "status")}
+        info["worker_caps"] = caps
+        lap("o2_subprocess")
+        # -- the in-process pair on the same store ----------------------------
+        cfg = load_config(None, overrides)
+        rt = cfg.runtime
+        ccfg = dataclasses.replace(cfg.cluster, coordinator_host="127.0.0.1",
+                                   coordinator_port=0)
+        reqs = [{"prompt": p, "max_new_tokens": n} for p, n in CP_REQUESTS]
+        want = [repl["texts"][i] for i in range(len(CP_REQUESTS))]
+        info["text_chars"] = [len(t) for t in want]
+        check(min(info["text_chars"]) > 0, "control plane: a batch text is "
+              f"empty: {info['text_chars']}")
+
+        async def pair():
+            coord = Coordinator(ccfg)
+            await coord.start()
+            plane = FaultPlane()
+
+            async def worker(faults):
+                w = WorkerHost("127.0.0.1", coord.port, cfg=ccfg, rt=rt,
+                               faults=faults)
+                w.worker_id = "pod-0"  # a stable id: a respawn rejoins
+                task = asyncio.create_task(w.run())
+                for _ in range(3000):
+                    if "pod-0" in coord.workers:
+                        break
+                    await asyncio.sleep(0.01)
+                check("pod-0" in coord.workers, "control plane: the "
+                      "in-process worker never registered")
+                return w, task
+
+            try:
+                w, task = await worker(plane)
+                coord.plan_shards(CP_SHARDS, store_dir=store)
+                t = time.perf_counter()
+                placed = await coord.place_shards()
+                info["pair_place_s"] = time.perf_counter() - t
+                check(placed["pod-0"]["loaded"] == list(range(CP_SHARDS)),
+                      f"control plane: placed {placed}")
+                reset_launches()
+                t = time.perf_counter()
+                out = await coord.generate_requests(reqs)
+                info["pair_batch_s"] = time.perf_counter() - t
+                info["launches"] = read_launches()
+                info["pair_tokens_per_s"] = out["tokens_per_second"]
+                check(out["text"] == want, "control plane: the in-process "
+                      "pair's texts differ from the worker process's")
+                # The drill: the worker dies at its answer; the task waits,
+                # the worker respawns under its id, is re-placed, and the
+                # retry lands.
+                r0 = METRICS.get_counter("coordinator.tasks_retried")
+                e0 = METRICS.get_counter("coordinator.evictions")
+                rule = plane.add("worker.result", "close", when="1",
+                                 tag="GENERATE")
+                job = asyncio.create_task(coord.generate_requests(reqs))
+                await task  # run() ends when its connection is cut
+                check(rule.fired == 1, "control plane: the close drill "
+                      "never fired")
+                for _ in range(500):
+                    if "pod-0" not in coord.workers:
+                        break
+                    await asyncio.sleep(0.01)
+                w.engine = None
+                del w
+                _free(torch)
+                t = time.perf_counter()
+                w2, task2 = await worker(None)
+                again = await asyncio.wait_for(job, 600)
+                info["drill_recovery_s"] = time.perf_counter() - t
+                check(again["text"] == want, "control plane: the retried "
+                      "batch's texts differ")
+                info["drill"] = {
+                    "retried": METRICS.get_counter(
+                        "coordinator.tasks_retried") - r0,
+                    "evictions": METRICS.get_counter(
+                        "coordinator.evictions") - e0}
+                check(info["drill"]["retried"] >= 1
+                      and info["drill"]["evictions"] >= 1,
+                      f"control plane: no retry after the close: "
+                      f"{info['drill']}")
+                w2.stop()
+                task2.cancel()
+                w2.engine = None
+            finally:
+                await coord.stop()
+
+        asyncio.run(pair())
+        _free(torch)
+        lap("o2_pair")
+        longest = max(n for _, n in CP_REQUESTS)
+        _launch_floor("control plane", info["launches"],
+                      "paged_decode_attention", CP_LAYERS, longest - 1)
+        emit("elastic", path="o2", card=card, layers=CP_LAYERS, **info)
+        return info["launches"]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def serve_elastic(torch) -> dict:
+    """Path o: the elastic fleet (o1) and the source system's control
+    plane (o2).  Returns the launches of both legs' own runs, summed."""
+    from distributed_llms_tpu_torch.runtime import batcher as tb
+
+    card = _card()
+    lap = _lap("elastic_time")
+    rec = _FleetRecorder(tb.ContinuousBatcher).install()
+    out = {}
+    try:
+        _add(out, elastic_fleet(torch, card, lap, rec))
+    finally:
+        rec.uninstall()
+    _add(out, control_plane(torch, card, lap))
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "generate", "families", "fleet", "train", "profile")
+          "constrain", "generate", "families", "fleet", "elastic", "train",
+          "profile")
 
 
 def main() -> int:
@@ -6641,6 +7253,11 @@ def main() -> int:
             # beside each kernel's own path's.
             for name, n in timed("fleet", serve_fleet, torch).items():
                 kernels[name]["fleet_launches"] = n
+        if "elastic" in phases:
+            # Path o's launches (o1's replicas and o2's in-process worker)
+            # ride beside each kernel's own path's.
+            for name, n in timed("elastic", serve_elastic, torch).items():
+                kernels[name]["elastic_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

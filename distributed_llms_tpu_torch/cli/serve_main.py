@@ -48,9 +48,20 @@ ledger).  In a fleet, each replica gets its own fault plane parsed from
 the same ``--fault`` spec; the ``replica.*`` and ``router.*`` sites fire
 on the shared one.  SIGHUP restarts the fleet one replica at a time.
 
-The flags mirror ``dlt-serve``'s.  Those of later port slices (the
-autoscaler's) are accepted by the parser and refused with
-``NotImplementedError`` when set, never silently ignored.
+``--replicas-min 1 --replicas-max 2`` boots an ELASTIC colocated fleet:
+replicas-min stacks now and an autoscaler (cluster/autoscale.py) that
+grows it to replicas-max on the router's committed-token load and shrinks
+it back by graceful drain only (``--autoscale-interval``,
+``--autoscale-up-load``, ``--autoscale-down-load``,
+``--autoscale-hysteresis``, ``--autoscale-cooldown``).  With
+``--disaggregate``, ``--replicas-max`` or the per-tier
+``--prefill-replicas-max`` / ``--decode-replicas-max`` arm the tiered
+autoscaler: each tier scales between its boot count and its ceiling.
+Every added replica is built by the same factory as the boot-time ones,
+over the same copy of the weights.  The ``fleet.scale_up`` /
+``fleet.scale_down`` fault sites fire on the shared plane.
+
+The flags mirror ``dlt-serve``'s.
 """
 
 from __future__ import annotations
@@ -68,33 +79,10 @@ from ..runtime.server import InferenceServer
 
 log = get_logger("serve_main")
 
-# dlt-serve flags of later port slices: argparse dest -> the feature.  Any
-# of them set (to a value other than its default) refuses the boot.
-_LATER_SLICE_FLAGS: dict[str, str] = {
-    "replicas_min": "elastic fleets (--replicas-min)",
-    "replicas_max": "elastic fleets (--replicas-max)",
-    "prefill_replicas_max": "the tiered autoscaler (--prefill-replicas-max)",
-    "decode_replicas_max": "the tiered autoscaler (--decode-replicas-max)",
-    "autoscale_interval": "the autoscaler (--autoscale-interval)",
-    "autoscale_up_load": "the autoscaler (--autoscale-up-load)",
-    "autoscale_down_load": "the autoscaler (--autoscale-down-load)",
-    "autoscale_hysteresis": "the autoscaler (--autoscale-hysteresis)",
-    "autoscale_cooldown": "the autoscaler (--autoscale-cooldown)",
-}
-
-
-def _refuse_later_slices(args) -> None:
-    for dest, what in _LATER_SLICE_FLAGS.items():
-        # None (the parser's default for each of them) asks for what the
-        # port already does.
-        if getattr(args, dest) is not None:
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
 def _build_engine(args):
     """Config + fault plane + engine.  Returns (engine, default model
     name, runtime config, fault plane or None, fault spec)."""
-    _refuse_later_slices(args)
+    check_fleet_flags(args)
     cfg = load_config(args.config, args.override)
     rt = cfg.runtime
     # The speculative knobs land on the RuntimeConfig BEFORE the engine
@@ -225,7 +213,51 @@ def _server_factory(args, engine, default_name, rt, faults, *,
     return make_server
 
 
+def check_fleet_flags(args) -> None:
+    """Refuse fleet flags that mean nothing as given, before the model
+    loads (the reference's checks in its ``main``)."""
+    defaults = parser()
+    if args.replicas_max is not None and args.replicas_max < 1:
+        raise SystemExit(f"--replicas-max must be >= 1, got "
+                         f"{args.replicas_max}")
+    for k in ("prefill_replicas_max", "decode_replicas_max"):
+        v = getattr(args, k)
+        flag = f"--{k.replace('_', '-')}"
+        if v is not None and v < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {v}")
+        if v is not None and not args.disaggregate:
+            raise SystemExit(f"{flag} needs --disaggregate")
+    if args.replicas_max is None and args.prefill_replicas_max is None \
+            and args.decode_replicas_max is None:
+        # A ceiling is THE elastic switch: the floor and every autoscale
+        # knob mean nothing without one.
+        stray = [f"--{k.replace('_', '-')}" for k in (
+            "replicas_min", "autoscale_interval", "autoscale_up_load",
+            "autoscale_down_load", "autoscale_hysteresis",
+            "autoscale_cooldown",
+        ) if getattr(args, k) != defaults.get_default(k)]
+        if stray:
+            raise SystemExit(
+                f"{', '.join(stray)} need --replicas-max (or a "
+                "--prefill/--decode-replicas-max tier ceiling)"
+            )
+    if args.disaggregate and args.replicas_min != defaults.get_default(
+            "replicas_min"):
+        raise SystemExit(
+            "--replicas-min sizes the colocated elastic fleet; "
+            "--disaggregate tiers floor at --prefill-replicas/"
+            "--decode-replicas"
+        )
+
+
+def _is_fleet(args) -> bool:
+    return bool(args.replicas > 1 or args.disaggregate or args.replicas_max)
+
+
 def build_server(args) -> InferenceServer:
+    if _is_fleet(args):
+        raise SystemExit("--replicas, --disaggregate and --replicas-max "
+                         "serve a fleet: build it with build_fleet")
     engine, default_name, rt, faults, _spec = _build_engine(args)
     return _server_factory(args, engine, default_name, rt, faults)()
 
@@ -237,9 +269,17 @@ def build_fleet(args, engine_parts=None):
     prefill-role and --decode-replicas decode-role stacks instead of N
     colocated ones.  The ROUTER owns the tenant rate ledger (one
     admission-commit point, so a fleet of N admits one quota, not N);
-    replica gateways keep a loose 2x backstop.  ``engine_parts`` is a
-    :func:`_build_engine` result to reuse (one copy of the weights for
-    several fleets in one process).  Returns (fleet, router)."""
+    replica gateways keep a loose 2x backstop.  ``--replicas-min`` /
+    ``--replicas-max`` boot an elastic colocated fleet under an
+    :class:`~..cluster.autoscale.Autoscaler`; with ``--disaggregate`` a
+    ceiling above a tier's boot count arms the
+    :class:`~..cluster.autoscale.TieredAutoscaler`.  A scale-up builds
+    its replica with the boot-time factory, over the same weights.
+    ``engine_parts`` is a :func:`_build_engine` result to reuse (one copy
+    of the weights for several fleets in one process).  Returns (fleet,
+    router, autoscaler or None); the caller starts and stops the
+    autoscaler around the fleet."""
+    from ..cluster.autoscale import Autoscaler, TieredAutoscaler, TierPolicy
     from ..cluster.fleet import ReplicaFleet
     from ..runtime.router import ReplicaRouter
     from ..runtime.scheduler import parse_tenant_weights
@@ -289,7 +329,8 @@ def build_fleet(args, engine_parts=None):
         names = [f"p{i}" for i in range(args.prefill_replicas)] \
             + [f"d{i}" for i in range(args.decode_replicas)]
     else:
-        factories = [replica_factory] * args.replicas
+        n = args.replicas_min if args.replicas_max else args.replicas
+        factories = [replica_factory] * n
         names = None
     fleet = ReplicaFleet(
         factories, names=names,
@@ -316,12 +357,71 @@ def build_fleet(args, engine_parts=None):
         tenant_weights=tenant_weights,
         tenant_quota_tps=tenant_quota_tps,
     )
-    return fleet, router
+    autoscaler = None
+    if args.disaggregate:
+        # Tier ceilings: the per-tier flag wins, --replicas-max is the
+        # shared spelling, the boot count means a fixed tier.
+        p_max = (args.prefill_replicas_max or args.replicas_max
+                 or args.prefill_replicas)
+        d_max = (args.decode_replicas_max or args.replicas_max
+                 or args.decode_replicas)
+        if p_max < args.prefill_replicas or d_max < args.decode_replicas:
+            raise SystemExit(
+                f"tier ceiling below its boot count: prefill "
+                f"{args.prefill_replicas}..{p_max}, decode "
+                f"{args.decode_replicas}..{d_max}"
+            )
+        if p_max > args.prefill_replicas or d_max > args.decode_replicas:
+            def policy(floor, ceiling):
+                return TierPolicy(
+                    min_replicas=floor, max_replicas=ceiling,
+                    up_load=args.autoscale_up_load,
+                    down_load=args.autoscale_down_load,
+                    hysteresis=args.autoscale_hysteresis,
+                    cooldown_s=args.autoscale_cooldown,
+                )
+
+            autoscaler = TieredAutoscaler(
+                fleet,
+                prefill=policy(args.prefill_replicas, p_max),
+                decode=policy(args.decode_replicas, d_max),
+                prefill_factory=functools.partial(replica_factory,
+                                                  "prefill"),
+                decode_factory=functools.partial(replica_factory, "decode"),
+                interval_s=args.autoscale_interval,
+                drain_timeout_s=args.drain_timeout,
+                faults=faults,
+            )
+    elif args.replicas_max:
+        if args.replicas_max < args.replicas_min:
+            raise SystemExit(
+                f"--replicas-max {args.replicas_max} < --replicas-min "
+                f"{args.replicas_min}"
+            )
+        if args.replicas != 1:
+            raise SystemExit(
+                "--replicas fixes the fleet size; an elastic fleet is "
+                "sized by --replicas-min/--replicas-max"
+            )
+        autoscaler = Autoscaler(
+            fleet,
+            min_replicas=args.replicas_min,
+            max_replicas=args.replicas_max,
+            interval_s=args.autoscale_interval,
+            up_load=args.autoscale_up_load,
+            down_load=args.autoscale_down_load,
+            hysteresis=args.autoscale_hysteresis,
+            cooldown_s=args.autoscale_cooldown,
+            drain_timeout_s=args.drain_timeout,
+            factory=replica_factory,
+            faults=faults,
+        )
+    return fleet, router, autoscaler
 
 
 async def _serve_fleet(args, stop: asyncio.Event) -> None:
     loop = asyncio.get_running_loop()
-    fleet, router = build_fleet(args)
+    fleet, router, autoscaler = build_fleet(args)
     await fleet.start()
     host, port = await router.start()
     # Replicas boot "starting" and only a healthy probe makes them
@@ -353,10 +453,15 @@ async def _serve_fleet(args, stop: asyncio.Event) -> None:
         restart_task[0] = asyncio.ensure_future(run())
 
     loop.add_signal_handler(signal.SIGHUP, on_hup)
+    if autoscaler is not None:
+        # Flat or tiered: each logs its own bounds in start().
+        await autoscaler.start()
     log.info("fleet of %d ready on http://%s:%s (SIGHUP = rolling restart; "
              "Ctrl-C to stop)", len(fleet.replicas), host, port)
     await stop.wait()
     log.info("shutting down fleet...")
+    if autoscaler is not None:
+        await autoscaler.stop()
     await router.stop()
     await fleet.stop()
 
@@ -372,7 +477,7 @@ async def _serve(args) -> None:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, on_signal)
-    if args.replicas > 1 or args.disaggregate:
+    if _is_fleet(args):
         await _serve_fleet(args, stop)
         return
     server = build_server(args)
@@ -566,23 +671,51 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--tenant-max-rows", type=int, default=None,
                     help="per-tenant resident-row cap in the batcher "
                          "(0 = uncapped; default: runtime.tenant_max_rows)")
-    # Flags of later port slices (refused when set; see _LATER_SLICE_FLAGS).
-    for flag, kind in (("--replicas-min", int), ("--replicas-max", int),
-                       ("--prefill-replicas-max", int),
-                       ("--decode-replicas-max", int),
-                       ("--autoscale-interval", float),
-                       ("--autoscale-up-load", float),
-                       ("--autoscale-down-load", float),
-                       ("--autoscale-hysteresis", int),
-                       ("--autoscale-cooldown", float)):
-        ap.add_argument(flag, type=kind, default=None,
-                        help="not ported yet (the autoscaler)")
+    ap.add_argument("--prefill-replicas-max", type=int, default=None,
+                    help="elastic prefill-tier ceiling under "
+                         "--disaggregate: the tiered autoscaler grows "
+                         "the tier on handoff queue depth and shrinks "
+                         "it via graceful drain, never below "
+                         "--prefill-replicas (default: --replicas-max, "
+                         "else fixed at the boot count)")
+    ap.add_argument("--decode-replicas-max", type=int, default=None,
+                    help="elastic decode-tier ceiling under "
+                         "--disaggregate: scales on committed-token "
+                         "mass over tier KV capacity, never below "
+                         "--decode-replicas (default: --replicas-max, "
+                         "else fixed at the boot count)")
+    ap.add_argument("--replicas-min", type=int, default=1,
+                    help="elastic fleet floor: boot this many colocated "
+                         "replicas and never drain below it (used with "
+                         "--replicas-max)")
+    ap.add_argument("--replicas-max", type=int, default=None,
+                    help="elastic fleet ceiling: arm the autoscaler "
+                         "(cluster/autoscale.py) to grow the colocated "
+                         "fleet up to this many replicas under load and "
+                         "shrink it back by graceful drain; every added "
+                         "replica shares the weights.  With "
+                         "--disaggregate: both tiers' ceiling (the "
+                         "--prefill/--decode-replicas-max flags override "
+                         "per tier).  Unset = fixed-size fleet")
+    ap.add_argument("--autoscale-interval", type=float, default=1.0,
+                    help="autoscaler tick cadence in seconds")
+    ap.add_argument("--autoscale-up-load", type=float, default=0.8,
+                    help="scale up when committed-token load (fraction "
+                         "of aggregate KV capacity) stays at or above this")
+    ap.add_argument("--autoscale-down-load", type=float, default=0.25,
+                    help="scale down when load stays at or below this")
+    ap.add_argument("--autoscale-hysteresis", type=int, default=3,
+                    help="consecutive ticks past a threshold before the "
+                         "autoscaler acts (noise filter)")
+    ap.add_argument("--autoscale-cooldown", type=float, default=10.0,
+                    help="quiet seconds after every scale action (or "
+                         "failed attempt) before the next one")
     return ap
 
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    _refuse_later_slices(args)
+    check_fleet_flags(args)
     asyncio.run(_serve(args))
 
 

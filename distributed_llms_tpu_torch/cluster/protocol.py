@@ -1,6 +1,6 @@
-"""Wire framing of the port's KV-handoff plane (PyTorch port of
-``distributed_llms_tpu/cluster/protocol.py``): length-prefixed JSON over
-asyncio TCP, frame for frame the reference's bytes.
+"""Wire framing of the port's control plane and KV-handoff plane (PyTorch
+port of ``distributed_llms_tpu/cluster/protocol.py``): length-prefixed
+JSON over asyncio TCP, frame for frame the reference's bytes.
 
 - an 8-byte big-endian length prefix whose top byte holds the flags
   (``0x01``: the body is zlib-compressed);
@@ -10,11 +10,13 @@ asyncio TCP, frame for frame the reference's bytes.
 - every message carries ``type`` + ``payload`` (``msg_id`` for replies);
   ``BATCH`` wraps several messages in one frame.
 
-The port's messages are the handoff pair of ``cluster/kv_transfer.py``
+The messages are the coordinator/worker plane's (``cluster/coordinator.py``,
+``cluster/worker.py``: REGISTER, REGISTER_ACK, HEARTBEAT, PLACE_SHARDS,
+UNLOAD_SHARDS, GENERATE, SCHEDULE_COMPUTATION, RESULT, ERROR, GET_STATUS,
+GET_METRICS, SHUTDOWN), the handoff pair of ``cluster/kv_transfer.py``
 (``KV_PAGES``: page payload + chained digests + checksum; ``KV_ACK``: a
-verified import or a structured NACK) and ``BATCH``.  The reference's
-control-plane types (register, heartbeat, shard placement, ...) belong to
-the coordinator/worker plane, which the port has not taken.
+verified import or a structured NACK) and ``BATCH``.  Tensors never ride
+the control plane: a worker loads its shards from the store itself.
 
 Fault sites (runtime/faults.py): ``proto.send`` / ``proto.recv``, tag =
 message type, through a process-wide plane (:func:`set_fault_plane`).
@@ -35,6 +37,18 @@ _LEN_MASK = (1 << 56) - 1
 
 MESSAGE_TYPES = frozenset(
     {
+        "REGISTER",
+        "REGISTER_ACK",
+        "HEARTBEAT",
+        "PLACE_SHARDS",
+        "UNLOAD_SHARDS",
+        "GENERATE",
+        "SCHEDULE_COMPUTATION",
+        "RESULT",
+        "ERROR",
+        "GET_STATUS",
+        "GET_METRICS",
+        "SHUTDOWN",
         "BATCH",
         # KV-handoff plane (cluster/kv_transfer.py): a prefill-role engine
         # ships a finished row's KV pages (payload + chained page digests +

@@ -1,0 +1,298 @@
+"""Worker host of the control plane (PyTorch port of
+``distributed_llms_tpu/cluster/worker.py``): connects to the coordinator,
+registers with its device capabilities, heartbeats, and runs the
+coordinator's commands against a local engine.
+
+- ``PLACE_SHARDS`` builds the engine from the shard store
+  (``InferenceEngine.from_store`` on the worker's device, off the event
+  loop); no tensor crosses the socket.  A single-device engine loads the
+  whole model; the assignment says which worker answers for which shards.
+- ``UNLOAD_SHARDS`` drops it; ``SHUTDOWN`` stops the worker.
+- ``GENERATE`` / ``SCHEDULE_COMPUTATION`` run ``generate_text`` on a batch
+  of prompts, or, with a ``requests`` list, a mixed-budget batch through
+  the engine's continuous batcher (per-request budgets).
+- Heartbeats ride one asyncio task; connecting retries with a delay.
+
+Fault sites (runtime/faults.py): ``worker.heartbeat`` (``drop`` skips a
+beat), ``worker.handle`` (``raise`` fails a command: an ERROR reply the
+coordinator retries), ``worker.result`` (``drop`` loses the reply,
+``close`` severs the connection at the answer), tag = command type.
+
+A worker serves one device.  A multi-device mesh is refused when the
+worker is built: serving a store over several GPUs is not ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any
+
+import torch
+
+from ..core.config import ClusterConfig, MeshConfig, RuntimeConfig
+from ..core.device import resolve_device
+from ..core.observability import METRICS, get_logger
+from . import protocol
+
+log = get_logger("worker")
+
+
+def device_capabilities(device: "str | torch.device | None" = None) -> dict:
+    """What a worker registers with: platform ``gpu`` with the CUDA devices'
+    name and count, or ``cpu`` when the worker runs there by request.
+    ``process_count`` is 1: a port worker is one process (a count above 1
+    would route the coordinator's generates to every worker at once)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return {
+            "platform": "gpu",
+            "num_devices": torch.cuda.device_count(),
+            "device_kind": torch.cuda.get_device_name(dev),
+            "process_count": 1,
+        }
+    return {"platform": "cpu", "num_devices": 1, "device_kind": "cpu",
+            "process_count": 1}
+
+
+class WorkerHost:
+    """Connects to the coordinator and executes control commands against
+    the local engine.  ``engine_factory(store_dir, shards, rt)`` builds it
+    (default: ``InferenceEngine.from_store`` on ``device``, which is CUDA
+    unless the caller asks for the CPU)."""
+
+    def __init__(
+        self,
+        coordinator_host: str,
+        coordinator_port: int,
+        cfg: ClusterConfig | None = None,
+        rt: RuntimeConfig | None = None,
+        engine_factory: Any = None,  # (store_dir, shards, rt) -> engine-like
+        mesh_cfg: MeshConfig | None = None,
+        faults: Any = None,  # FaultPlane | None (runtime/faults.py)
+        device: "str | torch.device | None" = None,
+    ) -> None:
+        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            raise NotImplementedError(
+                f"a worker serves one device; a {mesh_cfg.num_devices}-"
+                "device mesh (multi-GPU serving) is not ported yet")
+        self.cfg = cfg or ClusterConfig()
+        self.rt = rt or RuntimeConfig()
+        self.faults = faults
+        self.device = device
+        self.host = coordinator_host
+        self.port = coordinator_port
+        self.engine_factory = engine_factory or self._default_engine_factory
+        self.engine = None
+        self.worker_id: str | None = None
+        self.loaded_shards: list[int] = []
+        self._tasks: list[asyncio.Task] = []
+        self._stop = asyncio.Event()
+
+    # -- default engine: shard store -> InferenceEngine --------------------
+
+    def _default_engine_factory(self, store_dir: str, shards: list[int],
+                                rt: RuntimeConfig):
+        from ..runtime.engine import InferenceEngine
+
+        log.info("assigned shards %s; the single-device engine loads the "
+                 "full model", shards)
+        return InferenceEngine.from_store(store_dir, rt=rt,
+                                          device=self.device)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def run(self) -> None:
+        """Connect (with retry), register, serve until stopped."""
+        reader, writer = await self._connect_with_retry()
+        try:
+            await protocol.send_message(
+                writer,
+                protocol.message(
+                    "REGISTER",
+                    {"capabilities": device_capabilities(self.device),
+                     "worker_id": self.worker_id},
+                ),
+            )
+            ack = await protocol.receive_message(reader, timeout=10.0,
+                                                 writer=writer)
+            if ack["type"] != "REGISTER_ACK":
+                raise protocol.ProtocolError(
+                    f"expected REGISTER_ACK, got {ack['type']}")
+            self.worker_id = ack["payload"]["worker_id"]
+            interval = ack["payload"].get(
+                "heartbeat_interval_s", self.cfg.heartbeat_interval_s
+            )
+            log.info("registered as %s", self.worker_id)
+            hb = asyncio.create_task(self._heartbeat_loop(writer, interval))
+            self._tasks.append(hb)
+            try:
+                await self._serve(reader, writer)
+            except (asyncio.IncompleteReadError, ConnectionError):
+                log.info("coordinator connection closed")
+        finally:
+            for t in self._tasks:
+                t.cancel()
+            writer.close()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    async def _connect_with_retry(self):
+        last_err: Exception | None = None
+        for attempt in range(self.cfg.connect_max_retries):
+            try:
+                return await asyncio.open_connection(self.host, self.port)
+            except OSError as e:
+                last_err = e
+                log.warning(
+                    "connect to %s:%s failed (%s); retry %d/%d in %.1fs",
+                    self.host, self.port, e, attempt + 1,
+                    self.cfg.connect_max_retries, self.cfg.connect_retry_s,
+                )
+                await asyncio.sleep(self.cfg.connect_retry_s)
+        raise ConnectionError(
+            f"could not reach coordinator at {self.host}:{self.port}"
+        ) from last_err
+
+    async def _heartbeat_loop(self, writer: asyncio.StreamWriter,
+                              interval: float) -> None:
+        while not self._stop.is_set():
+            await asyncio.sleep(interval)
+            if self.faults is not None:
+                # defer_stall: an event-loop site; a stall rule is awaited,
+                # never slept (a blocking sleep would wedge the serve loop).
+                rule = self.faults.fire("worker.heartbeat", defer_stall=True)
+                if rule is not None and rule.action in ("delay", "stall"):
+                    await asyncio.sleep(rule.arg or 0.0)
+                if rule is not None and rule.action == "drop":
+                    # The worker stays alive but its heartbeats stop: the
+                    # coordinator's deadline eviction must fire.
+                    continue
+            try:
+                await protocol.send_message(writer,
+                                            protocol.message("HEARTBEAT", {}))
+            except (ConnectionError, OSError):
+                return
+
+    # -- command handling --------------------------------------------------
+
+    async def _serve(self, reader: asyncio.StreamReader,
+                     writer: asyncio.StreamWriter) -> None:
+        while not self._stop.is_set():
+            frame = await protocol.receive_message(reader, writer=writer)
+            for msg in protocol.unbatch(frame):
+                msg_id = msg.get("msg_id")
+                try:
+                    result = await self._handle(msg)
+                    if msg_id is not None:
+                        if self.faults is not None:
+                            rule = self.faults.fire("worker.result",
+                                                    tag=msg["type"],
+                                                    defer_stall=True)
+                            if rule is not None \
+                                    and rule.action in ("delay", "stall"):
+                                await asyncio.sleep(rule.arg or 0.0)
+                            if rule is not None and rule.action == "drop":
+                                continue  # reply lost in flight
+                            if rule is not None and rule.action == "close":
+                                # Die exactly at the answer: the coordinator
+                                # sees EOF, evicts, and retries the task on
+                                # a survivor.
+                                writer.close()
+                                raise ConnectionResetError(
+                                    "fault injection: worker died before "
+                                    "replying"
+                                )
+                        await protocol.send_message(
+                            writer,
+                            protocol.message("RESULT", result, msg_id=msg_id))
+                except ConnectionError:
+                    # The stream is dead: an ERROR reply could never be
+                    # delivered; run()'s connection handling ends the worker.
+                    raise
+                except Exception as e:  # report, don't die: the coordinator retries
+                    log.exception("command %s failed", msg["type"])
+                    if msg_id is not None:
+                        # The ERROR reply is the coordinator's retry
+                        # trigger: counted, not only logged.
+                        METRICS.inc("worker.errors")
+                        await protocol.send_message(
+                            writer,
+                            protocol.message("ERROR", {"error": str(e)},
+                                             msg_id=msg_id),
+                        )
+
+    async def _handle(self, msg: dict) -> Any:
+        mtype = msg["type"]
+        payload = msg.get("payload") or {}
+        if self.faults is not None:
+            # "raise" surfaces as an ERROR reply -> coordinator retry.
+            rule = self.faults.fire("worker.handle", tag=mtype,
+                                    defer_stall=True)
+            if rule is not None and rule.action in ("delay", "stall"):
+                await asyncio.sleep(rule.arg or 0.0)
+        if mtype == "PLACE_SHARDS":
+            store_dir = payload["store_dir"]
+            shards = payload["shards"]
+            # The load (store read + copy to the device) runs off the loop.
+            self.engine = await asyncio.to_thread(
+                self.engine_factory, store_dir, shards, self.rt
+            )
+            self.loaded_shards = shards
+            # What the built engine is, not what the config asked for.
+            pm = getattr(self.engine, "parallel", None)
+            resident = (
+                f"mesh({dict(pm.mesh.shape)})" if pm is not None
+                else "full-model"
+            )
+            return {"loaded": shards, "resident": resident}
+        if mtype == "UNLOAD_SHARDS":
+            self.engine = None
+            unloaded, self.loaded_shards = self.loaded_shards, []
+            return {"unloaded": unloaded}
+        if mtype in ("GENERATE", "SCHEDULE_COMPUTATION"):
+            if self.engine is None:
+                raise RuntimeError("no model placed (PLACE_SHARDS first)")
+            if "requests" in payload:
+                return await asyncio.to_thread(
+                    self._generate_requests, payload["requests"]
+                )
+            prompts = payload["prompts"]
+            res = await asyncio.to_thread(
+                self.engine.generate_text, prompts,
+                payload.get("max_new_tokens")
+            )
+            return {
+                "text": res.text,
+                "generated_tokens": res.generated_tokens,
+                "seconds": res.seconds,
+                "tokens_per_second": res.tokens_per_second,
+            }
+        if mtype == "SHUTDOWN":
+            self.stop()
+            return {"ok": True}
+        raise protocol.ProtocolError(f"unhandled command {mtype}")
+
+    def _generate_requests(self, requests: list[dict]) -> dict:
+        """A mixed-budget batch (GENERATE with a ``requests`` list) through
+        the engine's continuous batcher: per-request budgets, short replies
+        never wait for long ones.  The batcher's shape (slots, paged pool,
+        prefix cache) comes from the runtime config."""
+        t0 = time.perf_counter()
+        prompts = [r["prompt"] for r in requests]
+        budgets = [int(r.get("max_new_tokens", 32)) for r in requests]
+        batcher = self.engine.continuous_batcher()
+        rids = [batcher.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+        results = batcher.run()
+        tok = self.engine.tokenizer
+        texts = [tok.decode(results[r]) for r in rids]
+        n_gen = sum(len(results[r]) for r in rids)
+        dt = time.perf_counter() - t0
+        return {
+            "text": texts,
+            "generated_tokens": n_gen,
+            "seconds": dt,
+            "tokens_per_second": n_gen / max(dt, 1e-9),
+        }

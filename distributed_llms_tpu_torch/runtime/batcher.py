@@ -1604,6 +1604,16 @@ class ContinuousBatcher:
 
     # -- paged pool (PagePool: refcounted, prefix-cache LRU) ---------------
 
+    @property
+    def free_pages(self) -> list[int]:
+        """The pool's free list (paged mode), forwarded as the reference's
+        batcher does, so pool audits read it off the batcher."""
+        return self.pool.free_pages
+
+    @property
+    def page_refs(self) -> dict[int, int]:
+        return self.pool.page_refs
+
     def capacity_tokens(self) -> int:
         """KV capacity in tokens — the denominator of the serving gateway's
         cost gate.  Paged mode counts usable pool pages (page 0 is

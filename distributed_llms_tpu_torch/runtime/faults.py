@@ -24,13 +24,14 @@ Examples::
     batcher.decode:stall@2:1.5        sleep 1.5 s before the 2nd chunk
     kv.swap_out:drop@1                the first swap-out recomputes instead
 
-The sites wired in the port are :data:`FAULT_SITES` (the reference's
-names, at the same points of the same code paths): the batcher and host
+The sites wired in the port are :data:`FAULT_SITES`, every site of the
+reference, at the same points of the same code paths: the batcher and host
 tier, the KV-handoff plane (``proto.*``, ``xfer.*``, ``prefill.crash``),
-the fleet and router (``replica.*``, ``router.*``, ``directory.lookup``)
-and the tenant gate (``tenant.quota``).  The reference's coordinator/worker
-and autoscaler sites belong to parts not ported yet: a strict parse
-(``dlt-serve-torch --fault``) refuses them by name rather than arming a
+the fleet, router and autoscaler (``replica.*``, ``router.*``,
+``directory.lookup``, ``fleet.scale_*``), the tenant gate
+(``tenant.quota``) and the coordinator/worker control plane
+(``worker.*``, ``coordinator.dispatch``).  A strict parse
+(``dlt-serve-torch --fault``) refuses any other site rather than arming a
 rule that would never fire.
 
 Actions ``raise`` (raises :class:`InjectedFault`) and ``stall`` (blocking
@@ -84,6 +85,14 @@ FAULT_SITES: dict[str, str] = {
         "about to restore spilled pages): 'drop' skips the movement, "
         "'corrupt' flips spilled bytes so restore verification rejects "
         "them",
+    "worker.heartbeat":
+        "one worker heartbeat tick ('drop' skips the send)",
+    "worker.result":
+        "a worker about to answer (tag = command type)",
+    "worker.handle":
+        "a worker command handler about to run (tag = command type)",
+    "coordinator.dispatch":
+        "a task about to be sent to a worker (tag = task type)",
     "proto.send":
         "cluster protocol frame about to be written (tag = message type)",
     "proto.recv":
@@ -126,6 +135,17 @@ FAULT_SITES: dict[str, str] = {
         "request: 'close' (or 'raise') kills the replica abruptly "
         "mid-handoff — the router's degradation ladder must fall back to "
         "colocated prefill on the decode replica",
+    "fleet.scale_up":
+        "the autoscaler about to boot one more replica "
+        "(cluster/autoscale.py): 'raise' or 'drop' fails the provision — "
+        "the controller degrades cleanly (counts the failure, keeps "
+        "serving at the current size, retries after its cooldown), the "
+        "cloud-API-errored drill",
+    "fleet.scale_down":
+        "the autoscaler about to drain a replica away (tag = the chosen "
+        "replica): 'raise'/'drop' vetoes the drain — the fleet keeps its "
+        "size; scale-down is graceful-only, so there is no abrupt leg to "
+        "drill here (replica.crash covers that)",
     "tenant.quota":
         "the serving gateway's per-tenant token-rate gate (tag = "
         "tenant): 'exhaust' forces the over-quota path — the request "
@@ -155,15 +175,6 @@ FAULT_SITES: dict[str, str] = {
         "absorb), 'delay:<s>' stalls the pull toward the router's "
         "deadline (deferred)",
 }
-
-# The reference's other sites, wired by parts the port has not taken (the
-# coordinator/worker control plane, the autoscaler): strict parsing names
-# them as such.
-UNPORTED_SITES = frozenset({
-    "worker.heartbeat", "worker.result", "worker.handle",
-    "coordinator.dispatch", "fleet.scale_up", "fleet.scale_down",
-})
-
 
 class InjectedFault(RuntimeError):
     """Raised by a ``raise`` rule: its own type, so recovery tests can
@@ -262,22 +273,14 @@ class FaultPlane:
         """Build a plane from the comma-separated spec grammar above.
         ``None``/empty parses to an empty (never-firing) plane.
         ``strict=True`` additionally rejects sites absent from
-        :data:`FAULT_SITES` (the reference's sites of later port slices by
-        name): operator entry points use it so a rule that could never
-        fire fails the boot instead of parsing into a no-op."""
+        :data:`FAULT_SITES`: operator entry points use it so a rule that
+        could never fire fails the boot instead of parsing into a no-op."""
         rules = [
             _parse_rule(part)
             for part in (spec or "").split(",") if part.strip()
         ]
         if strict:
             sites = {r.site for r in rules}
-            later = sorted(sites & UNPORTED_SITES)
-            if later:
-                raise ValueError(
-                    f"fault site(s) {later} belong to parts of the serving "
-                    f"stack not ported yet; wired sites: "
-                    f"{sorted(FAULT_SITES)}"
-                )
             unknown = sorted(sites - set(FAULT_SITES))
             if unknown:
                 raise ValueError(

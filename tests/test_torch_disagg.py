@@ -358,7 +358,7 @@ def test_cli_disaggregate_boots_and_hands_off():
     args = serve_main.parser().parse_args(
         base + ["--paged-pages", "24", "--page-size", "16",
                 "--prefix-cache"])
-    fleet, router = serve_main.build_fleet(args)
+    fleet, router, _ = serve_main.build_fleet(args)
     assert [h.name for h in fleet.replicas] == ["p0", "d0"]
     assert router.handoff
 

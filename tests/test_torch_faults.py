@@ -137,18 +137,19 @@ def test_fire_windows_tags_and_self_applied_actions():
 
 
 def test_strict_parse_takes_the_wired_sites_only():
-    assert set(TF.FAULT_SITES) <= set(JF.FAULT_SITES)
+    # Every site of the reference is wired in the port: the control
+    # plane's and the autoscaler's came last.
+    assert set(TF.FAULT_SITES) == set(JF.FAULT_SITES)
     assert TF.ACTIONS == JF.ACTIONS
-    assert TF.UNPORTED_SITES == set(JF.FAULT_SITES) - set(TF.FAULT_SITES)
+    assert not hasattr(TF, "UNPORTED_SITES")
     spec = ",".join(f"{s}:raise@9" for s in TF.FAULT_SITES)
     assert len(TF.FaultPlane.parse(spec, strict=True).rules) == len(
         TF.FAULT_SITES)
-    for later in ("worker.heartbeat:drop@1", "worker.result/GENERATE:close@1+",
-                  "coordinator.dispatch:drop@1", "fleet.scale_up:raise@1",
-                  "fleet.scale_down/r0:drop@4"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            TF.FaultPlane.parse(later, strict=True)
-        TF.FaultPlane.parse(later)  # the grammar alone accepts it
+    for rule in ("worker.heartbeat:drop@1", "worker.result/GENERATE:close@1+",
+                 "coordinator.dispatch:drop@1", "fleet.scale_up:raise@1",
+                 "fleet.scale_down/r0:drop@4"):
+        assert TF.FaultPlane.parse(rule, strict=True).describe() == \
+            JF.FaultPlane.parse(rule, strict=True).describe()
     with pytest.raises(ValueError, match="unknown fault site"):
         TF.FaultPlane.parse("decode:raise@1", strict=True)
 
@@ -429,9 +430,9 @@ async def test_cli_fault_flag_arms_the_plane_strictly():
     base = ["--preset", "llama-tiny", "--device", "cpu", "--paged-pages",
             "12", "--page-size", "16", "--prefix-cache", "--slots", "2",
             "--host", "127.0.0.1", "--port", "0", "--max-len", "64"]
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="unknown fault site"):
         serve_main.build_server(serve_main.parser().parse_args(
-            base + ["--fault", "fleet.scale_up:raise@1"]))
+            base + ["--fault", "fleet.scale:raise@1"]))
     args = serve_main.parser().parse_args(
         base + ["--fault", "batcher.decode:raise@2",
                 "--fault", "kv.swap_out:drop@1"])
@@ -467,6 +468,6 @@ def test_engine_takes_faults_and_parses_the_config_strictly():
                                   faults=plane).faults is plane
     bad = InferenceEngine.from_preset(
         "llama-tiny", vocab_size=512, device="cpu",
-        rt=RuntimeConfig(faults="worker.heartbeat:drop@1"))
-    with pytest.raises(ValueError, match="not ported yet"):
+        rt=RuntimeConfig(faults="worker.beat:drop@1"))
+    with pytest.raises(ValueError, match="unknown fault site"):
         bad.continuous_batcher(batch_slots=2, max_len=64)

@@ -335,7 +335,7 @@ def test_cli_replicas_boot():
         "--replicas", "2", "--failover-retries", "1", "--probe-interval",
         "3600",
         "--fault", "replica.partition/r9:drop@1"])
-    fleet, router = serve_main.build_fleet(args)
+    fleet, router, _ = serve_main.build_fleet(args)
     assert [h.name for h in fleet.replicas] == ["r0", "r1"]
     assert router.max_failover_retries == 1 and not router.handoff
 

@@ -102,8 +102,10 @@ def test_frames_byte_equal_reference(i):
 def test_frame_limits_match_reference(monkeypatch):
     assert tproto.MAX_FRAME == jproto.MAX_FRAME == 64 * 1024 * 1024
     assert tproto.COMPRESS_MIN == jproto.COMPRESS_MIN
+    # The control plane's types are the port's too since it was ported.
+    assert tproto.MESSAGE_TYPES == jproto.MESSAGE_TYPES
     with pytest.raises(tproto.ProtocolError, match="unknown message type"):
-        tproto.encode({"type": "REGISTER", "payload": None})
+        tproto.encode({"type": "EVIL", "payload": None})
     bomb = zlib.compress(b"\0" * 4096, 9)
     for mod in (tproto, jproto):
         monkeypatch.setattr(mod, "MAX_FRAME", 1024)

@@ -306,14 +306,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ["--autoscale-cooldown", "5"],
 ])
 def test_later_slice_flags_raise(flags):
+    """The autoscaler's nine flags are wired (they were refused before the
+    elastic fleet was ported).  Each one alone is refused as the
+    reference refuses it: a floor or a knob without a ceiling, a tier
+    ceiling without tiers; a ceiling alone asks for a fleet, which
+    ``build_server`` does not build."""
     from distributed_llms_tpu_torch.cli import serve_main
 
     args = serve_main.parser().parse_args(
         ["--preset", "llama-tiny", "--device", "cpu", "--paged-pages", "40"]
         + flags)
-    with pytest.raises(NotImplementedError,
-                       match=rf"\({flags[0]}\) is not ported yet"):
+    match = {"--replicas-max": "build it with build_fleet",
+             "--prefill-replicas-max": "needs --disaggregate",
+             "--decode-replicas-max": "needs --disaggregate"}.get(
+        flags[0], rf"{flags[0]} need --replicas-max")
+    with pytest.raises(SystemExit, match=match):
         serve_main.build_server(args)
+    # With a ceiling (and tiers, for a tier ceiling) the flag is taken.
+    extra = (["--disaggregate", "--prefix-cache"]
+             if flags[0].endswith(("fill-replicas-max", "code-replicas-max"))
+             else [] if flags[0] == "--replicas-max"
+             else ["--replicas-max", "3"])
+    args = serve_main.parser().parse_args(
+        ["--preset", "llama-tiny", "--device", "cpu", "--paged-pages", "40"]
+        + flags + extra)
+    serve_main.check_fleet_flags(args)
+    dest = flags[0][2:].replace("-", "_")
+    assert getattr(args, dest) == type(getattr(args, dest))(flags[1])
 
 
 async def _greedy_answer(flags):

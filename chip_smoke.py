@@ -114,10 +114,12 @@ Phases, each printing result lines:
       admits, the peak memory), and again on a server booted with
       ``--schedule alternate``: the short greedy streams must be
       identical under the two schedules.
-   i. (run by the ``tier`` phase) ``dlt-serve-torch --preset llama-3-8b
+   i. (run by the ``tier`` phase) ``dlt-serve-torch --store DI
       --paged-pages 40 --page-size 64 --prefix-cache --host-pages 128
-      --max-len 1024`` (K1): a pool of
-      39 usable pages (8 MiB each) under 9 streamed greedy requests of
+      --max-len 1024`` (K1) over a bf16 store of Llama-3-8B's width cut to
+      STORE_LAYERS (8) layers (random weights, seed 0; a temporary
+      directory): a pool of
+      39 usable pages (2 MiB each) under 9 streamed greedy requests of
       300-400 bytes and 192 new tokens each — three over a shared
       256-byte prefix (the first alone until admitted), four more without
       it (one with presence/frequency penalties 0.6/0.4), one naming the
@@ -168,7 +170,9 @@ Phases, each printing result lines:
       5 times, K5 (int4) 35 times.  Path j's launches ride in the JSON
       line as ``spec_launches``.
    k. (run by the ``constrain`` phase) path a's flags with ``--max-len
-      1024`` (K1): eight concurrent completions of 64 new tokens — two
+      1024`` (K1) over a bf16 store of Llama-3-8B's width cut to
+      STORE_LAYERS (8) layers (``--store``, every boot of the path):
+      eight concurrent completions of 64 new tokens — two
       JSON-schema ``response_format`` requests (an object with a string of
       at most 16 bytes, an integer, a boolean and an enum; an array of at
       most 4 integers), a regex (``\\d{4}-\\d{2}-\\d{2}``), one with
@@ -200,8 +204,10 @@ Phases, each printing result lines:
       ``constrain_launches``.
    l. (run by the ``generate`` phase) the engine's batch API, as the
       source system's worker calls it, engine-side (no HTTP):
-      ``InferenceEngine.from_preset("llama-3-8b")`` (bf16, max_seq_len
-      1024, ``kv_host_spill`` with ``max_resident_sessions=1``):
+      ``InferenceEngine.from_preset("llama-3-8b", num_layers=8)`` (the
+      published width cut to STORE_LAYERS layers since PR 17; bf16,
+      max_seq_len 1024, ``kv_host_spill`` with
+      ``max_resident_sessions=1``):
       ``generate_text`` on path a's seven prompts and one more (8 ragged
       rows, padded up the bucket ladder to 512, 64 new tokens, greedy;
       the eager decode loop, dense attention under the gapped mask)
@@ -214,7 +220,7 @@ Phases, each printing result lines:
       ``runtime.spec_decode`` (the int4 self-draft, spec_k 4):
       ``generate_text`` must route through the standalone speculative
       loop (a spy on ``speculative_generate_tokens``), its greedy streams
-      held to the plain ``generate_text``'s, K5 (int4) at least 7 x 32 x
+      held to the plain ``generate_text``'s, K5 (int4) at least 7 x layers x
       5 x rounds launches, one sampled run (0.8, 16 new tokens) with
       tokens in range and accepted <= drafted; then ``mistral-7b`` with
       ``attn_impl="flash"`` (max_seq_len 6144): ``generate_text`` on
@@ -246,8 +252,10 @@ Phases, each printing result lines:
       table, and ``gpt2-125m``'s ``generate_text`` (tanh gelu, positions
       without offset); Mixtral-8x7B as an int4 store (experts, router
       and attention int4; drawn and quantized on the card a layer at a
-      time, 24.8 GB written into a temporary directory and removed once
-      booted) served with ``--override runtime.serve_quantized=true
+      time; depth cut from 32 to MIXTRAL_LAYERS (8) layers, the published
+      width, to keep the whole smoke in its time as path p joined it;
+      written into a temporary directory and removed once booted) served
+      with ``--override runtime.serve_quantized=true
       --paged-pages 128 --page-size 64 --prefix-cache --max-len 2048``
       (attention through K5, decode through K1, each layer's experts
       rehydrated to bf16 in every forward): path a's seven requests all
@@ -382,7 +390,8 @@ Phases, each printing result lines:
    path a.  Path f must launch K4 at least 32 times per admission, and
    K4's pre-pass once per K4 launch.
 6. ``tier`` — path i (in ``serve``'s list above): the host tier, swap
-   preemption, prefix-cache spill, penalties and named prefixes.
+   preemption, prefix-cache spill, penalties and named prefixes, over a
+   bf16 store of Llama-3-8B's width cut to STORE_LAYERS layers.
    ``--phases build,tier`` runs it alone.
 6b. ``spec`` — path j (in ``serve``'s list above): speculative decoding.
    ``--phases build,spec`` runs it alone.
@@ -400,6 +409,32 @@ Phases, each printing result lines:
 6g. ``elastic`` — path o (in ``serve``'s list above): the autoscaled
    fleet under a replayed trace and the coordinator/worker control
    plane.  ``--phases build,elastic`` runs it alone.
+6h. ``mesh`` — path p: data and tensor parallelism, two gloo rank
+   processes sharing the one card (spawned through the users' CLIs by
+   :func:`mesh_rank`, their counters read from files).  p1:
+   ``dlt-serve-torch --store SB --override mesh.model=2`` (SB a bf16
+   store of Llama-3-8B at its full width and depth, seed 0) answers path
+   a's requests over HTTP (rank 0 serves, rank 1 follows); each rank
+   must launch K1 at least 32 x its decode steps, only at the local
+   heads (H 16 / KVH 4), hold under 60% of a one-rank engine's memory
+   after boot, and agree with the one-rank engine's greedy choice on at
+   least 90% of the committed tokens (each fed the stream's context);
+   the first decode step's logits against the one-rank engine, the ms a
+   decode step a rank and the collectives' share are printed.  p2: path
+   d's int8 store (int8 pages) through two ``dlt-host-torch`` ranks
+   (``cluster.num_processes=2``) under an in-process ``Coordinator``, a
+   ``model=2`` mesh and then a ``data=2`` one: an 8-request batch through
+   ``generate_requests`` and 4 prompts through ``generate_spmd``; each
+   rank must launch K1q and K5 (int8) at its local shapes, the ranks'
+   streams must be equal and agree with one rank's engine by p1's rule,
+   and under ``data=2`` a row on data rank 1 must reuse a prefix page
+   that data rank 0's row wrote.  p3: SB read by the native reader and
+   by the plain one (the same bytes and CRC32s, both timed; warm page
+   cache), a ``Trainer`` at path g's width cut to 2 layers (2 steps,
+   save, restore into a fresh ``Trainer``, 1 step: its loss within 1e-3
+   of 3 straight steps'), and a legacy int4 store (pairs along the last
+   axis, no ``pack_axis``) serving the same greedy tokens through K5 as
+   the current layout.  ``--phases build,mesh`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -784,6 +819,11 @@ QMM_SHAPES = [
     # Path m's OPT-125M MLP (w_in, w_out) at a decode step of 8 rows.
     ("opt_w_in", 8, (768, 3072), 1, -2),
     ("opt_w_out", 8, (3072, 768), 1, -2),
+    # Path p's local blocks: one rank of Llama-3-8B over model=2 (gate/up
+    # N-sharded to 7168 columns; down K-sharded to 7168 rows, a partial
+    # product the layer sums over 'model').
+    ("tp2_gate_up", 8, (4096, 7168), 1, -2),
+    ("tp2_down", 8, (7168, 4096), 1, -2),
 ]
 QMM_REPORTED = "gate_up"  # the shape of K5's entries in the JSON line
 QMM_ALSO_REPORTED = "down"  # ... and of the "down" entry inside each
@@ -935,6 +975,10 @@ PAGED_CHECKS = [
     ("g1_d64", dict(h=12, kvh=12, d=64, seed=18, garbage=True)),
     ("g1_d64_batch1", dict(b=1, h=12, kvh=12, d=64, seed=19, garbage=True)),
     ("g1_d64_edges", dict(h=12, kvh=12, d=64, seed=20, garbage=True)),
+    # Path p's local heads: one rank of Llama-3-8B over model=2 (H 16,
+    # KVH 4), path a's table reach.
+    ("tp2_local", dict(h=16, kvh=4, max_len=1024, seed=23, garbage=True)),
+    ("tp2_local_edges", dict(h=16, kvh=4, seed=24, garbage=True)),
 ]
 
 
@@ -1400,7 +1444,9 @@ def paged_timing(torch) -> dict:
                         ("path_a", dict(max_len=1024, lengths=path_a,
                                         seed=10)),
                         ("pythia_g1_d128", dict(h=32, kvh=32, seed=21)),
-                        ("opt_g1_d64", dict(h=12, kvh=12, d=64, seed=22))):
+                        ("opt_g1_d64", dict(h=12, kvh=12, d=64, seed=22)),
+                        ("tp2_local_path_a", dict(h=16, kvh=4, max_len=1024,
+                                                  lengths=path_a, seed=25))):
         q, k, v, lengths, tables = paged_case(torch, **case)
         timed = _paged_timed(torch, "paged_decode_attention", q, k, v,
                              lengths, tables, shape=label)
@@ -1410,7 +1456,7 @@ def paged_timing(torch) -> dict:
         if label == "timing":
             out["paged_decode_attention"] = timed
             out["paged_decode_attention_int8"] = timed_q
-        if not label.startswith(("pythia", "opt")):
+        if not label.startswith(("pythia", "opt", "tp2")):
             paged_split_sweep(torch, q, k, v, lengths, tables)
         del q, k, v, kq, vq, ks, vs
         _free(torch)
@@ -2648,7 +2694,7 @@ LOOPS = (("graph_overlap", True, False), ("graph_sync", False, False),
          ("eager_sync", False, True))
 
 
-def _eager_decode_chunk(*args, graphs=None, **kw):
+def _eager_decode_chunk(*args, graphs=None, eager=None, **kw):
     from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
 
     return batcher_lib._decode_steps(*args, **kw)
@@ -2965,12 +3011,12 @@ def _serve_long_store(torch, serve_main, args, info) -> tuple:
 
 # -- path i: the host tier, penalties and named prefixes ----------------------
 
-# Path i: Llama-3-8B at full width over a pool too small for its traffic (39
-# usable pages of 8 MiB: 32 layers x 64 slots x 8 KV heads x 128 x bf16, K
-# and V), with 128 pages of pinned host RAM behind it.
-TIER_ARGS = ["--preset", "llama-3-8b", "--paged-pages", "40", "--page-size",
-             "64", "--prefix-cache", "--host-pages", "128", "--max-len",
-             "1024", *_COMMON_ARGS]
+# Path i: Llama-3-8B's width at STORE_LAYERS layers (a bf16 store) over a
+# pool too small for its traffic (39 usable pages of 2 MiB: 8 layers x 64
+# slots x 8 KV heads x 128 x bf16, K and V), with 128 pages of pinned host
+# RAM behind it.
+TIER_ARGS = ["--paged-pages", "40", "--page-size", "64", "--prefix-cache",
+             "--host-pages", "128", "--max-len", "1024", *_COMMON_ARGS]
 TIER_NEW = 192
 TIER_PENALTIES = {"presence_penalty": 0.6, "frequency_penalty": 0.4}
 # 4 full pages of 64 tokens with the BOS: the shared run of every request
@@ -3209,9 +3255,19 @@ def serve_tiered(torch) -> dict:
         return await _serve_tier_requests(box["server"], reqs)
 
     counts0 = _tier_counts()
-    launches, server, mem = serve_path(
-        torch, "tiered", TIER_ARGS, {"paged_decode_attention": 1}, requests,
-        _llama_3_8b, setup=setup)
+    # Llama-3-8B's width at STORE_LAYERS layers (a bf16 store of the cut
+    # model, as paths d, e and j): the pool's page dynamics follow token
+    # counts, not depth.
+    tmp = tempfile.mkdtemp(prefix="dlt_store_tier_")
+    try:
+        info = write_store(torch, None, tmp, "llama-3-8b",
+                           num_layers=STORE_LAYERS)
+        launches, server, mem = serve_path(
+            torch, "tiered", ["--store", tmp, *TIER_ARGS],
+            {"paged_decode_attention": 1}, requests, _llama_3_8b_cut,
+            setup=setup, **info)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     b = server.batcher
     streams = box.pop("streams")
     ttft = sorted(box.pop("ttft").values())
@@ -4010,7 +4066,10 @@ def flash_admission(torch, batcher, profile: bool) -> None:
 
 # -- path k: constrained output and the fault plane ---------------------------
 
-CON_ARGS = [*SERVE_ARGS, "--max-len", "1024"]
+# Path k serves a bf16 store of Llama-3-8B's width cut to STORE_LAYERS
+# layers since PR 17 (``--store`` before these flags), as paths d, e, h,
+# i, j: the smoke's time with path p.
+CON_ARGS = [*SERVE_ARGS[2:], "--max-len", "1024"]
 CON_NEW = 64
 CON_OBJECT = {"type": "object",
               "properties": {"name": {"type": "string", "maxLength": 16},
@@ -4262,8 +4321,9 @@ def _con_timed(torch, ctor) -> dict:
 
 
 def serve_constrain(torch) -> dict:
-    """Path k: ``dlt-serve-torch --preset llama-3-8b --paged-pages 256
-    --page-size 64 --prefix-cache --max-len 1024 --slots 8`` answers
+    """Path k: ``dlt-serve-torch --store DK --paged-pages 256 --page-size
+    64 --prefix-cache --max-len 1024 --slots 8`` (DK a bf16 store of
+    Llama-3-8B's width at STORE_LAYERS layers) answers
     :func:`con_requests` over HTTP (the default loop: graphs, overlap):
     every constrained output valid, no banned token, the free greedy
     stream equal to the same requests served engine-side without the
@@ -4308,9 +4368,24 @@ def serve_constrain(torch) -> dict:
         box["http"] = got
         return {"requests": len(box["reqs"]), "wall_s": got["wall_s"]}
 
+    store = tempfile.mkdtemp(prefix="dlt_store_constrain_")
+    info = write_store(torch, None, store, "llama-3-8b",
+                       num_layers=STORE_LAYERS)
+    try:
+        return _serve_constrain(torch, lap, box, setup, requests, store,
+                                info)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _serve_constrain(torch, lap, box, setup, requests, store, info) -> dict:
+    """Path k over the store ``store`` (see :func:`serve_constrain`)."""
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+
     launches, server, mem = serve_path(
-        torch, "constrain", CON_ARGS, {"paged_decode_attention": 1},
-        requests, _llama_3_8b, setup=setup)
+        torch, "constrain", ["--store", store, *CON_ARGS],
+        {"paged_decode_attention": 1}, requests, _llama_3_8b_cut,
+        setup=setup, **info)
     lap("boot_and_http")
     b = server.batcher
     eos = b.eos_id
@@ -4441,16 +4516,16 @@ def serve_constrain(torch) -> dict:
     del server, b
     _free(torch)
 
-    con_crash_drill(torch)
+    con_crash_drill(torch, store)
     lap("crash_drill")
-    con_stall_drill(torch)
+    con_stall_drill(torch, store)
     lap("stall_drill")
     return {"paged_decode_attention": launches["paged_decode_attention"],
             "paged_decode_attention_int8":
                 q_launches["paged_decode_attention_int8"]}
 
 
-def con_crash_drill(torch) -> None:
+def con_crash_drill(torch, store: str) -> None:
     """``--fault batcher.decode:raise@3`` on path k's flags: 10 greedy
     requests on 8 slots; the third decode dispatch raises.  The supervisor
     respawns the batcher (a fresh graph set is captured); the requests
@@ -4462,7 +4537,7 @@ def con_crash_drill(torch) -> None:
     from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
 
     args = serve_main.parser().parse_args(
-        [*CON_ARGS, "--fault", "batcher.decode:raise@3"])
+        ["--store", store, *CON_ARGS, "--fault", "batcher.decode:raise@3"])
     server = serve_main.build_server(args)
     plane = server.batcher.faults
     check(plane is not None and plane.describe() == "batcher.decode:raise@3",
@@ -4545,7 +4620,7 @@ def con_crash_drill(torch) -> None:
     _free(torch)
 
 
-def con_stall_drill(torch) -> None:
+def con_stall_drill(torch, store: str) -> None:
     """``--no-constrained --fault batcher.decode:stall@2:3
     --watchdog-timeout 1`` on path k's flags: a constrained request answers
     400; one request's second decode dispatch stalls 3 s, /healthz turns
@@ -4554,7 +4629,7 @@ def con_stall_drill(torch) -> None:
     from distributed_llms_tpu_torch.cli import serve_main
 
     args = serve_main.parser().parse_args(
-        [*CON_ARGS, "--no-constrained", "--fault",
+        ["--store", store, *CON_ARGS, "--no-constrained", "--fault",
          f"batcher.decode:stall@2:{CON_STALL_S:g}", "--watchdog-timeout",
          f"{CON_WATCHDOG_S:g}"])
     server = serve_main.build_server(args)
@@ -4754,7 +4829,8 @@ def _spill_timers(torch, sessions) -> list:
 
 
 def generate_llama(torch, card) -> dict:
-    """Path l, steps 1-3 on ``llama-3-8b`` (bf16, max_seq_len 1024):
+    """Path l, steps 1-3 on ``llama-3-8b``'s width cut to STORE_LAYERS
+    layers (bf16, max_seq_len 1024):
     ``generate_text`` against the paged batcher, sessions with host spill,
     and ``generate_text`` routed through the speculative loop.  Returns the
     launches of the path's own calls."""
@@ -4773,8 +4849,11 @@ def generate_llama(torch, card) -> dict:
     rt = RuntimeConfig(max_seq_len=GEN_MAX_LEN, max_decode_steps=GEN_NEW,
                        kv_host_spill=True, max_resident_sessions=1)
     torch.cuda.reset_peak_memory_stats()
-    eng = InferenceEngine.from_preset("llama-3-8b", rt=rt, rng_seed=0)
-    _llama_3_8b(eng.cfg)
+    # Llama-3-8B's width at STORE_LAYERS layers since PR 17 (as paths d,
+    # e, h, i, j): the smoke's time with path p.
+    eng = InferenceEngine.from_preset("llama-3-8b", rt=rt, rng_seed=0,
+                                      num_layers=STORE_LAYERS)
+    _llama_3_8b_cut(eng.cfg)
     tok = eng.tokenizer
     ids = [tok.encode(p) for p in GEN_PROMPTS]
     lap("boot")
@@ -5036,11 +5115,13 @@ PYTHIA_ARGS = ["--preset", PYTHIA_PRESET, "--paged-pages", "256",
 OPT_ARGS = ["--preset", OPT_PRESET, "--paged-pages", "256", *_FAM_PAGED]
 OPT_STORE_ARGS = ["--override", "runtime.serve_quantized=true",
                   "--paged-pages", "256", *_FAM_PAGED]
-# Mixtral-8x7B as an int4 store: 128 pages of 64 slots x 32 layers x 8 KV
-# heads x 128 x 2 (K, V) x 2 bytes = 8 MiB a page.
+# Mixtral-8x7B as an int4 store: 128 pages of 64 slots x MIXTRAL_LAYERS
+# layers x 8 KV heads x 128 x 2 (K, V) x 2 bytes (2 MiB a page at 8).
 MIXTRAL_ARGS = ["--override", "runtime.serve_quantized=true",
                 "--paged-pages", "128", *_FAM_PAGED]
-MIXTRAL_LAYERS = 32  # the published depth; the store fits the card's disk
+# Depth cut from the published 32 layers (a 24.8 GB int4 store) to 8 since
+# PR 17, as paths d, e, h, i and j: the smoke's time with path p.
+MIXTRAL_LAYERS = STORE_LAYERS
 MIXTRAL_TRAIN_LAYERS = 2  # AdamW state of 32 layers (47 B params) won't fit
 MIXTRAL_TRAIN_TOKENS = 1025  # a [1, 1025] batch: 1024 positions through K3
 # The near-tie rule of path l (GEN_NEAR_TIE), against path m's oracle: the
@@ -7172,11 +7253,731 @@ def serve_elastic(torch) -> dict:
     return out
 
 
+# -- path p: data and tensor parallelism ---------------------------------------
+
+# Path p's ranks are processes of one gloo group on the one card (two CUDA
+# contexts on cuda:0: NCCL puts no two ranks of one communicator on one
+# GPU), spawned through the users' entry points (dlt-serve-torch,
+# dlt-host-torch) by :func:`mesh_rank`.  Their collectives are staged
+# through host memory: a gloo number on one card, not a multi-GPU one.
+MESH_TP = 2
+MESH_ARGS = ["--paged-pages", "256", "--page-size", "64", "--prefix-cache",
+             "--max-len", "1024", "--slots", "8", "--host", "127.0.0.1"]
+MESH_BOOT_S = 300.0  # a rank's boot: python, torch, a 16 GB store's half
+MESH_MEM_SHARE = 0.6  # each p1 rank under this share of the one-rank engine
+MESH_AGREEMENT = 0.9  # teacher-forced greedy agreement (ROADMAP's bf16 rule)
+MESH_LOGIT_PROMPT = ("Path p's logit check: the first decode step after "
+                     "this prompt, on the mesh and on one rank.")
+MESH_CP_PREFIX = ("Dispatch note for the quantized mesh: every reply quotes "
+                  "the manifest line, the dock and the carrier, then a one-"
+                  "line plan. Keep it short and factual; no invented ids. ")
+MESH_CP_REQUESTS = [(MESH_CP_PREFIX + f"Case {i}: crate {i} at dock "
+                     f"{3 + i}.", 16 + 8 * (i % 4)) for i in range(8)]
+TRAIN_CKPT_LAYERS = 2
+TRAIN_CKPT_T = 1025
+LEGACY_LAYERS = 2
+LEGACY_NEW = 16
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mesh_rank(kind: str, argv: list, stats_path: str) -> None:
+    """One rank of path p, in its own process: ``dlt-serve-torch``
+    (``kind`` "serve") or ``dlt-host-torch`` ("host") run through its
+    ``main`` with counters around the kernels' wrappers, the decode steps
+    and the batchers, and, for "serve", the first decode step's logits of
+    :data:`MESH_LOGIT_PROMPT` on the mesh after boot (every rank takes the
+    same forwards); at the end, what they saw goes to ``stats_path``
+    (JSON; the logits beside it as .npy on rank 0)."""
+    import numpy as np
+    import torch
+
+    from distributed_llms_tpu_torch.ops import decode_attn, quant_matmul
+    from distributed_llms_tpu_torch.runtime import batcher as bl
+    from distributed_llms_tpu_torch.runtime import engine as engine_lib
+
+    stats = {"shapes": {}, "decode_steps_timed": 0, "decode_s": 0.0,
+             "decode_collective_s": 0.0, "decode_collective_calls": 0,
+             "streams": [], "rank": None}
+    box: dict = {}
+
+    def count(key):
+        stats["shapes"][key] = stats["shapes"].get(key, 0) + 1
+
+    pda = decode_attn.paged_decode_attention
+
+    def paged(q, k, v, lengths, tables, *a, **kw):
+        if q.is_cuda:
+            quant = kw.get("k_scale") is not None or len(a) > 0
+            count(f"K1{'q' if quant else ''}_H{q.shape[2]}_KVH{k.shape[2]}")
+        return pda(q, k, v, lengths, tables, *a, **kw)
+
+    qmm = quant_matmul.quant_matmul
+
+    def qmatmul(x2, q2, s2, bits):
+        if x2.is_cuda:
+            count(f"K5_int{bits}_K{x2.shape[1]}_N{q2.shape[1]}")
+        return qmm(x2, q2, s2, bits)
+
+    for fn, attrs in ((paged, ("launches", "int8_launches")),
+                      (qmatmul, ("launches", "int4_launches"))):
+        for attr in attrs:
+            setattr(fn, attr, 0)
+    decode_attn.paged_decode_attention = paged
+    quant_matmul.quant_matmul = qmatmul
+
+    steps_fn = bl._decode_steps
+
+    def decode_steps(*a, **kw):
+        mesh = box["engine"].pm.mesh
+        torch.cuda.synchronize()
+        c0, n0 = mesh.stats["seconds"], mesh.stats["calls"]
+        t0 = time.perf_counter()
+        out = steps_fn(*a, **kw)
+        torch.cuda.synchronize()
+        stats["decode_s"] += time.perf_counter() - t0
+        stats["decode_steps_timed"] += a[5]
+        stats["decode_collective_s"] += mesh.stats["seconds"] - c0
+        stats["decode_collective_calls"] += mesh.stats["calls"] - n0
+        return out
+
+    bl._decode_steps = decode_steps
+    cls = bl.ContinuousBatcher
+    init, submit, run, activate = (cls.__init__, cls.submit, cls.run,
+                                   cls._activate_row)
+
+    def b_init(self, *a, **kw):
+        init(self, *a, **kw)
+        torch.cuda.synchronize()
+        stats["mem_after_batcher"] = torch.cuda.memory_allocated()
+        self._p_log = {"prompts": {}, "slots": {}}
+
+    def b_submit(self, prompt, *a, **kw):
+        rid = submit(self, prompt, *a, **kw)
+        ids = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
+               else list(prompt))
+        self._p_log["prompts"][rid] = (ids, kw.get("temperature"))
+        return rid
+
+    def b_activate(self, i, req, *a, **kw):
+        self._p_log["slots"][req.rid] = i
+        return activate(self, i, req, *a, **kw)
+
+    def b_run(self, *a, **kw):
+        res = run(self, *a, **kw)
+        for rid, toks in res.items():
+            ids, temp = self._p_log["prompts"].get(rid, (None, None))
+            if ids is not None:
+                stats["streams"].append({
+                    "rid": rid, "prompt": ids, "temperature": temp,
+                    "stream": list(toks), "slot": self._p_log["slots"].get(rid),
+                    "cached": int(self.prefix_cached_tokens.get(rid, 0))})
+        stats["decode_steps"] = self.decode_steps
+        stats["slots"] = self.b
+        stats["loop"] = self.loop_kind
+        return res
+
+    cls.__init__, cls.submit, cls.run, cls._activate_row = (
+        b_init, b_submit, b_run, b_activate)
+
+    from_store = engine_lib.InferenceEngine.from_store.__func__
+
+    def engine_from_store(c, *a, **kw):
+        eng = from_store(c, *a, **kw)
+        torch.cuda.synchronize()
+        box["engine"] = eng
+        stats["rank"] = eng.pm.mesh.rank
+        stats["mesh"] = eng.pm.mesh.shape
+        stats["backend"] = eng.pm.mesh.backend
+        stats["mem_after_engine"] = torch.cuda.memory_allocated()
+        if kind == "serve":
+            logits = first_step_logits(torch, eng)
+            if eng.pm.mesh.rank == 0:
+                np.save(stats_path + ".logits.npy", logits)
+        return eng
+
+    engine_lib.InferenceEngine.from_store = classmethod(engine_from_store)
+    try:
+        if kind == "serve":
+            from distributed_llms_tpu_torch.cli import serve_main
+
+            serve_main.main(argv)
+        else:
+            from distributed_llms_tpu_torch.cli import host_main
+
+            host_main.main(argv)
+    finally:
+        stats["launches"] = {
+            "paged_decode_attention": decode_attn.paged_decode_attention.launches,
+            "paged_decode_attention_int8":
+                decode_attn.paged_decode_attention.int8_launches,
+            "quant_matmul": quant_matmul.quant_matmul.launches,
+            "quant_matmul_int4": quant_matmul.quant_matmul.int4_launches}
+        if "engine" in box:
+            stats["collectives_total"] = dict(box["engine"].pm.mesh.stats)
+        with open(stats_path, "w") as f:
+            json.dump(stats, f)
+
+
+def first_step_logits(torch, eng):
+    """float32 logits [V] of the first decode step after
+    :data:`MESH_LOGIT_PROMPT` (its prefill into a contiguous cache, then
+    the greedy token), through ``eng`` (a mesh engine or one rank)."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    ids = eng.tokenizer.encode(MESH_LOGIT_PROMPT)
+    toks = torch.tensor([ids], device=eng.device)
+    t = len(ids)
+    cache = eng._make_cache(eng.run_cfg, 1, t + 1)
+    with torch.no_grad(), eng._on_mesh():
+        logits, cache = model_lib.forward(eng.params, eng.run_cfg, toks,
+                                          cache=cache, cache_index=0)
+        ci = torch.full((1,), t, dtype=torch.int32, device=eng.device)
+        step, _ = model_lib.forward(
+            eng.params, eng.run_cfg, logits[:, -1].argmax(-1)[:, None],
+            positions=ci[:, None], cache=cache, cache_index=ci)
+    return step[0, -1].float().cpu().numpy()
+
+
+def _spawn_rank(kind, argv, stats_path, log_path):
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "chip_smoke.mesh_rank(%r, %r, %r)" % (str(REPO), kind, argv,
+                                                    stats_path))
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    log = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                            stderr=subprocess.STDOUT, env=env, cwd=REPO)
+
+
+def _reap(procs, logs, label, timeout=120.0) -> None:
+    """Wait for every rank; a rank that fails, or does not end, fails the
+    path (its log's tail in the message)."""
+    deadline = time.monotonic() + timeout
+    for p, log in zip(procs, logs):
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        if p.returncode != 0:
+            tail = Path(log).read_text()[-3000:]
+            raise SmokeFailure(f"{label}: a rank exited {p.returncode}:\n"
+                               f"{tail}")
+
+
+def _kill(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _mesh_agreement(torch, eng, streams) -> dict:
+    """Greedy agreement of ``streams`` (prompt ids, committed tokens) with
+    ``eng``'s own greedy choice at every position, each fed the stream's
+    context (one forward over prompt + stream)."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    agree = total = 0
+    for s in streams:
+        seq = s["prompt"] + s["stream"]
+        if len(s["stream"]) < 1:
+            continue
+        toks = torch.tensor([seq[:-1]], device=eng.device)
+        with torch.no_grad(), eng._on_mesh():
+            logits, _ = model_lib.forward(eng.params, eng.run_cfg, toks)
+        want = logits[0, len(s["prompt"]) - 1:].argmax(-1).tolist()
+        agree += sum(int(a == b) for a, b in zip(want, s["stream"]))
+        total += len(s["stream"])
+        del logits
+    return {"agree": agree, "tokens": total,
+            "agreement": agree / max(total, 1)}
+
+
+def _read_stats(paths) -> list:
+    return [json.loads(Path(p).read_text()) for p in paths]
+
+
+def mesh_tensor_parallel(torch, card, lap, store, tmp) -> dict:
+    """p1: ``dlt-serve-torch --store SB`` on two ranks (model=2) over the
+    one card, path a's requests over HTTP, held to a one-rank engine over
+    the same store."""
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    dist_port, port = _free_port(), _free_port()
+    stats = [f"{tmp}/p1_rank{r}.json" for r in range(MESH_TP)]
+    logs = [f"{tmp}/p1_rank{r}.log" for r in range(MESH_TP)]
+    procs = []
+    for r in range(MESH_TP):
+        argv = ["--store", store, *MESH_ARGS, "--port", str(port),
+                "--override", f"mesh.model={MESH_TP}",
+                "--override", f"cluster.num_processes={MESH_TP}",
+                "--override", f"cluster.process_id={r}",
+                "--override",
+                f"cluster.distributed_coordinator=127.0.0.1:{dist_port}"]
+        procs.append(_spawn_rank("serve", argv, stats[r], logs[r]))
+    try:
+        _wait_http(port, procs, logs, "mesh/p1")
+        lap("p1_boot")
+        t0 = time.perf_counter()
+        served = asyncio.run(_serve_requests(port))
+        http_s = time.perf_counter() - t0
+        lap("p1_requests")
+        procs[0].terminate()  # rank 0 drains and stops its followers
+        _reap(procs, logs, "mesh/p1")
+    finally:
+        _kill(procs)
+    from distributed_llms_tpu_torch.models.presets import get_preset
+
+    cfg = get_preset("llama-3-8b")
+    ranks = _read_stats(stats)
+    logits_mesh = __import__("numpy").load(stats[0] + ".logits.npy")
+    local = (f"K1_H{cfg.num_heads // MESH_TP}"
+             f"_KVH{cfg.num_kv_heads // MESH_TP}")
+    for r, st in enumerate(ranks):
+        steps = st["decode_steps"]
+        k1 = st["launches"]["paged_decode_attention"]
+        check(st["backend"] == "gloo" and st["loop"] == "eager",
+              f"mesh/p1: rank {r} not on gloo's eager step loop")
+        check(steps > 0 and k1 >= cfg.num_layers * steps,
+              f"mesh/p1: rank {r} launched K1 {k1} times, under "
+              f"{cfg.num_layers} layers x {steps} decode steps")
+        check(set(st["shapes"]) == {local},
+              f"mesh/p1: rank {r} launched K1 at {st['shapes']}, not only "
+              f"at the local heads ({local})")
+    # The one-rank engine over the same store, its batcher as the ranks'.
+    eng = InferenceEngine.from_store(store)
+    b = eng.continuous_batcher(batch_slots=8, max_len=1024, paged_pages=256,
+                               page_size=64, prefix_cache=True)
+    torch.cuda.synchronize()
+    one_mem = torch.cuda.memory_allocated()
+    logits_one = first_step_logits(torch, eng)
+    greedy = [s for s in ranks[0]["streams"]
+              if s["temperature"] in (None, 0.0) and s["stream"]]
+    tf = _mesh_agreement(torch, eng, greedy)
+    del b, eng
+    _free(torch)
+    lap("p1_one_rank")
+    diff = float(abs(logits_mesh - logits_one).max())
+    per_rank = [{
+        "rank": st["rank"], "loop": st["loop"],
+        "decode_steps": st["decode_steps"],
+        "k1_launches": st["launches"]["paged_decode_attention"],
+        "launch_shapes": st["shapes"],
+        "mem_after_boot_gb": st["mem_after_batcher"] / 1e9,
+        "mem_share_of_one_rank": st["mem_after_batcher"] / one_mem,
+        "ms_per_decode_step": st["decode_s"] * 1e3
+        / max(st["decode_steps_timed"], 1),
+        "collective_share_of_step": st["decode_collective_s"]
+        / max(st["decode_s"], 1e-9),
+        "collectives_per_step": st["decode_collective_calls"]
+        / max(st["decode_steps_timed"], 1)} for st in ranks]
+    emit("mesh_p1", card=card, mesh={"model": MESH_TP}, backend="gloo",
+         ranks=per_rank, one_rank_mem_gb=one_mem / 1e9,
+         first_step_logits_max_abs_diff=diff,
+         first_step_logits_scale=float(abs(logits_one).max()),
+         teacher_forced=tf, greedy_streams=len(greedy), http_s=http_s,
+         served={k: v for k, v in served.items() if k != "texts"})
+    for r in per_rank:
+        check(r["mem_share_of_one_rank"] < MESH_MEM_SHARE,
+              f"mesh/p1: rank {r['rank']} holds "
+              f"{r['mem_share_of_one_rank']:.2f} of the one-rank engine")
+    check(tf["tokens"] > 0 and tf["agreement"] >= MESH_AGREEMENT,
+          f"mesh/p1: greedy agreement {tf['agreement']:.3f} under "
+          f"{MESH_AGREEMENT}")
+    return {"paged_decode_attention": [r["k1_launches"] for r in per_rank]}
+
+
+def _wait_http(port, procs, logs, label) -> None:
+    import urllib.request
+
+    deadline = time.monotonic() + MESH_BOOT_S
+    while time.monotonic() < deadline:
+        for p, log in zip(procs, logs):
+            if p.poll() is not None:
+                raise SmokeFailure(f"{label}: a rank exited {p.returncode} "
+                                   f"at boot:\n{Path(log).read_text()[-3000:]}")
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                   timeout=2)
+            return
+        except OSError:
+            time.sleep(0.5)
+    raise SmokeFailure(f"{label}: no server after {MESH_BOOT_S} s")
+
+
+def mesh_control_plane(torch, card, lap, store, tmp, data, model) -> dict:
+    """p2: two ``dlt-host-torch`` processes (``cluster.num_processes=2``,
+    a data x model mesh) over path d's int8 store with int8 pages, under
+    an in-process ``Coordinator``: PLACE_SHARDS, the 8-request batch
+    through ``generate_requests`` (broadcast to both, the mesh batcher)
+    and its prompts through ``generate_spmd``."""
+    from distributed_llms_tpu_torch.cluster.coordinator import Coordinator
+    from distributed_llms_tpu_torch.core.config import ClusterConfig
+
+    label = f"mesh/p2_dp{data}tp{model}"
+    tag = f"p2_dp{data}tp{model}"
+    dist_port = _free_port()
+    stats = [f"{tmp}/{tag}_rank{r}.json" for r in range(2)]
+    logs = [f"{tmp}/{tag}_rank{r}.log" for r in range(2)]
+    reqs = [{"prompt": p, "max_new_tokens": n} for p, n in MESH_CP_REQUESTS]
+
+    async def drive():
+        coord = Coordinator(ClusterConfig(
+            coordinator_host="127.0.0.1", coordinator_port=0,
+            heartbeat_interval_s=0.5, heartbeat_timeout_s=600.0,
+            task_timeout_s=600.0))
+        await coord.start()
+        procs = []
+        try:
+            for r in range(2):
+                argv = ["--host", "127.0.0.1", "--port", str(coord.port),
+                        "--worker-id", f"{tag}-rank{r}",
+                        "--override", "cluster.num_processes=2",
+                        "--override", f"cluster.process_id={r}",
+                        "--override", "cluster.distributed_coordinator="
+                                      f"127.0.0.1:{dist_port}",
+                        "--override", "cluster.heartbeat_interval_s=0.5",
+                        "--override", f"mesh.data={data}",
+                        "--override", f"mesh.model={model}",
+                        *_p2_runtime_overrides()]
+                procs.append(_spawn_rank("host", argv, stats[r], logs[r]))
+            deadline = time.monotonic() + MESH_BOOT_S
+            while len(coord.workers) < 2:
+                for p, log in zip(procs, logs):
+                    if p.poll() is not None:
+                        raise SmokeFailure(
+                            f"{label}: a host exited {p.returncode}:\n"
+                            f"{Path(log).read_text()[-3000:]}")
+                check(time.monotonic() < deadline, f"{label}: no workers")
+                await asyncio.sleep(0.2)
+            check(all(w.capabilities["process_count"] == 2
+                      for w in coord.workers.values()),
+                  f"{label}: workers do not report 2 processes")
+            coord.plan_shards(2, store_dir=store)
+            placed = await coord.place_shards(timeout=600.0)
+            check(all("mesh" in r.get("resident", "")
+                      for r in placed.values()), f"{label}: {placed}")
+            lap(f"{tag}_place")
+            t0 = time.perf_counter()
+            batch = await coord.generate_requests(reqs, timeout=600.0)
+            batch_s = time.perf_counter() - t0
+            spmd = await coord.generate_spmd([r["prompt"] for r in reqs[:4]],
+                                             max_new_tokens=16)
+            lap(f"{tag}_batch")
+            for wid in list(coord.workers):
+                await coord.submit("SHUTDOWN", {}, worker_id=wid,
+                                   timeout=60.0)
+            await asyncio.to_thread(_reap, procs, logs, label)
+            return batch, batch_s, spmd
+        finally:
+            _kill(procs)
+            await coord.stop()
+
+    from distributed_llms_tpu_torch.models.presets import get_preset
+
+    batch, batch_s, spmd = asyncio.run(drive())
+    ranks = _read_stats(stats)
+    cfg = get_preset("llama-3-8b")
+    d, f = cfg.hidden_size, cfg.intermediate_size // model
+    want_k1q = (f"K1q_H{cfg.num_heads // model}"
+                f"_KVH{cfg.num_kv_heads // model}")
+    per_rank = []
+    for r, st in enumerate(ranks):
+        shapes = st["shapes"]
+        check(shapes.get(want_k1q, 0) > 0,
+              f"{label}: rank {r} launched no K1q at {want_k1q}: {shapes}")
+        check(all(not k.startswith("K1_") for k in shapes),
+              f"{label}: rank {r} launched K1 on an int8 pool: {shapes}")
+        check(shapes.get(f"K5_int8_K{d}_N{f}", 0) > 0
+              and shapes.get(f"K5_int8_K{f}_N{d}", 0) > 0,
+              f"{label}: rank {r} ran no K5 at the local gate/up and down "
+              f"shapes: {shapes}")
+        per_rank.append({"rank": st["rank"], "launch_shapes": shapes,
+                         "launches": st["launches"],
+                         "decode_steps": st.get("decode_steps"),
+                         "mem_after_engine_gb": st["mem_after_engine"] / 1e9,
+                         "ms_per_decode_step": st["decode_s"] * 1e3
+                         / max(st["decode_steps_timed"], 1),
+                         "collective_share_of_step":
+                             st["decode_collective_s"]
+                             / max(st["decode_s"], 1e-9)})
+    streams = [s for s in ranks[0]["streams"] if s["stream"]]
+    check(len(streams) == len(reqs), f"{label}: {len(streams)} streams seen")
+    check(all(s["stream"] == t["stream"] for s, t in
+              zip(streams, ranks[1]["streams"])),
+          f"{label}: the ranks' streams differ")
+    cross = None
+    if data > 1:
+        half = ranks[0]["slots"] // data
+        writers = [s for s in streams if s["slot"] < half and s["cached"] == 0]
+        readers = [s for s in streams if s["slot"] >= half and s["cached"] > 0]
+        check(writers and readers, f"{label}: no request on data rank 1 "
+              "reused a prefix page that data rank 0 wrote: "
+              f"{[(s['slot'], s['cached']) for s in streams]}")
+        cross = {"reader_slot": readers[0]["slot"],
+                 "cached_tokens": readers[0]["cached"],
+                 "writer_slot": writers[0]["slot"]}
+    return {"per_rank": per_rank, "streams": streams, "batch_s": batch_s,
+            "spmd_texts": spmd["text"], "batch_texts": batch["text"],
+            "cross_data_hit": cross}
+
+
+def _p2_runtime_overrides() -> list:
+    return [a for kv in ("runtime.serve_quantized=true", "runtime.kv_bits=8",
+                         "runtime.paged_pages=256", "runtime.page_size=64",
+                         "runtime.prefix_cache=true",
+                         "runtime.max_seq_len=1024",
+                         "runtime.max_decode_steps=16")
+            for a in ("--override", kv)]
+
+
+def mesh_p2(torch, card, lap, tmp) -> dict:
+    """p2 on both meshes, held to one rank's worker engine."""
+    from distributed_llms_tpu_torch.core.config import load_config
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    store = f"{tmp}/p2_store"
+    info = write_store(torch, "int8", store, "llama-3-8b",
+                       num_layers=STORE_LAYERS)
+    lap("p2_store")
+    legs = {}
+    try:
+        for data, model in ((1, 2), (2, 1)):
+            legs[f"dp{data}tp{model}"] = mesh_control_plane(
+                torch, card, lap, store, tmp, data, model)
+        rt = load_config(None, [kv for kv in _p2_runtime_overrides()
+                                if kv != "--override"]).runtime
+        eng = InferenceEngine.from_store(store, rt=rt)
+        out = {}
+        for name, leg in legs.items():
+            tf = _mesh_agreement(torch, eng, leg["streams"])
+            out[name] = {**{k: v for k, v in leg.items() if k != "streams"},
+                         "teacher_forced": tf}
+            check(tf["agreement"] >= MESH_AGREEMENT,
+                  f"mesh/p2 {name}: greedy agreement {tf['agreement']:.3f} "
+                  f"under {MESH_AGREEMENT}")
+        del eng
+        _free(torch)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    lap("p2_one_rank")
+    emit("mesh_p2", card=card, store=info, legs=out)
+    return {
+        "quant_matmul": [r["launches"]["quant_matmul"]
+                         for leg in legs.values() for r in leg["per_rank"]],
+        "paged_decode_attention_int8": [
+            r["launches"]["paged_decode_attention_int8"]
+            for leg in legs.values() for r in leg["per_rank"]]}
+
+
+def mesh_native_read(torch, card, store) -> None:
+    """p3: every array of store SB read by the native reader and by the
+    plain one: the same bytes and CRC32s; both times (the page cache is
+    warm from the store's write: nothing drops it)."""
+    import numpy as np
+
+    from distributed_llms_tpu_torch import native
+    from distributed_llms_tpu_torch.checkpoint import store as store_lib
+
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    man = store_lib.load_manifest(store)
+    metas = list(man["arrays"].values())
+    tasks = [(f"{store}/shard_{m['shard']}.bin", m["offset"], m["nbytes"])
+             for m in metas]
+    total = sum(m["nbytes"] for m in metas)
+    native_s = plain_s = 0.0
+    i = 0
+    while i < len(tasks):
+        j, size = i, 0
+        while j < len(tasks) and (size == 0
+                                  or size + tasks[j][2] <= 1 << 30):
+            size += tasks[j][2]
+            j += 1
+        t0 = time.perf_counter()
+        bufs, crcs = native.read_segments(tasks[i:j])
+        native_s += time.perf_counter() - t0
+        for (path, off, nb), buf, crc, m in zip(tasks[i:j], bufs, crcs,
+                                                metas[i:j]):
+            t0 = time.perf_counter()
+            plain = store_lib._read_checked(path, off, nb, m["crc32"])
+            plain_s += time.perf_counter() - t0
+            check(crc == m["crc32"], f"mesh/p3: native CRC of {path}@{off}")
+            check(np.array_equal(buf, plain), f"mesh/p3: bytes of {path}@{off}")
+        del bufs
+        i = j
+    emit("mesh_p3_read", card=card, store_bytes=total, arrays=len(tasks),
+         native_s=native_s, plain_s=plain_s, native_build_s=build_s,
+         native_gb_per_s=total / native_s / 1e9,
+         plain_gb_per_s=total / plain_s / 1e9, page_cache="warm")
+
+
+def mesh_train_ckpt(torch, card, tmp) -> None:
+    """p3: a ``Trainer`` at path g's width cut to TRAIN_CKPT_LAYERS layers:
+    2 steps, save, restore into a fresh ``Trainer``, 1 step; its loss
+    equals 3 uninterrupted steps' within 1e-3."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import train, train_ckpt
+
+    cfg = get_preset("llama-3-8b", attn_impl="flash",
+                     num_layers=TRAIN_CKPT_LAYERS)
+    batch = torch.randint(0, cfg.vocab_size, (2, TRAIN_CKPT_T), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def fresh():
+        params = model_lib.init_params(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+        return params, trainer, trainer.init(params)
+
+    params, trainer, state = fresh()
+    step = trainer.make_step()
+    straight = []
+    for _ in range(3):
+        params, state, loss = step(params, state, batch, None)
+        straight.append(float(loss))
+    del params, state
+    _free(torch)
+    params, trainer, state = fresh()
+    step = trainer.make_step()
+    for _ in range(2):
+        params, state, _ = step(params, state, batch, None)
+    ckpt = f"{tmp}/train_ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = train_ckpt.save_train_state(ckpt, 2, params, state)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in Path(path).iterdir())
+    del params, state, trainer, step
+    _free(torch)
+    t0 = time.perf_counter()
+    n, params, state = train_ckpt.restore_train_state(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    params, state, loss = trainer.make_step()(params, state, batch, None)
+    resumed = float(loss)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del params, state
+    _free(torch)
+    emit("mesh_p3_train_ckpt", card=card, layers=TRAIN_CKPT_LAYERS,
+         batch=[2, TRAIN_CKPT_T], losses_straight=straight,
+         loss_resumed=resumed, checkpoint_bytes=nbytes, save_s=save_s,
+         restore_s=restore_s, restored_step=n)
+    check(n == 2 and abs(resumed - straight[2]) <= 1e-3,
+          f"mesh/p3: resumed loss {resumed} vs {straight[2]}")
+
+
+def mesh_legacy_int4(torch, card, tmp) -> int:
+    """p3: a legacy int4 store (pairs along each weight's last axis, no
+    pack_axis in the manifest) serves through K5 with the same greedy
+    tokens as the same codes in the current layout.  Returns the legacy
+    engine's int4 K5 launches."""
+    from distributed_llms_tpu_torch.checkpoint import quantize as quant_lib
+    from distributed_llms_tpu_torch.checkpoint.store import (load_manifest,
+                                                             save_shards)
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = get_preset("llama-3-8b", num_layers=LEGACY_LAYERS)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    outs = {}
+    for name in ("legacy", "current"):
+        def quant(tree, path):
+            if isinstance(tree, dict):
+                return {k: quant(v, f"{path}/{k}") for k, v in tree.items()}
+            should, axis = quant_lib.leaf_plan(path.lstrip("/"), tree[0])
+            if not should or tree.dim() < 3:
+                return tree
+            return quant_lib.quantize(tree, bits=4,
+                                      pack_axis=-1 if name == "legacy"
+                                      else axis)
+
+        tree = {k: (quant(v, f"/{k}") if k == "blocks" else v)
+                for k, v in params.items()}
+        path = f"{tmp}/legacy_{name}"
+        save_shards(tree, path, num_shards=2, model_config=cfg)
+        man = load_manifest(path)
+        man["quantization"] = "int4"
+        if name == "legacy":
+            for entry in man["params"].values():
+                entry.pop("pack_axis", None)
+        Path(path, "manifest.json").write_text(json.dumps(man))
+        del tree
+        reset_launches()
+        eng = InferenceEngine.from_store(path, rt=RuntimeConfig(
+            serve_quantized=True, max_decode_steps=LEGACY_NEW))
+        out = eng.generate_text(list(GEN_PROMPTS[:4]),
+                                max_new_tokens=LEGACY_NEW)
+        outs[name] = (out.tokens.tolist(), read_launches()["quant_matmul_int4"],
+                      eng.params["blocks"]["attn"]["wq"].pack_axis)
+        del eng
+        _free(torch)
+        shutil.rmtree(path, ignore_errors=True)
+    del params
+    _free(torch)
+    emit("mesh_p3_legacy_int4", card=card, layers=LEGACY_LAYERS,
+         k5_int4_launches={k: v[1] for k, v in outs.items()},
+         wq_pack_axis={k: v[2] for k, v in outs.items()},
+         tokens_equal=outs["legacy"][0] == outs["current"][0])
+    check(outs["legacy"][1] > 0, "mesh/p3: the legacy store ran no K5 int4")
+    check(outs["legacy"][0] == outs["current"][0],
+          "mesh/p3: the legacy store's greedy tokens differ from the "
+          "current layout's")
+    return outs["legacy"][1]
+
+
+def serve_mesh(torch) -> dict:
+    """Path p: tensor parallelism over HTTP at Llama-3-8B's full width and
+    depth (p1), data and tensor parallelism through the control plane over
+    an int8 store (p2), and the leftovers (p3: the native reader, training
+    checkpoints, a legacy int4 store).  Returns each kernel's launches per
+    rank on the mesh legs."""
+    card = _card()
+    lap = _lap("mesh_time")
+    tmp = tempfile.mkdtemp(prefix="dlt_mesh_")
+    out: dict = {}
+    try:
+        store = f"{tmp}/sb"
+        info = write_store(torch, None, store, "llama-3-8b")
+        emit("mesh_store", card=card, **info)
+        lap("p1_store")
+        out.update(mesh_tensor_parallel(torch, card, lap, store, tmp))
+        mesh_native_read(torch, card, store)
+        lap("p3_read")
+        shutil.rmtree(store, ignore_errors=True)
+        out.update(mesh_p2(torch, card, lap, tmp))
+        mesh_train_ckpt(torch, card, tmp)
+        lap("p3_train_ckpt")
+        out["quant_matmul_int4"] = [mesh_legacy_int4(torch, card, tmp)]
+        lap("p3_legacy")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "generate", "families", "fleet", "elastic", "train",
-          "profile")
+          "constrain", "generate", "families", "fleet", "elastic", "mesh",
+          "train", "profile")
 
 
 def main() -> int:
@@ -7258,6 +8059,10 @@ def main() -> int:
             # ride beside each kernel's own path's.
             for name, n in timed("elastic", serve_elastic, torch).items():
                 kernels[name]["elastic_launches"] = n
+        if "mesh" in phases:
+            # Path p's launches, one count a rank of each mesh leg.
+            for name, n in timed("mesh", serve_mesh, torch).items():
+                kernels[name]["mesh_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

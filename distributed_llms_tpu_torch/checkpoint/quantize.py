@@ -102,13 +102,19 @@ def quantize(x: torch.Tensor, bits: int = 8, block: int = 128,
                 f"int4 packing requires even size along pack_axis {pack_axis} "
                 f"(shape {orig_shape})"
             )
-        lead = (slice(None),) * a
-        q32 = q.to(torch.int32)
-        lo = q32[lead + (slice(0, None, 2),)] & 0x0F
-        hi = (q32[lead + (slice(1, None, 2),)] & 0x0F) << 4
-        q = (lo | hi).to(torch.uint8).view(torch.int8)
+        q = pack_int4(q, pack_axis)
     return QuantizedTensor(data=q, scale=scale, bits=bits,
                            orig_shape=orig_shape, pack_axis=pack_axis)
+
+
+def pack_int4(q: torch.Tensor, axis: int) -> torch.Tensor:
+    """int8 values in [-8, 7] -> packed int4 bytes, pairs along ``axis``
+    (negative, even size): low nibble = even index, high = odd."""
+    lead = (slice(None),) * (q.dim() + axis)
+    q32 = q.to(torch.int32)
+    lo = q32[lead + (slice(0, None, 2),)] & 0x0F
+    hi = (q32[lead + (slice(1, None, 2),)] & 0x0F) << 4
+    return (lo | hi).to(torch.uint8).view(torch.int8)
 
 
 def unpack_int4(q: torch.Tensor, axis: int) -> torch.Tensor:

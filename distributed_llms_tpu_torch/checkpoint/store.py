@@ -45,6 +45,7 @@ from ..core.observability import get_logger
 from ..models.model import torch_dtype
 from . import quantize as quant_lib
 from .quantize import QuantizedTensor
+from ..parallel.stages import pack_greedy
 
 SEP = "/"
 MANIFEST = "manifest.json"
@@ -64,19 +65,6 @@ _TOKENIZER_FILES = (
     "vocab.txt",
     "spiece.model",
 )
-
-
-def pack_greedy(item_bytes: dict[str, int], num_bins: int) -> dict[str, int]:
-    """Greedy largest-first min-bin packing: returns {item: bin}.  Ties keep
-    the items' order and the lowest bin wins, as in the JAX package's
-    ``parallel.stages.pack_greedy``."""
-    bins = [0] * num_bins
-    out: dict[str, int] = {}
-    for name in sorted(item_bytes, key=item_bytes.__getitem__, reverse=True):
-        b = min(range(num_bins), key=bins.__getitem__)
-        bins[b] += item_bytes[name]
-        out[name] = b
-    return out
 
 
 def crc32(arr: np.ndarray) -> int:
@@ -265,13 +253,21 @@ def load_manifest(store_dir: str) -> dict:
 
 
 class _Arrays:
-    """A store's arrays, read one at a time."""
+    """A store's arrays.  Raw shards are read through the native segment
+    reader (``native/``: threaded ``pread`` with the CRC32 in the same
+    pass), a batch of arrays at a time (:meth:`prefetch`); npz shards one
+    at a time.  When the arrays go to a GPU they land in one pinned host
+    arena, allocated once and reused by every batch, so a batch's arrays
+    must be copied out before the next :meth:`prefetch`."""
 
-    def __init__(self, store_dir: str, manifest: dict):
+    def __init__(self, store_dir: str, manifest: dict, pin: bool = False):
         self.dir = store_dir
         self.manifest = manifest
         self.raw = manifest.get("storage", "npz") == "raw"
+        self.pin = pin
+        self._arena: torch.Tensor | None = None
         self.npz: dict[int, Any] = {}
+        self._ready: dict[str, Any] = {}
         for i in range(manifest["num_shards"]):
             path = self._shard_path(i)
             if not os.path.exists(path):
@@ -282,6 +278,36 @@ class _Arrays:
         ext = "bin" if self.raw else "npz"
         return os.path.join(self.dir, f"shard_{i}.{ext}")
 
+    def prefetch(self, anames: list[str]) -> None:
+        """Read these raw arrays in one parallel pass, each held to its
+        CRC32 (a mismatch raises ``IOError``)."""
+        if not self.raw:
+            return
+        from .. import native
+
+        metas = [self.manifest["arrays"][a] for a in anames]
+        tasks = [(self._shard_path(m["shard"]), m["offset"], m["nbytes"])
+                 for m in metas]
+        out = None
+        if self.pin:
+            total = sum(m["nbytes"] for m in metas)
+            if self._arena is None or self._arena.numel() < total:
+                self._arena = None
+                self._arena = torch.empty(total, dtype=torch.uint8,
+                                          pin_memory=True)
+            out, at = [], 0
+            for m in metas:
+                out.append(self._arena[at:at + m["nbytes"]])
+                at += m["nbytes"]
+        bufs, crcs = native.read_segments(tasks, out=out)
+        for a, m, buf, crc in zip(anames, metas, bufs, crcs):
+            if crc != m["crc32"]:
+                raise IOError(
+                    f"checksum mismatch in {self._shard_path(m['shard'])} @ "
+                    f"{m['offset']} (expected {m['crc32']:#010x}, got "
+                    f"{crc:#010x}) — store corrupt?")
+            self._ready[a] = buf
+
     def __getitem__(self, aname: str) -> np.ndarray:
         meta = self.manifest["arrays"][aname]
         if not self.raw:
@@ -290,8 +316,11 @@ class _Arrays:
                 z = self.npz[meta["shard"]] = np.load(
                     self._shard_path(meta["shard"]))
             return z[aname]
-        buf = _read_checked(self._shard_path(meta["shard"]), meta["offset"],
-                            meta["nbytes"], meta["crc32"])
+        if aname not in self._ready:
+            self.prefetch([aname])
+        buf = self._ready.pop(aname)
+        if isinstance(buf, torch.Tensor):
+            buf = buf.numpy()
         return buf.view(np.dtype(meta["dtype"])).reshape(meta["shape"])
 
     def close(self) -> None:
@@ -299,52 +328,101 @@ class _Arrays:
             z.close()
 
 
+# Bytes of raw arrays read in one parallel pass of the native reader.
+PREFETCH_BYTES = 1 << 30
+
+
+def _batches(manifest: dict, names: list[str]) -> list[list[str]]:
+    """The store's array names in read batches of about PREFETCH_BYTES (an
+    npz store's in one: its shards load whole)."""
+    if manifest.get("storage", "npz") != "raw":
+        return [[a for n in names for a in (
+            [n + ".q", n + ".scale"]
+            if manifest["params"][n]["dtype"] == "quantized" else [n])]]
+    out: list[list[str]] = [[]]
+    size = 0
+    for name in names:
+        meta = manifest["params"][name]
+        arrays = ([name + ".q", name + ".scale"]
+                  if meta["dtype"] == "quantized" else [name])
+        nbytes = sum(manifest["arrays"][a]["nbytes"] for a in arrays)
+        if out[-1] and size + nbytes > PREFETCH_BYTES:
+            out.append([])
+            size = 0
+        out[-1].extend(arrays)
+        size += nbytes
+    return out
+
+
 def load_shards(
     store_dir: str,
     dequantize: bool = False,
     dtype: "str | torch.dtype | None" = None,
     device: "str | torch.device | None" = None,
+    place: Any = None,
 ) -> dict[str, Any]:
     """Load every param of the store, each leaf moved to ``device`` (None
     means CUDA; see ``core.device``) as soon as it is read.  Returns the
     nested param tree: tensors, and :class:`QuantizedTensor` leaves unless
     ``dequantize`` (then dequantized to ``dtype``, default float32).
-    ``dtype`` also casts the unquantized leaves."""
+    ``dtype`` also casts the unquantized leaves.  ``place(name, leaf)``
+    (a mesh rank's cut, ``parallel/specs.py``) transforms each leaf on the
+    host before it moves."""
     device = resolve_device(device)
     manifest = load_manifest(store_dir)
     dtype = torch_dtype(dtype) if dtype is not None else None
-    arrays = _Arrays(store_dir, manifest)
+    arrays = _Arrays(store_dir, manifest, pin=device.type == "cuda")
+    names = list(manifest["params"])
     flat: dict[str, Any] = {}
+
     try:
-        for name, meta in manifest["params"].items():
-            if meta["dtype"] == "quantized":
-                qt = QuantizedTensor(
-                    data=torch.from_numpy(arrays[name + ".q"]).to(device),
-                    scale=torch.from_numpy(arrays[name + ".scale"]).to(device),
-                    bits=meta["bits"],
-                    orig_shape=tuple(meta["shape"]),
-                    # Stores written before pack_axis was recorded packed
-                    # int4 pairs along the LAST axis: a missing key decodes
-                    # as -1, not the modern default of -2.
-                    pack_axis=meta.get("pack_axis", -1),
-                )
-                flat[name] = (quant_lib.dequantize(qt, dtype or torch.float32)
-                              if dequantize else qt)
-                continue
-            arr = arrays[name]
-            if meta["dtype"] == "bfloat16":
-                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.asarray(arr))
-            t = t.to(device)
-            flat[name] = t.to(dtype) if dtype else t
+        for batch in _batches(manifest, names):
+            arrays.prefetch(batch)
+            for name in dict.fromkeys(a if a in manifest["params"]
+                                      else a.rsplit(".", 1)[0]
+                                      for a in batch):
+                meta = manifest["params"][name]
+                if meta["dtype"] == "quantized":
+                    leaf = QuantizedTensor(
+                        data=torch.from_numpy(arrays[name + ".q"]),
+                        scale=torch.from_numpy(arrays[name + ".scale"]),
+                        bits=meta["bits"],
+                        orig_shape=tuple(meta["shape"]),
+                        # Stores written before pack_axis was recorded
+                        # packed int4 pairs along the LAST axis: a missing
+                        # key decodes as -1, not the modern default of -2.
+                        pack_axis=meta.get("pack_axis", -1),
+                    )
+                    if dequantize:
+                        # Dequantized where it will live, then cut there.
+                        leaf = quant_lib.dequantize(leaf.to(device),
+                                                    dtype or torch.float32)
+                        flat[name] = (place(name, leaf) if place is not None
+                                      else leaf)
+                        continue
+                else:
+                    arr = arrays[name]
+                    if meta["dtype"] == "bfloat16":
+                        leaf = torch.from_numpy(arr.view(np.int16)).view(
+                            torch.bfloat16)
+                    else:
+                        leaf = torch.from_numpy(np.asarray(arr))
+                    if dtype:
+                        leaf = leaf.to(device).to(dtype)
+                # Cut on the host (only the rank's block crosses to the
+                # device), then moved.
+                if place is not None:
+                    leaf = place(name, leaf)
+                flat[name] = leaf.to(device)
     finally:
         arrays.close()
     return _unflatten(flat)
 
 
 def reconstruct(store_dir: str, dtype: "str | torch.dtype | None" = None,
-                device: "str | torch.device | None" = None) -> dict[str, Any]:
+                device: "str | torch.device | None" = None,
+                place: Any = None) -> dict[str, Any]:
     """Merge every shard back into a full (dequantized) param tree on
-    ``device`` (None means CUDA)."""
-    return load_shards(store_dir, dequantize=True, dtype=dtype, device=device)
+    ``device`` (None means CUDA); ``place`` as in :func:`load_shards`."""
+    return load_shards(store_dir, dequantize=True, dtype=dtype, device=device,
+                       place=place)

@@ -5,9 +5,12 @@ cleanly on Ctrl-C.
 
 ``dlt-host-torch --host COORD --port 65432 --worker-id pod-0``: the worker
 registers under a stable id (``--worker-id`` or ``$DLT_WORKER_ID``), so a
-restarted host keeps its shard assignment.  A worker is one process:
-``cluster.num_processes > 1`` (one runtime spanning several processes) is
-refused, since multi-process, multi-GPU serving is not ported yet.
+restarted host keeps its shard assignment.  With
+``cluster.num_processes > 1`` each process is one rank of a mesh: it
+joins the ``torch.distributed`` group at ``cluster.distributed_coordinator``
+as rank ``cluster.process_id`` (``cluster/distributed.py``; NCCL when
+every rank has a GPU of its own, gloo otherwise) and serves its rank's
+shard of ``mesh`` (whose size must be the group's, checked at boot).
 """
 
 from __future__ import annotations
@@ -17,17 +20,19 @@ import asyncio
 import os
 import sys
 
+from ..cluster.distributed import initialize_distributed
 from ..cluster.worker import WorkerHost
 from ..core.config import load_config
 
 
 async def amain(args: argparse.Namespace) -> None:
     cfg = load_config(args.config, args.override)
-    if cfg.cluster.num_processes > 1:
-        raise NotImplementedError(
-            f"cluster.num_processes={cfg.cluster.num_processes}: a worker "
-            "spanning several processes (multi-process, multi-GPU serving) "
-            "is not ported yet; run one worker process per GPU")
+    world = cfg.cluster.num_processes
+    if cfg.mesh.num_devices > 1 and cfg.mesh.num_devices != world:
+        raise ValueError(
+            f"mesh shape {cfg.mesh.shape} needs {cfg.mesh.num_devices} "
+            f"processes, got cluster.num_processes={world}")
+    initialize_distributed(cfg.cluster, device=args.device)
     # CLI flags win when given; otherwise the config file decides.
     host = args.host if args.host is not None else cfg.cluster.coordinator_host
     port = args.port if args.port is not None else cfg.cluster.coordinator_port

@@ -61,6 +61,19 @@ Every added replica is built by the same factory as the boot-time ones,
 over the same copy of the weights.  The ``fleet.scale_up`` /
 ``fleet.scale_down`` fault sites fire on the shared plane.
 
+Tensor and data parallelism: ``torchrun --nproc-per-node 2 -m
+distributed_llms_tpu_torch.cli.serve_main --store DIR --override
+mesh.model=2 ...`` (or one process per rank with ``--override
+cluster.num_processes=2 --override cluster.process_id=R --override
+cluster.distributed_coordinator=HOST:PORT``) serves a store on a data x
+model mesh: every rank joins one ``torch.distributed`` group
+(``cluster/distributed.py``: NCCL when each rank has a GPU of its own,
+gloo when ranks share one), loads its block of the weights, and builds
+the same batcher; rank 0 serves HTTP and journals its requests, which the
+other ranks follow at every engine iteration (``runtime/lockstep.py``).
+A mesh whose size is not the group's fails at boot.  Fleets, presets
+and the speculative knobs are single-process.
+
 The flags mirror ``dlt-serve``'s.
 """
 
@@ -109,8 +122,8 @@ def _build_engine(args):
 
         faults = FaultPlane.parse(fault_spec, strict=True)
         log.warning("fault injection armed: %s", faults.describe())
+    mesh_cfg = _join_mesh(args, cfg)
     if args.store:
-        mesh_cfg = cfg.mesh if cfg.mesh.num_devices > 1 else None
         engine = InferenceEngine.from_store(args.store, rt=rt,
                                             mesh_cfg=mesh_cfg,
                                             device=args.device)
@@ -118,6 +131,8 @@ def _build_engine(args):
                 faults, fault_spec)
     if not args.preset:
         raise SystemExit("one of --store or --preset is required")
+    if mesh_cfg is not None:
+        raise SystemExit("a mesh serves a shard store: pass --store")
     # Random-weight serving with the byte tokenizer: tiny presets (vocab
     # 256) cannot hold its specials (259 ids) — widen to 512.
     from ..models.presets import get_preset
@@ -133,6 +148,32 @@ def _build_engine(args):
         **overrides,
     )
     return engine, args.preset, rt, faults, fault_spec
+
+
+def _join_mesh(args, cfg):
+    """Join the process group this server is one rank of (the config's
+    ``cluster`` section, or ``torchrun``'s environment) and return the
+    mesh to serve on, or None for one process on one device."""
+    from ..cluster.distributed import (initialize_distributed,
+                                       initialize_from_env)
+
+    if cfg.cluster.num_processes > 1:
+        initialize_distributed(cfg.cluster, device=args.device)
+    else:
+        initialize_from_env(device=args.device)
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and cfg.mesh.num_devices == 1:
+        return None
+    if cfg.mesh.num_devices != world:
+        raise ValueError(
+            f"mesh shape {cfg.mesh.shape} needs {cfg.mesh.num_devices} "
+            f"processes, got {world}")
+    if _is_fleet(args) or args.spec_decode:
+        raise SystemExit("--replicas, --disaggregate, --replicas-max and "
+                         "--spec-decode serve on one process, not on a mesh")
+    return cfg.mesh
 
 
 def _server_factory(args, engine, default_name, rt, faults, *,
@@ -154,6 +195,12 @@ def _server_factory(args, engine, default_name, rt, faults, *,
         # Called at boot and again by the supervisor after an engine crash,
         # with the SAME fault plane: its rules' counters survive the
         # restart, so a once-only rule does not fire again.
+        b = _make()
+        if b.pm is not None:
+            b.enable_lockstep()  # rank 0 journals, the others follow
+        return b
+
+    def _make():
         return engine.continuous_batcher(
             batch_slots=args.slots,
             max_len=args.max_len,
@@ -480,7 +527,17 @@ async def _serve(args) -> None:
     if _is_fleet(args):
         await _serve_fleet(args, stop)
         return
-    server = build_server(args)
+    engine, default_name, rt, faults, _spec = _build_engine(args)
+    make_server = _server_factory(args, engine, default_name, rt, faults)
+    if engine.pm is not None and engine.pm.mesh.rank != 0:
+        # A following rank: the same batcher, fed by rank 0's journal.
+        from ..runtime.lockstep import follow
+
+        batcher = make_server().batcher
+        log.info("rank %d following rank 0", engine.pm.mesh.rank)
+        await asyncio.to_thread(follow, batcher)
+        return
+    server = make_server()
     host, port = await server.start()
     log.info("ready on http://%s:%s (Ctrl-C to stop)", host, port)
     await stop.wait()
@@ -716,7 +773,13 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
     check_fleet_flags(args)
-    asyncio.run(_serve(args))
+    try:
+        asyncio.run(_serve(args))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -534,8 +534,8 @@ class Coordinator:
         batching (runtime/batcher.py): per-request budgets, no
         head-of-line blocking.  A pool of workers that report
         ``process_count > 1`` (one multi-process runtime) gets the batch
-        broadcast, as :meth:`generate_spmd` does; no port worker reports
-        more than one process yet."""
+        broadcast, as :meth:`generate_spmd` does (the processes of a mesh
+        worker, ``cluster/worker.py``)."""
         # Validate before dispatch so single-device (batcher) and mesh
         # (grouped) workers see only well-formed batches — the two engines
         # would otherwise diverge on how a bad request degrades.
@@ -593,8 +593,8 @@ class Coordinator:
         dispatched to ALL registered workers at once (a single-worker
         dispatch would deadlock inside the first collective).  Each
         process computes and returns the identical full batch; the
-        replies are checked against each other and one is returned.  Host
-        routing only: no port worker reports more than one process yet."""
+        replies are checked against each other and one is returned (the
+        ranks of a mesh worker, ``cluster/worker.py``)."""
         if not self.workers:
             raise RuntimeError("no workers registered")
         return await self._submit_spmd(

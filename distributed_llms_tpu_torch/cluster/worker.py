@@ -18,8 +18,13 @@ beat), ``worker.handle`` (``raise`` fails a command: an ERROR reply the
 coordinator retries), ``worker.result`` (``drop`` loses the reply,
 ``close`` severs the connection at the answer), tag = command type.
 
-A worker serves one device.  A multi-device mesh is refused when the
-worker is built: serving a store over several GPUs is not ported yet.
+A worker serves one device, or one rank of a data x tensor-parallel mesh
+(``mesh_cfg`` with more than one device): every process of the mesh joins
+one ``torch.distributed`` group first (``cluster/distributed.py``), builds
+its rank's shard of the store at ``PLACE_SHARDS`` and reports the group's
+size as ``process_count``, so the coordinator dispatches every generate
+to all of them at once (``Coordinator.generate_spmd``) and each rank runs
+it in lockstep.  Engine commands run one at a time.
 """
 
 from __future__ import annotations
@@ -38,21 +43,29 @@ from . import protocol
 log = get_logger("worker")
 
 
+def process_count() -> int:
+    """The processes of this worker's runtime: the ``torch.distributed``
+    group's size, 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def device_capabilities(device: "str | torch.device | None" = None) -> dict:
     """What a worker registers with: platform ``gpu`` with the CUDA devices'
-    name and count, or ``cpu`` when the worker runs there by request.
-    ``process_count`` is 1: a port worker is one process (a count above 1
-    would route the coordinator's generates to every worker at once)."""
+    name and count, or ``cpu`` when the worker runs there by request, and
+    ``process_count``, the processes of its runtime (above 1, the
+    coordinator routes every generate to all its workers at once)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         return {
             "platform": "gpu",
             "num_devices": torch.cuda.device_count(),
             "device_kind": torch.cuda.get_device_name(dev),
-            "process_count": 1,
+            "process_count": process_count(),
         }
     return {"platform": "cpu", "num_devices": 1, "device_kind": "cpu",
-            "process_count": 1}
+            "process_count": process_count()}
 
 
 class WorkerHost:
@@ -72,10 +85,7 @@ class WorkerHost:
         faults: Any = None,  # FaultPlane | None (runtime/faults.py)
         device: "str | torch.device | None" = None,
     ) -> None:
-        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
-            raise NotImplementedError(
-                f"a worker serves one device; a {mesh_cfg.num_devices}-"
-                "device mesh (multi-GPU serving) is not ported yet")
+        self.mesh_cfg = mesh_cfg
         self.cfg = cfg or ClusterConfig()
         self.rt = rt or RuntimeConfig()
         self.faults = faults
@@ -88,6 +98,9 @@ class WorkerHost:
         self.loaded_shards: list[int] = []
         self._tasks: list[asyncio.Task] = []
         self._stop = asyncio.Event()
+        # Engine commands one at a time: a mesh rank's collectives must run
+        # in the same order on every rank.
+        self._engine_lock = asyncio.Lock()
 
     # -- default engine: shard store -> InferenceEngine --------------------
 
@@ -95,9 +108,12 @@ class WorkerHost:
                                 rt: RuntimeConfig):
         from ..runtime.engine import InferenceEngine
 
-        log.info("assigned shards %s; the single-device engine loads the "
-                 "full model", shards)
-        return InferenceEngine.from_store(store_dir, rt=rt,
+        mesh = self.mesh_cfg if (self.mesh_cfg is not None
+                                 and self.mesh_cfg.num_devices > 1) else None
+        log.info("assigned shards %s; %s", shards,
+                 "this rank loads its block of every leaf" if mesh
+                 else "the single-device engine loads the full model")
+        return InferenceEngine.from_store(store_dir, rt=rt, mesh_cfg=mesh,
                                           device=self.device)
 
     # -- lifecycle ---------------------------------------------------------
@@ -236,12 +252,13 @@ class WorkerHost:
             store_dir = payload["store_dir"]
             shards = payload["shards"]
             # The load (store read + copy to the device) runs off the loop.
-            self.engine = await asyncio.to_thread(
-                self.engine_factory, store_dir, shards, self.rt
-            )
+            async with self._engine_lock:
+                self.engine = await asyncio.to_thread(
+                    self.engine_factory, store_dir, shards, self.rt
+                )
             self.loaded_shards = shards
             # What the built engine is, not what the config asked for.
-            pm = getattr(self.engine, "parallel", None)
+            pm = getattr(self.engine, "pm", None)
             resident = (
                 f"mesh({dict(pm.mesh.shape)})" if pm is not None
                 else "full-model"
@@ -254,15 +271,15 @@ class WorkerHost:
         if mtype in ("GENERATE", "SCHEDULE_COMPUTATION"):
             if self.engine is None:
                 raise RuntimeError("no model placed (PLACE_SHARDS first)")
-            if "requests" in payload:
-                return await asyncio.to_thread(
-                    self._generate_requests, payload["requests"]
+            async with self._engine_lock:
+                if "requests" in payload:
+                    return await asyncio.to_thread(
+                        self._generate_requests, payload["requests"]
+                    )
+                res = await asyncio.to_thread(
+                    self.engine.generate_text, payload["prompts"],
+                    payload.get("max_new_tokens")
                 )
-            prompts = payload["prompts"]
-            res = await asyncio.to_thread(
-                self.engine.generate_text, prompts,
-                payload.get("max_new_tokens")
-            )
             return {
                 "text": res.text,
                 "generated_tokens": res.generated_tokens,

@@ -1,0 +1,191 @@
+"""Device meshes over ``torch.distributed`` (PyTorch port of
+``distributed_llms_tpu/core/mesh.py``).
+
+The reference lays its devices out as a ``jax.sharding.Mesh`` with axes
+``(data, pipe, model, seq, expert)`` and lets GSPMD insert the
+collectives.  Here one PROCESS is one mesh position: rank r sits at
+``numpy.unravel_index(r, shape)`` (the reference's row-major reshape of
+its device list), runs on ``cuda:(local_rank % device_count)`` (two ranks
+on a one-GPU machine share ``cuda:0``), and the model code calls the
+collectives itself (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`)
+over one process group per ``model`` line and per ``data`` line, built
+with ``dist.new_group`` in the same order on every rank.
+
+Under gloo a CUDA tensor is staged through host memory for each
+collective; under NCCL it goes as it is.  :attr:`Mesh.stats` counts the
+collectives and the seconds spent in them (staging included).
+
+The model code finds the mesh of the forward it runs through
+``parallel/plan.py`` (thread-local), so a single-device forward pays
+nothing.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from .config import MeshConfig
+
+__all__ = ["Mesh", "build_mesh"]
+
+AXES = ("data", "pipe", "model", "seq", "expert")
+
+
+class Mesh:
+    """This rank's view of the mesh: axis sizes, its coordinates, its
+    device, and the process groups of its ``data`` and ``model`` lines.
+
+    Without an initialized process group (``world_size``/``rank`` given
+    explicitly) the mesh carries the layout only: the placement rules
+    (``parallel/specs.py``) read it, and a collective raises."""
+
+    def __init__(self, cfg: MeshConfig, rank: int, world_size: int,
+                 device: "torch.device | str", groups: bool) -> None:
+        self.cfg = cfg
+        self.shape = dict(zip(AXES, cfg.shape))
+        self.rank = rank
+        self.world_size = world_size
+        self.device = torch.device(device)
+        self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
+            rank, cfg.shape))))
+        self.backend: str | None = None
+        self._groups: dict[str, Any] = {}
+        self.stats = {"calls": 0, "seconds": 0.0}
+        if groups:
+            self._build_groups()
+
+    # -- layout --------------------------------------------------------------
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def _line(self, axis: str, coords: dict) -> list[int]:
+        """Global ranks of the line through ``coords`` along ``axis``."""
+        shape = self.cfg.shape
+        k = AXES.index(axis)
+        out = []
+        for i in range(shape[k]):
+            c = [coords[a] for a in AXES]
+            c[k] = i
+            out.append(int(np.ravel_multi_index(c, shape)))
+        return out
+
+    def _build_groups(self) -> None:
+        import torch.distributed as dist
+
+        self.backend = dist.get_backend()
+        shape = self.cfg.shape
+        for axis in ("data", "model"):
+            k = AXES.index(axis)
+            # Every line of this axis, in one order on every rank
+            # (new_group is collective over the whole world).
+            seen = set()
+            for r in range(self.world_size):
+                c = dict(zip(AXES, np.unravel_index(r, shape)))
+                line = tuple(self._line(axis, {a: int(v) for a, v in
+                                               c.items()}))
+                if line in seen:
+                    continue
+                seen.add(line)
+                g = dist.new_group(list(line)) if shape[k] > 1 else None
+                if self.rank in line:
+                    self._groups[axis] = g
+        # Host objects (the lockstep journal) ride a gloo group; under gloo
+        # that is the world group itself.
+        self._groups["host"] = (None if self.backend == "gloo"
+                                else dist.new_group(backend="gloo"))
+
+    # -- collectives ----------------------------------------------------------
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.backend == "gloo" and x.is_cuda
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """Sum ``x`` over the ``axis`` line (a new tensor on x's device)."""
+        if self.size(axis) == 1:
+            return x
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        y = x.detach().cpu() if self._staged(x) else x.detach().clone()
+        dist.all_reduce(y, group=self._groups[axis])
+        out = y.to(x.device, non_blocking=False)
+        self._note(t0)
+        return out
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axis: str = "model") -> torch.Tensor:
+        """Concatenate every rank's ``x`` of the ``axis`` line along
+        ``dim``, in line order."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        y = x.detach().cpu() if self._staged(x) else x.detach().contiguous()
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y, group=self._groups[axis])
+        out = torch.cat(parts, dim=dim).to(x.device)
+        self._note(t0)
+        return out
+
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """``obj`` of global rank ``src``, on every rank (host objects)."""
+        import torch.distributed as dist
+
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src, group=self._groups["host"])
+        return box[0]
+
+    def _note(self, t0: float) -> None:
+        self.stats["calls"] += 1
+        self.stats["seconds"] += time.perf_counter() - t0
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend})")
+
+
+def rank_device(rank: int, device: "str | torch.device | None" = None
+                ) -> torch.device:
+    """The device of a rank: ``cuda:(LOCAL_RANK % device_count)`` (the
+    rank itself without LOCAL_RANK), or the CPU when asked for."""
+    import os
+
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "mesh on the CPU explicitly")
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def build_mesh(cfg: MeshConfig, device: "str | torch.device | None" = None,
+               rank: int | None = None,
+               world_size: int | None = None) -> Mesh:
+    """The mesh over the initialized process group (axis sizes multiply to
+    the world size, the reference's ``ValueError`` otherwise), or a
+    layout-only mesh at an explicit ``rank`` of ``world_size``."""
+    import torch.distributed as dist
+
+    live = rank is None and dist.is_available() and dist.is_initialized()
+    if rank is None:
+        rank = dist.get_rank() if live else 0
+        world_size = dist.get_world_size() if live else 1
+    if cfg.num_devices != world_size:
+        raise ValueError(
+            f"mesh shape {cfg.shape} needs {cfg.num_devices} devices, "
+            f"got {world_size}"
+        )
+    dev = rank_device(rank, device) if live else torch.device(device or "cpu")
+    return Mesh(cfg, rank, world_size, dev, groups=live)

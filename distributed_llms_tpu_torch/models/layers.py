@@ -10,6 +10,11 @@ V's dtype before the value product.  Every projection goes through
 :func:`_contract`: ``torch.matmul`` for a plain weight (the JAX package
 leaves those products to XLA, outside any Pallas kernel), the
 dequant-matmul kernel for a quantized one.
+
+On a mesh (``parallel/plan.py``) the parameters are a rank's local block
+and the row-parallel products (``wo``, ``w_down``, ``w_out``) are
+partial sums: :func:`_tp_sum` adds them over the 'model' line before any
+bias, which every rank holds whole and adds once.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 
 from ..checkpoint.quantize import QuantizedTensor
 from ..ops.quant_matmul import quant_contract
+from ..parallel import plan as plan_lib
+from ..parallel.specs import ReplicatedQuantized
 
 Params = dict[str, Any]
 
@@ -189,10 +196,22 @@ def _contract(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
     w, k_lead = p[name], K_LEAD[name]
     if isinstance(w, QuantizedTensor):
         return quant_contract(x, w, k_lead)
+    if isinstance(w, ReplicatedQuantized):
+        return w.contract(x, k_lead)
     lead = x.shape[: x.dim() - k_lead]
     k = math.prod(x.shape[x.dim() - k_lead:])
     return (x.reshape(-1, k) @ w.reshape(k, -1)).reshape(
         *lead, *w.shape[k_lead:])
+
+
+def _tp_sum(y: torch.Tensor, sharded: str) -> torch.Tensor:
+    """Sum a row-parallel product's partial sums over the 'model' line
+    when the plan shards ``sharded`` ("heads" or "ffn"); as it is
+    otherwise (one device, or a replicated leaf)."""
+    plan = plan_lib.current()
+    if plan is None or not getattr(plan, sharded):
+        return y
+    return plan.mesh.all_reduce(y, "model")
 
 
 def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -210,7 +229,7 @@ def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Te
 
 def out_project(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x: [B, T, H, hd] -> [B, T, D].  wo: [H, hd, D]."""
-    out = _contract(x, p, "wo")
+    out = _tp_sum(_contract(x, p, "wo"), "heads")
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -229,7 +248,7 @@ def mlp_gelu(x: torch.Tensor, p: Params, activation: str = "gelu") -> torch.Tens
         h = torch.nn.functional.gelu(h, approximate="tanh")
     else:  # loud, not silently gelu: a wrong activation is wrong logits
         raise ValueError(f"unsupported MLP activation {activation!r}")
-    return _contract(h, p, "w_out") + p["b_out"]
+    return _tp_sum(_contract(h, p, "w_out"), "ffn") + p["b_out"]
 
 
 def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tensor:
@@ -241,7 +260,7 @@ def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tens
         act = torch.nn.functional.silu(gate)
     else:
         act = torch.nn.functional.gelu(gate, approximate="tanh")
-    return _contract(act * up, p, "w_down")
+    return _tp_sum(_contract(act * up, p, "w_down"), "ffn")
 
 
 def moe_capacity(cfg, s: int) -> int:
@@ -291,6 +310,10 @@ def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Ten
     p: router [D, E], w_gate/w_up [E, D, F], w_down [E, F, D].  Quantized
     leaves (a ``serve_quantized`` store) are rehydrated here, per layer,
     as the reference rehydrates them inside its scan."""
+    if any(isinstance(w, ReplicatedQuantized) for w in p.values()):
+        raise NotImplementedError(
+            "an MoE block's quantized experts must shard under their rules "
+            "on a mesh; a replicated expert leaf is not supported")
     if any(isinstance(w, QuantizedTensor) for w in p.values()):
         from ..checkpoint.quantize import dequantize_tree
 
@@ -311,7 +334,8 @@ def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Ten
 
     g = torch.bmm(xe, p["w_gate"].to(xe.dtype))
     u = torch.bmm(xe, p["w_up"].to(xe.dtype))
-    ye = torch.bmm(torch.nn.functional.silu(g) * u, p["w_down"].to(xe.dtype))
+    ye = _tp_sum(torch.bmm(torch.nn.functional.silu(g) * u,
+                           p["w_down"].to(xe.dtype)), "ffn")
 
     yflat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
     gathered = yflat[slot]  # dropped claims read the zero row

@@ -51,6 +51,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.config import ModelConfig
+from ..parallel import plan as plan_lib
 from . import layers
 from .layers import Params
 
@@ -71,13 +72,13 @@ def check_supported(cfg: ModelConfig) -> None:
     """Every block family of the reference is ported, dense and MoE,
     with attention dense (``attn_impl="dot"``) or through the flash
     kernels (``"flash"``); the sequence-parallel attentions (``"ring"``,
-    ``"ulysses"``) are a later slice and are refused loudly."""
+    ``"ulysses"``) are the port's last slice and are refused loudly."""
     if cfg.family not in BLOCK_FNS:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_impl not in ("dot", "flash"):
         raise NotImplementedError(
             f"attn_impl {cfg.attn_impl!r} is not ported yet (dot and flash "
-            "only)"
+            "only): sequence parallelism comes in the port's last slice"
         )
 
 
@@ -160,6 +161,15 @@ def _attention(
         q, k = _rotate(q, k, positions, cfg)
     window = cfg.sliding_window
     per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
+    # On a mesh whose forward splits rows over 'data', x holds this rank's
+    # rows: every row's new K/V is gathered before the cache write (each
+    # rank's cache holds every row, so a page written by one rank's row is
+    # there for another's prefix hit), and the reads take this rank's rows
+    # of the caller's full-batch indices (``loc``).
+    loc = _Rows.current(k.shape[0])
+    if loc.split and layer_cache is not None:
+        k, v = loc.gather(k), loc.gather(v)
+    q_rows = x.shape[0]
 
     if kv_tables is not None:
         if layer_cache is None or not per_row:
@@ -177,15 +187,16 @@ def _attention(
             # the page table at slots cache_index[b]..+T-1, and query j
             # reads the row's prefix through slot cache_index[b] + j.
             return _paged_window_attention(q, k, v, p, layer_cache,
-                                           paged_window)
+                                           paged_window, loc)
         from ..ops import decode_attn
 
         ck, cv = layer_cache[:2]  # [NB, BLK, KVH, HD] views into the pool
         blk = ck.shape[1]
-        rows = torch.arange(x.shape[0], device=x.device)
+        rows = torch.arange(k.shape[0], device=x.device)
         page = kv_tables[rows, (cache_index // blk).long()].long()
         off = (cache_index % blk).long()
-        lengths = (cache_index + 1).to(torch.int32)
+        lengths = loc(cache_index + 1).to(torch.int32)
+        tables = loc(kv_tables)
         # Per-row single-slot write, in place.  Live rows own distinct
         # pages; freed rows' tables point at the shared scratch page 0, so
         # two inactive rows CAN write the same (page, off) — any winner is
@@ -200,12 +211,14 @@ def _attention(
             ck[page, off], sk[page, off] = kv_quantize(k[:, 0])
             cv[page, off], sv[page, off] = kv_quantize(v[:, 0])
             out = decode_attn.paged_decode_attention(
-                q, ck, cv, lengths, kv_tables, k_scale=sk, v_scale=sv
+                q, ck, cv, lengths, tables, k_scale=sk, v_scale=sv
             )
             return layers.out_project(out, p), layer_cache
         ck[page, off] = k[:, 0].to(ck.dtype)
         cv[page, off] = v[:, 0].to(cv.dtype)
-        out = decode_attn.paged_decode_attention(q, ck, cv, lengths, kv_tables)
+        # (A paged pool's KV heads always shard with the Q heads: the
+        # batcher refuses a mesh they do not divide over.)
+        out = decode_attn.paged_decode_attention(q, ck, cv, lengths, tables)
         return layers.out_project(out, p), (ck, cv)
 
     if layer_cache is not None:
@@ -219,8 +232,8 @@ def _attention(
             if x.shape[1] > 1:
                 return _row_window_attention(q, k, v, p, cfg, positions,
                                              (ck, cv), cache_index,
-                                             attn_mask, key_positions)
-            rows = torch.arange(x.shape[0], device=x.device)
+                                             attn_mask, key_positions, loc)
+            rows = torch.arange(k.shape[0], device=x.device)
             slot = cache_index.long().clamp(0, s - 1)
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
@@ -233,15 +246,16 @@ def _attention(
                 from ..ops import decode_attn
 
                 out = decode_attn.ragged_decode_attention(
-                    q, ck, cv, (cache_index + 1).to(torch.int32),
-                    window=window,
+                    q, _kv_select(loc(ck)), _kv_select(loc(cv)),
+                    loc(cache_index + 1).to(torch.int32), window=window,
                 )
                 return layers.out_project(out, p), (ck, cv)
             # A caller's mask over a gapped layout (the speculative draft
             # steps and backfill): dense under that mask, the window
             # ANDed in by true key position.
-            return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
-                                 key_positions)
+            out = _dense_cached(q, p, cfg, positions, loc(ck), loc(cv),
+                                loc(attn_mask), loc(key_positions))
+            return out[0], (ck, cv)
         ci = int(cache_index)
         t = x.shape[1]
         if ci < 0 or ci + t > s:
@@ -256,7 +270,7 @@ def _attention(
         # caller-supplied masks (prefix continuation, the gapped generate
         # and session layouts) carry the first two, and every path ANDs
         # in the window — by ``key_positions`` where the caller gives them.
-        k_positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
+        k_positions = torch.arange(s, device=x.device).expand(q_rows, s)
         if (cfg.attn_impl == "flash" and attn_mask is None and t > 1
                 and (window is None or key_positions is None)):
             # Prefill into the (longer, padded) row cache: the flash kernel
@@ -269,16 +283,19 @@ def _attention(
             from ..ops import flash
 
             out = flash.flash_attention(
-                q, ck.to(q.dtype), cv.to(q.dtype), q_positions=positions,
+                q, _kv_select(loc(ck)).to(q.dtype),
+                _kv_select(loc(cv)).to(q.dtype), q_positions=positions,
                 k_positions=k_positions, k_valid=k_positions < ci + t,
                 causal=True, window=window,
             )
             return layers.out_project(out, p), (ck, cv)
+        attn_mask = loc(attn_mask)
         if attn_mask is None:
             attn_mask = layers.causal_mask(positions, k_positions,
                                            k_positions < ci + t)
-        return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
-                             key_positions)
+        out = _dense_cached(q, p, cfg, positions, loc(ck), loc(cv),
+                            attn_mask, loc(key_positions))
+        return out[0], (ck, cv)
 
     if cfg.attn_impl == "flash" and attn_mask is None:
         # Self-attention over the input block (training, no-cache eval):
@@ -288,12 +305,14 @@ def _attention(
         from ..ops import flash
 
         out = flash.flash_attention(
-            q, k, v, q_positions=None if std_layout else positions,
+            q, _kv_select(k), _kv_select(v),
+            q_positions=None if std_layout else positions,
             k_positions=None if std_layout else positions, causal=True,
             window=window,
         )
         return layers.out_project(out, p), None
 
+    attn_mask = loc(attn_mask)
     if attn_mask is None:
         mask = layers.causal_mask(positions, positions, window=window)
     elif window is not None:
@@ -301,10 +320,58 @@ def _attention(
     else:
         mask = attn_mask
     out = layers.dot_product_attention(
-        q, layers.repeat_kv(k, cfg.q_per_kv),
-        layers.repeat_kv(v, cfg.q_per_kv), mask,
+        q, _expand_kv(k, cfg), _expand_kv(v, cfg), mask,
     )
     return layers.out_project(out, p), None
+
+
+class _Rows:
+    """The rows of a forward this rank computes: all of them, or its
+    'data' block ``[lo, hi)`` of a batch of ``b`` rows (``parallel/
+    plan.py``).  Calling it takes a full-batch tensor's block (tensors of
+    another leading size, and None, pass through)."""
+
+    def __init__(self, plan, b: int) -> None:
+        self.plan = plan
+        self.split = plan is not None and plan.rows is not None
+        self.lo, self.hi = plan.rows if self.split else (0, b)
+        self.b = (b * plan.mesh.size("data")) if self.split else b
+
+    @classmethod
+    def current(cls, b: int) -> "_Rows":
+        return cls(plan_lib.current(), b)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self.plan.mesh.all_gather(t, 0, "data")
+
+    def __call__(self, t):
+        if not self.split or t is None or t.shape[0] != self.b:
+            return t
+        return t[self.lo:self.hi]
+
+    def flat(self, t: torch.Tensor, per: int) -> torch.Tensor:
+        """This rank's block of a ``[b * per, ...]`` tensor."""
+        if not self.split:
+            return t
+        return t[self.lo * per:self.hi * per]
+
+
+def _kv_select(t: torch.Tensor) -> torch.Tensor:
+    """K/V ``[..., KVH, HD]`` for this rank's Q heads: as they are, or,
+    when the KV heads are replicated over 'model' while the Q heads shard,
+    the KV head of each local Q head (group 1; ``Plan.kv_map``)."""
+    plan = plan_lib.current()
+    if plan is None or plan.kv_map is None:
+        return t
+    return t.index_select(-2, plan.kv_index(t.device))
+
+
+def _expand_kv(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``[B, S, KVH, HD]`` -> one KV head per Q head (dense attention)."""
+    plan = plan_lib.current()
+    if plan is not None and plan.kv_map is not None:
+        return _kv_select(t)
+    return layers.repeat_kv(t, cfg.q_per_kv)
 
 
 def _rotate(q, k, positions, cfg):
@@ -351,7 +418,7 @@ def paged_window_rows(kv_tables: torch.Tensor, cache_index: torch.Tensor,
     return page, idx % blk, lengths, tables
 
 
-def _paged_window_attention(q, k, v, p, layer_cache, window):
+def _paged_window_attention(q, k, v, p, layer_cache, window, loc):
     """T-token paged attention (T >= 2): the window's K/V scatter through
     the page table first, then ONE paged decode-attention launch over B*T
     virtual rows reads, for query offset j of row b, the row's prefix
@@ -366,6 +433,7 @@ def _paged_window_attention(q, k, v, p, layer_cache, window):
     page, off, lengths, tables = window
     b, t, h, d = q.shape
     qr = q.reshape(b * t, 1, h, d)
+    lengths, tables = loc.flat(lengths, t), loc.flat(tables, t)
     if len(layer_cache) == 4:
         from ..checkpoint.quantize import kv_quantize
 
@@ -393,14 +461,15 @@ def _dense_cached(q, p, cfg, positions, ck, cv, attn_mask, key_positions):
             key_positions = torch.arange(s, device=q.device).expand(b, s)
         attn_mask = layers.and_window(attn_mask, positions, key_positions,
                                       cfg.sliding_window)
-    k_full = layers.repeat_kv(ck.to(q.dtype), cfg.q_per_kv)
-    v_full = layers.repeat_kv(cv.to(q.dtype), cfg.q_per_kv)
+    k_full = _expand_kv(ck.to(q.dtype), cfg)
+    v_full = _expand_kv(cv.to(q.dtype), cfg)
     out = layers.dot_product_attention(q, k_full, v_full, attn_mask)
     return layers.out_project(out, p), (ck, cv)
 
 
 def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
-                          cache_index, attn_mask, key_positions=None):
+                          cache_index, attn_mask, key_positions=None,
+                          loc=None):
     """T-token per-row window over a contiguous cache (the contiguous
     speculative verify pass, the reference's masked per-row branch): each
     row writes its T slots in place from ``cache_index`` — the start
@@ -411,15 +480,17 @@ def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
     if attn_mask is None:
         raise ValueError("per-row cache_index requires an explicit attn_mask")
     ck, cv = layer_cache
-    b, t = q.shape[:2]
+    b, t = k.shape[:2]
     s = ck.shape[1]
     start = cache_index.long().clamp(0, s - t)
     idx = start[:, None] + torch.arange(t, device=q.device)[None, :]
     rows = torch.arange(b, device=q.device)[:, None]
     ck[rows, idx] = k.to(ck.dtype)
     cv[rows, idx] = v.to(cv.dtype)
-    return _dense_cached(q, p, cfg, positions, ck, cv, attn_mask,
-                         key_positions)
+    loc = loc or _Rows(None, b)
+    out = _dense_cached(q, p, cfg, positions, loc(ck), loc(cv),
+                        loc(attn_mask), loc(key_positions))
+    return out[0], layer_cache
 
 
 def _ln(x, p, cfg):
@@ -581,7 +652,19 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings, plus the learned position table of the gpt2 and
     opt families (``positions`` [B, T]; OPT's table carries HF's offset
     of 2), read by :func:`take_rows`."""
-    x = params["embed"]["wte"][tokens.long()]
+    plan = plan_lib.current()
+    wte = params["embed"]["wte"]
+    if plan is not None and plan.vocab:
+        # Vocabulary-parallel table: this rank holds rows [lo, lo + n); a
+        # token outside them reads zeros, and the sum over 'model' is the
+        # one row that holds it (exact: every other term is zero).
+        n = wte.shape[0]
+        t = tokens.long() - plan.mesh.coord("model") * n
+        inside = (t >= 0) & (t < n)
+        x = wte[t.clamp(0, n - 1)] * inside[..., None].to(wte.dtype)
+        x = plan.mesh.all_reduce(x, "model")
+    else:
+        x = wte[tokens.long()]
     off = learned_pos_offset(cfg)
     if off is not None:
         x = x + take_rows(params["embed"]["wpe"], positions + off)
@@ -616,7 +699,13 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     w = params["embed"]["wte"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     b, t, d = x.shape
-    return _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
+    logits = _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
+    plan = plan_lib.current()
+    if plan is not None and plan.vocab:
+        # Vocabulary-parallel unembedding: every rank gets every column, so
+        # each samples from the same logits.
+        logits = plan.mesh.all_gather(logits, -1, "model")
+    return logits
 
 
 def forward(
@@ -648,9 +737,26 @@ def forward(
     # Standard layout: forward made the positions itself with no cache
     # offset, so query rows align with key slots (the flash static path).
     std_layout = positions is None and (cache_index is None or cache is None)
+    given = positions
     if positions is None:
         base = 0 if cache_index is None else int(cache_index)
         positions = (torch.arange(t, device=tokens.device) + base).expand(b, t)
+    plan = plan_lib.current()
+    if plan is not None and plan.rows is None:
+        split = plan.row_split(b, moe=cfg.num_experts > 0)
+        if split is not None:
+            # Rows split over 'data': this rank embeds and runs its block
+            # of rows; the blocks gather K/V for the cache writes and the
+            # logits gather at the end.
+            # (An MoE model never splits, so the aux term is zero here.)
+            lo, hi = split
+            with plan.with_rows(split).active():
+                out = forward(params, cfg, tokens[lo:hi],
+                              None if given is None else given[lo:hi],
+                              cache, cache_index, attn_mask, kv_tables,
+                              remat, key_positions, return_aux=True)
+            logits = plan.mesh.all_gather(out[0], 0, "data")
+            return (logits, *out[1:]) if return_aux else (logits, out[1])
     x = embed(params, cfg, tokens, positions)
     if cache is None:
         x, aux = run_blocks(x, params["blocks"], cfg, positions, None, None,

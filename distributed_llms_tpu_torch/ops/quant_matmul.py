@@ -14,9 +14,13 @@ The device decides the implementation:
   weight dequantized to x's dtype (``float32(q) * scale``, cast), then a
   product accumulated in float32.
 
-An int4 weight must pack its pairs along its last contracted axis (the
-layout ``checkpoint.quantize.quantize_tree`` writes); any other packing
-raises ``NotImplementedError``.  The kernel counts its launches per width:
+An int4 weight packs its pairs along its last contracted axis (the
+layout ``checkpoint.quantize.quantize_tree`` writes); a legacy store's
+pairs along its last axis are repacked onto it, exactly
+(:func:`repack_legacy_int4`).  On a mesh each rank runs the kernel on its
+own block: output-sharded weights give its columns, contracted-sharded
+ones (``wo``, ``w_down``) partial products that the layer sums over
+'model' (``models/layers.py``).  The kernel counts its launches per width:
 ``quant_matmul.launches`` (int8) and ``quant_matmul.int4_launches``, one
 a call; a launch recorded in a decode chunk's CUDA graph counts at each
 replay instead (``runtime/chunk_graph.py``).  The launch, the cluster launch
@@ -38,7 +42,7 @@ import math
 
 import torch
 
-from ..checkpoint.quantize import QuantizedTensor, unpack_int4
+from ..checkpoint.quantize import QuantizedTensor, pack_int4, unpack_int4
 from . import build
 
 SOURCE = "quant_matmul.cu"
@@ -239,18 +243,38 @@ quant_matmul.launches = 0
 quant_matmul.int4_launches = 0
 
 
+def _contracted_pack_axis(qt: QuantizedTensor, k_lead: int,
+                         stacked: int) -> int:
+    """The (negative) axis an int4 weight's pairs must run along for the
+    dequant-matmul: its last contracted axis (``stacked`` leading layer
+    axes not counted) — the only packing whose flat rows are pairs of K
+    rows."""
+    return k_lead - 1 - (qt.data.dim() - stacked)
+
+
+def repack_legacy_int4(qt: QuantizedTensor, k_lead: int,
+                       stacked: int = 0) -> QuantizedTensor:
+    """An int4 weight with its pairs moved onto its last contracted axis
+    (stores written before ``pack_axis`` was recorded packed them along the
+    last axis): an exact re-layout of the same codes and scales, so the
+    dequantized values are unchanged and the dequant-matmul serves it.  A
+    weight already packed so (and any int8 one) is returned as it is."""
+    want = _contracted_pack_axis(qt, k_lead, stacked)
+    if qt.bits != 4 or qt.pack_axis == want:
+        return qt
+    q = pack_int4(unpack_int4(qt.data, qt.pack_axis), want)
+    return QuantizedTensor(q, qt.scale, 4, qt.orig_shape, want)
+
+
 def check_pack_axis(qt: QuantizedTensor, k_lead: int, stacked: int = 0) -> None:
-    """Raise ``NotImplementedError`` unless an int4 weight's pairs run
-    along its last contracted axis (``stacked`` leading layer axes not
-    counted) — the only packing whose flat rows are pairs of K rows.
-    Stores written before ``pack_axis`` was recorded packed along the last
-    axis, and are refused here."""
-    want = k_lead - 1 - (qt.data.dim() - stacked)
+    """Raise ``ValueError`` unless an int4 weight's pairs run along its
+    last contracted axis (:func:`repack_legacy_int4` makes them so)."""
+    want = _contracted_pack_axis(qt, k_lead, stacked)
     if qt.bits == 4 and qt.pack_axis != want:
-        raise NotImplementedError(
+        raise ValueError(
             f"int4 weight of shape {tuple(qt.unpacked_shape)} packed along "
             f"axis {qt.pack_axis}; the dequant-matmul takes pairs along its "
-            f"last contracted axis ({want}) — re-save the store")
+            f"last contracted axis ({want}): repack_legacy_int4 first")
 
 
 def quant_contract(x: torch.Tensor, qt: QuantizedTensor,
@@ -258,8 +282,10 @@ def quant_contract(x: torch.Tensor, qt: QuantizedTensor,
     """``x[..., K-axes] @ dequant(W)[K-axes, N-axes]``: the trailing
     ``k_lead`` axes of ``x`` contract against the weight's leading ones
     (1 for wq/wk/wv/w_gate/w_up/w_down, 2 for wo ``[H, hd, D]``); the
-    weight's remaining axes are restored on the output."""
-    check_pack_axis(qt, k_lead)
+    weight's remaining axes are restored on the output.  An int4 weight
+    packed along another axis (a legacy store's) is repacked first; the
+    engine repacks such a store once, at load."""
+    qt = repack_legacy_int4(qt, k_lead)
     q2, s2 = flatten_qt(qt, k_lead)
     lead = x.shape[: x.dim() - k_lead]
     k = math.prod(x.shape[x.dim() - k_lead:])

@@ -104,11 +104,24 @@ digests already resident ack "duplicate"; first writer wins on publish),
 and :meth:`~ContinuousBatcher.submit_kv_export` serves a sibling's pull
 there.
 
-Not ported yet: meshes (absent from the API).
+On a data x tensor-parallel mesh (``parallel=``, a
+``parallel.api.ParallelModel`` without pipe/seq/expert axes) every rank
+runs this batcher over its local weights: its KV heads of the pool (or of
+the contiguous cache), the reference's checks and messages (KV heads
+divide over 'model' for a paged pool, ``batch_slots`` over 'data', no
+speculation).  Every rank's cache holds every row (the forward gathers
+each step's K/V over 'data', ``models/model.py``), the logits reach every
+rank whole, and every scheduling decision runs on host mirrors equal on
+every rank, so the ranks stay in lockstep; with requests reaching rank 0
+only, ``runtime/lockstep.py`` broadcasts them at each engine iteration.
+The decode chunk replays a captured graph under NCCL; a gloo collective
+cannot be captured, so under gloo the eager step loop runs
+(:attr:`ContinuousBatcher.loop_kind`), the kernels launching from it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
 import threading
@@ -126,6 +139,7 @@ from ..models import model as model_lib
 from ..checkpoint.quantize import QuantizedTensor, kv_dequantize, kv_quantize
 from ..models.model import KVCache, QuantKVCache
 from . import chunk_graph, constrain as constrain_lib, sampling
+from .lockstep import Lockstep
 from .kv_tier import HostTier
 from .scheduler import SyncView, make_scheduler
 from .session import continuation_mask
@@ -617,7 +631,7 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
                  temperature=0.0, top_k=0, top_p=1.0, eos_id=-1, pad_id=0,
                  tables=None, temp_row=None, topp_row=None, topk_row=None,
                  counts=None, pres_row=None, freq_row=None, mask_stack=None,
-                 next_stack=None, graphs=None):
+                 next_stack=None, graphs=None, eager=False):
     """K decode steps with per-row positions over the page pool
     (``tables``) or the contiguous cache (``tables=None``), from ``carry``
     [4, B] int32 (:data:`CARRY_ROWS`).  Returns the packed output (see
@@ -640,7 +654,9 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
     stream-ordered) are the ones it reads.  The automaton stacks are read
     in place the same way: a graph closes over the batcher's buffer of the
     stack's padded state count (the key carries that shape), and a stack
-    rebuilt into it before a replay is the one the replay reads."""
+    rebuilt into it before a replay is the one the replay reads.
+    ``eager`` runs the steps eagerly on CUDA too (a mesh whose collectives
+    cannot be captured)."""
     kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
               eos_id=eos_id, pad_id=pad_id)
     if (carry.shape[0] > CARRY_ROWS) != (mask_stack is not None):
@@ -648,7 +664,7 @@ def decode_chunk(params, cfg, cache, carry, generator, chunk_steps,
             "constrained decode needs both the automaton-state carry row "
             "and the mask/next stacks"
         )
-    if not carry.is_cuda:
+    if not carry.is_cuda or eager:
         return _decode_steps(params, cfg, cache, carry, generator,
                              chunk_steps, tables=tables, temp_row=temp_row,
                              topp_row=topp_row, topk_row=topk_row,
@@ -1362,6 +1378,9 @@ class ContinuousBatcher:
         # Per-tenant RESIDENT-row cap: a tenant at the cap defers
         # admission (others admit past it).  None = uncapped.
         tenant_max_rows: int | None = None,
+        # A data x tensor-parallel mesh (parallel.api.ParallelModel): params
+        # are this rank's (ParallelModel.shard_params).
+        parallel: Any = None,
     ) -> None:
         # Snapshot the constructor arguments FIRST so respawn() can rebuild
         # an identical fresh batcher after an engine crash.
@@ -1402,6 +1421,20 @@ class ContinuousBatcher:
                     f"max_len {max_len} must be a multiple of page_size "
                     f"{page_size}"
                 )
+            if parallel is not None and not (
+                parallel.pipelined or parallel.seq_parallel
+            ):
+                # The pool shards its KV-head axis over 'model'
+                # (parallel.specs.page_pool_specs): each rank holds whole
+                # heads, so the head count must divide.
+                tp = parallel.mesh.size("model")
+                if tp > 1 and cfg.num_kv_heads % tp:
+                    raise ValueError(
+                        f"paged KV on a tensor-parallel mesh shards the "
+                        f"pool on the KV-head axis: num_kv_heads "
+                        f"{cfg.num_kv_heads} must divide over 'model' "
+                        f"({tp})"
+                    )
             # Speculative rows hold scratch-TAIL pages past max_len: the
             # verify window writes up to spec_k + 1 slots past the row's
             # frontier (the contiguous cache's headroom slots, as pages).
@@ -1411,10 +1444,30 @@ class ContinuousBatcher:
                     f"paged_pages {paged_pages} cannot hold even one "
                     f"full-depth row (+1 scratch page)"
                 )
+        if parallel is not None:
+            if parallel.pipelined or parallel.seq_parallel:
+                raise ValueError(
+                    "continuous batching supports pure data/tensor-parallel "
+                    "meshes; pipelined (wavefront) and sequence-parallel "
+                    "(ring) meshes bring their own decode schedules"
+                )
+            parallel._require_dp_tp("continuous batching")
+            dp = parallel.mesh.size("data")
+            if batch_slots % dp:
+                raise ValueError(
+                    f"batch_slots {batch_slots} must divide over the mesh "
+                    f"'data' axis ({dp})"
+                )
         self.speculative = draft_params is not None
         if self.speculative:
             if draft_cfg is None:
                 raise ValueError("draft_params needs draft_cfg")
+            if parallel is not None:
+                raise ValueError(
+                    "speculative batching runs single-device (contiguous "
+                    "or paged); serve mesh engines through the plain "
+                    "batcher — the draft/verify chain has no SPMD rule"
+                )
             model_lib.check_supported(draft_cfg)
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
@@ -1463,9 +1516,26 @@ class ContinuousBatcher:
         self.spec_stats = {
             "rounds": 0, "accepted": 0, "rejected": 0, "downshifts": 0,
         }
+        # On a mesh the device work runs at the rank's local widths (its
+        # heads, its MLP columns); ``model_cfg`` keeps the model's own.
+        self.pm = parallel
+        self.model_cfg = cfg
+        if parallel is not None:
+            cfg = parallel.local_cfg
+            if kv_dtype is None and parallel.kv_dtype is not None:
+                kv_dtype = parallel.kv_dtype
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["wte"].device
+        # Lockstep journal (runtime/lockstep.py), armed by
+        # enable_lockstep() when requests reach rank 0 only.
+        self.lockstep: Lockstep | None = None
+        # The decode loop: a captured graph replayed on CUDA, the eager
+        # step loop on the CPU and on a mesh whose collectives run on gloo
+        # (which a CUDA graph cannot capture).
+        self.loop_kind = ("eager" if self.device.type != "cuda" or (
+            parallel is not None and parallel.mesh.world_size > 1
+            and parallel.mesh.backend != "nccl") else "graph")
         self.tokenizer = tokenizer
         self.b = batch_slots
         self.s = max_len
@@ -1648,11 +1718,42 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prefix ({len(ids)} tokens) does not fit slot capacity {self.s}"
             )
-        _, row_cache = _prefill_row(
-            self.params, self.cfg, _row_dtype_of(self.cache), self.s,
-            self._dev(np.asarray(ids, np.int32)),
-        )
+        with self._on_mesh():
+            _, row_cache = _prefill_row(
+                self.params, self.cfg, _row_dtype_of(self.cache), self.s,
+                self._dev(np.asarray(ids, np.int32)),
+            )
         self.prefixes[name] = _Prefix(ids, row_cache.k, row_cache.v)
+
+    # -- the mesh ---------------------------------------------------------
+
+    def _on_mesh(self):
+        """The mesh plan for the forwards of this block (a no-op off a
+        mesh)."""
+        return (self.pm.activate() if self.pm is not None
+                else contextlib.nullcontext())
+
+    def enable_lockstep(self) -> Lockstep:
+        """Journal this mesh batcher's submissions and cancellations on
+        rank 0 and broadcast them at every engine iteration
+        (runtime/lockstep.py): for a front end that only rank 0 runs."""
+        if self.pm is None:
+            raise ValueError("lockstep serving needs a mesh batcher")
+        self.lockstep = Lockstep(self.pm.mesh)
+        return self.lockstep
+
+    def _apply_event(self, ev: tuple) -> None:
+        """Apply one journaled event on every rank (Lockstep.sync)."""
+        kind = ev[0]
+        if kind == "submit":
+            req = ev[1]
+            with self._lock:
+                self._next_rid = max(self._next_rid, req.rid + 1)
+                self.queue.append(req)
+        elif kind == "cancel":
+            self._cancel_now(ev[1])
+        else:
+            raise ValueError(f"unknown lockstep event {kind!r}")
 
     # -- the host tier (swap preemption, prefix-cache spill) ----------------
 
@@ -2024,7 +2125,7 @@ class ContinuousBatcher:
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
-            self.queue.append(_Request(
+            req = _Request(
                 rid, ids, max_new_tokens, prefix=prefix,
                 temperature=temperature, top_p=top_p, top_k=top_k,
                 presence_penalty=float(presence_penalty),
@@ -2032,7 +2133,12 @@ class ContinuousBatcher:
                 constraint=constraint,
                 prefix_cache=prefix_cache, priority=priority,
                 deadline=deadline, tenant=tenant,
-            ))
+            )
+            if self.lockstep is None:
+                self.queue.append(req)
+        if self.lockstep is not None:
+            # Every rank queues it at the next engine iteration.
+            self.lockstep.record(("submit", req))
         return rid
 
     def cancel_row(self, rid: int) -> bool:
@@ -2040,7 +2146,21 @@ class ContinuousBatcher:
         row is deactivated and its pages released.  ``results[rid]``
         records the committed tokens and NO done callback fires.  Call from
         ``run()``'s ``on_tokens`` callback or while ``run()`` is idle.
-        Returns True if the rid was found queued or resident."""
+        Returns True if the rid was found queued or resident.  Under
+        lockstep the cancellation is journaled and lands on every rank at
+        the next engine iteration."""
+        if self.lockstep is not None:
+            with self._lock:
+                known = any(r.rid == rid for r in self.queue) or any(
+                    ev[0] == "submit" and ev[1].rid == rid
+                    for ev in self.lockstep.pending())
+            if known or any(r.rid == rid for r in self.rows):
+                self.lockstep.record(("cancel", rid))
+                return True
+            return False
+        return self._cancel_now(rid)
+
+    def _cancel_now(self, rid: int) -> bool:
         dropped: _Request | None = None
         with self._lock:
             for req in self.queue:
@@ -2108,7 +2228,11 @@ class ContinuousBatcher:
     def _shed_expired_queued(self) -> None:
         """Drop queued requests whose deadline already passed (a preempted
         one finishes with the tokens it already streamed).  Reads the
-        injected lockstep clock, never the wall clock directly."""
+        injected lockstep clock, never the wall clock directly.  A mesh
+        batcher skips it, as the reference does: its ranks' clocks
+        differ, and a decision must be the same on every rank."""
+        if self.pm is not None:
+            return
         now = self._clock()
         expired: list[_Request] = []
         with self._lock:
@@ -2985,16 +3109,23 @@ class ContinuousBatcher:
         through :meth:`respawn`."""
         self._on_tokens = on_tokens
         try:
-            return self._run_loop()
+            with self._on_mesh():
+                return self._run_loop()
         finally:
             self._on_tokens = None
 
     def _run_loop(self) -> dict[int, list[int]]:
         self._t_complete = None  # a fresh run's first chunk follows no
         #                          observed completion
-        while self.has_queued() or bool(self.active.any()) or any(
-            r.rid is not None for r in self.rows
-        ) or self.has_kv_imports() or self.has_kv_exports():
+        while True:
+            if self.lockstep is not None:
+                # The iteration's submissions and cancellations, on every
+                # rank, before any decision reads the queue.
+                self.lockstep.sync(self)
+            if not (self.has_queued() or bool(self.active.any()) or any(
+                r.rid is not None for r in self.rows
+            ) or self.has_kv_imports() or self.has_kv_exports()):
+                break
             self._admit_pending()
             # Rows about to write past their pages get them NOW (or
             # preempt / yield): a decode chunk must never scatter a live
@@ -3130,6 +3261,7 @@ class ContinuousBatcher:
         self.overlap_stats["chunks"] += 1
         kw = dict(eos_id=self.eos_id, pad_id=self.pad_id,
                   tables=plan["tables"], graphs=self._graphs,
+                  eager=self.loop_kind == "eager",
                   **self.sampling, **plan["per_row"])
         if plan["counts"]:
             kw["counts"] = self.tok_counts
@@ -3183,6 +3315,7 @@ class ContinuousBatcher:
         if bool((kh[live] < self.spec_k).any()):
             METRICS.inc("batcher.spec.k_downshifts")
             self.spec_stats["downshifts"] += 1
+        kw.pop("eager")  # a speculative batcher never runs on a mesh
         packed = spec_chunk(self.params, self.cfg, self.draft_params,
                             self.draft_cfg, self.cache, self.draft_cache,
                             carry, self._gen, self.spec_k,
@@ -3254,7 +3387,11 @@ class ContinuousBatcher:
         ``sync_triggers`` over a host-state snapshot.  ``head_left`` is the
         prompt the first prefill with work left still owes; any completed
         prefill awaiting its finishing splice forces 0, so the finish runs
-        at the next boundary."""
+        at the next boundary.  Under lockstep every boundary syncs: the
+        following ranks learn of rank 0's new requests only at the top of
+        an engine iteration."""
+        if self.lockstep is not None:
+            return False
         head_left = 0
         for pp in self._prefills.values():
             left = pp.total_len - pp.done

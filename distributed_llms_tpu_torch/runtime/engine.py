@@ -23,6 +23,13 @@ most ``runtime.max_resident_sessions`` caches stay on the device, the rest
 wait in host memory) and :meth:`~InferenceEngine.generate_text_speculative`.
 Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``); without a GPU and without that request they raise.
+
+On a data x tensor-parallel mesh (``from_store(mesh_cfg=)``, or
+``parallel=`` with this rank's parameters) every process is one rank: it
+holds its block of the weights (quantized leaves stay quantized), runs
+the forwards on the mesh (``parallel/api.py``) and hands out mesh
+batchers; every rank must be fed the same calls (the control plane's
+``generate_spmd``), or rank 0 journals them (``runtime/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -80,10 +87,18 @@ class InferenceEngine:
         params: Any,
         tokenizer=None,
         device: "str | torch.device | None" = None,
+        parallel: Any = None,  # parallel.api.ParallelModel; ``params`` are
+        #   then this rank's (ParallelModel.shard_params)
     ) -> None:
         model_lib.check_supported(cfg)
         self.cfg = cfg
         self.rt = rt
+        self.pm = parallel
+        if parallel is not None:
+            parallel._require_dp_tp("an engine")
+            device = parallel.device
+        # The config the device work runs at: the rank's local widths.
+        self.run_cfg = parallel.local_cfg if parallel is not None else cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or get_tokenizer(None)
         # Out-of-vocab ids would index past the embedding table; reject the
@@ -97,7 +112,13 @@ class InferenceEngine:
         self.params = _to_device(params, self.device)
         self.draft_cfg: ModelConfig | None = None
         self.draft_params: Any = None
-        if rt.spec_decode:
+        if rt.spec_decode and parallel is not None:
+            log.warning(
+                "runtime.spec_decode is single-device; this mesh engine "
+                "serves PLAIN (generate_text / continuous_batcher keep "
+                "working, just without speculation)"
+            )
+        elif rt.spec_decode:
             # The reference's construction policy: malformed configs raise;
             # an engine that cannot self-draft serves plain with a warning
             # (an explicit attach_draft(cfg, params) still works there).
@@ -166,19 +187,38 @@ class InferenceEngine:
         from ..checkpoint import store as store_lib
         from ..models.layers import K_LEAD, kernel_leaves
         from ..models.model import torch_dtype
-        from ..ops.quant_matmul import check_pack_axis
+        from ..ops.quant_matmul import check_pack_axis, repack_legacy_int4
         from .tokenizer import ByteTokenizer
 
-        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
-            raise NotImplementedError(
-                "serving a store on a multi-device mesh is not ported yet")
         rt = rt or RuntimeConfig()
-        dev = resolve_device(device)
         manifest = store_lib.load_manifest(store_dir)
         if manifest.get("model_config") is None:
             raise ValueError(f"store {store_dir} has no embedded model_config")
         cfg = ModelConfig(**manifest["model_config"])
         model_lib.check_supported(cfg)
+        parallel = None
+        if mesh_cfg is not None and mesh_cfg.num_devices > 1:
+            from ..parallel.api import make_parallel_model
+
+            parallel = make_parallel_model(cfg, mesh_cfg, device=device,
+                                           kv_dtype=rt.kv_cache_dtype)
+            dev = parallel.device
+        else:
+            dev = resolve_device(device)
+        place = None
+        if parallel is not None:
+            from ..parallel import specs as specs_lib
+
+            # Each leaf is cut to this rank's block on the host as it is
+            # read, so only the rank's share reaches its device.
+            rules = specs_lib.param_specs(cfg, parallel.mesh)
+
+            def place(name, leaf):
+                rule = rules
+                for part in name.split("/"):
+                    rule = rule[part]
+                return specs_lib.shard_leaf(leaf, rule, parallel.mesh,
+                                            "/" + name)
         if tokenizer is None:
             tok_rel = manifest.get("tokenizer")
             if tok_rel:
@@ -199,18 +239,33 @@ class InferenceEngine:
                     f"serve_quantized=True but store {store_dir} is not "
                     "quantized; save it with quantization='int8'|'int4'"
                 )
-            params = store_lib.load_shards(store_dir, device=dev)
+            def prepare(name, leaf):
+                # A legacy int4 store's pairs move onto the contracted axis
+                # the dequant-matmul reads (exact), before any placement;
+                # the embedding and unembedding are dequantized (a gather
+                # cannot read quantized rows).
+                if isinstance(leaf, quant_lib.QuantizedTensor):
+                    base = name.rsplit("/", 1)[-1]
+                    if name.startswith("blocks/"):
+                        if base in K_LEAD and "/router" not in name:
+                            leaf = repack_legacy_int4(leaf, K_LEAD[base],
+                                                      stacked=1)
+                    else:
+                        leaf = quant_lib.dequantize(leaf.to(dev), dtype)
+                return place(name, leaf) if place is not None else leaf
+
+            params = store_lib.load_shards(store_dir, device=dev,
+                                           place=prepare)
             # The packing check belongs to the leaves the dequant-matmul
             # reads; an MoE block's experts are rehydrated per layer.
             for name, leaf in kernel_leaves(params["blocks"]):
                 if isinstance(leaf, quant_lib.QuantizedTensor):
                     check_pack_axis(leaf, K_LEAD[name], stacked=1)
-            params = {k: (v if k == "blocks"
-                          else quant_lib.dequantize_tree(v, dtype))
-                      for k, v in params.items()}
         else:
-            params = store_lib.reconstruct(store_dir, dtype=dtype, device=dev)
-        return cls(cfg, rt, params, tokenizer=tokenizer, device=dev)
+            params = store_lib.reconstruct(store_dir, dtype=dtype, device=dev,
+                                           place=place)
+        return cls(cfg, rt, params, tokenizer=tokenizer, device=dev,
+                   parallel=parallel)
 
     # -- whole-batch generation -------------------------------------------
 
@@ -269,9 +324,11 @@ class InferenceEngine:
         # the raw width keeps routing prompts the loop can still fit).
         prompt_arr = self._bucket_prompt(prompt_arr, n_new)
         t0 = time.perf_counter()
-        with self._profile(), self._timer.step(tokens=n_real * n_new):
+        with self._profile(), self._timer.step(tokens=n_real * n_new), \
+                self._on_mesh():
             out = gen_lib.generate_tokens(
-                self.params, self.cfg, prompt_arr, lens, self._generator(seed),
+                self.params, self.run_cfg, prompt_arr, lens,
+                self._generator(seed),
                 max_new_tokens=n_new, temperature=self.rt.temperature,
                 top_k=self.rt.top_k, top_p=self.rt.top_p,
                 eos_id=tok.eos_id, pad_id=tok.pad_id,
@@ -301,8 +358,15 @@ class InferenceEngine:
     # -- sessions: KV persists across turns; host spill under kv_host_spill
 
     def _batch_multiple(self) -> int:
-        """Rows a batch must be a multiple of: 1 on one device."""
-        return 1
+        """Rows a batch must be a multiple of: the mesh's 'data' axis (1 on
+        one device), so that the rows split evenly over it."""
+        return 1 if self.pm is None else self.pm.mesh.size("data")
+
+    def _on_mesh(self):
+        """The mesh plan for the forwards of this block (a no-op on one
+        device)."""
+        return (self.pm.activate() if self.pm is not None
+                else contextlib.nullcontext())
 
     def _session_max_len(self) -> int:
         return min(self.rt.max_seq_len, self.cfg.max_seq_len)
@@ -333,9 +397,9 @@ class InferenceEngine:
             )
         tok = self.tokenizer
         t0 = time.perf_counter()
-        with self._timer.step(tokens=sess.n_real * n_new):
+        with self._timer.step(tokens=sess.n_real * n_new), self._on_mesh():
             toks, cache, valid, real, spos = session_step(
-                self.params, self.cfg, chunk, lens, sess.real_lens,
+                self.params, self.run_cfg, chunk, lens, sess.real_lens,
                 sess.valid_mask, sess.cache, sess.base, self._generator(seed),
                 max_new_tokens=n_new, temperature=self.rt.temperature,
                 top_k=self.rt.top_k, top_p=self.rt.top_p,
@@ -365,7 +429,7 @@ class InferenceEngine:
                 f"session max_len {max_len}"
             )
         self.sessions.make_room()  # spill an LRU cache before allocating
-        cache = self._make_cache(self.cfg, b, max_len)
+        cache = self._make_cache(self.run_cfg, b, max_len)
         valid = torch.zeros((b, max_len), dtype=torch.bool, device=self.device)
         real = torch.zeros((b,), dtype=torch.int32, device=self.device)
         sess = self.sessions.new_session(cache, valid, real, base=0,
@@ -468,6 +532,27 @@ class InferenceEngine:
         # (paged_pages=0 explicitly requests contiguous).
         paged = (self.rt.paged_pages if paged_pages is None
                  else paged_pages) or None
+        if paged is not None and self.pm is not None:
+            # The pool shards its KV-head axis over 'model': an explicit
+            # request that cannot shard raises, a config-inherited one
+            # degrades to contiguous with a warning (the reference's
+            # policy).
+            tp = self.pm.mesh.size("model")
+            if tp > 1 and self.cfg.num_kv_heads % tp:
+                if paged_pages is not None:
+                    raise ValueError(
+                        f"paged KV on this mesh shards the pool on the "
+                        f"KV-head axis: num_kv_heads "
+                        f"{self.cfg.num_kv_heads} does not divide over "
+                        f"'model' ({tp}); pass paged_pages=0 or reshape "
+                        f"the mesh"
+                    )
+                log.warning(
+                    "runtime.paged_pages=%d ignored: num_kv_heads %d does "
+                    "not divide over the mesh 'model' axis (%d); serving "
+                    "contiguous", paged, self.cfg.num_kv_heads, tp,
+                )
+                paged = None
         # The host tier backs the paged pool: asked for explicitly on a
         # contiguous engine it raises, inherited from the config it is
         # dropped with a warning (the reference's rule).
@@ -540,9 +625,11 @@ class InferenceEngine:
                 spec_k=self.rt.spec_k,
                 spec_adaptive_k=self.rt.spec_adaptive_k,
             )
+        # Slot counts that do not divide the mesh's 'data' axis round up.
+        mult = self._batch_multiple()
         return ContinuousBatcher(
             self.cfg, self.params, tokenizer=self.tokenizer, **spec_kwargs,
-            batch_slots=batch_slots,
+            batch_slots=-(-batch_slots // mult) * mult, parallel=self.pm,
             max_len=min(max_len or self.rt.max_seq_len, self.cfg.max_seq_len),
             chunk_steps=chunk_steps,
             temperature=self.rt.temperature, top_k=self.rt.top_k,

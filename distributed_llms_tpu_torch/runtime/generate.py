@@ -85,7 +85,8 @@ def generate_tokens(
     both.  The KV cache holds T + max_new_tokens slots exactly."""
     if decode_fn is not None:
         raise NotImplementedError(
-            "decode_fn (the pipelined mesh decode loop) is not ported yet")
+            "decode_fn (the pipelined mesh decode loop) is not ported yet: "
+            "it comes with the pipeline in the port's last slice")
     if forward_fn is None:
         forward_fn = _default_forward
     dev = prompt.device

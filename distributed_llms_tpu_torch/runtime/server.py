@@ -62,6 +62,7 @@ import time
 import uuid
 
 from ..core.observability import METRICS, get_logger
+from . import lockstep as lockstep_lib
 from .scheduler import ANON_TENANT
 
 log = get_logger("server")
@@ -436,8 +437,12 @@ class InferenceServer:
         b = self.batcher
         # A verified KV handoff awaiting adoption, or a sibling's export,
         # counts as work too (the engine must wake to serve it).
+        # Under lockstep a submission waits in the journal until the next
+        # engine iteration queues it on every rank.
+        lockstep = getattr(b, "lockstep", None)
         return (b.has_queued() or b.has_kv_imports() or b.has_kv_exports()
-                or any(r.rid is not None for r in list(b.rows)))
+                or any(r.rid is not None for r in list(b.rows))
+                or (lockstep is not None and bool(lockstep.pending())))
 
     def _pending_token_mass(self) -> int:
         """Estimated token mass the engine still has to absorb: every
@@ -568,7 +573,15 @@ class InferenceServer:
 
     def _engine_loop(self) -> None:
         while True:
-            self._work.wait()
+            lockstep = getattr(self.batcher, "lockstep", None)
+            if lockstep is not None and lockstep.leader:
+                # Rank 0 of a mesh: an idle beat now and then keeps the
+                # following ranks' waits under the group's timeout.
+                if not self._work.wait(timeout=lockstep_lib.BEAT_S):
+                    lockstep.beat()
+                    continue
+            else:
+                self._work.wait()
             self._work.clear()
             if self._stopping:
                 # Drain before exiting: a request submitted between the last
@@ -583,6 +596,8 @@ class InferenceServer:
                 # thread ends: stop() and kill() join it, and whatever is
                 # allocated after that may reuse this batcher's memory.
                 self.batcher.quiesce()
+                if lockstep is not None and lockstep.leader:
+                    lockstep.stop()  # the following ranks' loops end
                 return
             if not self._pending():
                 continue

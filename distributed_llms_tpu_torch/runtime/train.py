@@ -125,7 +125,8 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.01) -> AdamW:
 @dataclass
 class Trainer:
     """Holds the optimizer and builds the step.  Single device; the
-    mesh-parallel ``parallel=`` of the reference is not ported."""
+    mesh-parallel ``parallel=`` of the reference is the port's last
+    slice."""
 
     cfg: ModelConfig
     optimizer: AdamW = field(default_factory=default_optimizer)
@@ -137,7 +138,7 @@ class Trainer:
         if self.parallel is not None:
             raise NotImplementedError(
                 "the mesh-parallel training step (ParallelModel) is not "
-                "ported yet"
+                "ported yet: it comes in the port's last slice"
             )
 
     def init(self, params: Params) -> dict:

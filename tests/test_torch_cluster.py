@@ -145,16 +145,25 @@ def test_device_capabilities():
 
 @pytest.mark.parametrize("kind", ["mesh", "processes"])
 def test_multi_device_and_multi_process_are_refused(kind):
+    """A worker on a multi-device mesh and a multi-process host are served
+    now (tests/test_torch_multihost.py runs them); what is still refused
+    is a layout that cannot be joined: no coordinator address, or a mesh
+    whose size is not the processes'."""
     if kind == "mesh":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            WorkerHost("127.0.0.1", 1, mesh_cfg=MeshConfig(data=2, model=2))
+        w = WorkerHost("127.0.0.1", 1, mesh_cfg=MeshConfig(data=2, model=2))
+        assert w.mesh_cfg.num_devices == 4
         WorkerHost("127.0.0.1", 1, mesh_cfg=MeshConfig())  # one device: fine
     else:
         from distributed_llms_tpu_torch.cli import host_main
 
         args = host_main.parser().parse_args(
             ["--device", "cpu", "--override", "cluster.num_processes=2"])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="distributed_coordinator"):
+            asyncio.run(host_main.amain(args))
+        args = host_main.parser().parse_args(
+            ["--device", "cpu", "--override", "cluster.num_processes=2",
+             "--override", "mesh.model=4"])
+        with pytest.raises(ValueError, match="needs 4 processes"):
             asyncio.run(host_main.amain(args))
 
 

@@ -136,8 +136,10 @@ def test_wrappers_raise_on_what_they_do_not_take():
     w = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
     legacy = quantize(w, bits=4, pack_axis=-1)  # pairs along N
-    with pytest.raises(NotImplementedError, match="packed along axis -1"):
-        tqm.quant_contract(x, legacy, 1)
+    # A legacy packing is no longer refused: it is repacked (exactly) onto
+    # the contracted axis and contracts as dequantize-then-matmul.
+    torch.testing.assert_close(tqm.quant_contract(x, legacy, 1),
+                               x @ dequantize(legacy), rtol=1e-5, atol=1e-5)
     qt = quantize(w, bits=8, block=16)  # two scale blocks per row
     with pytest.raises(ValueError, match="K disagrees"):
         tqm.quant_matmul(x[:, :32], qt.data, qt.scale, 8)

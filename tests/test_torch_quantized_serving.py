@@ -149,11 +149,18 @@ def test_store_without_model_config_raises(tmp_path):
 
 
 def test_store_on_a_mesh_is_refused(stores):
+    """A store serves on a mesh now (tests/test_torch_quantized_mesh.py,
+    one rank a process); in ONE process a two-device mesh is refused with
+    the reference's mesh-size error, and a one-device mesh config serves
+    as one device."""
     from distributed_llms_tpu_torch.core.config import MeshConfig
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 2 devices, got 1"):
         InferenceEngine.from_store(stores["int8"], mesh_cfg=MeshConfig(model=2),
                                    device="cpu")
+    eng = InferenceEngine.from_store(stores["int8"], mesh_cfg=MeshConfig(),
+                                     device="cpu")
+    assert eng.pm is None
 
 
 async def _post(port, path, body):

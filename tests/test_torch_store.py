@@ -37,6 +37,7 @@ from distributed_llms_tpu.checkpoint.quantize import QuantizedTensor as JaxQT
 from distributed_llms_tpu.models import model as jm
 from distributed_llms_tpu.models.presets import get_preset as jax_preset
 from distributed_llms_tpu.parallel.stages import pack_greedy as jax_pack_greedy
+from distributed_llms_tpu_torch.checkpoint import quantize as quant_lib
 from distributed_llms_tpu_torch.checkpoint import store as tstore
 from distributed_llms_tpu_torch.checkpoint.from_jax import params_from_numpy
 from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
@@ -181,7 +182,13 @@ def test_arrays_load_over_partial_reads(bf16, tmp_path, monkeypatch):
     monkeypatch.setattr(tstore, "open", lambda path, mode="r", buffering=-1:
                         Chunky(path, "rb"), raising=False)
     _assert_same_tree(want, tstore.load_shards(tdir, device="cpu"))
+    # The store reads through the native reader now; the plain reader it is
+    # held against still loops over partial reads.
     path = os.path.join(tdir, "shard_0.bin")
+    for meta in tstore.load_manifest(tdir)["arrays"].values():
+        buf = tstore._read_checked(path, meta["offset"], meta["nbytes"],
+                                   meta["crc32"])
+        assert len(buf) == meta["nbytes"]
     os.truncate(path, os.path.getsize(path) - 1)
     with pytest.raises(IOError, match="short read"):
         tstore.load_shards(tdir, device="cpu")
@@ -208,9 +215,42 @@ def test_manifest_without_pack_axis_decodes_minus_one(bf16, tmp_path):
     quantized = [n for n, leaf in got.items() if isinstance(leaf, QuantizedTensor)]
     assert quantized and all(got[n].pack_axis == -1 == want[n].pack_axis
                              for n in quantized)
-    with pytest.raises(NotImplementedError, match="packed along axis -1"):
-        InferenceEngine.from_store(tdir, rt=RuntimeConfig(serve_quantized=True),
-                                   device="cpu")
+    # Served now: a store that really packed its pairs along the last axis
+    # (what such a manifest meant) is repacked at load onto each weight's
+    # contracted axis, exactly, and the dequant-matmul reads it.
+    cfg_j, _, pj, _ = bf16
+    legacy = {k: (quant_lib_j_legacy(v) if k == "blocks" else v)
+              for k, v in pj.items()}
+    ldir = str(tmp_path / "legacy")
+    jstore.save_shards(legacy, ldir, model_config=cfg_j)
+    mpath = os.path.join(ldir, tstore.MANIFEST)
+    manifest = tstore.load_manifest(ldir)
+    manifest["quantization"] = "int4"
+    for entry in manifest["params"].values():
+        entry.pop("pack_axis", None)
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+    eng = InferenceEngine.from_store(ldir, rt=RuntimeConfig(serve_quantized=True),
+                                     device="cpu")
+    attn = eng.params["blocks"]["attn"]
+    assert (attn["wq"].pack_axis, attn["wo"].pack_axis) == (-3, -2)
+    read = _leaves(tstore.load_shards(ldir, device="cpu"))
+    for name in ("wq", "wo"):
+        assert read[f"blocks/attn/{name}"].pack_axis == -1
+        assert torch.equal(quant_lib.dequantize(attn[name]),
+                           quant_lib.dequantize(read[f"blocks/attn/{name}"]))
+
+
+def quant_lib_j_legacy(blocks):
+    """The JAX package's int4 quantization of every block matrix with its
+    pairs along the LAST axis (the layout before ``pack_axis`` existed)."""
+    from distributed_llms_tpu.checkpoint import quantize as jq
+
+    if isinstance(blocks, dict):
+        return {k: quant_lib_j_legacy(v) for k, v in blocks.items()}
+    if blocks.ndim < 3:
+        return blocks
+    return jq.quantize(blocks, bits=4, pack_axis=-1)
 
 
 def test_pack_greedy_and_crc32_agree_with_jax():

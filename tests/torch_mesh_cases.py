@@ -1,0 +1,186 @@
+"""What the ranks of the port's mesh tests run (a helper module, not a test
+file): module-level functions that ``torch_world.World`` calls on every
+rank of a spawned gloo world.  They import torch and the port only; the
+test modules hold the reference's results against what they return.
+
+Weights and prompts arrive as numpy trees (made by the test from a seed,
+the same arrays the JAX package runs on), and every function returns
+numpy or plain Python values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from distributed_llms_tpu_torch.checkpoint.from_jax import params_from_numpy
+from distributed_llms_tpu_torch.core.config import MeshConfig
+from distributed_llms_tpu_torch.parallel import api
+from distributed_llms_tpu_torch.runtime.batcher import ContinuousBatcher
+
+_MODELS: dict = {}
+
+
+def _pm(cfg, data: int, model: int, **kw):
+    return api.make_parallel_model(cfg, MeshConfig(data=data, model=model),
+                                   device="cpu", **kw)
+
+
+def load(key: str, cfg, params_np) -> None:
+    """Keep a model's full weights on this rank under ``key`` (so later
+    cases need not ship them again)."""
+    _MODELS[key] = (cfg, params_from_numpy(params_np, cfg, device="cpu"))
+
+
+def rank_info() -> dict:
+    import torch.distributed as dist
+
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": dist.get_backend()}
+
+
+def forward_logits(key: str, data: int, model: int, tokens, positions=None,
+                   with_cache: bool = False) -> dict:
+    """Full-batch logits of a no-cache forward (or a prefill into a
+    contiguous cache followed by one decode step) on a data x model mesh,
+    with the collectives each took."""
+    cfg, params = _MODELS[key]
+    pm = _pm(cfg, data, model)
+    local = pm.shard_params(params)
+    toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
+    pos = None if positions is None else torch.as_tensor(np.asarray(positions))
+    calls0 = pm.mesh.stats["calls"]
+    if not with_cache:
+        logits, _ = pm.forward(local, toks, positions=pos)
+        out = {"logits": logits.numpy()}
+    else:
+        b, t = toks.shape
+        cache = pm.init_cache(b, t + 4)
+        logits, cache = pm.forward(local, toks, cache=cache, cache_index=0)
+        nxt = logits[:, -1].argmax(-1)
+        ci = torch.full((b,), t, dtype=torch.int32)
+        step, _ = pm.forward(local, nxt[:, None], positions=ci[:, None],
+                             cache=cache, cache_index=ci)
+        out = {"logits": logits.numpy(), "step": step.numpy(),
+               "cache_heads": int(cache.k.shape[3])}
+    out["collectives"] = pm.mesh.stats["calls"] - calls0
+    return out
+
+
+def local_shapes(key: str, data: int, model: int) -> dict:
+    """The shape of every local leaf on this rank."""
+    cfg, params = _MODELS[key]
+    local = _pm(cfg, data, model).shard_params(params)
+
+    def walk(t, path=""):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                out.update(walk(v, f"{path}/{k}"))
+            return out
+        return {path: tuple(t.shape)}
+
+    return walk(local)
+
+
+def batcher_streams(key: str, data: int, model: int, reqs, kw: dict,
+                    prefix=None, checks: bool = True) -> dict:
+    """Greedy streams of a mesh ``ContinuousBatcher`` over ``reqs``
+    ([(ids, n)]), every rank fed the same requests, with the counters the
+    tests read."""
+    cfg, params = _MODELS[key]
+    pm = _pm(cfg, data, model)
+    b = ContinuousBatcher(cfg, pm.shard_params(params), parallel=pm, **kw)
+    if prefix is not None:
+        b.register_prefix("sys", prefix)
+    rids = []
+    for ids, n, *extra in reqs:
+        rids.append(b.submit(ids, max_new_tokens=n, **(extra[0] if extra
+                                                         else {})))
+    res = b.run()
+    if checks and b.paged:
+        b.assert_pool_consistent()
+    out = {
+        "streams": [res[r] for r in rids],
+        "preemptions": b.preemptions,
+        "overlap": b.overlap,
+        "dispatched_ahead": b.overlap_stats["dispatched_ahead"],
+        "loop": b.loop_kind,
+        "cached": {int(k): int(v) for k, v in b.prefix_cached_tokens.items()},
+        "hit_tokens": (b.prefix_cache.hit_tokens if b.prefix_cache is not None
+                       else 0),
+        "pool_heads": int(b.cache.k.shape[3]),
+    }
+    # Each rank's pool copy: the bytes every data rank must agree on.
+    out["pool_sum"] = _pool_sum(b)
+    return out
+
+
+def engine_batcher(store_dir: str, data: int, model: int, reqs,
+                   batch_slots: int, **kw) -> dict:
+    """``InferenceEngine.from_store(mesh_cfg=)`` on this rank and its
+    ``continuous_batcher``: slots, mode and greedy streams."""
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    rt_kw = kw.pop("rt", {})
+    eng = InferenceEngine.from_store(
+        store_dir, rt=RuntimeConfig(max_decode_steps=8, **rt_kw),
+        mesh_cfg=MeshConfig(data=data, model=model), device="cpu")
+    try:
+        b = eng.continuous_batcher(batch_slots=batch_slots, max_len=64, **kw)
+    except ValueError as e:
+        return {"error": str(e)}
+    rids = [b.submit(ids, max_new_tokens=n) for ids, n in reqs]
+    res = b.run()
+    return {"slots": b.b, "paged": b.paged, "pm": b.pm is not None,
+            "prefix": b.prefix_cache is not None,
+            "streams": [res[r] for r in rids]}
+
+
+def engine_generate(store_dir: str, data: int, model: int, prompts,
+                    n_new: int, **rt_kw) -> dict:
+    """``generate_text`` on a mesh engine over a store (quantized leaves
+    resident when ``serve_quantized``)."""
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine.from_store(
+        store_dir, rt=RuntimeConfig(max_decode_steps=n_new, **rt_kw),
+        mesh_cfg=MeshConfig(data=data, model=model), device="cpu")
+    out = eng.generate_text(prompts, max_new_tokens=n_new)
+    blocks = eng.params["blocks"]
+    leaves = {f"{g}/{k}": v for g in blocks for k, v in blocks[g].items()}
+    quant = {k: (tuple(v.unpacked_shape), v.bits) for k, v in leaves.items()
+             if isinstance(v, QuantizedTensor)}
+    return {"tokens": out.tokens.tolist(), "text": out.text, "quant": quant}
+
+
+def lockstep_streams(key: str, data: int, model: int, reqs, kw: dict,
+                     cancel: int | None = None) -> dict:
+    """Requests reach rank 0 only: its batcher journals them and every
+    other rank follows the broadcasts (``runtime/lockstep.py``).  Rank 0
+    submits, runs and stops; the others follow until it stops."""
+    from distributed_llms_tpu_torch.runtime.lockstep import follow
+
+    cfg, params = _MODELS[key]
+    pm = _pm(cfg, data, model)
+    b = ContinuousBatcher(cfg, pm.shard_params(params), parallel=pm, **kw)
+    lock = b.enable_lockstep()
+    if not lock.leader:
+        follow(b)
+        return {"syncs": lock.syncs, "pool_sum": _pool_sum(b)}
+    rids = [b.submit(ids, max_new_tokens=n) for ids, n in reqs]
+    if cancel is not None:
+        b.cancel_row(rids[cancel])
+    res = b.run()
+    lock.stop()
+    return {"streams": [res.get(r) for r in rids], "syncs": lock.syncs,
+            "pool_sum": _pool_sum(b)}
+
+
+def _pool_sum(b) -> float | None:
+    if not b.paged:
+        return None
+    return float(b.cache.k.double().abs().sum() + b.cache.v.double().abs().sum())

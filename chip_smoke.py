@@ -435,6 +435,20 @@ Phases, each printing result lines:
    of 3 straight steps'), and a legacy int4 store (pairs along the last
    axis, no ``pack_axis``) serving the same greedy tokens through K5 as
    the current layout.  ``--phases build,mesh`` runs it alone.
+6i. ``pipe`` — path q: pipeline parallelism, a Llama-3-8B int8 store at
+   its full width and published 32 layers (seed 0) through two
+   ``dlt-host-torch`` ranks (``mesh.pipe=2``, ``runtime.microbatches=2``,
+   16 layers a stage; :func:`pipe_rank`) sharing the card over gloo under
+   an in-process ``Coordinator``: an 8-request mixed-budget batch through
+   ``generate_requests`` (the grouped fallback: one wavefront at the
+   longest budget) and 4 prompts through ``generate_spmd``, one sampled
+   (0.8, top-k 50).  Each rank must hold under 60% of a one-rank engine's
+   memory after boot and launch K5 (int8) at least 7 x 16 x its stage
+   computes; the ranks' rows must be equal, the sampled one included, and
+   the greedy ones agree with the one-rank engine by p1's rule; the
+   first decode step's logits against the one-rank engine, the ticks, ms
+   a tick and a token round, the ring shift's share and each rank's
+   memory are printed.  ``--phases build,pipe`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -7296,7 +7310,10 @@ def mesh_rank(kind: str, argv: list, stats_path: str) -> None:
     and the batchers, and, for "serve", the first decode step's logits of
     :data:`MESH_LOGIT_PROMPT` on the mesh after boot (every rank takes the
     same forwards); at the end, what they saw goes to ``stats_path``
-    (JSON; the logits beside it as .npy on rank 0)."""
+    (JSON; the logits beside it as .npy on rank 0).  ``kind`` "pipe" is
+    path q's rank (:func:`pipe_rank`)."""
+    if kind == "pipe":
+        return pipe_rank(argv, stats_path)
     import numpy as np
     import torch
 
@@ -7973,11 +7990,336 @@ def serve_mesh(torch) -> dict:
     return out
 
 
+# -- path q: the pipeline --------------------------------------------------
+
+PIPE_STAGES = 2
+PIPE_MICROBATCHES = 2
+PIPE_MEM_SHARE = 0.6  # each stage under this share of the one-rank engine
+PIPE_PROMPT = "Pipeline note {i}: route crate {i} via dock {d}."
+PIPE_REQUESTS = [(PIPE_PROMPT.format(i=i, d=3 + i), 8 + 4 * (i % 4))
+                 for i in range(8)]
+PIPE_SPMD_NEW = 16
+# The one sampled generate_spmd call: its ranks serve it at this
+# temperature and top-k (the control plane's generate carries no sampling
+# knobs; pipe_rank switches them for this prompt alone).
+PIPE_SAMPLED_PROMPT = "Pipeline note 9: a sampled reply, seed 0."
+PIPE_SAMPLING = {"temperature": 0.8, "top_k": 50}
+
+
+def pipe_rank(argv: list, stats_path: str) -> None:
+    """One rank of path q, in its own process: ``dlt-host-torch`` run
+    through its ``main`` on a pipelined mesh, with counters around K5's
+    wrapper (int8 launches by shape), the stage computes
+    (``pipeline.stage_forward``), the wavefront decode (device-synced wall
+    time, ticks, ring-shift seconds) and ``generate_text`` (each row's
+    prompt ids and tokens); after boot, its memory and the first decode
+    step's logits of :data:`MESH_LOGIT_PROMPT` through the pipelined
+    forward.  At the end, what it saw goes to ``stats_path`` (JSON; the
+    logits beside it as .npy on rank 0)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributed_llms_tpu_torch.ops import quant_matmul
+    from distributed_llms_tpu_torch.parallel import pipeline
+    from distributed_llms_tpu_torch.runtime import engine as engine_lib
+
+    stats = {"shapes": {}, "stage_computes": 0, "decodes": [], "rows": [],
+             "rank": None}
+    box: dict = {}
+    qmm = quant_matmul.quant_matmul
+
+    def qmatmul(x2, q2, s2, bits):
+        if x2.is_cuda:
+            key = f"K5_int{bits}_K{x2.shape[1]}_N{q2.shape[1]}"
+            stats["shapes"][key] = stats["shapes"].get(key, 0) + 1
+        return qmm(x2, q2, s2, bits)
+
+    qmatmul.launches = qmatmul.int4_launches = 0
+    quant_matmul.quant_matmul = qmatmul
+    stage_fn = pipeline.stage_forward
+
+    def stage_forward(*a, **kw):
+        stats["stage_computes"] += 1
+        return stage_fn(*a, **kw)
+
+    pipeline.stage_forward = stage_forward
+    decode_fn = pipeline.pipeline_decode
+
+    def pipeline_decode(mesh, cfg, params, tok0, lens, t, ck, cv, n, m,
+                        *a, **kw):
+        torch.cuda.synchronize()
+        s0, c0 = mesh.stats["shift_seconds"], stats["stage_computes"]
+        t0 = time.perf_counter()
+        out = decode_fn(mesh, cfg, params, tok0, lens, t, ck, cv, n, m,
+                        *a, **kw)
+        torch.cuda.synchronize()
+        p = mesh.size("pipe")
+        q = max(m, p)
+        stats["decodes"].append({
+            "rows": int(tok0.shape[0]), "new_tokens": n, "microbatches": m,
+            "ticks": (n - 1) * q + m + p - 1, "ticks_per_round": q,
+            "stage_computes": stats["stage_computes"] - c0,
+            "seconds": time.perf_counter() - t0,
+            "shift_seconds": mesh.stats["shift_seconds"] - s0})
+        return out
+
+    pipeline.pipeline_decode = pipeline_decode
+    cls = engine_lib.InferenceEngine
+    generate_text = cls.generate_text
+
+    def gen_text(self, prompts, max_new_tokens=None, seed=None):
+        rt = self.rt
+        if list(prompts) == [PIPE_SAMPLED_PROMPT]:
+            self.rt = dataclasses.replace(rt, **PIPE_SAMPLING)
+        try:
+            res = generate_text(self, prompts, max_new_tokens, seed)
+        finally:
+            self.rt = rt
+        for prompt, row in zip(prompts, res.tokens):
+            stats["rows"].append({
+                "prompt": self.tokenizer.encode(prompt),
+                "tokens": [int(x) for x in row],
+                "sampled": prompt == PIPE_SAMPLED_PROMPT})
+        return res
+
+    cls.generate_text = gen_text
+    from_store = cls.from_store.__func__
+
+    def engine_from_store(c, *a, **kw):
+        eng = from_store(c, *a, **kw)
+        torch.cuda.synchronize()
+        box["engine"] = eng
+        mesh = eng.pm.mesh
+        stats.update(rank=mesh.rank, stage=eng.pm.stage, mesh=mesh.shape,
+                     backend=mesh.backend, groups=sorted(eng.params),
+                     mem_after_engine=torch.cuda.memory_allocated())
+        logits = pipe_first_step_logits(torch, eng)
+        if mesh.rank == 0:
+            np.save(stats_path + ".logits.npy", logits)
+        return eng
+
+    cls.from_store = classmethod(engine_from_store)
+    try:
+        from distributed_llms_tpu_torch.cli import host_main
+
+        host_main.main(argv)
+    finally:
+        stats["k5_int8_launches"] = qmatmul.launches
+        stats["k5_int4_launches"] = qmatmul.int4_launches
+        if "engine" in box:
+            stats["collectives"] = dict(box["engine"].pm.mesh.stats)
+        with open(stats_path, "w") as f:
+            json.dump(stats, f)
+
+
+def pipe_first_step_logits(torch, eng):
+    """float32 logits [V] of the first decode step after
+    :data:`MESH_LOGIT_PROMPT` through a pipelined engine's forward: the
+    prompt's prefill into the stages' caches (one row a microbatch), then
+    the greedy token at the next slot; every rank returns them."""
+    pm = eng.pm
+    ids = eng.tokenizer.encode(MESH_LOGIT_PROMPT)
+    rows = pm.num_microbatches
+    toks = torch.tensor([ids] * rows, device=eng.device)
+    t = len(ids)
+    cache = pm.init_cache(rows, t + 1)
+    logits, cache = pm.forward(eng.params, toks, cache=cache, cache_index=0)
+    step, _ = pm.forward(eng.params, logits[:, -1].argmax(-1)[:, None],
+                         cache=cache, cache_index=t)
+    return step[0, -1].float().cpu().numpy()
+
+
+def _pipe_streams(ranks) -> tuple:
+    """Rank 0's greedy and sampled rows as committed: the batch's rows cut
+    to each request's budget, every row at its first EOS (the worker's
+    grouped fallback)."""
+    from distributed_llms_tpu_torch.runtime.tokenizer import ByteTokenizer
+
+    eos = ByteTokenizer().eos_id
+    budgets = [n for _, n in PIPE_REQUESTS]
+    rows = ranks[0]["rows"]
+
+    def cut(toks, n):
+        toks = toks[:n]
+        return toks[:toks.index(eos) + 1] if eos in toks else toks
+
+    batch = [cut(r["tokens"], n) for r, n in zip(rows[:8], budgets)]
+    rest = [cut(r["tokens"], len(r["tokens"])) for r in rows[8:]]
+    streams = [{"prompt": r["prompt"], "stream": s, "sampled": r["sampled"]}
+               for r, s in zip(rows, batch + rest)]
+    return ([s for s in streams if not s["sampled"]],
+            [s for s in streams if s["sampled"]])
+
+
+def serve_pipe(torch) -> dict:
+    """Path q: pipeline parallelism at Llama-3-8B's full width and its
+    published 32 layers, weight-only int8 (random weights, seed 0): two
+    ``dlt-host-torch`` ranks (``mesh.pipe=2``, ``runtime.microbatches=2``,
+    16 layers a stage, K5 on every projection) share the card over gloo
+    under an in-process ``Coordinator``.  The 8-request mixed-budget batch
+    through ``generate_requests`` (the grouped fallback: the wavefront at
+    the longest budget), then four prompts through ``generate_spmd``, one
+    of them sampled; held to a one-rank engine over the same store.
+    Returns K5's launches, one count a rank."""
+    from distributed_llms_tpu_torch.cluster.coordinator import Coordinator
+    from distributed_llms_tpu_torch.core.config import (ClusterConfig,
+                                                         load_config)
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    card = _card()
+    lap = _lap("pipe_time")
+    label = "pipe/q"
+    tmp = tempfile.mkdtemp(prefix="dlt_pipe_")
+    store = f"{tmp}/q_store"
+    overrides = ["runtime.serve_quantized=true", "runtime.max_seq_len=1024",
+                 f"runtime.max_decode_steps={PIPE_SPMD_NEW}",
+                 f"runtime.microbatches={PIPE_MICROBATCHES}"]
+    stats = [f"{tmp}/q_rank{r}.json" for r in range(PIPE_STAGES)]
+    logs = [f"{tmp}/q_rank{r}.log" for r in range(PIPE_STAGES)]
+    reqs = [{"prompt": p, "max_new_tokens": n} for p, n in PIPE_REQUESTS]
+    greedy_spmd = [p for p, _ in PIPE_REQUESTS[:3]]
+
+    async def drive():
+        coord = Coordinator(ClusterConfig(
+            coordinator_host="127.0.0.1", coordinator_port=0,
+            heartbeat_interval_s=0.5, heartbeat_timeout_s=600.0,
+            task_timeout_s=600.0))
+        await coord.start()
+        dist_port = _free_port()
+        procs = []
+        try:
+            for r in range(PIPE_STAGES):
+                argv = ["--host", "127.0.0.1", "--port", str(coord.port),
+                        "--worker-id", f"q-rank{r}",
+                        "--override", f"cluster.num_processes={PIPE_STAGES}",
+                        "--override", f"cluster.process_id={r}",
+                        "--override", "cluster.distributed_coordinator="
+                                      f"127.0.0.1:{dist_port}",
+                        "--override", "cluster.heartbeat_interval_s=0.5",
+                        "--override", f"mesh.pipe={PIPE_STAGES}",
+                        *[a for kv in overrides for a in ("--override", kv)]]
+                procs.append(_spawn_rank("pipe", argv, stats[r], logs[r]))
+            deadline = time.monotonic() + MESH_BOOT_S
+            while len(coord.workers) < PIPE_STAGES:
+                for p, log in zip(procs, logs):
+                    if p.poll() is not None:
+                        raise SmokeFailure(
+                            f"{label}: a host exited {p.returncode}:\n"
+                            f"{Path(log).read_text()[-3000:]}")
+                check(time.monotonic() < deadline, f"{label}: no workers")
+                await asyncio.sleep(0.2)
+            check(all(w.capabilities["process_count"] == PIPE_STAGES
+                      for w in coord.workers.values()),
+                  f"{label}: workers do not report {PIPE_STAGES} processes")
+            coord.plan_shards(2, store_dir=store)
+            placed = await coord.place_shards(timeout=600.0)
+            check(all("'pipe': 2" in r.get("resident", "")
+                      for r in placed.values()), f"{label}: {placed}")
+            lap("boot_place")
+            t0 = time.perf_counter()
+            batch = await coord.generate_requests(reqs, timeout=600.0)
+            batch_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            spmd = await coord.generate_spmd(greedy_spmd,
+                                             max_new_tokens=PIPE_SPMD_NEW)
+            spmd_s = time.perf_counter() - t0
+            sampled = await coord.generate_spmd([PIPE_SAMPLED_PROMPT],
+                                                max_new_tokens=PIPE_SPMD_NEW)
+            lap("requests")
+            for wid in list(coord.workers):
+                await coord.submit("SHUTDOWN", {}, worker_id=wid,
+                                   timeout=60.0)
+            await asyncio.to_thread(_reap, procs, logs, label)
+            return batch, batch_s, spmd, spmd_s, sampled
+        finally:
+            _kill(procs)
+            await coord.stop()
+
+    try:
+        info = write_store(torch, "int8", store, "llama-3-8b")
+        lap("store")
+        batch, batch_s, spmd, spmd_s, sampled = asyncio.run(drive())
+        ranks = _read_stats(stats)
+        logits_pipe = __import__("numpy").load(stats[0] + ".logits.npy")
+        greedy, sampled_rows = _pipe_streams(ranks)
+        rt = load_config(None, overrides).runtime
+        # The engine's own bytes: what the process still holds from the
+        # phases before is not the one-rank engine's.
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        eng = InferenceEngine.from_store(store, rt=rt)
+        torch.cuda.synchronize()
+        one_mem = torch.cuda.memory_allocated() - held
+        logits_one = first_step_logits(torch, eng)
+        tf = _mesh_agreement(torch, eng, greedy)
+        del eng
+        _free(torch)
+        lap("one_rank")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = get_preset("llama-3-8b")
+    per_stage = cfg.num_layers // PIPE_STAGES
+    diff = float(abs(logits_pipe - logits_one).max())
+    per_rank = []
+    for r, st in enumerate(ranks):
+        computes = st["stage_computes"]
+        k5 = st["k5_int8_launches"]
+        check(st["backend"] == "gloo" and st["stage"] == r,
+              f"{label}: rank {r} is stage {st['stage']} on {st['backend']}")
+        check(computes > 0 and k5 >= 7 * per_stage * computes,
+              f"{label}: rank {r} launched K5 {k5} times, under 7 x "
+              f"{per_stage} layers x {computes} stage computes")
+        check(st["k5_int4_launches"] == 0,
+              f"{label}: rank {r} launched K5 int4 on an int8 store")
+        dec = st["decodes"]
+        dec_s = sum(d["seconds"] for d in dec)
+        ticks = sum(d["ticks"] for d in dec)
+        shift_s = sum(d["shift_seconds"] for d in dec)
+        per_rank.append({
+            "rank": st["rank"], "stage": st["stage"], "groups": st["groups"],
+            "k5_int8_launches": k5, "stage_computes": computes,
+            "launch_shapes": st["shapes"],
+            "mem_after_boot_gb": st["mem_after_engine"] / 1e9,
+            "mem_share_of_one_rank": st["mem_after_engine"] / one_mem,
+            "decodes": dec, "decode_ticks": ticks,
+            "ms_per_tick": dec_s * 1e3 / max(ticks, 1),
+            "ms_per_token_round": dec_s * 1e3 / max(ticks, 1)
+            * max(PIPE_MICROBATCHES, PIPE_STAGES),
+            "shift_share_of_decode": shift_s / max(dec_s, 1e-9),
+            "collectives": st.get("collectives")})
+    emit("pipe_q", card=card, mesh={"pipe": PIPE_STAGES},
+         microbatches=PIPE_MICROBATCHES, backend="gloo", store=info,
+         ranks=per_rank, one_rank_mem_gb=one_mem / 1e9,
+         first_step_logits_max_abs_diff=diff,
+         first_step_logits_scale=float(abs(logits_one).max()),
+         teacher_forced=tf, greedy_streams=len(greedy),
+         sampled_rows=len(sampled_rows), batch_s=batch_s, spmd_s=spmd_s,
+         batch_generated_tokens=batch["generated_tokens"])
+    check(len(ranks[0]["rows"]) == len(reqs) + len(greedy_spmd) + 1
+          and ranks[0]["rows"] == ranks[1]["rows"],
+          f"{label}: the ranks' generated rows differ")
+    check(len(batch["text"]) == len(reqs) and len(spmd["text"]) == 3
+          and len(sampled["text"]) == 1 and len(sampled_rows) == 1,
+          f"{label}: {len(batch['text'])} batch, {len(spmd['text'])} spmd "
+          f"texts")
+    for r in per_rank:
+        check(r["mem_share_of_one_rank"] < PIPE_MEM_SHARE,
+              f"{label}: rank {r['rank']} holds "
+              f"{r['mem_share_of_one_rank']:.3f} of the one-rank engine")
+    check(tf["tokens"] > 0 and tf["agreement"] >= MESH_AGREEMENT,
+          f"{label}: greedy agreement {tf['agreement']:.3f} under "
+          f"{MESH_AGREEMENT}")
+    return {"quant_matmul": [r["k5_int8_launches"] for r in per_rank]}
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
           "constrain", "generate", "families", "fleet", "elastic", "mesh",
-          "train", "profile")
+          "pipe", "train", "profile")
 
 
 def main() -> int:
@@ -8063,6 +8405,10 @@ def main() -> int:
             # Path p's launches, one count a rank of each mesh leg.
             for name, n in timed("mesh", serve_mesh, torch).items():
                 kernels[name]["mesh_launches"] = n
+        if "pipe" in phases:
+            # Path q's launches, one count a stage.
+            for name, n in timed("pipe", serve_pipe, torch).items():
+                kernels[name]["pipe_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

@@ -367,7 +367,8 @@ def load_shards(
     ``dequantize`` (then dequantized to ``dtype``, default float32).
     ``dtype`` also casts the unquantized leaves.  ``place(name, leaf)``
     (a mesh rank's cut, ``parallel/specs.py``) transforms each leaf on the
-    host before it moves."""
+    host before it moves; a leaf it returns None for is not kept (a
+    pipeline stage's share of the head)."""
     device = resolve_device(device)
     manifest = load_manifest(store_dir)
     dtype = torch_dtype(dtype) if dtype is not None else None
@@ -397,8 +398,10 @@ def load_shards(
                         # Dequantized where it will live, then cut there.
                         leaf = quant_lib.dequantize(leaf.to(device),
                                                     dtype or torch.float32)
-                        flat[name] = (place(name, leaf) if place is not None
-                                      else leaf)
+                        if place is not None:
+                            leaf = place(name, leaf)
+                        if leaf is not None:
+                            flat[name] = leaf
                         continue
                 else:
                     arr = arrays[name]
@@ -413,7 +416,8 @@ def load_shards(
                 # device), then moved.
                 if place is not None:
                     leaf = place(name, leaf)
-                flat[name] = leaf.to(device)
+                if leaf is not None:
+                    flat[name] = leaf.to(device)
     finally:
         arrays.close()
     return _unflatten(flat)

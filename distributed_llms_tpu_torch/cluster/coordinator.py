@@ -532,10 +532,13 @@ class Coordinator:
         """Mixed-budget generation: each request is {"prompt": str,
         "max_new_tokens": int}.  A worker serves it with continuous
         batching (runtime/batcher.py): per-request budgets, no
-        head-of-line blocking.  A pool of workers that report
+        head-of-line blocking, on one device and on data x tensor-parallel
+        meshes.  A pipelined mesh, whose decode schedule manages its own
+        batching, serves the grouped longest-budget fallback
+        (``cluster/worker.py``).  A pool of workers that report
         ``process_count > 1`` (one multi-process runtime) gets the batch
         broadcast, as :meth:`generate_spmd` does (the processes of a mesh
-        worker, ``cluster/worker.py``)."""
+        worker)."""
         # Validate before dispatch so single-device (batcher) and mesh
         # (grouped) workers see only well-formed batches — the two engines
         # would otherwise diverge on how a bad request degrades.

@@ -10,7 +10,10 @@ coordinator's commands against a local engine.
 - ``UNLOAD_SHARDS`` drops it; ``SHUTDOWN`` stops the worker.
 - ``GENERATE`` / ``SCHEDULE_COMPUTATION`` run ``generate_text`` on a batch
   of prompts, or, with a ``requests`` list, a mixed-budget batch through
-  the engine's continuous batcher (per-request budgets).
+  the engine's continuous batcher (per-request budgets); a pipelined
+  mesh, whose decode schedule batches for itself, serves that batch as
+  one ``generate_text`` at the longest budget, each row cut to its own
+  budget and at its first EOS.
 - Heartbeats ride one asyncio task; connecting retries with a delay.
 
 Fault sites (runtime/faults.py): ``worker.heartbeat`` (``drop`` skips a
@@ -18,8 +21,9 @@ beat), ``worker.handle`` (``raise`` fails a command: an ERROR reply the
 coordinator retries), ``worker.result`` (``drop`` loses the reply,
 ``close`` severs the connection at the answer), tag = command type.
 
-A worker serves one device, or one rank of a data x tensor-parallel mesh
-(``mesh_cfg`` with more than one device): every process of the mesh joins
+A worker serves one device, or one rank of a data x pipeline x
+tensor-parallel mesh (``mesh_cfg`` with more than one device): every
+process of the mesh joins
 one ``torch.distributed`` group first (``cluster/distributed.py``), builds
 its rank's shard of the store at ``PLACE_SHARDS`` and reports the group's
 size as ``process_count``, so the coordinator dispatches every generate
@@ -292,20 +296,33 @@ class WorkerHost:
         raise protocol.ProtocolError(f"unhandled command {mtype}")
 
     def _generate_requests(self, requests: list[dict]) -> dict:
-        """A mixed-budget batch (GENERATE with a ``requests`` list) through
-        the engine's continuous batcher: per-request budgets, short replies
-        never wait for long ones.  The batcher's shape (slots, paged pool,
-        prefix cache) comes from the runtime config."""
+        """A mixed-budget batch (GENERATE with a ``requests`` list): through
+        the engine's continuous batcher (per-request budgets, short replies
+        never wait for long ones; its shape — slots, paged pool, prefix
+        cache — from the runtime config) on one device and on a data x
+        tensor-parallel mesh.  A pipelined mesh, whose decode schedule
+        manages its own batching, takes the grouped fallback: one batch at
+        the longest budget."""
         t0 = time.perf_counter()
         prompts = [r["prompt"] for r in requests]
         budgets = [int(r.get("max_new_tokens", 32)) for r in requests]
-        batcher = self.engine.continuous_batcher()
-        rids = [batcher.submit(p, max_new_tokens=n)
-                for p, n in zip(prompts, budgets)]
-        results = batcher.run()
         tok = self.engine.tokenizer
-        texts = [tok.decode(results[r]) for r in rids]
-        n_gen = sum(len(results[r]) for r in rids)
+        pm = getattr(self.engine, "pm", None)
+        if pm is None or not pm.pipelined:
+            batcher = self.engine.continuous_batcher()
+            rids = [batcher.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, budgets)]
+            results = batcher.run()
+            rows = [results[r] for r in rids]
+        else:
+            res = self.engine.generate_text(prompts, max(budgets))
+            # Every row decoded max(budgets) tokens: each keeps its own
+            # budget and stops at its EOS (never the pad tail after it), so
+            # the text and the token count are the batcher's basis.
+            rows = [_emitted([int(x) for x in row[:n]], tok.eos_id)
+                    for row, n in zip(res.tokens, budgets)]
+        texts = [tok.decode(row) for row in rows]
+        n_gen = sum(len(row) for row in rows)
         dt = time.perf_counter() - t0
         return {
             "text": texts,
@@ -313,3 +330,10 @@ class WorkerHost:
             "seconds": dt,
             "tokens_per_second": n_gen / max(dt, 1e-9),
         }
+
+
+def _emitted(row: list, eos_id: int | None) -> list:
+    """``row`` up to and including its first ``eos_id``."""
+    if eos_id is not None and eos_id in row:
+        return row[:row.index(eos_id) + 1]
+    return row

@@ -7,13 +7,16 @@ collectives.  Here one PROCESS is one mesh position: rank r sits at
 ``numpy.unravel_index(r, shape)`` (the reference's row-major reshape of
 its device list), runs on ``cuda:(local_rank % device_count)`` (two ranks
 on a one-GPU machine share ``cuda:0``), and the model code calls the
-collectives itself (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`)
-over one process group per ``model`` line and per ``data`` line, built
-with ``dist.new_group`` in the same order on every rank.
+collectives itself (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`,
+:meth:`Mesh.broadcast`, and the pipeline's ring :meth:`Mesh.shift`) over
+one process group per ``data``, ``pipe`` and ``model`` line, built with
+``dist.new_group`` in the same order on every rank, each with the world's
+timeout (``cluster/distributed.py``).
 
 Under gloo a CUDA tensor is staged through host memory for each
 collective; under NCCL it goes as it is.  :attr:`Mesh.stats` counts the
-collectives and the seconds spent in them (staging included).
+collectives and the seconds spent in them (staging included), and the
+ring shifts' and the broadcasts' shares of them apart.
 
 The model code finds the mesh of the forward it runs through
 ``parallel/plan.py`` (thread-local), so a single-device forward pays
@@ -22,6 +25,7 @@ nothing.
 
 from __future__ import annotations
 
+import datetime
 import time
 from typing import Any
 
@@ -37,7 +41,8 @@ AXES = ("data", "pipe", "model", "seq", "expert")
 
 class Mesh:
     """This rank's view of the mesh: axis sizes, its coordinates, its
-    device, and the process groups of its ``data`` and ``model`` lines.
+    device, and the process groups of its ``data``, ``pipe`` and ``model``
+    lines.
 
     Without an initialized process group (``world_size``/``rank`` given
     explicitly) the mesh carries the layout only: the placement rules
@@ -54,7 +59,9 @@ class Mesh:
             rank, cfg.shape))))
         self.backend: str | None = None
         self._groups: dict[str, Any] = {}
-        self.stats = {"calls": 0, "seconds": 0.0}
+        self.stats = {"calls": 0, "seconds": 0.0, "shift_calls": 0,
+                      "shift_seconds": 0.0, "broadcast_calls": 0,
+                      "broadcast_seconds": 0.0}
         if groups:
             self._build_groups()
 
@@ -80,9 +87,14 @@ class Mesh:
     def _build_groups(self) -> None:
         import torch.distributed as dist
 
+        from ..cluster.distributed import DEFAULT_TIMEOUT_S
+
         self.backend = dist.get_backend()
+        # A new group takes torch's own default timeout (30 min under
+        # gloo), not the world's: give every line the world's.
+        timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
         shape = self.cfg.shape
-        for axis in ("data", "model"):
+        for axis in ("data", "pipe", "model"):
             k = AXES.index(axis)
             # Every line of this axis, in one order on every rank
             # (new_group is collective over the whole world).
@@ -94,13 +106,15 @@ class Mesh:
                 if line in seen:
                     continue
                 seen.add(line)
-                g = dist.new_group(list(line)) if shape[k] > 1 else None
+                g = (dist.new_group(list(line), timeout=timeout)
+                     if shape[k] > 1 else None)
                 if self.rank in line:
                     self._groups[axis] = g
         # Host objects (the lockstep journal) ride a gloo group; under gloo
         # that is the world group itself.
         self._groups["host"] = (None if self.backend == "gloo"
-                                else dist.new_group(backend="gloo"))
+                                else dist.new_group(backend="gloo",
+                                                    timeout=timeout))
 
     # -- collectives ----------------------------------------------------------
 
@@ -137,6 +151,52 @@ class Mesh:
         self._note(t0)
         return out
 
+    def broadcast(self, x: torch.Tensor, src: int,
+                  axis: str = "pipe") -> torch.Tensor:
+        """The ``axis`` line's rank at coordinate ``src`` sends ``x``;
+        every rank of the line returns it, a new tensor on the mesh's
+        device.  The others pass a tensor of the same shape and dtype
+        whose values are not read: one on the 'meta' device, so that the
+        buffer it is received into (on the host when staged) is the only
+        one allocated."""
+        if self.size(axis) == 1:
+            return x
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        if self.coord(axis) == src:
+            y = x.detach().cpu() if self._staged(x) else x.detach().clone()
+        else:
+            staged = self.backend == "gloo" and self.device.type == "cuda"
+            y = torch.empty(x.shape, dtype=x.dtype,
+                            device="cpu" if staged else self.device)
+        line = self._line(axis, self.coords)
+        dist.broadcast(y, src=line[src], group=self._groups[axis])
+        out = y.to(self.device)
+        self._note(t0, "broadcast")
+        return out
+
+    def shift(self, x: torch.Tensor, axis: str = "pipe") -> torch.Tensor:
+        """One step around the ``axis`` ring: the rank at coordinate ``i``
+        sends ``x`` to ``(i + 1) % n`` and returns what its predecessor
+        sent (the reference's ``ppermute``).  Built on the line's
+        all-gather, of which each rank keeps its predecessor's piece: one
+        collective every rank enters alike, so no ordering of sends and
+        receives can deadlock the ring.  Every rank passes a tensor of one
+        shape and dtype."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        y = x.detach().cpu() if self._staged(x) else x.detach().contiguous()
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y, group=self._groups[axis])
+        out = parts[(self.coord(axis) - 1) % n].to(x.device)
+        self._note(t0, "shift")
+        return out
+
     def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
         """``obj`` of global rank ``src``, on every rank (host objects)."""
         import torch.distributed as dist
@@ -145,9 +205,13 @@ class Mesh:
         dist.broadcast_object_list(box, src=src, group=self._groups["host"])
         return box[0]
 
-    def _note(self, t0: float) -> None:
+    def _note(self, t0: float, kind: str | None = None) -> None:
+        dt = time.perf_counter() - t0
         self.stats["calls"] += 1
-        self.stats["seconds"] += time.perf_counter() - t0
+        self.stats["seconds"] += dt
+        if kind is not None:
+            self.stats[f"{kind}_calls"] += 1
+            self.stats[f"{kind}_seconds"] += dt
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "

@@ -72,13 +72,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Every block family of the reference is ported, dense and MoE,
     with attention dense (``attn_impl="dot"``) or through the flash
     kernels (``"flash"``); the sequence-parallel attentions (``"ring"``,
-    ``"ulysses"``) are the port's last slice and are refused loudly."""
+    ``"ulysses"``) come in a later slice and are refused loudly."""
     if cfg.family not in BLOCK_FNS:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.attn_impl not in ("dot", "flash"):
         raise NotImplementedError(
             f"attn_impl {cfg.attn_impl!r} is not ported yet (dot and flash "
-            "only): sequence parallelism comes in the port's last slice"
+            "only): sequence parallelism (ops/ring.py, ops/ulysses.py) "
+            "comes in a later slice of the port"
         )
 
 

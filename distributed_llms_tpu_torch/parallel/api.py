@@ -1,8 +1,8 @@
 """ParallelModel: one object that places a model on a mesh and runs it
 (PyTorch port of ``distributed_llms_tpu/parallel/api.py``).
 
-Data x tensor parallelism over ``torch.distributed``, one process a mesh
-position (``core/mesh.py``):
+Data x pipeline x tensor parallelism over ``torch.distributed``, one
+process a mesh position (``core/mesh.py``):
 
 - tensor parallelism: every rank holds its block of the heads, the MLP
   hidden axis and the vocabulary (``parallel/specs.py``), runs the model
@@ -14,55 +14,53 @@ position (``core/mesh.py``):
   cache write, so every rank's cache (contiguous rows or page pool, its
   KV heads) holds every row, and the logits gather at the end.  Every
   rank thus ends a forward with the same full-batch logits and samples
-  the same tokens from the same generator state.
+  the same tokens from the same generator state;
+- pipeline parallelism: each rank of a 'pipe' line is one stage, holding
+  its contiguous block of L/pipe layers and their KV cache; a forward
+  runs the GPipe schedule and generation the wavefront decode
+  (``parallel/pipeline.py``, :meth:`ParallelModel.as_decode_fn`).  The
+  head is split between the ends of the line
+  (:meth:`ParallelModel.place_leaf`), the logits reach every rank from
+  the last stage.  Pipelined meshes keep contiguous caches and serve
+  whole batches (``InferenceEngine.generate_text``); the continuous
+  batcher refuses them, as the reference's does.
 
-A mesh with a ``pipe``, ``seq`` or ``expert`` axis above 1 builds (its
-rules, its stage assignment), but its forward, decode and cache raise
-``NotImplementedError``: the pipeline, sequence parallelism and the expert
-axis are the port's last slice.
+A mesh with a ``seq`` or ``expert`` axis above 1 builds (its rules, its
+stage assignment), but its forward, decode and cache raise
+``NotImplementedError``: sequence parallelism and the expert axis are
+later slices of the port, as is training on a pipelined mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from ..core.config import MeshConfig, ModelConfig
 from ..models import model as model_lib
 from ..models.model import KVCache
+from . import pipeline as pipeline_lib
 from . import specs as specs_lib
 from .plan import Plan
 
 Params = Any
 
-_LAST_SLICE = ("is not ported yet: the pipeline (parallel/pipeline.py), "
-               "sequence parallelism (ops/ring.py, ops/ulysses.py) and the "
-               "expert axis come in the port's last slice")
-
-
-def staged_param_specs(cfg: ModelConfig, mesh) -> Params:
-    """Rules for a tree whose blocks were reshaped [L, ...] -> [pipe,
-    L/pipe, ...]: 'pipe' on the new leading axis of every block leaf."""
-    base = specs_lib.param_specs(cfg, mesh)
-
-    def retag(t):
-        if isinstance(t, dict):
-            return {k: retag(v) for k, v in t.items()}
-        return specs_lib.P("pipe", None, *tuple(t)[1:])
-
-    return {**base, "blocks": retag(base["blocks"])}
+_LATER_SLICES = ("is not ported yet: sequence parallelism (ops/ring.py, "
+                 "ops/ulysses.py), the expert axis and pipelined training "
+                 "come in later slices of the port")
 
 
 class ParallelModel:
     """A model placed on a mesh.  Build with :func:`make_parallel_model`."""
 
-    def __init__(self, cfg: ModelConfig, mesh,
+    def __init__(self, cfg: ModelConfig, mesh, num_microbatches: int = 1,
                  kv_dtype: str | None = None) -> None:
         self.cfg = cfg
         self.mesh = mesh
+        self.num_microbatches = num_microbatches
         self.kv_dtype = kv_dtype
         tp = mesh.size("model")
         self.heads = cfg.num_heads % tp == 0 and tp > 1
@@ -85,6 +83,14 @@ class ParallelModel:
                                else cfg.intermediate_size),
             head_dim=cfg.head_dim_,
         )
+        # The rules this rank cuts its leaves by; a pipelined mesh takes
+        # the stage's layers first (:meth:`place_leaf`), so the layer axis
+        # is not cut again.
+        self.rules = specs_lib.param_specs(cfg, mesh)
+        if self.pipelined:
+            self.rules["blocks"] = pipeline_lib.map_leaves(
+                lambda r: specs_lib.P(None, *tuple(r)[1:]),
+                self.rules["blocks"])
 
     @property
     def num_stages(self) -> int:
@@ -106,50 +112,74 @@ class ParallelModel:
     def device(self) -> torch.device:
         return self.mesh.device
 
-    def as_decode_fn(self):
-        """The fused pipelined decode loop of ``runtime.generate``: only a
-        pipelined mesh has one, and it is the last slice's."""
-        if self.pipelined:
-            raise NotImplementedError(f"the pipelined decode loop {_LAST_SLICE}")
-        return None
+    @property
+    def stage(self) -> int:
+        return self.mesh.coord("pipe")
 
-    def _require_dp_tp(self, what: str) -> None:
-        if self.pipelined or self.seq_parallel or self.expert_parallel:
+    def _require_ported(self, what: str) -> None:
+        if self.seq_parallel or self.expert_parallel:
             raise NotImplementedError(
-                f"{what} on a mesh with pipe={self.num_stages}, "
-                f"seq={self.mesh.size('seq')}, "
-                f"expert={self.mesh.size('expert')} {_LAST_SLICE}")
+                f"{what} on a mesh with seq={self.mesh.size('seq')}, "
+                f"expert={self.mesh.size('expert')} {_LATER_SLICES}")
 
     # -- placement ----------------------------------------------------------
 
-    def shard_params(self, params: Params) -> Params:
-        """This rank's part of ``params`` on its device: each leaf's block
-        under its rule; ``QuantizedTensor`` leaves stay quantized (scales
-        refined where a shard edge would split a block; a layout that
-        cannot shard stays whole, loudly).  A pipelined mesh stages the
-        blocks first ([L, ...] -> [pipe, L/pipe, ...])."""
-        def to_dev(t):
-            if isinstance(t, dict):
-                return {k: to_dev(v) for k, v in t.items()}
-            return t.to(self.device)
+    def _holds(self, group: str) -> bool:
+        """Whether this rank keeps the top-level parameter group ``group``
+        ("embed", "blocks", "final_norm", "lm_head").  Every rank holds
+        its blocks; on a pipelined mesh stage 0 alone embeds and the last
+        stage alone unembeds (the embedding there too when it is tied), so
+        each end holds one of the two vocabulary-sized matrices."""
+        if not self.pipelined or group == "blocks":
+            return True
+        first, last = self.stage == 0, self.stage == self.num_stages - 1
+        if group == "embed":
+            return first or (last and self.cfg.tie_embeddings)
+        return last
 
-        if self.pipelined:
-            blocks = _split_stages(params["blocks"], self.num_stages)
-            placed = specs_lib.shard_tree({**params, "blocks": blocks},
-                                          staged_param_specs(self.cfg,
-                                                             self.mesh),
-                                          self.mesh)
-        else:
-            placed = specs_lib.shard_params(params, self.cfg, self.mesh)
-        return to_dev(placed)
+    def place_leaf(self, name: str, leaf: Any,
+                   before: Callable[[str, Any], Any] | None = None) -> Any:
+        """This rank's part of the leaf at ``name`` ("blocks/attn/wq"), or
+        None for a leaf of a group the rank does not keep (a pipeline
+        stage's other end of the head).  ``before(name, leaf)`` runs first
+        on a leaf that is kept.  On a pipelined mesh a block leaf's stage
+        comes first ([L, ...] -> this stage's [L/pipe, ...]), then its
+        block under the rule (``QuantizedTensor`` leaves stay quantized,
+        scales refined where a shard edge would split a block; a layout
+        that cannot shard stays whole, loudly)."""
+        if not self._holds(name.split("/", 1)[0]):
+            return None
+        if before is not None:
+            leaf = before(name, leaf)
+        rule = self.rules
+        for part in name.split("/"):
+            rule = rule[part]
+        if self.pipelined and name.startswith("blocks/"):
+            leaf = pipeline_lib.split_stages(leaf, self.num_stages)[self.stage]
+        return specs_lib.shard_leaf(leaf, rule, self.mesh, "/" + name)
+
+    def shard_params(self, params: Params) -> Params:
+        """This rank's part of ``params`` on its device (:meth:`place_leaf`
+        on every leaf; a group it does not keep is left out)."""
+        def walk(t, path):
+            if isinstance(t, dict):
+                kept = {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+                return {k: v for k, v in kept.items() if v is not None} or None
+            leaf = self.place_leaf(path, t)
+            return None if leaf is None else leaf.to(self.device)
+
+        kept = {k: walk(v, k) for k, v in params.items()}
+        return {k: v for k, v in kept.items() if v is not None}
 
     def init_cache(self, batch: int, max_len: int) -> KVCache:
-        """This rank's contiguous cache ``[L, B, S, KVH_local, HD]``: its
-        KV heads of every row (rows are not sharded over 'data': each
-        step's K/V of every row reaches every rank, see the module
-        docstring)."""
-        self._require_dp_tp("the KV cache")
-        return model_lib.init_cache(self.local_cfg, batch, max_len,
+        """This rank's contiguous cache ``[L, B, S, KVH_local, HD]`` (``L``
+        its stage's layers on a pipelined mesh): its KV heads of every row
+        (rows are not sharded over 'data': each step's K/V of every row
+        reaches every rank, see the module docstring)."""
+        self._require_ported("the KV cache")
+        cfg = dataclasses.replace(
+            self.local_cfg, num_layers=self.cfg.num_layers // self.num_stages)
+        return model_lib.init_cache(cfg, batch, max_len,
                                     dtype=self.kv_dtype or self.cfg.dtype,
                                     device=self.device)
 
@@ -157,9 +187,44 @@ class ParallelModel:
     def activate(self):
         """Run the forwards of this block on the mesh (the model code
         reads the plan on this thread)."""
-        self._require_dp_tp("a forward")
+        self._require_ported("a forward")
         with self.plan.active():
             yield self
+
+    # -- adapters for runtime.generate and runtime.session -----------------
+
+    def as_forward_fn(self):
+        return self._forward_adapter
+
+    def as_make_cache(self):
+        return self._make_cache_adapter
+
+    def as_decode_fn(self):
+        """The fused wavefront decode loop (``pipeline.pipeline_decode``)
+        for ``runtime.generate``: only a pipelined mesh has one."""
+        return self._decode_adapter if self.pipelined else None
+
+    def _forward_adapter(self, params, cfg, tokens, positions=None,
+                         cache=None, cache_index=None, attn_mask=None,
+                         key_positions=None):
+        del cfg  # self.cfg is authoritative
+        return self.forward(params, tokens, positions=positions, cache=cache,
+                            cache_index=cache_index, attn_mask=attn_mask,
+                            key_positions=key_positions)
+
+    def _make_cache_adapter(self, cfg, batch, max_len, prompt_len=None):
+        del cfg, prompt_len
+        return self.init_cache(batch, max_len)
+
+    def _decode_adapter(self, params, tok0, prompt_lens, prompt_pad_len,
+                        cache, generator, max_new_tokens, temperature, top_k,
+                        top_p, eos_id, pad_id):
+        with self.activate(), torch.no_grad():
+            return pipeline_lib.pipeline_decode(
+                self.mesh, self.local_cfg, params, tok0, prompt_lens,
+                prompt_pad_len, cache.k, cache.v, max_new_tokens,
+                self.num_microbatches, generator, temperature=temperature,
+                top_k=top_k, top_p=top_p, eos_id=eos_id, pad_id=pad_id)
 
     # -- execution ----------------------------------------------------------
 
@@ -171,7 +236,19 @@ class ParallelModel:
                 kv_tables: torch.Tensor | None = None):
         """``models.model.forward``'s contract on the mesh: ``params`` are
         this rank's (:meth:`shard_params`), the inputs are the full batch
-        on every rank, and every rank returns the full-batch logits."""
+        on every rank, and every rank returns the full-batch logits.  A
+        pipelined mesh runs the GPipe schedule (inference only: its
+        shifts carry no gradient) with a scalar ``cache_index``, and
+        returns a zero MoE term, as the reference's schedule does."""
+        if self.pipelined:
+            with self.activate(), torch.no_grad():
+                out = self._pipe_forward(params, tokens, positions, cache,
+                                         cache_index, attn_mask, remat,
+                                         key_positions, kv_tables)
+            if return_aux:
+                return (*out, torch.zeros((), dtype=torch.float32,
+                                          device=out[0].device))
+            return out
         with self.activate():
             return model_lib.forward(
                 params, self.local_cfg, tokens, positions=positions,
@@ -179,26 +256,49 @@ class ParallelModel:
                 kv_tables=kv_tables, remat=remat,
                 key_positions=key_positions, return_aux=return_aux)
 
-
-def _split_stages(blocks: Params, stages: int) -> Params:
-    """[L, ...] -> [stages, L/stages, ...] on every block leaf."""
-    from ..checkpoint.quantize import QuantizedTensor
-
-    def split(t):
-        if isinstance(t, dict):
-            return {k: split(v) for k, v in t.items()}
-        if isinstance(t, QuantizedTensor):
-            return QuantizedTensor(split(t.data), split(t.scale), t.bits,
-                                   t.orig_shape, t.pack_axis)
-        return t.reshape(stages, t.shape[0] // stages, *t.shape[1:])
-
-    return split(blocks)
+    def _pipe_forward(self, params, tokens, positions, cache, cache_index,
+                      attn_mask, remat, key_positions, kv_tables):
+        """Embed on stage 0, the blocks through the pipeline, unembed on
+        the last stage; the logits broadcast over 'pipe'."""
+        if kv_tables is not None:
+            raise NotImplementedError(
+                "paged decode (kv_tables) runs on pure data/tensor-parallel "
+                "meshes only — pipelined/seq-parallel schedules keep "
+                "contiguous caches"
+            )
+        if torch.is_tensor(cache_index) and cache_index.dim() > 0:
+            raise ValueError(
+                "the pipeline schedule writes one slot range for the whole "
+                "batch: pass a scalar cache_index")
+        cfg = self.local_cfg
+        b, t = tokens.shape
+        std_layout = positions is None and (cache is None
+                                            or cache_index is None)
+        if positions is None:
+            base = 0 if cache_index is None else int(cache_index)
+            positions = (torch.arange(t, device=tokens.device)
+                         + base).expand(b, t)
+        x = (model_lib.embed(params, cfg, tokens, positions)
+             if self.stage == 0 else None)
+        y = pipeline_lib.pipeline_blocks(
+            self.mesh, cfg, params["blocks"], x, positions,
+            self.num_microbatches,
+            cache_k=cache.k if cache is not None else None,
+            cache_v=cache.v if cache is not None else None,
+            cache_index=None if cache is None else int(cache_index),
+            attn_mask=attn_mask, remat=remat, key_positions=key_positions,
+            std_layout=std_layout)
+        last = self.num_stages - 1
+        logits = (model_lib.unembed(params, cfg, y) if self.stage == last
+                  else torch.empty((b, t, cfg.vocab_size),
+                                   dtype=torch.float32, device="meta"))
+        return self.mesh.broadcast(logits, last, "pipe"), cache
 
 
 def make_parallel_model(cfg: ModelConfig, mesh_cfg: MeshConfig,
                         device: "str | torch.device | None" = None,
-                        kv_dtype: str | None = None, mesh=None
-                        ) -> ParallelModel:
+                        kv_dtype: str | None = None, mesh=None,
+                        num_microbatches: int = 1) -> ParallelModel:
     """The model on ``mesh_cfg`` over the initialized process group (or
     on an explicit layout ``mesh``), with the reference's checks."""
     from ..core.mesh import build_mesh
@@ -214,4 +314,5 @@ def make_parallel_model(cfg: ModelConfig, mesh_cfg: MeshConfig,
             "ring attention and the pipeline schedule are alternative "
             "shardings of the layer loop — use one, with 'data'/'model' axes"
         )
-    return ParallelModel(cfg, mesh, kv_dtype=kv_dtype)
+    return ParallelModel(cfg, mesh, num_microbatches=num_microbatches,
+                         kv_dtype=kv_dtype)

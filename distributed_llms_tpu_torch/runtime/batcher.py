@@ -1451,7 +1451,7 @@ class ContinuousBatcher:
                     "meshes; pipelined (wavefront) and sequence-parallel "
                     "(ring) meshes bring their own decode schedules"
                 )
-            parallel._require_dp_tp("continuous batching")
+            parallel._require_ported("continuous batching")
             dp = parallel.mesh.size("data")
             if batch_slots % dp:
                 raise ValueError(

@@ -24,12 +24,18 @@ wait in host memory) and :meth:`~InferenceEngine.generate_text_speculative`.
 Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``); without a GPU and without that request they raise.
 
-On a data x tensor-parallel mesh (``from_store(mesh_cfg=)``, or
-``parallel=`` with this rank's parameters) every process is one rank: it
-holds its block of the weights (quantized leaves stay quantized), runs
-the forwards on the mesh (``parallel/api.py``) and hands out mesh
-batchers; every rank must be fed the same calls (the control plane's
-``generate_spmd``), or rank 0 journals them (``runtime/lockstep.py``).
+On a data x pipeline x tensor-parallel mesh (``from_store(mesh_cfg=)``,
+or ``parallel=`` with this rank's parameters) every process is one rank:
+it holds its block of the weights (quantized leaves stay quantized), runs
+the forwards on the mesh (``parallel/api.py``) and, on a data x tensor
+mesh, hands out mesh batchers; every rank must be fed the same calls (the
+control plane's ``generate_spmd``), or rank 0 journals them
+(``runtime/lockstep.py``).  A pipelined mesh (``pipe`` above 1) serves
+whole batches and sessions through the pipeline's schedules: the prefill
+and session turns through its GPipe forward, ``generate_text``'s decode
+through the wavefront (``parallel/pipeline.py``); its batches round up to
+``data x runtime.microbatches`` rows, and the continuous batcher refuses
+it, as the reference's does.
 """
 
 from __future__ import annotations
@@ -94,9 +100,16 @@ class InferenceEngine:
         self.cfg = cfg
         self.rt = rt
         self.pm = parallel
+        # The forward, cache and decode loop of generate_text and of
+        # sessions: the single-device model's (also under a data x tensor
+        # plan), or a pipelined mesh's schedules.
+        self._forward_fn = self._decode_fn = None
         if parallel is not None:
-            parallel._require_dp_tp("an engine")
+            parallel._require_ported("an engine")
             device = parallel.device
+            if parallel.pipelined:
+                self._forward_fn = parallel.as_forward_fn()
+                self._decode_fn = parallel.as_decode_fn()
         # The config the device work runs at: the rank's local widths.
         self.run_cfg = parallel.local_cfg if parallel is not None else cfg
         self.device = resolve_device(device)
@@ -142,6 +155,8 @@ class InferenceEngine:
         self._make_cache = lambda cfg_, b, s, prompt_len=None: \
             model_lib.init_cache(cfg_, b, s, dtype=rt.kv_cache_dtype,
                                  device=self.device)
+        if parallel is not None and parallel.pipelined:
+            self._make_cache = parallel.as_make_cache()
         self._timer = profiling.StepTimer("engine.generate")
         # Session store: caches persist across turns; with kv_host_spill
         # only the most recent max_resident_sessions stay on the device.
@@ -200,25 +215,17 @@ class InferenceEngine:
         if mesh_cfg is not None and mesh_cfg.num_devices > 1:
             from ..parallel.api import make_parallel_model
 
-            parallel = make_parallel_model(cfg, mesh_cfg, device=device,
-                                           kv_dtype=rt.kv_cache_dtype)
+            parallel = make_parallel_model(
+                cfg, mesh_cfg, device=device, kv_dtype=rt.kv_cache_dtype,
+                num_microbatches=max(rt.microbatches, 1))
             dev = parallel.device
         else:
             dev = resolve_device(device)
-        place = None
-        if parallel is not None:
-            from ..parallel import specs as specs_lib
-
-            # Each leaf is cut to this rank's block on the host as it is
-            # read, so only the rank's share reaches its device.
-            rules = specs_lib.param_specs(cfg, parallel.mesh)
-
-            def place(name, leaf):
-                rule = rules
-                for part in name.split("/"):
-                    rule = rule[part]
-                return specs_lib.shard_leaf(leaf, rule, parallel.mesh,
-                                            "/" + name)
+        # Each leaf is cut to this rank's block on the host as it is read,
+        # so only the rank's share reaches its device; a group the rank
+        # does not hold (a pipeline stage's other end of the head) is not
+        # kept at all.
+        place = parallel.place_leaf if parallel is not None else None
         if tokenizer is None:
             tok_rel = manifest.get("tokenizer")
             if tok_rel:
@@ -252,10 +259,12 @@ class InferenceEngine:
                                                       stacked=1)
                     else:
                         leaf = quant_lib.dequantize(leaf.to(dev), dtype)
-                return place(name, leaf) if place is not None else leaf
+                return leaf
 
-            params = store_lib.load_shards(store_dir, device=dev,
-                                           place=prepare)
+            params = store_lib.load_shards(
+                store_dir, device=dev,
+                place=prepare if place is None
+                else lambda name, leaf: place(name, leaf, before=prepare))
             # The packing check belongs to the leaves the dequant-matmul
             # reads; an MoE block's experts are rehydrated per layer.
             for name, leaf in kernel_leaves(params["blocks"]):
@@ -332,7 +341,8 @@ class InferenceEngine:
                 max_new_tokens=n_new, temperature=self.rt.temperature,
                 top_k=self.rt.top_k, top_p=self.rt.top_p,
                 eos_id=tok.eos_id, pad_id=tok.pad_id,
-                make_cache=self._make_cache,
+                forward_fn=self._forward_fn, make_cache=self._make_cache,
+                decode_fn=self._decode_fn,
             )
             out = _to_host(out)[:n_real]
         dt = time.perf_counter() - t0
@@ -359,8 +369,12 @@ class InferenceEngine:
 
     def _batch_multiple(self) -> int:
         """Rows a batch must be a multiple of: the mesh's 'data' axis (1 on
-        one device), so that the rows split evenly over it."""
-        return 1 if self.pm is None else self.pm.mesh.size("data")
+        one device), so that the rows split evenly over it, times the
+        microbatches when the pipeline schedule splits the batch."""
+        if self.pm is None:
+            return 1
+        mb = self.pm.num_microbatches if self.pm.pipelined else 1
+        return self.pm.mesh.size("data") * max(mb, 1)
 
     def _on_mesh(self):
         """The mesh plan for the forwards of this block (a no-op on one
@@ -404,6 +418,7 @@ class InferenceEngine:
                 max_new_tokens=n_new, temperature=self.rt.temperature,
                 top_k=self.rt.top_k, top_p=self.rt.top_p,
                 eos_id=tok.eos_id, pad_id=tok.pad_id,
+                forward_fn=self._forward_fn,
                 slot_positions=sess.slot_positions,
             )
             out = _to_host(toks)[:sess.n_real]
@@ -512,6 +527,11 @@ class InferenceEngine:
         config they turn the config's speculation off with a warning."""
         from .batcher import ContinuousBatcher
 
+        if self.pm is not None and self.pm.pipelined:
+            raise ValueError(
+                "continuous batching requires a single-device engine or a "
+                "pure data/tensor-parallel mesh (no pipe/seq axes)"
+            )
         if tenant_weights is None:
             tenant_weights = self.rt.tenant_weights
         if tenant_weights == "":  # the CLI/config "disable" spelling

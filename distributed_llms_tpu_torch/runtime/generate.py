@@ -72,7 +72,10 @@ def generate_tokens(
     forward_fn: Any = None,  # (params, cfg, tokens, positions=, cache=,
     #   cache_index=, attn_mask=, key_positions=) -> (logits, cache)
     make_cache: Any = None,  # (cfg, batch, max_len, prompt_len=) -> KVCache
-    decode_fn: Any = None,  # the pipelined mesh decode loop
+    decode_fn: Any = None,  # the fused decode loop of a pipelined mesh
+    #   (ParallelModel.as_decode_fn()): (params, tok0, prompt_lens, T,
+    #   cache, generator, max_new_tokens, temperature, top_k, top_p,
+    #   eos_id, pad_id) -> tokens [B, N]
 ) -> torch.Tensor:
     """Generate.  Returns new tokens [B, max_new_tokens] int32; positions
     after a row's EOS hold pad_id.
@@ -83,10 +86,6 @@ def generate_tokens(
     prefill's ``attn_mask=None`` lets a flash model take the flash kernel)
     and are held equal by the tests — a change to the decode loop lands in
     both.  The KV cache holds T + max_new_tokens slots exactly."""
-    if decode_fn is not None:
-        raise NotImplementedError(
-            "decode_fn (the pipelined mesh decode loop) is not ported yet: "
-            "it comes with the pipeline in the port's last slice")
     if forward_fn is None:
         forward_fn = _default_forward
     dev = prompt.device
@@ -105,6 +104,16 @@ def generate_tokens(
                                cache=cache, cache_index=0)
     cur_logits = last_logits(logits, prompt_lens)
     del logits
+
+    if decode_fn is not None:
+        # The fused wavefront decode of a pipelined mesh: the whole loop is
+        # one schedule that never drains the pipeline between tokens,
+        # max(M, P) ticks a token round instead of M + P - 1.
+        tok0 = sampling.sample(generator, cur_logits, temperature, top_k,
+                               top_p)
+        return decode_fn(params, tok0, prompt_lens, t, cache, generator,
+                         max_new_tokens, temperature, top_k, top_p, eos_id,
+                         pad_id)
 
     slots = torch.arange(max_len, device=dev)
     prompt_valid = slots[None, :] < prompt_lens[:, None]  # [B, S]

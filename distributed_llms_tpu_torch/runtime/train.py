@@ -138,7 +138,9 @@ class Trainer:
         if self.parallel is not None:
             raise NotImplementedError(
                 "the mesh-parallel training step (ParallelModel) is not "
-                "ported yet: it comes in the port's last slice"
+                "ported yet: it comes in a later slice of the port, "
+                "pipelined training (gradients through the ring shift) "
+                "with it"
             )
 
     def init(self, params: Params) -> dict:

@@ -155,9 +155,23 @@ def test_generate_wrapper_budget_and_mesh_decode():
     assert out.shape == (1, 5)
     with pytest.raises(ValueError, match="exceeds sequence limit 16"):
         tgen.check_sequence_budget(12, 5, rt, cfg_t)
-    with pytest.raises(NotImplementedError, match="decode_fn"):
-        tgen.generate_tokens(pt, cfg_t, torch.tensor([[5]]), torch.tensor([1]),
-                             None, 2, decode_fn=object())
+    # A decode_fn takes over after the prefill and the first token, with
+    # the reference's arguments (the pipelined mesh's wavefront loop).
+    seen = {}
+
+    def decode_fn(params, tok0, lens, t, cache, gen, n, *knobs):
+        seen.update(tok0=tok0.tolist(), t=t, n=n, knobs=knobs,
+                    slots=cache.k.shape[2])
+        return torch.full((1, n), 7, dtype=torch.int32)
+
+    out = tgen.generate_tokens(pt, cfg_t, torch.tensor([[5, 6]]),
+                               torch.tensor([2]), None, 3, eos_id=9,
+                               pad_id=1, decode_fn=decode_fn)
+    assert out.tolist() == [[7, 7, 7]]
+    first = tgen.generate_tokens(pt, cfg_t, torch.tensor([[5, 6]]),
+                                 torch.tensor([2]), None, 1)
+    assert seen == {"tok0": first[:, 0].tolist(), "t": 2, "n": 3,
+                    "knobs": (0.0, 0, 1.0, 9, 1), "slots": 5}
 
 
 def engines(w, **rt_kw):

@@ -136,11 +136,23 @@ def test_page_pool_rules_match_the_reference(name, mesh, bits, devices8):
 
 
 def test_staged_rules_lead_with_pipe(devices8):
+    """The reference shards a staged tree [pipe, L/pipe, ...] with 'pipe'
+    leading; a pipelined rank takes its stage first, then cuts the rest
+    under the same rules (its layer axis no longer cut)."""
     cfg = PRESETS["llama-tiny"]
-    got = tapi.staged_param_specs(cfg, _tmesh(dict(pipe=2)))
-    want = japi.staged_param_specs(JPRESETS["llama-tiny"],
-                                   _jmesh(devices8, dict(pipe=2)))
-    assert _norm(_as_tuples(got)) == _norm(_as_tuples(want))
+    pm = tapi.make_parallel_model(cfg, MeshConfig(pipe=2, model=2),
+                                  mesh=_tmesh(dict(pipe=2, model=2)))
+    want = _as_tuples(japi.staged_param_specs(
+        JPRESETS["llama-tiny"], _jmesh(devices8, dict(pipe=2, model=2))))
+
+    def lead(t):
+        if isinstance(t, dict):
+            return {k: lead(v) for k, v in t.items()}
+        return ("pipe", None) + t[1:]
+
+    got = _as_tuples(pm.rules)
+    got["blocks"] = lead(got["blocks"])
+    assert _norm(got) == _norm(want)
 
 
 @pytest.mark.parametrize("axes", [dict(model=2), dict(model=4),
@@ -209,19 +221,27 @@ def test_mesh_size_must_be_the_world():
 
 
 def test_pipe_seq_expert_build_but_refuse_to_run():
+    """seq and expert meshes build and refuse to run, naming what is
+    left; a pipe mesh runs: a stage's cache holds its layers, and it has
+    the wavefront decode loop."""
     cfg = get_preset("llama-tiny")
-    for axes in (dict(pipe=2), dict(seq=2), dict(expert=2)):
+    for axes in (dict(seq=2), dict(expert=2)):
         pm = tapi.make_parallel_model(cfg, MeshConfig(**axes),
                                       mesh=_tmesh(axes))
-        with pytest.raises(NotImplementedError, match="last slice"):
+        with pytest.raises(NotImplementedError, match="later slices"):
             pm.init_cache(2, 16)
-        with pytest.raises(NotImplementedError, match="last slice"):
+        with pytest.raises(NotImplementedError, match="expert axis"):
             with pm.activate():
                 pass
+        assert pm.as_decode_fn() is None
     pm = tapi.make_parallel_model(cfg, MeshConfig(pipe=2),
                                   mesh=_tmesh(dict(pipe=2)))
-    with pytest.raises(NotImplementedError, match="pipelined decode"):
-        pm.as_decode_fn()
+    cache = pm.init_cache(2, 16)
+    assert tuple(cache.k.shape) == (cfg.num_layers // 2, 2, 16,
+                                    cfg.num_kv_heads, cfg.head_dim_)
+    with pm.activate():
+        pass
+    assert callable(pm.as_decode_fn())
     with pytest.raises(ValueError, match="not divisible by pipe"):
         tapi.make_parallel_model(get_preset("neox-tiny"), MeshConfig(pipe=2),
                                  mesh=_tmesh(dict(pipe=2)))

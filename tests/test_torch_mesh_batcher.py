@@ -290,7 +290,7 @@ def test_rejections_keep_the_reference_messages(tiny):
                           draft_params=params, draft_cfg=cfg, batch_slots=2,
                           max_len=32)
     pm = _layout_pm(cfg, expert=2)
-    with pytest.raises(NotImplementedError, match="last slice"):
+    with pytest.raises(NotImplementedError, match="later slices"):
         ContinuousBatcher(cfg, params, parallel=pm, batch_slots=2,
                           max_len=32)
 

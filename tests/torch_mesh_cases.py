@@ -17,6 +17,7 @@ from distributed_llms_tpu_torch.checkpoint.from_jax import params_from_numpy
 from distributed_llms_tpu_torch.core.config import MeshConfig
 from distributed_llms_tpu_torch.parallel import api
 from distributed_llms_tpu_torch.runtime.batcher import ContinuousBatcher
+from distributed_llms_tpu_torch.runtime.tokenizer import ByteTokenizer
 
 _MODELS: dict = {}
 
@@ -184,3 +185,146 @@ def _pool_sum(b) -> float | None:
     if not b.paged:
         return None
     return float(b.cache.k.double().abs().sum() + b.cache.v.double().abs().sum())
+
+
+# -- the pipeline (parallel/pipeline.py) ---------------------------------------
+
+def _ppm(cfg, data: int = 1, pipe: int = 2, model: int = 1,
+         microbatches: int = 1):
+    return api.make_parallel_model(
+        cfg, MeshConfig(data=data, pipe=pipe, model=model), device="cpu",
+        num_microbatches=microbatches)
+
+
+def pipe_blocks(key: str, microbatches: int, x, positions,
+                cache_len: int | None = None) -> dict:
+    """``pipeline.pipeline_blocks`` over this rank's stage (pipe = the
+    world): the last stage's output, and each stage's cache after a
+    prefill into a ``cache_len``-slot cache when one is given."""
+    from distributed_llms_tpu_torch.parallel import pipeline
+
+    cfg, params = _MODELS[key]
+    import torch.distributed as dist
+
+    pm = _ppm(cfg, pipe=dist.get_world_size(), microbatches=microbatches)
+    local = pm.shard_params(params)
+    xt = torch.as_tensor(np.asarray(x))
+    pos = torch.as_tensor(np.asarray(positions))
+    cache = None if cache_len is None else pm.init_cache(xt.shape[0],
+                                                         cache_len)
+    with pm.activate():
+        y = pipeline.pipeline_blocks(
+            pm.mesh, pm.local_cfg, local["blocks"],
+            xt if pm.stage == 0 else None, pos, microbatches,
+            cache_k=None if cache is None else cache.k,
+            cache_v=None if cache is None else cache.v,
+            cache_index=None if cache is None else 0)
+    return {"stage": pm.stage, "y": None if y is None else y.numpy(),
+            "k": None if cache is None else cache.k.numpy(),
+            "v": None if cache is None else cache.v.numpy(),
+            "groups": sorted(local), "ticks": microbatches + pm.num_stages - 1,
+            "shifts": pm.mesh.stats["shift_calls"]}
+
+
+def pipe_generate(key: str, data: int, pipe: int, model: int,
+                  microbatches: int, prompt, lens, n_new: int,
+                  eos_id: int = -1, temperature: float = 0.0,
+                  top_k: int = 0) -> dict:
+    """``runtime.generate.generate_tokens`` on a data x pipe x model mesh
+    through the pipelined forward and the wavefront decode."""
+    from distributed_llms_tpu_torch.runtime import generate as gen
+
+    cfg, params = _MODELS[key]
+    pm = _ppm(cfg, data, pipe, model, microbatches)
+    local = pm.shard_params(params)
+    gen_ = torch.Generator().manual_seed(0)
+    with pm.activate():
+        out = gen.generate_tokens(
+            local, pm.local_cfg, torch.as_tensor(np.asarray(prompt)),
+            torch.as_tensor(np.asarray(lens)), gen_, n_new,
+            temperature=temperature, top_k=top_k, eos_id=eos_id, pad_id=0,
+            forward_fn=pm.as_forward_fn(), make_cache=pm.as_make_cache(),
+            decode_fn=pm.as_decode_fn())
+    return {"tokens": out.tolist(), "shifts": pm.mesh.stats["shift_calls"]}
+
+
+def pipe_engine_generate(store_dir: str, prompts, n_new: int,
+                         microbatches: int, **rt_kw) -> dict:
+    """``generate_text`` on a pipelined engine over a store (pipe = the
+    world): tokens, the groups this stage holds and its quantized
+    leaves."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine.from_store(
+        store_dir, rt=RuntimeConfig(max_decode_steps=n_new,
+                                    microbatches=microbatches, **rt_kw),
+        mesh_cfg=MeshConfig(pipe=dist.get_world_size()), device="cpu")
+    out = eng.generate_text(prompts, max_new_tokens=n_new)
+    blocks = eng.params["blocks"]
+    leaves = {f"{g}/{k}": v for g in blocks for k, v in blocks[g].items()}
+    quant = {k: (tuple(v.unpacked_shape), v.bits) for k, v in leaves.items()
+             if isinstance(v, QuantizedTensor)}
+    try:
+        eng.continuous_batcher()
+        batcher = None
+    except ValueError as e:
+        batcher = str(e)
+    return {"tokens": out.tokens.tolist(), "quant": quant,
+            "groups": sorted(eng.params), "batcher": batcher,
+            "multiple": eng._batch_multiple()}
+
+
+def pipe_worker_requests(store_dir: str, requests, microbatches: int,
+                         eos_id: int) -> dict:
+    """A control-plane worker's mixed-budget batch on a pipelined engine
+    (its grouped fallback), the tokenizer's EOS moved to ``eos_id``."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.cluster.worker import WorkerHost
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+
+    rt = RuntimeConfig(microbatches=microbatches)
+    host = WorkerHost("127.0.0.1", 1, rt=rt,
+                      mesh_cfg=MeshConfig(pipe=dist.get_world_size()),
+                      device="cpu")
+    host.engine = host.engine_factory(store_dir, [0], rt)
+    host.engine.tokenizer = EosTokenizer(eos_id)
+    out = host._generate_requests(requests)
+    return {"text": out["text"], "generated_tokens": out["generated_tokens"]}
+
+
+class EosTokenizer(ByteTokenizer):
+    """The byte tokenizer with its EOS moved to ``eos`` (a token random
+    weights emit), so that a test sees rows stop."""
+
+    def __init__(self, eos: int) -> None:
+        self._eos = eos
+
+    @property
+    def eos_id(self) -> int:
+        return self._eos
+
+
+def pipe_engine_session(store_dir: str, turns, n_new: int,
+                        microbatches: int) -> list:
+    """A multi-turn session on a pipelined engine (pipe = the world): each
+    turn's tokens (the prefill and every step through the GPipe
+    forward into the stages' caches)."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine.from_store(
+        store_dir, rt=RuntimeConfig(microbatches=microbatches),
+        mesh_cfg=MeshConfig(pipe=dist.get_world_size()), device="cpu")
+    sid, res = eng.start_session(turns[0], max_new_tokens=n_new)
+    out = [res.tokens.tolist()]
+    for prompts in turns[1:]:
+        out.append(eng.continue_session(sid, prompts,
+                                        max_new_tokens=n_new).tokens.tolist())
+    return out

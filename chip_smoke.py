@@ -281,12 +281,13 @@ Phases, each printing result lines:
       batch dropped — and holds every served expert choice to its own
       float32 router logits by the same margin.  Path m's launches
       ride in the JSON line as ``families_launches``.
-   n. (run by the ``fleet`` phase) replica fleets over ONE copy of
-      ``llama-3-8b``'s weights (bf16, random from seed 0, built once by
+   n. (run by the ``fleet`` phase) replica fleets over ONE copy of the
+      weights of ``llama-3-8b``'s width cut to STORE_LAYERS layers (a
+      bf16 store, random from seed 0, built once by
       ``serve_main._build_engine`` and handed to every fleet through
       ``build_fleet(args, engine_parts=)``), every replica with path a's
-      pool flags and ``--max-len 1024`` (2 GiB of pool each), the fleet's
-      replicas booted at once:
+      pool flags and ``--max-len 2048``, the fleet's replicas booted at
+      once:
       n1. ``--replicas 2`` behind the router: path a's seven requests;
       the three shared-prefix prompts again (each lands by affinity on
       the replica holding its run and hits); a fresh 4-page prefix served
@@ -304,7 +305,7 @@ Phases, each printing result lines:
       handed off one at a time (each served from the imported pages), a
       5-page prompt's TTFT handed off, the decode replica's imported
       pages held to the bit against the prefill replica's for the same
-      digests on the card; a 600-byte prompt (9 pages, over MAX_FRAME)
+      digests on the card; a 1700-byte prompt (26 pages, over MAX_FRAME)
       falls back to colocated prefill ("frame too large"), then
       ``xfer.send:corrupt@1`` (a NACK, the retry lands) and
       ``prefill.crash:close@1`` (colocated fallback), each counted.
@@ -413,9 +414,10 @@ Phases, each printing result lines:
    processes sharing the one card (spawned through the users' CLIs by
    :func:`mesh_rank`, their counters read from files).  p1:
    ``dlt-serve-torch --store SB --override mesh.model=2`` (SB a bf16
-   store of Llama-3-8B at its full width and depth, seed 0) answers path
-   a's requests over HTTP (rank 0 serves, rank 1 follows); each rank
-   must launch K1 at least 32 x its decode steps, only at the local
+   store of Llama-3-8B at its full width cut to STORE_LAYERS layers,
+   seed 0) answers path a's requests over HTTP (rank 0 serves, rank 1
+   follows); each rank must launch K1 at least layers x its decode
+   steps, only at the local
    heads (H 16 / KVH 4), hold under 60% of a one-rank engine's memory
    after boot, and agree with the one-rank engine's greedy choice on at
    least 90% of the committed tokens (each fed the stream's context);
@@ -449,6 +451,26 @@ Phases, each printing result lines:
    first decode step's logits against the one-rank engine, the ticks, ms
    a tick and a token round, the ring shift's share and each rank's
    memory are printed.  ``--phases build,pipe`` runs it alone.
+6j. ``seq`` — path r: sequence parallelism, a Llama-3-8B int8 store at
+   its full width, published 32 layers and 8192-token context (seed 0)
+   through two ``dlt-host-torch`` ranks (``mesh.seq=2``;
+   :func:`seq_rank`) sharing the card over gloo under an in-process
+   ``Coordinator``.  First K4 is held against its plain version and
+   timed (beside SDPA's causal kernel) at r2's local shape (B 1, H 16,
+   KVH 4, D 128, 8002 x 8002 causal by position).  r1 (ring): an
+   8001-token prompt (right-padded to 8002: a 4001-token block a rank)
+   beside a short one through ``generate_spmd``, greedy, 16 new tokens,
+   then 4 mixed-budget requests through ``generate_requests`` (the
+   grouped fallback); r2 (Ulysses, from the store's manifest): the long
+   prompt alone.  Each rank must launch K5 (int8) at least 7 x 32 x its
+   forwards, under Ulysses K4 at least 32 x its prefills at the local
+   shape (none under the ring), hold half the one-rank cache's prompt
+   region, and return the same rows as the other rank; the greedy rows
+   agree with a one-rank engine (dense, batch 1) by p1's rule; the long
+   row's first decode step's logits against it, the shifts, all-to-alls
+   and reductions with their seconds, the ms a decode step and the
+   long prefill's wall time are printed (``seq_r``).  ``--phases
+   build,seq`` runs it alone.
 7. ``train`` — path g: ``runtime.train.Trainer`` on Llama-3-8B's width
    (d_model 4096, 32/8 heads, FFN 14336, vocab 128256) cut to 8 layers,
    ``attn_impl="flash"``, random weights from seed 0, AdamW at lr 1e-3:
@@ -5893,8 +5915,11 @@ def serve_families(torch) -> dict:
 
 # -- path n: replica fleets, disaggregated prefill/decode, tenants ------------
 
-FLEET_MAX_LEN = 1024
-FLEET_ARGS = [*SERVE_ARGS, "--max-len", str(FLEET_MAX_LEN)]
+# Path n serves Llama-3-8B's width cut from 32 layers to STORE_LAYERS (a
+# bf16 store, ``--store``) since path r joined the smoke, to keep it near
+# 1000 s of phases: every layer keeps the published width and path a's
+# pool flags.  Its max-len holds the frame-limit prompt below.
+FLEET_MAX_LEN = 2048
 FLEET_NEW = 48
 # Path a's prefix with tails of equal length: 333-353 prompt tokens (with
 # BOS), 5 full 64-token pages each, all handed off / pulled.
@@ -5921,11 +5946,14 @@ def _probe(label: str) -> str:
 PULL_BASE = ("Dock roster for the night shift, one crew per bay, names "
              "withheld: " + "".join(f"bay {i:02d} crew {(7 * i) % 23:02d}; "
                                     for i in range(24)))[:280]
-# 600 prompt bytes (601 tokens, 9 full pages): 9 x 8 MiB of K+V, over
-# MAX_FRAME once base64'd — the reference's permanent "frame too large".
-FLEET_LONG_BYTES = 600
+# 1700 prompt bytes (1701 tokens, 26 full pages): 26 x 2 MiB of K+V at 8
+# layers, 69 MiB base64'd, over MAX_FRAME (64 MiB, the logical body; 24
+# pages would be 64 MiB before the message's own bytes) — the
+# reference's permanent "frame too large".
+FLEET_LONG_BYTES = 1700
+FLEET_LONG_PAGES = FLEET_LONG_BYTES // 64
 FLEET_LONG = ("A ledger past the frame limit: " + "".join(
-    f"crate {i:03d} on aisle {i % 17:02d}; " for i in range(40)))[
+    f"crate {i:03d} on aisle {i % 17:02d}; " for i in range(80)))[
         :FLEET_LONG_BYTES]
 TENANT_NEW = 32
 TENANT_PROMPT_BYTES = 39  # + BOS: 40 tokens; est = 40 + 32 = 72 a request
@@ -6086,10 +6114,16 @@ def _delta(after: dict, before: dict) -> dict:
             if v != before.get(k, 0.0)}
 
 
-def _fleet_args(*extra) -> list:
+def _fleet_base(store: str) -> list:
+    """Path n's ``dlt-serve-torch`` flags over the cut store."""
+    return ["--store", store, *SERVE_ARGS[2:], "--max-len",
+            str(FLEET_MAX_LEN)]
+
+
+def _fleet_args(base: list, *extra) -> list:
     from distributed_llms_tpu_torch.cli import serve_main
 
-    return serve_main.parser().parse_args([*FLEET_ARGS, *extra])
+    return serve_main.parser().parse_args([*base, *extra])
 
 
 async def _fleet_boot(fleet, router) -> float:
@@ -6231,14 +6265,14 @@ def _step_ms(torch, eng) -> dict:
     return res
 
 
-def fleet_replicas(torch, card, lap, parts, rec) -> dict:
+def fleet_replicas(torch, card, lap, parts, rec, base) -> dict:
     """n1: ``--replicas 2`` through ``build_fleet`` and the router."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
     from distributed_llms_tpu_torch.runtime.faults import FaultPlane
 
     eng = parts[0]
-    args = _fleet_args("--replicas", "2")
+    args = _fleet_args(base, "--replicas", "2")
     fleet, router, _ = serve_main.build_fleet(args, engine_parts=parts)
     # The shared plane of the replica.* and router.* sites, armed by count
     # below.
@@ -6404,14 +6438,14 @@ def _pool_bytes_equal(torch, a, b, digests) -> dict:
     return {"pages": len(pa), "equal": out}
 
 
-def fleet_disagg(torch, card, lap, parts, rec, kv_bits) -> dict:
+def fleet_disagg(torch, card, lap, parts, rec, base, kv_bits) -> dict:
     """n2: ``--disaggregate --prefill-replicas 1 --decode-replicas 1``."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
 
     eng = parts[0]
     extra = ["--kv-bits", "8"] if kv_bits == 8 else []
-    args = _fleet_args("--disaggregate", "--prefill-replicas", "1",
+    args = _fleet_args(base, "--disaggregate", "--prefill-replicas", "1",
                        "--decode-replicas", "1", *extra)
     fleet, router, _ = serve_main.build_fleet(args, engine_parts=parts)
     router.handoff_deadline_s = HANDOFF_DEADLINE_S
@@ -6462,8 +6496,10 @@ def fleet_disagg(torch, card, lap, parts, rec, kv_bits) -> dict:
                   "prompt is short")
             resp = await _greedy(port, FLEET_LONG, new=32)
             check(METRICS.get_counter("router.handoff_fallbacks.rejected")
-                  == rej + 1, "fleet: the 9-page handoff did not fall back")
-            check(_cached(resp) == 0, "fleet: the 9-page prompt hit pages")
+                  == rej + 1, f"fleet: the {FLEET_LONG_PAGES}-page handoff "
+                  "did not fall back")
+            check(_cached(resp) == 0, f"fleet: the {FLEET_LONG_PAGES}-page "
+                  "prompt hit pages")
             # The drills, on the prefill replica's own plane.
             plane = p0.server.batcher.faults
             if plane is None:
@@ -6560,13 +6596,13 @@ async def _tenant_post(port, tenant, i):
     return int(lines[0].split()[1]), headers.get("Retry-After"), rest
 
 
-def fleet_tenants(torch, card, lap, parts, rec) -> dict:
+def fleet_tenants(torch, card, lap, parts, rec, base) -> dict:
     """n3: tenants on one engine, then behind a 2-replica router."""
     from distributed_llms_tpu_torch.cli import serve_main
     from distributed_llms_tpu_torch.core.observability import METRICS
 
     eng, name, rt, faults, _spec = parts
-    args = _fleet_args(*TENANT_ARGS)
+    args = _fleet_args(base, *TENANT_ARGS)
     server = serve_main._server_factory(args, eng, name, rt, faults)()
     sched = server.batcher.sched
     check(type(sched).__name__ == "TenantScheduler",
@@ -6634,7 +6670,7 @@ def fleet_tenants(torch, card, lap, parts, rec) -> dict:
     _free(torch)
     lap("n3_one_engine")
     # Behind a 2-replica router the fleet ledger holds ONE quota.
-    fargs = _fleet_args("--replicas", "2", *TENANT_ARGS)
+    fargs = _fleet_args(base, "--replicas", "2", *TENANT_ARGS)
     fleet, router, _ = serve_main.build_fleet(fargs, engine_parts=parts)
     sheds0 = METRICS.get_counter("router.ledger.sheds")
 
@@ -6670,8 +6706,9 @@ def fleet_tenants(torch, card, lap, parts, rec) -> dict:
 
 
 def serve_fleet(torch) -> dict:
-    """Path n: replica fleets over one copy of Llama-3-8B's weights, the
-    disaggregated handoff (bf16 and int8 pools) and tenant QoS.  Returns
+    """Path n: replica fleets over one copy of the weights of Llama-3-8B's
+    width cut to STORE_LAYERS layers, the disaggregated handoff (bf16 and
+    int8 pools) and tenant QoS.  Returns
     the launches of the path's own calls (process-wide counters: every
     replica's launches together)."""
     from distributed_llms_tpu_torch.cli import serve_main
@@ -6679,37 +6716,45 @@ def serve_fleet(torch) -> dict:
 
     card = _card()
     lap = _lap("fleet_time")
-    t0 = time.perf_counter()
-    parts = serve_main._build_engine(_fleet_args())
-    torch.cuda.synchronize()
-    _llama_3_8b(parts[0].cfg)
-    emit("fleet", part="weights", card=card, build_s=time.perf_counter() - t0,
-         resident_gb=torch.cuda.memory_allocated() / 1e9)
-    lap("weights")
-    rec = _FleetRecorder(tb.ContinuousBatcher).install()
-    out = {}
+    tmp = tempfile.mkdtemp(prefix="dlt_fleet_")
     try:
-        _add(out, fleet_replicas(torch, card, lap, parts, rec))
-        _add(out, fleet_disagg(torch, card, lap, parts, rec, 16))
-        _add(out, fleet_disagg(torch, card, lap, parts, rec, 8))
-        _add(out, fleet_tenants(torch, card, lap, parts, rec))
+        info = write_store(torch, None, tmp, num_layers=STORE_LAYERS)
+        base = _fleet_base(tmp)
+        t0 = time.perf_counter()
+        parts = serve_main._build_engine(_fleet_args(base))
+        torch.cuda.synchronize()
+        _llama_3_8b_cut(parts[0].cfg)
+        emit("fleet", part="weights", card=card,
+             build_s=time.perf_counter() - t0,
+             resident_gb=torch.cuda.memory_allocated() / 1e9, **info)
+        lap("weights")
+        rec = _FleetRecorder(tb.ContinuousBatcher).install()
+        out = {}
+        try:
+            _add(out, fleet_replicas(torch, card, lap, parts, rec, base))
+            _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 16))
+            _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 8))
+            _add(out, fleet_tenants(torch, card, lap, parts, rec, base))
+        finally:
+            rec.uninstall()
+        del parts
     finally:
-        rec.uninstall()
-    del parts
+        shutil.rmtree(tmp, ignore_errors=True)
     _free(torch)
     return out
 
 
 # -- path o: the elastic fleet and the control plane -------------------------
 
-# o1: the autoscaler over path n's replica (weights shared).  A replica's
-# 8 rows turn over a ~470-token request (~400 prompt + ~64 new) in ~1.3 s
-# at path n's ~19 ms decode step; on the card admissions and a second
+# o1: the autoscaler over replicas of path a's model (weights shared).  A
+# replica's 8 rows turn over a ~470-token request (~400 prompt + ~64 new)
+# in ~1.3 s at a 32-layer replica's ~19 ms decode step; on the card admissions and a second
 # replica's thread stretch that several-fold.  The trace (seed 0: 120
 # arrivals, 101 in the first half) offers 2.0 requests/s at the envelope's
 # mean, 3.8 at its crest, bursts x4: its peak holds several requests in
 # flight on one replica, its trough about none.  Up at 0.10 of one
 # replica's 16320-token pool is ~3.5 such requests; down at 0.03 ~1.
+ELASTIC_BASE = [*SERVE_ARGS, "--max-len", "1024"]  # path a's model
 ELASTIC_HORIZON_S = 60.0
 ELASTIC_UP_LOAD = 0.10
 ELASTIC_DOWN_LOAD = 0.03
@@ -6770,7 +6815,7 @@ def elastic_fleet(torch, card, lap, rec) -> dict:
     from distributed_llms_tpu_torch.core.observability import METRICS
     from distributed_llms_tpu_torch.runtime import chunk_graph, workload
 
-    args = _fleet_args(*ELASTIC_ARGS)
+    args = _fleet_args(ELASTIC_BASE, *ELASTIC_ARGS)
     t0 = time.perf_counter()
     parts = serve_main._build_engine(args)
     eng = parts[0]
@@ -7314,6 +7359,8 @@ def mesh_rank(kind: str, argv: list, stats_path: str) -> None:
     path q's rank (:func:`pipe_rank`)."""
     if kind == "pipe":
         return pipe_rank(argv, stats_path)
+    if kind == "seq":
+        return seq_rank(argv, stats_path)
     import numpy as np
     import torch
 
@@ -7555,7 +7602,7 @@ def mesh_tensor_parallel(torch, card, lap, store, tmp) -> dict:
         _kill(procs)
     from distributed_llms_tpu_torch.models.presets import get_preset
 
-    cfg = get_preset("llama-3-8b")
+    cfg = get_preset("llama-3-8b", num_layers=STORE_LAYERS)
     ranks = _read_stats(stats)
     logits_mesh = __import__("numpy").load(stats[0] + ".logits.npy")
     local = (f"K1_H{cfg.num_heads // MESH_TP}"
@@ -7962,8 +8009,8 @@ def mesh_legacy_int4(torch, card, tmp) -> int:
 
 
 def serve_mesh(torch) -> dict:
-    """Path p: tensor parallelism over HTTP at Llama-3-8B's full width and
-    depth (p1), data and tensor parallelism through the control plane over
+    """Path p: tensor parallelism over HTTP at Llama-3-8B's full width
+    cut to STORE_LAYERS layers (p1), data and tensor parallelism through the control plane over
     an int8 store (p2), and the leftovers (p3: the native reader, training
     checkpoints, a legacy int4 store).  Returns each kernel's launches per
     rank on the mesh legs."""
@@ -7973,7 +8020,11 @@ def serve_mesh(torch) -> dict:
     out: dict = {}
     try:
         store = f"{tmp}/sb"
-        info = write_store(torch, None, store, "llama-3-8b")
+        # Cut from 32 layers (to keep the whole smoke near 1000 s of
+        # phases beside path r): every layer keeps the published width,
+        # so each K1 launch is at the full model's local heads.
+        info = write_store(torch, None, store, "llama-3-8b",
+                           num_layers=STORE_LAYERS)
         emit("mesh_store", card=card, **info)
         lap("p1_store")
         out.update(mesh_tensor_parallel(torch, card, lap, store, tmp))
@@ -8315,11 +8366,481 @@ def serve_pipe(torch) -> dict:
     return {"quant_matmul": [r["k5_int8_launches"] for r in per_rank]}
 
 
+# -- path r: sequence parallelism ------------------------------------------------
+
+SEQ_RANKS = 2
+SEQ_MAX_LEN = 8192  # Llama-3-8B's published context
+SEQ_NEW = 16
+# 8000 prompt bytes + BOS: 8001 tokens, right-padded to 8002 (a multiple
+# of the 'seq' axis), so each rank holds a 4001-token block: off the
+# 64- and 128-slot tiles.
+SEQ_LONG_BYTES = 8000
+SEQ_T = SEQ_LONG_BYTES + 2
+SEQ_LONG = ("Long-context ledger for the sequence-parallel path: " + "".join(
+    f"entry {i:04d} ships crate {(31 * i) % 997:03d} from dock {i % 13:02d}; "
+    for i in range(200)))[:SEQ_LONG_BYTES]
+SEQ_SHORT = "Sequence path, short row: a note beside the long ledger."
+SEQ_REQUESTS = [(f"Sequence batch request {i}: route crate {i} via dock "
+                 f"{3 + i}.", n) for i, n in enumerate((2, 6, 4, 8))]
+# A rank's prefill region against the one-rank cache's at the same length.
+SEQ_KV_SHARE = (0.45, 0.55)
+SEQ_IMPL = {"r1": "ring", "r2": "ulysses"}
+
+
+def seq_rank(argv: list, stats_path: str) -> None:
+    """One rank of path r, in its own process: ``dlt-host-torch`` run
+    through its ``main`` on a sequence-parallel mesh, with counters
+    around K4's wrapper (calls by shape), the seq prefill and decode
+    (device-synced wall time, the collectives each took), the two-region
+    caches it allocates (bytes by region) and ``generate_text`` (each
+    row's prompt ids and tokens).  After boot every launch count is set
+    to 0; the first decode step after a long prefill saves its row 0
+    logits beside ``stats_path`` (.npy, rank 0).  At the end, what it saw
+    goes to ``stats_path`` (JSON)."""
+    import numpy as np
+    import torch
+
+    from distributed_llms_tpu_torch.ops import flash, quant_matmul
+    from distributed_llms_tpu_torch.parallel import api
+    from distributed_llms_tpu_torch.runtime import engine as engine_lib
+
+    stats = {"rank": None, "forwards": [], "rows": [], "caches": [],
+             "k4_shapes": {}}
+    box: dict = {}
+    fa = flash.flash_attention
+
+    def flash_attention(q, k, v, *a, **kw):
+        key = (f"K4_B{q.shape[0]}_Tq{q.shape[1]}_S{k.shape[1]}"
+               f"_H{q.shape[2]}_KVH{k.shape[2]}")
+        stats["k4_shapes"][key] = stats["k4_shapes"].get(key, 0) + 1
+        return fa(q, k, v, *a, **kw)
+
+    # The kernel's wrapper counts on the module's flash_attention: this one.
+    flash_attention.static_launches = flash_attention.dynamic_launches = 0
+    flash.flash_attention = flash_attention
+    pm_cls = api.ParallelModel
+
+    def timed(kind, fn):
+        def wrapped(self, params, tokens, *a, **kw):
+            mesh = self.mesh
+            torch.cuda.synchronize()
+            before = dict(mesh.stats)
+            t0 = time.perf_counter()
+            out = fn(self, params, tokens, *a, **kw)
+            torch.cuda.synchronize()
+            stats["forwards"].append({
+                "kind": kind, "rows": int(tokens.shape[0]),
+                "tokens": int(tokens.shape[1]),
+                "seconds": time.perf_counter() - t0,
+                "collectives": {k: mesh.stats[k] - before[k]
+                                for k in mesh.stats}})
+            if kind == "decode" and box.pop("first_step", False) \
+                    and mesh.rank == 0:
+                np.save(stats_path + ".logits.npy",
+                        out[0][0, -1].float().cpu().numpy())
+            if kind == "prefill":
+                box["first_step"] = tokens.shape[1] >= SEQ_LONG_BYTES
+            return out
+        return wrapped
+
+    pm_cls._seq_prefill_cached = timed("prefill", pm_cls._seq_prefill_cached)
+    pm_cls._seq_decode_cached = timed("decode", pm_cls._seq_decode_cached)
+    init_cache = pm_cls.init_cache
+
+    def init(self, batch, max_len, prompt_len=None):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        cache = init_cache(self, batch, max_len, prompt_len=prompt_len)
+        torch.cuda.synchronize()
+        stats["caches"].append({
+            "batch": batch, "max_len": max_len, "prompt_len": prompt_len,
+            "prefill_shape": list(cache.k[0].shape),
+            "prefill_bytes": cache.k[0].nbytes + cache.v[0].nbytes,
+            "decode_bytes": cache.k[1].nbytes + cache.v[1].nbytes,
+            "allocated": torch.cuda.memory_allocated() - m0})
+        return cache
+
+    pm_cls.init_cache = init
+    cls = engine_lib.InferenceEngine
+    generate_text = cls.generate_text
+
+    def gen_text(self, prompts, max_new_tokens=None, seed=None):
+        res = generate_text(self, prompts, max_new_tokens, seed)
+        for prompt, row in zip(prompts, res.tokens):
+            stats["rows"].append({"prompt": self.tokenizer.encode(prompt),
+                                  "tokens": [int(x) for x in row]})
+        return res
+
+    cls.generate_text = gen_text
+    from_store = cls.from_store.__func__
+
+    def engine_from_store(c, *a, **kw):
+        eng = from_store(c, *a, **kw)
+        torch.cuda.synchronize()
+        box["engine"] = eng
+        mesh = eng.pm.mesh
+        stats.update(rank=mesh.rank, seq=mesh.coord("seq"), mesh=mesh.shape,
+                     backend=mesh.backend, attn_impl=eng.pm.seq_cfg.attn_impl,
+                     mem_after_engine=torch.cuda.memory_allocated())
+        # Every count 0 just before the path's requests.
+        quant_matmul.quant_matmul.launches = 0
+        quant_matmul.quant_matmul.int4_launches = 0
+        flash_attention.static_launches = flash_attention.dynamic_launches = 0
+        flash.tile_summary.launches = 0
+        return eng
+
+    cls.from_store = classmethod(engine_from_store)
+    try:
+        from distributed_llms_tpu_torch.cli import host_main
+
+        host_main.main(argv)
+    finally:
+        stats["k5_int8_launches"] = quant_matmul.quant_matmul.launches
+        stats["k5_int4_launches"] = quant_matmul.quant_matmul.int4_launches
+        stats["k4_launches"] = flash_attention.dynamic_launches
+        stats["k3_launches"] = flash_attention.static_launches
+        stats["tile_summary_launches"] = flash.tile_summary.launches
+        if "engine" in box:
+            stats["collectives"] = dict(box["engine"].pm.mesh.stats)
+        with open(stats_path, "w") as f:
+            json.dump(stats, f)
+
+
+def seq_k4_local(torch, card) -> dict:
+    """K4 at path r2's local shape (one rank of Ulysses over seq=2: B 1,
+    H 16, KVH 4, D 128, the 8002 gathered positions, causal by position)
+    held against its plain version and timed beside it and SDPA's causal
+    kernel.  Bound: 4 operations per live (row, key) pair, head dim and
+    head at the bf16 peak, against q, k, v, out and the two position
+    vectors read or written once."""
+    import torch.nn.functional as F
+
+    from distributed_llms_tpu_torch.ops import flash
+
+    h, kvh, t = 16, 4, SEQ_T
+    q, k, v = flash_case(torch, tq=t, h=h, kvh=kvh, seed=70)
+    d = q.shape[3]
+    pos = torch.arange(t, device="cuda")[None]
+    kw = {"q_positions": pos, "k_positions": pos}
+    ref = flash.flash_reference(q, k, v, **kw)
+    err = _row_held(torch, "flash_attention_dynamic",
+                    flash.flash_attention(q, k, v, **kw), ref, FLASH_ROW_REL,
+                    case="ulysses_local", B=1, Tq=t, S=t, H=h, KVH=kvh, D=d)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = (library().transpose(1, 2).float() - ref.float()).abs().max()
+    check(lib_err.item() <= TOL, f"K4 local: SDPA disagrees ({lib_err})")
+    del ref
+    pairs = t * (t + 1) // 2
+    io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * 2 * t
+    tm = _turns(torch, lambda: flash.flash_attention(q, k, v, **kw),
+                lambda: flash.flash_reference(q, k, v, **kw), library,
+                plain_iters=1, iters=10, plain_warmup=1)
+    dev = _device_ms(torch, lambda: flash.flash_attention(q, k, v, **kw))
+    got = _timed(
+        "flash_attention_dynamic",
+        {"B": 1, "Tq": t, "S": t, "H": h, "KVH": kvh, "D": d,
+         "causal": "by position", "live_pairs_per_head": pairs},
+        tm, *_bound(0, io, 4 * pairs * d * h), io, shape="ulysses_local",
+        card=card, max_abs_err=err,
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        device_ms_per_call=dev,
+        library_device_ms_per_call=_device_ms(torch, library))
+    del q, k, v, qt, kt, vt
+    _free(torch)
+    return got
+
+
+def _seq_set_attn_impl(store: str, impl: str) -> None:
+    """The attention the store's manifest names (the engine takes its
+    model config from there; the CLI has no knob for it)."""
+    path = Path(store) / "manifest.json"
+    man = json.loads(path.read_text())
+    man["model_config"]["attn_impl"] = impl
+    path.write_text(json.dumps(man))
+
+
+async def _seq_leg(leg, store, tmp, overrides, lap) -> dict:
+    """One leg of path r: two ``dlt-host-torch`` ranks on ``mesh.seq=2``
+    under an in-process ``Coordinator``; r1 sends the long prompt beside
+    the short one through ``generate_spmd``, then the mixed-budget batch
+    through ``generate_requests``; r2 the long prompt alone."""
+    from distributed_llms_tpu_torch.cluster.coordinator import Coordinator
+    from distributed_llms_tpu_torch.core.config import ClusterConfig
+
+    label = f"seq/{leg}"
+    stats = [f"{tmp}/{leg}_rank{r}.json" for r in range(SEQ_RANKS)]
+    logs = [f"{tmp}/{leg}_rank{r}.log" for r in range(SEQ_RANKS)]
+    coord = Coordinator(ClusterConfig(
+        coordinator_host="127.0.0.1", coordinator_port=0,
+        heartbeat_interval_s=0.5, heartbeat_timeout_s=600.0,
+        task_timeout_s=600.0))
+    await coord.start()
+    dist_port = _free_port()
+    procs, out = [], {"stats": stats}
+    try:
+        for r in range(SEQ_RANKS):
+            argv = ["--host", "127.0.0.1", "--port", str(coord.port),
+                    "--worker-id", f"{leg}-rank{r}",
+                    "--override", f"cluster.num_processes={SEQ_RANKS}",
+                    "--override", f"cluster.process_id={r}",
+                    "--override", "cluster.distributed_coordinator="
+                                  f"127.0.0.1:{dist_port}",
+                    "--override", "cluster.heartbeat_interval_s=0.5",
+                    "--override", f"mesh.seq={SEQ_RANKS}",
+                    *[a for kv in overrides for a in ("--override", kv)]]
+            procs.append(_spawn_rank("seq", argv, stats[r], logs[r]))
+        deadline = time.monotonic() + MESH_BOOT_S
+        while len(coord.workers) < SEQ_RANKS:
+            for p, log in zip(procs, logs):
+                if p.poll() is not None:
+                    raise SmokeFailure(
+                        f"{label}: a host exited {p.returncode}:\n"
+                        f"{Path(log).read_text()[-3000:]}")
+            check(time.monotonic() < deadline, f"{label}: no workers")
+            await asyncio.sleep(0.2)
+        coord.plan_shards(2, store_dir=store)
+        placed = await coord.place_shards(timeout=600.0)
+        check(all("'seq': 2" in r.get("resident", "")
+                  for r in placed.values()), f"{label}: {placed}")
+        lap(f"{leg}_boot_place")
+        prompts = [SEQ_LONG, SEQ_SHORT] if leg == "r1" else [SEQ_LONG]
+        t0 = time.perf_counter()
+        out["spmd"] = await coord.generate_spmd(prompts,
+                                                max_new_tokens=SEQ_NEW)
+        out["spmd_s"] = time.perf_counter() - t0
+        if leg == "r1":
+            reqs = [{"prompt": p, "max_new_tokens": n}
+                    for p, n in SEQ_REQUESTS]
+            t0 = time.perf_counter()
+            out["batch"] = await coord.generate_requests(reqs, timeout=600.0)
+            out["batch_s"] = time.perf_counter() - t0
+        lap(f"{leg}_requests")
+        for wid in list(coord.workers):
+            await coord.submit("SHUTDOWN", {}, worker_id=wid, timeout=60.0)
+        await asyncio.to_thread(_reap, procs, logs, label)
+        return out
+    finally:
+        _kill(procs)
+        await coord.stop()
+
+
+def _seq_reference(torch, eng, rows, eos) -> dict:
+    """Each greedy row against the one-rank engine, fed the row's context
+    (one dense forward over prompt + row, batch 1): the agreement of its
+    greedy choice, and the first decode step's logits of the long row
+    (the position after its first token)."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+
+    agree = total = 0
+    first = None
+    for row in rows:
+        stream = _cut(row["tokens"], eos)
+        ids = row["prompt"] + stream[:-1]
+        toks = torch.tensor([ids], device=eng.device)
+        with torch.no_grad():
+            logits, _ = model_lib.forward(eng.params, eng.run_cfg, toks)
+        n = len(row["prompt"])
+        want = logits[0, n - 1:].argmax(-1).tolist()
+        agree += sum(int(a == b) for a, b in zip(want, stream))
+        total += len(stream)
+        if n >= SEQ_LONG_BYTES and first is None:
+            check(len(stream) >= 2, "seq: the long row ended at its first "
+                  "token")
+            first = logits[0, n].float().cpu().numpy()
+        del logits
+    return {"agree": agree, "tokens": total,
+            "agreement": agree / max(total, 1), "first_step_logits": first}
+
+
+def _seq_rank_line(label, name, st, r, cfg, one_mem) -> dict:
+    """One rank of a leg of path r held to its counts (K5 on every
+    projection of every forward; under Ulysses K4 on every layer of every
+    prefill, at the local shape, each after its pre-pass; under the ring
+    no flash launch) and to its share of the prompt's K/V; what it
+    measured, for the ``seq_r`` line."""
+    n_layers = cfg.num_layers
+    fw = st["forwards"]
+    pre = [f for f in fw if f["kind"] == "prefill"]
+    dec = [f for f in fw if f["kind"] == "decode"]
+    k5, k4 = st["k5_int8_launches"], st["k4_launches"]
+    check(st["backend"] == "gloo" and st["seq"] == r
+          and st["attn_impl"] == SEQ_IMPL[name],
+          f"{label}: rank {r} is seq {st['seq']} ({st['attn_impl']}) on "
+          f"{st['backend']}")
+    check(bool(pre and dec) and k5 >= 7 * n_layers * len(fw),
+          f"{label}: rank {r} launched K5 {k5} times, under 7 x "
+          f"{n_layers} layers x {len(fw)} forwards")
+    check(st["k5_int4_launches"] == 0,
+          f"{label}: rank {r} launched K5 int4 on an int8 store")
+    if SEQ_IMPL[name] == "ulysses":
+        local = (f"K4_B1_Tq{SEQ_T}_S{SEQ_T}_H{cfg.num_heads // SEQ_RANKS}"
+                 f"_KVH{cfg.num_kv_heads // SEQ_RANKS}")
+        check(k4 >= n_layers * len(pre) and local in st["k4_shapes"],
+              f"{label}: rank {r} launched K4 {k4} times "
+              f"({st['k4_shapes']}), under {n_layers} layers x {len(pre)} "
+              f"prefills or not at {local}")
+        check(st["tile_summary_launches"] == k4,
+              f"{label}: rank {r}: {st['tile_summary_launches']} pre-passes "
+              f"for {k4} K4 launches")
+    else:
+        check(k4 == 0 and st["k3_launches"] == 0,
+              f"{label}: rank {r} launched flash on the ring")
+    long_cache = next(c for c in st["caches"]
+                      if c["prompt_len"] >= SEQ_LONG_BYTES)
+    # The one-rank cache's prefill region at the same length: K and V of
+    # every layer, row and padded prompt slot, in bf16.
+    one_pref = (2 * n_layers * long_cache["batch"] * long_cache["prompt_len"]
+                * cfg.num_kv_heads * cfg.head_dim_ * 2)
+    share = long_cache["prefill_bytes"] / one_pref
+    check(SEQ_KV_SHARE[0] <= share <= SEQ_KV_SHARE[1],
+          f"{label}: rank {r} holds {share:.3f} of the one-rank prefill "
+          "region")
+    long_pre = next(f for f in pre if f["tokens"] >= SEQ_LONG_BYTES)
+    dec_s = sum(f["seconds"] for f in dec)
+
+    def coll(fs, kind):
+        return {"calls": sum(f["collectives"][f"{kind}_calls"] for f in fs),
+                "seconds": sum(f["collectives"][f"{kind}_seconds"]
+                               for f in fs)}
+
+    return {
+        "rank": st["rank"], "seq": st["seq"], "attn_impl": st["attn_impl"],
+        "k5_int8_launches": k5, "k4_launches": k4,
+        "tile_summary_launches": st["tile_summary_launches"],
+        "k4_shapes": st["k4_shapes"], "prefills": len(pre),
+        "decode_steps": len(dec),
+        "mem_after_boot_gb": st["mem_after_engine"] / 1e9,
+        "boot_mem_share_of_one_rank": st["mem_after_engine"] / one_mem,
+        "long_cache": long_cache,
+        "prefill_share_of_one_rank_cache": share,
+        "cache_allocated_share": long_cache["allocated"] / one_pref,
+        "long_prefill_s": long_pre["seconds"],
+        "long_prefill_rows": long_pre["rows"],
+        "long_prefill_collectives": {
+            k: coll([long_pre], k)
+            for k in ("shift", "a2a", "reduce_sum", "reduce_max")},
+        "long_prefill_all_collectives": {
+            "calls": long_pre["collectives"]["calls"],
+            "seconds": long_pre["collectives"]["seconds"]},
+        "ms_per_decode_step": dec_s * 1e3 / len(dec),
+        "decode_collectives_per_step": sum(
+            f["collectives"]["calls"] for f in dec) / len(dec),
+        "decode_collective_share": sum(
+            f["collectives"]["seconds"] for f in dec) / max(dec_s, 1e-9),
+        "decode_collectives": {k: coll(dec, k)
+                               for k in ("reduce_sum", "reduce_max")},
+        "collectives_total": st.get("collectives")}
+
+
+def serve_seq(torch) -> dict:
+    """Path r: sequence parallelism at Llama-3-8B's full width and its
+    published 32 layers and 8192-token context, weight-only int8 (random
+    weights, seed 0): two ``dlt-host-torch`` ranks (``mesh.seq=2``) share
+    the card over gloo under an in-process ``Coordinator``.  r1 (the
+    ring, the default): an 8001-token prompt beside a short one through
+    ``generate_spmd``, greedy, 16 new tokens, then 4 mixed-budget
+    requests through ``generate_requests`` (the grouped fallback); r2
+    (Ulysses, the store's manifest set to ``attn_impl="ulysses"``): the
+    long prompt alone.  Each leg is held to a one-rank engine over the
+    same store (``attn_impl="dot"``, batch 1).  K4 is first held and
+    timed at r2's local shape.  Returns K5's, K4's and K4's pre-pass's
+    launches, one count a rank of each leg."""
+    import numpy as np
+
+    from distributed_llms_tpu_torch.core.config import load_config
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+    from distributed_llms_tpu_torch.runtime.tokenizer import ByteTokenizer
+
+    check(len(SEQ_LONG) == SEQ_LONG_BYTES, "seq: the long prompt is short")
+    card = _card()
+    lap = _lap("seq_time")
+    tmp = tempfile.mkdtemp(prefix="dlt_seq_")
+    store = f"{tmp}/r_store"
+    overrides = ["runtime.serve_quantized=true",
+                 f"runtime.max_seq_len={SEQ_MAX_LEN}",
+                 f"runtime.max_decode_steps={SEQ_NEW}"]
+    legs: dict = {}
+    eos = ByteTokenizer().eos_id
+    try:
+        k4_local = seq_k4_local(torch, card)
+        lap("k4_local")
+        info = write_store(torch, "int8", store, "llama-3-8b")
+        lap("store")
+        for leg, impl in SEQ_IMPL.items():
+            _seq_set_attn_impl(store, impl)
+            legs[leg] = asyncio.run(_seq_leg(leg, store, tmp, overrides,
+                                             lap))
+            legs[leg]["ranks"] = _read_stats(legs[leg]["stats"])
+            legs[leg]["logits"] = np.load(legs[leg]["stats"][0]
+                                          + ".logits.npy")
+        _seq_set_attn_impl(store, "dot")
+        rt = load_config(None, overrides).runtime
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        eng = InferenceEngine.from_store(store, rt=rt)
+        torch.cuda.synchronize()
+        one_mem = torch.cuda.memory_allocated() - held
+        for leg in legs.values():
+            leg["reference"] = _seq_reference(torch, eng,
+                                              leg["ranks"][0]["rows"], eos)
+        del eng
+        _free(torch)
+        lap("one_rank")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = get_preset("llama-3-8b")
+    out: dict = {"quant_matmul": {}, "flash_attention_dynamic": {},
+                 "flash_tile_summary": {}}
+    for name, leg in legs.items():
+        label = f"seq/{name}"
+        ranks, ref = leg["ranks"], leg["reference"]
+        per_rank = [_seq_rank_line(label, name, st, r, cfg, one_mem)
+                    for r, st in enumerate(ranks)]
+        first = ref.pop("first_step_logits")
+        emit("seq_r", leg=name, card=card, mesh={"seq": SEQ_RANKS},
+             attn_impl=SEQ_IMPL[name], backend="gloo", store=info,
+             prompt_tokens=SEQ_LONG_BYTES + 1, padded_prompt=SEQ_T,
+             ranks=per_rank, one_rank_mem_gb=one_mem / 1e9,
+             first_step_logits_max_abs_diff=float(
+                 abs(leg["logits"] - first).max()),
+             first_step_logits_scale=float(abs(first).max()),
+             teacher_forced=ref, one_rank_reference="attn_impl=dot, batch 1",
+             spmd_s=leg["spmd_s"], batch_s=leg.get("batch_s"),
+             k4_local=k4_local)
+        rows = [st["rows"] for st in ranks]
+        check(rows[0] == rows[1] and len(rows[0]) == (
+            2 + len(SEQ_REQUESTS) if name == "r1" else 1),
+              f"{label}: the ranks' generated rows differ")
+        check(leg["logits"].shape == (cfg.vocab_size,)
+              and bool(np.isfinite(leg["logits"]).all()),
+              f"{label}: first-step logits not finite [V]")
+        check(ref["tokens"] > 0 and ref["agreement"] >= MESH_AGREEMENT,
+              f"{label}: greedy agreement {ref['agreement']:.3f} under "
+              f"{MESH_AGREEMENT}")
+        if name == "r1":
+            check(len(leg["batch"]["text"]) == len(SEQ_REQUESTS)
+                  and len(leg["spmd"]["text"]) == 2,
+                  f"{label}: {len(leg['batch']['text'])} batch, "
+                  f"{len(leg['spmd']['text'])} spmd texts")
+        for key, kernel in (("k5_int8_launches", "quant_matmul"),
+                            ("k4_launches", "flash_attention_dynamic"),
+                            ("tile_summary_launches", "flash_tile_summary")):
+            out[kernel][name] = [r[key] for r in per_rank]
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
           "constrain", "generate", "families", "fleet", "elastic", "mesh",
-          "pipe", "train", "profile")
+          "pipe", "seq", "train", "profile")
 
 
 def main() -> int:
@@ -8409,6 +8930,10 @@ def main() -> int:
             # Path q's launches, one count a stage.
             for name, n in timed("pipe", serve_pipe, torch).items():
                 kernels[name]["pipe_launches"] = n
+        if "seq" in phases:
+            # Path r's launches, one count a rank of each leg.
+            for name, n in timed("seq", serve_seq, torch).items():
+                kernels[name]["seq_launches"] = n
         if "train" in phases:
             kernels["flash_attention_static"]["launches"] = timed(
                 "train", phase_train, torch, profile)

@@ -160,8 +160,9 @@ def _join_mesh(args, cfg):
     if cfg.mesh.pipe > 1 or cfg.mesh.seq > 1:
         # The server serves through the continuous batcher, which refuses
         # these meshes (InferenceEngine.continuous_batcher): refuse before
-        # joining the group or loading the store.  A pipelined mesh serves
-        # behind the control plane (dlt-host-torch).
+        # joining the group or loading the store.  A pipelined or
+        # sequence-parallel mesh serves behind the control plane
+        # (dlt-host-torch).
         raise ValueError(
             "continuous batching requires a single-device engine or a "
             "pure data/tensor-parallel mesh (no pipe/seq axes)"

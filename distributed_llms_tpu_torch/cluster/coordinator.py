@@ -173,20 +173,25 @@ class Coordinator:
             )
             METRICS.set_gauge("coordinator.workers", len(self.workers))
             log.info("registered %s caps=%s", worker_id, payload.get("capabilities"))
+            # A registration whose id already has assigned shards is a rejoin
+            # (stale-connection replacement, or a post-eviction comeback when
+            # no survivor could take the orphans): the fresh process has
+            # nothing loaded, so re-place its assignment — without this,
+            # shard_assignment routes generates at an empty worker.  The
+            # assignment is read before the acknowledgement's await: a plan
+            # made while the ack is sent (the worker is already listed) is
+            # placed by its own place_shards, and a second PLACE_SHARDS
+            # would load the engine twice (on a mesh rank, a second mesh
+            # whose groups the other ranks never join).
+            shards = sorted(
+                s for s, w in self.shard_assignment.items() if w == worker_id
+            )
             await protocol.send_message(
                 writer,
                 protocol.message(
                     "REGISTER_ACK",
                     {"worker_id": worker_id, "heartbeat_interval_s": self.cfg.heartbeat_interval_s},
                 ),
-            )
-            # A registration whose id already has assigned shards is a rejoin
-            # (stale-connection replacement, or a post-eviction comeback when
-            # no survivor could take the orphans): the fresh process has
-            # nothing loaded, so re-place its assignment — without this,
-            # shard_assignment routes generates at an empty worker.
-            shards = sorted(
-                s for s, w in self.shard_assignment.items() if w == worker_id
             )
             if shards and self.store_dir is not None:
                 self._bg.append(

@@ -10,10 +10,10 @@ coordinator's commands against a local engine.
 - ``UNLOAD_SHARDS`` drops it; ``SHUTDOWN`` stops the worker.
 - ``GENERATE`` / ``SCHEDULE_COMPUTATION`` run ``generate_text`` on a batch
   of prompts, or, with a ``requests`` list, a mixed-budget batch through
-  the engine's continuous batcher (per-request budgets); a pipelined
-  mesh, whose decode schedule batches for itself, serves that batch as
-  one ``generate_text`` at the longest budget, each row cut to its own
-  budget and at its first EOS.
+  the engine's continuous batcher (per-request budgets); a pipelined or
+  sequence-parallel mesh, whose decode schedule batches for itself,
+  serves that batch as one ``generate_text`` at the longest budget, each
+  row cut to its own budget and at its first EOS.
 - Heartbeats ride one asyncio task; connecting retries with a delay.
 
 Fault sites (runtime/faults.py): ``worker.heartbeat`` (``drop`` skips a
@@ -21,8 +21,8 @@ beat), ``worker.handle`` (``raise`` fails a command: an ERROR reply the
 coordinator retries), ``worker.result`` (``drop`` loses the reply,
 ``close`` severs the connection at the answer), tag = command type.
 
-A worker serves one device, or one rank of a data x pipeline x
-tensor-parallel mesh (``mesh_cfg`` with more than one device): every
+A worker serves one device, or one rank of a data x pipeline x tensor x
+sequence-parallel mesh (``mesh_cfg`` with more than one device): every
 process of the mesh joins
 one ``torch.distributed`` group first (``cluster/distributed.py``), builds
 its rank's shard of the store at ``PLACE_SHARDS`` and reports the group's
@@ -300,15 +300,15 @@ class WorkerHost:
         the engine's continuous batcher (per-request budgets, short replies
         never wait for long ones; its shape — slots, paged pool, prefix
         cache — from the runtime config) on one device and on a data x
-        tensor-parallel mesh.  A pipelined mesh, whose decode schedule
-        manages its own batching, takes the grouped fallback: one batch at
-        the longest budget."""
+        tensor-parallel mesh.  A pipelined or sequence-parallel mesh,
+        whose decode schedules manage their own batching, takes the
+        grouped fallback: one batch at the longest budget."""
         t0 = time.perf_counter()
         prompts = [r["prompt"] for r in requests]
         budgets = [int(r.get("max_new_tokens", 32)) for r in requests]
         tok = self.engine.tokenizer
         pm = getattr(self.engine, "pm", None)
-        if pm is None or not pm.pipelined:
+        if pm is None or not (pm.pipelined or pm.seq_parallel):
             batcher = self.engine.continuous_batcher()
             rids = [batcher.submit(p, max_new_tokens=n)
                     for p, n in zip(prompts, budgets)]

@@ -7,16 +7,19 @@ collectives.  Here one PROCESS is one mesh position: rank r sits at
 ``numpy.unravel_index(r, shape)`` (the reference's row-major reshape of
 its device list), runs on ``cuda:(local_rank % device_count)`` (two ranks
 on a one-GPU machine share ``cuda:0``), and the model code calls the
-collectives itself (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`,
-:meth:`Mesh.broadcast`, and the pipeline's ring :meth:`Mesh.shift`) over
-one process group per ``data``, ``pipe`` and ``model`` line, built with
-``dist.new_group`` in the same order on every rank, each with the world's
-timeout (``cluster/distributed.py``).
+collectives itself (:meth:`Mesh.all_reduce` with a sum or a max,
+:meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, the ring
+:meth:`Mesh.shift` of the pipeline and of ring attention, and Ulysses'
+:meth:`Mesh.all_to_all`) over one process group per ``data``, ``pipe``,
+``model`` and ``seq`` line, built with ``dist.new_group`` in the same
+order on every rank, each with the world's timeout
+(``cluster/distributed.py``).
 
 Under gloo a CUDA tensor is staged through host memory for each
 collective; under NCCL it goes as it is.  :attr:`Mesh.stats` counts the
 collectives and the seconds spent in them (staging included), and the
-ring shifts' and the broadcasts' shares of them apart.
+shares of the ring shifts, the broadcasts, the all-to-alls and the
+reductions (by op) apart.
 
 The model code finds the mesh of the forward it runs through
 ``parallel/plan.py`` (thread-local), so a single-device forward pays
@@ -37,12 +40,13 @@ from .config import MeshConfig
 __all__ = ["Mesh", "build_mesh"]
 
 AXES = ("data", "pipe", "model", "seq", "expert")
+PIECE_BYTES = 1 << 28  # the most one all-gather message carries
 
 
 class Mesh:
     """This rank's view of the mesh: axis sizes, its coordinates, its
-    device, and the process groups of its ``data``, ``pipe`` and ``model``
-    lines.
+    device, and the process groups of its ``data``, ``pipe``, ``model``
+    and ``seq`` lines.
 
     Without an initialized process group (``world_size``/``rank`` given
     explicitly) the mesh carries the layout only: the placement rules
@@ -59,9 +63,10 @@ class Mesh:
             rank, cfg.shape))))
         self.backend: str | None = None
         self._groups: dict[str, Any] = {}
-        self.stats = {"calls": 0, "seconds": 0.0, "shift_calls": 0,
-                      "shift_seconds": 0.0, "broadcast_calls": 0,
-                      "broadcast_seconds": 0.0}
+        self.stats = {"calls": 0, "seconds": 0.0}
+        for kind in ("shift", "broadcast", "a2a", "reduce_sum",
+                     "reduce_max"):
+            self.stats.update({f"{kind}_calls": 0, f"{kind}_seconds": 0.0})
         if groups:
             self._build_groups()
 
@@ -94,7 +99,7 @@ class Mesh:
         # gloo), not the world's: give every line the world's.
         timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
         shape = self.cfg.shape
-        for axis in ("data", "pipe", "model"):
+        for axis in ("data", "pipe", "model", "seq"):
             k = AXES.index(axis)
             # Every line of this axis, in one order on every rank
             # (new_group is collective over the whole world).
@@ -121,34 +126,79 @@ class Mesh:
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.is_cuda
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
-        """Sum ``x`` over the ``axis`` line (a new tensor on x's device)."""
+    def all_reduce(self, x: torch.Tensor, axis: str = "model",
+                   op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` over the ``axis`` line by ``op`` ("sum" or "max",
+        the reference's ``psum`` / ``pmax``): a new tensor on x's
+        device."""
+        if op not in ("sum", "max"):
+            raise ValueError(
+                f"all_reduce op must be 'sum' or 'max', got {op!r}")
         if self.size(axis) == 1:
             return x
         import torch.distributed as dist
 
         t0 = time.perf_counter()
         y = x.detach().cpu() if self._staged(x) else x.detach().clone()
-        dist.all_reduce(y, group=self._groups[axis])
+        dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=self._groups[axis])
         out = y.to(x.device, non_blocking=False)
-        self._note(t0)
+        self._note(t0, f"reduce_{op}")
         return out
+
+    def _gather_parts(self, x: torch.Tensor, axis: str) -> list:
+        """Every rank's ``x`` of the ``axis`` line, in line order (on the
+        host when staged).  A large tensor (a long prefill's float32
+        logits run to GBs) goes in pieces of at most :data:`PIECE_BYTES`,
+        so that no one message of the collective carries all of it."""
+        import torch.distributed as dist
+
+        y = (x.detach().cpu() if self._staged(x) else x.detach()).contiguous()
+        parts = [torch.empty_like(y) for _ in range(self.size(axis))]
+        flat, outs = y.view(-1), [p.view(-1) for p in parts]
+        step = max(1, PIECE_BYTES // y.element_size())
+        for a in range(0, flat.numel(), step):
+            dist.all_gather([o[a:a + step] for o in outs], flat[a:a + step],
+                            group=self._groups[axis])
+        return parts
 
     def all_gather(self, x: torch.Tensor, dim: int,
                    axis: str = "model") -> torch.Tensor:
         """Concatenate every rank's ``x`` of the ``axis`` line along
-        ``dim``, in line order."""
+        ``dim``, in line order.  Each piece is copied into its place in
+        the output on x's device: no concatenated copy is made on the
+        host."""
         n = self.size(axis)
         if n == 1:
             return x
-        import torch.distributed as dist
-
         t0 = time.perf_counter()
-        y = x.detach().cpu() if self._staged(x) else x.detach().contiguous()
-        parts = [torch.empty_like(y) for _ in range(n)]
-        dist.all_gather(parts, y, group=self._groups[axis])
-        out = torch.cat(parts, dim=dim).to(x.device)
+        parts = self._gather_parts(x, axis)
+        out = _concat(parts, dim, x.device)
         self._note(t0)
+        return out
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   axis: str = "seq") -> torch.Tensor:
+        """The reference's tiled ``all_to_all``: ``x`` is cut into n
+        pieces along ``split_dim``, piece i goes to the rank at
+        coordinate i of the ``axis`` line, and the pieces a rank receives
+        are concatenated along ``concat_dim`` in line order.  Built on the
+        line's all-gather, as :meth:`shift` is (gloo has no all-to-all):
+        one collective every rank enters alike, of which each rank keeps
+        its own piece of every rank's ``x``."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        if x.shape[split_dim] % n:
+            raise ValueError(
+                f"all_to_all splits dim {split_dim} ({x.shape[split_dim]}) "
+                f"over {n} ranks of {axis!r}")
+        t0 = time.perf_counter()
+        i = self.coord(axis)
+        pieces = [p.chunk(n, dim=split_dim)[i]
+                  for p in self._gather_parts(x, axis)]
+        out = _concat(pieces, concat_dim, x.device)
+        self._note(t0, "a2a")
         return out
 
     def broadcast(self, x: torch.Tensor, src: int,
@@ -187,12 +237,8 @@ class Mesh:
         n = self.size(axis)
         if n == 1:
             return x
-        import torch.distributed as dist
-
         t0 = time.perf_counter()
-        y = x.detach().cpu() if self._staged(x) else x.detach().contiguous()
-        parts = [torch.empty_like(y) for _ in range(n)]
-        dist.all_gather(parts, y, group=self._groups[axis])
+        parts = self._gather_parts(x, axis)
         out = parts[(self.coord(axis) - 1) % n].to(x.device)
         self._note(t0, "shift")
         return out
@@ -216,6 +262,19 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"device={self.device}, backend={self.backend})")
+
+
+def _concat(parts: list, dim: int, device) -> torch.Tensor:
+    """``torch.cat(parts, dim)`` on ``device``, each part copied into its
+    slice of one output tensor."""
+    shape = list(parts[0].shape)
+    shape[dim] = sum(p.shape[dim] for p in parts)
+    out = torch.empty(shape, dtype=parts[0].dtype, device=device)
+    at = 0
+    for p in parts:
+        out.narrow(dim, at, p.shape[dim]).copy_(p)
+        at += p.shape[dim]
+    return out
 
 
 def rank_device(rank: int, device: "str | torch.device | None" = None

@@ -28,7 +28,11 @@ Three cache layouts, as in the reference:
   slot ``cache_index + j``;
 - the same pool in int8 with float32 absmax scales
   (:class:`QuantKVCache`), quantized at the write and read by the
-  kernel's int8 leg.
+  kernel's int8 leg;
+- on a sequence-parallel mesh, the two-region cache (k and v each a
+  ``(prefill, decode)`` pair, :func:`_seq_cached_attention`): this rank's
+  block of the prompt's K/V, and the generated tokens' K/V that every rank
+  of the 'seq' line holds whole.
 
 With ``attn_impl="flash"`` two more attention paths take the flash kernels
 (``ops/flash.py``), under the reference's exact conditions: the no-cache
@@ -36,6 +40,11 @@ forward (training; the static-causal kernel K3 when :func:`forward` made
 the positions itself) and the multi-token cached prefill without a
 caller mask (the dynamic kernel K4 over the whole row cache, masking the
 unwritten tail).  Everything else stays on the dense path.
+
+With ``attn_impl="ring"`` or ``"ulysses"`` the forward runs one rank's
+block of the sequence inside a sequence-parallel forward of
+``parallel/api.py`` (``ops/ring.py``, ``ops/ulysses.py``); outside one
+they raise the reference's ``RuntimeError``.
 
 Both caches are UPDATED IN PLACE: the JAX code writes into donated
 buffers (``dynamic_update_slice`` / ``.at[].set``), the port writes the
@@ -70,17 +79,12 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Every block family of the reference is ported, dense and MoE,
-    with attention dense (``attn_impl="dot"``) or through the flash
-    kernels (``"flash"``); the sequence-parallel attentions (``"ring"``,
-    ``"ulysses"``) come in a later slice and are refused loudly."""
+    with attention dense (``attn_impl="dot"``), through the flash kernels
+    (``"flash"``) or sequence-parallel (``"ring"``, ``"ulysses"``: on a
+    'seq' mesh only, see the module docstring; ``ModelConfig`` refuses
+    any other)."""
     if cfg.family not in BLOCK_FNS:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.attn_impl not in ("dot", "flash"):
-        raise NotImplementedError(
-            f"attn_impl {cfg.attn_impl!r} is not ported yet (dot and flash "
-            "only): sequence parallelism (ops/ring.py, ops/ulysses.py) "
-            "comes in a later slice of the port"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -90,13 +94,18 @@ def check_supported(cfg: ModelConfig) -> None:
 @dataclass
 class KVCache:
     """Per-layer KV cache: a contiguous ``[L, B, S, KVH, HD]`` pair, or a
-    page pool ``[L, NB, BLK, KVH, HD]`` pair in paged mode."""
+    page pool ``[L, NB, BLK, KVH, HD]`` pair in paged mode.  On a
+    sequence-parallel mesh ``k`` and ``v`` are two-region tuples
+    ``(prefill, decode)`` instead (:func:`_seq_cached_attention`), and
+    :attr:`max_len` counts this rank's slots."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Any
+    v: Any
 
     @property
     def max_len(self) -> int:
+        if isinstance(self.k, tuple):  # the two-region seq cache
+            return self.k[0].shape[2] + self.k[1].shape[2]
         return self.k.shape[2]
 
 
@@ -221,6 +230,20 @@ def _attention(
         # batcher refuses a mesh they do not divide over.)
         out = decode_attn.paged_decode_attention(q, ck, cv, lengths, tables)
         return layers.out_project(out, p), (ck, cv)
+
+    if cfg.attn_impl in ("ring", "ulysses"):
+        # Sequence parallelism: this rank holds one block of the sequence,
+        # with global positions, inside ParallelModel's seq forwards.
+        if layer_cache is not None:
+            return _seq_cached_attention(q, k, v, p, cfg, positions,
+                                         layer_cache, cache_index, attn_mask,
+                                         loc)
+        if attn_mask is not None:
+            raise NotImplementedError(
+                f"{cfg.attn_impl} attention supports causal masking only"
+            )
+        return layers.out_project(_seq_attention(q, k, v, positions, cfg),
+                                  p), None
 
     if layer_cache is not None:
         ck, cv = layer_cache  # [B, S, KVH, HD] views into the row cache
@@ -494,6 +517,81 @@ def _row_window_attention(q, k, v, p, cfg, positions, layer_cache,
     return out[0], layer_cache
 
 
+def _seq_attention(q, k, v, positions, cfg):
+    """Causal attention of this rank's sequence block over its 'seq' line:
+    the ring, or Ulysses' head scatter (K4 on CUDA)."""
+    k, v = _kv_select(k), _kv_select(v)
+    if cfg.attn_impl == "ring":
+        from ..ops import ring
+
+        return ring.ring_attention(q, k, v, positions, positions,
+                                   axis_name="seq")
+    from ..ops import ulysses
+
+    return ulysses.ulysses_attention(q, k, v, positions, axis_name="seq")
+
+
+def _seq_cached_attention(q, k, v, p, cfg, positions, layer_cache,
+                          cache_index, attn_mask, loc):
+    """Cached attention under sequence parallelism, on the two-region
+    cache ``((ck_pref, ck_dec), (cv_pref, cv_dec))``: the prefill region
+    holds this rank's block of the prompt's K/V (written once, never
+    moved), the decode region the generated tokens' K/V, whole on every
+    rank of the 'seq' line (bounded by the new tokens, a sliver next to a
+    long prompt).  Every row of both is on every rank (``loc`` picks this
+    rank's rows on a 'data' split, as in :func:`_attention`).
+
+    Prefill (Tq > 1): this rank's block fills its prefill region whole and
+    attention is the ring or Ulysses pass.  Decode (Tq == 1): the token's
+    K/V lands in the decode region at ``cache_index - T_prefill`` on every
+    rank, and the statistics of each rank's prompt block merge over the
+    line (``ops/ring.py`` ``seq_cached_decode_attention``), the K/V
+    staying put.  Both regions are written in place."""
+    from ..ops import ring
+
+    mesh = ring.seq_mesh("seq", f"{cfg.attn_impl} attention")
+    (ck_pref, ck_dec), (cv_pref, cv_dec) = layer_cache
+    tq = q.shape[1]
+    if tq > 1:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "sequence-parallel prefill supports causal masking only"
+            )
+        if tq != ck_pref.shape[1]:
+            raise ValueError(
+                f"seq-parallel prefill expects the full prompt at once: got "
+                f"{tq} local tokens for a {ck_pref.shape[1]}-slot local "
+                "prefill region (chunked prefill is unsupported here)"
+            )
+        ck_pref.copy_(k)
+        cv_pref.copy_(v)
+        out = _seq_attention(q, loc(k), loc(v), positions, cfg)
+        return layers.out_project(out, p), layer_cache
+
+    if not isinstance(attn_mask, tuple):
+        raise ValueError(
+            "seq-parallel cached decode needs attn_mask=(prefill_mask, "
+            "decode_mask) — ParallelModel.forward splits the global mask"
+        )
+    di = int(cache_index) - ck_pref.shape[1] * mesh.size("seq")
+    if not 0 <= di < ck_dec.shape[1]:
+        raise ValueError(
+            f"decode slot {int(cache_index)} outside the "
+            f"{ck_dec.shape[1]}-slot decode region"
+        )
+    ck_dec[:, di] = k[:, 0].to(ck_dec.dtype)
+    cv_dec[:, di] = v[:, 0].to(cv_dec.dtype)
+    m_pref, m_dec = attn_mask
+    out = ring.seq_cached_decode_attention(
+        q, _kv_select(loc(ck_pref)).to(q.dtype),
+        _kv_select(loc(cv_pref)).to(q.dtype),
+        _kv_select(loc(ck_dec)).to(q.dtype),
+        _kv_select(loc(cv_dec)).to(q.dtype), loc(m_pref), loc(m_dec),
+        axis_name="seq",
+    )
+    return layers.out_project(out, p), layer_cache
+
+
 def _ln(x, p, cfg):
     return layers.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
 
@@ -600,6 +698,9 @@ def run_blocks(
     for i in range(n_layers):
         if cache_k is None:
             layer_cache = None
+        elif isinstance(cache_k, tuple):  # the two-region seq cache
+            layer_cache = (tuple(t[i] for t in cache_k),
+                           tuple(t[i] for t in cache_v))
         elif cache_sk is None:
             layer_cache = (cache_k[i], cache_v[i])
         else:
@@ -694,6 +795,12 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    plan = plan_lib.current()
+    if plan is not None and plan.seq == "block":
+        # This rank ran its block of the sequence: gather the final hidden
+        # states over 'seq' ([B, T, D], not the [B, T, V] logits), so
+        # every rank unembeds, and returns, the whole sequence.
+        x = plan.mesh.all_gather(x, 1, "seq")
     if layernorm_family(cfg):
         x = _ln(x, params["final_norm"], cfg)
     else:
@@ -701,7 +808,6 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"]["wte"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     b, t, d = x.shape
     logits = _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
-    plan = plan_lib.current()
     if plan is not None and plan.vocab:
         # Vocabulary-parallel unembedding: every rank gets every column, so
         # each samples from the same logits.

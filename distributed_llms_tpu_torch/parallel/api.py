@@ -23,12 +23,24 @@ process a mesh position (``core/mesh.py``):
   (:meth:`ParallelModel.place_leaf`), the logits reach every rank from
   the last stage.  Pipelined meshes keep contiguous caches and serve
   whole batches (``InferenceEngine.generate_text``); the continuous
-  batcher refuses them, as the reference's does.
+  batcher refuses them, as the reference's does;
+- sequence parallelism: each rank of a 'seq' line runs its contiguous
+  block of the tokens and positions through the model (the port's
+  counterpart of the reference's ``shard_map`` over 'seq'), attention
+  being the ring or Ulysses (``ops/ring.py``, ``ops/ulysses.py``), and
+  the final hidden states are gathered over the line, so that every
+  rank unembeds and returns the whole sequence (``[B, T, D]`` through
+  the host, not ``[B, T, V]``).  Generation keeps the
+  two-region cache (:meth:`ParallelModel.init_cache` with
+  ``prompt_len``): each rank's block of the prompt's K/V, and the
+  decode region whole on every rank, read by the one-reduce decode.  It
+  composes with 'data' and 'model'; it is inference only (the forwards
+  run under ``no_grad``) and, like the pipeline, serves whole batches.
 
-A mesh with a ``seq`` or ``expert`` axis above 1 builds (its rules, its
-stage assignment), but its forward, decode and cache raise
-``NotImplementedError``: sequence parallelism and the expert axis are
-later slices of the port, as is training on a pipelined mesh.
+A mesh with an ``expert`` axis above 1 builds (its rules), but its
+forward, decode and cache raise ``NotImplementedError``: the expert axis
+is a later slice of the port, as is training on a pipelined or
+sequence-parallel mesh.
 """
 
 from __future__ import annotations
@@ -48,9 +60,9 @@ from .plan import Plan
 
 Params = Any
 
-_LATER_SLICES = ("is not ported yet: sequence parallelism (ops/ring.py, "
-                 "ops/ulysses.py), the expert axis and pipelined training "
-                 "come in later slices of the port")
+_LATER_SLICES = ("is not ported yet: the expert axis and pipelined training "
+                 "(Trainer(parallel=), sequence-parallel training with it), "
+                 "and the NCCL leg come in later slices of the port")
 
 
 class ParallelModel:
@@ -74,6 +86,9 @@ class ParallelModel:
             kv_map = tuple((r * h_loc + j) // group for j in range(h_loc))
         self.plan = Plan(mesh=mesh, heads=self.heads, kv_map=kv_map, ffn=ffn,
                          vocab=vocab)
+        # The rank's widths; ring/Ulysses need the seq forwards' bound
+        # line, so every other path runs them dense (the reference's
+        # ``_local_cfg``; :attr:`seq_cfg` for the seq forwards).
         self.local_cfg = dataclasses.replace(
             cfg,
             num_heads=cfg.num_heads // tp if self.heads else cfg.num_heads,
@@ -82,7 +97,11 @@ class ParallelModel:
             intermediate_size=(cfg.intermediate_size // tp if ffn
                                else cfg.intermediate_size),
             head_dim=cfg.head_dim_,
+            attn_impl=("dot" if cfg.attn_impl in ("ring", "ulysses")
+                       else cfg.attn_impl),
         )
+        self._seq_plans = {kind: dataclasses.replace(self.plan, seq=kind)
+                           for kind in ("block", "whole")}
         # The rules this rank cuts its leaves by; a pipelined mesh takes
         # the stage's layers first (:meth:`place_leaf`), so the layer axis
         # is not cut again.
@@ -105,6 +124,16 @@ class ParallelModel:
         return self.mesh.size("seq") > 1
 
     @property
+    def seq_cfg(self) -> ModelConfig:
+        """The config of the seq forwards (the reference's ``_seq_cfg``):
+        the rank's widths, the user's Ulysses kept and anything else the
+        ring (a sliding-window model is refused here, as by the
+        reference's config)."""
+        return dataclasses.replace(
+            self.local_cfg,
+            attn_impl="ulysses" if self.cfg.attn_impl == "ulysses" else "ring")
+
+    @property
     def expert_parallel(self) -> bool:
         return self.mesh.size("expert") > 1
 
@@ -117,10 +146,10 @@ class ParallelModel:
         return self.mesh.coord("pipe")
 
     def _require_ported(self, what: str) -> None:
-        if self.seq_parallel or self.expert_parallel:
+        if self.expert_parallel:
             raise NotImplementedError(
-                f"{what} on a mesh with seq={self.mesh.size('seq')}, "
-                f"expert={self.mesh.size('expert')} {_LATER_SLICES}")
+                f"{what} on a mesh with expert={self.mesh.size('expert')} "
+                f"{_LATER_SLICES}")
 
     # -- placement ----------------------------------------------------------
 
@@ -171,16 +200,43 @@ class ParallelModel:
         kept = {k: walk(v, k) for k, v in params.items()}
         return {k: v for k, v in kept.items() if v is not None}
 
-    def init_cache(self, batch: int, max_len: int) -> KVCache:
+    def init_cache(self, batch: int, max_len: int,
+                   prompt_len: int | None = None) -> KVCache:
         """This rank's contiguous cache ``[L, B, S, KVH_local, HD]`` (``L``
         its stage's layers on a pipelined mesh): its KV heads of every row
         (rows are not sharded over 'data': each step's K/V of every row
-        reaches every rank, see the module docstring)."""
+        reaches every rank, see the module docstring).
+
+        On a sequence-parallel mesh the two-region cache instead, split at
+        ``prompt_len`` (the padded prompt, a multiple of the 'seq' axis):
+        k and v are each ``(prefill [L, B, prompt_len / S, ...], decode
+        [L, B, max_len - prompt_len, ...])``, this rank's block of the
+        prompt and the whole decode region."""
         self._require_ported("the KV cache")
+        dtype = self.kv_dtype or self.cfg.dtype
+        if self.seq_parallel:
+            s = self.mesh.size("seq")
+            if prompt_len is None:
+                raise ValueError(
+                    "sequence-parallel KV cache needs prompt_len (the region "
+                    "split point); the session path does not support "
+                    "seq-parallel decode"
+                )
+            if prompt_len % s:
+                raise ValueError(
+                    f"padded prompt length {prompt_len} not divisible by "
+                    f"seq axis {s}"
+                )
+
+            def region(length):
+                return model_lib.init_cache(self.local_cfg, batch, length,
+                                            dtype=dtype, device=self.device)
+
+            pref, dec = region(prompt_len // s), region(max_len - prompt_len)
+            return KVCache(k=(pref.k, dec.k), v=(pref.v, dec.v))
         cfg = dataclasses.replace(
             self.local_cfg, num_layers=self.cfg.num_layers // self.num_stages)
-        return model_lib.init_cache(cfg, batch, max_len,
-                                    dtype=self.kv_dtype or self.cfg.dtype,
+        return model_lib.init_cache(cfg, batch, max_len, dtype=dtype,
                                     device=self.device)
 
     @contextlib.contextmanager
@@ -193,15 +249,30 @@ class ParallelModel:
 
     # -- adapters for runtime.generate and runtime.session -----------------
 
+    def _guard_windowed_decode(self) -> None:
+        """Data, tensor and pipeline meshes serve sliding-window models
+        (their adapters carry the slot -> position map the window reads);
+        the sequence-parallel cached paths do not: ring and Ulysses are
+        causal only, so decoding there would attend past the window."""
+        if self.cfg.sliding_window is not None and self.seq_parallel:
+            raise ValueError(
+                "sequence-parallel decode of sliding_window models is "
+                "unsupported (ring/Ulysses attention is causal-only, no "
+                "window bound); use a data/model/pipe mesh"
+            )
+
     def as_forward_fn(self):
+        self._guard_windowed_decode()
         return self._forward_adapter
 
     def as_make_cache(self):
+        self._guard_windowed_decode()
         return self._make_cache_adapter
 
     def as_decode_fn(self):
         """The fused wavefront decode loop (``pipeline.pipeline_decode``)
         for ``runtime.generate``: only a pipelined mesh has one."""
+        self._guard_windowed_decode()
         return self._decode_adapter if self.pipelined else None
 
     def _forward_adapter(self, params, cfg, tokens, positions=None,
@@ -213,8 +284,8 @@ class ParallelModel:
                             key_positions=key_positions)
 
     def _make_cache_adapter(self, cfg, batch, max_len, prompt_len=None):
-        del cfg, prompt_len
-        return self.init_cache(batch, max_len)
+        del cfg
+        return self.init_cache(batch, max_len, prompt_len=prompt_len)
 
     def _decode_adapter(self, params, tok0, prompt_lens, prompt_pad_len,
                         cache, generator, max_new_tokens, temperature, top_k,
@@ -239,7 +310,47 @@ class ParallelModel:
         on every rank, and every rank returns the full-batch logits.  A
         pipelined mesh runs the GPipe schedule (inference only: its
         shifts carry no gradient) with a scalar ``cache_index``, and
-        returns a zero MoE term, as the reference's schedule does."""
+        returns a zero MoE term, as the reference's schedule does.  A
+        sequence-parallel mesh runs its seq forwards (inference only,
+        zero MoE term): the no-cache forward, the prefill into the
+        two-region cache and the one-token decode over it; a no-cache
+        forward with a caller's mask runs dense on every rank, as in the
+        reference."""
+        if kv_tables is not None and (self.pipelined or self.seq_parallel):
+            raise NotImplementedError(
+                "paged decode (kv_tables) runs on pure data/tensor-parallel "
+                "meshes only — pipelined/seq-parallel schedules keep "
+                "contiguous caches"
+            )
+        if self.seq_parallel and key_positions is not None:
+            raise NotImplementedError(
+                "sequence-parallel paths do not thread key_positions "
+                "(ring/Ulysses are causal-only)"
+            )
+        seq_out = None
+        if self.seq_parallel and cache is not None:
+            if tokens.shape[1] > 1:
+                if attn_mask is not None:
+                    # Loud, not silently causal: ring/Ulysses are causal
+                    # only.
+                    raise NotImplementedError(
+                        "sequence-parallel cached prefill supports causal "
+                        "masking only; got an explicit attn_mask"
+                    )
+                seq_out = self._seq_prefill_cached(params, tokens, positions,
+                                                   cache, cache_index, remat)
+            else:
+                seq_out = self._seq_decode_cached(params, tokens, positions,
+                                                  cache, cache_index,
+                                                  attn_mask, remat)
+        elif self.seq_parallel and attn_mask is None:
+            seq_out = (self._seq_forward(params, tokens, positions, remat),
+                       None)
+        if seq_out is not None:
+            if return_aux:
+                return (*seq_out, torch.zeros((), dtype=torch.float32,
+                                              device=seq_out[0].device))
+            return seq_out
         if self.pipelined:
             with self.activate(), torch.no_grad():
                 out = self._pipe_forward(params, tokens, positions, cache,
@@ -256,16 +367,91 @@ class ParallelModel:
                 kv_tables=kv_tables, remat=remat,
                 key_positions=key_positions, return_aux=return_aux)
 
+    # -- sequence parallelism ------------------------------------------------
+
+    def _seq_block(self, t: int) -> slice:
+        """This rank's contiguous block of ``t`` tokens over 'seq'."""
+        s, r = self.mesh.size("seq"), self.mesh.coord("seq")
+        if t % s:
+            raise ValueError(
+                f"prompt length {t} not divisible by seq axis {s} "
+                "(the engine pads prompts to the mesh multiple)"
+            )
+        return slice(r * t // s, (r + 1) * t // s)
+
+    def _seq_run(self, kind, params, tokens, positions, **kw):
+        """``models.model.forward`` at the seq config under the seq plan
+        of ``kind`` ("block": this rank's block of the tokens, the hidden
+        states gathered over 'seq' before the unembedding; "whole"): the
+        ring or Ulysses find their line there."""
+        self._require_ported("a forward")
+        with self._seq_plans[kind].active(), torch.no_grad():
+            return model_lib.forward(params, self.seq_cfg, tokens,
+                                     positions=positions, **kw)
+
+    def _positions(self, b: int, t: int, device) -> torch.Tensor:
+        return torch.arange(t, device=device).expand(b, t)
+
+    def _seq_forward(self, params, tokens, positions, remat):
+        """The no-cache forward: each rank runs its block of the tokens at
+        their global positions; every rank returns the whole ``[B, T,
+        V]`` (the reference's ``out_specs=P(None, "seq", None)``)."""
+        b, t = tokens.shape
+        if positions is None:
+            positions = self._positions(b, t, tokens.device)
+        blk = self._seq_block(t)
+        logits, _ = self._seq_run("block", params, tokens[:, blk],
+                                  positions[:, blk], remat=remat)
+        return logits
+
+    def _seq_prefill_cached(self, params, tokens, positions, cache,
+                            cache_index, remat):
+        """The prefill into the two-region cache: each rank writes its
+        block of the prompt's K/V into its prefill region; every rank
+        returns the whole sequence's logits."""
+        if cache_index is not None and int(cache_index) != 0:
+            raise ValueError(
+                "the sequence-parallel prefill fills the prefill region "
+                f"from slot 0; got cache_index {int(cache_index)}")
+        b, t = tokens.shape
+        if positions is None:
+            positions = self._positions(b, t, tokens.device)
+        blk = self._seq_block(t)
+        logits, _ = self._seq_run("block", params, tokens[:, blk],
+                                  positions[:, blk], cache=cache,
+                                  cache_index=0, remat=remat)
+        return logits, cache
+
+    def _seq_decode_cached(self, params, tokens, positions, cache,
+                           cache_index, attn_mask, remat):
+        """One token a row over the two-region cache: the decode loop's
+        ``[B, 1, 1, S]`` mask is cut into this rank's block of the prompt
+        region and the decode region; the query is on every rank, and so
+        are the logits."""
+        if attn_mask is None:
+            raise ValueError(
+                "seq-parallel cached decode needs the decode loop's explicit "
+                "attention mask (runtime.generate supplies it)"
+            )
+        if torch.is_tensor(cache_index) and cache_index.dim() > 0:
+            raise ValueError(
+                "the sequence-parallel decode writes one decode slot for the "
+                "whole batch: pass a scalar cache_index")
+        t_loc = cache.k[0].shape[2]
+        t_pref = t_loc * self.mesh.size("seq")
+        r = self.mesh.coord("seq")
+        m = attn_mask[:, 0, 0, :]
+        masks = (m[:, r * t_loc:(r + 1) * t_loc], m[:, t_pref:])
+        return self._seq_run("whole", params, tokens, positions, cache=cache,
+                             cache_index=cache_index, attn_mask=masks,
+                             remat=remat)
+
+    # -- the pipeline ---------------------------------------------------------
+
     def _pipe_forward(self, params, tokens, positions, cache, cache_index,
                       attn_mask, remat, key_positions, kv_tables):
         """Embed on stage 0, the blocks through the pipeline, unembed on
         the last stage; the logits broadcast over 'pipe'."""
-        if kv_tables is not None:
-            raise NotImplementedError(
-                "paged decode (kv_tables) runs on pure data/tensor-parallel "
-                "meshes only — pipelined/seq-parallel schedules keep "
-                "contiguous caches"
-            )
         if torch.is_tensor(cache_index) and cache_index.dim() > 0:
             raise ValueError(
                 "the pipeline schedule writes one slot range for the whole "

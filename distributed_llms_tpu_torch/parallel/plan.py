@@ -41,7 +41,16 @@ class Plan:
     - ``rows``: the batch rows ``[lo, hi)`` this rank computes when the
       forward splits rows over 'data' (set per forward by
       :meth:`with_rows`); every row's new K/V is gathered over 'data'
-      before the cache write, so each rank's cache holds every row.
+      before the cache write, so each rank's cache holds every row;
+    - ``seq``: a sequence-parallel forward of ``ParallelModel`` (the
+      port's counterpart of the reference's ``shard_map`` over 'seq'):
+      "block" when x holds this rank's block of the tokens (the no-cache
+      forward and the prefill: the final hidden states are gathered over
+      'seq' before the unembedding, so every rank returns the whole
+      sequence's logits), "whole" when every rank holds the whole input
+      (the one-token decode); None outside them.  Ring and Ulysses
+      attention and the seq-cached decode take their 'seq' line from
+      here, and refuse to run without it.
     """
 
     mesh: object  # core.mesh.Mesh
@@ -50,6 +59,7 @@ class Plan:
     ffn: bool
     vocab: bool
     rows: tuple | None = None
+    seq: str | None = None
 
     @contextlib.contextmanager
     def active(self):

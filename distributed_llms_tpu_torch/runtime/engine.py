@@ -24,8 +24,9 @@ wait in host memory) and :meth:`~InferenceEngine.generate_text_speculative`.
 Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``); without a GPU and without that request they raise.
 
-On a data x pipeline x tensor-parallel mesh (``from_store(mesh_cfg=)``,
-or ``parallel=`` with this rank's parameters) every process is one rank:
+On a data x pipeline x tensor x sequence-parallel mesh
+(``from_store(mesh_cfg=)``, or ``parallel=`` with this rank's parameters)
+every process is one rank:
 it holds its block of the weights (quantized leaves stay quantized), runs
 the forwards on the mesh (``parallel/api.py``) and, on a data x tensor
 mesh, hands out mesh batchers; every rank must be fed the same calls (the
@@ -35,7 +36,11 @@ whole batches and sessions through the pipeline's schedules: the prefill
 and session turns through its GPipe forward, ``generate_text``'s decode
 through the wavefront (``parallel/pipeline.py``); its batches round up to
 ``data x runtime.microbatches`` rows, and the continuous batcher refuses
-it, as the reference's does.
+it, as the reference's does.  A sequence-parallel mesh (``seq`` above 1)
+serves whole batches through its seq forwards and the two-region cache
+(prompts right-padded to a multiple of the 'seq' axis, no bucket ladder);
+the continuous batcher refuses it, and so do sessions (their cache has no
+prompt length to split at), as in the reference.
 """
 
 from __future__ import annotations
@@ -102,12 +107,14 @@ class InferenceEngine:
         self.pm = parallel
         # The forward, cache and decode loop of generate_text and of
         # sessions: the single-device model's (also under a data x tensor
-        # plan), or a pipelined mesh's schedules.
+        # plan), or a pipelined or sequence-parallel mesh's schedules.
         self._forward_fn = self._decode_fn = None
+        own_schedules = parallel is not None and (parallel.pipelined
+                                                  or parallel.seq_parallel)
         if parallel is not None:
             parallel._require_ported("an engine")
             device = parallel.device
-            if parallel.pipelined:
+            if own_schedules:
                 self._forward_fn = parallel.as_forward_fn()
                 self._decode_fn = parallel.as_decode_fn()
         # The config the device work runs at: the rank's local widths.
@@ -155,7 +162,7 @@ class InferenceEngine:
         self._make_cache = lambda cfg_, b, s, prompt_len=None: \
             model_lib.init_cache(cfg_, b, s, dtype=rt.kv_cache_dtype,
                                  device=self.device)
-        if parallel is not None and parallel.pipelined:
+        if own_schedules:
             self._make_cache = parallel.as_make_cache()
         self._timer = profiling.StepTimer("engine.generate")
         # Session store: caches persist across turns; with kv_host_spill
@@ -356,7 +363,10 @@ class InferenceEngine:
         compiled programs; exact, since pad slots sit to the right of every
         real token and the decode mask admits only real prompt slots and
         generated slots.  Skipped when the bucket would not fit the
-        sequence budget."""
+        sequence budget, and on a sequence-parallel mesh (T stays the
+        'seq' multiple :meth:`_encode_rows` padded it to)."""
+        if self.pm is not None and self.pm.seq_parallel:
+            return prompt_arr
         t = int(prompt_arr.shape[1])
         limit = min(self.rt.max_seq_len, self.cfg.max_seq_len)
         target = shapes_lib.generate_pad_len(t, n_new, limit)
@@ -390,7 +400,10 @@ class InferenceEngine:
         int32, both on the engine's device; the caller's row count).
         ``batch=None``: a new batch, rows padded up to
         :meth:`_batch_multiple`; otherwise a continuation, padded to the
-        session's ``batch`` rows by repeating row 0."""
+        session's ``batch`` rows by repeating row 0.  On a
+        sequence-parallel mesh T is right-padded up to a multiple of the
+        'seq' axis (the prefill splits it over the line; pad slots are
+        masked out of the decode like any padding)."""
         tok = self.tokenizer
         seqs = [tok.encode(p) for p in prompts]
         n_real = len(seqs)
@@ -398,6 +411,10 @@ class InferenceEngine:
                 if batch is None else batch)
         seqs += [seqs[0]] * (want - n_real)
         arr, lens = pad_batch(seqs, tok.pad_id)
+        if self.pm is not None and self.pm.seq_parallel:
+            s = self.pm.mesh.size("seq")
+            arr = np.pad(arr, ((0, 0), (0, -arr.shape[1] % s)),
+                         constant_values=tok.pad_id)
         return (torch.from_numpy(arr).to(self.device),
                 torch.from_numpy(lens).to(self.device), n_real)
 
@@ -527,7 +544,8 @@ class InferenceEngine:
         config they turn the config's speculation off with a warning."""
         from .batcher import ContinuousBatcher
 
-        if self.pm is not None and self.pm.pipelined:
+        if self.pm is not None and (self.pm.pipelined
+                                    or self.pm.seq_parallel):
             raise ValueError(
                 "continuous batching requires a single-device engine or a "
                 "pure data/tensor-parallel mesh (no pipe/seq axes)"

@@ -289,6 +289,51 @@ async def test_stable_id_reregistration_and_rejoin_replaces_shards(tmp_path):
         await coord.stop()
 
 
+async def test_a_plan_racing_a_fresh_registration_places_once(tmp_path,
+                                                             monkeypatch):
+    """A worker listed but not yet acknowledged when the first plan is
+    made is no rejoin: it gets the one PLACE_SHARDS of place_shards, not a
+    second one from its registration (on a mesh rank a second load builds
+    a mesh the other ranks never join).  The acknowledgement is held back
+    so that the plan lands inside the registration's await."""
+    send = protocol.send_message
+
+    async def slow_ack(writer, msg):
+        if msg["type"] == "REGISTER_ACK":
+            await asyncio.sleep(0.3)
+        await send(writer, msg)
+
+    monkeypatch.setattr(protocol, "send_message", slow_ack)
+    coord = Coordinator(dataclasses.replace(fast_cfg(),
+                                            heartbeat_timeout_s=60.0))
+    await coord.start()
+    try:
+        reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                       coord.port)
+        await send(writer, protocol.message(
+            "REGISTER", {"worker_id": "pod-0", "capabilities": {}}))
+        while "pod-0" not in coord.workers:
+            await asyncio.sleep(0.01)
+        coord.plan_shards(2, store_dir=str(tmp_path))
+        place = asyncio.create_task(coord.place_shards())
+        kinds = []
+        while True:
+            try:
+                msg = await protocol.receive_message(reader, timeout=1.0)
+            except asyncio.TimeoutError:
+                break
+            kinds.append(msg["type"])
+            if msg["type"] == "PLACE_SHARDS":
+                await send(writer, protocol.message(
+                    "RESULT", {"loaded": [0, 1], "resident": "x"},
+                    msg_id=msg["msg_id"]))
+        assert sorted(kinds) == ["PLACE_SHARDS", "REGISTER_ACK"]
+        assert (await place)["pod-0"]["loaded"] == [0, 1]
+        writer.close()
+    finally:
+        await coord.stop()
+
+
 async def test_plan_place_generate_roundtrip(tmp_path):
     coord = Coordinator(fast_cfg())
     await coord.start()

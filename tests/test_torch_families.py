@@ -276,8 +276,13 @@ def test_init_params_refusals_and_layouts():
                            is_leaf=torch.is_tensor)
         assert got == want, preset
     for preset in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match=preset):
-            tm.check_supported(get_preset("gpt2-tiny", attn_impl=preset))
+        # Served on a seq mesh only: outside one the first attention
+        # raises the reference's RuntimeError.
+        cfg = get_preset("gpt2-tiny", attn_impl=preset)
+        tm.check_supported(cfg)
+        with pytest.raises(RuntimeError, match="needs a bound 'seq' mesh"):
+            tm.forward(tm.init_params(cfg, gen), cfg,
+                       torch.zeros((1, 4), dtype=torch.long))
 
 
 # -- serving ------------------------------------------------------------------------

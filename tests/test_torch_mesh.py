@@ -221,19 +221,32 @@ def test_mesh_size_must_be_the_world():
 
 
 def test_pipe_seq_expert_build_but_refuse_to_run():
-    """seq and expert meshes build and refuse to run, naming what is
-    left; a pipe mesh runs: a stage's cache holds its layers, and it has
-    the wavefront decode loop."""
+    """An expert mesh builds and refuses to run, naming what is left; a
+    seq mesh runs: its cache is the two-region one (this rank's block of
+    the prompt, the whole decode region), it needs the prompt length,
+    and it has no fused decode loop; a pipe mesh runs: a stage's cache
+    holds its layers, and it has the wavefront decode loop."""
     cfg = get_preset("llama-tiny")
-    for axes in (dict(seq=2), dict(expert=2)):
-        pm = tapi.make_parallel_model(cfg, MeshConfig(**axes),
-                                      mesh=_tmesh(axes))
-        with pytest.raises(NotImplementedError, match="later slices"):
-            pm.init_cache(2, 16)
-        with pytest.raises(NotImplementedError, match="expert axis"):
-            with pm.activate():
-                pass
-        assert pm.as_decode_fn() is None
+    pm = tapi.make_parallel_model(cfg, MeshConfig(expert=2),
+                                  mesh=_tmesh(dict(expert=2)))
+    with pytest.raises(NotImplementedError, match="later slices"):
+        pm.init_cache(2, 16)
+    with pytest.raises(NotImplementedError, match="expert axis"):
+        with pm.activate():
+            pass
+    assert pm.as_decode_fn() is None
+    pm = tapi.make_parallel_model(cfg, MeshConfig(seq=2),
+                                  mesh=_tmesh(dict(seq=2)))
+    with pytest.raises(ValueError, match="needs prompt_len"):
+        pm.init_cache(2, 16)
+    cache = pm.init_cache(2, 16, prompt_len=6)
+    shape = (cfg.num_layers, 2, 3, cfg.num_kv_heads, cfg.head_dim_)
+    assert [tuple(t.shape) for t in cache.k] == [shape, shape[:2] + (10,)
+                                                 + shape[3:]]
+    assert cache.max_len == 13
+    with pm.activate():
+        pass
+    assert pm.as_decode_fn() is None
     pm = tapi.make_parallel_model(cfg, MeshConfig(pipe=2),
                                   mesh=_tmesh(dict(pipe=2)))
     cache = pm.init_cache(2, 16)

@@ -277,12 +277,19 @@ def test_bf16_tree_round_trips_exactly():
     {"attn_impl": "ring"},
 ])
 def test_later_slice_models_are_refused(change):
-    """Every block family and MoE are served; the sequence-parallel
-    attentions, whatever the family, are a later slice."""
+    """Every block family and MoE are served, the sequence-parallel
+    attentions too, whatever the family; outside a seq mesh their forward
+    raises the reference's RuntimeError, a cached one too."""
     cfg = dataclasses.replace(get_preset("llama-tiny"), **change)
-    with pytest.raises(NotImplementedError):
-        tm.check_supported(cfg)
+    tm.check_supported(cfg)
     tm.check_supported(dataclasses.replace(cfg, attn_impl="dot"))
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="needs a bound 'seq' mesh axis"):
+        tm.forward(params, cfg, toks)
+    with pytest.raises(RuntimeError, match="needs a bound 'seq' mesh axis"):
+        tm.forward(params, cfg, toks, cache=tm.init_cache(cfg, 1, 8),
+                   cache_index=0)
 
 
 def test_sliding_window_models_are_served():

@@ -328,3 +328,198 @@ def pipe_engine_session(store_dir: str, turns, n_new: int,
         out.append(eng.continue_session(sid, prompts,
                                         max_new_tokens=n_new).tokens.tolist())
     return out
+
+
+# -- sequence parallelism (ops/ring.py, ops/ulysses.py) -------------------------
+
+def _smesh(seq: int, data: int = 1, model: int = 1):
+    from distributed_llms_tpu_torch.core.mesh import build_mesh
+
+    return build_mesh(MeshConfig(data=data, seq=seq, model=model),
+                      device="cpu")
+
+
+def _t(x):
+    return None if x is None else torch.as_tensor(np.asarray(x))
+
+
+def seq_collectives(piece_bytes: int) -> dict:
+    """The seq line's collectives on rank-dependent tensors, every
+    all-gather in pieces of ``piece_bytes``: the max and the sum, the
+    all-to-all both ways, the shift, and the calls counted by kind."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.core import mesh as mesh_lib
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = _smesh(n)
+    saved, mesh_lib.PIECE_BYTES = mesh_lib.PIECE_BYTES, piece_bytes
+    try:
+        x = torch.arange(2 * 3 * 4 * n, dtype=torch.float32).reshape(
+            2, 3, 4 * n) + 100 * r
+        out = {
+            "max": mesh.all_reduce(x, "seq", op="max").numpy(),
+            "sum": mesh.all_reduce(x, "seq").numpy(),
+            "a2a": mesh.all_to_all(x, 2, 1, "seq").numpy(),
+            "back": mesh.all_to_all(mesh.all_to_all(x, 2, 1, "seq"), 1, 2,
+                                    "seq").numpy(),
+            "gather": mesh.all_gather(x, 1, "seq").numpy(),
+            "shift": mesh.shift(x, "seq").numpy(),
+        }
+    finally:
+        mesh_lib.PIECE_BYTES = saved
+    try:
+        mesh.all_reduce(x, "seq", op="min")
+    except ValueError as e:
+        out["bad_op"] = str(e)
+    out["stats"] = dict(mesh.stats)
+    return out
+
+
+def seq_attention(impl: str, q, k, v, q_pos, k_pos, k_valid,
+                  causal: bool = True) -> dict:
+    """``ring_attention`` or ``ulysses_attention`` on a seq line of the
+    whole world: each rank passes its contiguous block of the global
+    inputs and returns its block of the output, with the collectives it
+    took; a refusal comes back as its message."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.ops import ring, ulysses
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = _smesh(n)
+    t = np.asarray(q).shape[1]
+    blk = slice(r * t // n, (r + 1) * t // n)
+    q_, k_, v_ = (_t(x)[:, blk] for x in (q, k, v))
+    qp, kp = _t(q_pos)[:, blk], _t(k_pos)[:, blk]
+    kv = None if k_valid is None else _t(k_valid)[:, blk]
+    try:
+        if impl == "ring":
+            out = ring.ring_attention(q_, k_, v_, qp, kp, causal=causal,
+                                      k_valid=kv, mesh=mesh)
+        else:
+            out = ulysses.ulysses_attention(q_, k_, v_, qp, causal=causal,
+                                            k_valid=kv, mesh=mesh)
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"out": out.numpy(), "stats": dict(mesh.stats)}
+
+
+def ring_self(q, k, v, positions, causal: bool = True) -> np.ndarray:
+    """``ring_self_attention`` over the whole world's seq line: the global
+    inputs on every rank, the global output back."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.ops import ring
+
+    mesh = _smesh(dist.get_world_size())
+    return ring.ring_self_attention(mesh, _t(q), _t(k), _t(v), _t(positions),
+                                    causal=causal).numpy()
+
+
+def seq_decode(q, ck, cv, dk, dv, mask_pref, mask_dec) -> dict:
+    """``seq_cached_decode_attention`` with the prompt region cut over the
+    world's seq line (each rank its block of ck / cv / mask_pref)."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.ops import ring
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = _smesh(n)
+    s = np.asarray(ck).shape[1]
+    blk = slice(r * s // n, (r + 1) * s // n)
+    out = ring.seq_cached_decode_attention(
+        _t(q), _t(ck)[:, blk], _t(cv)[:, blk], _t(dk), _t(dv),
+        _t(mask_pref)[:, blk], _t(mask_dec), mesh=mesh)
+    return {"out": out.numpy(), "stats": dict(mesh.stats)}
+
+
+def _seq_pm(key: str, data: int, seq: int, model: int, attn_impl: str):
+    import dataclasses
+
+    cfg, params = _MODELS[key]
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    pm = api.make_parallel_model(
+        cfg, MeshConfig(data=data, seq=seq, model=model), device="cpu")
+    return pm, pm.shard_params(params)
+
+
+def seq_forward(key: str, data: int, seq: int, model: int, attn_impl: str,
+                tokens, attn_mask=None) -> dict:
+    """A no-cache forward on a data x seq x model mesh: the full logits
+    every rank returns, and the collectives it took."""
+    pm, local = _seq_pm(key, data, seq, model, attn_impl)
+    logits, cache = pm.forward(local, _t(tokens).long(),
+                               attn_mask=_t(attn_mask))
+    return {"logits": logits.numpy(), "cache": cache,
+            "stats": dict(pm.mesh.stats)}
+
+
+def seq_generate(key: str, data: int, seq: int, model: int, attn_impl: str,
+                 prompt, lens, n_new: int) -> dict:
+    """``runtime.generate.generate_tokens`` through a seq mesh's forward
+    and two-region cache: the tokens, and this rank's cache regions."""
+    from distributed_llms_tpu_torch.runtime import generate as gen
+
+    pm, local = _seq_pm(key, data, seq, model, attn_impl)
+    made = []
+
+    def make_cache(*a, **kw):
+        made.append(pm.as_make_cache()(*a, **kw))
+        return made[-1]
+
+    with pm.activate():
+        out = gen.generate_tokens(
+            local, pm.local_cfg, _t(prompt), _t(lens), None, n_new, pad_id=0,
+            forward_fn=pm.as_forward_fn(), make_cache=make_cache)
+    cache = made[0]
+    return {"tokens": out.tolist(),
+            "regions": [tuple(t.shape) for t in cache.k],
+            "stats": dict(pm.mesh.stats)}
+
+
+def seq_engine(store_dir: str, prompts, n_new: int, **rt_kw) -> dict:
+    """``generate_text`` on a seq engine over a store (seq = the world),
+    with what the engine refuses on that mesh."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.checkpoint.quantize import QuantizedTensor
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine.from_store(
+        store_dir, rt=RuntimeConfig(max_decode_steps=n_new, **rt_kw),
+        mesh_cfg=MeshConfig(seq=dist.get_world_size()), device="cpu")
+    out = eng.generate_text(prompts, max_new_tokens=n_new)
+    refused = {}
+    for name, call in (("batcher", eng.continuous_batcher),
+                       ("session", lambda: eng.start_session(prompts))):
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e)
+    blocks = eng.params["blocks"]
+    n_quant = sum(isinstance(v, QuantizedTensor) for g in blocks.values()
+                  for v in g.values())
+    arr, _, _ = eng._encode_rows(prompts, batch=None)
+    return {"tokens": out.tokens.tolist(), "refused": refused,
+            "quantized_leaves": n_quant, "padded_width": int(arr.shape[1]),
+            "shifts": eng.pm.mesh.stats["shift_calls"]}
+
+
+def seq_worker_requests(store_dir: str, requests, eos_id: int) -> dict:
+    """A control-plane worker's mixed-budget batch on a seq engine (its
+    grouped fallback), the tokenizer's EOS moved to ``eos_id``."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.cluster.worker import WorkerHost
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+
+    rt = RuntimeConfig()
+    host = WorkerHost("127.0.0.1", 1, rt=rt,
+                      mesh_cfg=MeshConfig(seq=dist.get_world_size()),
+                      device="cpu")
+    host.engine = host.engine_factory(store_dir, [0], rt)
+    host.engine.tokenizer = EosTokenizer(eos_id)
+    out = host._generate_requests(requests)
+    return {"text": out["text"], "generated_tokens": out["generated_tokens"]}

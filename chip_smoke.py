@@ -254,12 +254,12 @@ Phases, each printing result lines:
       and attention int4; drawn and quantized on the card a layer at a
       time; depth cut from 32 to MIXTRAL_LAYERS (8) layers, the published
       width, to keep the whole smoke in its time as path p joined it;
-      written into a temporary directory and removed once booted) served
-      with ``--override runtime.serve_quantized=true
-      --paged-pages 128 --page-size 64 --prefix-cache --max-len 2048``
-      (attention through K5, decode through K1, each layer's experts
-      rehydrated to bf16 in every forward): path a's seven requests all
-      greedy, 32 new tokens; engine-side the 8 greedy prompts as one
+      written once into the process's shared directory, which path s
+      serves too) on one engine with ``runtime.serve_quantized`` and
+      path m's pool (128 pages of 64, max_len 2048; attention through
+      K5, decode through K1, each layer's experts rehydrated to bf16 in
+      every forward; its HTTP leg went when path s began to serve it over
+      HTTP on its expert mesh): the 8 greedy prompts as one
       batch at 8 slots (capacity 3 a decode step, so claims drop),
       first through the eager chunk with every routing decision
       recorded (the share of claims the decode steps dropped), then
@@ -331,7 +331,8 @@ Phases, each printing result lines:
       ``fleet_launches``.
    o. (run by the ``elastic`` phase) the elastic fleet and the source
       system's control plane:
-      o1. ``llama-3-8b`` (32 layers, bf16, ONE copy of the weights) with
+      o1. ``--store`` path n's store (``llama-3-8b``'s width cut to
+      STORE_LAYERS layers, bf16, ONE copy of the weights) with
       path a's pool flags and ``--max-len 1024`` under ``--replicas-min 1
       --replicas-max 2 --autoscale-interval 0.25 --autoscale-hysteresis 2
       --autoscale-cooldown 3`` and ``ELASTIC_UP_LOAD`` /
@@ -404,6 +405,38 @@ Phases, each printing result lines:
 6e. ``families`` — path m (in ``serve``'s list above): the gpt2, opt and
    neox families and Mixtral-style MoE.  ``--phases build,families`` runs
    it alone.
+6e'. ``expert`` — path s: expert parallelism, on two gloo rank processes
+   sharing the one card (:func:`expert_rank`, spawned as path p's).
+   s1: ``dlt-serve-torch --store <path m's Mixtral int4 store> --override
+   runtime.serve_quantized=true --paged-pages 128 --page-size 64
+   --prefix-cache --max-len 2048 --override mesh.expert=2`` (four experts
+   a rank, cut along E and still int4; attention, embeddings and the
+   pool whole on both) answers path a's seven requests, all greedy, 32 new
+   (streams checked for length and vocabulary); before the server
+   starts, each rank runs path m's 8 greedy prompts as one batch at 8
+   slots engine-side (the same pool and synchronous loop as path m's),
+   held to path m's one-rank batch: streams equal, or the earliest
+   divergence a near-tie (a token pair or a flipped expert choice within
+   FAM_NEAR_TIE of the mesh's logits); each rank's expert bytes must be
+   half of the one-rank engine's, its resident memory under
+   EXPERT_MEM_SHARE of it, K1 at least layers x its decode steps and K5
+   (int4) 4 x that.  Printed: one layer's rehydration a rank beside path
+   m's, ms a decode step, the combine's share of it (``Mesh.stats``,
+   the 'expert' line), the greedy agreement.  s2: one
+   ``Trainer(parallel=)`` step at ``expert=2`` on Mixtral's width cut to
+   MIXTRAL_TRAIN_LAYERS layers (path m's weights, batch and lr), held to
+   path m's one-rank step: the loss, and layer 0's expert w_gate gradient
+   and update (each rank's block) within TRAIN_GRAD_REL, under path m's
+   recorded routing where a choice flipped (counted); K3 once a layer.
+   s3: one step of path p3's ``Trainer`` (Llama-3-8B's width cut to
+   TRAIN_CKPT_LAYERS layers) at ``model=2`` on the same two ranks, held
+   to a one-rank step on the same weights and batch: the loss and layer
+   0's w_gate gradient within TRAIN_GRAD_REL, and its update there on
+   the entries whose sign both gradients determine (AdamW's first step
+   moves an entry by lr times its gradient's sign, and the partial sums
+   over 'model' round differently in bf16).  When the ``families`` phase
+   did not run in the process, path m's Mixtral parts run first.
+   ``--phases build,expert`` runs it alone.
 6f. ``fleet`` — path n (in ``serve``'s list above): replica fleets, the
    disaggregated KV handoff and tenant QoS.  ``--phases build,fleet``
    runs it alone.
@@ -438,7 +471,8 @@ Phases, each printing result lines:
    axis, no ``pack_axis``) serving the same greedy tokens through K5 as
    the current layout.  ``--phases build,mesh`` runs it alone.
 6i. ``pipe`` — path q: pipeline parallelism, a Llama-3-8B int8 store at
-   its full width and published 32 layers (seed 0) through two
+   its full width and published 32 layers (seed 0; written once, path r
+   serves it too) through two
    ``dlt-host-torch`` ranks (``mesh.pipe=2``, ``runtime.microbatches=2``,
    16 layers a stage; :func:`pipe_rank`) sharing the card over gloo under
    an in-process ``Coordinator``: an 8-request mixed-budget batch through
@@ -624,6 +658,39 @@ def check(cond: bool, what: str) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# What one phase leaves for a later one in the same process: stores that
+# two paths serve (written once) and path m's one-rank Mixtral results,
+# which path s holds its expert mesh against.  The directory goes when
+# main() ends.
+_SHARED: dict = {}
+
+
+def _shared_dir() -> str:
+    if "dir" not in _SHARED:
+        _SHARED["dir"] = tempfile.mkdtemp(prefix="dlt_shared_")
+    return _SHARED["dir"]
+
+
+def shared_store(torch, key: str, write) -> tuple:
+    """The store ``key`` under the shared directory, written by
+    ``write(torch, out_dir) -> info`` on first use: (its path, its info,
+    whether this call wrote it)."""
+    got = _SHARED.setdefault("stores", {}).get(key)
+    if got is not None:
+        return got[0], got[1], False
+    path = f"{_shared_dir()}/{key}"
+    info = write(torch, path)
+    _SHARED["stores"][key] = (path, info)
+    return path, info, True
+
+
+def drop_shared_store(key: str) -> None:
+    """Remove the shared store ``key`` once no later path serves it."""
+    got = _SHARED.get("stores", {}).pop(key, None)
+    if got is not None:
+        shutil.rmtree(got[0], ignore_errors=True)
 
 
 # -- phase 1: build ---------------------------------------------------------
@@ -5160,6 +5227,7 @@ MIXTRAL_ARGS = ["--override", "runtime.serve_quantized=true",
 MIXTRAL_LAYERS = STORE_LAYERS
 MIXTRAL_TRAIN_LAYERS = 2  # AdamW state of 32 layers (47 B params) won't fit
 MIXTRAL_TRAIN_TOKENS = 1025  # a [1, 1025] batch: 1024 positions through K3
+MIXTRAL_TRAIN_LR = 1e-3
 # The near-tie rule of path l (GEN_NEAR_TIE), against path m's oracle: the
 # port's own uncached float32 forward of the same weights on the card
 # (dense attention, each layer upcast or dequantized to float32 as it
@@ -5584,23 +5652,31 @@ def mixtral_int4_params(torch, cfg) -> dict:
     }
 
 
-def _rehydrate_ms(torch, mlp) -> float:
+def _rehydrate_ms(torch, mlp, pairs_on_experts: bool = False) -> float:
     """CUDA-event ms of one layer's expert rehydration (router and the
-    three expert stacks dequantized to bf16), as ``moe_swiglu`` does it."""
+    three expert stacks dequantized to bf16), as ``moe_swiglu`` does it.
+    ``pairs_on_experts``: the stacks' int4 pairs moved onto the expert
+    axis first, the layout a load that repacks them as projections gives
+    them (the engine's load keeps an MoE block's pairs where they are)."""
     from distributed_llms_tpu_torch.checkpoint.quantize import dequantize_tree
+    from distributed_llms_tpu_torch.ops.quant_matmul import repack_legacy_int4
 
     layer0 = {k: v[0] for k, v in mlp.items()}
+    if pairs_on_experts:
+        layer0 = {k: v if k == "router" else repack_legacy_int4(v, 1)
+                  for k, v in layer0.items()}
     return cuda_ms(torch, lambda: dequantize_tree(layer0, torch.bfloat16),
                    iters=5, warmup=1)
 
 
-def _mixtral_batch(torch, eng, ids, record=None) -> tuple:
+def _mixtral_batch(torch, eng, ids, record=None, mem=None) -> tuple:
     """``ids`` as one greedy batch (cold admissions, every row admitted
     before the first decode step, the synchronous loop) on a paged
     batcher of one slot a prompt over ``eng``'s weights: (streams,
     launches, decode steps, graph replays).  With ``record`` (a list)
     the eager chunk runs, and every ``moe_route`` call appends its
-    expert choices and kept claims."""
+    expert choices and kept claims; ``mem`` (a list) gets the device
+    bytes allocated once the batcher is built."""
     from distributed_llms_tpu_torch.models import layers
     from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
 
@@ -5611,9 +5687,10 @@ def _mixtral_batch(torch, eng, ids, record=None) -> tuple:
         record.append((out[1].clone(), out[3].clone()))
         return out
 
-    b = eng.continuous_batcher(batch_slots=len(ids), max_len=FAM_MAX_LEN,
-                               paged_pages=128, page_size=64,
-                               prefix_cache=True, overlap=False)
+    b = eng.continuous_batcher(**_mixtral_batcher_kw(ids))
+    if mem is not None:
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
     try:
         if record is not None:
             layers.moe_route = recorded
@@ -5626,6 +5703,13 @@ def _mixtral_batch(torch, eng, ids, record=None) -> tuple:
     del b
     _free(torch)
     return out
+
+
+def _mixtral_batcher_kw(ids) -> dict:
+    """The batcher of Mixtral's 8-row batch (paths m and s): one slot a
+    prompt, path m's pool, the synchronous loop."""
+    return dict(batch_slots=len(ids), max_len=FAM_MAX_LEN, paged_pages=128,
+                page_size=64, prefix_cache=True, overlap=False)
 
 
 def _batch_routes(torch, calls, cuts, widths, n_layers, k) -> tuple:
@@ -5662,68 +5746,85 @@ def _batch_routes(torch, calls, cuts, widths, n_layers, k) -> tuple:
     return routes, drops
 
 
-def families_mixtral(torch, card, lap) -> dict:
-    """Mixtral-8x7B as an int4 store: written layer by layer, served
-    quantized over HTTP (7 greedy requests; the attention through K5,
-    decode through K1, the experts rehydrated per layer).  Engine-side
-    the 8 greedy prompts as one batch at 8 slots (decode drops claims):
-    through the eager chunk with every routing decision recorded — the
-    share of claims the decode steps dropped, and each stream held to
-    the oracle replaying that routing — then through the captured chunk
-    graph under the profiler, whose streams must equal the eager ones."""
+def _write_mixtral(torch, out_dir: str) -> dict:
+    """Paths m and s's store: Mixtral-8x7B's width cut to MIXTRAL_LAYERS
+    layers, int4 (experts, router and attention), drawn and quantized on
+    the card a layer at a time.  Returns what it cost."""
     from distributed_llms_tpu_torch.checkpoint.store import save_shards
     from distributed_llms_tpu_torch.models.presets import get_preset
-    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
 
     cfg = get_preset(MIXTRAL_PRESET, num_layers=MIXTRAL_LAYERS)
     _mixtral(cfg)
-    tmp = tempfile.mkdtemp(prefix="dlt_store_mixtral_")
-    try:
-        free_disk = shutil.disk_usage(tmp).free
-        torch.cuda.reset_peak_memory_stats()
-        params, quant_s = _sync_time(torch, lambda: mixtral_int4_params(
-            torch, cfg))
-        t0 = time.perf_counter()
-        save_shards(params, tmp, num_shards=2, model_config=cfg,
-                    quantization="int4", storage="raw")
-        write_s = time.perf_counter() - t0
-        del params
-        _free(torch)
-        store_bytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
-        emit("families", path="m", model="mixtral", step="store", card=card,
-             num_layers=cfg.num_layers, store_bytes=store_bytes,
-             draw_and_quantize_s=quant_s, write_s=write_s,
-             disk_free_before_bytes=free_disk,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        lap("mixtral_store")
-        launches, server, mem = serve_path(
-            torch, "mixtral_int4", ["--store", tmp, *MIXTRAL_ARGS],
-            {"quant_matmul_int4": 4, "paged_decode_attention": 1},
-            lambda port: _serve_requests(port, greedy_new=FAM_NEW),
-            _mixtral, store_bytes=store_bytes, store_write_s=write_s)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    b = server.batcher
-    check(b.prefix_cache.hits > 0, "mixtral_int4: no prefix-cache hit")
-    mlp = b.params["blocks"]["mlp"]
+    free_disk = shutil.disk_usage(_shared_dir()).free
+    torch.cuda.reset_peak_memory_stats()
+    params, quant_s = _sync_time(torch, lambda: mixtral_int4_params(
+        torch, cfg))
+    t0 = time.perf_counter()
+    save_shards(params, out_dir, num_shards=2, model_config=cfg,
+                quantization="int4", storage="raw")
+    write_s = time.perf_counter() - t0
+    del params
+    _free(torch)
+    return {"store_bytes": sum(p.stat().st_size
+                               for p in Path(out_dir).iterdir()),
+            "draw_and_quantize_s": quant_s, "write_s": write_s,
+            "disk_free_before_bytes": free_disk,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _expert_bytes(mlp) -> int:
+    """Device bytes of an MoE block's expert stacks (codes and scales)."""
+    return sum(mlp[k].data.nbytes + mlp[k].scale.nbytes
+               for k in ("w_gate", "w_up", "w_down"))
+
+
+def families_mixtral(torch, card, lap) -> dict:
+    """Mixtral-8x7B as an int4 store (written layer by layer) on one
+    engine, served quantized (the attention through K5, decode through K1,
+    the experts rehydrated per layer; path s serves it over HTTP on its
+    expert mesh).  The 8 greedy prompts as one batch at 8 slots (decode
+    drops claims): through the eager chunk with every routing decision
+    recorded — the share of claims the decode steps dropped, and each
+    stream held to the oracle replaying that routing — then through the
+    captured chunk graph under the profiler, whose streams must equal the
+    eager ones.  What path s holds its expert mesh against stays in
+    ``_SHARED["mixtral"]``."""
+    from distributed_llms_tpu_torch.core.config import RuntimeConfig
+    from distributed_llms_tpu_torch.runtime import batcher as batcher_lib
+    from distributed_llms_tpu_torch.runtime.engine import InferenceEngine
+
+    store, info, wrote = shared_store(torch, "mixtral_int4", _write_mixtral)
+    emit("families", path="m", model="mixtral", step="store", card=card,
+         num_layers=MIXTRAL_LAYERS, written_here=wrote, **info)
+    lap("mixtral_store")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_store(store, rt=RuntimeConfig(
+        serve_quantized=True, max_seq_len=FAM_MAX_LEN,
+        max_decode_steps=FAM_NEW))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    _mixtral(eng.cfg)
+    mlp = eng.params["blocks"]["mlp"]
     check(all(mlp[k].bits == 4 and mlp[k].data.dim() == 4
               for k in ("w_gate", "w_up", "w_down")),
           "mixtral_int4: the expert stacks are not int4-resident")
-    out = {k: launches[k] for k in ("quant_matmul_int4",
-                                    "paged_decode_attention")}
-    eng = _engine_over(torch, b)
-    del server, b
-    _free(torch)
-    lap("mixtral_http")
+    out = {"quant_matmul_int4": 0, "paged_decode_attention": 0}
+    lap("mixtral_boot")
 
     tok = eng.tokenizer
     n_layers, k = eng.cfg.num_layers, eng.cfg.num_experts_per_token
     ids = [tok.encode(p) for p in FAM_PROMPTS]
-    calls = []
+    calls, mem = [], []
     (eager, got, steps, replays), wall = _sync_time(
-        torch, lambda: _mixtral_batch(torch, eng, ids, calls))
+        torch, lambda: _mixtral_batch(torch, eng, ids, calls, mem))
     check(replays == 0, f"mixtral/batch_eager: {replays} graph replays")
     _add(out, {name: got[name] for name in out})
+    shared = {"store": store, "ids": ids, "eager": eager,
+              "routes": [(e.cpu(), kp.cpu()) for e, kp in calls],
+              "engine_and_batcher_bytes": mem[0] - held,
+              "expert_bytes": _expert_bytes(mlp), "boot_s": boot_s}
     cuts = [_cut(st, tok.eos_id) for st in eager]
     widths = [min(batcher_lib._bucket(len(c)), FAM_MAX_LEN) for c in ids]
     routes, (kept, claims) = _batch_routes(torch, calls, cuts, widths,
@@ -5769,7 +5870,10 @@ def families_mixtral(torch, card, lap) -> dict:
           "graph's streams differ from the eager chunk's")
     _add(out, {name: got[name] for name in out})
     reh = _rehydrate_ms(torch, eng.params["blocks"]["mlp"])
+    reh_on_e = _rehydrate_ms(torch, eng.params["blocks"]["mlp"], True)
     busy = sum(split.values())
+    shared["rehydrate_ms_a_layer"] = reh
+    _SHARED["mixtral"] = shared
     emit("families", path="m", model="mixtral", leg="batch8_graph",
          card=card, rows=len(ids), decode_steps=steps, graph_replays=replays,
          streams_equal_eager=True, profiled_wall_ms=pwall,
@@ -5777,6 +5881,7 @@ def families_mixtral(torch, card, lap) -> dict:
          device_kernel_ms=split,
          device_busy_share=busy / pwall if busy else "not measured",
          rehydrate_ms_a_layer=reh, rehydrate_ms_a_forward=reh * n_layers,
+         rehydrate_ms_a_layer_pairs_on_experts=reh_on_e,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del eng
     _free(torch)
@@ -5844,6 +5949,7 @@ def families_train(torch, card, lap) -> int:
         layers.moe_route = recorded
         loss16, g16 = expert_grad(params, cfg)
         bf16_eids = [d[0].clone() for d in decisions]
+        routes = [[t.cpu() for t in d] for d in decisions]
         p32 = _tree_to_dtype(params, torch.float32)
         layers.moe_route = replayed
         loss32, g32 = expert_grad(p32, cfg32)
@@ -5858,13 +5964,15 @@ def families_train(torch, card, lap) -> int:
     grad_rel = ((g16 - g32).norm() / g32.norm()).item()
     grad_rel_own = ((g16 - g32_own).norm() / g32_own.norm()).item()
     claims = sum(e.numel() for e in bf16_eids)
+    grad0 = g16.cpu()
     del g16, g32, g32_own
     with torch.no_grad():
         aux = float(model_lib.forward(params, cfg, batch[:, :-1],
                                       return_aux=True)[2])
-    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    trainer = train.Trainer(cfg, train.default_optimizer(MIXTRAL_TRAIN_LR))
     state = trainer.init(params)
     step = trainer.make_step()
+    before0 = params["blocks"]["mlp"]["w_gate"][0].to("cpu", copy=True)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5872,6 +5980,12 @@ def families_train(torch, card, lap) -> int:
     loss = float(loss)
     step_s = time.perf_counter() - t0
     launched = read_launches()["flash_attention_static"]
+    # What path s holds its expert=2 step against: the same weights,
+    # batch and routing.
+    _SHARED["mixtral_train"] = {
+        "loss": loss, "routes": routes, "batch": batch.cpu(),
+        "grad0": grad0, "before0": before0, "step_s": step_s,
+        "after0": params["blocks"]["mlp"]["w_gate"][0].cpu()}
     emit("families", path="m", model="mixtral", step="train", card=card,
          num_layers=cfg.num_layers, params=n_params, batch=list(batch.shape),
          loss=loss, aux=aux, aux_weight=cfg.moe_aux_loss_weight,
@@ -6716,48 +6830,54 @@ def serve_fleet(torch) -> dict:
 
     card = _card()
     lap = _lap("fleet_time")
-    tmp = tempfile.mkdtemp(prefix="dlt_fleet_")
+    store, info, _ = shared_store(torch, "llama_bf16_cut", _write_llama_cut)
+    base = _fleet_base(store)
+    t0 = time.perf_counter()
+    parts = serve_main._build_engine(_fleet_args(base))
+    torch.cuda.synchronize()
+    _llama_3_8b_cut(parts[0].cfg)
+    emit("fleet", part="weights", card=card,
+         build_s=time.perf_counter() - t0,
+         resident_gb=torch.cuda.memory_allocated() / 1e9, **info)
+    lap("weights")
+    rec = _FleetRecorder(tb.ContinuousBatcher).install()
+    out = {}
     try:
-        info = write_store(torch, None, tmp, num_layers=STORE_LAYERS)
-        base = _fleet_base(tmp)
-        t0 = time.perf_counter()
-        parts = serve_main._build_engine(_fleet_args(base))
-        torch.cuda.synchronize()
-        _llama_3_8b_cut(parts[0].cfg)
-        emit("fleet", part="weights", card=card,
-             build_s=time.perf_counter() - t0,
-             resident_gb=torch.cuda.memory_allocated() / 1e9, **info)
-        lap("weights")
-        rec = _FleetRecorder(tb.ContinuousBatcher).install()
-        out = {}
-        try:
-            _add(out, fleet_replicas(torch, card, lap, parts, rec, base))
-            _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 16))
-            _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 8))
-            _add(out, fleet_tenants(torch, card, lap, parts, rec, base))
-        finally:
-            rec.uninstall()
-        del parts
+        _add(out, fleet_replicas(torch, card, lap, parts, rec, base))
+        _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 16))
+        _add(out, fleet_disagg(torch, card, lap, parts, rec, base, 8))
+        _add(out, fleet_tenants(torch, card, lap, parts, rec, base))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        rec.uninstall()
+    del parts
     _free(torch)
     return out
 
 
+def _write_llama_cut(torch, out_dir: str) -> dict:
+    """Paths n and o1's store: Llama-3-8B's width cut to STORE_LAYERS
+    layers, bf16."""
+    return write_store(torch, None, out_dir, num_layers=STORE_LAYERS)
+
+
 # -- path o: the elastic fleet and the control plane -------------------------
 
-# o1: the autoscaler over replicas of path a's model (weights shared).  A
-# replica's 8 rows turn over a ~470-token request (~400 prompt + ~64 new)
-# in ~1.3 s at a 32-layer replica's ~19 ms decode step; on the card admissions and a second
-# replica's thread stretch that several-fold.  The trace (seed 0: 120
-# arrivals, 101 in the first half) offers 2.0 requests/s at the envelope's
-# mean, 3.8 at its crest, bursts x4: its peak holds several requests in
-# flight on one replica, its trough about none.  Up at 0.10 of one
-# replica's 16320-token pool is ~3.5 such requests; down at 0.03 ~1.
-ELASTIC_BASE = [*SERVE_ARGS, "--max-len", "1024"]  # path a's model
+# o1: the autoscaler over replicas of path a's model at its full width,
+# cut from 32 to STORE_LAYERS layers (path n's bf16 store, weights
+# shared) since path s joined the smoke.  A replica's 8 rows turn over a
+# ~470-token request (~400 prompt + ~64 new) in ~1.3 s at a 32-layer
+# replica's ~19 ms decode step, ~0.45 s at ~7 ms for 8 layers; on the
+# card admissions and a second replica's thread stretch that several-fold.
+# The trace (seed 0: 120 arrivals, 101 in the first half) offers 2.0
+# requests/s at the envelope's mean, 3.8 at its crest, bursts x4: its peak
+# holds a few requests in flight on one replica, its trough about none.
+# The thresholds were 0.10 and 0.03 at 32 layers (~3.5 and ~1 such
+# requests); a replica 2.8 times faster holds 2.8 times fewer, so up at
+# 0.04 of one replica's 16320-token pool is ~1.4 requests in flight,
+# down at 0.01 ~0.35.
 ELASTIC_HORIZON_S = 60.0
-ELASTIC_UP_LOAD = 0.10
-ELASTIC_DOWN_LOAD = 0.03
+ELASTIC_UP_LOAD = 0.04
+ELASTIC_DOWN_LOAD = 0.01
 ELASTIC_COOLDOWN_S = 3.0
 ELASTIC_TAIL_S = 45.0  # the longest the quiet tail waits for a scale-down
 ELASTIC_ARGS = ["--replicas-min", "1", "--replicas-max", "2",
@@ -6815,12 +6935,14 @@ def elastic_fleet(torch, card, lap, rec) -> dict:
     from distributed_llms_tpu_torch.core.observability import METRICS
     from distributed_llms_tpu_torch.runtime import chunk_graph, workload
 
-    args = _fleet_args(ELASTIC_BASE, *ELASTIC_ARGS)
+    store, _, _ = shared_store(torch, "llama_bf16_cut", _write_llama_cut)
+    args = _fleet_args(["--store", store, *SERVE_ARGS[2:], "--max-len",
+                        "1024"], *ELASTIC_ARGS)
     t0 = time.perf_counter()
     parts = serve_main._build_engine(args)
     eng = parts[0]
     torch.cuda.synchronize()
-    _llama_3_8b(eng.cfg)
+    _llama_3_8b_cut(eng.cfg)
     info = {"weights_gb": torch.cuda.memory_allocated() / 1e9,
             "build_s": time.perf_counter() - t0}
     # The byte tokenizer decodes ids under 256 only: with the unembedding
@@ -7361,6 +7483,8 @@ def mesh_rank(kind: str, argv: list, stats_path: str) -> None:
         return pipe_rank(argv, stats_path)
     if kind == "seq":
         return seq_rank(argv, stats_path)
+    if kind == "expert":
+        return expert_rank(argv, stats_path)
     import numpy as np
     import torch
 
@@ -7846,8 +7970,9 @@ def mesh_p2(torch, card, lap, tmp) -> dict:
 
 def mesh_native_read(torch, card, store) -> None:
     """p3: every array of store SB read by the native reader and by the
-    plain one: the same bytes and CRC32s; both times (the page cache is
-    warm from the store's write: nothing drops it)."""
+    plain one: the same bytes and CRC32s; both times (the store was
+    written earlier in this process, by path n or here, and nothing drops
+    the page cache: warm unless the host evicted some of it)."""
     import numpy as np
 
     from distributed_llms_tpu_torch import native
@@ -7884,7 +8009,7 @@ def mesh_native_read(torch, card, store) -> None:
     emit("mesh_p3_read", card=card, store_bytes=total, arrays=len(tasks),
          native_s=native_s, plain_s=plain_s, native_build_s=build_s,
          native_gb_per_s=total / native_s / 1e9,
-         plain_gb_per_s=total / plain_s / 1e9, page_cache="warm")
+         plain_gb_per_s=total / plain_s / 1e9, page_cache="written earlier in this process, not dropped")
 
 
 def mesh_train_ckpt(torch, card, tmp) -> None:
@@ -8019,18 +8144,18 @@ def serve_mesh(torch) -> dict:
     tmp = tempfile.mkdtemp(prefix="dlt_mesh_")
     out: dict = {}
     try:
-        store = f"{tmp}/sb"
         # Cut from 32 layers (to keep the whole smoke near 1000 s of
         # phases beside path r): every layer keeps the published width,
-        # so each K1 launch is at the full model's local heads.
-        info = write_store(torch, None, store, "llama-3-8b",
-                           num_layers=STORE_LAYERS)
-        emit("mesh_store", card=card, **info)
+        # so each K1 launch is at the full model's local heads.  The store
+        # is paths n and o1's, written once.
+        store, info, wrote = shared_store(torch, "llama_bf16_cut",
+                                          _write_llama_cut)
+        emit("mesh_store", card=card, written_here=wrote, **info)
         lap("p1_store")
         out.update(mesh_tensor_parallel(torch, card, lap, store, tmp))
         mesh_native_read(torch, card, store)
         lap("p3_read")
-        shutil.rmtree(store, ignore_errors=True)
+        drop_shared_store("llama_bf16_cut")
         out.update(mesh_p2(torch, card, lap, tmp))
         mesh_train_ckpt(torch, card, tmp)
         lap("p3_train_ckpt")
@@ -8204,6 +8329,12 @@ def _pipe_streams(ranks) -> tuple:
             [s for s in streams if s["sampled"]])
 
 
+def _write_llama_int8(torch, out_dir: str) -> dict:
+    """Paths q and r's store: Llama-3-8B at its full width and published
+    32 layers, weight-only int8."""
+    return write_store(torch, "int8", out_dir, "llama-3-8b")
+
+
 def serve_pipe(torch) -> dict:
     """Path q: pipeline parallelism at Llama-3-8B's full width and its
     published 32 layers, weight-only int8 (random weights, seed 0): two
@@ -8224,7 +8355,6 @@ def serve_pipe(torch) -> dict:
     lap = _lap("pipe_time")
     label = "pipe/q"
     tmp = tempfile.mkdtemp(prefix="dlt_pipe_")
-    store = f"{tmp}/q_store"
     overrides = ["runtime.serve_quantized=true", "runtime.max_seq_len=1024",
                  f"runtime.max_decode_steps={PIPE_SPMD_NEW}",
                  f"runtime.microbatches={PIPE_MICROBATCHES}"]
@@ -8290,7 +8420,7 @@ def serve_pipe(torch) -> dict:
             await coord.stop()
 
     try:
-        info = write_store(torch, "int8", store, "llama-3-8b")
+        store, info, _ = shared_store(torch, "llama_int8", _write_llama_int8)
         lap("store")
         batch, batch_s, spmd, spmd_s, sampled = asyncio.run(drive())
         ranks = _read_stats(stats)
@@ -8762,7 +8892,6 @@ def serve_seq(torch) -> dict:
     card = _card()
     lap = _lap("seq_time")
     tmp = tempfile.mkdtemp(prefix="dlt_seq_")
-    store = f"{tmp}/r_store"
     overrides = ["runtime.serve_quantized=true",
                  f"runtime.max_seq_len={SEQ_MAX_LEN}",
                  f"runtime.max_decode_steps={SEQ_NEW}"]
@@ -8771,7 +8900,7 @@ def serve_seq(torch) -> dict:
     try:
         k4_local = seq_k4_local(torch, card)
         lap("k4_local")
-        info = write_store(torch, "int8", store, "llama-3-8b")
+        store, info, _ = shared_store(torch, "llama_int8", _write_llama_int8)
         lap("store")
         for leg, impl in SEQ_IMPL.items():
             _seq_set_attn_impl(store, impl)
@@ -8838,9 +8967,667 @@ def serve_seq(torch) -> dict:
 
 # -- main -------------------------------------------------------------------
 
+# -- path s: expert parallelism -------------------------------------------------
+
+# Path s's ranks are two processes of one gloo group on the one card, as
+# path p's (:func:`mesh_rank`), each holding half of Mixtral's experts.
+EXPERT_RANKS = 2
+EXPERT_MEM_SHARE = 0.65  # a rank's resident memory under this share of one
+#   rank's engine (expected 0.55-0.6: attention, embeddings and the pool
+#   stay whole on every rank; the experts, ~85% of the int4 weights, halve)
+EXPERT_TOPK = 8  # logits kept a sampling call, for the near-tie rule
+
+
+def expert_rank(argv: list, stats_path: str) -> None:
+    """One rank of path s, in its own process: ``dlt-serve-torch --store
+    <Mixtral int4> --override mesh.expert=2`` run through its ``main``.
+    Once the mesh engine is built, before the server starts: s2, one
+    ``Trainer(parallel=)`` step at Mixtral's width cut to
+    MIXTRAL_TRAIN_LAYERS layers on the same mesh (:func:`expert_train`),
+    s3, path p3's step at ``model=2`` (:func:`tp_train`), then s1's
+    engine-side leg, path m's 8 greedy prompts as one batch at 8
+    slots (:func:`expert_batch`), and each rank's rehydration of one layer
+    timed in turn; then the server answers over HTTP (rank 0 serves,
+    rank 1 follows).  Counters around the decode steps (device-synced
+    wall time, the collectives and the 'expert' line's share) and the
+    batchers (memory once built, streams).  At the end, what it saw goes
+    to ``stats_path`` (JSON; the batch's logits and routing, and the
+    step's expert gradient and update, beside it as .pt)."""
+    import torch
+
+    from distributed_llms_tpu_torch.runtime import batcher as bl
+    from distributed_llms_tpu_torch.runtime import engine as engine_lib
+
+    stats = {"rank": None, "legs": {}, "streams": []}
+    box: dict = {"leg": "boot"}
+    reset_launches()
+
+    def leg_stats():
+        return stats["legs"].setdefault(box["leg"], {
+            "decode_s": 0.0, "steps": 0, "collective_s": 0.0,
+            "collective_calls": 0, "expert_s": 0.0, "expert_calls": 0})
+
+    steps_fn = bl._decode_steps
+
+    def decode_steps(*a, **kw):
+        mesh, st = box["engine"].pm.mesh.stats, leg_stats()
+        torch.cuda.synchronize()
+        before = dict(mesh)
+        t0 = time.perf_counter()
+        out = steps_fn(*a, **kw)
+        torch.cuda.synchronize()
+        st["decode_s"] += time.perf_counter() - t0
+        st["steps"] += a[5]
+        for key, name in (("collective", ""), ("expert", "axis_expert_")):
+            st[f"{key}_s"] += mesh[f"{name}seconds"] - before[f"{name}seconds"]
+            st[f"{key}_calls"] += mesh[f"{name}calls"] - before[f"{name}calls"]
+        return out
+
+    bl._decode_steps = decode_steps
+    cls = bl.ContinuousBatcher
+    init, run = cls.__init__, cls.run
+
+    def b_init(self, *a, **kw):
+        init(self, *a, **kw)
+        torch.cuda.synchronize()
+        leg_stats()["mem_after_batcher"] = torch.cuda.memory_allocated()
+        box["batcher"] = self
+
+    def b_run(self, *a, **kw):
+        res = run(self, *a, **kw)
+        stats["streams"].extend(list(map(int, t)) for t in res.values())
+        return res
+
+    cls.__init__, cls.run = b_init, b_run
+    from_store = engine_lib.InferenceEngine.from_store.__func__
+
+    def engine_from_store(c, *a, **kw):
+        eng = from_store(c, *a, **kw)
+        torch.cuda.synchronize()
+        box["engine"] = eng
+        pm = eng.pm
+        stats["rank"], stats["mesh"] = pm.mesh.rank, pm.mesh.shape
+        stats["backend"], stats["experts"] = pm.mesh.backend, pm.plan.experts
+        stats["mem_after_engine"] = torch.cuda.memory_allocated()
+        mlp = eng.params["blocks"]["mlp"]
+        stats["expert_bytes"] = _expert_bytes(mlp)
+        stats["expert_leaves"] = {k: [type(mlp[k]).__name__,
+                                      list(mlp[k].unpacked_shape)]
+                                  for k in ("w_gate", "w_up", "w_down")}
+        box["leg"] = "train"
+        stats["train"] = expert_train(torch, pm, stats_path)
+        stats["train_tp"] = tp_train(torch, stats_path)
+        box["leg"] = "batch"
+        stats["batch"] = expert_batch(torch, eng, stats_path)
+        box["leg"] = "http"
+        return eng
+
+    engine_lib.InferenceEngine.from_store = classmethod(engine_from_store)
+    try:
+        from distributed_llms_tpu_torch.cli import serve_main
+
+        serve_main.main(argv)
+    finally:
+        stats["launches"] = read_launches()
+        b = box.get("batcher")
+        if b is not None and b.prefix_cache is not None:
+            stats["http_prefix_hits"] = b.prefix_cache.hits
+        with open(stats_path, "w") as f:
+            json.dump(stats, f)
+
+
+def expert_train(torch, pm, stats_path: str) -> dict:
+    """s2 on this rank: one ``Trainer(parallel=)`` step at Mixtral's width
+    cut to MIXTRAL_TRAIN_LAYERS layers (``attn_impl="flash"``, K3) on an
+    'expert' mesh over the engine's group, from path m's weights (seed 0)
+    and batch.  A forward without gradients first records this rank's
+    own routing, counted against path m's step's; where a choice flipped
+    (a bf16 near-tie), the step replays path m's routing, as path m's
+    float32 recompute does.  Layer 0's expert w_gate gradient and update
+    (this rank's block) go beside ``stats_path``."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.core.config import MeshConfig
+    from distributed_llms_tpu_torch.models import layers
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.parallel.api import make_parallel_model
+    from distributed_llms_tpu_torch.runtime import train
+
+    inp = torch.load(f"{Path(stats_path).parent}/s2_inputs.pt",
+                     weights_only=True)
+    cfg = get_preset(MIXTRAL_PRESET, attn_impl="flash",
+                     num_layers=MIXTRAL_TRAIN_LAYERS)
+    tpm = make_parallel_model(cfg, MeshConfig(expert=EXPERT_RANKS))
+    dev = tpm.device
+    full = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device=dev)
+    local = tpm.shard_params(full)
+    del full
+    _free(torch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = inp["batch"].to(dev)
+    ref = [[t.to(dev) for t in d] for d in inp["routes"]]
+    route, own = layers.moe_route, []
+
+    def recorded(logits, c, cap):
+        out = route(logits, c, cap)
+        own.append(out[1])
+        return out
+
+    replay = list(ref)
+
+    def replayed(logits, c, cap):
+        eid, oh, keep, slot = replay.pop(0)
+        topi = eid.reshape(c.num_experts_per_token, -1).T
+        return (torch.softmax(logits.gather(1, topi), dim=-1), eid, oh, keep,
+                slot)
+
+    def fwd(params, c, inputs, remat=False, return_aux=False):
+        return tpm.forward(params, inputs, remat=remat, return_aux=return_aux)
+
+    trainer = train.Trainer(cfg, train.default_optimizer(MIXTRAL_TRAIN_LR),
+                            parallel=tpm)
+    state = trainer.init(local)
+    w_gate = local["blocks"]["mlp"]["w_gate"]
+    at = next(i for i, t in enumerate(train._leaves(local)) if t is w_gate)
+    before0 = w_gate[0].clone()
+    try:
+        layers.moe_route = recorded
+        with torch.no_grad():
+            train.lm_loss(local, cfg, batch, forward_fn=fwd)
+        flipped = sum(int((a != b[0]).sum()) for a, b in zip(own, ref))
+        layers.moe_route = replayed if flipped else route
+        k3 = read_launches()["flash_attention_static"]
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, norm = trainer.gradients(local, batch)
+        state = trainer.optimizer.update(grads, state, local, norm=norm)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        k3 = read_launches()["flash_attention_static"] - k3
+    finally:
+        layers.moe_route = route
+    torch.save({"grad0": grads[at][0].cpu(), "before0": before0.cpu(),
+                "after0": w_gate[0].to("cpu", copy=True)},
+               stats_path + ".train.pt")
+    out = {"loss": float(loss), "global_norm": float(norm),
+           "routing_flipped": flipped,
+           "claims": sum(e.numel() for e in own),
+           "replayed_reference_routing": bool(flipped), "step_s": step_s,
+           "resident_gb": held / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_peak_over_resident_gb":
+               (torch.cuda.max_memory_allocated() - held) / 1e9,
+           "k3_launches": k3, "experts": tpm.plan.experts,
+           "local_w_gate": list(w_gate.shape)}
+    del local, state, grads, batch, ref, own
+    _free(torch)
+    return out
+
+
+def tp_train(torch, stats_path: str) -> dict:
+    """s3 on this rank: one ``Trainer(parallel=)`` step of path p3's
+    ``Trainer`` (path g's width cut to TRAIN_CKPT_LAYERS layers,
+    ``attn_impl="flash"``, seed 0, lr 1e-3) at ``model=2`` over the same
+    two processes, on path p3's batch.  Layer 0's w_gate gradient and
+    update (this rank's columns) go beside ``stats_path``."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.core.config import MeshConfig
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.parallel.api import make_parallel_model
+    from distributed_llms_tpu_torch.runtime import train
+
+    batch = torch.load(f"{Path(stats_path).parent}/s2_inputs.pt",
+                       weights_only=True)["tp_batch"]
+    cfg = get_preset("llama-3-8b", attn_impl="flash",
+                     num_layers=TRAIN_CKPT_LAYERS)
+    tpm = make_parallel_model(cfg, MeshConfig(model=EXPERT_RANKS))
+    full = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device=tpm.device)
+    local = tpm.shard_params(full)
+    del full
+    _free(torch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = batch.to(tpm.device)
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3), parallel=tpm)
+    state = trainer.init(local)
+    w_gate = local["blocks"]["mlp"]["w_gate"]
+    at = next(i for i, t in enumerate(train._leaves(local)) if t is w_gate)
+    before0 = w_gate[0].clone()
+    calls = tpm.mesh.stats["calls"]
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, norm = trainer.gradients(local, batch)
+    state = trainer.optimizer.update(grads, state, local, norm=norm)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    torch.save({"grad0": grads[at][0].cpu(), "before0": before0.cpu(),
+                "after0": w_gate[0].to("cpu", copy=True)},
+               stats_path + ".train_tp.pt")
+    out = {"loss": float(loss), "global_norm": float(norm),
+           "step_s": step_s, "collectives": tpm.mesh.stats["calls"] - calls,
+           "resident_gb": held / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "local_w_gate": list(w_gate.shape)}
+    del local, state, grads, batch
+    _free(torch)
+    return out
+
+
+def _tp_train_reference(torch) -> dict:
+    """s3's one-rank step: path p3's ``Trainer`` on its weights and batch
+    (seed 0, seed 1), one step: the loss, layer 0's w_gate gradient and
+    update, and the batch the ranks take."""
+    from distributed_llms_tpu_torch.models import model as model_lib
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime import train
+
+    cfg = get_preset("llama-3-8b", attn_impl="flash",
+                     num_layers=TRAIN_CKPT_LAYERS)
+    batch = torch.randint(0, cfg.vocab_size, (2, TRAIN_CKPT_T), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    trainer = train.Trainer(cfg, train.default_optimizer(1e-3))
+    state = trainer.init(params)
+    w_gate = params["blocks"]["mlp"]["w_gate"]
+    at = next(i for i, t in enumerate(train._leaves(params)) if t is w_gate)
+    before0 = w_gate[0].to("cpu", copy=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, _ = trainer.gradients(params, batch)
+    state = trainer.optimizer.update(grads, state, params)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "step_s": time.perf_counter() - t0,
+           "grad0": grads[at][0].cpu(), "before0": before0,
+           "after0": w_gate[0].to("cpu", copy=True), "batch": batch.cpu()}
+    del params, state, grads
+    _free(torch)
+    return out
+
+
+def _step_held(lo: int, hi: int, dim: int, got: dict, want: dict) -> dict:
+    """A rank's block ``[lo, hi)`` along ``dim`` of layer 0's w_gate
+    gradient and update against the one-rank step's.  AdamW's first step
+    moves each entry by lr times its gradient's sign (plus the decay), so
+    an entry whose gradient lies within the two steps' difference of zero
+    may move the other way: the update is also compared on the entries
+    whose sign both gradients determine (|g| above their difference)."""
+    def block(t):
+        return t.narrow(dim, lo, hi - lo).float()
+
+    g1, gr = block(want["grad0"]), got["grad0"].float()
+    d1 = block(want["after0"]) - block(want["before0"])
+    dr = got["after0"].float() - got["before0"].float()
+    check(got["before0"].equal(want["before0"].narrow(dim, lo, hi - lo)),
+          "a rank's step starts from other weights than the one-rank step")
+    sure = g1.abs() > (gr - g1).abs()
+    return {"grad_rel_err": float((gr - g1).norm() / g1.norm()),
+            "update_rel_err": float((dr - d1).norm() / d1.norm()),
+            "update_sign_agreement": float(
+                (dr.sign() == d1.sign()).float().mean()),
+            "sign_determined_share": float(sure.float().mean()),
+            "update_rel_err_sign_determined": float(
+                ((dr - d1) * sure).norm() / (d1 * sure).norm())}
+
+
+def expert_batch(torch, eng, stats_path: str) -> dict:
+    """s1's engine-side leg on this rank: path m's 8 greedy prompts as one
+    batch at 8 slots on the mesh engine (``_mixtral_batcher_kw``: the
+    same pool and loop as path m's), every sampling call's top
+    EXPERT_TOPK logits and every routing decision (experts, kept claims
+    and the float32 router logits) recorded beside ``stats_path`` on rank
+    0; then each rank's rehydration of one layer's experts timed in turn
+    (the other rank waiting)."""
+    import torch.distributed as dist
+
+    from distributed_llms_tpu_torch.models import layers
+    from distributed_llms_tpu_torch.runtime import sampling
+
+    ids = [eng.tokenizer.encode(p) for p in FAM_PROMPTS]
+    route, sample, sample_rows = (layers.moe_route, sampling.sample,
+                                  sampling.sample_rows)
+    routes, tops = [], []
+
+    def top(src):
+        v, i = torch.topk(src.float(), EXPERT_TOPK, dim=-1)
+        tops.append((v.cpu(), i.cpu()))
+
+    def recorded(logits, c, cap):
+        out = route(logits, c, cap)
+        routes.append((out[1].cpu(), out[3].cpu(), logits.float().cpu()))
+        return out
+
+    def s1(gen, src, *a, **kw):
+        top(src)
+        return sample(gen, src, *a, **kw)
+
+    def s2(gen, src, *a, **kw):
+        top(src)
+        return sample_rows(gen, src, *a, **kw)
+
+    b = eng.continuous_batcher(**_mixtral_batcher_kw(ids))
+    slots = {}
+    activate = b._activate_row
+
+    def b_activate(i, req, *a, **kw):
+        slots[req.rid] = i
+        return activate(i, req, *a, **kw)
+
+    b._activate_row = b_activate
+    try:
+        layers.moe_route, sampling.sample = recorded, s1
+        sampling.sample_rows = s2
+        streams, wall = _sync_time(torch, lambda: _batcher_streams(
+            torch, b, ids, FAM_NEW))
+    finally:
+        layers.moe_route, sampling.sample = route, sample
+        sampling.sample_rows = sample_rows
+    rank = eng.pm.mesh.rank
+    if rank == 0:
+        torch.save({"tops": tops, "routes": routes},
+                   stats_path + ".batch.pt")
+    out = {"streams": [list(map(int, s)) for s in streams], "wall_s": wall,
+           "decode_steps": b.decode_steps, "slots": [slots[r] for r in
+                                                     sorted(slots)]}
+    del b
+    _free(torch)
+    for r in range(eng.pm.mesh.world_size):
+        dist.barrier()
+        if r == rank:
+            out["rehydrate_ms_a_layer"] = _rehydrate_ms(
+                torch, eng.params["blocks"]["mlp"])
+    dist.barrier()
+    return out
+
+
+def _first_diff_at(a: list, b: list) -> int | None:
+    """The first position where two streams differ, or None."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _expert_agreement(got: list, want: list, saved: dict, one_routes: list,
+                      slots: list, n_layers: int, eos: int) -> dict:
+    """The mesh batch's streams against the one-rank engine's (the same
+    prompts, batch and loop): the share of committed tokens before each
+    row's first divergence, and whether the earliest divergence is a
+    near-tie.  Capacity couples the rows, so once one token or one routing
+    choice differs, every later step of every row may; what must hold is
+    the first event: at the earliest step where a token or a routing
+    choice differs (the admissions count as step -1), a flipped expert
+    choice lies within FAM_NEAR_TIE of the mesh's float32 router logits,
+    or, with none flipped there, each diverging row's two tokens lie
+    within FAM_NEAR_TIE of the mesh's logits."""
+    rows = len(got)
+
+    def step_of_call(c):
+        return -1 if c < rows * n_layers else (c - rows * n_layers) // n_layers
+
+    flip = None  # (step, |router logit gap|, call) of the first flip
+    for c, ((e1, _), (e2, _, logits)) in enumerate(zip(one_routes,
+                                                       saved["routes"])):
+        if e1.shape != e2.shape:
+            flip = (step_of_call(c), float("inf"), c)
+            break
+        bad = (e1 != e2).nonzero()
+        if len(bad):
+            claim = int(bad[0])
+            row = claim % logits.shape[0]
+            gap = abs(float(logits[row, int(e1[claim])]
+                            - logits[row, int(e2[claim])]))
+            flip = (step_of_call(c), gap, c)
+            break
+    # Sampling calls: each row's admission (batch 1), then the decode
+    # steps (every slot).
+    adm = [t for t in saved["tops"] if t[0].shape[0] == 1]
+    dec = [t for t in saved["tops"] if t[0].shape[0] > 1]
+    agree = total = 0
+    diverged = []
+    for r in range(rows):
+        a, b = _cut(got[r], eos), _cut(want[r], eos)
+        j = _first_diff_at(a, b)
+        total += len(b)
+        agree += len(b) if j is None else j
+        if j is None:
+            continue
+        v, i = adm[r] if j == 0 else dec[j - 1]
+        row = 0 if j == 0 else slots[r]
+        ids, vals = i[row].tolist(), v[row].tolist()
+        gap = (vals[0] - vals[ids.index(b[j])]
+               if j < len(b) and b[j] in ids else float("inf"))
+        diverged.append({"row": r, "at": j, "step": j - 1,
+                         "token_gap": gap})
+    steps = [d["step"] for d in diverged] + ([flip[0]] if flip else [])
+    first_ok = True
+    if steps:
+        first = min(steps)
+        if flip is not None and flip[0] == first:
+            first_ok = flip[1] <= FAM_NEAR_TIE
+        else:
+            first_ok = all(d["token_gap"] <= FAM_NEAR_TIE for d in diverged
+                           if d["step"] == first)
+    return {"agreement": agree / max(total, 1), "tokens": total,
+            "rows_equal": rows - len(diverged), "diverged": diverged,
+            "first_routing_flip": None if flip is None else {
+                "step": flip[0], "call": flip[2],
+                "router_logit_gap": flip[1]},
+            "first_event_near_tie": first_ok}
+
+
+def serve_expert(torch) -> dict:
+    """Path s: expert parallelism.  s1: Mixtral-8x7B as an int4 store
+    (path m's, MIXTRAL_LAYERS layers, at its published width) on two
+    gloo ranks sharing the card (``mesh.expert=2``: four experts a rank),
+    ``dlt-serve-torch --store <it> --override mesh.expert=2`` with path
+    m's pool flags serving path a's requests (all greedy, FAM_NEW new:
+    streams checked for length and vocabulary), and engine-side path m's
+    8-row batch held to path m's one-rank engine (same store, batch and
+    loop).  s2: one ``Trainer(parallel=)`` step at ``expert=2`` held to
+    path m's one-rank step on the same weights; s3: path p3's step at
+    ``model=2`` held to its one-rank step.  When the ``families`` phase
+    did not run in this process, path m's Mixtral parts run first.
+    Returns each kernel's launches, one count a rank."""
+    import numpy as np
+
+    from distributed_llms_tpu_torch.models.presets import get_preset
+    from distributed_llms_tpu_torch.runtime.tokenizer import ByteTokenizer
+
+    card = _card()
+    lap = _lap("expert_time")
+    if "mixtral" not in _SHARED:
+        families_mixtral(torch, card, lap)
+    if "mixtral_train" not in _SHARED:
+        families_train(torch, card, lap)
+    one, one_train = _SHARED["mixtral"], _SHARED["mixtral_train"]
+    cfg = get_preset(MIXTRAL_PRESET, num_layers=MIXTRAL_LAYERS)
+    label = "expert/s"
+    tp_one = _tp_train_reference(torch)
+    lap("s3_one_rank")
+    tmp = tempfile.mkdtemp(prefix="dlt_expert_")
+    try:
+        torch.save({"batch": one_train["batch"],
+                    "routes": one_train["routes"],
+                    "tp_batch": tp_one["batch"]}, f"{tmp}/s2_inputs.pt")
+        dist_port, port = _free_port(), _free_port()
+        stats = [f"{tmp}/s_rank{r}.json" for r in range(EXPERT_RANKS)]
+        logs = [f"{tmp}/s_rank{r}.log" for r in range(EXPERT_RANKS)]
+        procs = []
+        try:
+            for r in range(EXPERT_RANKS):
+                argv = ["--store", one["store"], *MIXTRAL_ARGS,
+                        "--port", str(port),
+                        "--override", f"mesh.expert={EXPERT_RANKS}",
+                        "--override",
+                        f"cluster.num_processes={EXPERT_RANKS}",
+                        "--override", f"cluster.process_id={r}",
+                        "--override", "cluster.distributed_coordinator="
+                                      f"127.0.0.1:{dist_port}"]
+                procs.append(_spawn_rank("expert", argv, stats[r], logs[r]))
+            _wait_http(port, procs, logs, label)
+            lap("s_boot_train_batch")
+            t0 = time.perf_counter()
+            served = asyncio.run(_serve_requests(port, greedy_new=FAM_NEW))
+            http_s = time.perf_counter() - t0
+            lap("s1_http")
+            procs[0].terminate()  # rank 0 drains and stops its follower
+            _reap(procs, logs, label)
+        finally:
+            _kill(procs)
+        ranks = _read_stats(stats)
+        saved = torch.load(stats[0] + ".batch.pt", weights_only=True)
+        trained = [torch.load(p + ".train.pt", weights_only=True)
+                   for p in stats]
+        trained_tp = [torch.load(p + ".train_tp.pt", weights_only=True)
+                      for p in stats]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    eos = ByteTokenizer().eos_id
+    per = cfg.num_experts // EXPERT_RANKS
+    per_rank, launches = [], {}
+    for r, st in enumerate(ranks):
+        check(st["backend"] == "gloo" and st["experts"] == [r * per,
+                                                            (r + 1) * per],
+              f"{label}: rank {r} on {st['backend']} holds experts "
+              f"{st['experts']}")
+        batch, http, tr = (st["legs"]["batch"], st["legs"]["http"],
+                           st["train"])
+        steps = batch["steps"] + http["steps"]
+        got = st["launches"]
+        check(steps > 0 and got["paged_decode_attention"]
+              >= cfg.num_layers * steps
+              and got["quant_matmul_int4"] >= 4 * cfg.num_layers * steps,
+              f"{label}: rank {r} launched K1 {got['paged_decode_attention']}"
+              f" and K5 {got['quant_matmul_int4']} times over {steps} decode "
+              f"steps of {cfg.num_layers} layers")
+        check(tr["k3_launches"] == MIXTRAL_TRAIN_LAYERS,
+              f"{label}: rank {r}'s step launched K3 {tr['k3_launches']} "
+              f"times, not {MIXTRAL_TRAIN_LAYERS}")
+        for name in ("paged_decode_attention", "quant_matmul_int4",
+                     "flash_attention_static"):
+            launches.setdefault(name, []).append(got[name])
+        check(all(t < cfg.vocab_size for s in st["streams"] for t in s),
+              f"{label}: rank {r} served a token past the vocabulary")
+        per_rank.append({
+            "rank": st["rank"], "experts": st["experts"],
+            "expert_leaves": st["expert_leaves"],
+            "expert_bytes": st["expert_bytes"],
+            "expert_bytes_share_of_one_rank": st["expert_bytes"]
+            / one["expert_bytes"],
+            "mem_after_boot_gb": http["mem_after_batcher"] / 1e9,
+            "mem_share_of_one_rank": http["mem_after_batcher"]
+            / one["engine_and_batcher_bytes"],
+            "rehydrate_ms_a_layer": st["batch"]["rehydrate_ms_a_layer"],
+            "decode_steps": {"batch": batch["steps"], "http": http["steps"]},
+            "ms_per_decode_step": {
+                k: v["decode_s"] * 1e3 / max(v["steps"], 1)
+                for k, v in (("batch", batch), ("http", http))},
+            "collective_share_of_step": batch["collective_s"]
+            / max(batch["decode_s"], 1e-9),
+            "combine_share_of_step": batch["expert_s"]
+            / max(batch["decode_s"], 1e-9),
+            "combines_per_step": batch["expert_calls"]
+            / max(batch["steps"], 1),
+            "launches": {k: got[k] for k in launches}})
+    # s1: the batch against path m's one-rank engine.
+    b0 = ranks[0]["batch"]
+    check(b0["streams"] == ranks[1]["batch"]["streams"],
+          f"{label}: the ranks' batch streams differ")
+    held = _expert_agreement(b0["streams"], one["eager"], saved,
+                             one["routes"], b0["slots"], cfg.num_layers, eos)
+    emit("expert_s1", card=card, mesh={"expert": EXPERT_RANKS},
+         backend="gloo", ranks=per_rank,
+         one_rank={"engine_and_batcher_gb":
+                   one["engine_and_batcher_bytes"] / 1e9,
+                   "expert_bytes": one["expert_bytes"],
+                   "rehydrate_ms_a_layer": one["rehydrate_ms_a_layer"]},
+         batch_wall_s=b0["wall_s"], held_to_one_rank=held,
+         http_s=http_s, http_prefix_hits=ranks[0].get("http_prefix_hits"),
+         served={k: v for k, v in served.items() if k != "texts"})
+    for r in per_rank:
+        check(r["expert_bytes_share_of_one_rank"] == 0.5,
+              f"{label}: rank {r['rank']} holds "
+              f"{r['expert_bytes_share_of_one_rank']} of one rank's experts")
+        check(r["mem_share_of_one_rank"] < EXPERT_MEM_SHARE,
+              f"{label}: rank {r['rank']} holds "
+              f"{r['mem_share_of_one_rank']:.3f} of the one-rank engine")
+    check(held["first_event_near_tie"],
+          f"{label}: the batch left the one-rank engine's first away from "
+          f"a near-tie: tokens {held['diverged']}, routing "
+          f"{held['first_routing_flip']}")
+    lap("s1_held")
+    # s2: the step against path m's one-rank step.
+    loss_rel = abs(ranks[0]["train"]["loss"] - one_train["loss"]) / abs(
+        one_train["loss"])
+    s2 = [{**st["train"], **_step_held(*st["train"]["experts"], 0, t,
+                                         one_train)}
+          for st, t in zip(ranks, trained)]
+    emit("expert_s2", card=card, mesh={"expert": EXPERT_RANKS},
+         layers=MIXTRAL_TRAIN_LAYERS, one_rank_loss=one_train["loss"],
+         one_rank_step_s=one_train["step_s"], loss_rel_err=loss_rel,
+         ranks=s2, tol={"rel": TRAIN_GRAD_REL})
+    check(all(st["train"]["loss"] == ranks[0]["train"]["loss"]
+              for st in ranks), f"{label}: the ranks' losses differ")
+    check(math.isfinite(ranks[0]["train"]["loss"])
+          and loss_rel <= TRAIN_GRAD_REL,
+          f"{label}: the step's loss is {loss_rel:.2e} from the one-rank "
+          f"step's")
+    for r in s2:
+        check(r["grad_rel_err"] <= TRAIN_GRAD_REL
+              and r["update_rel_err"] <= TRAIN_GRAD_REL,
+              f"{label}: layer 0's w_gate experts {r['experts']}: gradient "
+              f"{r['grad_rel_err']:.4f}, update {r['update_rel_err']:.4f} "
+              f"from the one-rank step's")
+    # s3: path p3's step at model=2 against its one-rank step.
+    cols = trained_tp[0]["grad0"].shape[1]
+    s3 = [{**st["train_tp"], **_step_held(r * cols, (r + 1) * cols, 1, t,
+                                          tp_one)}
+          for r, (st, t) in enumerate(zip(ranks, trained_tp))]
+    tp_loss_rel = abs(s3[0]["loss"] - tp_one["loss"]) / abs(tp_one["loss"])
+    emit("expert_s3", card=card, mesh={"model": EXPERT_RANKS},
+         layers=TRAIN_CKPT_LAYERS, one_rank_loss=tp_one["loss"],
+         one_rank_step_s=tp_one["step_s"], loss_rel_err=tp_loss_rel,
+         ranks=s3, tol={"rel": TRAIN_GRAD_REL})
+    check(all(r["loss"] == s3[0]["loss"] for r in s3)
+          and tp_loss_rel <= TRAIN_GRAD_REL,
+          f"{label}: the model=2 step's loss is {tp_loss_rel:.2e} from the "
+          f"one-rank step's")
+    # The partial sums over 'model' round differently from one rank's
+    # products, so the gradients differ in bf16 and the update is held
+    # where their signs are determined (``_step_held``).
+    for r, t in enumerate(s3):
+        check(t["grad_rel_err"] <= TRAIN_GRAD_REL
+              and t["update_rel_err_sign_determined"] <= TRAIN_GRAD_REL,
+              f"{label}: rank {r}'s layer 0 w_gate columns at model=2: "
+              f"gradient {t['grad_rel_err']:.4f}, update "
+              f"{t['update_rel_err_sign_determined']:.4f} where its sign is "
+              f"determined, from the one-rank step's")
+    del trained, trained_tp, saved, tp_one
+    # Nothing after path s reads Mixtral's store or path m's results.
+    for key in ("mixtral", "mixtral_train"):
+        _SHARED.pop(key, None)
+    drop_shared_store("mixtral_int4")
+    _free(torch)
+    return launches
+
+
 PHASES = ("build", "kernel", "timing", "model", "serve", "tier", "spec",
-          "constrain", "generate", "families", "fleet", "elastic", "mesh",
-          "pipe", "seq", "train", "profile")
+          "constrain", "generate", "families", "expert", "fleet", "elastic",
+          "mesh", "pipe", "seq", "train", "profile")
 
 
 def main() -> int:
@@ -8912,6 +9699,10 @@ def main() -> int:
             # Path m's launches ride beside each kernel's own path's.
             for name, n in timed("families", serve_families, torch).items():
                 kernels[name]["families_launches"] = n
+        if "expert" in phases:
+            # Path s's launches, one count a rank.
+            for name, n in timed("expert", serve_expert, torch).items():
+                kernels[name]["expert_launches"] = n
         if "fleet" in phases:
             # Path n's launches (every replica's, process-wide) ride
             # beside each kernel's own path's.
@@ -8940,6 +9731,9 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if "dir" in _SHARED:
+            shutil.rmtree(_SHARED["dir"], ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=30,

@@ -45,8 +45,9 @@ PIECE_BYTES = 1 << 28  # the most one all-gather message carries
 
 class Mesh:
     """This rank's view of the mesh: axis sizes, its coordinates, its
-    device, and the process groups of its ``data``, ``pipe``, ``model``
-    and ``seq`` lines.
+    device, and the process groups of its ``data``, ``pipe``, ``model``,
+    ``seq`` and ``expert`` lines.  :attr:`stats` also counts each axis's
+    collectives apart (``axis_<name>_calls`` / ``_seconds``).
 
     Without an initialized process group (``world_size``/``rank`` given
     explicitly) the mesh carries the layout only: the placement rules
@@ -65,7 +66,7 @@ class Mesh:
         self._groups: dict[str, Any] = {}
         self.stats = {"calls": 0, "seconds": 0.0}
         for kind in ("shift", "broadcast", "a2a", "reduce_sum",
-                     "reduce_max"):
+                     "reduce_max", *(f"axis_{a}" for a in AXES)):
             self.stats.update({f"{kind}_calls": 0, f"{kind}_seconds": 0.0})
         if groups:
             self._build_groups()
@@ -99,7 +100,7 @@ class Mesh:
         # gloo), not the world's: give every line the world's.
         timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
         shape = self.cfg.shape
-        for axis in ("data", "pipe", "model", "seq"):
+        for axis in AXES:
             k = AXES.index(axis)
             # Every line of this axis, in one order on every rank
             # (new_group is collective over the whole world).
@@ -143,7 +144,7 @@ class Mesh:
         dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum"
                         else dist.ReduceOp.MAX, group=self._groups[axis])
         out = y.to(x.device, non_blocking=False)
-        self._note(t0, f"reduce_{op}")
+        self._note(t0, f"reduce_{op}", axis)
         return out
 
     def _gather_parts(self, x: torch.Tensor, axis: str) -> list:
@@ -174,7 +175,7 @@ class Mesh:
         t0 = time.perf_counter()
         parts = self._gather_parts(x, axis)
         out = _concat(parts, dim, x.device)
-        self._note(t0)
+        self._note(t0, None, axis)
         return out
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
@@ -198,7 +199,7 @@ class Mesh:
         pieces = [p.chunk(n, dim=split_dim)[i]
                   for p in self._gather_parts(x, axis)]
         out = _concat(pieces, concat_dim, x.device)
-        self._note(t0, "a2a")
+        self._note(t0, "a2a", axis)
         return out
 
     def broadcast(self, x: torch.Tensor, src: int,
@@ -223,7 +224,7 @@ class Mesh:
         line = self._line(axis, self.coords)
         dist.broadcast(y, src=line[src], group=self._groups[axis])
         out = y.to(self.device)
-        self._note(t0, "broadcast")
+        self._note(t0, "broadcast", axis)
         return out
 
     def shift(self, x: torch.Tensor, axis: str = "pipe") -> torch.Tensor:
@@ -240,8 +241,36 @@ class Mesh:
         t0 = time.perf_counter()
         parts = self._gather_parts(x, axis)
         out = parts[(self.coord(axis) - 1) % n].to(x.device)
-        self._note(t0, "shift")
+        self._note(t0, "shift", axis)
         return out
+
+    # -- collectives that carry a gradient (training) -----------------------
+
+    def sum_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``x`` over the ``axis`` line (Megatron's g): the
+        gradient passes through unchanged."""
+        if self.size(axis) == 1:
+            return x
+        if _recording(x):
+            return _SumReduce.apply(x, self, axis)
+        return self.all_reduce(x, axis)
+
+    def copy_in(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` unchanged (Megatron's f); the gradient is summed over the
+        ``axis`` line."""
+        if self.size(axis) == 1 or not _recording(x):
+            return x
+        return _CopyIn.apply(x, self, axis)
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """:meth:`all_gather`; each rank keeps its own block of the
+        gradient (every rank of the line differentiates the same function
+        of the gathered tensor)."""
+        if self.size(axis) == 1:
+            return x
+        if _recording(x):
+            return _Gather.apply(x, self, dim, axis)
+        return self.all_gather(x, dim, axis)
 
     def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
         """``obj`` of global rank ``src``, on every rank (host objects)."""
@@ -251,17 +280,56 @@ class Mesh:
         dist.broadcast_object_list(box, src=src, group=self._groups["host"])
         return box[0]
 
-    def _note(self, t0: float, kind: str | None = None) -> None:
+    def _note(self, t0: float, kind: str | None = None,
+              axis: str | None = None) -> None:
         dt = time.perf_counter() - t0
         self.stats["calls"] += 1
         self.stats["seconds"] += dt
-        if kind is not None:
-            self.stats[f"{kind}_calls"] += 1
-            self.stats[f"{kind}_seconds"] += dt
+        for key in (kind, None if axis is None else f"axis_{axis}"):
+            if key is not None:
+                self.stats[f"{key}_calls"] += 1
+                self.stats[f"{key}_seconds"] += dt
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"device={self.device}, backend={self.backend})")
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axis):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.at = mesh.coord(axis) * ctx.n
+        return mesh.all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.at, ctx.n), None, None, None
 
 
 def _concat(parts: list, dim: int, device) -> torch.Tensor:

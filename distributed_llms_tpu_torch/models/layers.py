@@ -14,7 +14,11 @@ dequant-matmul kernel for a quantized one.
 On a mesh (``parallel/plan.py``) the parameters are a rank's local block
 and the row-parallel products (``wo``, ``w_down``, ``w_out``) are
 partial sums: :func:`_tp_sum` adds them over the 'model' line before any
-bias, which every rank holds whole and adds once.
+bias, which every rank holds whole and adds once.  Under autograd (a
+training step) that sum passes the gradient through, and
+:func:`_tp_entry` sums over the line the gradient that enters each
+column-parallel region (``Mesh.sum_reduce`` / ``Mesh.copy_in``); a
+forward that records no gradient takes the detached collectives.
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ from typing import Any
 
 import torch
 
-from ..checkpoint.quantize import QuantizedTensor
+from ..checkpoint.quantize import QuantizedTensor, dequantize
 from ..ops.quant_matmul import quant_contract
 from ..parallel import plan as plan_lib
-from ..parallel.specs import ReplicatedQuantized
+from ..parallel.specs import ReplicatedQuantized, local_slice
 
 Params = dict[str, Any]
 
@@ -211,12 +215,32 @@ def _tp_sum(y: torch.Tensor, sharded: str) -> torch.Tensor:
     plan = plan_lib.current()
     if plan is None or not getattr(plan, sharded):
         return y
-    return plan.mesh.all_reduce(y, "model")
+    return plan.mesh.sum_reduce(y, "model")
+
+
+def _tp_entry(x: torch.Tensor, sharded: str) -> torch.Tensor:
+    """``x`` entering a region the plan shards over 'model' (``sharded``:
+    "heads" or "ffn"): each rank's gradient with respect to it
+    covers only its own shard's products, so the backward sums it over
+    the line."""
+    plan = plan_lib.current()
+    if plan is None or not getattr(plan, sharded):
+        return x
+    return plan.mesh.copy_in(x, "model")
 
 
 def qkv_project(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> q [B, T, H, hd], k/v [B, T, KVH, hd].  Weight
-    layout: wq [D, H, hd], wk/wv [D, KVH, hd]."""
+    layout: wq [D, H, hd], wk/wv [D, KVH, hd].  On a mesh whose Q heads
+    shard while the KV heads stay whole (``Plan.kv_map``), each rank reads
+    only its Q heads' KV heads, so the KV weights' gradients are summed
+    over 'model' too."""
+    x = _tp_entry(x, "heads")
+    plan = plan_lib.current()
+    if plan is not None and plan.kv_map is not None:
+        p = {k: (plan.mesh.copy_in(v, "model")
+                 if k in ("wk", "wv", "bk", "bv") and torch.is_tensor(v)
+                 else v) for k, v in p.items()}
     q = _contract(x, p, "wq")
     k = _contract(x, p, "wk")
     v = _contract(x, p, "wv")
@@ -239,7 +263,7 @@ def mlp_gelu(x: torch.Tensor, p: Params, activation: str = "gelu") -> torch.Tens
     """GPT-2-layout MLP: act(x W_in + b) W_out + b.  ``activation``:
     "relu" (OPT), "gelu_exact" (erf gelu, Pythia), "gelu" / "gelu_new"
     the tanh approximation (GPT-2); anything else raises."""
-    h = _contract(x, p, "w_in") + p["b_in"]
+    h = _contract(_tp_entry(x, "ffn"), p, "w_in") + p["b_in"]
     if activation == "relu":
         h = torch.relu(h)
     elif activation == "gelu_exact":
@@ -254,6 +278,7 @@ def mlp_gelu(x: torch.Tensor, p: Params, activation: str = "gelu") -> torch.Tens
 def mlp_swiglu(x: torch.Tensor, p: Params, gate_act: str = "silu") -> torch.Tensor:
     """Gated MLP: (act(x W_gate) * (x W_up)) W_down, no biases.
     ``gate_act``: "silu" (Llama/Qwen2) or "gelu_tanh" (Gemma's GeGLU)."""
+    x = _tp_entry(x, "ffn")
     gate = _contract(x, p, "w_gate")
     up = _contract(x, p, "w_up")
     if gate_act == "silu":
@@ -288,6 +313,19 @@ def moe_route(logits: torch.Tensor, cfg, cap: int) -> tuple:
     return gates, eid, oh, keep, slot
 
 
+def _expert_leaf(w: Any, dtype: torch.dtype) -> Any:
+    """An MoE block's leaf as the products read it: a quantized leaf
+    rehydrated to ``dtype`` (the reference's ``dequantize_tree``, per
+    layer); one that could not shard under its rule (kept whole on every
+    rank, :class:`ReplicatedQuantized`) rehydrated whole, then cut to this
+    rank's block under that rule."""
+    if isinstance(w, ReplicatedQuantized):
+        return local_slice(dequantize(w.qt, dtype), w.spec, w.mesh)
+    if isinstance(w, QuantizedTensor):
+        return dequantize(w, dtype)
+    return w
+
+
 def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Mixture-of-experts SwiGLU MLP (Mixtral-style top-k routing with the
     reference's GShard capacity).  Returns (output, the Switch aux term).
@@ -307,17 +345,27 @@ def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Ten
       einsums; no Pallas kernel there, so none here);
     - aux: ``E * sum_e importance_e * load_e``.
 
-    p: router [D, E], w_gate/w_up [E, D, F], w_down [E, F, D].  Quantized
-    leaves (a ``serve_quantized`` store) are rehydrated here, per layer,
-    as the reference rehydrates them inside its scan."""
-    if any(isinstance(w, ReplicatedQuantized) for w in p.values()):
-        raise NotImplementedError(
-            "an MoE block's quantized experts must shard under their rules "
-            "on a mesh; a replicated expert leaf is not supported")
-    if any(isinstance(w, QuantizedTensor) for w in p.values()):
-        from ..checkpoint.quantize import dequantize_tree
+    On a mesh whose expert stacks shard over 'expert' (``Plan.experts``,
+    ``[lo, hi)``), every rank routes every row exactly as above (so the
+    aux term is the one-device term, with no collective), scatters only
+    the claims of its own experts into a ``[E_local * C + 1, D]`` buffer,
+    runs its experts, and gathers its claims' rows into ``[k*s, D]``, the
+    rows of other ranks' claims and of dropped claims zero.  Those rows
+    are summed over the 'expert' line BEFORE the gate weighting: each
+    claim's row is non-zero on one rank only, so the sum is exact (the
+    mesh output is the one-device output to the bit without 'model'), and
+    under autograd each rank's router and aux gradients are whole.  The
+    dispatch's entry sums its gradient over 'expert' (each rank's
+    gradient of x from its own experts is a partial sum).  With the
+    experts whole on every rank no sum is taken.  Under 'model' the
+    expert hidden axis is column-parallel and ``w_down``'s product is
+    summed over the line, as in the dense MLP.
 
-        p = dequantize_tree(p, x.dtype)
+    p: router [D, E], w_gate/w_up [E, D, F], w_down [E, F, D] (this rank's
+    block on a mesh).  Quantized leaves (a ``serve_quantized`` store) are
+    rehydrated here, per layer, as the reference rehydrates them inside
+    its scan."""
+    p = {k: _expert_leaf(w, x.dtype) for k, w in p.items()}
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
     s = b * t
@@ -327,18 +375,30 @@ def moe_swiglu(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Ten
     logits = xf.float() @ p["router"].float()  # [s, e]
     gates, eid, oh, keep, slot = moe_route(logits, cfg, cap)
 
+    plan = plan_lib.current()
+    split = plan is not None and plan.experts is not None
     token_idx = torch.arange(s, device=x.device).repeat(k)
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=x.device)
-    buf.index_add_(0, slot, xf[token_idx] * keep[:, None].to(xf.dtype))
-    xe = buf[:-1].reshape(e, cap, d)
+    if split:
+        lo, hi = plan.experts
+        n_loc = hi - lo
+        mine = keep & (eid >= lo) & (eid < hi)
+        slot = torch.where(mine, slot - lo * cap, n_loc * cap)
+        xd = plan.mesh.copy_in(xf, "expert")
+    else:
+        n_loc, mine, xd = e, keep, xf
+    buf = torch.zeros((n_loc * cap + 1, d), dtype=xf.dtype, device=x.device)
+    buf.index_add_(0, slot, xd[token_idx] * mine[:, None].to(xf.dtype))
+    xe = _tp_entry(buf[:-1].reshape(n_loc, cap, d), "ffn")
 
     g = torch.bmm(xe, p["w_gate"].to(xe.dtype))
     u = torch.bmm(xe, p["w_up"].to(xe.dtype))
     ye = _tp_sum(torch.bmm(torch.nn.functional.silu(g) * u,
                            p["w_down"].to(xe.dtype)), "ffn")
 
-    yflat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
-    gathered = yflat[slot]  # dropped claims read the zero row
+    yflat = torch.cat([ye.reshape(n_loc * cap, d), ye.new_zeros((1, d))])
+    gathered = yflat[slot]  # dropped (and other ranks') claims: zero rows
+    if split:
+        gathered = plan.mesh.sum_reduce(gathered, "expert")
     w = (gates.T.reshape(k * s) * keep).to(gathered.dtype)
     y = (gathered * w[:, None]).reshape(k, s, d).sum(dim=0)
 

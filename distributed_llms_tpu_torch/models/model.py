@@ -764,7 +764,7 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         t = tokens.long() - plan.mesh.coord("model") * n
         inside = (t >= 0) & (t < n)
         x = wte[t.clamp(0, n - 1)] * inside[..., None].to(wte.dtype)
-        x = plan.mesh.all_reduce(x, "model")
+        x = plan.mesh.sum_reduce(x, "model")
     else:
         x = wte[tokens.long()]
     off = learned_pos_offset(cfg)
@@ -806,12 +806,16 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         x = layers.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     w = params["embed"]["wte"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    vocab = plan is not None and plan.vocab
+    if vocab:
+        # Each rank's gradient of x comes from its own columns only.
+        x = plan.mesh.copy_in(x, "model")
     b, t, d = x.shape
     logits = _matmul_f32(x.reshape(b * t, d), w).reshape(b, t, -1)
-    if plan is not None and plan.vocab:
+    if vocab:
         # Vocabulary-parallel unembedding: every rank gets every column, so
-        # each samples from the same logits.
-        logits = plan.mesh.all_gather(logits, -1, "model")
+        # each samples from (and, training, differentiates) the same logits.
+        logits = plan.mesh.gather(logits, -1, "model")
     return logits
 
 
@@ -862,7 +866,7 @@ def forward(
                               None if given is None else given[lo:hi],
                               cache, cache_index, attn_mask, kv_tables,
                               remat, key_positions, return_aux=True)
-            logits = plan.mesh.all_gather(out[0], 0, "data")
+            logits = plan.mesh.gather(out[0], 0, "data")
             return (logits, *out[1:]) if return_aux else (logits, out[1])
     x = embed(params, cfg, tokens, positions)
     if cache is None:

@@ -1,8 +1,8 @@
 """ParallelModel: one object that places a model on a mesh and runs it
 (PyTorch port of ``distributed_llms_tpu/parallel/api.py``).
 
-Data x pipeline x tensor parallelism over ``torch.distributed``, one
-process a mesh position (``core/mesh.py``):
+Data x pipeline x tensor x sequence x expert parallelism over
+``torch.distributed``, one process a mesh position (``core/mesh.py``):
 
 - tensor parallelism: every rank holds its block of the heads, the MLP
   hidden axis and the vocabulary (``parallel/specs.py``), runs the model
@@ -35,12 +35,21 @@ process a mesh position (``core/mesh.py``):
   ``prompt_len``): each rank's block of the prompt's K/V, and the
   decode region whole on every rank, read by the one-reduce decode.  It
   composes with 'data' and 'model'; it is inference only (the forwards
-  run under ``no_grad``) and, like the pipeline, serves whole batches.
+  run under ``no_grad``) and, like the pipeline, serves whole batches;
+- expert parallelism: an MoE model's expert stacks shard over 'expert'
+  (``E`` divides over the axis; else they stay whole on every rank, as
+  the reference's rule replicates them).  Every rank routes every row,
+  runs its own experts and sums the claims' rows over its 'expert' line
+  (``models/layers.py`` ``moe_swiglu``, :attr:`Plan.experts`).  It
+  composes with every other axis, and on data x model x expert meshes
+  (no 'pipe' or 'seq') the forward carries gradients: the training step
+  (``runtime/train.py`` ``Trainer(parallel=)``) differentiates through it
+  and ``return_aux`` returns the MoE term.
 
-A mesh with an ``expert`` axis above 1 builds (its rules), but its
-forward, decode and cache raise ``NotImplementedError``: the expert axis
-is a later slice of the port, as is training on a pipelined or
-sequence-parallel mesh.
+Pipelined and sequence-parallel training (gradients through the ring
+shift and the all-to-all) and the NCCL leg are later slices of the port:
+``Trainer`` refuses a pipe or seq mesh, naming them
+(:data:`_LATER_SLICES`).
 """
 
 from __future__ import annotations
@@ -60,9 +69,9 @@ from .plan import Plan
 
 Params = Any
 
-_LATER_SLICES = ("is not ported yet: the expert axis and pipelined training "
-                 "(Trainer(parallel=), sequence-parallel training with it), "
-                 "and the NCCL leg come in later slices of the port")
+_LATER_SLICES = ("pipelined and sequence-parallel training (gradients "
+                 "through the ring shift and the all-to-all) and the NCCL "
+                 "leg come in later slices of the port")
 
 
 class ParallelModel:
@@ -84,8 +93,14 @@ class ParallelModel:
             h_loc, group = cfg.num_heads // tp, cfg.q_per_kv
             r = mesh.coord("model")
             kv_map = tuple((r * h_loc + j) // group for j in range(h_loc))
+        ep = mesh.size("expert")
+        experts = None
+        if ep > 1 and cfg.num_experts > 0 and cfg.num_experts % ep == 0:
+            per = cfg.num_experts // ep
+            lo = mesh.coord("expert") * per
+            experts = (lo, lo + per)
         self.plan = Plan(mesh=mesh, heads=self.heads, kv_map=kv_map, ffn=ffn,
-                         vocab=vocab)
+                         vocab=vocab, experts=experts)
         # The rank's widths; ring/Ulysses need the seq forwards' bound
         # line, so every other path runs them dense (the reference's
         # ``_local_cfg``; :attr:`seq_cfg` for the seq forwards).
@@ -133,9 +148,11 @@ class ParallelModel:
             self.local_cfg,
             attn_impl="ulysses" if self.cfg.attn_impl == "ulysses" else "ring")
 
-    @property
-    def expert_parallel(self) -> bool:
-        return self.mesh.size("expert") > 1
+    def splits_rows(self, b: int) -> bool:
+        """Whether a ``b``-row forward gives each 'data' rank its block of
+        the rows (so a training step's gradients are partial sums over
+        'data'); an MoE model never splits."""
+        return self.plan.row_split(b, self.cfg.num_experts > 0) is not None
 
     @property
     def device(self) -> torch.device:
@@ -144,12 +161,6 @@ class ParallelModel:
     @property
     def stage(self) -> int:
         return self.mesh.coord("pipe")
-
-    def _require_ported(self, what: str) -> None:
-        if self.expert_parallel:
-            raise NotImplementedError(
-                f"{what} on a mesh with expert={self.mesh.size('expert')} "
-                f"{_LATER_SLICES}")
 
     # -- placement ----------------------------------------------------------
 
@@ -212,7 +223,6 @@ class ParallelModel:
         k and v are each ``(prefill [L, B, prompt_len / S, ...], decode
         [L, B, max_len - prompt_len, ...])``, this rank's block of the
         prompt and the whole decode region."""
-        self._require_ported("the KV cache")
         dtype = self.kv_dtype or self.cfg.dtype
         if self.seq_parallel:
             s = self.mesh.size("seq")
@@ -243,7 +253,6 @@ class ParallelModel:
     def activate(self):
         """Run the forwards of this block on the mesh (the model code
         reads the plan on this thread)."""
-        self._require_ported("a forward")
         with self.plan.active():
             yield self
 
@@ -384,7 +393,6 @@ class ParallelModel:
         of ``kind`` ("block": this rank's block of the tokens, the hidden
         states gathered over 'seq' before the unembedding; "whole"): the
         ring or Ulysses find their line there."""
-        self._require_ported("a forward")
         with self._seq_plans[kind].active(), torch.no_grad():
             return model_lib.forward(params, self.seq_cfg, tokens,
                                      positions=positions, **kw)

@@ -50,7 +50,13 @@ class Plan:
       sequence's logits), "whole" when every rank holds the whole input
       (the one-token decode); None outside them.  Ring and Ulysses
       attention and the seq-cached decode take their 'seq' line from
-      here, and refuse to run without it.
+      here, and refuse to run without it;
+    - ``experts``: ``[lo, hi)`` of the ``E`` experts this rank holds when
+      the expert stacks shard over 'expert' (``models/layers.py``
+      ``moe_swiglu`` runs those and sums the claims' rows over the
+      'expert' line); None when they are whole on every rank (one
+      'expert' rank, a dense model, or ``E`` not dividing over the axis,
+      where the rule replicates them).
     """
 
     mesh: object  # core.mesh.Mesh
@@ -60,6 +66,7 @@ class Plan:
     vocab: bool
     rows: tuple | None = None
     seq: str | None = None
+    experts: tuple | None = None
 
     @contextlib.contextmanager
     def active(self):
@@ -74,7 +81,8 @@ class Plan:
         """``[lo, hi)`` of a ``b``-row forward on this rank, or None when
         every rank of the 'data' line computes all rows (one 'data' rank,
         rows that do not divide, or an MoE model, whose expert capacity
-        counts every row of the batch)."""
+        counts every row of the batch: each rank routes every row, the
+        reference's capacity semantics)."""
         dp = self.mesh.size("data")
         if dp == 1 or b % dp or moe:
             return None

@@ -145,6 +145,16 @@ def local_slice(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return x.contiguous()
 
 
+def gather_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's block under ``spec`` (the inverse
+    of :func:`local_slice`): each sharded axis gathered over its line.
+    Every rank of the mesh must call it alike."""
+    for ax, name in enumerate(spec):
+        if _axis_size(mesh, name) > 1:
+            x = mesh.all_gather(x, ax, name)
+    return x
+
+
 def shard_leaf(x: Any, spec: P, mesh, path: str = "") -> Any:
     """This rank's part of one leaf: a tensor's block, or a quantized
     leaf placed by :func:`place_quantized`."""

@@ -104,10 +104,10 @@ digests already resident ack "duplicate"; first writer wins on publish),
 and :meth:`~ContinuousBatcher.submit_kv_export` serves a sibling's pull
 there.
 
-On a data x tensor-parallel mesh (``parallel=``, a
-``parallel.api.ParallelModel`` without pipe/seq/expert axes) every rank
-runs this batcher over its local weights: its KV heads of the pool (or of
-the contiguous cache), the reference's checks and messages (KV heads
+On a data x tensor x expert-parallel mesh (``parallel=``, a
+``parallel.api.ParallelModel`` without pipe/seq axes) every rank runs
+this batcher over its local weights: its KV heads of the pool (or of the
+contiguous cache), its experts, the reference's checks and messages (KV heads
 divide over 'model' for a paged pool, ``batch_slots`` over 'data', no
 speculation).  Every rank's cache holds every row (the forward gathers
 each step's K/V over 'data', ``models/model.py``), the logits reach every
@@ -1451,7 +1451,6 @@ class ContinuousBatcher:
                     "meshes; pipelined (wavefront) and sequence-parallel "
                     "(ring) meshes bring their own decode schedules"
                 )
-            parallel._require_ported("continuous batching")
             dp = parallel.mesh.size("data")
             if batch_slots % dp:
                 raise ValueError(

@@ -24,12 +24,13 @@ wait in host memory) and :meth:`~InferenceEngine.generate_text_speculative`.
 Entry points run on CUDA unless the caller asks for the CPU by name
 (``device="cpu"``); without a GPU and without that request they raise.
 
-On a data x pipeline x tensor x sequence-parallel mesh
+On a data x pipeline x tensor x sequence x expert-parallel mesh
 (``from_store(mesh_cfg=)``, or ``parallel=`` with this rank's parameters)
 every process is one rank:
-it holds its block of the weights (quantized leaves stay quantized), runs
-the forwards on the mesh (``parallel/api.py``) and, on a data x tensor
-mesh, hands out mesh batchers; every rank must be fed the same calls (the
+it holds its block of the weights (quantized leaves stay quantized; an
+MoE model's expert stacks cut along ``E`` over 'expert'), runs the
+forwards on the mesh (``parallel/api.py``) and, on a data x tensor x
+expert mesh, hands out mesh batchers; every rank must be fed the same calls (the
 control plane's ``generate_spmd``), or rank 0 journals them
 (``runtime/lockstep.py``).  A pipelined mesh (``pipe`` above 1) serves
 whole batches and sessions through the pipeline's schedules: the prefill
@@ -112,7 +113,6 @@ class InferenceEngine:
         own_schedules = parallel is not None and (parallel.pipelined
                                                   or parallel.seq_parallel)
         if parallel is not None:
-            parallel._require_ported("an engine")
             device = parallel.device
             if own_schedules:
                 self._forward_fn = parallel.as_forward_fn()
@@ -253,15 +253,21 @@ class InferenceEngine:
                     f"serve_quantized=True but store {store_dir} is not "
                     "quantized; save it with quantization='int8'|'int4'"
                 )
+            moe = cfg.num_experts > 0
+
             def prepare(name, leaf):
                 # A legacy int4 store's pairs move onto the contracted axis
                 # the dequant-matmul reads (exact), before any placement;
-                # the embedding and unembedding are dequantized (a gather
+                # an MoE block's router and experts never reach it (they
+                # are rehydrated per layer), and their pairs stay where
+                # they are, off the expert axis the rule cuts.  The
+                # embedding and unembedding are dequantized (a gather
                 # cannot read quantized rows).
                 if isinstance(leaf, quant_lib.QuantizedTensor):
                     base = name.rsplit("/", 1)[-1]
                     if name.startswith("blocks/"):
-                        if base in K_LEAD and "/router" not in name:
+                        if base in K_LEAD and not (
+                                moe and name.startswith("blocks/mlp/")):
                             leaf = repack_legacy_int4(leaf, K_LEAD[base],
                                                       stacked=1)
                     else:

@@ -8,8 +8,15 @@ donates them) and returns the same objects.  With ``attn_impl="flash"``
 the forward's attention is the static-causal flash kernel (K3) and its
 backward the dense recompute of ``ops/flash.py``.
 
-Not ported yet: the mesh-parallel step (``parallel=``) and training
-checkpoints (``train_ckpt.py``).
+With ``parallel=`` (a ``parallel.api.ParallelModel`` on a data x model x
+expert mesh, ``params`` this rank's blocks) the step is the reference's
+GSPMD step written out: the loss runs through ``pm.forward`` (its
+collectives carry the gradient, ``core/mesh.py``), the gradients of a
+step whose rows split over 'data' are summed over that line, the global
+norm of the clip is that of the whole unsharded tree (each sharded leaf's
+sum of squares summed over the lines that shard it, each replicated leaf
+counted once), and AdamW updates each rank's own blocks.  A pipelined or
+sequence-parallel mesh is refused: its training is a later slice.
 """
 
 from __future__ import annotations
@@ -48,16 +55,20 @@ def lm_loss(
     tokens: torch.Tensor,  # [B, T+1]: input = [:, :-1], target = [:, 1:]
     mask: torch.Tensor | None = None,
     remat: bool = False,
+    forward_fn=None,
 ) -> torch.Tensor:
     """Next-token cross-entropy; an MoE model adds its Switch-style
     load-balance term, ``cfg.moe_aux_loss_weight * aux``, so the router
-    cannot collapse onto a few experts and capacity-drop the rest."""
+    cannot collapse onto a few experts and capacity-drop the rest.
+    ``forward_fn(params, cfg, inputs, remat=, return_aux=)`` replaces
+    ``models.model.forward`` (the mesh's forward)."""
+    fwd = forward_fn or model_lib.forward
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.num_experts > 0:
-        logits, _, aux = model_lib.forward(params, cfg, inputs, remat=remat,
-                                           return_aux=True)
+        logits, _, aux = fwd(params, cfg, inputs, remat=remat,
+                             return_aux=True)
     else:
-        logits, _ = model_lib.forward(params, cfg, inputs, remat=remat)
+        logits, _ = fwd(params, cfg, inputs, remat=remat)
         aux = 0.0
     tmask = mask[:, 1:] if mask is not None else None
     return (cross_entropy_loss(logits, targets, tmask)
@@ -100,10 +111,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor], state: dict,
-               params: Params) -> dict:
-        """Apply one step to ``params`` in place; returns the new state."""
+               params: Params, norm: torch.Tensor | None = None) -> dict:
+        """Apply one step to ``params`` in place; returns the new state.
+        ``norm``: the gradients' global norm when ``grads`` are one rank's
+        blocks of a larger tree (:func:`global_norm`)."""
         leaves = _leaves(params)
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        if norm is None:
+            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
         clipped = norm >= MAX_NORM
         count = state["count"] + 1
         c1 = 1 - B1 ** count
@@ -122,11 +136,57 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.01) -> AdamW:
     return AdamW(lr=lr, weight_decay=weight_decay)
 
 
+def _sharding_axes(rule, mesh) -> tuple:
+    """The mesh axes above 1 that a leaf's rule shards it over."""
+    return tuple(sorted({a for a in rule if a is not None
+                         and mesh.size(a) > 1}))
+
+
+def global_norm(grads: list[torch.Tensor], rules: list, mesh) -> torch.Tensor:
+    """The global norm of a tree of which ``grads`` are this rank's blocks
+    (``rules`` their shard rules, in the same order): the sums of squares
+    of the leaves sharded over the same axes are added, and each such sum
+    is summed over those axes' lines (the whole leaf's), while a leaf
+    replicated on every rank counts once.  Equal on every rank."""
+    by_axes: dict[tuple, torch.Tensor] = {}
+    for g, rule in zip(grads, rules):
+        axes = _sharding_axes(rule, mesh)
+        sq = torch.sum(g.float() ** 2)
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = None
+    for axes in sorted(by_axes):
+        part = by_axes[axes]
+        for a in axes:
+            part = mesh.all_reduce(part, a)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _sum_over(grads: list[torch.Tensor], mesh, axis: str) -> list:
+    """Every gradient summed over the ``axis`` line, one collective per
+    dtype (the gradients packed into one flat buffer)."""
+    out = list(grads)
+    by_dtype: dict = {}
+    for i, g in enumerate(grads):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = mesh.all_reduce(torch.cat([grads[i].reshape(-1)
+                                          for i in idx]), axis)
+        at = 0
+        for i in idx:
+            n = grads[i].numel()
+            out[i] = flat[at:at + n].view_as(grads[i])
+            at += n
+    return out
+
+
 @dataclass
 class Trainer:
-    """Holds the optimizer and builds the step.  Single device; the
-    mesh-parallel ``parallel=`` of the reference is the port's last
-    slice."""
+    """Holds the optimizer and builds the step, on one device or, with
+    ``parallel`` (a ``parallel.api.ParallelModel``; ``params`` then this
+    rank's blocks, ``ParallelModel.shard_params``), over a data x model x
+    expert mesh: every rank is fed the same batch and returns the same
+    loss."""
 
     cfg: ModelConfig
     optimizer: AdamW = field(default_factory=default_optimizer)
@@ -135,34 +195,57 @@ class Trainer:
 
     def __post_init__(self) -> None:
         model_lib.check_supported(self.cfg)
-        if self.parallel is not None:
+        pm = self.parallel
+        if pm is not None and (pm.pipelined or pm.seq_parallel):
+            from ..parallel.api import _LATER_SLICES
+
             raise NotImplementedError(
-                "the mesh-parallel training step (ParallelModel) is not "
-                "ported yet: it comes in a later slice of the port, "
-                "pipelined training (gradients through the ring shift) "
-                "with it"
-            )
+                f"training on a mesh with pipe={pm.mesh.size('pipe')} and "
+                f"seq={pm.mesh.size('seq')} is not ported yet: "
+                f"{_LATER_SLICES}")
 
     def init(self, params: Params) -> dict:
         return self.optimizer.init(params)
 
+    def gradients(self, params: Params, tokens: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> tuple:
+        """``(loss, grads, norm)`` at ``params``: the loss (detached), the
+        gradients in ``_leaves`` order (this rank's blocks, summed over
+        'data' when the rows split there) and their global norm (None on
+        one device: the optimizer takes it from ``grads``)."""
+        cfg, remat, pm = self.cfg, self.remat, self.parallel
+        fwd = None
+        if pm is not None:
+            def fwd(params, cfg, inputs, remat=False, return_aux=False):
+                return pm.forward(params, inputs, remat=remat,
+                                  return_aux=return_aux)
+
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = lm_loss(params, cfg, tokens, mask, remat=remat,
+                           forward_fn=fwd)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        norm = None
+        if pm is not None:
+            if pm.splits_rows(tokens.shape[0]):
+                # Each 'data' rank differentiated its own rows.
+                grads = _sum_over(grads, pm.mesh, "data")
+            norm = global_norm(grads, _leaves(pm.rules), pm.mesh)
+        return loss.detach(), grads, norm
+
     def make_step(self):
         """Returns ``step(params, opt_state, tokens, mask) -> (params,
         opt_state, loss)``; ``params`` is updated in place and returned."""
-        cfg, remat, opt = self.cfg, self.remat, self.optimizer
+        opt = self.optimizer
 
         def step(params, opt_state, tokens, mask=None):
-            leaves = _leaves(params)
-            for p in leaves:
-                p.requires_grad_(True)
-            try:
-                loss = lm_loss(params, cfg, tokens, mask, remat=remat)
-                grads = torch.autograd.grad(loss, leaves)
-            finally:
-                for p in leaves:
-                    p.requires_grad_(False)
-            opt_state = opt.update(grads, opt_state, params)
-            return params, opt_state, loss.detach()
+            loss, grads, norm = self.gradients(params, tokens, mask)
+            opt_state = opt.update(grads, opt_state, params, norm=norm)
+            return params, opt_state, loss
 
         return step
-

@@ -16,7 +16,10 @@ plain containers only.  The reference's commit contract holds:
 - ``keep`` prunes the oldest committed checkpoints.
 
 :func:`restore_train_state` onto a mesh (``parallel=``) gives each rank its
-block of every parameter and of its two moments (``parallel/specs.py``).
+block of every parameter and of its two moments (``parallel/specs.py``);
+:func:`save_train_state` of a mesh-trained state (``parallel=``) gathers
+every leaf whole over the lines that shard it, and rank 0 writes it, so a
+checkpoint is the same files whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -52,11 +55,43 @@ def _write(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _gathered(params: Any, opt_state: dict, parallel: Any) -> tuple:
+    """The whole tree and moments from every rank's blocks (collective)."""
+    from ..parallel import specs as specs_lib
+    from .train import _leaves
+
+    mesh = parallel.mesh
+
+    def walk(t, rules):
+        if isinstance(t, dict):
+            return {k: walk(v, rules[k]) for k, v in t.items()}
+        return specs_lib.gather_leaf(t, rules, mesh)
+
+    rules = _leaves(parallel.rules)
+    return walk(params, parallel.rules), {
+        "count": opt_state["count"],
+        "mu": [specs_lib.gather_leaf(t, r, mesh)
+               for t, r in zip(opt_state["mu"], rules)],
+        "nu": [specs_lib.gather_leaf(t, r, mesh)
+               for t, r in zip(opt_state["nu"], rules)]}
+
+
 def save_train_state(ckpt_dir: str, step: int, params: Any, opt_state: Any,
-                     keep: int = 3) -> str:
+                     keep: int = 3, parallel: Any = None) -> str:
     """Write ``step``'s training state under ``ckpt_dir/step_<n>``, commit
     it, and prune to the newest ``keep`` committed checkpoints.  Returns
-    the written path."""
+    the written path.  With ``parallel`` (the ``ParallelModel`` the state
+    was trained on; every rank calls it) the whole tree is gathered and
+    rank 0 writes it; every rank returns once it is committed."""
+    if parallel is not None and parallel.mesh.world_size > 1:
+        import torch.distributed as dist
+
+        params, opt_state = _gathered(params, opt_state, parallel)
+        path = _step_dir(ckpt_dir, step)
+        if parallel.mesh.rank == 0:
+            save_train_state(ckpt_dir, step, params, opt_state, keep)
+        dist.barrier()
+        return path
     path = _step_dir(ckpt_dir, step)
     os.makedirs(path, exist_ok=True)
     marker = os.path.join(path, _MARKER)

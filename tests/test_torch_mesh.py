@@ -221,20 +221,33 @@ def test_mesh_size_must_be_the_world():
 
 
 def test_pipe_seq_expert_build_but_refuse_to_run():
-    """An expert mesh builds and refuses to run, naming what is left; a
-    seq mesh runs: its cache is the two-region one (this rank's block of
-    the prompt, the whole decode region), it needs the prompt length,
-    and it has no fused decode loop; a pipe mesh runs: a stage's cache
-    holds its layers, and it has the wavefront decode loop."""
+    """An expert mesh builds and runs: an MoE model's rank holds its block
+    of the experts (``Plan.experts``), its cache is the whole one, its
+    forwards take the plan, and a training step builds on it, while
+    training on a pipelined mesh is refused, naming what is left; a seq
+    mesh runs: its cache is the two-region one (this rank's block of the
+    prompt, the whole decode region), it needs the prompt length, and it
+    has no fused decode loop; a pipe mesh runs: a stage's cache holds its
+    layers, and it has the wavefront decode loop."""
+    from distributed_llms_tpu_torch.parallel import plan as plan_lib
+    from distributed_llms_tpu_torch.runtime.train import Trainer
+
     cfg = get_preset("llama-tiny")
-    pm = tapi.make_parallel_model(cfg, MeshConfig(expert=2),
-                                  mesh=_tmesh(dict(expert=2)))
-    with pytest.raises(NotImplementedError, match="later slices"):
-        pm.init_cache(2, 16)
-    with pytest.raises(NotImplementedError, match="expert axis"):
-        with pm.activate():
-            pass
+    moe = get_preset("moe-tiny")
+    pm = tapi.make_parallel_model(moe, MeshConfig(expert=2),
+                                  mesh=_tmesh(dict(expert=2), rank=1))
+    assert pm.plan.experts == (2, 4)
+    cache = pm.init_cache(2, 16)
+    assert tuple(cache.k.shape) == (moe.num_layers, 2, 16, moe.num_kv_heads,
+                                    moe.head_dim_)
+    with pm.activate():
+        assert plan_lib.current() is pm.plan
     assert pm.as_decode_fn() is None
+    assert Trainer(moe, parallel=pm).parallel is pm
+    piped = tapi.make_parallel_model(moe, MeshConfig(pipe=2, expert=2),
+                                     mesh=_tmesh(dict(pipe=2, expert=2)))
+    with pytest.raises(NotImplementedError, match="later slices"):
+        Trainer(moe, parallel=piped)
     pm = tapi.make_parallel_model(cfg, MeshConfig(seq=2),
                                   mesh=_tmesh(dict(seq=2)))
     with pytest.raises(ValueError, match="needs prompt_len"):

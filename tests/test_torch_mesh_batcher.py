@@ -289,9 +289,19 @@ def test_rejections_keep_the_reference_messages(tiny):
         ContinuousBatcher(cfg, pm.shard_params(params), parallel=pm,
                           draft_params=params, draft_cfg=cfg, batch_slots=2,
                           max_len=32)
-    pm = _layout_pm(cfg, expert=2)
-    with pytest.raises(NotImplementedError, match="later slices"):
-        ContinuousBatcher(cfg, params, parallel=pm, batch_slots=2,
+    # An expert mesh serves like a data/model mesh; with 'pipe' beside it
+    # the batcher refuses it as it refuses any pipelined mesh.
+    from distributed_llms_tpu_torch.models.model import init_params
+
+    moe = get_preset("moe-tiny")
+    moe_params = init_params(moe, torch.Generator().manual_seed(0))
+    pm = _layout_pm(moe, expert=2)
+    b = ContinuousBatcher(moe, pm.shard_params(moe_params), parallel=pm,
+                          batch_slots=2, max_len=32)
+    assert b.pm is pm and pm.plan.experts == (0, 2)
+    pm = _layout_pm(moe, pipe=2, expert=2)
+    with pytest.raises(ValueError, match="data/tensor-parallel"):
+        ContinuousBatcher(moe, moe_params, parallel=pm, batch_slots=2,
                           max_len=32)
 
 

@@ -252,12 +252,12 @@ def test_pipelined_meshes_refuse_batching_and_paged_decode():
     with pytest.raises(ValueError, match="cannot combine"):
         tapi.make_parallel_model(cfg, MeshConfig(pipe=2, seq=2), mesh=build_mesh(
             MeshConfig(pipe=2, seq=2), rank=0, world_size=4))
-    m = MeshConfig(expert=2)
-    pm = tapi.make_parallel_model(cfg, m, mesh=build_mesh(
-        m, rank=0, world_size=2))
+    # Training on a pipelined mesh is the port's next slice.
+    from distributed_llms_tpu_torch.runtime.train import Trainer
+
     with pytest.raises(NotImplementedError,
-                       match="expert axis and pipelined training"):
-        ContinuousBatcher(cfg, params, parallel=pm, batch_slots=2, max_len=32)
+                       match="pipelined and sequence-parallel training"):
+        Trainer(cfg, parallel=pm)
 
 
 def test_server_refuses_a_pipelined_mesh_before_joining():

@@ -380,6 +380,8 @@ def test_seq_mesh_refusals_keep_the_reference_messages():
         pm.forward(params, torch.zeros((2, 4), dtype=torch.long),
                    cache=cache, cache_index=0,
                    attn_mask=torch.ones((2, 1, 4, 8), dtype=torch.bool))
-    # The expert axis still refuses, naming what is left.
-    with pytest.raises(NotImplementedError, match="expert axis"):
-        _layout_pm(cfg, expert=2).init_cache(2, 8)
+    # Training on a seq mesh is refused, naming what is left.
+    from distributed_llms_tpu_torch.runtime.train import Trainer
+
+    with pytest.raises(NotImplementedError, match="later slices"):
+        Trainer(cfg, parallel=_layout_pm(cfg, seq=2))

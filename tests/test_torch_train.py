@@ -19,8 +19,9 @@ and batches.
   sqrt(nu), so those few percent become a few percent of the step size
   lr = 1e-2 — measured: 3 of 250432 parameters differ by 1.8e-4 to
   2.8e-4, all others by under 1e-4.
-- The knobs of later slices raise: the mesh-parallel step (MoE losses
-  are ported and add their load-balance term).
+- The knobs of later slices raise: a training step on a pipelined or
+  sequence-parallel mesh (MoE losses are ported and add their
+  load-balance term).
 
 The batch is numpy-seeded; weights come from the JAX ``init_params``
 through ``checkpoint.from_jax``.
@@ -162,9 +163,24 @@ def test_optimizer_matches_optax_on_equal_gradients():
 
 
 def test_later_slice_training_knobs_raise():
+    """Training on a pipelined or sequence-parallel mesh is refused,
+    naming the slices left (data x model x expert meshes train:
+    tests/test_torch_parallel_train.py)."""
+    from distributed_llms_tpu_torch.core.config import MeshConfig
+    from distributed_llms_tpu_torch.core.mesh import build_mesh
+    from distributed_llms_tpu_torch.parallel import api as tapi
+
     cfg = get_preset("llama-tiny", vocab_size=512)
-    with pytest.raises(NotImplementedError, match="mesh-parallel"):
-        tt.Trainer(cfg, parallel=object())
+    for axes in (dict(pipe=2), dict(seq=2), dict(pipe=2, model=2)):
+        m = MeshConfig(**axes)
+        pm = tapi.make_parallel_model(cfg, m, mesh=build_mesh(
+            m, rank=0, world_size=m.num_devices))
+        with pytest.raises(NotImplementedError,
+                           match="pipelined and sequence-parallel training"):
+            tt.Trainer(cfg, parallel=pm)
+    pm = tapi.make_parallel_model(cfg, MeshConfig(model=2), mesh=build_mesh(
+        MeshConfig(model=2), rank=0, world_size=2))
+    assert tt.Trainer(cfg, parallel=pm).parallel is pm
     # MoE losses are ported: lm_loss adds the weighted load-balance term.
     moe = get_preset("moe-tiny")
     params = tm.init_params(moe, torch.Generator().manual_seed(0))
